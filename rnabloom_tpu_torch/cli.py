@@ -1,0 +1,117 @@
+"""Command-line entry point of the PyTorch/CUDA port.
+
+The JAX package's option names (RNABloom.java:5839-6410) for the part of
+the paired-end path that is ported: stage 0 and the stage-1 graph build,
+with ``-stage 1 -savebf`` to save the graph.  ``--device`` picks the torch
+device (default ``cuda``); asking for CUDA where there is none raises.
+
+    python -m rnabloom_tpu_torch.cli -left r1.fq -right r2.fq -revcomp-right \\
+        -o out/ -stage 1 -savebf
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="rnabloom-tpu-torch",
+        description="PyTorch/CUDA port of rnabloom-tpu (paired-end stage 1)",
+    )
+    p.add_argument("-left", "--left", required=True, help="left read file (FASTQ/FASTA, gz ok)")
+    p.add_argument("-right", "--right", required=True, help="right read file")
+    p.add_argument("-revcomp-left", action="store_true", help="reverse-complement left reads")
+    p.add_argument(
+        "-revcomp-right", action="store_true", default=True,
+        help="reverse-complement right reads [true]",
+    )
+    p.add_argument("-o", "--outdir", default="rnabloom_out", help="output directory")
+    p.add_argument("-n", "--name", default="rnabloom", help="assembly name (output file prefix) [rnabloom]")
+    p.add_argument("-k", "--kmer", type=int, default=25, help="k-mer size [25]")
+    p.add_argument("-q", "--qual", type=int, default=3, help="min base quality [3]")
+    p.add_argument("-mem", "--mem", type=float, default=1.0, help="Bloom memory budget (GB) [1]")
+    p.add_argument("-hash", "--hash", type=int, default=2, help="hash functions per filter [2]")
+    p.add_argument("-dh", "--dbgbf-hash", dest="dbgbf_hash", type=int, default=0,
+                   help="hash functions for the de Bruijn graph Bloom filter [=hash]")
+    p.add_argument("-ch", "--cbf-hash", dest="cbf_hash", type=int, default=0,
+                   help="hash functions for the k-mer counting filter [=hash]")
+    p.add_argument("-ph", "--pkbf-hash", dest="pkbf_hash", type=int, default=0,
+                   help="hash functions for the paired-k-mers Bloom filter [=hash]")
+    p.add_argument("-dm", "--dbgbf-mem", dest="dbgbf_mem", type=float, default=0,
+                   help="memory (GB) for the de Bruijn graph Bloom filter [auto]")
+    p.add_argument("-cm", "--cbf-mem", dest="cbf_mem", type=float, default=0,
+                   help="memory (GB) for the k-mer counting filter [auto]")
+    p.add_argument("-pm", "--pkbf-mem", dest="pkbf_mem", type=float, default=0,
+                   help="memory (GB) for the paired-k-mers Bloom filter [auto]")
+    p.add_argument("-cnt", "--counter", choices=("mf8", "u16", "int32"), default="mf8",
+                   help="counter cell width: mf8 = 1 B/cell MiniFloat, u16/int32 = exact [mf8]")
+    p.add_argument("-fpr", "--fpr", type=float, default=0.01,
+                   help="max allowable Bloom filter FPR; breach resizes + rebuilds [0.01]")
+    p.add_argument("-nk", "--nk", type=int, default=0,
+                   help="expected number of distinct k-mers (sizes filters at 1%% FPR)")
+    p.add_argument("-stage", "--stage", type=int, default=3, choices=(1, 2, 3),
+                   help="assembly termination stage; only 1 (graph) is ported [3]")
+    p.add_argument("-savebf", "--savebf", action="store_true", help="save the graph Bloom filters")
+    p.add_argument("-f", "--force", action="store_true", help="overwrite (ignore stage stamps)")
+    p.add_argument("--device", default="cuda", help="torch device to run on [cuda]")
+    return p
+
+
+def _device(name: str) -> torch.device:
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available")
+    return dev
+
+
+def run(argv=None):
+    """Parse ``argv``, run the pipeline and return its PipelineReport."""
+    args = build_parser().parse_args(argv)
+    device = _device(args.device)
+
+    from .assembly import pipeline
+
+    params = pipeline.PipelineParams(
+        k=args.kmer,
+        min_qual=args.qual,
+        total_mem_bytes=int(args.mem * (1 << 30)),
+        num_hash=args.hash,
+        expected_num_kmers=args.nk,
+        max_fpr=args.fpr,
+        name=args.name,
+        stop_stage=args.stage,
+        dbgbf_hash=args.dbgbf_hash,
+        cbf_hash=args.cbf_hash,
+        pkbf_hash=args.pkbf_hash,
+        dbgbf_mem_bytes=int(args.dbgbf_mem * (1 << 30)),
+        cbf_mem_bytes=int(args.cbf_mem * (1 << 30)),
+        pkbf_mem_bytes=int(args.pkbf_mem * (1 << 30)),
+        counter=args.counter,
+        verbose=True,
+    )
+    return pipeline.assemble_pe(
+        args.left, args.right, args.outdir, params,
+        revcomp_left=args.revcomp_left, revcomp_right=args.revcomp_right,
+        save_graph=args.savebf, force=args.force, device=device,
+    )
+
+
+def main(argv=None) -> int:
+    report = run(argv)
+    print(json.dumps({
+        "pairs": report.num_pairs,
+        "fragments": report.num_fragments,
+        "transcripts": report.num_transcripts,
+        "short": report.num_short,
+        "elapsed_s": round(report.elapsed_s, 2),
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

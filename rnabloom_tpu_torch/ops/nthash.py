@@ -1,0 +1,132 @@
+"""Batched ntHash on int64 tensors.
+
+Port of ``rnabloom_tpu/ops/nthash.py`` (rolling hash, canonical, multi-hash
+and pair combine).  Hash values are carried as int64 two's-complement bit
+patterns of the reference's u64 values: multiply and add wrap, a logical
+right shift is ``(x >> s) & ((1 << (64 - s)) - 1)`` and the signed-min
+canonical hash is ``torch.minimum``.
+
+The rolling hash uses the direct form
+
+    fh(i) = XOR_{j<k} rotl(seed[s[i+j]], k-1-j)
+    rh(i) = XOR_{j<k} rotl(seed[comp(s[i+j])], j)
+
+as k table gathers over shifted views of the code batch, with the rotations
+folded into per-offset seed tables.  The JAX package's prefix-XOR form was a
+TPU vector device; the hash values are equal.
+
+Bases are 2-bit codes A=0 C=1 G=2 T=3, with 4 = N/invalid/padding.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+M64 = (1 << 64) - 1
+
+# Published ntHash 64-bit base seeds (same constants as
+# rnabloom_tpu/ops/nthash_ref.py; a CPU test asserts they agree).
+SEEDS = [
+    0x3C8BFBB395C60474,  # A
+    0x3193C18562A02B4C,  # C
+    0x20323ED082572324,  # G
+    0x295549F54BE24456,  # T
+    0x0000000000000000,  # N / invalid
+]
+MULTI_SEED = 0x90B45D39FB6DA1FA
+MULTI_SHIFT = 27
+PAIR_CONST = 0x9E3779B9
+
+
+def to_s64(v: int) -> int:
+    """u64 Python int -> the int64 value with the same bit pattern."""
+    v &= M64
+    return v - (1 << 64) if v >> 63 else v
+
+
+def rotl64(v: int, s: int) -> int:
+    s %= 64
+    v &= M64
+    return ((v << s) | (v >> (64 - s))) & M64
+
+
+def shr(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _seed_tables(k: int, device: str) -> torch.Tensor:
+    """(2, k, 5) int64: [0, j] = rotl(seed[c], k-1-j) (forward strand),
+    [1, j] = rotl(seed[comp c], j) (reverse strand); code 4 -> 0."""
+    fwd = [[to_s64(rotl64(SEEDS[c], k - 1 - j)) if c < 4 else 0 for c in range(5)] for j in range(k)]
+    rev = [[to_s64(rotl64(SEEDS[3 - c], j)) if c < 4 else 0 for c in range(5)] for j in range(k)]
+    return torch.tensor([fwd, rev], dtype=torch.int64, device=device)
+
+
+def rolling_hash(
+    codes: torch.Tensor, k: int, stranded: bool
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """All k-mer hashes of a code batch.
+
+    Args:
+      codes: (..., L) uint8 2-bit codes, 4 = invalid/pad.  L >= k.
+      k: k-mer length.
+      stranded: if False also compute reverse-strand hashes.
+
+    Returns:
+      (fh, rh, valid): int64 tensors of shape (..., L-k+1); rh is None when
+      stranded.  valid[i] is True iff the window [i, i+k) holds no invalid
+      base.
+    """
+    L = codes.shape[-1]
+    n = L - k + 1
+    assert n >= 1, f"sequence length {L} < k={k}"
+    c = torch.clamp(codes.long(), max=4)
+    tables = _seed_tables(k, str(codes.device))
+    fh = torch.zeros(codes.shape[:-1] + (n,), dtype=torch.int64, device=codes.device)
+    rh = None if stranded else torch.zeros_like(fh)
+    for j in range(k):
+        w = c[..., j : j + n]
+        fh ^= tables[0, j][w]
+        if rh is not None:
+            rh ^= tables[1, j][w]
+
+    invalid = torch.nn.functional.pad((codes >= 4).to(torch.int32).cumsum(-1), (1, 0))
+    valid = (invalid[..., k:] - invalid[..., :n]) == 0
+    return fh, rh, valid
+
+
+def canonical(fh: torch.Tensor, rh: Optional[torch.Tensor]) -> torch.Tensor:
+    """Base hash value: signed min(fh, rh) in non-stranded mode, else fh."""
+    if rh is None:
+        return fh
+    return torch.minimum(fh, rh)
+
+
+def multi_hash(base: torch.Tensor, k: int, m: int) -> torch.Tensor:
+    """NTM64: m hash values from the base value (trailing axis m).
+
+    h_0 = base;  h_i = g(base * (i ^ k*MULTI_SEED)),  g(x) = x ^ (x >>> 27).
+    """
+    outs = [base]
+    for i in range(1, m):
+        t = base * to_s64(i ^ (k * MULTI_SEED))
+        outs.append(t ^ shr(t, MULTI_SHIFT))
+    return torch.stack(outs, dim=-1)
+
+
+def combine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pair-hash combiner: a ^ (b + 0x9e3779b9 + (a << 6) + (b >>> 2))."""
+    return a ^ (b + PAIR_CONST + (a << 6) + shr(b, 2))
+
+
+def combine_canonical(
+    fh_l: torch.Tensor, rh_l: torch.Tensor, fh_r: torch.Tensor, rh_r: torch.Tensor
+) -> torch.Tensor:
+    """Canonical pair hash: signed min(combine(fl, fr), combine(rr, rl));
+    the reverse complement of the pair (L, R) is (rc(R), rc(L))."""
+    return torch.minimum(combine(fh_l, fh_r), combine(rh_r, rh_l))

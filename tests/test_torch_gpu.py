@@ -1,0 +1,91 @@
+"""CUDA insert kernel vs its plain PyTorch version, on the card.
+
+Imports no JAX (the machine with the card has none), so it runs there with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+(``--noconftest``: tests/conftest.py configures JAX).  Without a CUDA
+device every test skips.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rnabloom_tpu_torch.graph import dbg
+from rnabloom_tpu_torch.bloom.filters import BloomConfig, CountingConfig
+from rnabloom_tpu_torch.ops import cell_insert as ci
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _table(op, numel, rng):
+    if op == "add":
+        vals = rng.integers(0, 1000, numel, dtype=np.int32)
+    elif op == "add_u16":
+        vals = rng.integers(0, 65536, numel).astype(np.uint16).view(np.int16)
+    elif op == "add_mf8":
+        vals = rng.integers(0, 128, numel, dtype=np.uint8)
+    else:
+        vals = (rng.random(numel) < 0.3).astype(np.uint8)
+    return torch.from_numpy(vals)
+
+
+@pytest.mark.parametrize("op", sorted(ci.OPS))
+def test_kernel_matches_plain_over_batches(cuda, op):
+    """Three salted batches with a heavy cell, the trash cell and dropped
+    indices; equal tables after each (also proves pass 2 re-zeroes the
+    scratch)."""
+    rng = np.random.default_rng(0)
+    size = 1 << 20
+    base = _table(op, size + 1, rng)
+    if op == "add_u16":  # cells near the 65535 cap
+        base[:100] = -2
+    kern, plain = base.to(cuda), base.to(cuda)
+    for salt in (0, 1, 2**31 + 7):
+        idx = np.concatenate([
+            rng.integers(0, size, 200_000),
+            np.full(100_000, 12345),  # poly-A-like heavy cell
+            np.full(1000, size),  # trash cell
+            np.full(1000, size + 5),  # out of range: dropped
+            np.arange(100).repeat(3),  # saturating cells
+        ])
+        rng.shuffle(idx)
+        idx = torch.from_numpy(idx).to(cuda)
+        before = ci.launch_counts()[op]
+        ci.cell_insert(kern, idx, op, salt)
+        ci.cell_insert_plain(plain, idx, op, salt)
+        torch.cuda.synchronize()
+        assert ci.launch_counts()[op] == before + 1
+        assert torch.equal(kern, plain)
+
+
+def test_build_step_card_equals_cpu(cuda):
+    rng = np.random.default_rng(1)
+    codes = torch.from_numpy(rng.integers(0, 5, size=(512, 100), dtype=np.uint8))
+    for counter in ("mf8", "u16", "int32"):
+        cfg = dbg.GraphConfig(
+            k=25, stranded=False, dbgbf=BloomConfig(16, 2),
+            cbf=CountingConfig(17, 2, blocked=counter == "int32", dtype=counter),
+            pkbf=BloomConfig(16, 2), read_pair_distance=40,
+        )
+        states = []
+        for dev in ("cpu", cuda):
+            s = dbg.make_graph(cfg, with_rpkbf=True, device=dev)
+            for salt in range(3):
+                s = dbg.build_step(s, cfg, codes.to(dev), add_read_pairs=True, salt=salt)
+            states.append(s)
+        assert torch.equal(states[0].cbf, states[1].cbf.cpu())
+        assert torch.equal(states[0].rpkbf, states[1].rpkbf.cpu())
+        c0, _ = dbg.count_step(states[0], cfg, codes)
+        c1, _ = dbg.count_step(states[1], cfg, codes.to(cuda))
+        assert torch.equal(c0, c1.cpu())

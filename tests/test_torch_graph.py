@@ -1,0 +1,68 @@
+"""Port's graph build/count steps (rnabloom_tpu_torch/graph) vs the JAX
+package's dbg.build_step / count_step on the same code batches
+(tests/test_histmerge.py shapes: 512 x 100 codes, k=25, pair distance 40),
+with JAX on its scatter path (merge=False)."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from rnabloom_tpu.bloom import filters as jf
+from rnabloom_tpu.graph import dbg as jdbg
+from rnabloom_tpu_torch.bloom import filters as tf
+from rnabloom_tpu_torch.graph import dbg as tdbg, engine
+
+torch.set_num_threads(2)
+
+COUNTERS = [("mf8", False), ("u16", False), ("int32", True), ("int32", False)]
+
+
+def _cfgs(dtype, blocked, stranded=False):
+    kw = dict(k=25, stranded=stranded, read_pair_distance=40)
+    j = jdbg.GraphConfig(
+        dbgbf=jf.BloomConfig(16, 2), cbf=jf.CountingConfig(17, 2, blocked=blocked, dtype=dtype),
+        pkbf=jf.BloomConfig(16, 2), **kw,
+    )
+    t = tdbg.GraphConfig(
+        dbgbf=tf.BloomConfig(16, 2), cbf=tf.CountingConfig(17, 2, blocked=blocked, dtype=dtype),
+        pkbf=tf.BloomConfig(16, 2), **kw,
+    )
+    return j, t
+
+
+def _codes(seed):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, size=(512, 100), dtype=np.uint8)
+    codes[rng.random(codes.shape) < 0.01] = 4
+    codes[:40] = codes[40:80]  # repeated reads: multi-occurrence k-mers
+    return codes
+
+
+@pytest.mark.parametrize("dtype,blocked", COUNTERS)
+@pytest.mark.parametrize("stranded", [False, True])
+def test_build_and_count_steps_match_jax(dtype, blocked, stranded):
+    cj, ct = _cfgs(dtype, blocked, stranded)
+    sj = jdbg.make_graph(cj, with_rpkbf=True)
+    st = engine.make_graph(ct, with_rpkbf=True)
+    for salt in range(3):
+        codes = _codes(salt)
+        sj = jdbg.build_step(sj, cj, jnp.asarray(codes), add_read_pairs=True, salt=salt)
+        st = engine.build_step(st, ct, codes, add_read_pairs=True, salt=salt)
+    for name in ("cbf", "rpkbf"):
+        want = np.asarray(getattr(sj, name))
+        np.testing.assert_array_equal(getattr(st, name).numpy().view(want.dtype), want)
+    q = _codes(9)
+    cnt_j, val_j = jdbg.count_step(sj, cj, jnp.asarray(q))
+    cnt_t, val_t = engine.count_step(st, ct, q)
+    np.testing.assert_array_equal(val_t.numpy(), np.asarray(val_j))
+    np.testing.assert_array_equal(cnt_t.numpy(), np.asarray(cnt_j))
+    assert jdbg.fprs(sj, cj) == tdbg.fprs(st, ct)
+
+
+def test_exact_counts_is_not_ported():
+    _, ct = _cfgs("mf8", False)
+    from dataclasses import replace
+
+    with pytest.raises(NotImplementedError):
+        tdbg.make_graph(replace(ct, exact_counts=True))

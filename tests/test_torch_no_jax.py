@@ -1,0 +1,72 @@
+"""The port runs without JAX, and refuses what it does not do."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from rnabloom_tpu_torch import cli
+from rnabloom_tpu_torch.assembly import pipeline
+from rnabloom_tpu_torch.utils import pesim
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "rnabloom_tpu_torch")
+
+_SCRIPT = r"""
+import sys
+sys.modules["jax"] = None  # any import of jax now raises ImportError
+import torch
+torch.set_num_threads(2)
+from rnabloom_tpu_torch import cli
+from rnabloom_tpu_torch.utils import pesim
+out = sys.argv[1]
+left, right = out + "/r_1.fq", out + "/r_2.fq"
+pesim.write_pe_fastq(left, right, seed=5, num_transcripts=5, tx_len=(500, 800), num_pairs=300)
+assert cli.main(["-left", left, "-right", right, "-o", out + "/asm", "-stage", "1", "-savebf",
+                 "-mem", "0.00390625", "--device", "cpu"]) == 0
+loaded = sorted(m for m, v in sys.modules.items() if v is not None and m.split(".")[0] == "jax")
+assert not loaded, loaded
+print("NO_JAX_OK")
+"""
+
+
+def test_cpu_slice_runs_with_jax_blocked(tmp_path):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT, str(tmp_path)], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK" in proc.stdout
+    assert os.path.getsize(tmp_path / "asm" / "rnabloom.graph.cbf.npy") > 0
+
+
+def test_no_jax_import_in_package_source():
+    bad = re.compile(r"^\s*(import jax|from jax|from rnabloom_tpu\.(ops|bloom|graph|assembly|parallel|olc|oracle)\b)", re.M)
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    assert not bad.search(fh.read()), os.path.join(dirpath, f)
+
+
+def test_cuda_device_without_a_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.run(["-left", "x", "-right", "y", "-o", str(tmp_path), "-stage", "1", "--device", "cuda"])
+
+
+def test_later_stages_are_refused_before_any_work(tmp_path):
+    left, right = str(tmp_path / "r_1.fq"), str(tmp_path / "r_2.fq")
+    pesim.write_pe_fastq(left, right, seed=6, num_transcripts=2, tx_len=(500, 600), num_pairs=10)
+    out = tmp_path / "asm"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pipeline.assemble_pe(left, right, str(out), pipeline.PipelineParams(stop_stage=2))
+    assert not out.exists()
