@@ -8,17 +8,22 @@ no JAX.  Phases (any failure raises and exits nonzero):
 
 1. Environment: card name and power limit (nvidia-smi), torch/CUDA
    versions, the insert kernel's build from csrc/ and its build time.
+   Then 1,000,000 simulated 150 bp pairs are written (seed 0).
 2. Insert kernel vs its plain PyTorch version on the card, per op, at the
    stage-1 shapes of ``-mem 1`` (2^29-cell mf8 cbf, 2^28-cell u16 cbf,
-   2^27-cell blocked int32 cbf, 2^27-lane rpkbf) with 2^20-index batches:
-   prefilled tables, a 10^5-fold heavy cell, the trash cell, dropped
-   indices, several salts; the tables must be equal.  Times from CUDA
-   events.
-3. The main path: ``cli`` ``-stage 1 -savebf --device cuda`` on 1,000,000
-   simulated 150 bp pairs at the default ``-mem 1``; the launch counters
-   must show the insert kernels ran; every valid k-mer of 10,000 sampled
-   input reads must count >= 1 on the saved graph (a count-min filter
-   never undercounts).
+   2^27-cell blocked int32 cbf, 2^27-lane rpkbf), on two kinds of batch:
+   synthetic 2^20-index batches (prefilled tables, a 10^5-fold heavy cell,
+   the trash cell, dropped indices, several salts) and a real-read batch
+   (the k-mer cell indices of the first 4096 simulated reads, hashed by the
+   port at k=25, h=2: 1,032,192 indices).  The tables must be equal.  Times
+   from CUDA events, both batches in the same kernel/plain turns.
+3. The main path: ``cli`` ``-stage 1 -savebf --device cuda`` on the
+   1,000,000 pairs at the default ``-mem 1``, once with ``-cnt mf8`` (the
+   default) and once with ``-cnt u16``; the launch counters must show the
+   insert kernels ran; every valid k-mer of 10,000 sampled input reads
+   must count >= 1 on the saved graph (a count-min filter never
+   undercounts).  Each run prints its peak device memory; the u16 run must
+   allocate no insert scratch.
 4. Card against CPU: the same CLI on a 20,000-pair subset with ``--device
    cuda`` and ``--device cpu``, for ``-cnt mf8``, ``u16`` and ``int32``;
    the checkpoints must be byte-identical.
@@ -45,8 +50,9 @@ import torch
 from rnabloom_tpu.io import fastx  # numpy-only reader of the JAX package
 from rnabloom_tpu.utils import seq as sequtils
 from rnabloom_tpu_torch import cli
+from rnabloom_tpu_torch.bloom import filters
 from rnabloom_tpu_torch.graph import engine
-from rnabloom_tpu_torch.ops import _build, cell_insert as ci
+from rnabloom_tpu_torch.ops import _build, cell_insert as ci, nthash
 from rnabloom_tpu_torch.utils import checkpoint, pesim
 
 KERNEL_SOURCE = "rnabloom_tpu_torch/csrc/cell_insert.cu"
@@ -62,6 +68,10 @@ SHAPES = {
 }
 BATCH = 1 << 20
 SALTS = (0, 1, 977, (1 << 31) + 7)
+K, NUM_HASH, READ_LEN = 25, 2, 150
+REAL_READS = 4096  # one stage-1 batch
+PAIRS = 1_000_000
+CBF_LOG2 = {"mf8": 29, "u16": 28}  # default cbf at -mem 1, before any resize
 
 
 def card_line() -> str:
@@ -100,6 +110,24 @@ def _batch(numel: int, gen: torch.Generator, dev) -> torch.Tensor:
     return idx[torch.randperm(idx.numel(), generator=gen, device=dev)]
 
 
+def real_batches(codes: np.ndarray, dev) -> dict:
+    """op -> the cell indices the main path gives that op's table for the
+    k-mers of ``codes``: bloom_indices, or blocked_cells for the blocked
+    int32 layout; invalid windows go to the trash cell."""
+    fh, rh, valid = nthash.rolling_hash(torch.from_numpy(codes).to(dev), K, stranded=False)
+    hashes = nthash.multi_hash(nthash.canonical(fh, rh), K, NUM_HASH)
+    out = {}
+    for op, (numel, _) in SHAPES.items():
+        size_log2 = (numel - 1).bit_length() - 1
+        if op == "add":
+            cfg = filters.CountingConfig(size_log2, NUM_HASH, blocked=True, dtype="int32")
+            row, lanes = filters.blocked_cells(cfg, hashes, valid)
+            out[op] = (row[..., None] * 128 + lanes).reshape(-1)
+        else:
+            out[op] = filters.bloom_indices(hashes, size_log2, valid[..., None].expand(hashes.shape)).reshape(-1)
+    return out
+
+
 def _as_int(t: torch.Tensor) -> torch.Tensor:
     v = t.to(torch.int64)
     return v & 0xFFFF if t.dtype == torch.int16 else v
@@ -115,7 +143,16 @@ def _time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def kernel_vs_plain(dev, card: str) -> dict:
+def _check_equal(kern: torch.Tensor, plain: torch.Tensor, op: str, what: str) -> None:
+    torch.cuda.synchronize()
+    if not torch.equal(kern, plain):
+        diff = (_as_int(kern) - _as_int(plain)).abs()
+        raise AssertionError(
+            f"cell_insert[{op}] != plain {what}: {int((diff > 0).sum())} cells, max |diff| {int(diff.max())}"
+        )
+
+
+def kernel_vs_plain(dev, card: str, real: dict) -> dict:
     results = {}
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -127,37 +164,50 @@ def kernel_vs_plain(dev, card: str) -> dict:
             idx = _batch(numel, gen, dev)
             ci.cell_insert(kern, idx, op, salt)
             ci.cell_insert_plain(plain, idx, op, salt)
-            torch.cuda.synchronize()
-            if not torch.equal(kern, plain):
-                diff = (_as_int(kern) - _as_int(plain)).abs()
-                raise AssertionError(
-                    f"cell_insert[{op}] != plain at salt {salt}: {int((diff > 0).sum())} cells, "
-                    f"max |diff| {int(diff.max())}"
-                )
-        max_err = int((_as_int(kern) - _as_int(plain)).abs().max())
-        # warm both, then time in turns: plain, kernel, kernel, plain
-        ci.cell_insert(kern, idx, op, 5)
-        ci.cell_insert_plain(plain, idx, op, 5)
-        t = {"kernel": [], "plain": []}
+            _check_equal(kern, plain, op, f"at salt {salt}")
+        ci.cell_insert(kern, real[op], op, 3)
+        ci.cell_insert_plain(plain, real[op], op, 3)
+        _check_equal(kern, plain, op, "on the real-read batch")
+        # warm both, then time in turns: plain, kernel, kernel, plain; each
+        # turn times the synthetic and the real-read batch
+        batches = {"synthetic": idx, "real": real[op]}
+        for b in batches.values():
+            ci.cell_insert(kern, b, op, 5)
+            ci.cell_insert_plain(plain, b, op, 5)
+        t = {}
         for who in ("plain", "kernel", "kernel", "plain"):
-            if who == "kernel":
-                t[who].append(_time_ms(lambda: ci.cell_insert(kern, idx, op, 5)))
-            else:
-                t[who].append(_time_ms(lambda: ci.cell_insert_plain(plain, idx, op, 5)))
-        ms, plain_ms = sum(t["kernel"]) / 2, sum(t["plain"]) / 2
-        results[op] = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+            fn, tab = (ci.cell_insert, kern) if who == "kernel" else (ci.cell_insert_plain, plain)
+            for name, b in batches.items():
+                t.setdefault((who, name), []).append(_time_ms(lambda: fn(tab, b, op, 5)))
+        # both tables took the same batches in the same order
+        _check_equal(kern, plain, op, "after the timed batches")
+        mean = {key: sum(v) / len(v) for key, v in t.items()}
+        results[op] = {
+            "max_abs_err": int((_as_int(kern) - _as_int(plain)).abs().max()),
+            "ms": mean["kernel", "synthetic"], "plain_ms": mean["plain", "synthetic"],
+            "real_ms": mean["kernel", "real"], "real_plain_ms": mean["plain", "real"],
+        }
+        r = results[op]
         print(
-            f"cell_insert[{op}] ({what}, {BATCH} indices, {len(SALTS)} salted batches): "
-            f"equal to plain; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per batch [{card}]",
+            f"cell_insert[{op}] ({what}): equal to plain on {len(SALTS)} salted synthetic batches "
+            f"and the real-read batch; per batch, synthetic ({BATCH} indices): kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms; real reads ({real[op].numel()} indices): kernel "
+            f"{r['real_ms']:.4f} ms, plain {r['real_plain_ms']:.4f} ms [{card}]",
             flush=True,
         )
-        del kern, plain, idx
+        del kern, plain, idx, batches
         torch.cuda.empty_cache()
     return results
 
 
 def sample_reads(path: str, picks: set, L: int) -> np.ndarray:
-    rows = [sequtils.encode(seq) for i, (_, seq, _) in enumerate(fastx.read_seqs(path)) if i in picks]
+    """(len(picks), L) codes of the reads numbered ``picks``, in file order."""
+    rows = []
+    for i, (_, seq, _) in enumerate(fastx.read_seqs(path)):
+        if i in picks:
+            rows.append(sequtils.encode(seq))
+            if len(rows) == len(picks):
+                break
     codes, _ = sequtils.pack_batch(rows, len(rows), L)
     return codes
 
@@ -172,6 +222,45 @@ def run_cli(left: str, right: str, out: str, device: str, counter: str = "mf8"):
         "-left", left, "-right", right, "-revcomp-right", "-o", out, "-stage", "1",
         "-savebf", "-f", "-cnt", counter, "--device", device,
     ])
+
+
+def main_path(left: str, right: str, out: str, counter: str, codes: np.ndarray, card: str, dev):
+    """One 1M-pair stage-1 run on the card with the launch counts and the
+    peak device memory of that run alone; checks the saved graph."""
+    ci.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.time()
+    report = run_cli(left, right, out, "cuda", counter)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = ci.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    s1 = report.stage1
+    state, cfg = checkpoint.load_graph(os.path.join(out, "rnabloom.graph"), device=dev)
+    resized = cfg.cbf.size_log2 > CBF_LOG2[counter] or cfg.pkbf.size_log2 > 27
+    print(f"-cnt {counter}: reads {s1.num_reads}, segments {s1.num_segments}, batches {s1.num_batches}, "
+          f"FPRs {s1.fprs}, FPR resize fired: {resized} "
+          f"(cbf 2^{cfg.cbf.size_log2}, rpkbf 2^{cfg.pkbf.size_log2})")
+    print(f"-cnt {counter}: stage-1 build {s1.num_reads / s1.elapsed_s:.0f} reads/s (last build pass, "
+          f"{s1.elapsed_s:.2f} s); CLI wall {wall:.2f} s incl. read sampling"
+          f"{' and the resized rebuild' if resized else ''} [{card}]")
+    print(f"-cnt {counter}: peak device memory {peak} B ({peak / 2**30:.3f} GiB; {held} B held before "
+          f"the run); insert scratch after it: {sum(t.numel() * 4 for t in ci._scratch.values())} B")
+    print(f"-cnt {counter}: insert kernel launches in the main-path run: {launches}", flush=True)
+    assert s1.num_reads == 2 * PAIRS and s1.num_batches > 0, s1
+    assert all(0.0 <= f < 1.0 for f in s1.fprs.values()), s1.fprs
+
+    counts, valid = engine.count_step(state, cfg, codes)
+    counts, valid = counts.cpu(), valid.cpu()
+    assert codes.shape[0] == 10_000 and bool(valid.any())
+    assert bool((counts[valid] >= 1).all()), f"-cnt {counter}: a k-mer of an input read counts 0"
+    print(f"-cnt {counter}: count-min check: {int(valid.sum())} valid k-mers of 10,000 sampled reads all "
+          f"count >= 1 (min {float(counts[valid].min())})", flush=True)
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(out)
+    return launches
 
 
 def main() -> int:
@@ -192,59 +281,43 @@ def main() -> int:
           f"(load {time.time() - t0:.2f} s)")
     print(f"native FASTX reader in use: {_build.native_reader()}", flush=True)
 
-    phase("2 insert kernel vs plain PyTorch on the card (stage-1 shapes at -mem 1)")
-    timing = kernel_vs_plain(dev, card)
-
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        phase("3 main path: -stage 1 -savebf --device cuda on 1,000,000 pairs, -mem 1")
         left, right = os.path.join(tmp, "reads_1.fq"), os.path.join(tmp, "reads_2.fq")
         t0 = time.time()
         pesim.write_pe_fastq(
             left, right, seed=0, num_transcripts=2000, tx_len=(1000, 4000),
-            num_pairs=1_000_000, read_len=150, frag_range=(250, 400), sub_rate=0.003,
+            num_pairs=PAIRS, read_len=READ_LEN, frag_range=(250, 400), sub_rate=0.003,
         )
-        print(f"simulated 1,000,000 pairs (2000 transcripts, seed 0) in {time.time() - t0:.1f} s")
-        out = os.path.join(tmp, "out_main")
-        ci.reset_launch_counts()
-        t0 = time.time()
-        report = run_cli(left, right, out, "cuda")
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        launches = ci.launch_counts()
-        s1 = report.stage1
-        state, cfg = checkpoint.load_graph(os.path.join(out, "rnabloom.graph"), device=dev)
-        resized = cfg.cbf.size_log2 > 29 or cfg.pkbf.size_log2 > 27
-        print(f"reads {s1.num_reads}, segments {s1.num_segments}, batches {s1.num_batches}, "
-              f"FPRs {s1.fprs}, FPR resize fired: {resized} "
-              f"(cbf 2^{cfg.cbf.size_log2}, rpkbf 2^{cfg.pkbf.size_log2})")
-        print(f"stage-1 build {s1.num_reads / s1.elapsed_s:.0f} reads/s (last build pass, "
-              f"{s1.elapsed_s:.2f} s); CLI wall {wall:.2f} s incl. read sampling"
-              f"{' and the resized rebuild' if resized else ''} [{card}]")
-        print(f"insert kernel launches in the main-path run: {launches}", flush=True)
-        assert s1.num_reads == 2_000_000 and s1.num_batches > 0, s1
-        assert all(0.0 <= f < 1.0 for f in s1.fprs.values()), s1.fprs
-        assert launches["add_mf8"] > 0 and launches["set"] > 0, launches
+        print(f"simulated 1,000,000 pairs (2000 transcripts, seed 0) in {time.time() - t0:.1f} s", flush=True)
 
+        phase("2 insert kernel vs plain PyTorch on the card (stage-1 shapes at -mem 1)")
+        real = real_batches(sample_reads(left, set(range(REAL_READS)), READ_LEN), dev)
+        timing = kernel_vs_plain(dev, card, real)
+        real_indices = {op: b.numel() for op, b in real.items()}
+        del real
+
+        phase("3 main path: -stage 1 -savebf --device cuda on 1,000,000 pairs, -mem 1, -cnt mf8 and u16")
         rng = np.random.default_rng(1)
-        picks = set(rng.choice(1_000_000, 5_000, replace=False).tolist())
-        codes = np.concatenate([sample_reads(p, picks, 150) for p in (left, right)])
-        counts, valid = engine.count_step(state, cfg, codes)
-        counts, valid = counts.cpu(), valid.cpu()
-        assert codes.shape[0] == 10_000 and bool(valid.any())
-        assert bool((counts[valid] >= 1).all()), "a k-mer of an input read counts 0"
-        print(f"count-min check: {int(valid.sum())} valid k-mers of 10,000 sampled reads all count "
-              f">= 1 (min {float(counts[valid].min())})", flush=True)
-        del state
+        picks = set(rng.choice(PAIRS, 5_000, replace=False).tolist())
+        codes = np.concatenate([sample_reads(p, picks, READ_LEN) for p in (left, right)])
+        launches = main_path(left, right, os.path.join(tmp, "out_mf8"), "mf8", codes, card, dev)
+        assert launches["add_mf8"] > 0 and launches["set"] > 0, launches
+        ci._scratch.clear()  # drop add_mf8's scratch so the u16 run's peak shows none
         torch.cuda.empty_cache()
+        u16_launches = main_path(left, right, os.path.join(tmp, "out_u16"), "u16", codes, card, dev)
+        assert u16_launches["add_u16"] > 0 and u16_launches["set"] > 0, u16_launches
+        assert not ci._scratch, "the -cnt u16 run allocated an insert scratch"
 
         phase("4 card vs CPU: 20,000-pair subset, byte-identical checkpoints")
         sl, sr = os.path.join(tmp, "sub_1.fq"), os.path.join(tmp, "sub_2.fq")
         head_fastq(left, sl, 20_000)
         head_fastq(right, sr, 20_000)
-        run_launches = {"add_mf8": launches["add_mf8"], "set": launches["set"]}
-        run_of = {"add_mf8": "main path, -cnt mf8, 1M pairs", "set": "main path, -cnt mf8, 1M pairs"}
-        for counter, op in (("mf8", None), ("u16", "add_u16"), ("int32", "add")):
+        run_launches = {"add_mf8": launches["add_mf8"], "set": launches["set"],
+                        "add_u16": u16_launches["add_u16"]}
+        mf8_run = "main path, -cnt mf8, 1M pairs"
+        run_of = {"add_mf8": mf8_run, "set": mf8_run, "add_u16": "main path, -cnt u16, 1M pairs"}
+        for counter, op in (("mf8", "add_mf8"), ("u16", "add_u16"), ("int32", "add")):
             ci.reset_launch_counts()
             gpu_out, cpu_out = os.path.join(tmp, f"gpu_{counter}"), os.path.join(tmp, f"cpu_{counter}")
             run_cli(sl, sr, gpu_out, "cuda", counter)
@@ -254,10 +327,10 @@ def main() -> int:
             for f in CKPT_FILES:
                 if not filecmp.cmp(os.path.join(gpu_out, f), os.path.join(cpu_out, f), shallow=False):
                     raise AssertionError(f"-cnt {counter}: {f} differs between card and CPU")
-            if op is not None:
+            assert n_launch[op] > 0, n_launch
+            if op not in run_launches:
                 run_launches[op] = n_launch[op]
                 run_of[op] = f"main path, -cnt {counter}, 20k pairs"
-                assert n_launch[op] > 0, n_launch
             print(f"-cnt {counter}: card and CPU checkpoints byte-identical ({', '.join(CKPT_FILES)}); "
                   f"card launches {n_launch}", flush=True)
     finally:
@@ -274,6 +347,9 @@ def main() -> int:
             "max_abs_err": timing[op]["max_abs_err"],
             "ms": timing[op]["ms"],
             "plain_ms": timing[op]["plain_ms"],
+            "real_batch_indices": real_indices[op],
+            "real_ms": timing[op]["real_ms"],
+            "real_plain_ms": timing[op]["real_plain_ms"],
         }
         for op in ("add_mf8", "set", "add_u16", "add")
     ]

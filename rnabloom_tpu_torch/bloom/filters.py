@@ -117,16 +117,23 @@ def _integer_pow(x, y: int):
     return acc
 
 
-def _fpr(nonzero: torch.Tensor, size: int, num_hash: int) -> float:
+def _count_nonzero(cells: torch.Tensor) -> int:
+    """Nonzero cells, counted in slices: on CUDA ``torch.count_nonzero``
+    makes an int64 copy of its input, 8 B per cell (4 GiB for a 2^29-cell
+    cbf), which would be the stage-1 run's peak."""
+    return sum(int(torch.count_nonzero(part)) for part in cells.split(1 << 24))
+
+
+def _fpr(nonzero: int, size: int, num_hash: int) -> float:
     """(popcount / size) ** num_hash in float32, as the JAX package
     computes it (its popcount is a float32 sum: exact below 2^24)."""
-    frac = torch.tensor(float(int(nonzero)), dtype=torch.float32) / size
+    frac = torch.tensor(float(nonzero), dtype=torch.float32) / size
     return float(_integer_pow(frac, num_hash))
 
 
 def bloom_fpr(bits: torch.Tensor, cfg: BloomConfig) -> float:
     """(popcount / size) ** num_hash (BloomFilter.java:184-194)."""
-    return _fpr(torch.count_nonzero(bits[: cfg.size]), cfg.size, cfg.num_hash)
+    return _fpr(_count_nonzero(bits[: cfg.size]), cfg.size, cfg.num_hash)
 
 
 # ---------------------------------------------------------------------------
@@ -254,4 +261,4 @@ def counting_increment_cm(
 
 
 def counting_fpr(counts: torch.Tensor, cfg: CountingConfig) -> float:
-    return _fpr(torch.count_nonzero(counts[: cfg.size]), cfg.size, cfg.num_hash)
+    return _fpr(_count_nonzero(counts[: cfg.size]), cfg.size, cfg.num_hash)

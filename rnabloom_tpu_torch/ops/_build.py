@@ -90,7 +90,7 @@ def kernels() -> ctypes.CDLL:
         for name, args in (
             ("cell_set_u8", [ptr, i64, ptr, i64, ptr]),
             ("cell_add_i32", [ptr, i64, ptr, i64, ptr]),
-            ("cell_add_u16", [ptr, ptr, i64, ptr, i64, ptr]),
+            ("cell_add_u16", [ptr, i64, ptr, i64, ptr]),
             ("cell_add_mf8", [ptr, ptr, i64, ptr, i64, u32, ptr]),
         ):
             fn = getattr(lib, name)

@@ -31,8 +31,8 @@ OPS = {"set": torch.uint8, "add": torch.int32, "add_u16": torch.int16, "add_mf8"
 
 LAUNCHES: Dict[str, int] = {op: 0 for op in OPS}
 
-# int32 per-cell tally for the two-pass ops, one per device, as long as the
-# largest table seen there; pass 2 of every launch leaves it all zero
+# int32 per-cell tally for add_mf8's two passes, one per device, as long as
+# the largest table seen there; pass 2 of every launch leaves it all zero
 _scratch: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -80,10 +80,13 @@ def cell_insert_plain(table: torch.Tensor, idx: torch.Tensor, op: str, salt: int
 
 def _scratch_for(table: torch.Tensor) -> torch.Tensor:
     s = _scratch.get(table.device)
-    if s is None or s.numel() < table.numel():
-        _scratch.pop(table.device, None)  # free the smaller one first
-        s = torch.zeros(table.numel(), dtype=torch.int32, device=table.device)
-        _scratch[table.device] = s
+    if s is not None and s.numel() >= table.numel():
+        return s
+    # drop both references to a smaller scratch before allocating, so the
+    # two are never held at once
+    del s
+    _scratch.pop(table.device, None)
+    s = _scratch[table.device] = torch.zeros(table.numel(), dtype=torch.int32, device=table.device)
     return s
 
 
@@ -108,8 +111,9 @@ def cell_insert(table: torch.Tensor, idx: torch.Tensor, op: str, salt: int = 0) 
     elif op == "add":
         err = lib.cell_add_i32(table.data_ptr(), numel, idx.data_ptr(), n, stream)
     elif op == "add_u16":
-        scratch = _scratch_for(table)
-        err = lib.cell_add_u16(table.data_ptr(), scratch.data_ptr(), numel, idx.data_ptr(), n, stream)
+        if numel >= 1 << 32:
+            raise ValueError(f"add_u16 keys cells as uint32; a table of {numel} cells is too long")
+        err = lib.cell_add_u16(table.data_ptr(), numel, idx.data_ptr(), n, stream)
     else:
         scratch = _scratch_for(table)
         err = lib.cell_add_mf8(

@@ -43,8 +43,8 @@ def _table(op, numel, rng):
 @pytest.mark.parametrize("op", sorted(ci.OPS))
 def test_kernel_matches_plain_over_batches(cuda, op):
     """Three salted batches with a heavy cell, the trash cell and dropped
-    indices; equal tables after each (also proves pass 2 re-zeroes the
-    scratch)."""
+    indices; equal tables after each (for add_mf8 this also proves that
+    pass 2 re-zeroes the scratch)."""
     rng = np.random.default_rng(0)
     size = 1 << 20
     base = _table(op, size + 1, rng)
@@ -67,6 +67,61 @@ def test_kernel_matches_plain_over_batches(cuda, op):
         torch.cuda.synchronize()
         assert ci.launch_counts()[op] == before + 1
         assert torch.equal(kern, plain)
+
+
+TILE = 4096  # indices per block of the add_u16 kernel
+
+
+def _u16_batch(case, numel, rng):
+    """(prefilled u16 table as int16, idx) for one add_u16 edge case."""
+    table = rng.integers(0, 65536, numel).astype(np.uint16)
+    if case == "one_cell_to_the_cap":
+        table[:] = 0
+        idx = np.full(1 << 20, 4242)  # 2^20 hits: one CAS per tile, saturates
+    elif case == "adjacent_hot":
+        table[200:202] = 1000
+        idx = np.concatenate([rng.integers(0, numel, 50_000), np.tile([200, 201], 40_000)])
+    elif case == "last_cell_odd_table":
+        table[-1] = 30_000
+        idx = np.concatenate([rng.integers(0, numel, 50_000), np.full(50_000, numel - 1)])
+    elif case == "empty":
+        idx = np.zeros(0, np.int64)
+    elif case == "one_index":
+        idx = np.array([numel - 1])
+    else:  # "ragged": no multiple of the tile, dropped and negative indices
+        idx = np.concatenate([
+            rng.integers(0, numel, 3 * TILE + 17), np.full(300, numel), np.full(300, -3),
+            np.full(300, 1 << 40),
+        ])
+    rng.shuffle(idx)
+    return torch.from_numpy(table.view(np.int16)), torch.from_numpy(idx.astype(np.int64))
+
+
+@pytest.mark.parametrize(
+    "case", ["one_cell_to_the_cap", "adjacent_hot", "last_cell_odd_table", "empty", "one_index", "ragged"]
+)
+def test_add_u16_edge_cases_match_plain(cuda, case):
+    rng = np.random.default_rng(4)
+    table, idx = _u16_batch(case, (1 << 20) + 1, rng)
+    kern, plain, idx = table.to(cuda), table.to(cuda), idx.to(cuda)
+    ci.cell_insert(kern, idx, "add_u16")
+    ci.cell_insert_plain(plain, idx, "add_u16")
+    torch.cuda.synchronize()
+    assert torch.equal(kern, plain)
+    if case == "one_cell_to_the_cap":
+        assert int(kern[4242]) == -1  # 65535 as int16
+
+
+def test_add_u16_uses_no_scratch(cuda):
+    table = torch.zeros((1 << 22) + 1, dtype=torch.int16, device=cuda)
+    ci._scratch.pop(table.device, None)
+    for _ in range(3):
+        ci.cell_insert(table, torch.randint(0, table.numel(), (1 << 20,), device=cuda), "add_u16")
+    torch.cuda.synchronize()
+    assert table.device not in ci._scratch
+    too_long = torch.empty(1 << 32, dtype=torch.int16, device=cuda)  # uint32 keys: < 2^32 cells
+    with pytest.raises(ValueError):
+        ci.cell_insert(too_long, torch.zeros(1, dtype=torch.int64, device=cuda), "add_u16")
 
 
 def test_build_step_card_equals_cpu(cuda):

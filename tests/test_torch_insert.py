@@ -137,3 +137,104 @@ def test_cpu_wrapper_takes_plain_path_and_checks_arguments():
         ci.cell_insert(table, idx, "max")
     with pytest.raises(TypeError):
         ci.cell_insert(table, idx.to(torch.int32), "set")
+
+
+# --- add_u16 in tiles: the invariant the one-pass CUDA kernel stands on ------
+#
+# The kernel totals each tile of T indices per cell and applies the tile
+# totals with a saturating add, tiles in any order.  For increments >= 0,
+# min(min(v + a, 65535) + b, 65535) == min(v + a + b, 65535), so that must
+# give the table of one saturating add of the whole batch's histogram.
+
+U16_SIZE_LOG2 = 12
+U16_NUMEL = (1 << U16_SIZE_LOG2) + 1  # odd, as every table: 2^s cells + trash
+U16_N = 10_007  # a multiple of no tile size below except 1
+
+
+def _u16_case(case, tile, rng):
+    """(table uint16 (U16_NUMEL,), idx int64) for one case."""
+    table = rng.integers(0, 65536, U16_NUMEL).astype(np.uint16)
+    idx = rng.integers(0, U16_NUMEL, U16_N)
+    if case == "prefilled_near_cap":
+        table[:60] = 65530 + np.arange(60) % 6  # 65530 .. 65535
+        idx[: 60 * 8] = np.arange(60).repeat(8)
+    elif case == "one_cell_every_tile":
+        table[777] = 65_530
+        idx[::tile] = 777  # the cell in every tile (all of them at T = 1)
+    elif case == "adjacent_hot":
+        table[200:202] = 63_000
+        idx[:6000] = np.tile([200, 201], 3000)  # cells 2j and 2j+1
+    elif case == "trash_cell":
+        table[-1] = 65_000
+        idx[:2000] = U16_NUMEL - 1
+    elif case == "dropped_and_negative":
+        junk = np.array([U16_NUMEL, U16_NUMEL + 1, 1 << 20, 1 << 40, -1, -5, -(1 << 40)])
+        idx[:3500] = junk.repeat(500)
+    elif case == "empty":
+        idx = idx[:0]
+    rng.shuffle(idx)
+    return table, idx
+
+
+def _u16_in_tiles(table, idx, tile, rng):
+    """Numpy emulation of the kernel's schedule: tile totals, applied with
+    the saturating add in a shuffled tile order."""
+    out = table.astype(np.int64)
+    starts = np.arange(0, len(idx), tile)
+    for s in rng.permutation(starts):
+        part = idx[s : s + tile]
+        cells, n = np.unique(part[(part >= 0) & (part < len(table))], return_counts=True)
+        out[cells] = np.minimum(out[cells] + n, 65535)
+    return out.astype(np.uint16)
+
+
+@pytest.mark.parametrize("tile", [1, 1000, 4096])
+@pytest.mark.parametrize(
+    "case",
+    ["prefilled_near_cap", "one_cell_every_tile", "adjacent_hot", "trash_cell",
+     "dropped_and_negative", "empty"],
+)
+def test_u16_tile_totals_match_jax_and_plain(case, tile):
+    rng = np.random.default_rng(3)
+    table, idx = _u16_case(case, tile, rng)
+    got = _u16_in_tiles(table, idx, tile, rng)
+
+    kept = idx[(idx >= 0) & (idx < U16_NUMEL)]
+    hist = np.bincount(kept, minlength=U16_NUMEL).astype(np.int32)
+    want = np.asarray(jf.apply_cell_increments(jnp.asarray(table), jnp.asarray(hist), "u16"))
+    np.testing.assert_array_equal(got, want)
+
+    plain = ci.cell_insert_plain(torch.from_numpy(table.view(np.int16).copy()), torch.from_numpy(idx), "add_u16")
+    np.testing.assert_array_equal(_np(plain, want), want)
+    assert (want != table).any() == (case != "empty")
+
+
+def test_scratch_is_freed_before_a_larger_one_is_allocated(monkeypatch):
+    """add_mf8's scratch grows with the table; the smaller one must be gone
+    before the larger is allocated, or a resize holds both at once."""
+    import weakref
+
+    cpu = torch.device("cpu")
+    ci._scratch.pop(cpu, None)
+    small_table, big_table = torch.zeros(10, dtype=torch.uint8), torch.zeros(100, dtype=torch.uint8)
+    old = weakref.ref(ci._scratch_for(small_table))
+    assert old() is not None
+    zeros = torch.zeros
+
+    def zeros_checked(*args, **kwargs):
+        assert old() is None, "the smaller scratch is still alive"
+        return zeros(*args, **kwargs)
+
+    monkeypatch.setattr(ci.torch, "zeros", zeros_checked)
+    try:
+        big = ci._scratch_for(big_table)
+        assert big.numel() == 100 and ci._scratch[cpu] is big
+        assert ci._scratch_for(small_table) is big  # a smaller table reuses it
+    finally:
+        ci._scratch.pop(cpu, None)
+
+
+def test_fpr_popcount_in_slices_counts_every_cell():
+    cells = torch.zeros((1 << 24) + 7, dtype=torch.uint8)  # two slices
+    cells[[0, (1 << 24) - 1, 1 << 24, -1]] = 1
+    assert tf._count_nonzero(cells) == 4 == int(torch.count_nonzero(cells))
