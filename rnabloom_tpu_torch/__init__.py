@@ -7,7 +7,8 @@ It imports no JAX: the numpy-only host modules of the reference
 (``rnabloom_tpu.io.native``, ``io.fastx``, ``utils.seq``, ``utils.timer``)
 are reused by import.
 
-Ported so far: the paired-end stage-1 graph build (``-stage 1``).
+Ported so far: paired-end stage 1, the graph build (``-stage 1``), and
+stage 2, fragment assembly (``-stage 2``).
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""Bulk paired-end assembly pipeline, through stage 1.
+"""Bulk paired-end assembly pipeline, through stage 2.
 
 Port of ``rnabloom_tpu/assembly/pipeline.py``: ``assemble_pe`` runs
 
@@ -6,9 +6,14 @@ Port of ``rnabloom_tpu/assembly/pipeline.py``: ``assemble_pe`` runs
            (setReadLengthBasedParams, RNABloom.java:1011-1033)
   Stage 1  graph build: cbf counters + read-paired-k-mer keys
            (populateGraph2, RNABloom.java:1290-1346), saved with -savebf
+  Stage 2  fragment assembly in batches of read pairs into the stratified
+           fragment store; fragment-length quartiles of the first sample
+           set the fragment pair distance (Q1 - k - minNumKmerPairs) and
+           the walk bound (Q3 + 1.5 IQR) (RNABloom.java:4465-4663)
 
-Stages 2-3 (fragments, transcripts) are not ported yet: ``stop_stage >= 2``
-raises before any work is done.
+Stage 3 (transcripts), ``-extend``, ``-rescue`` and unpaired reads
+(``-sef``/``-ser``) are not ported yet: asking for them raises before any
+work is done.
 """
 
 from __future__ import annotations
@@ -17,22 +22,25 @@ import json
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from rnabloom_tpu.utils import seq as sequtils
+from rnabloom_tpu.assembly import fragstore
+from rnabloom_tpu.io import fastx, native
+from rnabloom_tpu.utils import polya, seq as sequtils
 from rnabloom_tpu.utils.timer import Timer
 
-from ..graph import engine
+from ..graph import dbg, engine
 from ..utils import checkpoint as ckpt
-from . import stage1
+from . import correct, fragments as fragmod, stage1
 
 
 @dataclass
 class PipelineParams:
-    """The JAX package's pipeline parameters, field for field; only the
-    stage-0/1 fields are read so far."""
+    """The JAX package's pipeline parameters, field for field; the fields
+    of stages 0-2 are read."""
 
     k: int = 25
     stranded: bool = False
@@ -105,6 +113,15 @@ class PipelineParams:
             counter=self.counter,
         )
 
+    def correct_params(self) -> correct.CorrectParams:
+        return correct.CorrectParams(
+            max_cov_gradient=self.max_cov_gradient,
+            min_kmer_cov=self.min_kmer_cov,
+            rounds=self.err_corr_iters,
+            max_indel=self.max_indel,
+            percent_identity=self.percent_identity,
+        )
+
 
 @dataclass
 class PipelineReport:
@@ -124,6 +141,337 @@ class PipelineReport:
     stage3_s: float = 0.0
 
 
+# ---- stage 2 (fragments) ----
+
+
+def _avg_qual_ok(qual: Optional[str], min_avg: int) -> bool:
+    """Whole-read average base quality gate (-Q/qual-avg,
+    FastqFilteredReader's min-avg-qual check)."""
+    if qual is None or not qual:
+        return True
+    q = np.frombuffer(qual.encode("ascii"), np.uint8)
+    return float(q.mean()) - 33.0 >= min_avg
+
+
+def _segments_of(
+    seq: str, qual: Optional[str], min_qual: int, k: int, L: int, revcomp: bool
+) -> List[np.ndarray]:
+    """Quality-split segments of one read, in fragment orientation."""
+    codes = sequtils.encode(seq)[:L]
+    quals = (
+        np.frombuffer(qual.encode("ascii"), np.uint8)[: len(codes)]
+        if qual
+        else None
+    )
+    segs = sequtils.segment_read(codes, quals, min_qual, k)
+    if revcomp:
+        segs = [sequtils.revcomp_codes(s) for s in reversed(segs)]
+    return segs
+
+
+def _best_segments(
+    codes: np.ndarray, lens: np.ndarray, k: int, rc: bool
+) -> Tuple[np.ndarray, np.ndarray, dict]:
+    """Per-row longest quality segment from MASKED rows (bad bases = 4).
+
+    Vectorized over the batch: segments are the runs of codes < 4; the
+    longest (>= k) lands left-aligned in the output buffer, and rows with
+    several segments report them all for connect(segments) re-joining.
+    With ``rc`` the whole row is reverse-complemented first — segments
+    flip into fragment orientation and reverse order in one shot."""
+    B, L = codes.shape
+    if rc:
+        codes = fragmod.revcomp_rows(codes, np.asarray(lens, np.int64))
+    inlen = np.arange(L)[None, :] < np.asarray(lens)[:, None]
+    good = (codes < 4) & inlen
+    out = np.full((B, L), 4, np.uint8)
+    outlen = np.zeros(B, np.int32)
+    multi: dict = {}
+    if not good.any():
+        return out, outlen, multi
+    rs, ss, es = correct._batch_runs(good)
+    rl = es - ss
+    keep = rl >= k
+    rs, ss, es, rl = rs[keep], ss[keep], es[keep], rl[keep]
+    if len(rs) == 0:
+        return out, outlen, multi
+    best_len = np.zeros(B, np.int64)
+    np.maximum.at(best_len, rs, rl)
+    cand = np.flatnonzero(rl == best_len[rs])
+    first = np.ones(len(cand), bool)
+    first[1:] = rs[cand][1:] != rs[cand][:-1]  # runs are emitted row-major
+    sel = cand[first]
+    rows, s0, ln = rs[sel], ss[sel], rl[sel]
+    idx = np.minimum(s0[:, None] + np.arange(L)[None, :], L - 1)
+    gathered = np.take_along_axis(codes[rows], idx, axis=1)
+    m = np.arange(L)[None, :] < ln[:, None]
+    out[rows] = np.where(m, gathered, np.uint8(4))
+    outlen[rows] = ln
+    cnt = np.bincount(rs, minlength=B)
+    for b in np.flatnonzero(cnt > 1):
+        sel_b = rs == b
+        multi[int(b)] = [
+            codes[b, a:z] for a, z in zip(ss[sel_b], es[sel_b])
+        ]
+    return out, outlen, multi
+
+
+def _iter_pair_batches_native(
+    left_path: str,
+    right_path: str,
+    params: PipelineParams,
+    k: int,
+    revcomp_left: bool,
+    revcomp_right: bool,
+    L: int,
+):
+    """Native-reader stage-2 feeder: the C++ parser masks low-quality
+    bases to 4 and the segment selection is vectorized — no per-read
+    Python on the critical path (the stage the JVM throws its threads at,
+    RNABloom.java:4465-4663)."""
+    B = params.batch_size
+    gl = native.read_masked_batches(left_path, B, L, params.min_qual)
+    gr = native.read_masked_batches(right_path, B, L, params.min_qual)
+    for (lb0, ll0, lq), (rb0, rl0, rq) in zip(gl, gr):
+        n = min(lb0.shape[0], rb0.shape[0])
+        lb0, ll0, rb0, rl0 = lb0[:n], ll0[:n].copy(), rb0[:n], rl0[:n].copy()
+        if params.min_avg_qual > 0:
+            bad = (lq[:n] < params.min_avg_qual) | (rq[:n] < params.min_avg_qual)
+            ll0[bad] = 0
+            rl0[bad] = 0
+        lbuf, llen, lmulti = _best_segments(lb0, ll0, k, revcomp_left)
+        rbuf, rlen, rmulti = _best_segments(rb0, rl0, k, revcomp_right)
+        # a pair needs a usable segment on BOTH sides
+        none = (llen == 0) | (rlen == 0)
+        llen[none] = 0
+        rlen[none] = 0
+        multi = {("l", b): segs for b, segs in lmulti.items() if not none[b]}
+        multi.update(
+            (("r", b), segs) for b, segs in rmulti.items() if not none[b]
+        )
+        if n < B:  # keep the (B, L) shape, as the JAX package does
+            pad = B - n
+            lbuf = np.concatenate([lbuf, np.full((pad, L), 4, np.uint8)])
+            rbuf = np.concatenate([rbuf, np.full((pad, L), 4, np.uint8)])
+            llen = np.concatenate([llen, np.zeros(pad, np.int32)])
+            rlen = np.concatenate([rlen, np.zeros(pad, np.int32)])
+        yield lbuf, llen, rbuf, rlen, multi
+
+
+def _prefetch(gen, depth: int = 2):
+    """Run a generator on a background thread with a bounded queue —
+    host parsing/segmenting of batch i+1 overlaps device compute of batch
+    i (the reference gets this overlap from its reader/worker threads,
+    RNABloom.java:1203-1238)."""
+    import queue as queue_mod
+    import threading
+
+    q: "queue_mod.Queue" = queue_mod.Queue(maxsize=depth)
+    END = object()
+
+    def worker():
+        try:
+            for item in gen:
+                q.put(item)
+            q.put(END)
+        except BaseException as e:  # surfaced on the consumer side
+            q.put(e)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is END:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item
+
+
+def _iter_pair_batches(
+    left_path: str,
+    right_path: str,
+    params: PipelineParams,
+    k: int,
+    revcomp_left: bool,
+    revcomp_right: bool,
+    L: int,
+):
+    """Yield (left_codes, left_len, right_codes, right_len, multi) batches.
+
+    The right mate is flipped into fragment orientation (the reference's
+    FR convention: fragment = left .. rc(right) unless flags say otherwise).
+    Reads are quality-segmented exactly as in stage 1 (the reference's
+    FastqFilteredReader feeds PairedReadSegments to stage 2); a read with
+    one segment contributes that segment, and a multi-segment read's
+    longest segment goes in the buffer while ``multi`` records
+    (side, row) -> all segments for connect(segments) re-joining.
+    """
+    if native.available():
+        yield from _prefetch(
+            _iter_pair_batches_native(
+                left_path, right_path, params, k, revcomp_left, revcomp_right, L,
+            )
+        )
+        return
+    B = params.batch_size
+    lbuf = np.full((B, L), 4, np.uint8)
+    rbuf = np.full((B, L), 4, np.uint8)
+    llen = np.zeros(B, np.int32)
+    rlen = np.zeros(B, np.int32)
+    multi: dict = {}
+    n = 0
+    for (ln, ls, lq), (rn, rs, rq) in fastx.read_paired(left_path, right_path):
+        if params.min_avg_qual > 0 and not (
+            _avg_qual_ok(lq, params.min_avg_qual) and _avg_qual_ok(rq, params.min_avg_qual)
+        ):
+            continue
+        lsegs = _segments_of(ls, lq, params.min_qual, k, L, revcomp_left)
+        rsegs = _segments_of(rs, rq, params.min_qual, k, L, revcomp_right)
+        if not lsegs or not rsegs:
+            continue
+        lbest = max(lsegs, key=len)
+        rbest = max(rsegs, key=len)
+        lbuf[n, : len(lbest)] = lbest
+        llen[n] = len(lbest)
+        rbuf[n, : len(rbest)] = rbest
+        rlen[n] = len(rbest)
+        if len(lsegs) > 1:
+            multi[("l", n)] = lsegs
+        if len(rsegs) > 1:
+            multi[("r", n)] = rsegs
+        n += 1
+        if n == B:
+            yield lbuf, llen, rbuf, rlen, multi
+            lbuf = np.full((B, L), 4, np.uint8)
+            rbuf = np.full((B, L), 4, np.uint8)
+            llen = np.zeros(B, np.int32)
+            rlen = np.zeros(B, np.int32)
+            multi = {}
+            n = 0
+    if n:
+        # keep the full (B, L) shape, as the JAX package does
+        yield lbuf, llen, rbuf, rlen, multi
+
+
+def _connect_multi_segments(
+    state: dbg.GraphState,
+    cfg: dbg.GraphConfig,
+    lbuf: np.ndarray,
+    llen: np.ndarray,
+    rbuf: np.ndarray,
+    rlen: np.ndarray,
+    multi: dict,
+    fparams: "fragmod.FragmentParams",
+) -> None:
+    """Re-join quality-split mates through the graph before pairing
+    (connect(segments), GraphUtils.java:4836-4897).  Buffers are updated
+    in place when the joined sequence beats the longest-segment fallback."""
+    if not multi:
+        return
+    keys = sorted(multi.keys())
+    joined = fragmod.connect_segments_batch(
+        state, cfg, [multi[key] for key in keys], fparams
+    )
+    L = lbuf.shape[1]
+    for key, seq in zip(keys, joined):
+        side, row = key
+        n = min(len(seq), L)
+        buf, lens = (lbuf, llen) if side == "l" else (rbuf, rlen)
+        if n > lens[row]:
+            buf[row, :n] = seq[:n]
+            buf[row, n:] = 4
+            lens[row] = n
+
+
+class FragmentStore(fragstore.FragmentStore):
+    """The JAX package's stratified fragment store, reused as it is except
+    for the stratum key: the store's own looks up the coverage magnitude
+    in the JAX package's fragments module, which imports JAX.  This key is
+    the same function of the same values, from the port's module."""
+
+    def _key(self, min_cov: float, length: int, connected: bool, polya: bool) -> str:
+        cls = ("long" if length >= self.long_threshold else "short") if connected else "un"
+        pa = ".polya" if (self.polya_priority and polya) else ""
+        mag = min(fragmod.coverage_order_of_magnitude(min_cov), 5)
+        stratum = "01" if min_cov <= 1 else f"E{mag}"
+        return f"{stratum}.{cls}{pa}"
+
+
+def _new_fragment_store(outdir: str, params: PipelineParams) -> FragmentStore:
+    return FragmentStore(
+        outdir,
+        long_threshold=params.min_transcript_length,
+        polya_priority=params.polya_min_len > 0,
+    )
+
+
+def _store_fragment(store: FragmentStore, f: "fragmod.Fragment", params: PipelineParams) -> None:
+    pa = params.polya_min_len > 0 and polya.find_polya_tail(f.codes) is not None
+    store.add(f.codes, f.min_cov, f.connected, polya=pa)
+
+
+def _stage2_pair_loop(
+    state,
+    cfg: dbg.GraphConfig,
+    left_path: str,
+    right_path: str,
+    params: PipelineParams,
+    revcomp_left: bool,
+    revcomp_right: bool,
+    read_L: int,
+    fparams: "fragmod.FragmentParams",
+    store: FragmentStore,
+    report: "PipelineReport",
+    frag_lengths: List[int],
+) -> int:
+    """The stage-2 fragment loop over the pair stream.
+
+    Returns the learned fragment pair distance (-1 when the sample never
+    filled: the caller derives it from all lengths)."""
+    k = cfg.k
+    learned = False
+    d_frag = -1
+    _d0 = engine.dispatch_counts()
+    for lb, ll, rb, rl, multi in _iter_pair_batches(
+        left_path, right_path, params, k, revcomp_left, revcomp_right, read_L,
+    ):
+        report.num_pairs += int((ll > 0).sum())
+        _connect_multi_segments(state, cfg, lb, ll, rb, rl, multi, fparams)
+        outs = fragmod.assemble_fragments_batch(state, cfg, lb, ll, rb, rl, fparams)
+        for f in outs:
+            if f is not None and f.min_cov >= params.min_fragment_cov:
+                _store_fragment(store, f, params)
+                frag_lengths.append(f.length)
+        report.stage2_batches += 1
+        if not learned and len(frag_lengths) >= params.sample_size:
+            # the fragment pair distance (sample Q1 - k - minNumKmerPairs)
+            # and the walk bound come from the first sampleSize fragments'
+            # quartiles; later batches walk with the new bound
+            # (RNABloom.java:4534-4568)
+            learned = True
+            q1, _, q3 = sequtils.quartiles(np.asarray(frag_lengths))
+            fparams.bound = int(q3 + (q3 - q1) * 3 // 2)
+            d_frag = max(1, int(q1) - k - params.min_num_kmer_pairs)
+    _d1 = engine.dispatch_counts()
+    report.stage2_dispatches = {k2: _d1[k2] - _d0[k2] for k2 in _d1}
+    return d_frag
+
+
+def _refuse_unported(params: PipelineParams, sef_paths, ser_paths) -> None:
+    if params.stop_stage >= 3:
+        raise NotImplementedError(
+            f"-stage {params.stop_stage}: the port runs stages 1-2; transcripts are ROADMAP "
+            "queue-1 item 10"
+        )
+    if params.extend_fragments:
+        raise NotImplementedError(fragmod._EXTEND)
+    if params.rescue_unconnected:
+        raise NotImplementedError("-rescue (the stage-2b rescue pass) is ROADMAP queue-1 item 12")
+    if sef_paths or ser_paths:
+        raise NotImplementedError("unpaired reads (-sef/-ser) are ROADMAP queue-1 item 12")
+
+
 def assemble_pe(
     left_path: str,
     right_path: str,
@@ -134,14 +482,14 @@ def assemble_pe(
     save_graph: bool = False,
     force: bool = False,
     device="cpu",
+    sef_paths: Sequence[str] = (),
+    ser_paths: Sequence[str] = (),
 ) -> PipelineReport:
-    """Bulk paired-end assembly through stage 1 on ``device``; with
-    ``save_graph`` the graph is checkpointed under {outdir}/{name}.graph."""
-    if params.stop_stage >= 2:
-        raise NotImplementedError(
-            f"-stage {params.stop_stage}: the port runs stage 1 only; fragments and "
-            "transcripts are ROADMAP queue-1 items 7-10"
-        )
+    """Bulk paired-end assembly through ``params.stop_stage`` (1 or 2) on
+    ``device``.  With ``save_graph`` the graph is checkpointed under
+    {outdir}/{name}.graph after the last stage run; stage 2 writes the
+    fragment store under {outdir}/fragments."""
+    _refuse_unported(params, sef_paths, ser_paths)
     t0 = time.time()
     os.makedirs(outdir, exist_ok=True)
     if force:
@@ -214,7 +562,49 @@ def assemble_pe(
             pass
     timer.done("graph built", f"{s1_stats.num_segments} segments, FPRs {s1_stats.fprs}")
     ckpt.touch_stamp(outdir, ckpt.STAMP_DBG_DONE)
+    if params.stop_stage <= 1:  # -stage 1: graph only (RNABloom.java:6447-6500)
+        if save_graph:
+            ckpt.save_graph(graph_prefix, engine.to_host_state(state, cfg), cfg)
+        report.elapsed_s = time.time() - t0
+        return report
+
+    # ---- stage 2: fragments
+    timer.start("stage 2: fragment assembly")
+    t_s2 = time.time()
+    fparams = fragmod.FragmentParams(
+        min_overlap=params.min_overlap, bound=params.bound,
+        lookahead=params.lookahead, extend_fragments=params.extend_fragments,
+        ec_params=params.correct_params(),
+    )
+    store = _new_fragment_store(outdir, params)
+    frag_lengths: List[int] = []
+    d_frag = _stage2_pair_loop(
+        state, cfg, left_path, right_path, params, revcomp_left,
+        revcomp_right, read_L, fparams, store, report, frag_lengths,
+    )
+    report.num_fragments = store.count
+    if store.count == 0:
+        store.close()
+        report.elapsed_s = time.time() - t0
+        return report
+
+    if d_frag < 0:  # input smaller than the sample: use all lengths
+        q1, _, q3 = sequtils.quartiles(np.asarray(frag_lengths))
+        d_frag = max(1, int(q1) - k - params.min_num_kmer_pairs)
+    report.fragment_pair_distance = d_frag
+    cfg = dbg.GraphConfig(
+        k=cfg.k, stranded=cfg.stranded, dbgbf=cfg.dbgbf, cbf=cfg.cbf,
+        pkbf=cfg.pkbf, read_pair_distance=cfg.read_pair_distance,
+        fragment_pair_distance=d_frag, exact_counts=cfg.exact_counts,
+    )
+    store.close()
+    if state.cbf.is_cuda:
+        torch.cuda.synchronize(state.cbf.device)
+    report.stage2_s = time.time() - t_s2
+    timer.done("fragments assembled", f"{store.count}/{report.num_pairs} pairs connected")
     if save_graph:
         ckpt.save_graph(graph_prefix, engine.to_host_state(state, cfg), cfg)
+        ckpt.update_fragment_distance(graph_prefix, d_frag)
+    ckpt.touch_stamp(outdir, ckpt.STAMP_FRAGMENTS_DONE)
     report.elapsed_s = time.time() - t0
     return report

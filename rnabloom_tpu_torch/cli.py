@@ -1,12 +1,14 @@
 """Command-line entry point of the PyTorch/CUDA port.
 
 The JAX package's option names (RNABloom.java:5839-6410) for the part of
-the paired-end path that is ported: stage 0 and the stage-1 graph build,
-with ``-stage 1 -savebf`` to save the graph.  ``--device`` picks the torch
-device (default ``cuda``); asking for CUDA where there is none raises.
+the paired-end path that is ported: stage 0, the stage-1 graph build and
+stage-2 fragment assembly (``-stage 2``), with ``-savebf`` to save the
+graph.  ``-stage 3``, ``-extend``, ``-rescue`` and ``-sef``/``-ser`` are
+accepted and refused.  ``--device`` picks the torch device (default
+``cuda``); asking for CUDA where there is none raises.
 
     python -m rnabloom_tpu_torch.cli -left r1.fq -right r2.fq -revcomp-right \\
-        -o out/ -stage 1 -savebf
+        -o out/ -stage 2 -savebf
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rnabloom-tpu-torch",
-        description="PyTorch/CUDA port of rnabloom-tpu (paired-end stage 1)",
+        description="PyTorch/CUDA port of rnabloom-tpu (paired-end stages 1-2)",
     )
     p.add_argument("-left", "--left", required=True, help="left read file (FASTQ/FASTA, gz ok)")
     p.add_argument("-right", "--right", required=True, help="right read file")
@@ -30,11 +32,15 @@ def build_parser() -> argparse.ArgumentParser:
         "-revcomp-right", action="store_true", default=True,
         help="reverse-complement right reads [true]",
     )
+    p.add_argument("-sef", "--sef", nargs="*", help="single-end forward reads (not ported: refused)")
+    p.add_argument("-ser", "--ser", nargs="*", help="single-end reverse reads (not ported: refused)")
     p.add_argument("-o", "--outdir", default="rnabloom_out", help="output directory")
     p.add_argument("-n", "--name", default="rnabloom", help="assembly name (output file prefix) [rnabloom]")
     p.add_argument("-k", "--kmer", type=int, default=25, help="k-mer size [25]")
     p.add_argument("-q", "--qual", type=int, default=3, help="min base quality [3]")
     p.add_argument("-mem", "--mem", type=float, default=1.0, help="Bloom memory budget (GB) [1]")
+    p.add_argument("-overlap", "--overlap", type=int, default=10, help="min read overlap [10]")
+    p.add_argument("-bound", "--bound", type=int, default=500, help="max gap walk length [500]")
     p.add_argument("-hash", "--hash", type=int, default=2, help="hash functions per filter [2]")
     p.add_argument("-dh", "--dbgbf-hash", dest="dbgbf_hash", type=int, default=0,
                    help="hash functions for the de Bruijn graph Bloom filter [=hash]")
@@ -54,8 +60,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="max allowable Bloom filter FPR; breach resizes + rebuilds [0.01]")
     p.add_argument("-nk", "--nk", type=int, default=0,
                    help="expected number of distinct k-mers (sizes filters at 1%% FPR)")
+    p.add_argument("-batch", "--batch", type=int, default=8192, help="stage-2 pair batch size")
+    p.add_argument("-e", "--errcorritr", type=int, default=2,
+                   help="error-correction iterations per read [2]")
+    p.add_argument("-indel", "--indel", type=int, default=1,
+                   help="max size of indels to be collapsed [1]")
+    p.add_argument("-p", "--percent", type=float, default=0.90,
+                   help="min percent identity of sequences to be collapsed [0.90]")
+    p.add_argument("-lookahead", "--lookahead", type=int, default=3,
+                   help="k-mers to look ahead during graph traversal [3]")
+    p.add_argument("-tiplength", "--tiplength", type=int, default=-1,
+                   help="max number of bases in a tip [auto]")
+    p.add_argument("-extend", "--extend", action="store_true",
+                   help="extend fragments outward (not ported: refused)")
+    p.add_argument("-rescue", "--rescue", action="store_true",
+                   help="retry unconnected read pairs (not ported: refused)")
+    p.add_argument("-sample", "--sample", type=int, default=1000,
+                   help="sample size for read/fragment length estimation [1000]")
     p.add_argument("-stage", "--stage", type=int, default=3, choices=(1, 2, 3),
-                   help="assembly termination stage; only 1 (graph) is ported [3]")
+                   help="assembly termination stage: 1=graph, 2=fragments; 3 is not ported [3]")
     p.add_argument("-savebf", "--savebf", action="store_true", help="save the graph Bloom filters")
     p.add_argument("-f", "--force", action="store_true", help="overwrite (ignore stage stamps)")
     p.add_argument("--device", default="cuda", help="torch device to run on [cuda]")
@@ -92,12 +115,24 @@ def run(argv=None):
         cbf_mem_bytes=int(args.cbf_mem * (1 << 30)),
         pkbf_mem_bytes=int(args.pkbf_mem * (1 << 30)),
         counter=args.counter,
+        batch_size=args.batch,
+        min_overlap=args.overlap,
+        bound=args.bound,
+        sample_size=args.sample,
+        err_corr_iters=args.errcorritr,
+        max_indel=args.indel,
+        percent_identity=args.percent,
+        lookahead=args.lookahead,
+        max_tip_length=args.tiplength,
+        extend_fragments=args.extend,
+        rescue_unconnected=args.rescue,
         verbose=True,
     )
     return pipeline.assemble_pe(
         args.left, args.right, args.outdir, params,
         revcomp_left=args.revcomp_left, revcomp_right=args.revcomp_right,
         save_graph=args.savebf, force=args.force, device=device,
+        sef_paths=args.sef or (), ser_paths=args.ser or (),
     )
 
 

@@ -127,6 +127,21 @@ def get_counts(state: GraphState, cfg: GraphConfig, base: torch.Tensor) -> torch
     return est.to(torch.float32)
 
 
+def contains(state: GraphState, cfg: GraphConfig, base: torch.Tensor) -> torch.Tensor:
+    """Membership per k-mer: count-min estimate > 0."""
+    if cfg.exact_counts:
+        raise NotImplementedError(_EXACT)
+    return filters.counting_count(state.cbf, cfg.cbf, _multi(cfg, base, cfg.cbf.num_hash)) > 0
+
+
+def lookup_read_pair(state: GraphState, cfg: GraphConfig, pair_base: torch.Tensor) -> torch.Tensor:
+    return filters.bloom_lookup(state.rpkbf, cfg.pkbf, _multi(cfg, pair_base, cfg.pkbf.num_hash))
+
+
+def lookup_fragment_pair(state: GraphState, cfg: GraphConfig, pair_base: torch.Tensor) -> torch.Tensor:
+    return filters.bloom_lookup(state.fpkbf, cfg.pkbf, _multi(cfg, pair_base, cfg.pkbf.num_hash))
+
+
 def count_step(
     state: GraphState, cfg: GraphConfig, codes: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -2,8 +2,9 @@
 
 Port of the single-device branches of ``rnabloom_tpu/graph/engine.py``:
 pipelines call graph operations through this module, which moves host code
-batches to the graph's device and counts dispatches per kind.  The mesh
-(multi-device) branches are not ported yet.
+batches to the graph's device and counts dispatches per kind.  Queries
+return numpy, as the JAX package's do.  The mesh (multi-device) branches
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from . import dbg
+from . import dbg, traverse
 from .dbg import GraphConfig, GraphState
 
 DISPATCHES = {"build": 0, "query": 0, "walk": 0}
@@ -48,6 +49,43 @@ def count_step(graph: GraphState, cfg: GraphConfig, codes) -> Tuple[torch.Tensor
     """(counts (B, P) float32, valid) for every k-mer of a code batch."""
     _tick("query")
     return dbg.count_step(graph, cfg, _on_device(codes, graph))
+
+
+def _pair_plane(graph: GraphState, cfg: GraphConfig, fh, rh, valid, d: int, lookup) -> torch.Tensor:
+    """(B, P) support of k-mer pairs (i, i+d): entry i covers the pair."""
+    B, P = valid.shape
+    out = torch.zeros((B, P), dtype=torch.bool, device=valid.device)
+    if d > 0:
+        pair_base, np_ = dbg.pair_base_hashes(cfg, fh, rh, d)
+        out[:, :np_] = lookup(graph, cfg, pair_base) & valid[..., :np_] & valid[..., d:]
+    return out
+
+
+def pair_support_both(graph: GraphState, cfg: GraphConfig, codes, d_frag: int, d_read: int) -> np.ndarray:
+    """(2, B, P) bool: fragment- then read-pair support planes."""
+    _tick("query")
+    fh, rh, _, valid = dbg.seq_hashes(cfg, _on_device(codes, graph))
+    planes = [
+        _pair_plane(graph, cfg, fh, rh, valid, d_frag, dbg.lookup_fragment_pair),
+        _pair_plane(graph, cfg, fh, rh, valid, d_read, dbg.lookup_read_pair),
+    ]
+    return torch.stack(planes).cpu().numpy()
+
+
+def counts_and_read_support(graph: GraphState, cfg: GraphConfig, codes):
+    """(counts, valid, read-pair support) as numpy, from one hashing pass."""
+    _tick("query")
+    fh, rh, base, valid = dbg.seq_hashes(cfg, _on_device(codes, graph))
+    counts = torch.where(valid, dbg.get_counts(graph, cfg, base), 0.0)
+    d = cfg.read_pair_distance if graph.rpkbf is not None else 0
+    sup = _pair_plane(graph, cfg, fh, rh, valid, d, dbg.lookup_read_pair)
+    return counts.cpu().numpy(), valid.cpu().numpy(), sup.cpu().numpy()
+
+
+def extend_walks(wstate, graph: GraphState, cfg: GraphConfig, wcfg, min_cov, bound, mode: str = "greedy"):
+    """Extend every walk lane to completion (``traverse.extend_walks``)."""
+    _tick("walk")
+    return traverse.extend_walks(wstate, graph, cfg, wcfg, min_cov, bound, mode=mode)
 
 
 def fprs(graph: GraphState, cfg: GraphConfig) -> dict:

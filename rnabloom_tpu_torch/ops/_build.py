@@ -1,8 +1,11 @@
 """Build and load the port's native code at first use.
 
-* ``kernels()`` compiles ``csrc/cell_insert.cu`` with ``nvcc`` for sm_90a
-  into ``build/kernels/`` at the repository root and binds its plain C entry
-  points with ctypes.  It needs the CUDA toolkit; there is no fallback.
+* ``kernels()`` and ``walk_kernels()`` compile ``csrc/cell_insert.cu`` and
+  ``csrc/walk_greedy.cu`` with ``nvcc`` for sm_90a, each into its own
+  library under ``build/kernels/`` at the repository root (rebuilt when its
+  source is newer), and bind their plain C entry points with ctypes.  They
+  need the CUDA toolkit; there is no fallback.  ``build_all()`` starts
+  every ``nvcc`` at once.
 * ``native_reader()`` compiles the JAX package's FASTX reader
   (``rnabloom_tpu/native/fastxio.cpp``) into ``build/native/`` for the host
   it runs on and points the reused ``rnabloom_tpu.io.native`` module at that
@@ -23,13 +26,16 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ROOT = os.path.dirname(_PKG)
 BUILD_DIR = os.path.join(_ROOT, "build")
 KERNEL_SRC = os.path.join(_PKG, "csrc", "cell_insert.cu")
 KERNEL_LIB = os.path.join(BUILD_DIR, "kernels", "libcell_insert.so")
+WALK_SRC = os.path.join(_PKG, "csrc", "walk_greedy.cu")
+WALK_LIB = os.path.join(BUILD_DIR, "kernels", "libwalk_greedy.so")
 READER_SRC = os.path.join(_ROOT, "rnabloom_tpu", "native", "fastxio.cpp")
 READER_LIB = os.path.join(BUILD_DIR, "native", "_fastxio.so")
 
@@ -39,8 +45,8 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
-_kernels: Optional[ctypes.CDLL] = None
-build_seconds = 0.0  # wall time of the last kernel build in this process
+_libs: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}  # source -> nvcc wall time in this process
 
 
 def _stale(lib: str, src: str) -> bool:
@@ -73,31 +79,75 @@ def _nvcc() -> str:
     return path
 
 
-def kernels() -> ctypes.CDLL:
-    """The cell-insert kernel library, built on first call."""
-    global _kernels, build_seconds
+def _nvcc_build(src: str, lib: str) -> None:
+    """Build ``lib`` from ``src`` when it is missing or older; raises with
+    nvcc's output when the build fails."""
+    if not _stale(lib, src):
+        return
+    t0 = time.time()
+    proc = _compile([_nvcc(), *NVCC_FLAGS, src], lib)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    build_seconds[src] = time.time() - t0
+
+
+_P, _I64, _U32, _INT, _U64 = (
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int, ctypes.c_ulonglong,
+)
+
+# library -> (source, entry points with their argument types)
+_SIGNATURES = {
+    KERNEL_LIB: (KERNEL_SRC, {
+        "cell_set_u8": [_P, _I64, _P, _I64, _P],
+        "cell_add_i32": [_P, _I64, _P, _I64, _P],
+        "cell_add_u16": [_P, _I64, _P, _I64, _P],
+        "cell_add_mf8": [_P, _P, _I64, _P, _I64, _U32, _P],
+    }),
+    WALK_LIB: (WALK_SRC, {
+        # buf pos fh rh hist status hops path_min min_cov bound, W max_len
+        # cycle_window, cbf layout size_log2 num_hash decode kms, k stranded
+        # left lookahead superstep_hops max_supersteps, stream
+        "walk_greedy": [_P] * 10 + [_INT] * 3 + [_P, _INT, _INT, _INT, _P, _U64] + [_INT] * 6 + [_P],
+    }),
+}
+
+
+def _load(lib_path: str) -> ctypes.CDLL:
     with _lock:
-        if _kernels is not None:
-            return _kernels
-        if _stale(KERNEL_LIB, KERNEL_SRC):
-            t0 = time.time()
-            proc = _compile([_nvcc(), *NVCC_FLAGS, KERNEL_SRC], KERNEL_LIB)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {KERNEL_SRC}:\n{proc.stderr}")
-            build_seconds = time.time() - t0
-        lib = ctypes.CDLL(KERNEL_LIB)
-        ptr, i64, u32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint
-        for name, args in (
-            ("cell_set_u8", [ptr, i64, ptr, i64, ptr]),
-            ("cell_add_i32", [ptr, i64, ptr, i64, ptr]),
-            ("cell_add_u16", [ptr, i64, ptr, i64, ptr]),
-            ("cell_add_mf8", [ptr, ptr, i64, ptr, i64, u32, ptr]),
-        ):
+        lib = _libs.get(lib_path)
+        if lib is not None:
+            return lib
+        src, fns = _SIGNATURES[lib_path]
+        _nvcc_build(src, lib_path)
+        lib = ctypes.CDLL(lib_path)
+        for name, args in fns.items():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
-        _kernels = lib
+        _libs[lib_path] = lib
         return lib
+
+
+def kernels() -> ctypes.CDLL:
+    """The cell-insert kernel library, built on first call."""
+    return _load(KERNEL_LIB)
+
+
+def walk_kernels() -> ctypes.CDLL:
+    """The greedy-walk kernel library, built on first call."""
+    return _load(WALK_LIB)
+
+
+def build_all() -> Dict[str, float]:
+    """Build every stale kernel library at once, one ``nvcc`` per source
+    started together, and load them; returns source -> build seconds."""
+    with ThreadPoolExecutor(len(_SIGNATURES)) as pool:
+        builds = [pool.submit(_nvcc_build, src, lib) for lib, (src, _) in _SIGNATURES.items()]
+        for b in builds:
+            b.result()  # raises with nvcc's output
+    for lib in _SIGNATURES:
+        _load(lib)
+    return dict(build_seconds)
 
 
 def native_reader() -> bool:

@@ -119,6 +119,50 @@ def multi_hash(base: torch.Tensor, k: int, m: int) -> torch.Tensor:
     return torch.stack(outs, dim=-1)
 
 
+def comp_codes(codes: torch.Tensor) -> torch.Tensor:
+    """Complement of 2-bit codes; invalid (>= 4) stays invalid."""
+    return torch.where(codes < 4, 3 - codes, codes).to(codes.dtype)
+
+
+def rotl1(x: torch.Tensor) -> torch.Tensor:
+    return (x << 1) | shr(x, 63)
+
+
+def rotr1(x: torch.Tensor) -> torch.Tensor:
+    return shr(x, 1) | (x << 63)
+
+
+@functools.lru_cache(maxsize=None)
+def _step_tables(k: int, device: str) -> torch.Tensor:
+    """(4, 5) int64 seed tables of a one-base slide, code 4 -> 0: rows
+    seed, rotl(seed, k), rotl(seed, k-1), rotr(seed, 1)."""
+    rows = [lambda s: s, lambda s: rotl64(s, k), lambda s: rotl64(s, k - 1), lambda s: rotl64(s, 63)]
+    return torch.tensor(
+        [[to_s64(f(SEEDS[c])) if c < 4 else 0 for c in range(5)] for f in rows],
+        dtype=torch.int64, device=device,
+    )
+
+
+def successor_hashes(
+    fh: torch.Tensor, out_codes: torch.Tensor, k: int, rh: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Hashes of the 4 right-neighbours of each k-mer, shape (..., 4), one
+    per appended base A/C/G/T.  ``out_codes`` holds each k-mer's FIRST
+    base (the one leaving the window).
+
+      fh' = rotl(fh,1) ^ rotl(seed[out], k) ^ seed[in]
+      rh' = rotr(rh,1) ^ rotr(seed[comp out], 1) ^ rotl(seed[comp in], k-1)
+    """
+    ident, rot_k, rot_km1, rotr_1 = _step_tables(k, str(fh.device))
+    out = torch.clamp(out_codes.long(), max=4)
+    fh4 = (rotl1(fh) ^ rot_k[out])[..., None] ^ ident[:4]
+    rh4 = None
+    if rh is not None:
+        tr = rotr1(rh) ^ rotr_1[comp_codes(out)]
+        rh4 = tr[..., None] ^ rot_km1[:4].flip(0)  # comp(in) = 3 - in
+    return fh4, rh4
+
+
 def combine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Pair-hash combiner: a ^ (b + 0x9e3779b9 + (a << 6) + (b >>> 2))."""
     return a ^ (b + PAIR_CONST + (a << 6) + shr(b, 2))

@@ -83,6 +83,16 @@ def save_graph(prefix: str, state: dbg.GraphState, cfg: dbg.GraphConfig) -> None
         json.dump(desc, f, indent=1)
 
 
+def update_fragment_distance(prefix: str, d: int) -> None:
+    """Persist the stage-2-learned fragment pair distance into the desc."""
+    path = f"{prefix}.graph.json"
+    with open(path) as f:
+        desc = json.load(f)
+    desc["fragment_pair_distance"] = d
+    with open(path, "w") as f:
+        json.dump(desc, f, indent=1)
+
+
 def load_graph(prefix: str, device="cpu"):
     """Restore (state, cfg) from a save_graph checkpoint."""
     with open(f"{prefix}.graph.json") as f:

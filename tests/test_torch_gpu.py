@@ -1,4 +1,5 @@
-"""CUDA insert kernel vs its plain PyTorch version, on the card.
+"""CUDA kernels (insert, greedy walk) vs their plain PyTorch versions, on
+the card.
 
 Imports no JAX (the machine with the card has none), so it runs there with
 
@@ -144,3 +145,97 @@ def test_build_step_card_equals_cpu(cuda):
         c0, _ = dbg.count_step(states[0], cfg, codes)
         c1, _ = dbg.count_step(states[1], cfg, codes.to(cuda))
         assert torch.equal(c0, c1.cpu())
+
+
+# ---- greedy walk kernel (csrc/walk_greedy.cu) vs its plain version ----
+
+WALK_GRAPHS = [("mf8", False), ("u16", False), ("int32", True), ("int32", False)]
+
+
+def _walk_graph(dtype, blocked, stranded, dev):
+    """A graph of 24 random transcripts read at uneven depth, with planted
+    substitutions (branches and tips), built on ``dev``."""
+    from rnabloom_tpu_torch.graph import traverse
+
+    rng = np.random.default_rng(7)
+    cfg = dbg.GraphConfig(
+        k=25, stranded=stranded, dbgbf=BloomConfig(18, 2),
+        cbf=CountingConfig(18, 2, blocked=blocked, dtype=dtype), pkbf=BloomConfig(18, 2),
+    )
+    tx = rng.integers(0, 4, size=(24, 600), dtype=np.uint8)
+    tx[1, :200] = tx[0, :200]  # two transcripts sharing a prefix: a branch
+    reads = []
+    for t, depth in zip(tx, rng.integers(1, 9, size=24)):
+        for _ in range(depth):
+            for s in range(0, 500, 20):
+                r = t[s : s + 100].copy()
+                if rng.random() < 0.3:
+                    r[rng.integers(100)] = rng.integers(4)
+                reads.append(r)
+    state = dbg.make_graph(cfg, device=dev)
+    state = dbg.build_step(state, cfg, torch.from_numpy(np.stack(reads)).to(dev))
+    seeds = np.concatenate([tx[:, :25], tx[:, 300:325], tx[:, -25:][:, ::-1].copy() ^ 3])
+    return cfg, state, seeds, traverse
+
+
+@pytest.mark.parametrize("dtype,blocked", WALK_GRAPHS)
+@pytest.mark.parametrize("stranded,left", [(False, False), (True, False), (True, True)])
+@pytest.mark.parametrize("lookahead", [3, 4])
+def test_walk_kernel_matches_plain(cuda, dtype, blocked, stranded, left, lookahead):
+    from rnabloom_tpu_torch.ops import walk
+
+    cfg, graph, seeds, traverse = _walk_graph(dtype, blocked, stranded, cuda)
+    wcfg = traverse.WalkConfig(max_len=25 + 700, lookahead=lookahead, left=left)
+    st = traverse.make_walks(cfg, wcfg, seeds, device=cuda)
+    rng = np.random.default_rng(3)
+    min_cov, bound = traverse.lane_args(
+        st, rng.choice([1.0, 2.0, 3.5], size=st.pos.shape[0]).astype(np.float32),
+        rng.integers(100, 700, size=st.pos.shape[0]).astype(np.int32),
+    )
+    n0 = walk.LAUNCHES["walk_greedy"]
+    kern = walk.walk_greedy(st, graph, cfg, wcfg, min_cov, bound)
+    plain = walk.walk_greedy_plain(st, graph, cfg, wcfg, min_cov, bound)
+    torch.cuda.synchronize()
+    assert walk.LAUNCHES["walk_greedy"] == n0 + 1
+    for name in ("buf", "pos", "status", "hops", "path_min", "fh", "rh", "hist"):
+        assert torch.equal(getattr(kern, name), getattr(plain, name)), name
+    assert int((kern.status == traverse.BRANCH).sum()) == 0
+
+
+def test_walk_kernel_superstep_cap(cuda):
+    from rnabloom_tpu_torch.ops import walk
+
+    cfg, graph, seeds, traverse = _walk_graph("mf8", False, False, cuda)
+    wcfg = traverse.WalkConfig(max_len=25 + 700)
+    st = traverse.make_walks(cfg, wcfg, seeds, device=cuda)
+    min_cov, bound = traverse.lane_args(st, 1.0, 700)
+    kern = walk.walk_greedy(st, graph, cfg, wcfg, min_cov, bound, superstep_hops=5, max_supersteps=7)
+    plain = walk.walk_greedy_plain(st, graph, cfg, wcfg, min_cov, bound, superstep_hops=5, max_supersteps=7)
+    torch.cuda.synchronize()
+    for name in ("buf", "pos", "status", "hops", "path_min", "fh", "rh", "hist"):
+        assert torch.equal(getattr(kern, name), getattr(plain, name)), name
+    assert int((kern.status == traverse.ACTIVE).sum()) > 0  # the cap cut live lanes
+
+
+def test_stage2_card_equals_cpu(cuda, tmp_path):
+    import filecmp
+    import os
+
+    from rnabloom_tpu_torch import cli
+    from rnabloom_tpu_torch.ops import walk
+    from rnabloom_tpu_torch.utils import pesim
+
+    left, right = str(tmp_path / "r_1.fq"), str(tmp_path / "r_2.fq")
+    pesim.write_pe_fastq(left, right, seed=11, num_transcripts=20, tx_len=(500, 1500), num_pairs=1500)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = str(tmp_path / dev)
+        n0 = walk.LAUNCHES["walk_greedy"]
+        cli.run(["-left", left, "-right", right, "-revcomp-right", "-o", outs[dev], "-stage", "2",
+                 "-savebf", "-mem", "0.00390625", "-batch", "1024", "-sample", "300", "--device", dev])
+        if dev == "cuda":
+            assert walk.LAUNCHES["walk_greedy"] > n0
+    for root, _, files in os.walk(outs["cpu"]):
+        for f in files:
+            a = os.path.join(root, f)
+            assert filecmp.cmp(a, a.replace(outs["cpu"], outs["cuda"], 1), shallow=False), a

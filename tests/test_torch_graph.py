@@ -66,3 +66,30 @@ def test_exact_counts_is_not_ported():
 
     with pytest.raises(NotImplementedError):
         tdbg.make_graph(replace(ct, exact_counts=True))
+
+
+@pytest.mark.parametrize("dtype,blocked", COUNTERS)
+def test_stage2_queries_match_jax(dtype, blocked):
+    """contains, the fragment/read pair-support planes and counts + read
+    support (the stage-2 engine queries) on one built graph."""
+    from rnabloom_tpu.graph import engine as jengine
+
+    cj, ct = _cfgs(dtype, blocked)
+    sj = jdbg.make_graph(cj, with_rpkbf=True, with_fpkbf=True)
+    st = engine.make_graph(ct, with_rpkbf=True, with_fpkbf=True)
+    codes = _codes(4)
+    sj = jdbg.build_step(sj, cj, jnp.asarray(codes), add_read_pairs=True)
+    st = engine.build_step(st, ct, codes, add_read_pairs=True)
+    sj = sj._replace(fpkbf=sj.rpkbf)  # a fragment-pair filter with content
+    st = st._replace(fpkbf=st.rpkbf.clone())
+    q = _codes(5)
+    _, _, bj, _ = jdbg.seq_hashes(cj, jnp.asarray(q))
+    _, _, bt, _ = tdbg.seq_hashes(ct, torch.from_numpy(q))
+    np.testing.assert_array_equal(tdbg.contains(st, ct, bt).numpy(), np.asarray(jdbg.contains(sj, cj, bj)))
+    for d_frag, d_read in ((30, 40), (0, 40), (30, 0)):
+        np.testing.assert_array_equal(
+            engine.pair_support_both(st, ct, q, d_frag, d_read),
+            jengine.pair_support_both(sj, cj, q, d_frag, d_read),
+        )
+    for got, want in zip(engine.counts_and_read_support(st, ct, q), jengine.counts_and_read_support(sj, cj, q)):
+        np.testing.assert_array_equal(got, want)

@@ -27,7 +27,7 @@ from rnabloom_tpu_torch.utils import pesim
 out = sys.argv[1]
 left, right = out + "/r_1.fq", out + "/r_2.fq"
 pesim.write_pe_fastq(left, right, seed=5, num_transcripts=5, tx_len=(500, 800), num_pairs=300)
-assert cli.main(["-left", left, "-right", right, "-o", out + "/asm", "-stage", "1", "-savebf",
+assert cli.main(["-left", left, "-right", right, "-o", out + "/asm", "-stage", "2", "-savebf",
                  "-mem", "0.00390625", "--device", "cpu"]) == 0
 loaded = sorted(m for m, v in sys.modules.items() if v is not None and m.split(".")[0] == "jax")
 assert not loaded, loaded
@@ -45,10 +45,20 @@ def test_cpu_slice_runs_with_jax_blocked(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
     assert os.path.getsize(tmp_path / "asm" / "rnabloom.graph.cbf.npy") > 0
+    assert os.path.exists(tmp_path / "asm" / "FRAGMENTS.DONE")
+    assert os.path.exists(tmp_path / "asm" / "fragments" / "fragments.meta.json")
 
 
 def test_no_jax_import_in_package_source():
-    bad = re.compile(r"^\s*(import jax|from jax|from rnabloom_tpu\.(ops|bloom|graph|assembly|parallel|olc|oracle)\b)", re.M)
+    # the host-only modules the port reuses (ROADMAP) are the exceptions:
+    # rnabloom_tpu.assembly.fragstore and .artifacts import numpy only
+    bad = re.compile(
+        r"^\s*(import jax|from jax|from rnabloom_tpu\.(ops|bloom|graph|parallel|olc|oracle)\b"
+        r"|from rnabloom_tpu\.assembly(?!(\.| import )(fragstore|artifacts)\b))",
+        re.M,
+    )
+    assert bad.search("from rnabloom_tpu.assembly import fragments")
+    assert not bad.search("from rnabloom_tpu.assembly import fragstore")
     for dirpath, _, files in os.walk(PKG):
         for f in files:
             if f.endswith(".py"):
@@ -68,5 +78,16 @@ def test_later_stages_are_refused_before_any_work(tmp_path):
     pesim.write_pe_fastq(left, right, seed=6, num_transcripts=2, tx_len=(500, 600), num_pairs=10)
     out = tmp_path / "asm"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.assemble_pe(left, right, str(out), pipeline.PipelineParams(stop_stage=2))
+        pipeline.assemble_pe(left, right, str(out), pipeline.PipelineParams(stop_stage=3))
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("flag", ["-extend", "-rescue", "-sef", "-ser"])
+def test_unported_stage2_options_are_refused_before_any_work(tmp_path, flag):
+    left, right = str(tmp_path / "r_1.fq"), str(tmp_path / "r_2.fq")
+    pesim.write_pe_fastq(left, right, seed=6, num_transcripts=2, tx_len=(500, 600), num_pairs=10)
+    out = tmp_path / "asm"
+    extra = [flag, left] if flag in ("-sef", "-ser") else [flag]
+    with pytest.raises(NotImplementedError, match="ROADMAP queue-1 item"):
+        cli.run(["-left", left, "-right", right, "-o", str(out), "-stage", "2", "--device", "cpu"] + extra)
     assert not out.exists()

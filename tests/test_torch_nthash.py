@@ -87,3 +87,24 @@ def test_combine_and_combine_canonical(d):
         _u64_jax(jnh.combine_canonical(sl(fh, 0), sl(rh, 0), sl(fh, d), sl(rh, d))),
         _u64_torch(tnh.combine_canonical(tfh[..., :n], trh[..., :n], tfh[..., d:], trh[..., d:])),
     )
+
+
+@pytest.mark.parametrize("k", [17, 25, 31])
+def test_successor_hashes_match_jax(k):
+    codes = _codes(k + 3, (5, k + 40))
+    fh, rh, _ = jnh.rolling_hash(jnp.asarray(codes), k, False)
+    tfh, trh, _ = tnh.rolling_hash(torch.from_numpy(codes), k, False)
+    out = codes[:, : tfh.shape[1]]  # first base of each k-mer, N included
+    f4, r4 = jnh.successor_hashes(fh, jnp.asarray(out), k, rh=rh)
+    tf4, tr4 = tnh.successor_hashes(tfh, torch.from_numpy(out), k, rh=trh)
+    np.testing.assert_array_equal(_u64_jax(f4), _u64_torch(tf4))
+    np.testing.assert_array_equal(_u64_jax(r4), _u64_torch(tr4))
+    np.testing.assert_array_equal(tnh.comp_codes(torch.from_numpy(out)).numpy(), np.asarray(jnh.comp_codes(jnp.asarray(out))))
+    # the candidate of the next window's last base is that window's hash
+    # (N bases have seed 0, so the slide holds across them)
+    nxt_f, nxt_r = _u64_torch(tfh[:, 1:]), _u64_torch(trh[:, 1:])
+    cand_f, cand_r = _u64_torch(tf4[:, :-1]), _u64_torch(tr4[:, :-1])
+    idx = codes[:, k : k + nxt_f.shape[1]]
+    rows, cols = np.nonzero(idx < 4)
+    np.testing.assert_array_equal(cand_f[rows, cols, idx[rows, cols]], nxt_f[rows, cols])
+    np.testing.assert_array_equal(cand_r[rows, cols, idx[rows, cols]], nxt_r[rows, cols])
