@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (rnabloom_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--walk-variant NAME=PATH ...]
 
 Run from the root of a checkout on a machine with a CUDA card.  It imports
-no JAX.  Phases (any failure raises and exits nonzero):
+no JAX.  ``--walk-variant`` adds another walk kernel source with the same C
+entry point (a copy of ``csrc/walk_greedy.cu`` with another tile width, or
+an older commit's kernel from ``git show``) to phase 4, built beside the
+port's kernels, held to the same equality and timed in the same turns.
+Phases (any failure raises and exits nonzero):
 
 1. Environment: card name and power limit (nvidia-smi), torch/CUDA
    versions, the kernels' builds from csrc/ (one nvcc per source, started
-   together) and their build times.  Then 1,000,000 simulated 150 bp pairs
-   are written (seed 0).
+   together) and their build times, and what ``nvcc -Xptxas -v`` reports
+   for each instantiation of the walk kernel (registers, stack, spills)
+   when this run built it.  Then 1,000,000 simulated 150 bp pairs are
+   written (seed 0).
 2. Insert kernel vs its plain PyTorch version on the card, per op, at the
    stage-1 shapes of ``-mem 1`` (2^29-cell mf8 cbf, 2^28-cell u16 cbf,
    2^27-cell blocked int32 cbf, 2^27-lane rpkbf), on two kinds of batch:
@@ -17,7 +23,12 @@ no JAX.  Phases (any failure raises and exits nonzero):
    the trash cell, dropped indices, several salts) and a real-read batch
    (the k-mer cell indices of the first 4096 simulated reads, hashed by the
    port at k=25, h=2: 1,032,192 indices).  The tables must be equal.  Times
-   from CUDA events, both batches in the same kernel/plain turns.
+   from CUDA events, both batches in the same kernel/plain turns; in the
+   same turns the one-call PyTorch yardsticks of ``set``
+   (``index_fill_``) and ``add`` (``index_add_``) on the batches' in-range
+   indices, which must give the kernel's table.  Each op's bound: the
+   index bytes plus one 32 B sector per distinct cell, read and written
+   (written only, for ``set``), over 3.35 TB/s.
 3. The main path: ``cli -stage 2 -savebf --device cuda`` with ``-cnt mf8``
    (the default) and ``-stage 1 -savebf -cnt u16``, both on the 1,000,000
    pairs at the default ``-mem 1``.  The launch
@@ -29,8 +40,16 @@ no JAX.  Phases (any failure raises and exits nonzero):
 4. Walk kernel vs its plain PyTorch version on the card, at stage-2
    shapes: the bridge-walk seeds of the first stage-2 batch (8192 pairs,
    error-corrected and overlap-tested as ``assemble_fragments_batch``
-   does), walked on the mf8 and the u16 graph that phase 3 saved, with ``max_len = k + 500`` and lookahead 3.  Every field of the
-   returned walk state must be equal.  Times from CUDA events in turns.
+   does), walked on the mf8 and the u16 graph that phase 3 saved, with
+   ``max_len = k + 500`` and lookahead 3.  Every field of the returned walk
+   state must be equal.  Times from CUDA events in turns.  A replay of the
+   plain loop (``walk_tally``, which must end in the same state) counts the
+   hops, resolves and cell reads the batch needs; the bound is those reads
+   as 32 B sectors plus the walk state read and written, over 3.35 TB/s.
+   The lane with the most dependent read rounds is then walked alone: the
+   latency floor of the design.  Beside them, one torch gather of as many
+   uniformly random cells of the same table as the batch reads: the card's
+   random-read rate.
 5. Card against CPU: ``-stage 1`` on a 20,000-pair subset for ``-cnt
    mf8``, ``u16`` and ``int32`` (byte-identical checkpoints), and
    ``-stage 2 -savebf`` on the first 8192 pairs (one stage-2 batch) for
@@ -44,33 +63,45 @@ The line before the last is a JSON object of the kernels; the last line is
 
 from __future__ import annotations
 
+import argparse
+import contextlib
+import ctypes
 import filecmp
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from rnabloom_tpu.io import fastx  # numpy-only reader of the JAX package
-from rnabloom_tpu.utils import seq as sequtils
 from rnabloom_tpu_torch import cli
 from rnabloom_tpu_torch.assembly import correct, fragments, pipeline
 from rnabloom_tpu_torch.bloom import filters
 from rnabloom_tpu_torch.graph import engine, traverse
+from rnabloom_tpu_torch.io import fastx, native
 from rnabloom_tpu_torch.ops import _build, cell_insert as ci, nthash, walk
-from rnabloom_tpu_torch.utils import checkpoint, pesim
+from rnabloom_tpu_torch.utils import checkpoint, pesim, seq as sequtils
 
 KERNEL_SOURCE = "rnabloom_tpu_torch/csrc/cell_insert.cu"
 TPU_KERNEL = "rnabloom_tpu/ops/histmerge.py:187"
 WALK_SOURCE = "rnabloom_tpu_torch/csrc/walk_greedy.cu"
 WALK_REPLACES = "rnabloom_tpu/graph/traverse.py:1032"
 CKPT_FILES = ("rnabloom.graph.graph.json", "rnabloom.graph.cbf.npy", "rnabloom.graph.rpkbf.npy")
+WALK_FIELDS = ("buf", "pos", "status", "hops", "path_min", "fh", "rh", "hist")
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM, 3.35 TB/s (NVIDIA's data sheet)
+SECTOR = 32  # bytes of one random DRAM access
+WALK_LAYOUTS = ("mf8", "u16", "int32", "int32 blocked")
+LIBRARY = {  # op -> the one PyTorch call computing the same function, or none
+    "set": lambda table, idx: table.index_fill_(0, idx, 1),
+    "add": lambda table, idx: table.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32)),
+}
 
 # op -> (table cells incl. trash, what it is at -mem 1)
 SHAPES = {
@@ -94,6 +125,52 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0]
+
+
+def ptxas_report(log: str) -> list:
+    """One line per kernel instantiation from ``nvcc -Xptxas -v``: its
+    template arguments, registers, stack frame and spills."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*walk_greedy_kernelILi(\d+)ELi(\d+)ELb([01])E", line)
+        if m:
+            name = f"<{WALK_LAYOUTS[int(m.group(1))]}, {m.group(2)}, {('no', 'yes')[int(m.group(3))]}>"
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            frame = m.groups()
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {frame[0]} B stack frame, {frame[1]} B spill stores, "
+                       f"{frame[2]} B spill loads")
+            name = None
+    return out
+
+
+def build_walk_variant(i: int, src: str) -> ctypes.CDLL:
+    """The ``walk_greedy`` entry point of another walk kernel source, built
+    with the port's nvcc flags into ``build/walk_variants/``."""
+    lib = os.path.join(_build.BUILD_DIR, "walk_variants", f"lib{i}.so")
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, src, "-o", lib], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    so = ctypes.CDLL(lib)
+    so.walk_greedy.argtypes = _build._SIGNATURES[_build.WALK_LIB][1]["walk_greedy"]
+    so.walk_greedy.restype = ctypes.c_int
+    return so
+
+
+@contextlib.contextmanager
+def walk_library(lib: ctypes.CDLL):
+    """Route ``walk.walk_greedy`` to ``lib`` (a ``--walk-variant`` build)."""
+    saved = _build.walk_kernels()
+    _build._libs[_build.WALK_LIB] = lib
+    try:
+        yield
+    finally:
+        _build._libs[_build.WALK_LIB] = saved
 
 
 def phase(name: str) -> None:
@@ -166,6 +243,14 @@ def _check_equal(kern: torch.Tensor, plain: torch.Tensor, op: str, what: str) ->
         )
 
 
+def insert_bound_ms(op: str, idx: torch.Tensor, numel: int) -> float:
+    """Least time for one insert batch: its index bytes, read once, plus one
+    sector per distinct in-range cell, read and written (written only for
+    ``set``), at the card's memory rate."""
+    distinct = torch.unique(idx[(idx >= 0) & (idx < numel)]).numel()
+    return (idx.numel() * idx.element_size() + distinct * SECTOR * (1 if op == "set" else 2)) / HBM_BYTES_PER_MS
+
+
 def kernel_vs_plain(dev, card: str, real: dict) -> dict:
     results = {}
     gen = torch.Generator(device=dev)
@@ -182,34 +267,61 @@ def kernel_vs_plain(dev, card: str, real: dict) -> dict:
         ci.cell_insert(kern, real[op], op, 3)
         ci.cell_insert_plain(plain, real[op], op, 3)
         _check_equal(kern, plain, op, "on the real-read batch")
-        # warm both, then time in turns: plain, kernel, kernel, plain; each
-        # turn times the synthetic and the real-read batch
         batches = {"synthetic": idx, "real": real[op]}
-        for b in batches.values():
+        # the one-call yardstick takes the in-range indices (an index past
+        # the end is an error there); it must compute the kernel's table
+        lib = LIBRARY.get(op)
+        in_range = {name: b[(b >= 0) & (b < numel)] for name, b in batches.items()}
+        lib_tab = None
+        if lib is not None:
+            lib_tab, check = kern.clone(), kern.clone()
+            lib(lib_tab, in_range["real"])
+            ci.cell_insert(check, real[op], op, 5)
+            _check_equal(check, lib_tab, op, f"against its one-call yardstick {op}")
+            del check
+        # warm all, then time in turns: plain, library, kernel, kernel,
+        # library, plain; each turn times the synthetic and the real batch
+        for name, b in batches.items():
             ci.cell_insert(kern, b, op, 5)
             ci.cell_insert_plain(plain, b, op, 5)
+            if lib is not None:
+                lib(lib_tab, in_range[name])
         t = {}
-        for who in ("plain", "kernel", "kernel", "plain"):
-            fn, tab = (ci.cell_insert, kern) if who == "kernel" else (ci.cell_insert_plain, plain)
+        for who in ("plain", "library", "kernel", "kernel", "library", "plain"):
+            if who == "library" and lib is None:
+                continue
             for name, b in batches.items():
-                t.setdefault((who, name), []).append(_time_ms(lambda: fn(tab, b, op, 5)))
+                if who == "kernel":
+                    fn = lambda: ci.cell_insert(kern, b, op, 5)  # noqa: E731
+                elif who == "plain":
+                    fn = lambda: ci.cell_insert_plain(plain, b, op, 5)  # noqa: E731
+                else:
+                    fn = lambda: lib(lib_tab, in_range[name])  # noqa: E731
+                t.setdefault((who, name), []).append(_time_ms(fn))
         # both tables took the same batches in the same order
         _check_equal(kern, plain, op, "after the timed batches")
         mean = {key: sum(v) / len(v) for key, v in t.items()}
         results[op] = {
             "max_abs_err": int((_as_int(kern) - _as_int(plain)).abs().max()),
             "ms": mean["kernel", "synthetic"], "plain_ms": mean["plain", "synthetic"],
+            "library_ms": mean.get(("library", "synthetic")),
+            "bound_ms": insert_bound_ms(op, idx, numel),
             "real_ms": mean["kernel", "real"], "real_plain_ms": mean["plain", "real"],
+            "real_library_ms": mean.get(("library", "real")),
+            "real_bound_ms": insert_bound_ms(op, real[op], numel),
         }
         r = results[op]
+        lib_txt = lambda x: "none" if x is None else f"{x:.4f} ms"  # noqa: E731
         print(
             f"cell_insert[{op}] ({what}): equal to plain on {len(SALTS)} salted synthetic batches "
             f"and the real-read batch; per batch, synthetic ({BATCH} indices): kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms; real reads ({real[op].numel()} indices): kernel "
-            f"{r['real_ms']:.4f} ms, plain {r['real_plain_ms']:.4f} ms [{card}]",
+            f"plain {r['plain_ms']:.4f} ms, one-call {lib_txt(r['library_ms'])}, bound {r['bound_ms']:.4f} ms; "
+            f"real reads ({real[op].numel()} indices): kernel {r['real_ms']:.4f} ms, plain "
+            f"{r['real_plain_ms']:.4f} ms, one-call {lib_txt(r['real_library_ms'])}, bound "
+            f"{r['real_bound_ms']:.4f} ms [{card}]",
             flush=True,
         )
-        del kern, plain, idx, batches
+        del kern, plain, idx, batches, in_range, lib_tab
         torch.cuda.empty_cache()
     return results
 
@@ -326,12 +438,75 @@ def _max_abs_diff(a, b) -> float:
     an unwalked lane's path_min, counts as 0)."""
     return max(
         float((getattr(a, f).double() - getattr(b, f).double()).abs().nan_to_num(0.0).max())
-        for f in ("buf", "pos", "status", "hops", "path_min", "fh", "rh", "hist")
+        for f in WALK_FIELDS
     )
 
 
-def walk_vs_plain(graph_prefix: str, left: str, right: str, what: str, card: str, dev) -> dict:
-    """Walk kernel vs plain on the first stage-2 batch's bridge seeds."""
+def _same_state(a, b) -> list:
+    return [f for f in WALK_FIELDS if not torch.equal(getattr(a, f), getattr(b, f))]
+
+
+def walk_tally(st, graph, cfg, wcfg, mc, bd, superstep_hops: int = 64, max_supersteps: int = 64) -> dict:
+    """The plain lockstep loop (``extend_walks_plain``), replayed one hop
+    at a time with the plain version's own steps, counting per lane what
+    the kernel's schedule needs: hops tried, resolves, and cell reads (a
+    hop reads 4 k-mers, unless a resolve that advanced came just before it,
+    at lookahead >= 2: it read them at its depth 1; a resolve reuses the
+    hop's 4 and reads, for each viable candidate, 4 k-mers at depth 1, 16
+    at depth 2 and 64 per level past it; num_hash cells a k-mer).
+    Dependent read rounds: one a hop that reads, lookahead - 1 a resolve.
+    Returns the tallies and the final state."""
+    from rnabloom_tpu_torch.graph import dbg
+
+    state = traverse.clone_state(st)
+    W, la, h = st.pos.shape[0], wcfg.lookahead, cfg.cbf.num_hash
+    hops = torch.zeros(W, dtype=torch.int64, device=st.pos.device)
+    resolves, reads, hop_rounds = hops.clone(), hops.clone(), hops.clone()
+    reused = torch.zeros(W, dtype=torch.bool, device=st.pos.device)
+    per_viable = (4 if la >= 2 else 0) + (16 if la >= 3 else 0) + 64 * max(la - 3, 0)
+    floor = torch.clamp(mc, min=1.0)[:, None]
+    for _ in range(max_supersteps):
+        if not bool(((state.status == traverse.ACTIVE) | (state.status == traverse.BRANCH)).any()):
+            break
+        for _ in range(superstep_hops):
+            active = state.status == traverse.ACTIVE
+            if not bool(active.any()):
+                break
+            hops += active
+            reading = active & ~reused
+            reads += reading * 4 * h
+            hop_rounds += reading
+            reused &= ~active
+            state = traverse.walk_superstep(state, graph, cfg, wcfg, mc, bd, 1)
+        branch = state.status == traverse.BRANCH
+        if bool(branch.any()):
+            out = traverse._gather_out_codes(state.buf, state.pos, cfg.k)
+            _, _, q4 = traverse._successors(cfg, wcfg, state.fh, state.rh, out)
+            viable = dbg.get_counts(graph, cfg, q4) >= floor
+            resolves += branch
+            reads += branch * viable.sum(dim=1) * per_viable * h
+            pos0 = state.pos
+            state = traverse.resolve_branches(state, graph, cfg, wcfg, mc)
+            # the choice is the candidate the lane advanced with: buf[pos0]
+            chosen = state.buf.gather(1, torch.clamp(pos0, max=wcfg.max_len - 1).long()[:, None])[:, 0]
+            chosen_viable = viable.gather(1, chosen.long()[:, None])[:, 0]
+            advanced = branch & (state.pos > pos0)
+            reused |= advanced & chosen_viable & (la > 1) & (cfg.k > 1)
+    rounds = hop_rounds + resolves * (la - 1)
+    return {"state": state, "hops": hops, "resolves": resolves, "reads": reads, "rounds": rounds}
+
+
+def walk_bound_ms(st, mc, bd, reads: int) -> float:
+    """Least time for a walk batch: its cell reads as random sectors, plus
+    the walk state read and written once, at the card's memory rate.  The
+    arithmetic (hash slides, minima) is far below the card's integer rate."""
+    state_bytes = sum(t.numel() * t.element_size() for t in st) * 2 + mc.numel() * 4 + bd.numel() * 4
+    return (reads * SECTOR + state_bytes) / HBM_BYTES_PER_MS
+
+
+def walk_vs_plain(graph_prefix: str, left: str, right: str, what: str, card: str, dev, variants: dict) -> dict:
+    """Walk kernel (and each ``--walk-variant``) vs plain on the first
+    stage-2 batch's bridge seeds."""
     graph, cfg = checkpoint.load_graph(graph_prefix, device=dev)
     seeds = stage2_walk_seeds(left, right, graph, cfg)
     wcfg, _ = fragments.bridge_walk_configs(cfg, fragments.FragmentParams())
@@ -340,30 +515,85 @@ def walk_vs_plain(graph_prefix: str, left: str, right: str, what: str, card: str
     kern = walk.walk_greedy(st, graph, cfg, wcfg, mc, bd)
     plain = walk.walk_greedy_plain(st, graph, cfg, wcfg, mc, bd)
     torch.cuda.synchronize()
-    fields = ("buf", "pos", "status", "hops", "path_min", "fh", "rh", "hist")
-    bad = [f for f in fields if not torch.equal(getattr(kern, f), getattr(plain, f))]
+    bad = _same_state(kern, plain)
     if bad:
         raise AssertionError(f"walk_greedy != plain on {what}: {bad} differ")
-    t = {"kernel": [], "plain": []}
-    for who in ("plain", "kernel", "kernel", "plain"):
-        fn = walk.walk_greedy if who == "kernel" else walk.walk_greedy_plain
-        t[who].append(_time_ms(lambda: fn(st, graph, cfg, wcfg, mc, bd), reps=5 if who == "kernel" else 1))
+    tally = walk_tally(st, graph, cfg, wcfg, mc, bd)
+    bad = _same_state(tally["state"], plain)
+    if bad:
+        raise AssertionError(f"the tallied replay of the plain loop differs on {what}: {bad}")
+    # the lane with the most dependent read rounds, walked alone
+    w = int(torch.argmax(tally["rounds"]))
+    one = traverse.WalkState(*(f[w : w + 1].contiguous() for f in st))
+    one_mc, one_bd = mc[w : w + 1].contiguous(), bd[w : w + 1].contiguous()
+    alone = walk.walk_greedy(one, graph, cfg, wcfg, one_mc, one_bd)
+    bad = [f for f in WALK_FIELDS if not torch.equal(getattr(alone, f), getattr(kern, f)[w : w + 1])]
+    if bad:
+        raise AssertionError(f"lane {w} walked alone differs from its batch run: {bad}")
+
+    def call(name, state, lane_mc, lane_bd):
+        with walk_library(variants[name]) if name in variants else contextlib.nullcontext():
+            return walk.walk_greedy(state, graph, cfg, wcfg, lane_mc, lane_bd)
+
+    for name in variants:
+        bad = _same_state(call(name, st, mc, bd), plain)
+        torch.cuda.synchronize()
+        if bad:
+            raise AssertionError(f"walk variant {name} != plain on {what}: {bad} differ")
+    builds = ["kernel", *variants]
+    t = {who: [] for who in ("plain", *builds)}
+    lane_t = {who: [] for who in builds}
+    for who in ("plain", *builds, *builds[::-1], "plain"):
+        if who == "plain":
+            t[who].append(_time_ms(lambda: walk.walk_greedy_plain(st, graph, cfg, wcfg, mc, bd), reps=1))
+            continue
+        t[who].append(_time_ms(lambda: call(who, st, mc, bd), reps=5))
+        lane_t[who].append(_time_ms(lambda: call(who, one, one_mc, one_bd), reps=5))
     status = torch.bincount(kern.status.long(), minlength=7).tolist()
+    reads = int(tally["reads"].sum())
+    # the card's random-read rate: one gather of as many uniformly random
+    # cells of the same table as the batch reads
+    idx = torch.randint(0, graph.cbf.numel(), (reads,), device=dev)
+    graph.cbf[idx]
+    gather_ms = min(_time_ms(lambda: graph.cbf[idx], reps=3) for _ in range(3))
+    del idx
     r = {
         "max_abs_err": _max_abs_diff(kern, plain), "ms": sum(t["kernel"]) / 2, "plain_ms": sum(t["plain"]) / 2,
         "lanes": int(st.pos.shape[0]), "seeds": int(seeds.shape[0]),
         "hops": int(kern.hops.sum()), "max_hops": int(kern.hops.max()),
+        "hops_tried": int(tally["hops"].sum()), "resolves": int(tally["resolves"].sum()),
+        "cell_reads": reads, "bound_ms": walk_bound_ms(st, mc, bd, reads), "gather_ms": gather_ms,
+        "longest_lane": w, "longest_lane_rounds": int(tally["rounds"][w]),
+        "longest_lane_hops": int(tally["hops"][w]), "longest_lane_resolves": int(tally["resolves"][w]),
+        "longest_lane_ms": min(lane_t["kernel"]),
+        "variants": {name: {"ms": sum(t[name]) / 2, "longest_lane_ms": min(lane_t[name])} for name in variants},
     }
     print(f"walk_greedy ({what}): {r['seeds']} bridge seeds in {r['lanes']} lanes, max_len {wcfg.max_len}, "
           f"lookahead {wcfg.lookahead}; every WalkState field equal to plain; {r['hops']} hops (max "
           f"{r['max_hops']}), statuses {status}; per call: kernel {r['ms']:.4f} ms, plain "
           f"{r['plain_ms']:.4f} ms [{card}]", flush=True)
-    del graph, kern, plain, st
+    print(f"walk_greedy ({what}): the batch needs {r['hops_tried']} hops tried, {r['resolves']} resolves, "
+          f"{reads} cell reads ({reads * SECTOR} B as {SECTOR} B sectors): bound {r['bound_ms']:.4f} ms at "
+          f"3.35 TB/s; one gather of as many random cells of the {graph.cbf.numel()}-cell table "
+          f"{gather_ms:.4f} ms; longest lane {w}: {r['longest_lane_rounds']} dependent read rounds "
+          f"({r['longest_lane_hops']} hops, {r['longest_lane_resolves']} resolves), walked alone "
+          f"{r['longest_lane_ms']:.4f} ms [{card}]", flush=True)
+    for name, v in r["variants"].items():
+        print(f"walk variant {name} ({what}): every WalkState field equal to plain; per call "
+              f"{v['ms']:.4f} ms ({', '.join(f'{x:.4f}' for x in t[name])}), the kernel's "
+              f"{', '.join(f'{x:.4f}' for x in t['kernel'])}; longest lane alone {v['longest_lane_ms']:.4f} ms "
+              f"[{card}]", flush=True)
+    del graph, kern, plain, st, tally
     torch.cuda.empty_cache()
     return r
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--walk-variant", action="append", default=[], metavar="NAME=PATH",
+                    help="another walk kernel source (same C entry point) to check and time in phase 4")
+    args = ap.parse_args(argv)
+    variant_srcs = dict(v.split("=", 1) for v in args.walk_variant)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
               file=sys.stderr)
@@ -377,11 +607,24 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")
     t0 = time.time()
-    built = _build.build_all()
+    with ThreadPoolExecutor(1 + len(variant_srcs)) as pool:
+        port_build = pool.submit(_build.build_all)
+        variant_builds = {name: pool.submit(build_walk_variant, i, src)
+                          for i, (name, src) in enumerate(variant_srcs.items())}
+        built = port_build.result()
+        variants = {name: f.result() for name, f in variant_builds.items()}
     print(f"kernels built in parallel in {time.time() - t0:.2f} s: "
-          + ", ".join(f"{os.path.relpath(src, os.path.dirname(os.path.abspath(__file__)))} "
-                      f"{sec:.2f} s" for src, sec in built.items()))
-    print(f"native FASTX reader in use: {_build.native_reader()}", flush=True)
+          + (", ".join(f"{os.path.relpath(src, os.path.dirname(os.path.abspath(__file__)))} "
+                       f"{sec:.2f} s" for src, sec in built.items()) or "all up to date")
+          + "".join(f"; walk variant {name} from {src}" for name, src in variant_srcs.items()))
+    log = _build.build_logs.get(_build.WALK_SRC)
+    if log is None:
+        print("walk kernel not rebuilt in this run (up to date): no ptxas report")
+    else:
+        print("nvcc -Xptxas -v, walk kernel instantiations <layout, num_hash (0: any), past depth 3>:")
+        for line in ptxas_report(log):
+            print("  " + line)
+    print(f"native FASTX reader in use: {native.available()}", flush=True)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -422,9 +665,9 @@ def main() -> int:
         phase("4 walk kernel vs plain PyTorch on the card (bridge seeds of the first stage-2 batch)")
         walk_t = {
             "mf8": walk_vs_plain(os.path.join(out_mf8, "rnabloom.graph"), left, right,
-                                 "1M-pair graph, -cnt mf8, 2^29 cells", card, dev),
+                                 "1M-pair graph, -cnt mf8, 2^29 cells", card, dev, variants),
             "u16": walk_vs_plain(os.path.join(out_u16, "rnabloom.graph"), left, right,
-                                 "1M-pair graph, -cnt u16, resized to 2^29 cells", card, dev),
+                                 "1M-pair graph, -cnt u16, resized to 2^29 cells", card, dev, variants),
         }
         shutil.rmtree(out_mf8)
         shutil.rmtree(out_u16)
@@ -484,12 +727,18 @@ def main() -> int:
             "max_abs_err": timing[op]["max_abs_err"],
             "ms": timing[op]["ms"],
             "plain_ms": timing[op]["plain_ms"],
+            "bound_ms": timing[op]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": timing[op]["library_ms"],
             "real_batch_indices": real_indices[op],
             "real_ms": timing[op]["real_ms"],
             "real_plain_ms": timing[op]["real_plain_ms"],
+            "real_bound_ms": timing[op]["real_bound_ms"],
+            "real_library_ms": timing[op]["real_library_ms"],
         }
         for op in ("add_mf8", "set", "add_u16", "add")
     ]
+    wm, wu = walk_t["mf8"], walk_t["u16"]
     kernels.append({
         "name": "walk_greedy",
         "route": "cuda",
@@ -498,13 +747,27 @@ def main() -> int:
         "launches": launches["walk_greedy"],
         "run": mf8_run,
         "max_abs_err": max(w["max_abs_err"] for w in walk_t.values()),
-        "ms": walk_t["mf8"]["ms"],
-        "plain_ms": walk_t["mf8"]["plain_ms"],
-        "lanes": walk_t["mf8"]["lanes"],
-        "u16_ms": walk_t["u16"]["ms"],
-        "u16_plain_ms": walk_t["u16"]["plain_ms"],
+        "ms": wm["ms"],
+        "plain_ms": wm["plain_ms"],
+        "bound_ms": wm["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "lanes": wm["lanes"],
+        "resolves": wm["resolves"],
+        "cell_reads": wm["cell_reads"],
+        "gather_ms": wm["gather_ms"],
+        "longest_lane_ms": wm["longest_lane_ms"],
+        "longest_lane_rounds": wm["longest_lane_rounds"],
+        "u16_ms": wu["ms"],
+        "u16_plain_ms": wu["plain_ms"],
+        "u16_bound_ms": wu["bound_ms"],
+        "u16_longest_lane_ms": wu["longest_lane_ms"],
+        "u16_gather_ms": wu["gather_ms"],
+        "variants": {name: {"ms": wm["variants"][name]["ms"], "u16_ms": wu["variants"][name]["ms"],
+                            "longest_lane_ms": wm["variants"][name]["longest_lane_ms"]} for name in variants},
         "stage2_pairs_per_s": s2_report.num_pairs / s2_report.stage2_s,
         "stage2_pairs": s2_report.num_pairs,
+        "stage1_reads_per_s": s2_report.stage1.num_reads / s2_report.stage1.elapsed_s,
         "stage2_peak_device_bytes": s2_peak,
     })
     print(f"\nsmoke wall time {time.time() - t_start:.1f} s")

@@ -3,9 +3,11 @@
 The JAX package ``rnabloom_tpu`` is the reference; this package recomputes
 its results with PyTorch tensors on one CUDA device (or the CPU, for tests),
 with hand-written CUDA kernels where the JAX package had Pallas kernels.
-It imports no JAX: the numpy-only host modules of the reference
-(``rnabloom_tpu.io.native``, ``io.fastx``, ``utils.seq``, ``utils.timer``)
-are reused by import.
+It imports neither JAX nor any module of the JAX package: the host-only
+code it needs from there (``io/{fastx,native,nbits}.py``,
+``native/fastxio.cpp``, ``utils/{seq,polya,timer}.py``,
+``assembly/fragstore.py``) is copied into it under the same module names.
+Its entry points run on the card unless the caller asks for the CPU.
 
 Ported so far: paired-end stage 1, the graph build (``-stage 1``), and
 stage 2, fragment assembly (``-stage 2``).

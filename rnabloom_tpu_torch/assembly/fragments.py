@@ -26,10 +26,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from rnabloom_tpu.utils import seq as sequtils
-
 from ..graph import engine, traverse
 from ..graph.dbg import GraphConfig, GraphState
+from ..utils import seq as sequtils
 from . import correct
 
 _EXTEND = "-extend (naive fragment extension) is ROADMAP queue-1 item 7a"

@@ -27,14 +27,12 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from rnabloom_tpu.assembly import fragstore
-from rnabloom_tpu.io import fastx, native
-from rnabloom_tpu.utils import polya, seq as sequtils
-from rnabloom_tpu.utils.timer import Timer
-
 from ..graph import dbg, engine
-from ..utils import checkpoint as ckpt
+from ..io import fastx, native
+from ..utils import checkpoint as ckpt, polya, seq as sequtils
+from ..utils.timer import Timer
 from . import correct, fragments as fragmod, stage1
+from .fragstore import FragmentStore
 
 
 @dataclass
@@ -384,20 +382,6 @@ def _connect_multi_segments(
             lens[row] = n
 
 
-class FragmentStore(fragstore.FragmentStore):
-    """The JAX package's stratified fragment store, reused as it is except
-    for the stratum key: the store's own looks up the coverage magnitude
-    in the JAX package's fragments module, which imports JAX.  This key is
-    the same function of the same values, from the port's module."""
-
-    def _key(self, min_cov: float, length: int, connected: bool, polya: bool) -> str:
-        cls = ("long" if length >= self.long_threshold else "short") if connected else "un"
-        pa = ".polya" if (self.polya_priority and polya) else ""
-        mag = min(fragmod.coverage_order_of_magnitude(min_cov), 5)
-        stratum = "01" if min_cov <= 1 else f"E{mag}"
-        return f"{stratum}.{cls}{pa}"
-
-
 def _new_fragment_store(outdir: str, params: PipelineParams) -> FragmentStore:
     return FragmentStore(
         outdir,
@@ -481,15 +465,17 @@ def assemble_pe(
     revcomp_right: bool = True,
     save_graph: bool = False,
     force: bool = False,
-    device="cpu",
+    device="cuda",
     sef_paths: Sequence[str] = (),
     ser_paths: Sequence[str] = (),
 ) -> PipelineReport:
     """Bulk paired-end assembly through ``params.stop_stage`` (1 or 2) on
-    ``device``.  With ``save_graph`` the graph is checkpointed under
+    ``device`` (the card unless the caller asks for the CPU; raises when
+    there is no card).  With ``save_graph`` the graph is checkpointed under
     {outdir}/{name}.graph after the last stage run; stage 2 writes the
     fragment store under {outdir}/fragments."""
     _refuse_unported(params, sef_paths, ser_paths)
+    device = engine.require_device(device)
     t0 = time.time()
     os.makedirs(outdir, exist_ok=True)
     if force:

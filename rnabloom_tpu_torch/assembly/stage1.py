@@ -5,7 +5,7 @@ quality-segmented 2-bit read batches to the device, where one build step
 (hash -> multi-hash -> insert kernels) updates the filters.  Batches, their
 order and their salts (the batch counter, which keys the mf8 rounding) are
 the JAX package's: the same batch size and the same native or pure-Python
-reader path (the reader modules are reused from ``rnabloom_tpu``).
+reader path (the port's copies of the JAX package's reader modules).
 
 Read-length-based parameters follow setReadLengthBasedParams
 (RNABloom.java:1011-1033): read-pair distance = Q1 - k - minNumKmerPairs.
@@ -21,12 +21,10 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from rnabloom_tpu.io import fastx, native
-from rnabloom_tpu.utils import seq as sequtils
-
 from ..bloom.filters import BloomConfig, CountingConfig, pow2_size
 from ..graph import dbg, engine
-from ..ops import _build
+from ..io import fastx, native
+from ..utils import seq as sequtils
 
 _COMP = np.array([3, 2, 1, 0, 4], dtype=np.uint8)
 
@@ -127,7 +125,7 @@ def build_graph(
     if revcomp_flags is None:
         revcomp_flags = [False] * len(paths)
 
-    use_native = _build.native_reader()
+    use_native = native.available()
     for path, rc in zip(paths, revcomp_flags):
         if use_native:
             # native parse + segment + encode; batches come pre-chunked
@@ -175,12 +173,14 @@ def build_graph_autosized(
     params: Stage1Params,
     max_fpr: float = 0.01,
     max_retries: int = 2,
-    device="cpu",
+    device="cuda",
     **kwargs,
 ) -> Tuple[dbg.GraphState, Stage1Stats, dbg.GraphConfig]:
     """Stage-1 build with the FPR check / resize / repopulate loop
     (RNABloom.java:7142-7180): a filter breaching ``max_fpr`` is resized to
-    the size its measured fill calls for and the graph rebuilt.
+    the size its measured fill calls for and the graph rebuilt.  Runs on
+    ``device``: the card unless the caller asks for the CPU; raises when
+    there is no card.
 
     With fill ``p = fpr**(1/h)``, the inserted-key estimate is
     ``n = -m/h ln(1-p)`` and the size needed is ``m' = -h n / ln(1-p_t)``."""
@@ -194,6 +194,7 @@ def build_graph_autosized(
         factor = math.log1p(-fill) / math.log1p(-fill_t)  # m'/m
         return max(1, math.ceil(math.log2(factor)))
 
+    device = engine.require_device(device)
     for attempt in range(max_retries + 1):
         state = engine.make_graph(cfg, with_rpkbf=kwargs.get("add_read_pairs", False), device=device)
         state, stats = build_graph(paths, cfg, state, params, **kwargs)

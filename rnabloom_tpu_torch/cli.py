@@ -17,8 +17,6 @@ import argparse
 import json
 import sys
 
-import torch
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -85,19 +83,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device is available")
-    return dev
-
-
 def run(argv=None):
     """Parse ``argv``, run the pipeline and return its PipelineReport."""
     args = build_parser().parse_args(argv)
-    device = _device(args.device)
-
     from .assembly import pipeline
+    from .graph import engine
+
+    device = engine.require_device(args.device)
 
     params = pipeline.PipelineParams(
         k=args.kmer,

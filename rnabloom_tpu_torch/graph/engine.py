@@ -28,6 +28,15 @@ def dispatch_counts() -> dict:
     return dict(DISPATCHES)
 
 
+def require_device(device) -> torch.device:
+    """``device`` as a torch.device; raises when it names CUDA and there is
+    no card (the port never falls back to the CPU by itself)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA device is available")
+    return dev
+
+
 def make_graph(
     cfg: GraphConfig, with_rpkbf: bool = False, with_fpkbf: bool = False, device="cpu"
 ) -> GraphState:

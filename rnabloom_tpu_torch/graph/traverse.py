@@ -15,8 +15,8 @@ advance as lanes of one batch:
     ``max_supersteps`` times.
 
 ``extend_walks`` goes through ``ops.walk.walk_greedy``: the CUDA kernel
-``csrc/walk_greedy.cu`` (one thread per lane, the whole loop on the card)
-for a CUDA graph, and ``extend_walks_plain`` for a CPU graph.
+``csrc/walk_greedy.cu`` (a tile of threads per lane, the whole loop on the
+card) for a CUDA graph, and ``extend_walks_plain`` for a CPU graph.
 ``extend_walks_plain`` is the lockstep loop of the JAX package, op for op
 on whole lanes; it is what the CPU tests hold against JAX and what the
 kernel is held against on the card.

@@ -6,12 +6,11 @@
   source is newer), and bind their plain C entry points with ctypes.  They
   need the CUDA toolkit; there is no fallback.  ``build_all()`` starts
   every ``nvcc`` at once.
-* ``native_reader()`` compiles the JAX package's FASTX reader
-  (``rnabloom_tpu/native/fastxio.cpp``) into ``build/native/`` for the host
-  it runs on and points the reused ``rnabloom_tpu.io.native`` module at that
-  library, so the committed ``_fastxio.so`` (built with -march=native on
-  another CPU) is never loaded.  Without a C++ toolchain the reused module
-  falls back to its pure-Python reader, as the JAX package does.
+* ``build_reader()`` compiles the port's FASTX reader
+  (``native/fastxio.cpp``) with ``g++`` into ``build/native/`` for the host
+  it runs on; ``io/native.py`` loads it.  Without a C++ toolchain (or zlib)
+  the build fails, ``io.native.available()`` is False and the callers take
+  the pure-Python reader, as the JAX package does.
 
 Both builds write to a temporary file and rename it into place, so
 concurrent processes never load a half-written library.
@@ -36,17 +35,18 @@ KERNEL_SRC = os.path.join(_PKG, "csrc", "cell_insert.cu")
 KERNEL_LIB = os.path.join(BUILD_DIR, "kernels", "libcell_insert.so")
 WALK_SRC = os.path.join(_PKG, "csrc", "walk_greedy.cu")
 WALK_LIB = os.path.join(BUILD_DIR, "kernels", "libwalk_greedy.so")
-READER_SRC = os.path.join(_ROOT, "rnabloom_tpu", "native", "fastxio.cpp")
+READER_SRC = os.path.join(_PKG, "native", "fastxio.cpp")
 READER_LIB = os.path.join(BUILD_DIR, "native", "_fastxio.so")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 build_seconds: Dict[str, float] = {}  # source -> nvcc wall time in this process
+build_logs: Dict[str, str] = {}  # source -> nvcc's ptxas report (registers, spills) of a build in this process
 
 
 def _stale(lib: str, src: str) -> bool:
@@ -89,6 +89,7 @@ def _nvcc_build(src: str, lib: str) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
     build_seconds[src] = time.time() - t0
+    build_logs[src] = proc.stderr
 
 
 _P, _I64, _U32, _INT, _U64 = (
@@ -150,16 +151,14 @@ def build_all() -> Dict[str, float]:
     return dict(build_seconds)
 
 
-def native_reader() -> bool:
-    """Point ``rnabloom_tpu.io.native`` at a reader built for this host;
-    True when the native reader is in use."""
-    from rnabloom_tpu.io import native
-
+def build_reader() -> str:
+    """Path of the FASTX reader library, built for this host when it is
+    missing or older than its source; raises when the build fails."""
     with _lock:
-        if native._lib is None and not native._build_failed:
-            if _stale(READER_LIB, READER_SRC) and shutil.which("g++"):
-                _compile(["g++", "-O3", "-shared", "-fPIC", READER_SRC, "-lz"], READER_LIB)
-            # if that build failed (no toolchain, no zlib) the path stays
-            # missing and the reused module drops to its pure-Python reader
-            native._LIB = READER_LIB
-    return native.available()
+        if _stale(READER_LIB, READER_SRC):
+            if not shutil.which("g++"):
+                raise RuntimeError("g++ not found: cannot build the native FASTX reader")
+            proc = _compile(["g++", "-O3", "-shared", "-fPIC", READER_SRC, "-lz"], READER_LIB)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed on {READER_SRC}:\n{proc.stderr}")
+    return READER_LIB

@@ -1,8 +1,8 @@
 """Greedy walk loop: every lane of a walk batch extended to completion.
 
 ``walk_greedy`` launches the hand-written CUDA kernel
-(``csrc/walk_greedy.cu``, one thread per lane, which states its design)
-for walks on a CUDA device, and runs ``walk_greedy_plain`` for walks on
+(``csrc/walk_greedy.cu``, a tile of threads per lane, which states its
+design) for walks on a CUDA device, and runs ``walk_greedy_plain`` for walks on
 the CPU.  The plain version is ``graph/traverse.py::extend_walks_plain``,
 the JAX package's lockstep loop (``traverse._extend_walks_fused``) op for
 op.  ``LAUNCHES`` counts kernel launches.

@@ -1,0 +1,106 @@
+"""Poly-A tail detection.
+
+The port's copy of the tail finder of ``rnabloom_tpu/utils/polya.py``, a
+port of util/PolyATailFinder.java: windowed poly-A seed search scanning
+right-to-left with a running seed-length identity (findPolyASeed
+:200-275) and window-chained tail growth across bounded gaps
+(findPolyATail :317-337).  Operates on 2-bit code arrays (A=0 C=1 G=2
+T=3).  Stage 2 uses it to file poly-A-tailed fragments first when
+``-a`` asks for it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+
+
+@dataclass(frozen=True)
+class PolyAProfile:
+    """PolyATailFinder knobs (:49-55 defaults, :70-89 profiles)."""
+
+    seed_length: int = 12
+    min_identity: float = 0.9
+    max_gap: int = 4
+    window: int = 100
+
+
+ONT = PolyAProfile()
+
+
+def _is_a(codes: np.ndarray, i: int) -> bool:
+    return codes[i] == 0
+
+
+def _percent_a(codes: np.ndarray, start: int, end: int) -> float:
+    if end <= start:
+        return 0.0
+    return float(np.count_nonzero(codes[start:end] == 0)) / (end - start)
+
+
+def _find_polya_seed(
+    codes: np.ndarray, search_start: int, search_end: int, p: PolyAProfile
+) -> Optional[Tuple[int, int]]:
+    """findPolyASeed (PolyATailFinder.java:200-275), statement for
+    statement: slide a seed_length window right-to-left tracking its A
+    count; the best region opens at the first window with identity >=
+    min_identity and its start advances while identity holds; then the
+    end trims trailing non-A bases and a region flush with search_start
+    extends left through consecutive As."""
+    L = p.seed_length
+    if not (0 <= search_start < search_end and search_end - search_start >= L):
+        return None
+    num_a = int(np.count_nonzero(codes[search_end - L : search_end] == 0))
+    best: Optional[list] = None
+    if num_a / L >= p.min_identity:
+        best = [search_end - L, search_end]
+    for i in range(search_end - L - 1, search_start - 1, -1):
+        if num_a > 0 and _is_a(codes, i + L):
+            num_a -= 1
+        if _is_a(codes, i):
+            num_a += 1
+            ident = num_a / L
+            if best is None:
+                if ident >= p.min_identity:
+                    best = [i, i + L]
+            else:
+                if ident >= p.min_identity:
+                    best[0] = i
+                else:
+                    break
+        elif best is not None and num_a / L < p.min_identity:
+            break
+    if best is not None:
+        while best[1] - best[0] > L and not _is_a(codes, best[1] - 1):
+            best[1] -= 1
+        if best[0] == search_start:
+            while best[0] > 0 and _is_a(codes, best[0] - 1):
+                best[0] -= 1
+        return best[0], best[1]
+    return None
+
+
+def find_polya_tail(
+    codes: np.ndarray, profile: PolyAProfile = ONT
+) -> Optional[Tuple[int, int]]:
+    """findPolyATail (:317-337): seed in the last ``window`` bases, then
+    chain earlier windows while they adjoin within max_gap or the
+    intervening gap itself is >= min_identity A."""
+    n = len(codes)
+    search_end = n
+    search_start = max(0, search_end - profile.window)
+    best = _find_polya_seed(codes, search_start, search_end, profile)
+    while best is not None and search_start > 0:
+        search_end = best[0]
+        search_start = max(0, search_end - profile.window)
+        prev = _find_polya_seed(codes, search_start, search_end, profile)
+        if prev is not None and (
+            prev[1] + profile.max_gap >= best[0]
+            or _percent_a(codes, prev[1], best[0]) >= profile.min_identity
+        ):
+            best = (prev[0], best[1])
+        else:
+            break
+    return best

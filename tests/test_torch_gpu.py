@@ -150,41 +150,41 @@ def test_build_step_card_equals_cpu(cuda):
 # ---- greedy walk kernel (csrc/walk_greedy.cu) vs its plain version ----
 
 WALK_GRAPHS = [("mf8", False), ("u16", False), ("int32", True), ("int32", False)]
+WALK_FIELDS = ("buf", "pos", "status", "hops", "path_min", "fh", "rh", "hist")
+_walk_graphs = {}
 
 
-def _walk_graph(dtype, blocked, stranded, dev):
+def _walk_graph(dtype, blocked, stranded, dev, num_hash=2):
     """A graph of 24 random transcripts read at uneven depth, with planted
-    substitutions (branches and tips), built on ``dev``."""
+    substitutions (branches and tips), built on ``dev``; cached."""
+    key = (dtype, blocked, stranded, num_hash, str(dev))
+    if key not in _walk_graphs:
+        rng = np.random.default_rng(7)
+        cfg = dbg.GraphConfig(
+            k=25, stranded=stranded, dbgbf=BloomConfig(18, 2),
+            cbf=CountingConfig(18, num_hash, blocked=blocked, dtype=dtype), pkbf=BloomConfig(18, 2),
+        )
+        tx = rng.integers(0, 4, size=(24, 600), dtype=np.uint8)
+        tx[1, :200] = tx[0, :200]  # two transcripts sharing a prefix: a branch
+        reads = []
+        for t, depth in zip(tx, rng.integers(1, 9, size=24)):
+            for _ in range(depth):
+                for s in range(0, 500, 20):
+                    r = t[s : s + 100].copy()
+                    if rng.random() < 0.3:
+                        r[rng.integers(100)] = rng.integers(4)
+                    reads.append(r)
+        state = dbg.make_graph(cfg, device=dev)
+        state = dbg.build_step(state, cfg, torch.from_numpy(np.stack(reads)).to(dev))
+        seeds = np.concatenate([tx[:, :25], tx[:, 300:325], tx[:, -25:][:, ::-1].copy() ^ 3])
+        _walk_graphs[key] = (cfg, state, seeds)
+    return _walk_graphs[key]
+
+
+def _walks(cuda, dtype="mf8", blocked=False, stranded=False, left=False, lookahead=3, num_hash=2):
     from rnabloom_tpu_torch.graph import traverse
 
-    rng = np.random.default_rng(7)
-    cfg = dbg.GraphConfig(
-        k=25, stranded=stranded, dbgbf=BloomConfig(18, 2),
-        cbf=CountingConfig(18, 2, blocked=blocked, dtype=dtype), pkbf=BloomConfig(18, 2),
-    )
-    tx = rng.integers(0, 4, size=(24, 600), dtype=np.uint8)
-    tx[1, :200] = tx[0, :200]  # two transcripts sharing a prefix: a branch
-    reads = []
-    for t, depth in zip(tx, rng.integers(1, 9, size=24)):
-        for _ in range(depth):
-            for s in range(0, 500, 20):
-                r = t[s : s + 100].copy()
-                if rng.random() < 0.3:
-                    r[rng.integers(100)] = rng.integers(4)
-                reads.append(r)
-    state = dbg.make_graph(cfg, device=dev)
-    state = dbg.build_step(state, cfg, torch.from_numpy(np.stack(reads)).to(dev))
-    seeds = np.concatenate([tx[:, :25], tx[:, 300:325], tx[:, -25:][:, ::-1].copy() ^ 3])
-    return cfg, state, seeds, traverse
-
-
-@pytest.mark.parametrize("dtype,blocked", WALK_GRAPHS)
-@pytest.mark.parametrize("stranded,left", [(False, False), (True, False), (True, True)])
-@pytest.mark.parametrize("lookahead", [3, 4])
-def test_walk_kernel_matches_plain(cuda, dtype, blocked, stranded, left, lookahead):
-    from rnabloom_tpu_torch.ops import walk
-
-    cfg, graph, seeds, traverse = _walk_graph(dtype, blocked, stranded, cuda)
+    cfg, graph, seeds = _walk_graph(dtype, blocked, stranded, cuda, num_hash)
     wcfg = traverse.WalkConfig(max_len=25 + 700, lookahead=lookahead, left=left)
     st = traverse.make_walks(cfg, wcfg, seeds, device=cuda)
     rng = np.random.default_rng(3)
@@ -192,29 +192,72 @@ def test_walk_kernel_matches_plain(cuda, dtype, blocked, stranded, left, lookahe
         st, rng.choice([1.0, 2.0, 3.5], size=st.pos.shape[0]).astype(np.float32),
         rng.integers(100, 700, size=st.pos.shape[0]).astype(np.int32),
     )
+    return cfg, graph, wcfg, st, min_cov, bound
+
+
+def _kernel_and_plain(graph, cfg, wcfg, st, min_cov, bound, **kw):
+    from rnabloom_tpu_torch.ops import walk
+
     n0 = walk.LAUNCHES["walk_greedy"]
-    kern = walk.walk_greedy(st, graph, cfg, wcfg, min_cov, bound)
-    plain = walk.walk_greedy_plain(st, graph, cfg, wcfg, min_cov, bound)
+    kern = walk.walk_greedy(st, graph, cfg, wcfg, min_cov, bound, **kw)
+    plain = walk.walk_greedy_plain(st, graph, cfg, wcfg, min_cov, bound, **kw)
     torch.cuda.synchronize()
     assert walk.LAUNCHES["walk_greedy"] == n0 + 1
-    for name in ("buf", "pos", "status", "hops", "path_min", "fh", "rh", "hist"):
+    for name in WALK_FIELDS:
         assert torch.equal(getattr(kern, name), getattr(plain, name)), name
+    return kern
+
+
+@pytest.mark.parametrize("dtype,blocked", WALK_GRAPHS)
+@pytest.mark.parametrize("stranded,left", [(False, False), (True, False), (True, True)])
+@pytest.mark.parametrize(
+    "lookahead,num_hash", [(1, 2), (2, 2), (3, 2), (4, 2), (5, 2), (3, 1), (5, 1), (2, 3), (3, 3), (3, 4)]
+)
+def test_walk_kernel_matches_plain(cuda, dtype, blocked, stranded, left, lookahead, num_hash):
+    """Every layout, strand mode and walk side, lookahead 1-5 (past 3: the
+    descents), num_hash 1-3 (the specialised kernels) and 4 (the generic
+    one)."""
+    from rnabloom_tpu_torch.graph import traverse
+
+    cfg, graph, wcfg, st, min_cov, bound = _walks(cuda, dtype, blocked, stranded, left, lookahead, num_hash)
+    kern = _kernel_and_plain(graph, cfg, wcfg, st, min_cov, bound)
     assert int((kern.status == traverse.BRANCH).sum()) == 0
 
 
-def test_walk_kernel_superstep_cap(cuda):
-    from rnabloom_tpu_torch.ops import walk
+@pytest.mark.parametrize("lookahead", [3, 5])
+def test_walk_kernel_superstep_cap(cuda, lookahead):
+    from rnabloom_tpu_torch.graph import traverse
 
-    cfg, graph, seeds, traverse = _walk_graph("mf8", False, False, cuda)
-    wcfg = traverse.WalkConfig(max_len=25 + 700)
+    cfg, graph, wcfg, st, _, _ = _walks(cuda, lookahead=lookahead)
+    min_cov, bound = traverse.lane_args(st, 1.0, 700)
+    kern = _kernel_and_plain(graph, cfg, wcfg, st, min_cov, bound, superstep_hops=5, max_supersteps=7)
+    assert int((kern.status == traverse.ACTIVE).sum()) > 0  # the cap cut live lanes
+
+
+@pytest.mark.parametrize("W", [1, 45])
+@pytest.mark.parametrize("lookahead", [3, 5])
+def test_walk_kernel_odd_lane_counts(cuda, W, lookahead):
+    """A single lane alone, and a lane count that is no multiple of the
+    lanes of a block (the last block's spare tiles leave at once)."""
+    from rnabloom_tpu_torch.graph import traverse
+
+    cfg, graph, wcfg, st, min_cov, bound = _walks(cuda, lookahead=lookahead)
+    st = traverse.WalkState(*(t[:W].contiguous() for t in st))
+    min_cov, bound = min_cov[:W].contiguous(), bound[:W].contiguous()
+    kern = _kernel_and_plain(graph, cfg, wcfg, st, min_cov, bound)
+    assert kern.pos.shape[0] == W and int(kern.hops.sum()) > 0
+
+
+def test_walk_kernel_long_cycle_ring(cuda):
+    """A 2048-slot cycle ring: the rings of a block's lanes pass 48 KB of
+    shared memory, so the launch takes fewer lanes a block."""
+    from rnabloom_tpu_torch.graph import traverse
+
+    cfg, graph, seeds = _walk_graph("mf8", False, False, cuda)
+    wcfg = traverse.WalkConfig(max_len=25 + 700, cycle_window=2048)
     st = traverse.make_walks(cfg, wcfg, seeds, device=cuda)
     min_cov, bound = traverse.lane_args(st, 1.0, 700)
-    kern = walk.walk_greedy(st, graph, cfg, wcfg, min_cov, bound, superstep_hops=5, max_supersteps=7)
-    plain = walk.walk_greedy_plain(st, graph, cfg, wcfg, min_cov, bound, superstep_hops=5, max_supersteps=7)
-    torch.cuda.synchronize()
-    for name in ("buf", "pos", "status", "hops", "path_min", "fh", "rh", "hist"):
-        assert torch.equal(getattr(kern, name), getattr(plain, name)), name
-    assert int((kern.status == traverse.ACTIVE).sum()) > 0  # the cap cut live lanes
+    _kernel_and_plain(graph, cfg, wcfg, st, min_cov, bound)
 
 
 def test_stage2_card_equals_cpu(cuda, tmp_path):

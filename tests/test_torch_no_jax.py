@@ -1,4 +1,5 @@
-"""The port runs without JAX, and refuses what it does not do."""
+"""The port runs without JAX and without the JAX package, on the card
+unless asked for the CPU, and refuses what it does not do."""
 
 import os
 import re
@@ -9,7 +10,7 @@ import pytest
 import torch
 
 from rnabloom_tpu_torch import cli
-from rnabloom_tpu_torch.assembly import pipeline
+from rnabloom_tpu_torch.assembly import pipeline, stage1
 from rnabloom_tpu_torch.utils import pesim
 
 torch.set_num_threads(2)
@@ -20,6 +21,7 @@ PKG = os.path.join(ROOT, "rnabloom_tpu_torch")
 _SCRIPT = r"""
 import sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
+sys.modules["rnabloom_tpu"] = None  # and so does any import of the JAX package
 import torch
 torch.set_num_threads(2)
 from rnabloom_tpu_torch import cli
@@ -29,7 +31,8 @@ left, right = out + "/r_1.fq", out + "/r_2.fq"
 pesim.write_pe_fastq(left, right, seed=5, num_transcripts=5, tx_len=(500, 800), num_pairs=300)
 assert cli.main(["-left", left, "-right", right, "-o", out + "/asm", "-stage", "2", "-savebf",
                  "-mem", "0.00390625", "--device", "cpu"]) == 0
-loaded = sorted(m for m, v in sys.modules.items() if v is not None and m.split(".")[0] == "jax")
+loaded = sorted(m for m, v in sys.modules.items()
+                if v is not None and m.split(".")[0] in ("jax", "rnabloom_tpu"))
 assert not loaded, loaded
 print("NO_JAX_OK")
 """
@@ -49,21 +52,28 @@ def test_cpu_slice_runs_with_jax_blocked(tmp_path):
     assert os.path.exists(tmp_path / "asm" / "fragments" / "fragments.meta.json")
 
 
+_IMPORT_OF_JAX = re.compile(r"^\s*(from|import)\s+(jax|rnabloom_tpu)(?!_torch)\b", re.M)
+
+
+@pytest.mark.parametrize("line,bad", [
+    ("import jax", True), ("import jax.numpy as jnp", True), ("from jax import lax", True),
+    ("from rnabloom_tpu.io import fastx", True), ("  from rnabloom_tpu import cli", True),
+    ("import rnabloom_tpu.utils.seq", True), ("from rnabloom_tpu_torch.io import fastx", False),
+    ("import rnabloom_tpu_torch", False), ("from ..io import fastx", False), ("import jaxlib_free", False),
+])
+def test_import_pattern(line, bad):
+    assert bool(_IMPORT_OF_JAX.search(line)) == bad
+
+
 def test_no_jax_import_in_package_source():
-    # the host-only modules the port reuses (ROADMAP) are the exceptions:
-    # rnabloom_tpu.assembly.fragstore and .artifacts import numpy only
-    bad = re.compile(
-        r"^\s*(import jax|from jax|from rnabloom_tpu\.(ops|bloom|graph|parallel|olc|oracle)\b"
-        r"|from rnabloom_tpu\.assembly(?!(\.| import )(fragstore|artifacts)\b))",
-        re.M,
-    )
-    assert bad.search("from rnabloom_tpu.assembly import fragments")
-    assert not bad.search("from rnabloom_tpu.assembly import fragstore")
+    """No import of jax or of the JAX package anywhere in the port or in
+    chip_smoke.py: the port keeps its own copies of the host modules."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(dirpath, f)) as fh:
-                    assert not bad.search(fh.read()), os.path.join(dirpath, f)
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    for path in paths:
+        with open(path) as fh:
+            assert not _IMPORT_OF_JAX.search(fh.read()), path
 
 
 def test_cuda_device_without_a_card_raises(tmp_path):
@@ -78,7 +88,25 @@ def test_later_stages_are_refused_before_any_work(tmp_path):
     pesim.write_pe_fastq(left, right, seed=6, num_transcripts=2, tx_len=(500, 600), num_pairs=10)
     out = tmp_path / "asm"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.assemble_pe(left, right, str(out), pipeline.PipelineParams(stop_stage=3))
+        pipeline.assemble_pe(left, right, str(out), pipeline.PipelineParams(stop_stage=3), device="cpu")
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("entry", ["assemble_pe", "build_graph_autosized"])
+def test_entry_points_default_to_the_card(tmp_path, entry):
+    """Without ``device="cpu"`` the entry points run on the card, and raise
+    where there is none, before any work is done."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    left, right = str(tmp_path / "r_1.fq"), str(tmp_path / "r_2.fq")
+    pesim.write_pe_fastq(left, right, seed=6, num_transcripts=2, tx_len=(500, 600), num_pairs=10)
+    out = tmp_path / "asm"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "assemble_pe":
+            pipeline.assemble_pe(left, right, str(out), pipeline.PipelineParams(stop_stage=2))
+        else:
+            cfg = stage1.default_graph_config(25, False, 1 << 20)
+            stage1.build_graph_autosized([left, right], cfg, stage1.Stage1Params())
     assert not out.exists()
 
 

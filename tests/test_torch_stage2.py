@@ -25,6 +25,7 @@ import torch
 from rnabloom_tpu.assembly import pipeline as jpipe
 from rnabloom_tpu.io import native
 from rnabloom_tpu_torch import cli
+from rnabloom_tpu_torch.io import native as tnative
 from rnabloom_tpu_torch.utils import pesim
 
 torch.set_num_threads(2)
@@ -69,6 +70,7 @@ def test_stage2_outputs_byte_identical(reads, tmp_path, monkeypatch, counter, ba
     left, right = reads
     if not native_reader:
         monkeypatch.setattr(native, "available", lambda: False)
+        monkeypatch.setattr(tnative, "available", lambda: False)
     jout, tout = str(tmp_path / "jax"), str(tmp_path / "torch")
     jrep = jpipe.assemble_pe(
         left, right, jout,

@@ -1,14 +1,20 @@
 """The port's greedy walk (rnabloom_tpu_torch/graph/traverse.py) vs the JAX
-package's ``traverse.extend_walks``, and a per-lane emulation of the CUDA
-kernel's loop vs the same JAX walks.
+package's ``traverse.extend_walks``, and an emulation of the CUDA kernel's
+schedule (a tile of G threads per lane, each lookahead level read as one
+batch, tile reductions through shuffles, first-maximum tie keys) vs the
+same JAX walks.
 
 Graphs: the ``tests/test_traverse.py`` shapes (a linear transcript, a
 high/low-coverage branch, a repeat unit) and a graph of simulated reads
 with planted substitutions (tips and bubbles), built by both packages from
-the same codes (the tables are asserted equal).  Every WalkState field
+the same codes (the tables are asserted equal), with 2 hashes and, for
+one case, 3.  Every WalkState field
 must be equal, bit for bit: the JAX package's (lo, hi) uint32 hash limbs
 are turned into int64 by ``traverse.walk_state_from_limbs``.
 """
+
+import functools
+import operator
 
 import numpy as np
 import jax
@@ -29,12 +35,14 @@ K = 25
 FIELDS = ("buf", "pos", "status", "hops", "path_min", "fh", "rh", "hist")
 
 
-def _cfgs(dtype="mf8", blocked=False, stranded=False):
+def _cfgs(dtype="mf8", blocked=False, stranded=False, hashes=2):
     kw = dict(k=K, stranded=stranded, read_pair_distance=40)
     return (
-        jdbg.GraphConfig(dbgbf=jf.BloomConfig(18, 2), cbf=jf.CountingConfig(18, 2, blocked=blocked, dtype=dtype),
+        jdbg.GraphConfig(dbgbf=jf.BloomConfig(18, 2),
+                         cbf=jf.CountingConfig(18, hashes, blocked=blocked, dtype=dtype),
                          pkbf=jf.BloomConfig(18, 2), **kw),
-        tdbg.GraphConfig(dbgbf=tf.BloomConfig(18, 2), cbf=tf.CountingConfig(18, 2, blocked=blocked, dtype=dtype),
+        tdbg.GraphConfig(dbgbf=tf.BloomConfig(18, 2),
+                         cbf=tf.CountingConfig(18, hashes, blocked=blocked, dtype=dtype),
                          pkbf=tf.BloomConfig(18, 2), **kw),
     )
 
@@ -87,14 +95,14 @@ _DATA = {"sim": _sim_data, "traverse": _traverse_data}
 
 @pytest.fixture(scope="module")
 def graphs():
-    """(data, dtype, blocked, stranded) -> (cfg_j, graph_j, cfg_t, graph_t, seeds)."""
+    """(data, dtype, blocked, stranded, hashes) -> (cfg_j, graph_j, cfg_t, graph_t, seeds)."""
     cache = {}
 
-    def get(data, dtype="mf8", blocked=False, stranded=False):
-        key = (data, dtype, blocked, stranded)
+    def get(data, dtype="mf8", blocked=False, stranded=False, hashes=2):
+        key = (data, dtype, blocked, stranded, hashes)
         if key not in cache:
             reads, seeds = _DATA[data]()
-            cj, ct = _cfgs(dtype, blocked, stranded)
+            cj, ct = _cfgs(dtype, blocked, stranded, hashes)
             gj = jdbg.build_step(jdbg.make_graph(cj), cj, jnp.asarray(reads))
             gt = tdbg.build_step(tdbg.make_graph(ct), ct, torch.from_numpy(reads))
             want = np.asarray(gj.cbf)
@@ -106,20 +114,22 @@ def graphs():
 
 
 # case -> (data, dtype, blocked, stranded, left, lookahead, max_len, per-lane
-#          args, superstep_hops, max_supersteps, cycle_window)
+#          args, superstep_hops, max_supersteps, cycle_window, num_hash)
 CASES = {
-    "canonical_la3_lane_args": ("sim", "mf8", False, False, False, 3, K + 700, True, 64, 64, 64),
-    "canonical_la1": ("sim", "mf8", False, False, False, 1, K + 700, False, 64, 64, 64),
-    "canonical_la2": ("sim", "mf8", False, False, False, 2, K + 700, False, 64, 64, 64),
-    "canonical_la4": ("sim", "mf8", False, False, False, 4, K + 700, True, 64, 64, 64),
-    "canonical_left": ("sim", "mf8", False, False, True, 3, K + 700, False, 64, 64, 64),
-    "u16": ("sim", "u16", False, False, False, 3, K + 700, True, 64, 64, 64),
-    "int32_blocked": ("sim", "int32", True, False, False, 3, K + 700, True, 64, 64, 64),
-    "stranded_right": ("sim", "mf8", False, True, False, 3, K + 700, False, 64, 64, 64),
-    "stranded_left": ("sim", "mf8", False, True, True, 3, K + 700, True, 64, 64, 64),
-    "superstep_cap": ("sim", "mf8", False, False, False, 3, K + 700, False, 4, 5, 64),
-    "traverse_graphs": ("traverse", "mf8", False, False, False, 3, 512, False, 64, 64, 128),
-    "traverse_graphs_short_buffer": ("traverse", "mf8", False, False, False, 3, 150, False, 64, 64, 64),
+    "canonical_la3_lane_args": ("sim", "mf8", False, False, False, 3, K + 700, True, 64, 64, 64, 2),
+    "canonical_la1": ("sim", "mf8", False, False, False, 1, K + 700, False, 64, 64, 64, 2),
+    "canonical_la2": ("sim", "mf8", False, False, False, 2, K + 700, False, 64, 64, 64, 2),
+    "canonical_la4": ("sim", "mf8", False, False, False, 4, K + 700, True, 64, 64, 64, 2),
+    "canonical_la5": ("sim", "mf8", False, False, False, 5, K + 700, True, 64, 64, 64, 2),
+    "canonical_left": ("sim", "mf8", False, False, True, 3, K + 700, False, 64, 64, 64, 2),
+    "u16": ("sim", "u16", False, False, False, 3, K + 700, True, 64, 64, 64, 2),
+    "int32_blocked": ("sim", "int32", True, False, False, 3, K + 700, True, 64, 64, 64, 2),
+    "hash3": ("sim", "int32", True, False, True, 2, K + 700, True, 64, 64, 64, 3),
+    "stranded_right": ("sim", "mf8", False, True, False, 3, K + 700, False, 64, 64, 64, 2),
+    "stranded_left": ("sim", "mf8", False, True, True, 3, K + 700, True, 64, 64, 64, 2),
+    "superstep_cap": ("sim", "mf8", False, False, False, 3, K + 700, False, 4, 5, 64, 2),
+    "traverse_graphs": ("traverse", "mf8", False, False, False, 3, 512, False, 64, 64, 128, 2),
+    "traverse_graphs_short_buffer": ("traverse", "mf8", False, False, False, 3, 150, False, 64, 64, 64, 2),
 }
 
 
@@ -131,8 +141,8 @@ def jax_walks(graphs):
 
     def get(case):
         if case not in cache:
-            data, dtype, blocked, stranded, left, la, max_len, lane_args, hops, steps, cw = CASES[case]
-            cj, gj, ct, gt, seeds = graphs(data, dtype, blocked, stranded)
+            data, dtype, blocked, stranded, left, la, max_len, lane_args, hops, steps, cw, nh = CASES[case]
+            cj, gj, ct, gt, seeds = graphs(data, dtype, blocked, stranded, nh)
             wcfg = jtr.WalkConfig(max_len=max_len, lookahead=la, left=left, cycle_window=cw)
             s0 = jtr.make_walks(cj, wcfg, seeds)
             W = s0.pos.shape[0]
@@ -150,7 +160,7 @@ def jax_walks(graphs):
 
 
 def _port_cfg(case):
-    data, dtype, blocked, stranded, left, la, max_len, _, hops, steps, cw = CASES[case]
+    data, dtype, blocked, stranded, left, la, max_len, _, hops, steps, cw, _ = CASES[case]
     return ttr.WalkConfig(max_len=max_len, lookahead=la, left=left, cycle_window=cw), hops, steps
 
 
@@ -162,7 +172,7 @@ def _assert_states_equal(got, want, what):
 @pytest.mark.parametrize("case", list(CASES))
 def test_plain_walk_equals_jax(graphs, jax_walks, case):
     data, dtype, blocked, stranded = CASES[case][:4]
-    _, _, ct, gt, seeds = graphs(data, dtype, blocked, stranded)
+    _, _, ct, gt, seeds = graphs(data, dtype, blocked, stranded, CASES[case][11])
     j0, jout, min_cov, bound = jax_walks(case)
     wcfg, hops, steps = _port_cfg(case)
     s0 = ttr.make_walks(ct, wcfg, seeds)
@@ -179,10 +189,11 @@ def test_plain_walk_equals_jax(graphs, jax_walks, case):
         assert ttr.FULL in status
 
 
-# ---- per-lane emulation of csrc/walk_greedy.cu ----
+# ---- emulation of csrc/walk_greedy.cu: a tile of G threads per lane ----
 
 M64 = (1 << 64) - 1
 SEEDS = nthash_ref.SEEDS[:4]
+INF = np.float32(np.inf)
 
 
 def _rotl(x, s):
@@ -194,17 +205,36 @@ def _signed(x):
     return x - (1 << 64) if x >> 63 else x
 
 
-class KernelEmulation:
-    """One thread of the walk kernel in Python integers: the lane-local
-    loop (up to superstep_hops hops while ACTIVE, then one greedy resolve
-    if BRANCH, for at most max_supersteps supersteps)."""
+def _argmax4(v):
+    """First index of the maximum (strict >), as the kernel's argmax4 and
+    jnp.argmax."""
+    best = 0
+    for c in range(1, 4):
+        if v[c] > v[best]:
+            best = c
+    return best
 
-    def __init__(self, cfg, cbf: np.ndarray, wcfg, hops, steps):
+
+class TileEmulation:
+    """The walk kernel's schedule in Python integers, for one tile of G
+    threads per lane.  Each thread's registers are a list indexed by rank;
+    every level of a resolve is read as one batch (thread r owns k-mers
+    j = r + G*m and reads all their cells before any count is used); values
+    cross threads only through ``shfl`` and the butterfly ``tile_max``;
+    the cycle ring is split by slot ownership (slot j belongs to rank
+    j % G); a hop's counts serve the resolve at the same k-mer, and a
+    resolve's level-1 counts under its choice serve the next hop.
+    ``reads`` and ``rounds`` count cell reads and dependent read rounds,
+    per lane."""
+
+    def __init__(self, cfg, cbf: np.ndarray, wcfg, hops, steps, G=8):
         self.k, self.stranded, self.left = cfg.k, cfg.stranded, wcfg.left
         self.c = cfg.cbf
         self.max_len, self.cw, self.la = wcfg.max_len, wcfg.cycle_window, wcfg.lookahead
-        self.hops_per_step, self.steps = hops, steps
+        self.hops_per_step, self.steps, self.G = hops, steps, G
+        self.M1, self.M2 = -(-16 // G), 64 // G
         self.kms = (cfg.k * nthash.MULTI_SEED) & M64
+        self.rs = [_rotl(SEEDS[3 - n], self.k - 1) for n in range(4)]
         if self.c.dtype == "mf8":
             dec = minifloat.decode(torch.arange(256, dtype=torch.uint8)).numpy()
             self.cells = dec[cbf]
@@ -213,69 +243,148 @@ class KernelEmulation:
         else:
             self.cells = cbf.astype(np.int64)
 
+    # -- one thread's arithmetic --
+
     def multi(self, q, i):
         if i == 0:
             return q
         t = (q * (i ^ self.kms)) & M64
         return t ^ (t >> 27)
 
-    def count(self, q):
+    def cell(self, q, i):
         c = self.c
         if c.blocked:
-            rmask = (1 << min(c.size_log2 - 7, 32)) - 1
-            row = ((q >> 1) & rmask) * 128
+            row = ((q >> 1) & ((1 << min(c.size_log2 - 7, 32)) - 1)) * 128
             lane0 = (q >> 40) & 127
-            m = self.cells[row + lane0]
-            for i in range(1, c.num_hash):
-                step = (self.multi(q, i) & 0xFFFFFFFF) % 127 + 1
-                m = min(m, self.cells[row + ((lane0 + step * i) & 127)])
-            return np.float32(m)
-        mask = (1 << c.size_log2) - 1
-        return min(np.float32(self.cells[(self.multi(q, i) >> 1) & mask]) for i in range(c.num_hash))
+            lane = lane0 if i == 0 else (lane0 + ((self.multi(q, i) & 0xFFFFFFFF) % 127 + 1) * i) & 127
+            return np.float32(self.cells[row + lane])
+        return np.float32(self.cells[(self.multi(q, i) >> 1) & ((1 << c.size_log2) - 1)])
 
-    def candidates(self, fh, rh, out):
-        t = _rotl(fh, 1) ^ _rotl(SEEDS[out] if out < 4 else 0, self.k)
-        tr = _rotl(rh, 63) ^ _rotl(SEEDS[3 - out] if out < 4 else 0, 63)
-        f4 = [t ^ SEEDS[c] for c in range(4)]
-        r4 = [tr ^ _rotl(SEEDS[3 - c], self.k - 1) for c in range(4)]
+    def count_many(self, qs, on):
+        """count_many: every cell of every key issued, then the mins; keys
+        that are off are not read and count +inf."""
+        cells = [[self.cell(q, i) for i in range(self.c.num_hash)] if o else [] for q, o in zip(qs, on)]
+        self.reads += sum(len(x) for x in cells)
+        return [min(x) if x else INF for x in cells]
+
+    def slide(self, f, r, out):
+        seed = lambda c: SEEDS[c] if c < 4 else 0  # noqa: E731
+        return _rotl(f, 1) ^ _rotl(seed(out), self.k), _rotl(r, 63) ^ _rotl(seed(3 - out if out < 4 else out), 63)
+
+    def child(self, sl, n):
+        return sl[0] ^ SEEDS[n], sl[1] ^ self.rs[n]
+
+    def query(self, f, r):
         if self.stranded:
-            q4 = r4 if self.left else f4
-        else:
-            q4 = [f if _signed(f) < _signed(r) else r for f, r in zip(f4, r4)]
-        return f4, r4, q4, [self.count(q) for q in q4]
+            return r if self.left else f
+        return f if _signed(f) < _signed(r) else r
+
+    # -- tile collectives --
+
+    def tile_max(self, vals):
+        vals = list(vals)
+        o = self.G // 2
+        while o:
+            vals = [max(vals[r], vals[r ^ o]) for r in range(self.G)]
+            o //= 2
+        assert len(set(vals)) == 1
+        return vals
+
+    # -- the lane --
 
     def run(self, lane):
-        k = self.k
-        buf, hist = lane["buf"], lane["hist"]
+        G, k = self.G, self.k
+        buf, ring = lane["buf"], lane["hist"]
+        self.reads = self.rounds = 0
+        st = {"cached": False}
 
         def at(i):
             return int(buf[min(max(i, 0), self.max_len - 1)])
 
-        def advance(c, f4, r4, q4, cnt):
+        def check_ring():
+            """Bit c: candidate c is in the ring; rank r scans slots r mod G,
+            the bits are ORed across the tile."""
+            owned = [set(ring[r : self.cw : G]) for r in range(G)]
+            hits = [sum(1 << c for c in range(4) if st["q4"][c] in owned[r]) for r in range(G)]
+            st["seen"] = functools.reduce(operator.or_, hits)
+
+        def slide_candidates():
+            sl = self.slide(lane["fh"], lane["rh"], at(lane["pos"] - k))
+            st["f4"], st["r4"] = zip(*(self.child(sl, c) for c in range(4)))
+            st["q4"] = [self.query(f, r) for f, r in zip(st["f4"], st["r4"])]
+
+        def read_candidates():
+            slide_candidates()
+            got = self.count_many(st["q4"], [True] * 4)  # rank c reads candidate c
+            check_ring()  # while the reads are in flight
+            self.rounds += 1
+            st["cnt"] = got  # shfl from ranks 0-3
+            st["cached"] = True
+
+        def advance(c):
             buf[min(lane["pos"], self.max_len - 1)] = c
-            hist[(lane["hops"] + 1) % self.cw] = q4[c]
-            lane["fh"], lane["rh"] = f4[c], r4[c]
-            lane["path_min"] = min(lane["path_min"], cnt[c])
+            slot = (lane["hops"] + 1) % self.cw
+            ring[slot] = st["q4"][c]  # written by rank slot % G, its owner
+            lane["fh"], lane["rh"] = st["f4"][c], st["r4"][c]
+            lane["path_min"] = min(lane["path_min"], st["cnt"][c])
             lane["pos"] += 1
             lane["hops"] += 1
+            st["cached"] = False
 
-        def score(f, r, c0):
-            if self.la == 1:
-                return c0
-            f1, r1, _, c1 = self.candidates(f, r, at(lane["pos"] - k + 1))
+        def scores(viable):
+            f4, r4, cnt = st["f4"], st["r4"], st["cnt"]
+            best = [[-INF] * 4 for _ in range(G)]
+            out1 = at(lane["pos"] - k + 1)
+            c1 = []
+            for r in range(G):  # level 1: k-mer j = 4c + n1, all read in one round
+                js = [r + G * m for m in range(self.M1)]
+                kms = [self.child(self.slide(f4[(j >> 2) & 3], r4[(j >> 2) & 3], out1), j & 3) for j in js]
+                c1.append(self.count_many([self.query(*x) for x in kms],
+                                          [j < 16 and viable[(j >> 2) & 3] for j in js]))
+            self.rounds += 1
             if self.la == 2:
-                return max(min(c0, x) for x in c1)
-            best = -np.inf
-            for n1 in range(4):
-                f2, r2, _, c2 = self.candidates(f1[n1], r1[n1], at(lane["pos"] - k + 2))
-                for n2 in range(4):
-                    pm, fl, rl = min(c0, c1[n1], c2[n2]), f2[n2], r2[n2]
-                    for i in range(self.la - 3):
-                        f3, r3, _, c3 = self.candidates(fl, rl, at(lane["pos"] - k + 3 + i))
-                        b = int(np.argmax(c3))
-                        fl, rl, pm = f3[b], r3[b], min(pm, c3[b])
-                    best = max(best, pm)
-            return best
+                for r in range(G):
+                    for m in range(self.M1):
+                        j = r + G * m
+                        c = (j >> 2) & 3
+                        if j < 16 and viable[c]:
+                            best[r][c] = max(best[r][c], min(cnt[c], c1[r][m]))
+            else:
+                out2 = at(lane["pos"] - k + 2)
+                leaves = []  # per rank: (f, r, pm, on) of its M2 leaves
+                for r in range(G):
+                    mine = []
+                    for m in range(self.M2):
+                        j = r + G * m
+                        c, j1 = j >> 4, j >> 2
+                        f1, r1 = self.child(self.slide(f4[c], r4[c], out1), j1 & 3)
+                        fl, rl = self.child(self.slide(f1, r1, out2), j & 3)
+                        up = c1[j1 % G][j1 // G]  # shfl of slot j1 // G from rank j1 % G
+                        mine.append([fl, rl, min(cnt[c], up), viable[c]])
+                    c2 = self.count_many([self.query(x[0], x[1]) for x in mine], [x[3] for x in mine])
+                    for x, v in zip(mine, c2):
+                        x[2] = min(x[2], v)
+                    leaves.append(mine)
+                self.rounds += 1
+                for i in range(self.la - 3):  # the descents, one level per round
+                    outc = at(lane["pos"] - k + 3 + i)
+                    for mine in leaves:
+                        sls = [self.slide(x[0], x[1], outc) for x in mine]
+                        kids = [[self.child(s, n) for n in range(4)] for s in sls]
+                        c3 = self.count_many([self.query(*kid) for ks in kids for kid in ks],
+                                             [x[3] for x in mine for _ in range(4)])
+                        for m, x in enumerate(mine):
+                            v = c3[4 * m : 4 * m + 4]
+                            b = _argmax4(v)
+                            x[0], x[1] = self.child(sls[m], b)
+                            x[2] = min(x[2], v[b])
+                    self.rounds += 1
+                for r, mine in enumerate(leaves):
+                    for m, x in enumerate(mine):
+                        c = (r + G * m) >> 4
+                        if x[3]:
+                            best[r][c] = max(best[r][c], x[2])
+            return [self.tile_max([best[r][c] for r in range(G)])[0] for c in range(4)], c1
 
         floor = max(lane["min_cov"], np.float32(1.0))
         for _ in range(self.steps):
@@ -284,61 +393,76 @@ class KernelEmulation:
             for _ in range(self.hops_per_step):
                 if lane["status"] != ttr.ACTIVE:
                     break
-                f4, r4, q4, cnt = self.candidates(lane["fh"], lane["rh"], at(lane["pos"] - k))
+                if not st["cached"]:
+                    read_candidates()
+                cnt = st["cnt"]
                 viable = [c for c in range(4) if cnt[c] >= floor]
                 code = viable[0] if viable else 0
-                cyc = q4[code] in hist
-                full = lane["pos"] >= self.max_len - 1 or lane["hops"] >= lane["bound"]
                 if not viable:
                     lane["status"] = ttr.DEAD
                 elif len(viable) > 1:
                     lane["status"] = ttr.BRANCH
-                elif cyc:
+                elif st["seen"] >> code & 1:
                     lane["status"] = ttr.CYCLE
-                elif full:
+                elif lane["pos"] >= self.max_len - 1 or lane["hops"] >= lane["bound"]:
                     lane["status"] = ttr.FULL
                 else:
-                    advance(code, f4, r4, q4, cnt)
+                    advance(code)
             if lane["status"] == ttr.BRANCH:
-                f4, r4, q4, cnt = self.candidates(lane["fh"], lane["rh"], at(lane["pos"] - k))
-                s = [score(f4[c], r4[c], cnt[c]) if cnt[c] >= floor else -1.0 for c in range(4)]
-                key = [cnt[c] if s[c] >= max(s) and cnt[c] >= floor else -1.0 for c in range(4)]
-                best = int(np.argmax(key))
-                if q4[best] in hist:
+                if not st["cached"]:
+                    read_candidates()
+                cnt = st["cnt"]
+                viable = [cnt[c] >= floor for c in range(4)]
+                s, c1 = (list(cnt), None) if self.la == 1 else scores(viable)
+                s = [s[c] if viable[c] else np.float32(-1.0) for c in range(4)]
+                key = [cnt[c] if s[c] >= max(s) and viable[c] else np.float32(-1.0) for c in range(4)]
+                best = _argmax4(key)
+                if st["seen"] >> best & 1:
                     lane["status"] = ttr.CYCLE
                 elif lane["pos"] >= self.max_len - 1:
                     lane["status"] = ttr.FULL
                 else:
                     lane["status"] = ttr.ACTIVE
-                    advance(best, f4, r4, q4, cnt)
+                    # the choice's children, read at level 1, are the next
+                    # hop's candidates: shuffled from their ranks, not read
+                    reuse = self.la > 1 and viable[best] and k > 1
+                    kids = [c1[(4 * best + n) % G][(4 * best + n) // G] for n in range(4)] if reuse else None
+                    advance(best)
+                    if reuse:
+                        slide_candidates()
+                        check_ring()
+                        st["cnt"], st["cached"] = kids, True
         return lane
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernel_emulation_equals_jax(graphs, jax_walks, case):
-    data, dtype, blocked, stranded = CASES[case][:4]
-    _, _, ct, gt, _ = graphs(data, dtype, blocked, stranded)
+    data, dtype, blocked, stranded, hashes = CASES[case][:4] + (CASES[case][11],)
+    _, _, ct, gt, _ = graphs(data, dtype, blocked, stranded, hashes)
     j0, jout, min_cov, bound = jax_walks(case)
     wcfg, hops, steps = _port_cfg(case)
     s0, want = ttr.walk_state_from_limbs(j0), ttr.walk_state_from_limbs(jout)
-    emu = KernelEmulation(ct, gt.cbf.numpy(), wcfg, hops, steps)
-    W = s0.pos.shape[0]
-    mc = np.broadcast_to(np.asarray(min_cov, np.float32), (W,))
-    bd = np.broadcast_to(np.asarray(bound, np.int32), (W,))
-    u64 = lambda t: t.numpy().view(np.uint64)  # noqa: E731
-    for w in range(W):
-        lane = emu.run({
-            "buf": s0.buf[w].numpy().copy(), "hist": [int(x) for x in u64(s0.hist[w])],
-            "pos": int(s0.pos[w]), "hops": int(s0.hops[w]), "status": int(s0.status[w]),
-            "fh": int(u64(s0.fh)[w]), "rh": int(u64(s0.rh)[w]), "path_min": np.float32(s0.path_min[w]),
-            "min_cov": np.float32(mc[w]), "bound": int(bd[w]),
-        })
-        assert np.array_equal(lane["buf"], want.buf[w].numpy()), f"lane {w}: buf"
-        got = (lane["pos"], lane["hops"], lane["status"], lane["fh"], lane["rh"], lane["hist"])
-        ref = (int(want.pos[w]), int(want.hops[w]), int(want.status[w]), int(u64(want.fh)[w]),
-               int(u64(want.rh)[w]), [int(x) for x in u64(want.hist[w])])
-        assert got == ref, f"lane {w}"
-        assert np.float32(lane["path_min"]).tobytes() == want.path_min[w].numpy().tobytes(), f"lane {w}: path_min"
+    # the shipped tile (8) on every case; 16 and 32 too on one case
+    for G in {"hash3": (8, 16, 32)}.get(case, (8,)):
+        emu = TileEmulation(ct, gt.cbf.numpy(), wcfg, hops, steps, G)
+        W = s0.pos.shape[0]
+        mc = np.broadcast_to(np.asarray(min_cov, np.float32), (W,))
+        bd = np.broadcast_to(np.asarray(bound, np.int32), (W,))
+        u64 = lambda t: t.numpy().view(np.uint64)  # noqa: E731
+        for w in range(W):
+            lane = emu.run({
+                "buf": s0.buf[w].numpy().copy(), "hist": [int(x) for x in u64(s0.hist[w])],
+                "pos": int(s0.pos[w]), "hops": int(s0.hops[w]), "status": int(s0.status[w]),
+                "fh": int(u64(s0.fh)[w]), "rh": int(u64(s0.rh)[w]), "path_min": np.float32(s0.path_min[w]),
+                "min_cov": np.float32(mc[w]), "bound": int(bd[w]),
+            })
+            assert np.array_equal(lane["buf"], want.buf[w].numpy()), f"G={G} lane {w}: buf"
+            got = (lane["pos"], lane["hops"], lane["status"], lane["fh"], lane["rh"], lane["hist"])
+            ref = (int(want.pos[w]), int(want.hops[w]), int(want.status[w]), int(u64(want.fh)[w]),
+                   int(u64(want.rh)[w]), [int(x) for x in u64(want.hist[w])])
+            assert got == ref, f"G={G} lane {w}"
+            assert np.float32(lane["path_min"]).tobytes() == want.path_min[w].numpy().tobytes(), \
+                f"G={G} lane {w}: path_min"
 
 
 @pytest.mark.parametrize("what", ["naive", "pair", "back_branches", "terminators", "pair_ring", "reseed"])
