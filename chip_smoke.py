@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (rnabloom_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--walk-variant NAME=PATH ...]
+    python3 chip_smoke.py [--walk-variant NAME=PATH ...] [--insert-variant NAME=PATH ...]
 
 Run from the root of a checkout on a machine with a CUDA card.  It imports
 no JAX.  ``--walk-variant`` adds another walk kernel source with the same C
 entry point (a copy of ``csrc/walk_greedy.cu`` with another tile width, or
 an older commit's kernel from ``git show``) to phase 4, built beside the
 port's kernels, held to the same equality and timed in the same turns.
+``--insert-variant`` does the same for another ``csrc/cell_insert.cu`` in
+phase 2 (an older source whose mf8 entry point is ``cell_add_mf8``, with
+its int32 scratch as long as the table, gets that scratch).
 Phases (any failure raises and exits nonzero):
 
 1. Environment: card name and power limit (nvidia-smi), torch/CUDA
    versions, the kernels' builds from csrc/ (one nvcc per source, started
    together) and their build times, and what ``nvcc -Xptxas -v`` reports
    for each instantiation of the walk kernel (registers, stack, spills)
-   when this run built it.  Then 1,000,000 simulated 150 bp pairs are
-   written (seed 0).
+   and for each insert kernel (registers, spills) when this run built
+   them.  Then 1,000,000 simulated 150 bp pairs are written (seed 0).
 2. Insert kernel vs its plain PyTorch version on the card, per op, at the
    stage-1 shapes of ``-mem 1`` (2^29-cell mf8 cbf, 2^28-cell u16 cbf,
    2^27-cell blocked int32 cbf, 2^27-lane rpkbf), on two kinds of batch:
@@ -26,17 +29,22 @@ Phases (any failure raises and exits nonzero):
    from CUDA events, both batches in the same kernel/plain turns; in the
    same turns the one-call PyTorch yardsticks of ``set``
    (``index_fill_``) and ``add`` (``index_add_``) on the batches' in-range
-   indices, which must give the kernel's table.  Each op's bound: the
-   index bytes plus one 32 B sector per distinct cell, read and written
-   (written only, for ``set``), over 3.35 TB/s.
+   indices, which must give the kernel's table.  ``set`` is also timed
+   on 10 fresh random 2^20-index batches applied in turn to a zeroed
+   table (zeroed outside the timed events), and every timed ``set`` batch
+   prints the share of its in-range indices whose lane was already 1.
+   Each op's bound: the index bytes plus one 32 B sector per distinct
+   cell, read and written (written only, for ``set``), over 3.35 TB/s.
 3. The main path: ``cli -stage 2 -savebf --device cuda`` with ``-cnt mf8``
    (the default) and ``-stage 1 -savebf -cnt u16``, both on the 1,000,000
    pairs at the default ``-mem 1``.  The launch
    counters must show the insert kernels and (stage 2) the walk kernel
    ran; every valid k-mer of 10,000 sampled input reads must count >= 1 on
    each saved graph (a count-min filter never undercounts).  Each run
-   prints its rates and peak device memory; the u16 run must allocate no
-   insert scratch.
+   prints its rates, its peak device memory and its insert buffer
+   (add_mf8's batch table: at most 64 MiB for mf8, none for u16), and the
+   share of its ``set`` indices that found their lane already set (1 - set
+   lanes in the saved rpkbf / set indices applied).
 4. Walk kernel vs its plain PyTorch version on the card, at stage-2
    shapes: the bridge-walk seeds of the first stage-2 batch (8192 pairs,
    error-corrected and overlap-tested as ``assemble_fragments_batch``
@@ -98,6 +106,10 @@ WALK_FIELDS = ("buf", "pos", "status", "hops", "path_min", "fh", "rh", "hist")
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM, 3.35 TB/s (NVIDIA's data sheet)
 SECTOR = 32  # bytes of one random DRAM access
 WALK_LAYOUTS = ("mf8", "u16", "int32", "int32 blocked")
+# cell_add_mf8(table, int32 scratch, numel, idx, n, salt, stream): the
+# two-pass mf8 entry point of earlier insert sources
+SCRATCH_MF8_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                    ctypes.c_uint, ctypes.c_void_p]
 LIBRARY = {  # op -> the one PyTorch call computing the same function, or none
     "set": lambda table, idx: table.index_fill_(0, idx, 1),
     "add": lambda table, idx: table.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32)),
@@ -111,6 +123,8 @@ SHAPES = {
     "add": ((1 << 27) + 128, "cbf -cnt int32 blocked, 2^27 cells"),
 }
 BATCH = 1 << 20
+FRESH = 10  # fresh batches of set, applied in turn to a zeroed table
+PAD_CYCLES = 2_000_000  # about 1 ms of the card's clock, ahead of each timed span
 SALTS = (0, 1, 977, (1 << 31) + 7)
 K, NUM_HASH, READ_LEN = 25, 2, 150
 REAL_READS = 4096  # one stage-1 batch
@@ -148,17 +162,46 @@ def ptxas_report(log: str) -> list:
     return out
 
 
-def build_walk_variant(i: int, src: str) -> ctypes.CDLL:
-    """The ``walk_greedy`` entry point of another walk kernel source, built
-    with the port's nvcc flags into ``build/walk_variants/``."""
-    lib = os.path.join(_build.BUILD_DIR, "walk_variants", f"lib{i}.so")
+def insert_ptxas(log: str) -> list:
+    """One entry per insert kernel from ``nvcc -Xptxas -v``: registers and
+    spill stores."""
+    out, name, spill = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*?(set_u8|add_i32|add_u16_tile|mf8_tile|mf8_apply)_kernel", line)
+        if m:
+            name = m.group(1) + "_kernel"
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name} {m.group(1)} registers, {spill} B spill stores")
+            name = None
+    return out
+
+
+def build_variant(kind: str, i: int, src: str) -> ctypes.CDLL:
+    """Another ``kind`` ("walk" or "insert") kernel source, built with the
+    port's nvcc flags into ``build/{kind}_variants/``, its entry points
+    bound as the port's are.  An insert source may have, in place of
+    ``cell_add_mf8_batch``, the older ``cell_add_mf8`` (an int32 scratch as
+    long as the table)."""
+    lib = os.path.join(_build.BUILD_DIR, f"{kind}_variants", f"lib{i}.so")
     os.makedirs(os.path.dirname(lib), exist_ok=True)
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, src, "-o", lib], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
     so = ctypes.CDLL(lib)
-    so.walk_greedy.argtypes = _build._SIGNATURES[_build.WALK_LIB][1]["walk_greedy"]
-    so.walk_greedy.restype = ctypes.c_int
+    signatures = dict(_build._SIGNATURES[_build.WALK_LIB if kind == "walk" else _build.KERNEL_LIB][1])
+    if kind == "insert" and not hasattr(so, "cell_add_mf8_batch"):
+        del signatures["cell_add_mf8_batch"]
+        signatures["cell_add_mf8"] = SCRATCH_MF8_ARGS
+    for name, args in signatures.items():
+        fn = getattr(so, name)  # raises where the source lacks an entry point
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
     return so
 
 
@@ -226,6 +269,9 @@ def _as_int(t: torch.Tensor) -> torch.Tensor:
 
 def _time_ms(fn, reps: int = 10) -> float:
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    # keep the card busy while the host enqueues the calls, so that no
+    # launch waits on the host inside the timed span
+    torch.cuda._sleep(PAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -234,12 +280,12 @@ def _time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def _check_equal(kern: torch.Tensor, plain: torch.Tensor, op: str, what: str) -> None:
+def _check_equal(kern: torch.Tensor, plain: torch.Tensor, op: str, what: str, who: str = "cell_insert") -> None:
     torch.cuda.synchronize()
     if not torch.equal(kern, plain):
         diff = (_as_int(kern) - _as_int(plain)).abs()
         raise AssertionError(
-            f"cell_insert[{op}] != plain {what}: {int((diff > 0).sum())} cells, max |diff| {int(diff.max())}"
+            f"{who}[{op}] != plain {what}: {int((diff > 0).sum())} cells, max |diff| {int(diff.max())}"
         )
 
 
@@ -251,22 +297,79 @@ def insert_bound_ms(op: str, idx: torch.Tensor, numel: int) -> float:
     return (idx.numel() * idx.element_size() + distinct * SECTOR * (1 if op == "set" else 2)) / HBM_BYTES_PER_MS
 
 
-def kernel_vs_plain(dev, card: str, real: dict) -> dict:
+def already_set(table: torch.Tensor, idx: torch.Tensor) -> float:
+    """Share of ``idx``'s in-range indices whose lane of ``table`` is 1."""
+    sel = idx[(idx >= 0) & (idx < table.numel())]
+    return float((table[sel] != 0).double().mean())
+
+
+@contextlib.contextmanager
+def insert_library(lib: ctypes.CDLL):
+    """Route ``cell_insert`` to ``lib`` (an ``--insert-variant`` build)."""
+    saved = _build.kernels()
+    _build._libs[_build.KERNEL_LIB] = lib
+    try:
+        yield
+    finally:
+        _build._libs[_build.KERNEL_LIB] = saved
+
+
+def insert_fn(who: str, op: str, variants: dict, scratch):
+    """(table, idx, salt) -> None applying ``op`` by the port's kernel, its
+    plain version or an ``--insert-variant`` build.  A variant source whose
+    mf8 entry point is ``cell_add_mf8`` (two passes over an int32 scratch as
+    long as the table, left zeroed by each launch) is handed ``scratch``."""
+    if who == "kernel":
+        return lambda t, b, salt: ci.cell_insert(t, b, op, salt)
+    if who == "plain":
+        return lambda t, b, salt: ci.cell_insert_plain(t, b, op, salt)
+    lib = variants[who]
+    if op == "add_mf8" and not hasattr(lib, "cell_add_mf8_batch"):
+        def two_pass(t, b, salt):
+            err = lib.cell_add_mf8(t.data_ptr(), scratch.data_ptr(), t.numel(), b.data_ptr(), b.numel(),
+                                   salt & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"insert variant {who}[{op}] launch failed: cudaError_t {err}")
+        return two_pass
+
+    def swapped(t, b, salt):
+        with insert_library(lib):
+            ci.cell_insert(t, b, op, salt)
+    return swapped
+
+
+def _mean(v: list) -> float:
+    return sum(v) / len(v)
+
+
+def kernel_vs_plain(dev, card: str, real: dict, variants: dict) -> dict:
+    """Each insert op (and each ``--insert-variant``) against its plain
+    version at the stage-1 shapes; times in turns.  ``set`` also takes
+    FRESH new batches in turn on a zeroed table."""
     results = {}
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    builds = ["kernel", *variants]
     for op, (numel, what) in SHAPES.items():
         base = _prefill(op, numel, gen, dev)
-        kern, plain = base.clone(), base.clone()
+        tabs = {who: base.clone() for who in ("plain", *builds)}
         del base
+        old_mf8 = op == "add_mf8" and any(not hasattr(v, "cell_add_mf8_batch") for v in variants.values())
+        scratch = torch.zeros(numel, dtype=torch.int32, device=dev) if old_mf8 else None
+        apply = {who: insert_fn(who, op, variants, scratch) for who in tabs}
+
+        def check(what: str) -> None:
+            for who in builds:
+                _check_equal(tabs[who], tabs["plain"], op, what, "cell_insert" if who == "kernel" else who)
+
         for salt in SALTS:  # successive batches into the same tables
             idx = _batch(numel, gen, dev)
-            ci.cell_insert(kern, idx, op, salt)
-            ci.cell_insert_plain(plain, idx, op, salt)
-            _check_equal(kern, plain, op, f"at salt {salt}")
-        ci.cell_insert(kern, real[op], op, 3)
-        ci.cell_insert_plain(plain, real[op], op, 3)
-        _check_equal(kern, plain, op, "on the real-read batch")
+            for who in tabs:
+                apply[who](tabs[who], idx, salt)
+            check(f"at salt {salt}")
+        for who in tabs:
+            apply[who](tabs[who], real[op], 3)
+        check("on the real-read batch")
         batches = {"synthetic": idx, "real": real[op]}
         # the one-call yardstick takes the in-range indices (an index past
         # the end is an error there); it must compute the kernel's table
@@ -274,43 +377,63 @@ def kernel_vs_plain(dev, card: str, real: dict) -> dict:
         in_range = {name: b[(b >= 0) & (b < numel)] for name, b in batches.items()}
         lib_tab = None
         if lib is not None:
-            lib_tab, check = kern.clone(), kern.clone()
+            lib_tab, check_tab = tabs["kernel"].clone(), tabs["kernel"].clone()
             lib(lib_tab, in_range["real"])
-            ci.cell_insert(check, real[op], op, 5)
-            _check_equal(check, lib_tab, op, f"against its one-call yardstick {op}")
-            del check
-        # warm all, then time in turns: plain, library, kernel, kernel,
-        # library, plain; each turn times the synthetic and the real batch
+            ci.cell_insert(check_tab, real[op], op, 5)
+            _check_equal(check_tab, lib_tab, op, f"against its one-call yardstick {op}")
+            del check_tab
+        fresh, fresh_in_range, fresh_tabs, shares = [], [], {}, {}
+        if op == "set":
+            fresh = [torch.randint(0, numel, (BATCH,), generator=gen, device=dev) for _ in range(FRESH)]
+            fresh_in_range = [b[(b >= 0) & (b < numel)] for b in fresh]
+            fresh_tabs = {who: torch.zeros(numel, dtype=torch.uint8, device=dev)
+                          for who in ("plain", *builds, *(("library",) if lib else ()))}
+            for b in fresh:  # each batch's share on the table the earlier ones left
+                shares.setdefault("fresh", []).append(already_set(fresh_tabs["plain"], b))
+                ci.cell_insert_plain(fresh_tabs["plain"], b, op)
+        # warm all, then time in turns: plain, library, kernel, variants,
+        # variants, kernel, library, plain; each turn times every batch kind
         for name, b in batches.items():
-            ci.cell_insert(kern, b, op, 5)
-            ci.cell_insert_plain(plain, b, op, 5)
+            for who in tabs:
+                apply[who](tabs[who], b, 5)
             if lib is not None:
                 lib(lib_tab, in_range[name])
+        if op == "set":
+            shares.update({name: already_set(tabs["kernel"], b) for name, b in batches.items()})
         t = {}
-        for who in ("plain", "library", "kernel", "kernel", "library", "plain"):
+        for who in ("plain", "library", *builds, *builds[::-1], "library", "plain"):
             if who == "library" and lib is None:
                 continue
             for name, b in batches.items():
-                if who == "kernel":
-                    fn = lambda: ci.cell_insert(kern, b, op, 5)  # noqa: E731
-                elif who == "plain":
-                    fn = lambda: ci.cell_insert_plain(plain, b, op, 5)  # noqa: E731
-                else:
+                if who == "library":
                     fn = lambda: lib(lib_tab, in_range[name])  # noqa: E731
+                else:
+                    fn = lambda: apply[who](tabs[who], b, 5)  # noqa: E731
                 t.setdefault((who, name), []).append(_time_ms(fn))
-        # both tables took the same batches in the same order
-        _check_equal(kern, plain, op, "after the timed batches")
-        mean = {key: sum(v) / len(v) for key, v in t.items()}
-        results[op] = {
-            "max_abs_err": int((_as_int(kern) - _as_int(plain)).abs().max()),
+            if fresh:
+                ft = fresh_tabs[who]
+                ft.zero_()  # outside the timed events
+                if who == "library":
+                    fn = lambda: [lib(ft, b) for b in fresh_in_range]  # noqa: E731
+                else:
+                    fn = lambda: [apply[who](ft, b, 5) for b in fresh]  # noqa: E731
+                t.setdefault((who, "fresh"), []).append(_time_ms(fn, reps=1) / FRESH)
+        # every table took the same batches in the same order
+        check("after the timed batches")
+        for who, ft in fresh_tabs.items():
+            _check_equal(ft, fresh_tabs["plain"], op, f"after {FRESH} fresh batches ({who})")
+        mean = {key: _mean(v) for key, v in t.items()}
+        r = results[op] = {
+            "max_abs_err": int((_as_int(tabs["kernel"]) - _as_int(tabs["plain"])).abs().max()),
             "ms": mean["kernel", "synthetic"], "plain_ms": mean["plain", "synthetic"],
             "library_ms": mean.get(("library", "synthetic")),
             "bound_ms": insert_bound_ms(op, idx, numel),
             "real_ms": mean["kernel", "real"], "real_plain_ms": mean["plain", "real"],
             "real_library_ms": mean.get(("library", "real")),
             "real_bound_ms": insert_bound_ms(op, real[op], numel),
+            "variants": {v: {f"{name}_ms": mean[v, name] for name in ("synthetic", "real", "fresh")
+                             if (v, name) in mean} for v in variants},
         }
-        r = results[op]
         lib_txt = lambda x: "none" if x is None else f"{x:.4f} ms"  # noqa: E731
         print(
             f"cell_insert[{op}] ({what}): equal to plain on {len(SALTS)} salted synthetic batches "
@@ -321,7 +444,29 @@ def kernel_vs_plain(dev, card: str, real: dict) -> dict:
             f"{r['real_bound_ms']:.4f} ms [{card}]",
             flush=True,
         )
-        del kern, plain, idx, batches, in_range, lib_tab
+        if fresh:
+            r.update({
+                "fresh_ms": mean["kernel", "fresh"], "fresh_plain_ms": mean["plain", "fresh"],
+                "fresh_library_ms": mean[("library", "fresh")],
+                "fresh_bound_ms": _mean([insert_bound_ms(op, b, numel) for b in fresh]),
+                "already_set": shares,
+            })
+            print(f"cell_insert[{op}]: equal to plain after {FRESH} fresh random {BATCH}-index batches applied in "
+                  f"turn to a zeroed table; per batch: kernel {r['fresh_ms']:.4f} ms, plain "
+                  f"{r['fresh_plain_ms']:.4f} ms, one-call {r['fresh_library_ms']:.4f} ms, bound "
+                  f"{r['fresh_bound_ms']:.4f} ms [{card}]", flush=True)
+            print(f"cell_insert[{op}]: share of each timed batch's in-range indices whose lane was already 1: "
+                  f"synthetic {shares['synthetic']:.6f}, real {shares['real']:.6f}, fresh "
+                  f"{', '.join(f'{x:.6f}' for x in shares['fresh'])}", flush=True)
+        turns = lambda who: "; ".join(  # noqa: E731
+            f"{name} " + ", ".join(f"{x:.4f}" for x in t[who, name])
+            for name in ("synthetic", "real", "fresh") if (who, name) in t)
+        print(f"cell_insert[{op}] per turn, ms: kernel {turns('kernel')}"
+              + (f" | one-call {turns('library')}" if lib else "") + f" [{card}]", flush=True)
+        for v in variants:
+            print(f"insert variant {v} [{op}]: equal to plain on every batch; per turn, ms: {turns(v)} [{card}]",
+                  flush=True)
+        del tabs, apply, scratch, idx, batches, in_range, lib_tab, fresh, fresh_in_range, fresh_tabs
         torch.cuda.empty_cache()
     return results
 
@@ -370,6 +515,8 @@ def main_path(left: str, right: str, out: str, counter: str, stage: int, n_pairs
     on disk."""
     ci.reset_launch_counts()
     walk.reset_launch_counts()
+    ci._batch_tables.clear()  # the run's own insert buffer only
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     t0 = time.time()
@@ -377,7 +524,9 @@ def main_path(left: str, right: str, out: str, counter: str, stage: int, n_pairs
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {**ci.launch_counts(), **walk.launch_counts()}
+    set_indices = ci.index_counts()["set"]
     peak = torch.cuda.max_memory_allocated()
+    buffer = ci.batch_table_bytes()
     s1 = report.stage1
     tag = f"-cnt {counter} -stage {stage}"
     state, cfg = checkpoint.load_graph(os.path.join(out, "rnabloom.graph"), device=dev)
@@ -396,7 +545,16 @@ def main_path(left: str, right: str, out: str, counter: str, stage: int, n_pairs
         assert report.num_pairs == n_pairs and report.num_fragments > n_pairs // 2, report
         assert cfg.fragment_pair_distance == report.fragment_pair_distance > 0
     print(f"{tag}: peak device memory {peak} B ({peak / 2**30:.3f} GiB; {held} B held before "
-          f"the run); insert scratch after it: {sum(t.numel() * 4 for t in ci._scratch.values())} B")
+          f"the run); insert buffer (add_mf8's batch table) after it: {buffer} B")
+    # stage 1 gives every set index in range (an invalid window goes to the
+    # trash lane); a resize rebuilds the filters, so its run's share is not
+    # the saved rpkbf's
+    if resized:
+        print(f"{tag}: set indices {set_indices}; the FPR resize rebuilt the rpkbf, so no already-set share")
+    else:
+        lanes = filters._count_nonzero(state.rpkbf)
+        print(f"{tag}: set indices {set_indices}, set lanes in the saved rpkbf {lanes}: share of set indices "
+              f"whose lane was already set {1 - lanes / set_indices:.6f}")
     print(f"{tag}: kernel launches in the main-path run: {launches}", flush=True)
     assert s1.num_reads == 2 * n_pairs and s1.num_batches > 0, s1
     assert all(0.0 <= f < 1.0 for f in s1.fprs.values()), s1.fprs
@@ -409,7 +567,7 @@ def main_path(left: str, right: str, out: str, counter: str, stage: int, n_pairs
           f"count >= 1 (min {float(counts[valid].min())})", flush=True)
     del state
     torch.cuda.empty_cache()
-    return launches, report, peak
+    return launches, report, peak, buffer
 
 
 def stage2_walk_seeds(left: str, right: str, graph, cfg) -> np.ndarray:
@@ -592,8 +750,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--walk-variant", action="append", default=[], metavar="NAME=PATH",
                     help="another walk kernel source (same C entry point) to check and time in phase 4")
+    ap.add_argument("--insert-variant", action="append", default=[], metavar="NAME=PATH",
+                    help="another insert kernel source (same C entry points) to check and time in phase 2")
     args = ap.parse_args(argv)
     variant_srcs = dict(v.split("=", 1) for v in args.walk_variant)
+    insert_srcs = dict(v.split("=", 1) for v in args.insert_variant)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
               file=sys.stderr)
@@ -607,16 +768,20 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")
     t0 = time.time()
-    with ThreadPoolExecutor(1 + len(variant_srcs)) as pool:
+    with ThreadPoolExecutor(1 + len(variant_srcs) + len(insert_srcs)) as pool:
         port_build = pool.submit(_build.build_all)
-        variant_builds = {name: pool.submit(build_walk_variant, i, src)
+        variant_builds = {name: pool.submit(build_variant, "walk", i, src)
                           for i, (name, src) in enumerate(variant_srcs.items())}
+        insert_builds = {name: pool.submit(build_variant, "insert", i, src)
+                         for i, (name, src) in enumerate(insert_srcs.items())}
         built = port_build.result()
         variants = {name: f.result() for name, f in variant_builds.items()}
+        insert_variants = {name: f.result() for name, f in insert_builds.items()}
     print(f"kernels built in parallel in {time.time() - t0:.2f} s: "
           + (", ".join(f"{os.path.relpath(src, os.path.dirname(os.path.abspath(__file__)))} "
                        f"{sec:.2f} s" for src, sec in built.items()) or "all up to date")
-          + "".join(f"; walk variant {name} from {src}" for name, src in variant_srcs.items()))
+          + "".join(f"; walk variant {name} from {src}" for name, src in variant_srcs.items())
+          + "".join(f"; insert variant {name} from {src}" for name, src in insert_srcs.items()))
     log = _build.build_logs.get(_build.WALK_SRC)
     if log is None:
         print("walk kernel not rebuilt in this run (up to date): no ptxas report")
@@ -624,6 +789,9 @@ def main(argv=None) -> int:
         print("nvcc -Xptxas -v, walk kernel instantiations <layout, num_hash (0: any), past depth 3>:")
         for line in ptxas_report(log):
             print("  " + line)
+    log = _build.build_logs.get(_build.KERNEL_SRC)
+    if log is not None:
+        print("nvcc -Xptxas -v, insert kernels: " + "; ".join(insert_ptxas(log)))
     print(f"native FASTX reader in use: {native.available()}", flush=True)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -643,7 +811,7 @@ def main(argv=None) -> int:
 
         phase("2 insert kernel vs plain PyTorch on the card (stage-1 shapes at -mem 1)")
         real = real_batches(sample_reads(left, set(range(REAL_READS)), READ_LEN), dev)
-        timing = kernel_vs_plain(dev, card, real)
+        timing = kernel_vs_plain(dev, card, real, insert_variants)
         real_indices = {op: b.numel() for op, b in real.items()}
         del real
 
@@ -653,14 +821,13 @@ def main(argv=None) -> int:
         picks = set(rng.choice(PAIRS, 5_000, replace=False).tolist())
         codes = np.concatenate([sample_reads(p, picks, READ_LEN) for p in (left, right)])
         out_mf8 = os.path.join(tmp, "out_mf8")
-        launches, s2_report, s2_peak = main_path(left, right, out_mf8, "mf8", 2, PAIRS, codes, card, dev)
+        launches, s2_report, s2_peak, s2_buffer = main_path(left, right, out_mf8, "mf8", 2, PAIRS, codes, card, dev)
         assert launches["add_mf8"] > 0 and launches["set"] > 0 and launches["walk_greedy"] > 0, launches
-        ci._scratch.clear()  # drop add_mf8's scratch so the u16 run's peak shows none
-        torch.cuda.empty_cache()
+        assert 0 < s2_buffer <= 64 << 20, f"the -cnt mf8 run's insert buffer is {s2_buffer} B"
         out_u16 = os.path.join(tmp, "out_u16")
-        u16_launches, _, _ = main_path(left, right, out_u16, "u16", 1, PAIRS, codes, card, dev)
+        u16_launches, _, _, u16_buffer = main_path(left, right, out_u16, "u16", 1, PAIRS, codes, card, dev)
         assert u16_launches["add_u16"] > 0 and u16_launches["set"] > 0, u16_launches
-        assert not ci._scratch, "the -cnt u16 run allocated an insert scratch"
+        assert u16_buffer == 0, "the -cnt u16 run allocated an insert buffer"
 
         phase("4 walk kernel vs plain PyTorch on the card (bridge seeds of the first stage-2 batch)")
         walk_t = {
@@ -679,10 +846,14 @@ def main(argv=None) -> int:
         run_of = {"add_mf8": mf8_run, "set": mf8_run, "add_u16": "main path, -cnt u16 -stage 1, 1M pairs"}
         for counter, op in (("mf8", "add_mf8"), ("u16", "add_u16"), ("int32", "add")):
             ci.reset_launch_counts()
+            ci._batch_tables.clear()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
             gpu_out, cpu_out = os.path.join(tmp, f"gpu_{counter}"), os.path.join(tmp, f"cpu_{counter}")
             run_cli(*heads[20_000], gpu_out, "cuda", counter)
             torch.cuda.synchronize()
             n_launch = ci.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
             run_cli(*heads[20_000], cpu_out, "cpu", counter)
             for f in CKPT_FILES:
                 if not filecmp.cmp(os.path.join(gpu_out, f), os.path.join(cpu_out, f), shallow=False):
@@ -692,7 +863,8 @@ def main(argv=None) -> int:
                 run_launches[op] = n_launch[op]
                 run_of[op] = f"main path, -cnt {counter}, 20k pairs"
             print(f"-cnt {counter} -stage 1: card and CPU checkpoints byte-identical ({', '.join(CKPT_FILES)}); "
-                  f"card launches {n_launch}", flush=True)
+                  f"card launches {n_launch}; card peak device memory {peak} B ({peak / 2**30:.3f} GiB, the "
+                  f"-mem 1 filters) [{card}]", flush=True)
             shutil.rmtree(gpu_out)
             shutil.rmtree(cpu_out)
         for counter in ("mf8", "u16"):
@@ -735,9 +907,13 @@ def main(argv=None) -> int:
             "real_plain_ms": timing[op]["real_plain_ms"],
             "real_bound_ms": timing[op]["real_bound_ms"],
             "real_library_ms": timing[op]["real_library_ms"],
+            **{key: timing[op][key] for key in ("fresh_ms", "fresh_plain_ms", "fresh_library_ms",
+                                                "fresh_bound_ms", "already_set") if key in timing[op]},
+            "variants": timing[op]["variants"],
         }
         for op in ("add_mf8", "set", "add_u16", "add")
     ]
+    kernels[0]["run_insert_buffer_bytes"] = s2_buffer
     wm, wu = walk_t["mf8"], walk_t["u16"]
     kernels.append({
         "name": "walk_greedy",

@@ -102,7 +102,7 @@ _SIGNATURES = {
         "cell_set_u8": [_P, _I64, _P, _I64, _P],
         "cell_add_i32": [_P, _I64, _P, _I64, _P],
         "cell_add_u16": [_P, _I64, _P, _I64, _P],
-        "cell_add_mf8": [_P, _P, _I64, _P, _I64, _U32, _P],
+        "cell_add_mf8_batch": [_P, _P, _I64, _I64, _P, _I64, _U32, _P],
     }),
     WALK_LIB: (WALK_SRC, {
         # buf pos fh rh hist status hops path_min min_cov bound, W max_len

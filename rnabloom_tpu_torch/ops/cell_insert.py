@@ -18,7 +18,7 @@ applied.  Tables are updated in place.
 ``cell_insert`` launches the hand-written CUDA kernel
 (``csrc/cell_insert.cu``, which states its design) for a CUDA table, and
 runs ``cell_insert_plain`` for a CPU table.  ``LAUNCHES`` counts kernel
-launches per op.
+launches per op, ``INDICES`` the indices those launches were given.
 """
 
 from __future__ import annotations
@@ -30,19 +30,27 @@ import torch
 OPS = {"set": torch.uint8, "add": torch.int32, "add_u16": torch.int16, "add_mf8": torch.uint8}
 
 LAUNCHES: Dict[str, int] = {op: 0 for op in OPS}
+INDICES: Dict[str, int] = {op: 0 for op in OPS}
 
-# int32 per-cell tally for add_mf8's two passes, one per device, as long as
-# the largest table seen there; pass 2 of every launch leaves it all zero
-_scratch: Dict[torch.device, torch.Tensor] = {}
+# add_mf8's batch table, one per device: int64 slots, each a uint32 cell key
+# (high word) and that cell's int32 batch total (low word), FREE_SLOT when
+# free.  A launch uses the first batch_slots(n) slots and leaves them free.
+_batch_tables: Dict[torch.device, torch.Tensor] = {}
+FREE_SLOT = -(1 << 32)  # 0xFFFFFFFF_00000000 as int64: key 0xFFFFFFFF, count 0
 
 
 def reset_launch_counts() -> None:
     for op in LAUNCHES:
         LAUNCHES[op] = 0
+        INDICES[op] = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def index_counts() -> Dict[str, int]:
+    return dict(INDICES)
 
 
 def _check(table: torch.Tensor, idx: torch.Tensor, op: str) -> None:
@@ -78,16 +86,28 @@ def cell_insert_plain(table: torch.Tensor, idx: torch.Tensor, op: str, salt: int
     return table
 
 
-def _scratch_for(table: torch.Tensor) -> torch.Tensor:
-    s = _scratch.get(table.device)
-    if s is not None and s.numel() >= table.numel():
-        return s
-    # drop both references to a smaller scratch before allocating, so the
+def batch_slots(n: int) -> int:
+    """Slots of add_mf8's batch table for a batch of ``n`` indices: the
+    least power of two >= 2n, so that at most half hold a cell."""
+    return 1 << max(2 * n - 1, 1).bit_length()
+
+
+def batch_table_bytes() -> int:
+    """Bytes held by add_mf8's batch tables, all devices."""
+    return sum(t.numel() * t.element_size() for t in _batch_tables.values())
+
+
+def _batch_table_for(device: torch.device, n: int) -> torch.Tensor:
+    t = _batch_tables.get(device)
+    if t is not None and t.numel() >= batch_slots(n):
+        return t
+    # drop both references to a smaller table before allocating, so the
     # two are never held at once
-    del s
-    _scratch.pop(table.device, None)
-    s = _scratch[table.device] = torch.zeros(table.numel(), dtype=torch.int32, device=table.device)
-    return s
+    del t
+    _batch_tables.pop(device, None)
+    t = _batch_tables[device] = torch.empty(batch_slots(n), dtype=torch.int64, device=device)
+    t.fill_(FREE_SLOT)
+    return t
 
 
 def cell_insert(table: torch.Tensor, idx: torch.Tensor, op: str, salt: int = 0) -> torch.Tensor:
@@ -110,17 +130,20 @@ def cell_insert(table: torch.Tensor, idx: torch.Tensor, op: str, salt: int = 0) 
         err = lib.cell_set_u8(table.data_ptr(), numel, idx.data_ptr(), n, stream)
     elif op == "add":
         err = lib.cell_add_i32(table.data_ptr(), numel, idx.data_ptr(), n, stream)
+    elif numel >= 1 << 32:
+        raise ValueError(f"{op} keys cells as uint32; a table of {numel} cells is too long")
     elif op == "add_u16":
-        if numel >= 1 << 32:
-            raise ValueError(f"add_u16 keys cells as uint32; a table of {numel} cells is too long")
         err = lib.cell_add_u16(table.data_ptr(), numel, idx.data_ptr(), n, stream)
     else:
-        scratch = _scratch_for(table)
-        err = lib.cell_add_mf8(
-            table.data_ptr(), scratch.data_ptr(), numel, idx.data_ptr(), n,
+        if n >= 1 << 31:
+            raise ValueError(f"add_mf8 totals a cell in int32; a batch of {n} indices is too long")
+        batch = _batch_table_for(table.device, n)
+        err = lib.cell_add_mf8_batch(
+            table.data_ptr(), batch.data_ptr(), batch_slots(n), numel, idx.data_ptr(), n,
             int(salt) & 0xFFFFFFFF, stream,
         )
     if err != 0:
         raise RuntimeError(f"cell_insert[{op}] launch failed: cudaError_t {err}")
     LAUNCHES[op] += 1
+    INDICES[op] += n
     return table

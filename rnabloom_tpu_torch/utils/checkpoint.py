@@ -18,6 +18,7 @@ import torch
 
 from ..bloom.filters import BloomConfig, CountingConfig
 from ..graph import dbg
+from ..graph.engine import require_device
 from ..ops import minifloat
 
 STAMP_STARTED = "STARTED"
@@ -93,8 +94,10 @@ def update_fragment_distance(prefix: str, d: int) -> None:
         json.dump(desc, f, indent=1)
 
 
-def load_graph(prefix: str, device="cpu"):
-    """Restore (state, cfg) from a save_graph checkpoint."""
+def load_graph(prefix: str, device="cuda"):
+    """Restore (state, cfg) from a save_graph checkpoint onto ``device``:
+    the card unless the caller asks for the CPU; raises without a card."""
+    device = require_device(device)
     with open(f"{prefix}.graph.json") as f:
         desc = json.load(f)
     cfg = dbg.GraphConfig(

@@ -45,7 +45,7 @@ def _table(op, numel, rng):
 def test_kernel_matches_plain_over_batches(cuda, op):
     """Three salted batches with a heavy cell, the trash cell and dropped
     indices; equal tables after each (for add_mf8 this also proves that
-    pass 2 re-zeroes the scratch)."""
+    pass 2 frees every slot of the batch table)."""
     rng = np.random.default_rng(0)
     size = 1 << 20
     base = _table(op, size + 1, rng)
@@ -113,16 +113,107 @@ def test_add_u16_edge_cases_match_plain(cuda, case):
         assert int(kern[4242]) == -1  # 65535 as int16
 
 
-def test_add_u16_uses_no_scratch(cuda):
-    table = torch.zeros((1 << 22) + 1, dtype=torch.int16, device=cuda)
-    ci._scratch.pop(table.device, None)
-    for _ in range(3):
-        ci.cell_insert(table, torch.randint(0, table.numel(), (1 << 20,), device=cuda), "add_u16")
+def _mf8_batch(case, numel, rng):
+    """(prefilled mf8 table, idx) for one add_mf8 edge case."""
+    table = rng.integers(0, 128, numel).astype(np.uint8)
+    if case == "hot_cell_every_tile":
+        table[4242] = 0
+        idx = np.concatenate([rng.integers(0, numel, 200_000), np.full(100_000, 4242)])
+    elif case == "near_saturation":
+        table[:800] = 120 + np.arange(800) % 8  # codes 120 .. 127
+        idx = np.concatenate([rng.integers(0, numel, 50_000), np.arange(800).repeat(50)])
+    elif case == "trash_cell":
+        table[-1] = 90
+        idx = np.concatenate([rng.integers(0, numel, 50_000), np.full(5_000, numel - 1)])
+    elif case == "empty":
+        idx = np.zeros(0, np.int64)
+    elif case == "one_index":
+        idx = np.array([numel - 1])
+    else:  # "ragged": no multiple of the tile, dropped and negative indices
+        idx = np.concatenate([
+            rng.integers(0, numel, 3 * TILE + 17), np.full(300, numel), np.full(300, -3),
+            np.full(300, 1 << 40),
+        ])
+    rng.shuffle(idx)
+    return torch.from_numpy(table), torch.from_numpy(idx.astype(np.int64))
+
+
+@pytest.mark.parametrize("salt", [0, 1, 977, 2**31 + 7])
+@pytest.mark.parametrize(
+    "case", ["hot_cell_every_tile", "near_saturation", "trash_cell", "empty", "one_index", "ragged"]
+)
+def test_add_mf8_edge_cases_match_plain(cuda, case, salt):
+    """Equal to plain, and the batch table is all free after the launch."""
+    rng = np.random.default_rng(5)
+    table, idx = _mf8_batch(case, (1 << 20) + 1, rng)
+    kern, plain, idx = table.to(cuda), table.to(cuda), idx.to(cuda)
+    ci.cell_insert(kern, idx, "add_mf8", salt)
+    ci.cell_insert_plain(plain, idx, "add_mf8", salt)
     torch.cuda.synchronize()
-    assert table.device not in ci._scratch
-    too_long = torch.empty(1 << 32, dtype=torch.int16, device=cuda)  # uint32 keys: < 2^32 cells
-    with pytest.raises(ValueError):
-        ci.cell_insert(too_long, torch.zeros(1, dtype=torch.int64, device=cuda), "add_u16")
+    assert torch.equal(kern, plain)
+    batch = ci._batch_tables[kern.device]
+    assert bool((batch == ci.FREE_SLOT).all())
+
+
+def _set_batch(case, numel, rng):
+    """(prefilled lane table, idx) for one set edge case."""
+    table = (rng.random(numel) < 0.3).astype(np.uint8)
+    if case == "lanes_already_set":  # every warp reads first
+        idx = np.flatnonzero(table)[:200_000]
+    elif case == "fresh_table":  # every warp stores plainly
+        table[:] = 0
+        idx = rng.integers(0, numel, 200_000)
+    elif case == "hot_cell":
+        table[4242] = 0
+        idx = np.concatenate([rng.integers(0, numel, 200_000), np.full(100_000, 4242)])
+    elif case == "empty":
+        idx = np.zeros(0, np.int64)
+    elif case == "one_index":
+        table[-1] = 0
+        idx = np.array([numel - 1])
+    else:  # "ragged": no multiple of a block's indices, dropped and negative ones
+        idx = np.concatenate([
+            rng.integers(0, numel, 3 * 1024 + 17), np.full(300, numel), np.full(300, -3),
+            np.full(300, 1 << 40),
+        ])
+    rng.shuffle(idx)
+    return torch.from_numpy(table), torch.from_numpy(idx.astype(np.int64))
+
+
+@pytest.mark.parametrize("case", ["lanes_already_set", "fresh_table", "hot_cell", "empty", "one_index", "ragged"])
+def test_set_edge_cases_match_plain(cuda, case):
+    rng = np.random.default_rng(6)
+    table, idx = _set_batch(case, (1 << 22) + 1, rng)
+    kern, plain, idx = table.to(cuda), table.to(cuda), idx.to(cuda)
+    ci.cell_insert(kern, idx, "set")
+    ci.cell_insert_plain(plain, idx, "set")
+    torch.cuda.synchronize()
+    assert torch.equal(kern, plain)
+    if case in ("hot_cell", "one_index"):
+        assert int(kern[4242 if case == "hot_cell" else -1]) == 1
+
+
+def test_add_u16_uses_no_scratch(cuda):
+    """Neither add_u16 nor set allocates an insert buffer; add_mf8's batch
+    table is at most 16 B an index of a 2^20-index batch; mf8 and u16
+    tables of 2^32 cells are refused (uint32 keys)."""
+    ci._batch_tables.clear()
+    n = 1 << 20
+    for op, dtype in (("add_u16", torch.int16), ("set", torch.uint8)):
+        table = torch.zeros((1 << 22) + 1, dtype=dtype, device=cuda)
+        for _ in range(3):
+            ci.cell_insert(table, torch.randint(0, table.numel(), (n,), device=cuda), op)
+    torch.cuda.synchronize()
+    assert ci.batch_table_bytes() == 0
+    table = torch.zeros((1 << 22) + 1, dtype=torch.uint8, device=cuda)
+    ci.cell_insert(table, torch.randint(0, table.numel(), (n,), device=cuda), "add_mf8")
+    torch.cuda.synchronize()
+    assert 0 < ci.batch_table_bytes() <= 16 * n
+    for dtype, op in ((torch.int16, "add_u16"), (torch.uint8, "add_mf8")):
+        too_long = torch.empty(1 << 32, dtype=dtype, device=cuda)  # uint32 keys: < 2^32 cells
+        with pytest.raises(ValueError):
+            ci.cell_insert(too_long, torch.zeros(1, dtype=torch.int64, device=cuda), op)
+        del too_long
 
 
 def test_build_step_card_equals_cpu(cuda):

@@ -17,7 +17,7 @@ from rnabloom_tpu.bloom import filters as jf
 from rnabloom_tpu.ops import histmerge
 from rnabloom_tpu.ops.u64 import U64
 from rnabloom_tpu_torch.bloom import filters as tf
-from rnabloom_tpu_torch.ops import cell_insert as ci
+from rnabloom_tpu_torch.ops import cell_insert as ci, minifloat
 
 torch.set_num_threads(2)
 
@@ -209,29 +209,132 @@ def test_u16_tile_totals_match_jax_and_plain(case, tile):
     assert (want != table).any() == (case != "empty")
 
 
+# --- add_mf8 in tiles and a batch table: the schedule of the CUDA kernel ----
+#
+# Pass 1 totals each tile of T indices per cell and adds the tile totals,
+# tiles in any order, into a linear-probing batch table of batch_slots(n)
+# slots.  Pass 2 applies one increment_codes per occupied slot, with the
+# slot's whole total, and frees the slot.  That must give the table of one
+# increment per cell of the batch histogram, and leave the batch table free.
+
+MF8_SALTS = [0, 1, 977, (1 << 31) + 7]
+M32 = 0xFFFFFFFF
+
+
+def _batch_slot(key, mask):
+    """The kernel's first slot of a key (murmur3's 32-bit finaliser)."""
+    x = int(key)
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & M32
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & M32
+    x ^= x >> 16
+    return x & mask
+
+
+def _mf8_case(case, tile, rng):
+    """(table uint8 (U16_NUMEL,), idx int64) for one case."""
+    table = rng.integers(0, 128, U16_NUMEL).astype(np.uint8)
+    idx = rng.integers(0, U16_NUMEL, U16_N)
+    if case == "near_saturation":
+        table[:48] = 120 + np.arange(48) % 8  # codes 120 .. 127
+        idx[: 48 * 40] = np.arange(48).repeat(40)
+    elif case == "one_cell_every_tile":
+        table[777] = 0
+        idx[::tile] = 777  # the cell in every tile (all of them at T = 1)
+    elif case == "trash_cell":
+        table[-1] = 90
+        idx[:2000] = U16_NUMEL - 1
+    elif case == "dropped_and_negative":
+        junk = np.array([U16_NUMEL, U16_NUMEL + 1, 1 << 20, 1 << 40, -1, -5, -(1 << 40)])
+        idx[:3500] = junk.repeat(500)
+    elif case == "empty":
+        idx = idx[:0]
+    elif case == "one_index":
+        idx = idx[:1]
+    rng.shuffle(idx)
+    return table, idx
+
+
+def _mf8_in_tiles(table, idx, tile, salt, rng):
+    """Numpy emulation of the kernel's schedule: tile totals into the batch
+    table in a shuffled tile order, then one increment per occupied slot."""
+    slots = ci.batch_slots(len(idx))
+    keys, counts = np.full(slots, -1, np.int64), np.zeros(slots, np.int64)
+    for start in rng.permutation(np.arange(0, len(idx), tile)):
+        part = idx[start : start + tile]
+        for cell, n in zip(*np.unique(part[(part >= 0) & (part < len(table))], return_counts=True)):
+            s = _batch_slot(cell, slots - 1)
+            while keys[s] not in (-1, cell):  # another cell's slot: probe on
+                s = (s + 1) & (slots - 1)
+            keys[s] = cell
+            counts[s] += n
+    full = np.flatnonzero(keys != -1)
+    assert len(full) <= slots // 2
+    out = table.copy()
+    cells = torch.from_numpy(keys[full])
+    out[keys[full]] = minifloat.increment_codes(
+        torch.from_numpy(table[keys[full]]), torch.from_numpy(counts[full]), minifloat.mix_u01(cells, salt)
+    ).numpy()
+    keys[full], counts[full] = -1, 0  # pass 2 frees every slot it applied
+    assert (keys == -1).all() and not counts.any()
+    return out
+
+
+@pytest.mark.parametrize("salt", MF8_SALTS)
+@pytest.mark.parametrize("tile", [1, 1000, 4096])
+@pytest.mark.parametrize(
+    "case",
+    ["near_saturation", "one_cell_every_tile", "trash_cell", "dropped_and_negative", "empty", "one_index"],
+)
+def test_mf8_batch_table_matches_jax_and_plain(case, tile, salt):
+    rng = np.random.default_rng(5)
+    table, idx = _mf8_case(case, tile, rng)
+    got = _mf8_in_tiles(table, idx, tile, salt, rng)
+
+    kept = idx[(idx >= 0) & (idx < U16_NUMEL)]
+    hist = np.bincount(kept, minlength=U16_NUMEL).astype(np.int32)
+    want = np.asarray(jf.apply_cell_increments(jnp.asarray(table), jnp.asarray(hist), "mf8", salt=salt))
+    np.testing.assert_array_equal(got, want)
+
+    plain = ci.cell_insert_plain(torch.from_numpy(table.copy()), torch.from_numpy(idx), "add_mf8", salt)
+    np.testing.assert_array_equal(plain.numpy(), want)
+    if case not in ("empty", "one_index"):
+        assert (want != table).any()
+    if case == "near_saturation":
+        assert (want[:48][table[:48] == 127] == 127).all()
+
+
+@pytest.mark.parametrize("n,slots", [(1, 2), (2, 4), (3, 8), (1 << 20, 1 << 21), (1_032_192, 1 << 21),
+                                     ((1 << 20) + 1, 1 << 22)])
+def test_batch_slots_are_the_least_power_of_two_of_twice_the_batch(n, slots):
+    assert ci.batch_slots(n) == slots
+
+
 def test_scratch_is_freed_before_a_larger_one_is_allocated(monkeypatch):
-    """add_mf8's scratch grows with the table; the smaller one must be gone
-    before the larger is allocated, or a resize holds both at once."""
+    """add_mf8's batch table grows with the batch length, not the table;
+    the smaller one must be gone before the larger is allocated, or a
+    growth holds both at once; a smaller batch reuses the larger."""
     import weakref
 
     cpu = torch.device("cpu")
-    ci._scratch.pop(cpu, None)
-    small_table, big_table = torch.zeros(10, dtype=torch.uint8), torch.zeros(100, dtype=torch.uint8)
-    old = weakref.ref(ci._scratch_for(small_table))
-    assert old() is not None
-    zeros = torch.zeros
+    ci._batch_tables.pop(cpu, None)
+    old = weakref.ref(ci._batch_table_for(cpu, 10))
+    assert old().numel() == 32 and bool((old() == ci.FREE_SLOT).all())
+    empty = torch.empty
 
-    def zeros_checked(*args, **kwargs):
-        assert old() is None, "the smaller scratch is still alive"
-        return zeros(*args, **kwargs)
+    def empty_checked(*args, **kwargs):
+        assert old() is None, "the smaller batch table is still alive"
+        return empty(*args, **kwargs)
 
-    monkeypatch.setattr(ci.torch, "zeros", zeros_checked)
+    monkeypatch.setattr(ci.torch, "empty", empty_checked)
     try:
-        big = ci._scratch_for(big_table)
-        assert big.numel() == 100 and ci._scratch[cpu] is big
-        assert ci._scratch_for(small_table) is big  # a smaller table reuses it
+        big = ci._batch_table_for(cpu, 100)
+        assert big.numel() == 256 and ci._batch_tables[cpu] is big and bool((big == ci.FREE_SLOT).all())
+        assert ci._batch_table_for(cpu, 10) is big  # a smaller batch reuses it
+        assert ci.batch_table_bytes() == 256 * 8
     finally:
-        ci._scratch.pop(cpu, None)
+        ci._batch_tables.pop(cpu, None)
 
 
 def test_fpr_popcount_in_slices_counts_every_cell():

@@ -11,7 +11,7 @@ import torch
 
 from rnabloom_tpu_torch import cli
 from rnabloom_tpu_torch.assembly import pipeline, stage1
-from rnabloom_tpu_torch.utils import pesim
+from rnabloom_tpu_torch.utils import checkpoint, pesim
 
 torch.set_num_threads(2)
 
@@ -92,7 +92,7 @@ def test_later_stages_are_refused_before_any_work(tmp_path):
     assert not out.exists()
 
 
-@pytest.mark.parametrize("entry", ["assemble_pe", "build_graph_autosized"])
+@pytest.mark.parametrize("entry", ["assemble_pe", "build_graph_autosized", "load_graph"])
 def test_entry_points_default_to_the_card(tmp_path, entry):
     """Without ``device="cpu"`` the entry points run on the card, and raise
     where there is none, before any work is done."""
@@ -104,6 +104,8 @@ def test_entry_points_default_to_the_card(tmp_path, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if entry == "assemble_pe":
             pipeline.assemble_pe(left, right, str(out), pipeline.PipelineParams(stop_stage=2))
+        elif entry == "load_graph":
+            checkpoint.load_graph(str(out / "rnabloom.graph"))  # raises before it opens a file
         else:
             cfg = stage1.default_graph_config(25, False, 1 << 20)
             stage1.build_graph_autosized([left, right], cfg, stage1.Stage1Params())
