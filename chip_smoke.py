@@ -63,7 +63,27 @@ Phases (any failure raises and exits nonzero):
    ``-stage 2 -savebf`` on the first 8192 pairs (one stage-2 batch) for
    ``-cnt mf8`` and ``u16``: every file under the output directory (the
    fragment store, the checkpoint with its fragment distance, the read
-   statistics, the stamps) must be byte-identical.
+   statistics, the stamps) must be byte-identical.  Stage 2b
+   (``pipeline.rebuild_fragment_graph``) then runs on each of those outputs
+   on the card and on the CPU: the rebuilt cbf, rpkbf and fpkbf, saved as
+   checkpoints, must be byte-identical.
+6. Stage 2b and the stage-3 extension, the main path of the latest slice,
+   with every launch count set to 0 before it: the 1M-pair ``-cnt mf8``
+   output of phase 3 loaded on the card and rebuilt (fragments/s, batches,
+   launches, the batch table, peak device memory and what holds it; every
+   valid k-mer of 10,000 sampled fragments must count >= 1 on the rebuilt
+   cbf), then ``transcripts.extend_fragments_pair`` (the pair walk kernel,
+   right then left) on stage 3's batches of 2048 fragments in its own
+   order (one stratum at a time, a stratum's last batch padded), up to and
+   including the first full batch.  On that batch each walk is run again
+   by the kernel and once by the plain loop: every field equal, the pair
+   ring included.  Times of the right walks in turns (the plain loop's
+   equality run is its turn); a replay of the plain loop (``pair_tally``,
+   which must end in the plain loop's state) counts the cell, pkbf-lane
+   and ring reads the kernel's schedule makes; the bound is those reads as
+   32 B sectors plus the walk state read and written, over 3.35 TB/s;
+   beside it one torch gather of as many random cbf cells and fpkbf lanes.
+   The right walks of stage 3's first batch are timed too.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -90,9 +110,10 @@ import numpy as np
 import torch
 
 from rnabloom_tpu_torch import cli
-from rnabloom_tpu_torch.assembly import correct, fragments, pipeline
+from rnabloom_tpu_torch.assembly import correct, fragments, pipeline, transcripts
+from rnabloom_tpu_torch.assembly.fragstore import FragmentStore
 from rnabloom_tpu_torch.bloom import filters
-from rnabloom_tpu_torch.graph import engine, traverse
+from rnabloom_tpu_torch.graph import dbg, engine, traverse
 from rnabloom_tpu_torch.io import fastx, native
 from rnabloom_tpu_torch.ops import _build, cell_insert as ci, nthash, walk
 from rnabloom_tpu_torch.utils import checkpoint, pesim, seq as sequtils
@@ -103,6 +124,8 @@ WALK_SOURCE = "rnabloom_tpu_torch/csrc/walk_greedy.cu"
 WALK_REPLACES = "rnabloom_tpu/graph/traverse.py:1032"
 CKPT_FILES = ("rnabloom.graph.graph.json", "rnabloom.graph.cbf.npy", "rnabloom.graph.rpkbf.npy")
 WALK_FIELDS = ("buf", "pos", "status", "hops", "path_min", "fh", "rh", "hist")
+PAIR_FIELDS = WALK_FIELDS + ("ring_fh", "ring_rh")
+REBUILT_FILES = ("rebuilt.graph.json", "rebuilt.cbf.npy", "rebuilt.rpkbf.npy", "rebuilt.fpkbf.npy")
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM, 3.35 TB/s (NVIDIA's data sheet)
 SECTOR = 32  # bytes of one random DRAM access
 WALK_LAYOUTS = ("mf8", "u16", "int32", "int32 blocked")
@@ -131,6 +154,7 @@ REAL_READS = 4096  # one stage-1 batch
 PAIRS = 1_000_000
 BATCH2 = 8192  # pairs per stage-2 batch
 CBF_LOG2 = {"mf8": 29, "u16": 28}  # default cbf at -mem 1, before any resize
+_T0 = time.time()
 
 
 def card_line() -> str:
@@ -146,9 +170,10 @@ def ptxas_report(log: str) -> list:
     template arguments, registers, stack frame and spills."""
     out, name = [], None
     for line in log.splitlines():
-        m = re.search(r"Function properties for \S*walk_greedy_kernelILi(\d+)ELi(\d+)ELb([01])E", line)
+        m = re.search(r"Function properties for \S*walk_greedy_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E", line)
         if m:
-            name = f"<{WALK_LAYOUTS[int(m.group(1))]}, {m.group(2)}, {('no', 'yes')[int(m.group(3))]}>"
+            name = (f"<{WALK_LAYOUTS[int(m.group(1))]}, {m.group(2)}, {('no', 'yes')[int(m.group(3))]}, "
+                    f"{('greedy', 'pair')[int(m.group(4))]}>")
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -185,7 +210,8 @@ def insert_ptxas(log: str) -> list:
 def build_variant(kind: str, i: int, src: str) -> ctypes.CDLL:
     """Another ``kind`` ("walk" or "insert") kernel source, built with the
     port's nvcc flags into ``build/{kind}_variants/``, its entry points
-    bound as the port's are.  An insert source may have, in place of
+    bound as the port's are.  A walk source may lack ``walk_pair`` (phase 4
+    times greedy mode); an insert source may have, in place of
     ``cell_add_mf8_batch``, the older ``cell_add_mf8`` (an int32 scratch as
     long as the table)."""
     lib = os.path.join(_build.BUILD_DIR, f"{kind}_variants", f"lib{i}.so")
@@ -195,6 +221,8 @@ def build_variant(kind: str, i: int, src: str) -> ctypes.CDLL:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
     so = ctypes.CDLL(lib)
     signatures = dict(_build._SIGNATURES[_build.WALK_LIB if kind == "walk" else _build.KERNEL_LIB][1])
+    if kind == "walk" and not hasattr(so, "walk_pair"):  # an older source: greedy mode only
+        del signatures["walk_pair"]
     if kind == "insert" and not hasattr(so, "cell_add_mf8_batch"):
         del signatures["cell_add_mf8_batch"]
         signatures["cell_add_mf8"] = SCRATCH_MF8_ARGS
@@ -217,7 +245,7 @@ def walk_library(lib: ctypes.CDLL):
 
 
 def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name} ({time.time() - _T0:.1f} s into the run)", flush=True)
 
 
 def _prefill(op: str, numel: int, gen: torch.Generator, dev) -> torch.Tensor:
@@ -591,12 +619,12 @@ def stage2_walk_seeds(left: str, right: str, graph, cfg) -> np.ndarray:
     return np.concatenate([seeds_r, seeds_l])
 
 
-def _max_abs_diff(a, b) -> float:
+def _max_abs_diff(a, b, fields=WALK_FIELDS) -> float:
     """Largest |kernel - plain| over the walk state's fields (inf - inf,
     an unwalked lane's path_min, counts as 0)."""
     return max(
         float((getattr(a, f).double() - getattr(b, f).double()).abs().nan_to_num(0.0).max())
-        for f in WALK_FIELDS
+        for f in fields
     )
 
 
@@ -658,7 +686,7 @@ def walk_bound_ms(st, mc, bd, reads: int) -> float:
     """Least time for a walk batch: its cell reads as random sectors, plus
     the walk state read and written once, at the card's memory rate.  The
     arithmetic (hash slides, minima) is far below the card's integer rate."""
-    state_bytes = sum(t.numel() * t.element_size() for t in st) * 2 + mc.numel() * 4 + bd.numel() * 4
+    state_bytes = sum(t.numel() * t.element_size() for t in st if t is not None) * 2 + mc.numel() * 4 + bd.numel() * 4
     return (reads * SECTOR + state_bytes) / HBM_BYTES_PER_MS
 
 
@@ -671,8 +699,14 @@ def walk_vs_plain(graph_prefix: str, left: str, right: str, what: str, card: str
     st = traverse.make_walks(cfg, wcfg, seeds, device=dev)
     mc, bd = traverse.lane_args(st, 1.0, fragments.FragmentParams().bound)
     kern = walk.walk_greedy(st, graph, cfg, wcfg, mc, bd)
-    plain = walk.walk_greedy_plain(st, graph, cfg, wcfg, mc, bd)
-    torch.cuda.synchronize()
+    plain = None
+
+    def plain_run():
+        nonlocal plain
+        plain = walk.walk_greedy_plain(st, graph, cfg, wcfg, mc, bd)
+
+    # the plain loop's equality run is its first timing turn
+    t = {"plain": [_time_ms(plain_run, reps=1)]}
     bad = _same_state(kern, plain)
     if bad:
         raise AssertionError(f"walk_greedy != plain on {what}: {bad} differ")
@@ -682,7 +716,7 @@ def walk_vs_plain(graph_prefix: str, left: str, right: str, what: str, card: str
         raise AssertionError(f"the tallied replay of the plain loop differs on {what}: {bad}")
     # the lane with the most dependent read rounds, walked alone
     w = int(torch.argmax(tally["rounds"]))
-    one = traverse.WalkState(*(f[w : w + 1].contiguous() for f in st))
+    one = traverse.take_lanes(st, slice(w, w + 1))
     one_mc, one_bd = mc[w : w + 1].contiguous(), bd[w : w + 1].contiguous()
     alone = walk.walk_greedy(one, graph, cfg, wcfg, one_mc, one_bd)
     bad = [f for f in WALK_FIELDS if not torch.equal(getattr(alone, f), getattr(kern, f)[w : w + 1])]
@@ -699,9 +733,9 @@ def walk_vs_plain(graph_prefix: str, left: str, right: str, what: str, card: str
         if bad:
             raise AssertionError(f"walk variant {name} != plain on {what}: {bad} differ")
     builds = ["kernel", *variants]
-    t = {who: [] for who in ("plain", *builds)}
+    t.update({who: [] for who in builds})
     lane_t = {who: [] for who in builds}
-    for who in ("plain", *builds, *builds[::-1], "plain"):
+    for who in (*builds, *builds[::-1], "plain"):
         if who == "plain":
             t[who].append(_time_ms(lambda: walk.walk_greedy_plain(st, graph, cfg, wcfg, mc, bd), reps=1))
             continue
@@ -746,6 +780,249 @@ def walk_vs_plain(graph_prefix: str, left: str, right: str, what: str, card: str
     return r
 
 
+def rebuild_card_vs_cpu(gpu_out: str, cpu_out: str, counter: str) -> dict:
+    """Stage 2b on a -stage 2 output on the card and on the CPU; the rebuilt
+    filters, saved as checkpoints, must be byte-identical.  Returns the
+    card's insert launches."""
+    ci.reset_launch_counts()
+    for out, dev in ((gpu_out, "cuda"), (cpu_out, "cpu")):
+        state, cfg = checkpoint.load_graph(os.path.join(out, "rnabloom.graph"), device=dev)
+        rebuilt = pipeline.rebuild_fragment_graph(state, cfg, FragmentStore.open(out), pipeline.PipelineParams())
+        checkpoint.save_graph(os.path.join(out, "rebuilt"), engine.to_host_state(rebuilt, cfg), cfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = ci.launch_counts()
+    for f in REBUILT_FILES:
+        if not filecmp.cmp(os.path.join(gpu_out, f), os.path.join(cpu_out, f), shallow=False):
+            raise AssertionError(f"-cnt {counter}: stage 2b's {f} differs between card and CPU")
+    assert launches["set"] > 0 and launches[{"mf8": "add_mf8", "u16": "add_u16"}[counter]] > 0, launches
+    return launches
+
+
+def sample_fragments(store: FragmentStore, n: int, width: int, seed: int) -> np.ndarray:
+    """(n, width) codes of n fragments of the store drawn at random (seeded),
+    read in priority order."""
+    picks = np.sort(np.random.default_rng(seed).choice(store.count, min(n, store.count), replace=False))
+    rows, i = [], 0
+    for codes, lens, _, _ in store.iter_batches(4096, width=width):
+        live = np.flatnonzero(lens > 0)
+        hit = picks[(picks >= i) & (picks < i + len(live))] - i
+        rows.append(codes[live[hit]])
+        i += len(live)
+    return np.concatenate(rows)
+
+
+def rebuild_main_path(out: str, card: str, dev):
+    """Stage 2b on the 1M-pair -stage 2 output, on the card: rate, batches,
+    launches, insert buffer and peak device memory of that run alone, and
+    the count-min check on the rebuilt cbf."""
+    state, cfg = checkpoint.load_graph(os.path.join(out, "rnabloom.graph"), device=dev)
+    store = FragmentStore.open(out)
+    params = pipeline.PipelineParams()
+    frag_L = int(min(max(store.max_len, 2 * cfg.k), params.max_walk_len))
+    ci._batch_tables.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    d0 = engine.dispatch_counts()["build"]
+    t0 = time.time()
+    rebuilt = pipeline.rebuild_fragment_graph(state, cfg, store, params)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    batches = engine.dispatch_counts()["build"] - d0
+    peak = torch.cuda.max_memory_allocated()
+    table = ci.batch_table_bytes()
+    nbytes = lambda t: 0 if t is None else t.numel() * t.element_size()  # noqa: E731
+    r = {
+        "fragments": store.count, "frag_L": frag_L, "batches": batches, "seconds": elapsed,
+        "fragments_per_s": store.count / elapsed, "peak_bytes": peak, "held_bytes": held,
+        "batch_table_bytes": table,
+        "batch_indices": 1024 * (frag_L - cfg.k + 1) * cfg.cbf.num_hash,
+    }
+    print(f"stage 2b: {store.count} fragments (max length {store.max_len}, rows of {frag_L}) in {batches} batches "
+          f"of 1024: {elapsed:.2f} s, {r['fragments_per_s']:.1f} fragments/s; fragment pairs added: "
+          f"{frag_L - cfg.k + 1 > cfg.fragment_pair_distance} (d_frag {cfg.fragment_pair_distance}) [{card}]",
+          flush=True)
+    print(f"stage 2b: a batch is up to {r['batch_indices']} cbf indices (1024 x {frag_L - cfg.k + 1} k-mers x "
+          f"{cfg.cbf.num_hash}); add_mf8's batch table {table} B ({table / 2**20:.1f} MiB; the L2 holds 50 MB)")
+    print(f"stage 2b: peak device memory {peak} B ({peak / 2**30:.3f} GiB); held before: {held} B, the stage-2 "
+          f"graph (cbf {nbytes(state.cbf)} B, rpkbf {nbytes(state.rpkbf)} B, and the decode/walk tables); the "
+          f"rebuild adds the zeroed cbf ({nbytes(rebuilt.cbf)} B, held beside the stage-2 cbf, which the caller "
+          f"still references), the fpkbf ({nbytes(rebuilt.fpkbf)} B), the batch table and one batch's hashes and "
+          f"indices; rpkbf shared: {rebuilt.rpkbf is state.rpkbf}", flush=True)
+    del state
+    sample = sample_fragments(store, 10_000, frag_L, seed=2)
+    counts, valid = engine.count_step(rebuilt, cfg, sample)
+    counts, valid = counts.cpu(), valid.cpu()
+    assert bool(valid.any()) and bool((counts[valid] >= 1).all()), "stage 2b: a k-mer of a stored fragment counts 0"
+    print(f"stage 2b: count-min check: {int(valid.sum())} valid k-mers of {sample.shape[0]} sampled fragments all "
+          f"count >= 1 (min {float(counts[valid].min())})", flush=True)
+    return rebuilt, cfg, store, r
+
+
+def stage3_batches(store: FragmentStore, n: int, width: int) -> list:
+    """Stage 3's fragment batches in its own order (``iter_batches(n)``:
+    one stratum at a time in priority order, each stratum's last batch
+    padded), up to and including the first full one, as (stratum, codes
+    (n, width), lens)."""
+    keys = store._ordered_keys()
+    assert sum(len(store._covs[key]) for key in keys) == store.count
+    strata = [key for key in keys for _ in range(-(-len(store._covs[key]) // n))]
+    out = []
+    for key, (codes, lens, _, _) in zip(strata, store.iter_batches(n, width=width)):
+        out.append((key, codes, lens))
+        if bool((lens > 0).all()):
+            return out
+    raise AssertionError(f"no stratum holds {n} fragments")
+
+
+def pair_tally(st, graph, cfg, wcfg, mc, bd) -> dict:
+    """The plain pair loop replayed one hop at a time with the plain
+    version's own steps, counting what the kernel's schedule reads: 4 k-mers
+    a hop (not after a resolve that advanced: it read them at probe step
+    1), and per resolve the 4 successors of every live probe at each step,
+    num_hash cells a k-mer, and the pkbf lanes of every live probe whose
+    partner is in the ring (pkbf num_hash a key), plus the ring entry of
+    each such partner.  Returns the tallies and the final state."""
+    state = traverse.clone_state(st)
+    h, k, D, R = cfg.cbf.num_hash, cfg.k, wcfg.pair_probe_depth, wcfg.pair_ring
+    W, dev = st.pos.shape[0], st.pos.device
+    zero = torch.zeros(W, dtype=torch.int64, device=dev)
+    hops, resolves, cells, lanes, ring_reads = zero.clone(), zero.clone(), zero.clone(), zero.clone(), zero.clone()
+    reused = torch.zeros(W, dtype=torch.bool, device=dev)
+    classes = [d for d, t in ((cfg.read_pair_distance, graph.rpkbf), (cfg.fragment_pair_distance, graph.fpkbf))
+               if t is not None and d > 0]
+    j = torch.arange(D, device=dev)
+    for _ in range(64):
+        if not bool(((state.status == traverse.ACTIVE) | (state.status == traverse.BRANCH)).any()):
+            break
+        for _ in range(64):
+            active = state.status == traverse.ACTIVE
+            if not bool(active.any()):
+                break
+            hops += active
+            cells += (active & ~reused) * 4 * h
+            reused &= ~active
+            state = traverse.walk_superstep(state, graph, cfg, wcfg, mc, bd, 1)
+        branch = state.status == traverse.BRANCH
+        if bool(branch.any()):
+            out = traverse._gather_out_codes(state.buf, state.pos, k)
+            fh4, rh4, q4 = traverse._successors(cfg, wcfg, state.fh, state.rh, out)
+            alive_p = traverse._probe_with_hashes(graph, cfg, wcfg, state.buf, state.pos, fh4, rh4, q4, mc)[3]
+            resolves += branch
+            cells += branch * alive_p[..., : D - 1].sum(dim=(1, 2)) * 4 * h
+            for dist in classes:
+                end = state.pos.long()[:, None] - dist + j
+                reach = (end >= k - 1) & (state.pos.long()[:, None] - end < R)  # (W, D)
+                lanes += branch * (alive_p & reach[:, None, :]).sum(dim=(1, 2)) * cfg.pkbf.num_hash
+                ring_reads += branch * reach.sum(dim=1) * 2
+            pos0 = state.pos
+            state = traverse.resolve_branches(state, graph, cfg, wcfg, mc, mode="pair")
+            reused |= branch & (state.pos > pos0) & (D > 1) & (k > 1)
+    return {"state": state, "hops": hops, "resolves": resolves, "cells": cells, "lanes": lanes,
+            "ring_reads": ring_reads}
+
+
+def pair_vs_plain(graph, cfg, store: FragmentStore, card: str, dev) -> dict:
+    """The stage-3 extension on the rebuilt graph: ``extend_fragments_pair``
+    on stage 3's batches in its order up to the first full one (the main
+    path's launches).  On that full batch, each of its walks (right; left
+    from the kernel's right walks) by the kernel and once by the plain
+    loop, every field equal; the right walks' times in turns (the plain
+    loop's equality run is its timing turn); a replay of the plain loop
+    (its reads, the bound) that must end in the plain loop's state; the
+    gather yardstick.  The first batch's right walks are timed too."""
+    params, tparams = pipeline.PipelineParams(), transcripts.TranscriptParams()
+    width = int(min(max(store.max_len, cfg.k), params.max_walk_len))
+    batches = stage3_batches(store, params.stage3_batch, width)
+    ext_len = None
+    for i, (key, frags, lens) in enumerate(batches):
+        t0 = time.time()
+        _, ext_len, _, _ = transcripts.extend_fragments_pair(graph, cfg, frags, lens, tparams)
+        live = lens > 0
+        assert (ext_len[live] >= lens[live]).all()
+        print(f"walk_pair: extend_fragments_pair on stage 3's batch {i} (stratum {key}, {int(live.sum())} "
+              f"fragments in {frags.shape[0]} lanes, rows of {width}): {time.time() - t0:.3f} s; extended lengths "
+              f"{int(ext_len[live].min())}-{int(ext_len[live].max())}, mean {float(ext_len[live].mean()):.1f} "
+              f"[{card}]", flush=True)
+    launches = walk.launch_counts()["walk_pair"]
+    assert launches == 2 * len(batches), launches
+
+    def wcfg(left):
+        return traverse.WalkConfig(max_len=tparams.max_walk_len, pair_ring=tparams.pair_ring, left=left,
+                                   lookahead=tparams.lookahead)
+
+    def right_walks(frags, lens):
+        st = traverse.make_walks(cfg, wcfg(False), frags, lens, device=dev)
+        return (st, *traverse.lane_args(st, 1.0, tparams.bound))
+
+    first, first_mc, first_bd = right_walks(*batches[0][1:])
+    first_ms = min(_time_ms(lambda: walk.walk_pair(first, graph, cfg, wcfg(False), first_mc, first_bd), reps=5)
+                   for _ in range(2))
+    key, frags, lens = batches[-1]
+    right, mc, bd = right_walks(frags, lens)
+    kern_r = walk.walk_pair(right, graph, cfg, wcfg(False), mc, bd)
+    left = traverse.revcomp_reseed(cfg, wcfg(True), kern_r.buf, kern_r.pos)
+    kern_l = walk.walk_pair(left, graph, cfg, wcfg(True), mc, bd)
+    plain_r = None
+
+    def plain_right():
+        nonlocal plain_r
+        plain_r = walk.walk_pair_plain(right, graph, cfg, wcfg(False), mc, bd)
+
+    kernel_right = lambda: walk.walk_pair(right, graph, cfg, wcfg(False), mc, bd)  # noqa: E731
+    t = {"kernel": [_time_ms(kernel_right, reps=5)], "plain": [_time_ms(plain_right, reps=1)]}
+    t["kernel"].append(_time_ms(kernel_right, reps=5))
+    t0 = time.time()
+    plain_l = walk.walk_pair_plain(left, graph, cfg, wcfg(True), mc, bd)
+    torch.cuda.synchronize()
+    plain_left_s = time.time() - t0
+    for what, kern, plain in (("right", kern_r, plain_r), ("left", kern_l, plain_l)):
+        bad = [f for f in PAIR_FIELDS if not torch.equal(getattr(kern, f), getattr(plain, f))]
+        if bad:
+            raise AssertionError(f"walk_pair != plain on the {what} walks of stage 3's batch: {bad} differ")
+    # the main path's extension of this batch equals what the separate walks give
+    assert torch.equal(kern_l.pos.cpu()[: frags.shape[0]], torch.from_numpy(ext_len.astype(np.int32)))
+    t0 = time.time()
+    tally = pair_tally(right, graph, cfg, wcfg(False), mc, bd)
+    tally_s = time.time() - t0
+    bad = [f for f in PAIR_FIELDS if not torch.equal(getattr(tally["state"], f), getattr(plain_r, f))]
+    if bad:
+        raise AssertionError(f"the tallied replay of the plain pair loop differs: {bad}")
+    cells, pk_lanes = int(tally["cells"].sum()), int(tally["lanes"].sum())
+    state_bytes = sum(x.numel() * x.element_size() for x in right if x is not None) * 2 + 8 * mc.numel()
+    bound_ms = ((cells + pk_lanes) * SECTOR + state_bytes) / HBM_BYTES_PER_MS
+    idx_c = torch.randint(0, graph.cbf.numel(), (cells,), device=dev)
+    idx_p = torch.randint(0, graph.fpkbf.numel(), (max(pk_lanes, 1),), device=dev)
+    gather = lambda: (graph.cbf[idx_c], graph.fpkbf[idx_p])  # noqa: E731
+    gather()
+    gather_ms = min(_time_ms(gather, reps=3) for _ in range(3))
+    del idx_c, idx_p
+    status = torch.bincount(kern_r.status.long(), minlength=7).tolist()
+    r = {
+        "lanes": int(right.pos.shape[0]), "batches": len(batches), "batch": len(batches) - 1, "stratum": key,
+        "plain_left_s": plain_left_s, "tally_s": tally_s,
+        "ms": sum(t["kernel"]) / 2, "plain_ms": t["plain"][0], "bound_ms": bound_ms, "gather_ms": gather_ms,
+        "cells": cells, "pkbf_lanes": pk_lanes, "ring_reads": int(tally["ring_reads"].sum()),
+        "hops": int(tally["hops"].sum()), "resolves": int(tally["resolves"].sum()),
+        "max_hops": int(kern_r.hops.max()), "launches": launches,
+        "first_fragments": int((batches[0][2] > 0).sum()), "first_ms": first_ms,
+        "max_abs_err": max(_max_abs_diff(kern_r, plain_r, PAIR_FIELDS), _max_abs_diff(kern_l, plain_l, PAIR_FIELDS)),
+    }
+    print(f"walk_pair: stage 3's batch {r['batch']}, the first full one ({r['lanes']} fragments of stratum {key}): "
+          f"right and left walks (max_len {tparams.max_walk_len}, ring {tparams.pair_ring}, probe depth 24, bound "
+          f"{tparams.bound}) equal to the plain loop in every field incl. the ring (plain left walks "
+          f"{plain_left_s:.1f} s, replay {tally_s:.1f} s); right-walk statuses {status}", flush=True)
+    print(f"walk_pair (right walks of that batch): kernel {r['ms']:.4f} ms ({', '.join(f'{x:.4f}' for x in t['kernel'])}), "
+          f"plain {r['plain_ms']:.2f} ms; the batch needs {r['hops']} hops, {r['resolves']} pair resolves, {cells} cbf "
+          f"cell reads, {pk_lanes} pkbf lane reads, {r['ring_reads']} ring entries: bound {bound_ms:.4f} ms "
+          f"({SECTOR} B a cell or lane, state and ring {state_bytes} B, at 3.35 TB/s); one gather of as many random "
+          f"cbf cells and fpkbf lanes {gather_ms:.4f} ms [{card}]", flush=True)
+    print(f"walk_pair (right walks of stage 3's batch 0, stratum {batches[0][0]}, {r['first_fragments']} fragments in "
+          f"{first.pos.shape[0]} lanes): kernel {first_ms:.4f} ms [{card}]", flush=True)
+    return r
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--walk-variant", action="append", default=[], metavar="NAME=PATH",
@@ -786,7 +1063,7 @@ def main(argv=None) -> int:
     if log is None:
         print("walk kernel not rebuilt in this run (up to date): no ptxas report")
     else:
-        print("nvcc -Xptxas -v, walk kernel instantiations <layout, num_hash (0: any), past depth 3>:")
+        print("nvcc -Xptxas -v, walk kernel instantiations <layout, num_hash (0: any), past depth 3, mode>:")
         for line in ptxas_report(log):
             print("  " + line)
     log = _build.build_logs.get(_build.KERNEL_SRC)
@@ -836,7 +1113,6 @@ def main(argv=None) -> int:
             "u16": walk_vs_plain(os.path.join(out_u16, "rnabloom.graph"), left, right,
                                  "1M-pair graph, -cnt u16, resized to 2^29 cells", card, dev, variants),
         }
-        shutil.rmtree(out_mf8)
         shutil.rmtree(out_u16)
 
         phase("5 card vs CPU: -stage 1 on 20,000 pairs, -stage 2 on 8192 pairs, byte-identical outputs")
@@ -883,8 +1159,27 @@ def main(argv=None) -> int:
                   f"({', '.join(files)}); {rep.num_fragments} fragments of {rep.num_pairs} pairs, d_frag "
                   f"{rep.fragment_pair_distance}; walk launches {n_walk}; CLI wall card {t_gpu:.1f} s, "
                   f"CPU {t_cpu:.1f} s", flush=True)
+            n_rebuild = rebuild_card_vs_cpu(gpu_out, cpu_out, counter)
+            print(f"-cnt {counter} stage 2b on that output: card and CPU rebuilt filters byte-identical "
+                  f"({', '.join(REBUILT_FILES)}); card launches {n_rebuild}", flush=True)
             shutil.rmtree(gpu_out)
             shutil.rmtree(cpu_out)
+
+        phase("6 stage 2b and the stage-3 extension walks on the 1M-pair -cnt mf8 -stage 2 output, on the card")
+        # the main path of this slice: the rebuild, then the extension of
+        # stage 3's first batches, with every launch count set to 0 before
+        ci.reset_launch_counts()
+        walk.reset_launch_counts()
+        rebuilt, cfg6, store6, rebuild = rebuild_main_path(out_mf8, card, dev)
+        rebuild_launches = ci.launch_counts()
+        pair = pair_vs_plain(rebuilt, cfg6, store6, card, dev)
+        assert walk.launch_counts()["walk_greedy"] == 0
+        assert rebuild_launches["add_mf8"] > 0 and rebuild_launches["set"] > 0, rebuild_launches
+        print(f"phase 6 main-path launches: rebuild {rebuild_launches}, extension walk_pair {pair['launches']}",
+              flush=True)
+        del rebuilt
+        torch.cuda.empty_cache()
+        shutil.rmtree(out_mf8)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -945,6 +1240,34 @@ def main(argv=None) -> int:
         "stage2_pairs": s2_report.num_pairs,
         "stage1_reads_per_s": s2_report.stage1.num_reads / s2_report.stage1.elapsed_s,
         "stage2_peak_device_bytes": s2_peak,
+    })
+    kernels.append({
+        "name": "walk_pair",
+        "route": "cuda",
+        "source": WALK_SOURCE,
+        "replaces": WALK_REPLACES,
+        "launches": pair["launches"],
+        "run": f"phase 6 main path: extend_fragments_pair on stage 3's first {pair['batches']} batches of the rebuilt "
+               f"1M-pair graph; times, bound and plain on batch {pair['batch']}, the first full one (stratum "
+               f"{pair['stratum']})",
+        "max_abs_err": pair["max_abs_err"],
+        "ms": pair["ms"],
+        "plain_ms": pair["plain_ms"],
+        "bound_ms": pair["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "lanes": pair["lanes"],
+        "first_batch_fragments": pair["first_fragments"],
+        "first_batch_ms": pair["first_ms"],
+        "resolves": pair["resolves"],
+        "cell_reads": pair["cells"],
+        "pkbf_lane_reads": pair["pkbf_lanes"],
+        "gather_ms": pair["gather_ms"],
+        "rebuild_fragments_per_s": rebuild["fragments_per_s"],
+        "rebuild_batches": rebuild["batches"],
+        "rebuild_launches": rebuild_launches,
+        "rebuild_peak_device_bytes": rebuild["peak_bytes"],
+        "rebuild_batch_table_bytes": rebuild["batch_table_bytes"],
     })
     print(f"\nsmoke wall time {time.time() - t_start:.1f} s")
     print(card_line())

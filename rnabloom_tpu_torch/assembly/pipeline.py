@@ -11,7 +11,9 @@ Port of ``rnabloom_tpu/assembly/pipeline.py``: ``assemble_pe`` runs
            set the fragment pair distance (Q1 - k - minNumKmerPairs) and
            the walk bound (Q3 + 1.5 IQR) (RNABloom.java:4465-4663)
 
-Stage 3 (transcripts), ``-extend``, ``-rescue`` and unpaired reads
+``rebuild_fragment_graph`` is stage 2b, the fragment-graph rebuild that
+opens stage 3 (populateGraphFromFragments, RNABloom.java:1553-1560).
+Stage 3 proper (transcripts), ``-extend``, ``-rescue`` and unpaired reads
 (``-sef``/``-ser``) are not ported yet: asking for them raises before any
 work is done.
 """
@@ -442,11 +444,30 @@ def _stage2_pair_loop(
     return d_frag
 
 
+def rebuild_fragment_graph(
+    state: dbg.GraphState, cfg: dbg.GraphConfig, store: FragmentStore, params: PipelineParams
+) -> dbg.GraphState:
+    """Stage 2b: the fragment graph on ``state``'s device.  Zeroed counters
+    and a fresh fpkbf, the read-pair keys kept (shared with ``state``); the
+    stored fragments go in, in batches of 1024 in the store's priority
+    order, each batch's counter (0, 1, ...) salting the mf8 rounding.  The
+    fragment-pair keys go in when a fragment row holds more k-mers than the
+    fragment pair distance.  The ``-ref`` augmentation waits for ``-ref``
+    (ROADMAP queue-1 item 11)."""
+    k = cfg.k
+    frag_L = int(min(max(store.max_len, 2 * k), params.max_walk_len))
+    add_pairs = frag_L - k + 1 > cfg.fragment_pair_distance
+    state = engine.fresh_rebuild_state(state, cfg)
+    for nbatch, (codes, _lens, _covs, _conn) in enumerate(store.iter_batches(1024, width=frag_L)):
+        state = engine.rebuild_step(state, cfg, codes, add_frag_pairs=add_pairs, salt=nbatch)
+    return state
+
+
 def _refuse_unported(params: PipelineParams, sef_paths, ser_paths) -> None:
     if params.stop_stage >= 3:
         raise NotImplementedError(
-            f"-stage {params.stop_stage}: the port runs stages 1-2; transcripts are ROADMAP "
-            "queue-1 item 10"
+            f"-stage {params.stop_stage}: the port's CLI runs stages 1-2 (stage 2b and the extension walks "
+            "are Python API); transcripts are ROADMAP queue-1 item 10b"
         )
     if params.extend_fragments:
         raise NotImplementedError(fragmod._EXTEND)

@@ -45,8 +45,18 @@
 // every lane first was a third slower on a fresh batch, and 4 indices a
 // thread (a probe for every 4) 5% slower (PERF.md).
 //
-// add: one atomicAdd per index, bound by those atomics (a repeated cell
-// queues on its address).
+// add (int32, flat or blocked), one pass.  Integer adds commute, so partial
+// totals may be applied in any order and any split.  __match_any_sync
+// merges the lanes of a warp that hold one cell, and the lowest of them adds
+// their count with one atomicAdd; the result is unused, so it compiles to a
+// fire-and-forget RED with no read before it.  On real reads nearly every
+// index is its own cell, so this is one RED an index, as an atomic an index
+// was; the 10^5-fold cell of a synthetic batch (about 3 lanes a warp)
+// queues a third as many REDs on its address.  Totals of a block's whole
+// tile first (tile_totals, as add_u16 does) cut that cell to 256 REDs and
+// the synthetic batch to 0.083 ms, but cost 13-14% over index_add_ on real
+// reads (25% over an atomic an index), where the tile pass merges nothing
+// (an H100, PERF.md); the warp merge is no slower than index_add_ on either.
 //
 // add_u16, one pass.  For increments n >= 0 the saturating add composes:
 // min(min(v + a, 65535) + b, 65535) == min(v + a + b, 65535).  So partial
@@ -192,12 +202,18 @@ set_u8_kernel(uint8_t* __restrict__ table, unsigned long long numel,
   }
 }
 
+// add: the warp's lanes holding one cell add their count with one RED.
+// base is uniform over the block, so every lane runs every step and the
+// full mask is exact
 __global__ void add_i32_kernel(int* __restrict__ table, unsigned long long numel,
                                const long long* __restrict__ idx, long long n) {
-  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < n;
-       t += (long long)gridDim.x * blockDim.x) {
-    unsigned long long i = (unsigned long long)idx[t];
-    if (i < numel) atomicAdd(table + i, 1);
+  const int lane = threadIdx.x & 31;
+  for (long long base = (long long)blockIdx.x * blockDim.x; base < n; base += (long long)gridDim.x * blockDim.x) {
+    const long long t = base + threadIdx.x;
+    const unsigned long long i = t < n ? (unsigned long long)idx[t] : numel;  // negative: huge, dropped
+    const unsigned long long key = i < numel ? i : ~0ull;
+    const unsigned int peers = __match_any_sync(0xFFFFFFFFu, key);
+    if (key != ~0ull && lane == __ffs((int)peers) - 1) atomicAdd(table + key, __popc(peers));
   }
 }
 

@@ -1,11 +1,13 @@
-// Greedy de Bruijn graph walk for Hopper (sm_90a), bound with ctypes.
+// De Bruijn graph walks for Hopper (sm_90a), greedy and pair modes, bound
+// with ctypes.
 //
 // Replaces the XLA while-loop of rnabloom_tpu/graph/traverse.py::
-// _extend_walks_fused (mode="greedy", no terminators, no back-branch
-// checks, spec_hops = 1): supersteps of walk_superstep alternating with
-// resolve_branches, until no lane is ACTIVE or BRANCH or max_supersteps
-// ran.  The walk state that comes out equals the lockstep loop's, field for
-// field (graph/traverse.py::extend_walks_plain is the plain version).
+// _extend_walks_fused (mode="greedy" or "pair", no terminators, no
+// back-branch checks, spec_hops = 1): supersteps of walk_superstep
+// alternating with resolve_branches, until no lane is ACTIVE or BRANCH or
+// max_supersteps ran.  The walk state that comes out equals the lockstep
+// loop's, field for field, the pair ring included
+// (graph/traverse.py::extend_walks_plain is the plain version).
 //
 // In the lockstep loop an inactive lane leaves the superstep body unchanged
 // and resolve_branches touches only BRANCH lanes, so each lane's
@@ -72,8 +74,36 @@
 //    exit, so the ring needs no barrier.  The buffer stays in global memory
 //    (rank 0 appends, tile.sync() publishes the byte to the tile).
 //
-// The entry point launches on the caller's stream, does not synchronise,
-// allocates nothing and returns cudaGetLastError() as an int.
+// Pair mode (the stage-3 extension, extendRightPE): a hop also writes the
+// new k-mer's (fh, rh) into the lane's pair ring (global memory, slot
+// pos % R), and a resolve scores the candidates by pair support instead of
+// lookahead (traverse.py::_probe_with_hashes, ::_pair_scores):
+//
+//  * Each candidate is probed by a greedy naive descent of D =
+//    pair_probe_depth k-mers, one dependent round a step: the tile reads
+//    the 4 successors of every live probe together (16 k-mers, 2 a
+//    thread); every thread then takes the same max-count successor per
+//    candidate (shuffles), so the probe state (hashes, alive) is in every
+//    thread, and rank 0 keeps each depth's count in shared memory.
+//  * Thread u < 8 owns the pair lookups of candidate u / 2 and class u % 2
+//    (read pairs, fragment pairs).  In step j it forms the pair key of
+//    depth j - 1 (the probe k-mer with its partner from the ring, read in
+//    the step before) and issues its pkbf bit reads, and loads the ring
+//    entry of depth j's partner, while the step's count reads are in
+//    flight: a resolve is D + 1 dependent rounds.
+//  * The median of a candidate's live probe counts (a prefix of its
+//    probe) is selected by rank counting across the tile, then score =
+//    min(path_min, median) * (n_read + n_frag) / (last + 1) in float32,
+//    with IEEE rounding (no fast math: a rounding that differs from the
+//    plain version's flips picks).  The best score wins, ties to the higher
+//    median, then the smaller base; no viable candidate stops the lane.
+//  * A resolve that advances hands its choice's step-1 counts (its 4
+//    successors) to the next hop, as a greedy resolve does.
+// Pair mode is instantiated for the 4 layouts x num_hash 1-3 and the
+// generic one, without the lookahead split (it reads no lookahead tree).
+//
+// The entry points launch on the caller's stream, do not synchronise,
+// allocate nothing and return cudaGetLastError() as an int.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -85,7 +115,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int G = 8;  // threads per walk lane
-static_assert(G >= 4 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two in [4, 32]");
+static_assert(G >= 8 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two in [8, 32] (pair mode: a thread per "
+                                                         "candidate and pair class)");
 constexpr int kThreads = 256;       // threads per block (fewer when rings need it)
 constexpr int kBlocksPerSm = 3;     // resident blocks an SM asks for: <= 85 registers a thread
 constexpr int kRingPad = 8;         // int64 slots between two lanes' rings
@@ -96,6 +127,9 @@ constexpr int kBranch = 1;
 constexpr int kDead = 2;
 constexpr int kCycle = 3;
 constexpr int kFull = 5;
+constexpr int kStoppedBranch = 6;
+
+constexpr uint64_t kPairConst = 0x9E3779B9ull;
 
 constexpr int kMf8 = 0;
 constexpr int kU16 = 1;
@@ -127,6 +161,14 @@ struct Walk {
   int num_hash;
   uint64_t kms;  // k * MULTI_SEED mod 2^64
   int k, stranded, left, lookahead, superstep_hops, max_supersteps;
+  // pair mode
+  int64_t* ring_fh;  // (W, R) pair ring
+  int64_t* ring_rh;
+  int R, D;  // ring slots, probe depth
+  const uint8_t* pk[2];  // rpkbf, fpkbf lanes (null: the class is off)
+  uint64_t pmask;  // pkbf lanes - 1
+  int pnh;  // pkbf num_hash
+  int dist[2];  // read and fragment pair distances (0: the class is off)
 };
 
 template <typename T>
@@ -263,7 +305,12 @@ __device__ __forceinline__ unsigned tile_or(Tile tile, unsigned v) {
   return v;
 }
 
-template <int L, int H, bool kDeep>
+// the pair-hash combiner, a ^ (b + 0x9e3779b9 + (a << 6) + (b >>> 2))
+__device__ __forceinline__ uint64_t combine(uint64_t a, uint64_t b) {
+  return a ^ (b + kPairConst + (a << 6) + (b >> 2));
+}
+
+template <int L, int H, bool kDeep, bool kPair>
 struct Lane {
   static constexpr int M1 = (16 + G - 1) / G;  // level-1 k-mers per thread
   static constexpr int M2 = 64 / G;            // level-2 k-mers (leaves) per thread
@@ -274,6 +321,9 @@ struct Lane {
   int64_t* ring;  // this lane's cycle ring in shared memory
   uint8_t* buf;
   int rank;
+  int64_t* pair_fh;  // this lane's pair ring (pair mode)
+  int64_t* pair_rh;
+  float* probe_cnt;  // (4, D) probe counts in shared memory (pair mode)
   uint64_t rs[4];  // rotl(seed[3-n], k-1)
   int32_t pos, hops, status, bound;
   uint64_t fh, rh;
@@ -329,6 +379,10 @@ struct Lane {
 
   __device__ void advance(int c) {
     if (rank == 0) buf[pos < p.max_len - 1 ? pos : p.max_len - 1] = (uint8_t)c;
+    if (kPair && rank == 0) {  // the new k-mer ends at the old pos
+      pair_fh[pos % p.R] = (int64_t)pick4(f4, c);
+      pair_rh[pos % p.R] = (int64_t)pick4(r4, c);
+    }
     const int slot = (hops + 1) % p.cycle_window;
     if (slot % G == rank) ring[slot] = (int64_t)pick4(q4, c);
     fh = pick4(f4, c);
@@ -458,8 +512,212 @@ struct Lane {
     for (int c = 0; c < 4; ++c) s[c] = tile_max(tile, best[c]);
   }
 
-  // resolve_branches(mode="greedy") for one BRANCH lane
+  // the count of k-mer i of this step (16 a step, k-mer i read by rank
+  // i % G as its (i / G)-th), shuffled to every thread
+  __device__ float shfl_count(const float (&got)[M1], int i) {
+    float v = got[0];
+#pragma unroll
+    for (int m = 0; m < M1; ++m) {
+      const float x = tile.shfl(got[m], i % G);
+      v = m == i / G ? x : v;
+    }
+    return v;
+  }
+
+  // the pair key of (probe k-mer hf/hr, its partner qf/qr), as
+  // traverse.py::_pair_scores forms it (left and right walks agree when
+  // not stranded)
+  __device__ uint64_t pair_key(uint64_t hf, uint64_t hr, uint64_t qf, uint64_t qr) const {
+    if (p.stranded) return p.left ? combine(hr, qr) : combine(qf, hf);
+    const uint64_t a = combine(qf, hf), b = combine(hr, qr);
+    return (int64_t)a < (int64_t)b ? a : b;
+  }
+
+  // resolve_branches(mode="pair") for one BRANCH lane
+  __device__ void resolve_pair() {
+    if (!cached) read_candidates();
+    const int D = p.D;
+    const int u = rank & 7;  // this thread's lookups: candidate u >> 1, class u & 1
+    const int uc = u >> 1, cls = u & 1;
+    const int dist = cls ? p.dist[1] : p.dist[0];
+    const uint8_t* lanes = cls ? p.pk[1] : p.pk[0];
+    const bool looks = rank < 8 && dist > 0;
+    bool viable[4], alive[4];
+    uint64_t hf[4], hr[4];  // each candidate's probe k-mer at the current depth
+    int nv[4];  // live depths so far
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      viable[c] = alive[c] = cnt[c] >= floor;
+      hf[c] = f4[c];
+      hr[c] = r4[c];
+      nv[c] = alive[c] ? 1 : 0;
+    }
+    if (rank == 0) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) probe_cnt[c * D] = cnt[c];
+    }
+    // this thread's partner of the current depth (the k-mer ending at
+    // pos - dist + depth), and whether it is in the ring
+    auto partner_at = [&](int depth, uint64_t& qf, uint64_t& qr) {
+      const int end = pos - dist + depth;
+      const bool reach = looks && end >= p.k - 1 && pos - end < p.R;
+      qf = reach ? (uint64_t)__ldcg((const long long*)pair_fh + end % p.R) : 0ull;
+      qr = reach ? (uint64_t)__ldcg((const long long*)pair_rh + end % p.R) : 0ull;
+      return reach;
+    };
+    uint64_t qf, qr;
+    bool reach_now = partner_at(0, qf, qr);
+    int nsup = 0, last = -1, reach_any = 0;
+    // the lookup of depth `depth` (the probe hashes in hf/hr, alive at it)
+    auto lookup = [&](int depth) {
+      const bool on = reach_now && pick4(alive, uc);
+      reach_any |= on;
+      if (!on) return;
+      const uint64_t key = pair_key(pick4(hf, uc), pick4(hr, uc), qf, qr);
+      bool all = true;
+      for (int i0 = 0; i0 < p.pnh; i0 += 4) {
+        uint8_t b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) b[i] = i0 + i < p.pnh ? __ldg(lanes + ((multi(p, key, i0 + i) >> 1) & p.pmask)) : 1;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) all &= b[i] != 0;
+      }
+      if (all) {
+        ++nsup;
+        last = depth;
+      }
+    };
+    float c1[M1];  // step 1's counts: the candidates' successors
+#pragma unroll
+    for (int m = 0; m < M1; ++m) c1[m] = INFINITY;
+    for (int j = 1; j < D; ++j) {
+      // the successors of every live probe, read while the lookups of
+      // depth j - 1 and the ring loads of depth j are in flight
+      const int outc = buf_at(pos - p.k + j);
+      uint64_t q[M1];
+      bool on[M1];
+#pragma unroll
+      for (int m = 0; m < M1; ++m) {
+        const int i = rank + G * m, c = (i >> 2) & 3;
+        uint64_t f, r;
+        child(slide(p, pick4(hf, c), pick4(hr, c), outc), i & 3, rs, f, r);
+        q[m] = query(p, f, r);
+        on[m] = i < 16 && pick4(alive, c);
+      }
+      float got[M1];
+      uint64_t nqf, nqr;
+      bool reach_next = false;
+      count_many<L, H, M1>(p, dec, q, on, got, [&] {
+        reach_next = partner_at(j, nqf, nqr);
+        lookup(j - 1);
+      });
+      if (j == 1) {
+#pragma unroll
+        for (int m = 0; m < M1; ++m) c1[m] = got[m];
+      }
+      // every thread takes each live probe's max-count successor
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float v[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) v[n] = shfl_count(got, 4 * c + n);
+        if (!alive[c]) continue;
+        float key[4];
+        bool any = false;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const bool ok = v[n] >= floor;
+          any |= ok;
+          key[n] = ok ? v[n] : -1.0f;
+        }
+        alive[c] = any;
+        if (!any) continue;
+        const int b = argmax4(key);
+        uint64_t f, r;
+        child(slide(p, hf[c], hr[c], outc), b, rs, f, r);
+        hf[c] = f;
+        hr[c] = r;
+        ++nv[c];
+        if (rank == 0) probe_cnt[c * D + j] = pick4(v, b);
+      }
+      qf = nqf;
+      qr = nqr;
+      reach_now = reach_next;
+    }
+    lookup(D - 1);
+    tile.sync();  // the probe counts are in shared memory
+
+    // per candidate: support counts and depths from the lookup threads, the
+    // median of the live probe counts by rank selection across the tile
+    float score[4], med[4];
+    float top = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int nr = tile.shfl(nsup, 2 * c), nf = tile.shfl(nsup, 2 * c + 1);
+      const int lst = max(tile.shfl(last, 2 * c), tile.shfl(last, 2 * c + 1));
+      const bool rr = tile.shfl(reach_any, 2 * c) != 0, rf = tile.shfl(reach_any, 2 * c + 1) != 0;
+      const int n = nv[c];
+      const int half = n / 2;
+      const int lo = n % 2 == 0 ? max(half - 1, 0) : half;
+      float vlo = -INFINITY, vhalf = -INFINITY;
+      const float* s = probe_cnt + c * D;
+      for (int i = rank; i < n; i += G) {
+        const float vi = s[i];
+        int r = 0;
+        for (int t = 0; t < n; ++t) r += (s[t] < vi) || (t < i && s[t] == vi);
+        vlo = r == lo ? vi : vlo;
+        vhalf = r == half ? vi : vhalf;
+      }
+      vlo = tile_max(tile, vlo);
+      vhalf = tile_max(tile, vhalf);
+      med[c] = n > 0 ? __fdiv_rn(__fadd_rn(vlo, vhalf), 2.0f) : 0.0f;
+      const bool ok = lst >= 0 && (!rr || nr > 0) && (!rf || nf > 0) && (rr || rf);
+      score[c] = ok && viable[c]
+                     ? __fdiv_rn(__fmul_rn(fminf(path_min, med[c]), __int2float_rn(nr + nf)),
+                                 __int2float_rn(max(lst + 1, 1)))
+                     : -1.0f;
+      top = fmaxf(top, score[c]);
+    }
+    float key[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) key[c] = score[c] >= top ? med[c] : -1.0f;
+    const int best = argmax4(key);
+    tile.sync();  // the probe counts are read before a later resolve writes them
+    if ((seen >> best) & 1u) {
+      status = kCycle;
+    } else if (pos >= p.max_len - 1) {
+      status = kFull;
+    } else if (!(top >= 0.0f)) {
+      status = kStoppedBranch;
+    } else {
+      status = kActive;
+      // the choice's successors were read at step 1: the next hop's
+      // candidates
+      const bool reuse = D > 1 && p.k > 1;
+      float kids[4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) kids[n] = shfl_count(c1, 4 * best + n);
+      advance(best);
+      if (reuse) {
+        set_candidates();
+#pragma unroll
+        for (int n = 0; n < 4; ++n) cnt[n] = kids[n];
+        check_ring();
+        cached = true;
+      }
+    }
+  }
+
   __device__ void resolve() {
+    if constexpr (kPair) {
+      resolve_pair();
+    } else {
+      resolve_greedy();
+    }
+  }
+
+  // resolve_branches(mode="greedy") for one BRANCH lane
+  __device__ void resolve_greedy() {
     if (!cached) read_candidates();
     bool viable[4];
 #pragma unroll
@@ -511,8 +769,8 @@ struct Lane {
   }
 };
 
-template <int L, int H, bool kDeep>
-__global__ void __launch_bounds__(kThreads, kDeep ? 1 : kBlocksPerSm) walk_greedy_kernel(Walk p) {
+template <int L, int H, bool kDeep, bool kPair>
+__global__ void __launch_bounds__(kThreads, kPair ? 2 : (kDeep ? 1 : kBlocksPerSm)) walk_greedy_kernel(Walk p) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* dec = (float*)smem;
   if (L == kMf8) {
@@ -524,11 +782,17 @@ __global__ void __launch_bounds__(kThreads, kDeep ? 1 : kBlocksPerSm) walk_greed
   const int w = blockIdx.x * (blockDim.x / G) + tile_in_block;
   if (w >= p.W) return;  // the whole tile leaves together
   const int rank = tile.thread_rank();
-  int64_t* ring = (int64_t*)(smem + kDecodeBytes) + (size_t)tile_in_block * p.ring_stride;
+  int64_t* rings = (int64_t*)(smem + kDecodeBytes);
+  int64_t* ring = rings + (size_t)tile_in_block * p.ring_stride;
   const int64_t* hist = p.hist + (size_t)w * p.cycle_window;
   for (int j = rank; j < p.cycle_window; j += G) ring[j] = hist[j];
 
-  Lane<L, H, kDeep> lane{p, tile, dec, ring, p.buf + (size_t)w * p.max_len, rank};
+  Lane<L, H, kDeep, kPair> lane{p, tile, dec, ring, p.buf + (size_t)w * p.max_len, rank};
+  if (kPair) {
+    lane.pair_fh = p.ring_fh + (size_t)w * p.R;
+    lane.pair_rh = p.ring_rh + (size_t)w * p.R;
+    lane.probe_cnt = (float*)(rings + (size_t)(blockDim.x / G) * p.ring_stride) + (size_t)tile_in_block * 4 * p.D;
+  }
 #pragma unroll
   for (int n = 0; n < 4; ++n) lane.rs[n] = rotl(seed_of(3 - n), p.k - 1);
   lane.pos = p.pos[w];
@@ -556,43 +820,76 @@ __global__ void __launch_bounds__(kThreads, kDeep ? 1 : kBlocksPerSm) walk_greed
   }
 }
 
-size_t smem_bytes(int threads, int ring_stride) {
-  return kDecodeBytes + (size_t)(threads / G) * ring_stride * sizeof(int64_t);
+// a block's shared memory: the mf8 decode table, each tile's cycle ring
+// and, in pair mode, each tile's probe counts
+size_t smem_bytes(const Walk& p, int threads, bool pair) {
+  const size_t tiles = threads / G;
+  return kDecodeBytes + tiles * p.ring_stride * sizeof(int64_t) + (pair ? tiles * 4 * p.D * sizeof(float) : 0);
 }
 
-template <int L, int H, bool kDeep>
+template <int L, int H, bool kDeep, bool kPair>
 int launch(const Walk& p, cudaStream_t stream) {
-  // fewer lanes a block when their rings would pass the default 48 KB
+  // fewer lanes a block when their shared memory would pass the default 48 KB
   int threads = kThreads;
-  while (threads > G && smem_bytes(threads, p.ring_stride) > 48 * 1024) threads /= 2;
-  const size_t smem = smem_bytes(threads, p.ring_stride);
+  while (threads > G && smem_bytes(p, threads, kPair) > 48 * 1024) threads /= 2;
+  const size_t smem = smem_bytes(p, threads, kPair);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(walk_greedy_kernel<L, H, kDeep>,
+    const cudaError_t err = cudaFuncSetAttribute(walk_greedy_kernel<L, H, kDeep, kPair>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int tiles = threads / G;
-  walk_greedy_kernel<L, H, kDeep><<<(p.W + tiles - 1) / tiles, threads, smem, stream>>>(p);
+  walk_greedy_kernel<L, H, kDeep, kPair><<<(p.W + tiles - 1) / tiles, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int L, bool kDeep>
+template <int L, bool kDeep, bool kPair>
 int launch_hash(const Walk& p, cudaStream_t stream) {
   switch (p.num_hash) {
     case 1:
-      return launch<L, 1, kDeep>(p, stream);
+      return launch<L, 1, kDeep, kPair>(p, stream);
     case 2:
-      return launch<L, 2, kDeep>(p, stream);
+      return launch<L, 2, kDeep, kPair>(p, stream);
     case 3:
-      return launch<L, 3, kDeep>(p, stream);
+      return launch<L, 3, kDeep, kPair>(p, stream);
     default:
-      return launch<L, 0, kDeep>(p, stream);
+      return launch<L, 0, kDeep, kPair>(p, stream);
   }
 }
 
 template <int L>
-int launch_layout(const Walk& p, cudaStream_t stream) {
-  return p.lookahead > 3 ? launch_hash<L, true>(p, stream) : launch_hash<L, false>(p, stream);
+int launch_layout(const Walk& p, bool pair, cudaStream_t stream) {
+  if (pair) return launch_hash<L, false, true>(p, stream);
+  return p.lookahead > 3 ? launch_hash<L, true, false>(p, stream) : launch_hash<L, false, false>(p, stream);
+}
+
+int launch_walk(const Walk& p, int layout, bool pair, cudaStream_t s) {
+  switch (layout) {
+    case kMf8:
+      return launch_layout<kMf8>(p, pair, s);
+    case kU16:
+      return launch_layout<kU16>(p, pair, s);
+    case kI32:
+      return launch_layout<kI32>(p, pair, s);
+    case kI32Blocked:
+      return launch_layout<kI32Blocked>(p, pair, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+Walk make_walk(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* hist, int32_t* status,
+               int32_t* hops, float* path_min, const float* min_cov, const int32_t* bound, int W, int max_len,
+               int cycle_window, const void* cbf, int size_log2, int num_hash, const float* decode,
+               unsigned long long kms, int k, int stranded, int left, int lookahead, int superstep_hops,
+               int max_supersteps) {
+  const int rows_log2 = size_log2 - 7;
+  Walk p{buf, pos, fh, rh, hist, status, hops, path_min, min_cov, bound,
+         W, max_len, cycle_window, cycle_window + kRingPad, cbf, decode,
+         size_log2 >= 64 ? ~0ull : (1ull << size_log2) - 1,
+         rows_log2 >= 32 ? 0xFFFFFFFFull : (rows_log2 > 0 ? (1ull << rows_log2) - 1 : 0ull),
+         num_hash, (uint64_t)kms, k, stranded, left, lookahead, superstep_hops, max_supersteps};
+  return p;
 }
 
 }  // namespace
@@ -607,25 +904,42 @@ int walk_greedy(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* h
                 int superstep_hops, int max_supersteps, void* stream) {
   if (W <= 0) return 0;
   if (num_hash < 1 || lookahead < 1 || cycle_window < 1) return (int)cudaErrorInvalidValue;
-  const int rows_log2 = size_log2 - 7;
-  Walk p{buf, pos, fh, rh, hist, status, hops, path_min, min_cov, bound,
-         W, max_len, cycle_window, cycle_window + kRingPad, cbf, decode,
-         size_log2 >= 64 ? ~0ull : (1ull << size_log2) - 1,
-         rows_log2 >= 32 ? 0xFFFFFFFFull : (rows_log2 > 0 ? (1ull << rows_log2) - 1 : 0ull),
-         num_hash, (uint64_t)kms, k, stranded, left, lookahead, superstep_hops, max_supersteps};
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (layout) {
-    case kMf8:
-      return launch_layout<kMf8>(p, s);
-    case kU16:
-      return launch_layout<kU16>(p, s);
-    case kI32:
-      return launch_layout<kI32>(p, s);
-    case kI32Blocked:
-      return launch_layout<kI32Blocked>(p, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const Walk p = make_walk(buf, pos, fh, rh, hist, status, hops, path_min, min_cov, bound, W, max_len,
+                           cycle_window, cbf, size_log2, num_hash, decode, kms, k, stranded, left, lookahead,
+                           superstep_hops, max_supersteps);
+  return launch_walk(p, layout, false, (cudaStream_t)stream);
+}
+
+// walk_greedy's arguments, then the pair ring (W, R) of each hash, R, the
+// probe depth D (1 <= D < k), the rpkbf and fpkbf lanes (null where the
+// class is off), the pair-key filter's size_log2 and num_hash, and the read
+// and fragment pair distances (0 where the class is off)
+int walk_pair(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* hist,
+              int32_t* status, int32_t* hops, float* path_min, const float* min_cov,
+              const int32_t* bound, int W, int max_len, int cycle_window, const void* cbf,
+              int layout, int size_log2, int num_hash, const float* decode,
+              unsigned long long kms, int k, int stranded, int left, int lookahead,
+              int superstep_hops, int max_supersteps, int64_t* ring_fh, int64_t* ring_rh, int R, int D,
+              const void* rpkbf, const void* fpkbf, int pk_size_log2, int pk_num_hash, int read_dist,
+              int frag_dist, void* stream) {
+  if (W <= 0) return 0;
+  if (num_hash < 1 || cycle_window < 1 || R < 1 || D < 1 || D > k - 1) return (int)cudaErrorInvalidValue;
+  if ((read_dist > 0 || frag_dist > 0) && (pk_num_hash < 1 || pk_size_log2 < 0 || pk_size_log2 > 32))
+    return (int)cudaErrorInvalidValue;
+  Walk p = make_walk(buf, pos, fh, rh, hist, status, hops, path_min, min_cov, bound, W, max_len,
+                     cycle_window, cbf, size_log2, num_hash, decode, kms, k, stranded, left, lookahead,
+                     superstep_hops, max_supersteps);
+  p.ring_fh = ring_fh;
+  p.ring_rh = ring_rh;
+  p.R = R;
+  p.D = D;
+  p.pk[0] = read_dist > 0 ? (const uint8_t*)rpkbf : nullptr;
+  p.pk[1] = frag_dist > 0 ? (const uint8_t*)fpkbf : nullptr;
+  p.dist[0] = read_dist > 0 && rpkbf ? read_dist : 0;
+  p.dist[1] = frag_dist > 0 && fpkbf ? frag_dist : 0;
+  p.pmask = pk_size_log2 >= 32 ? 0xFFFFFFFFull : (1ull << pk_size_log2) - 1;
+  p.pnh = pk_num_hash;
+  return launch_walk(p, layout, true, (cudaStream_t)stream);
 }
 
 }  // extern "C"

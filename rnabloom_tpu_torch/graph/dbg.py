@@ -96,13 +96,24 @@ def add_kmers(state: GraphState, cfg: GraphConfig, base, valid, salt: int = 0) -
     return state
 
 
+def _add_pair_kmers(lanes: torch.Tensor, cfg: GraphConfig, fh, rh, valid, d: int) -> None:
+    """Insert the keys of k-mer pairs (i, i + d) into ``lanes``."""
+    pair_base, np_ = pair_base_hashes(cfg, fh, rh, d)
+    pv = valid[..., :np_] & valid[..., d:]
+    filters.bloom_add(lanes, cfg.pkbf, _multi(cfg, pair_base, cfg.pkbf.num_hash), pv)
+
+
 def add_read_pair_kmers(state: GraphState, cfg: GraphConfig, fh, rh, valid) -> GraphState:
     """Insert read-distance paired k-mer keys into rpkbf."""
     assert state.rpkbf is not None and cfg.read_pair_distance > 0
-    d = cfg.read_pair_distance
-    pair_base, np_ = pair_base_hashes(cfg, fh, rh, d)
-    pv = valid[..., :np_] & valid[..., d:]
-    filters.bloom_add(state.rpkbf, cfg.pkbf, _multi(cfg, pair_base, cfg.pkbf.num_hash), pv)
+    _add_pair_kmers(state.rpkbf, cfg, fh, rh, valid, cfg.read_pair_distance)
+    return state
+
+
+def add_fragment_pair_kmers(state: GraphState, cfg: GraphConfig, fh, rh, valid) -> GraphState:
+    """Insert fragment-distance paired k-mer keys into fpkbf."""
+    assert state.fpkbf is not None and cfg.fragment_pair_distance > 0
+    _add_pair_kmers(state.fpkbf, cfg, fh, rh, valid, cfg.fragment_pair_distance)
     return state
 
 
@@ -116,6 +127,20 @@ def build_step(
     state = add_kmers(state, cfg, base, valid, salt=salt)
     if add_read_pairs and state.rpkbf is not None and cfg.read_pair_distance > 0:
         state = add_read_pair_kmers(state, cfg, fh, rh, valid)
+    return state
+
+
+def rebuild_step(
+    state: GraphState, cfg: GraphConfig, codes: torch.Tensor,
+    add_frag_pairs: bool = True, salt: int = 0,
+) -> GraphState:
+    """One stage-2b step (the fragment-graph rebuild): hash a (B, L) uint8
+    fragment batch and insert it into the counters (and the fragment-pair
+    keys)."""
+    fh, rh, base, valid = seq_hashes(cfg, codes)
+    state = add_kmers(state, cfg, base, valid, salt=salt)
+    if add_frag_pairs and state.fpkbf is not None and cfg.fragment_pair_distance > 0:
+        state = add_fragment_pair_kmers(state, cfg, fh, rh, valid)
     return state
 
 
@@ -134,12 +159,17 @@ def contains(state: GraphState, cfg: GraphConfig, base: torch.Tensor) -> torch.T
     return filters.counting_count(state.cbf, cfg.cbf, _multi(cfg, base, cfg.cbf.num_hash)) > 0
 
 
+def lookup_pair(lanes: torch.Tensor, cfg: GraphConfig, pair_base: torch.Tensor) -> torch.Tensor:
+    """Membership of pair keys in a pair-key filter (rpkbf or fpkbf)."""
+    return filters.bloom_lookup(lanes, cfg.pkbf, _multi(cfg, pair_base, cfg.pkbf.num_hash))
+
+
 def lookup_read_pair(state: GraphState, cfg: GraphConfig, pair_base: torch.Tensor) -> torch.Tensor:
-    return filters.bloom_lookup(state.rpkbf, cfg.pkbf, _multi(cfg, pair_base, cfg.pkbf.num_hash))
+    return lookup_pair(state.rpkbf, cfg, pair_base)
 
 
 def lookup_fragment_pair(state: GraphState, cfg: GraphConfig, pair_base: torch.Tensor) -> torch.Tensor:
-    return filters.bloom_lookup(state.fpkbf, cfg.pkbf, _multi(cfg, pair_base, cfg.pkbf.num_hash))
+    return lookup_pair(state.fpkbf, cfg, pair_base)
 
 
 def count_step(

@@ -14,6 +14,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..bloom import filters
 from . import dbg, traverse
 from .dbg import GraphConfig, GraphState
 
@@ -52,6 +53,33 @@ def _on_device(codes, graph: GraphState) -> torch.Tensor:
 def build_step(graph: GraphState, cfg: GraphConfig, codes, add_read_pairs: bool = False, salt: int = 0):
     _tick("build")
     return dbg.build_step(graph, cfg, _on_device(codes, graph), add_read_pairs=add_read_pairs, salt=salt)
+
+
+def rebuild_step(graph: GraphState, cfg: GraphConfig, codes, add_frag_pairs: bool = True, salt: int = 0):
+    """One stage-2b step: a fragment batch into the counters (and the
+    fragment-pair keys); the graph's tensors are updated in place."""
+    _tick("build")
+    return dbg.rebuild_step(graph, cfg, _on_device(codes, graph), add_frag_pairs=add_frag_pairs, salt=salt)
+
+
+def fresh_rebuild_state(
+    graph: GraphState, cfg: GraphConfig, keep_rpkbf: bool = True, with_fpkbf: bool = True,
+    copy_rpkbf: bool = False,
+) -> GraphState:
+    """Zeroed counters (and a fresh fpkbf) for the stage-2b fragment graph
+    on the graph's device, keeping the read-pair keys
+    (populateGraphFromFragments).  ``copy_rpkbf`` copies the read-pair lanes
+    instead of sharing them with ``graph`` (the rebuild never writes them;
+    the JAX package copies them against buffer donation)."""
+    rpk = graph.rpkbf if keep_rpkbf else None
+    if rpk is not None and copy_rpkbf:
+        rpk = rpk.clone()
+    return GraphState(
+        dbgbf=None,
+        cbf=torch.zeros_like(graph.cbf),
+        rpkbf=rpk,
+        fpkbf=filters.make_bloom(cfg.pkbf, graph.cbf.device) if with_fpkbf else None,
+    )
 
 
 def count_step(graph: GraphState, cfg: GraphConfig, codes) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,22 +1,25 @@
-"""Frontier-batched de Bruijn graph walks, greedy mode.
+"""Frontier-batched de Bruijn graph walks, greedy and pair modes.
 
-Port of ``rnabloom_tpu/graph/traverse.py`` for ``mode="greedy"`` without
-terminators, back-branch checks, pair rings or speculative hops; asking
-for one of those raises ``NotImplementedError`` naming its ROADMAP item.
-W walks
-advance as lanes of one batch:
+Port of ``rnabloom_tpu/graph/traverse.py`` for ``mode="greedy"`` and
+``mode="pair"`` (with the pair ring) without terminators, back-branch
+checks or speculative hops; asking for naive walks, back-branch checks or
+terminators raises ``NotImplementedError`` naming its ROADMAP item.  W
+walks advance as lanes of one batch:
 
   * a superstep advances every ACTIVE lane while it has exactly one viable
     successor, for up to ``superstep_hops`` hops; a lane freezes at a dead
     end (DEAD), a branch (BRANCH), a recent k-mer (CYCLE) or its buffer or
     hop bound (FULL);
-  * BRANCH lanes are then resolved by greedy lookahead scoring and resume;
+  * BRANCH lanes are then resolved, by greedy lookahead scoring or (pair
+    mode) by read- and fragment-pair support of naive probes against the
+    walk's ring of recent k-mer hashes, and resume;
   * supersteps repeat while any lane is ACTIVE or BRANCH, at most
     ``max_supersteps`` times.
 
-``extend_walks`` goes through ``ops.walk.walk_greedy``: the CUDA kernel
-``csrc/walk_greedy.cu`` (a tile of threads per lane, the whole loop on the
-card) for a CUDA graph, and ``extend_walks_plain`` for a CPU graph.
+``extend_walks`` goes through ``ops.walk.walk_greedy`` or ``walk_pair``:
+the CUDA kernel ``csrc/walk_greedy.cu`` (a tile of threads per lane, the
+whole loop on the card) for a CUDA graph, and ``extend_walks_plain`` for a
+CPU graph.
 ``extend_walks_plain`` is the lockstep loop of the JAX package, op for op
 on whole lanes; it is what the CPU tests hold against JAX and what the
 kernel is held against on the card.
@@ -45,30 +48,32 @@ DEAD = 2  # no viable successor
 CYCLE = 3  # revisited a recent k-mer
 TERM = 4  # hit a terminator (screening BF)
 FULL = 5  # reached max buffer length / bound
-STOPPED_BRANCH = 6  # naive mode: too many good branches
+STOPPED_BRANCH = 6  # naive mode: too many good branches; pair mode: no viable one
 
 _NAIVE = "naive and back-branch walks (-extend) are ROADMAP queue-1 item 7a"
-_PAIR = "pair-scored walks and terminators are stage 3, ROADMAP queue-1 item 10"
+_TERM = "terminators (the screening filter as walk stops) are ROADMAP queue-1 item 10b"
 
 
 @dataclass(frozen=True)
 class WalkConfig:
     """Static traversal parameters (the JAX package's fields that greedy
-    walks read, and those that select an unported mode)."""
+    and pair walks read, and those that select an unported mode)."""
 
     max_len: int  # output buffer length (incl. seed)
     lookahead: int = 3
+    tip_probe_depth: int = 8  # read by naive and back-branch probes (item 7a): nothing reads it yet
     cycle_window: int = 64
     left: bool = False  # walk is the reverse complement of the sequence
     check_back_branches: bool = False
     use_terminators: bool = False
-    pair_ring: int = 0
+    pair_ring: int = 0  # > 0: a ring of the last k-mer hashes for pair lookups
+    pair_probe_depth: int = 24  # naive probe length per candidate (< k)
 
     def __post_init__(self):
         if self.check_back_branches:
             raise NotImplementedError(_NAIVE)
-        if self.use_terminators or self.pair_ring > 0:
-            raise NotImplementedError(_PAIR)
+        if self.use_terminators:
+            raise NotImplementedError(_TERM)
 
 
 class WalkState(NamedTuple):
@@ -80,6 +85,53 @@ class WalkState(NamedTuple):
     status: torch.Tensor  # (W,) int32
     hops: torch.Tensor  # (W,) int32 total appended bases
     path_min: torch.Tensor  # (W,) float32 running min coverage along the path
+    # (fh, rh) of the k-mer ending at buffer position p, in slot p % R
+    ring_fh: Optional[torch.Tensor] = None  # (W, R) int64
+    ring_rh: Optional[torch.Tensor] = None  # (W, R) int64
+
+
+def _make(cfg: GraphConfig, wcfg: WalkConfig, seeds_t: torch.Tensor, lens: torch.Tensor) -> WalkState:
+    """Walks from (W, Ls) uint8 seeds on their device, seed lengths ``lens``."""
+    W, Ls = seeds_t.shape
+    k, device = cfg.k, seeds_t.device
+    fh_all, rh_all, valid_all = nthash.rolling_hash(seeds_t, k, stranded=False)
+    P = Ls - k + 1
+    rows = torch.arange(W, device=device)
+    last = torch.clamp(lens - k, min=0)
+    fh, rh = fh_all[rows, last], rh_all[rows, last]
+    n_kmers = lens - k + 1
+    i = torch.arange(P, device=device)[None, :]
+    in_seed = i < n_kmers[:, None]
+    valid = torch.all(torch.where(in_seed, valid_all, True), dim=1) & (n_kmers >= 1)
+    buf = torch.zeros((W, wcfg.max_len), dtype=torch.uint8, device=device)
+    buf[:, :Ls] = seeds_t
+    hist = torch.zeros((W, wcfg.cycle_window), dtype=torch.int64, device=device)
+    hist[:, 0] = _query_hash(cfg, wcfg, fh, rh)
+    ring_fh = ring_rh = None
+    if wcfg.pair_ring > 0:
+        # k-mer i of a seed ends at position i + k - 1, slot (i + k - 1) % R.
+        # Of a seed longer than R k-mers only the last R land: the JAX
+        # package's scatter writes in index order, so a later k-mer
+        # overwrites the one R positions before it
+        R = wcfg.pair_ring
+        lane, col = torch.nonzero(in_seed & (i >= n_kmers[:, None] - R), as_tuple=True)
+        slot = (col + k - 1) % R
+        ring_fh = torch.zeros((W, R), dtype=torch.int64, device=device)
+        ring_rh = torch.zeros((W, R), dtype=torch.int64, device=device)
+        ring_fh[lane, slot] = fh_all[lane, col]
+        ring_rh[lane, slot] = rh_all[lane, col]
+    return WalkState(
+        buf=buf,
+        pos=lens.to(torch.int32),
+        fh=fh,
+        rh=rh,
+        hist=hist,
+        status=torch.where(valid, ACTIVE, DEAD).to(torch.int32),
+        hops=torch.zeros(W, dtype=torch.int32, device=device),
+        path_min=torch.full((W,), float("inf"), dtype=torch.float32, device=device),
+        ring_fh=ring_fh,
+        ring_rh=ring_rh,
+    )
 
 
 def make_walks(
@@ -93,8 +145,9 @@ def make_walks(
 
     seeds: (W, Ls) uint8 codes, Ls >= k, padded with 4 beyond each row's
     seed_lens (default: full rows).  The walk continues from each seed's
-    LAST k-mer.  The lane count pads to a power of two (at least 64) as in
-    the JAX package; padded lanes start DEAD."""
+    LAST k-mer; with ``wcfg.pair_ring > 0`` the seed's k-mer hashes fill
+    the pair ring.  The lane count pads to a power of two (at least 64) as
+    in the JAX package; padded lanes start DEAD."""
     W0, Ls = seeds.shape
     k = cfg.k
     assert k <= Ls <= wcfg.max_len
@@ -106,35 +159,19 @@ def make_walks(
         seeds = np.concatenate([seeds, np.full((W - W0, Ls), 4, seeds.dtype)], axis=0)
         seed_lens = np.concatenate([seed_lens, np.full(W - W0, k, np.int64)])
     seeds_t = torch.from_numpy(np.ascontiguousarray(seeds, np.uint8)).to(device)
-    lens = torch.from_numpy(seed_lens.astype(np.int64)).to(device)
-    fh_all, rh_all, valid_all = nthash.rolling_hash(seeds_t, k, stranded=False)
-    P = Ls - k + 1
-    rows = torch.arange(W, device=device)
-    last = torch.clamp(lens - k, min=0)
-    fh, rh = fh_all[rows, last], rh_all[rows, last]
-    n_kmers = lens - k + 1
-    in_seed = torch.arange(P, device=device)[None, :] < n_kmers[:, None]
-    valid = torch.all(torch.where(in_seed, valid_all, True), dim=1) & (n_kmers >= 1)
-    buf = torch.zeros((W, wcfg.max_len), dtype=torch.uint8, device=device)
-    buf[:, :Ls] = seeds_t
-    hist = torch.zeros((W, wcfg.cycle_window), dtype=torch.int64, device=device)
-    hist[:, 0] = _query_hash(cfg, wcfg, fh, rh)
-    return WalkState(
-        buf=buf,
-        pos=lens.to(torch.int32),
-        fh=fh,
-        rh=rh,
-        hist=hist,
-        status=torch.where(valid, ACTIVE, DEAD).to(torch.int32),
-        hops=torch.zeros(W, dtype=torch.int32, device=device),
-        path_min=torch.full((W,), float("inf"), dtype=torch.float32, device=device),
-    )
+    return _make(cfg, wcfg, seeds_t, torch.from_numpy(seed_lens.astype(np.int64)).to(device))
 
 
 def revcomp_reseed(cfg: GraphConfig, wcfg: WalkConfig, buf: torch.Tensor, pos: torch.Tensor) -> WalkState:
-    """Re-seed walks with the reverse complement of finished walks: the
-    right-to-left hand-off of ``-extend``, not ported."""
-    raise NotImplementedError(_NAIVE)
+    """Walks seeded with the reverse complement of finished walk buffers
+    (each row's first ``pos`` codes), on their device: the right-to-left
+    hand-off of the stage-3 extension.  No lane padding."""
+    L = buf.shape[1]
+    j = torch.arange(L, device=buf.device)[None, :]
+    p = pos.long()[:, None]
+    vals = buf.gather(1, torch.clamp(p - 1 - j, 0, L - 1))
+    rc = torch.where(j < p, torch.where(vals < 4, 3 - vals, 4), 4).to(torch.uint8)
+    return _make(cfg, wcfg, rc, pos.long())
 
 
 def _query_hash(cfg: GraphConfig, wcfg: WalkConfig, fh: torch.Tensor, rh: torch.Tensor) -> torch.Tensor:
@@ -181,16 +218,22 @@ def _pick(x: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
 def _apply_advance(
     state: WalkState, wcfg: WalkConfig, advance, code, fh4, rh4, q4, counts4
 ) -> WalkState:
-    """Append ``code`` to advancing lanes.  ``buf`` and ``hist`` are
+    """Append ``code`` to advancing lanes.  ``buf``, ``hist`` and the pair
+    ring (slot ``pos % R``: the new k-mer ends at the old ``pos``) are
     updated in place; the other fields are new tensors."""
     rows = torch.arange(state.pos.shape[0], device=state.pos.device)
     col = torch.clamp(state.pos, max=wcfg.max_len - 1).long()
     state.buf[rows, col] = torch.where(advance, code.to(torch.uint8), state.buf[rows, col])
     _push_hist(state.hist, _pick(q4, code), state.hops, wcfg, advance)
+    fh_new, rh_new = _pick(fh4, code), _pick(rh4, code)
+    if state.ring_fh is not None:
+        slot = (state.pos % wcfg.pair_ring).long()
+        state.ring_fh[rows, slot] = torch.where(advance, fh_new, state.ring_fh[rows, slot])
+        state.ring_rh[rows, slot] = torch.where(advance, rh_new, state.ring_rh[rows, slot])
     return state._replace(
         pos=torch.where(advance, state.pos + 1, state.pos),
-        fh=torch.where(advance, _pick(fh4, code), state.fh),
-        rh=torch.where(advance, _pick(rh4, code), state.rh),
+        fh=torch.where(advance, fh_new, state.fh),
+        rh=torch.where(advance, rh_new, state.rh),
         hops=torch.where(advance, state.hops + 1, state.hops),
         path_min=torch.where(advance, torch.minimum(state.path_min, _pick(counts4, code)), state.path_min),
     )
@@ -274,30 +317,138 @@ def _expand_scores(
     return pmin.reshape(W, 4, 16).amax(dim=-1)
 
 
+def _probe_with_hashes(graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, buf, pos, fh4, rh4, q4, min_cov):
+    """Greedy naive descent of ``pair_probe_depth`` k-mers per candidate
+    (probe 0 is the candidate), each step to the max-count successor that
+    reaches the coverage floor.  Returns (fh_p, rh_p, counts_p, alive_p),
+    each (W, 4, D); a probe stays dead once no successor reaches the floor.
+    Exact while D < k: the departing base comes from the walk buffer."""
+    W, k, D = pos.shape[0], cfg.k, wcfg.pair_probe_depth
+    assert D <= k - 1, "pair_probe_depth must stay below k"
+    floor = torch.clamp(min_cov, min=1.0)[:, None]
+    counts0 = dbg.get_counts(graph, cfg, q4)
+    alive = (counts0 >= floor).reshape(W * 4)
+    fh_c, rh_c = fh4.reshape(W * 4), rh4.reshape(W * 4)
+    mc = floor.expand(W, 4).reshape(W * 4, 1)
+    fhs, rhs, cs, als = [fh_c], [rh_c], [counts0.reshape(W * 4)], [alive]
+    for j in range(1, D):
+        outc = _buf_at(buf, pos - k + j)[:, None].expand(W, 4).reshape(W * 4)
+        f4, r4 = nthash.successor_hashes(fh_c, outc, k, rh=rh_c)
+        cc = dbg.get_counts(graph, cfg, _query_hash(cfg, wcfg, f4, r4))  # (W*4, 4)
+        ok = cc >= mc
+        best = torch.argmax(torch.where(ok, cc, -1.0), dim=1)  # first maximum
+        alive = alive & ok.any(dim=1)
+        fh_c = torch.where(alive, _pick(f4, best), fh_c)
+        rh_c = torch.where(alive, _pick(r4, best), rh_c)
+        fhs.append(fh_c)
+        rhs.append(rh_c)
+        cs.append(torch.where(alive, _pick(cc, best), 0.0))
+        als.append(alive)
+    return tuple(torch.stack(x, dim=-1).reshape(W, 4, D) for x in (fhs, rhs, cs, als))
+
+
+def _pair_scores(state: WalkState, graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, fh_p, rh_p, counts_p,
+                 alive_p):
+    """extendRightPE scores per candidate (W, 4), its median probe coverage
+    and whether it is viable:
+
+      score = min(path_min, median) * (n_read + n_frag) / (last + 1)
+
+    n_read / n_frag count the probe k-mers whose pair with the ring's
+    partner (read / fragment pair distance back) is in rpkbf / fpkbf,
+    ``last`` is the deepest supported probe.  A candidate is viable when
+    every pair class with a reachable partner has support, and some class
+    has one (GraphUtils.extendRightPE :6206-6309)."""
+    W, _, D = counts_p.shape
+    R, k = wcfg.pair_ring, cfg.k
+    j = torch.arange(D, device=counts_p.device)
+    pos = state.pos.long()[:, None, None]
+
+    def class_support(dist: int, lanes):
+        # the partner of probe j ends at buffer position pos - dist + j; a
+        # ring slot is live for the last R - 1 positions (a distance of
+        # exactly R aliases the newest slot)
+        end_pos = pos - dist + j
+        reachable = (end_pos >= k - 1) & (pos - end_pos < R)
+        slot = torch.where(reachable, end_pos % R, 0)
+        rows = torch.arange(W, device=pos.device)[:, None, None]
+        pf, pr = state.ring_fh[rows, slot], state.ring_rh[rows, slot]
+        if cfg.stranded:
+            ph = nthash.combine(rh_p, pr) if wcfg.left else nthash.combine(pf, fh_p)
+        elif wcfg.left:
+            ph = nthash.combine_canonical(rh_p, fh_p, pr, pf)
+        else:
+            ph = nthash.combine_canonical(pf, pr, fh_p, rh_p)
+        sup = dbg.lookup_pair(lanes, cfg, ph) & reachable & alive_p
+        return sup, (reachable & alive_p).any(dim=-1)
+
+    none = (torch.zeros_like(alive_p), torch.zeros_like(alive_p[..., 0]))
+    rp = graph.rpkbf is not None and cfg.read_pair_distance > 0
+    fp = graph.fpkbf is not None and cfg.fragment_pair_distance > 0
+    sup_r, reach_r = class_support(cfg.read_pair_distance, graph.rpkbf) if rp else none
+    sup_f, reach_f = class_support(cfg.fragment_pair_distance, graph.fpkbf) if fp else none
+    n_r, n_f = sup_r.sum(dim=-1), sup_f.sum(dim=-1)
+    last = torch.where(sup_r | sup_f, j, -1).amax(dim=-1)
+
+    # median probe coverage over the alive probes (dead ones sort last)
+    s = torch.sort(torch.where(alive_p, counts_p, float("inf")), dim=-1).values
+    nv = alive_p.sum(dim=-1)
+    half = torch.clamp(nv // 2, min=0)
+    lo = torch.clamp(torch.where(nv % 2 == 0, half - 1, half), min=0)
+    med = (s.gather(-1, lo[..., None])[..., 0] + s.gather(-1, half[..., None])[..., 0]) / 2.0
+    med = torch.where(nv > 0, med, 0.0)
+
+    ok = (last >= 0) & (~reach_r | (n_r > 0)) & (~reach_f | (n_f > 0)) & (reach_r | reach_f)
+    score = (
+        torch.minimum(state.path_min[:, None], med) * (n_r + n_f).to(torch.float32)
+        / torch.clamp(last + 1, min=1).to(torch.float32)
+    )
+    return torch.where(ok, score, -1.0), med, ok
+
+
 def resolve_branches(
-    state: WalkState, graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, min_cov: torch.Tensor
+    state: WalkState, graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, min_cov: torch.Tensor,
+    mode: str = "greedy",
 ) -> WalkState:
-    """Resolve BRANCH lanes greedily: the candidate with the best lookahead
-    score wins (ties: higher candidate count, then smaller base code, the
-    reference's first-wins order); the lane resumes ACTIVE unless the
-    chosen k-mer is in its cycle ring (CYCLE) or its buffer is full
-    (FULL)."""
+    """Resolve BRANCH lanes.
+
+    greedy: the candidate with the best lookahead score wins (ties: higher
+      candidate count, then smaller base code, the reference's first-wins
+      order); the lane resumes ACTIVE.
+    pair: candidates are probed naively and scored by pair support against
+      the walk's pair ring (``_pair_scores``); the best score wins (ties:
+      higher median, then smaller base); no viable candidate stops the lane
+      (STOPPED_BRANCH).
+    Either way the chosen k-mer in the cycle ring stops the lane (CYCLE),
+    before a full buffer does (FULL)."""
     at_branch = state.status == BRANCH
     out_codes = _gather_out_codes(state.buf, state.pos, cfg.k)
     fh4, rh4, q4 = _successors(cfg, wcfg, state.fh, state.rh, out_codes)
     counts = dbg.get_counts(graph, cfg, q4)
     viable = counts >= torch.clamp(min_cov, min=1.0)[:, None]
-    scores = _expand_scores(graph, cfg, wcfg, state.buf, state.pos, fh4, rh4, q4)
-    scores = torch.where(viable, scores, -1.0)
-    is_best = scores >= scores.amax(dim=1, keepdim=True)
-    best = torch.argmax(torch.where(is_best & viable, counts, -1.0), dim=1)
+    if mode == "pair":
+        probes = _probe_with_hashes(graph, cfg, wcfg, state.buf, state.pos, fh4, rh4, q4, min_cov)
+        scores, med, _ = _pair_scores(state, graph, cfg, wcfg, *probes)
+        scores = torch.where(viable, scores, -1.0)
+        any_ok = (scores >= 0.0).any(dim=1)
+        is_best = scores >= scores.amax(dim=1, keepdim=True)
+        best = torch.argmax(torch.where(is_best, med, -1.0), dim=1)
+        advance = at_branch & any_ok
+        resumed = torch.where(any_ok, ACTIVE, STOPPED_BRANCH)
+    else:
+        scores = _expand_scores(graph, cfg, wcfg, state.buf, state.pos, fh4, rh4, q4)
+        scores = torch.where(viable, scores, -1.0)
+        is_best = scores >= scores.amax(dim=1, keepdim=True)
+        best = torch.argmax(torch.where(is_best & viable, counts, -1.0), dim=1)
+        advance = at_branch
+        resumed = torch.full_like(state.status, ACTIVE)
 
     cyc = _in_hist(state.hist, _pick(q4, best))
     full = state.pos >= wcfg.max_len - 1
-    advance = at_branch & ~cyc & ~full
+    advance = advance & ~cyc & ~full
     new_status = torch.where(
         at_branch & cyc, CYCLE,
-        torch.where(at_branch & full, FULL, torch.where(at_branch, ACTIVE, state.status)),
+        torch.where(at_branch & full, FULL, torch.where(at_branch, resumed, state.status)),
     ).to(torch.int32)
     state = _apply_advance(state, wcfg, advance, best, fh4, rh4, q4, counts)
     return state._replace(status=new_status)
@@ -313,7 +464,12 @@ def lane_args(state: WalkState, min_cov, bound) -> Tuple[torch.Tensor, torch.Ten
 
 
 def clone_state(state: WalkState) -> WalkState:
-    return WalkState(*(t.clone() for t in state))
+    return WalkState(*(None if t is None else t.clone() for t in state))
+
+
+def take_lanes(state: WalkState, lanes: slice) -> WalkState:
+    """The walk state of ``lanes``, contiguous."""
+    return WalkState(*(None if t is None else t[lanes].contiguous() for t in state))
 
 
 def extend_walks_plain(
@@ -325,6 +481,7 @@ def extend_walks_plain(
     bound: torch.Tensor,
     superstep_hops: int = 64,
     max_supersteps: int = 64,
+    mode: str = "greedy",
 ) -> WalkState:
     """The JAX package's lockstep loop (``_extend_walks_fused``) on whole
     lanes, on any device; ``state`` is left unchanged."""
@@ -334,7 +491,7 @@ def extend_walks_plain(
             break
         state = walk_superstep(state, graph, cfg, wcfg, min_cov, bound, superstep_hops)
         if bool((state.status == BRANCH).any()):
-            state = resolve_branches(state, graph, cfg, wcfg, min_cov)
+            state = resolve_branches(state, graph, cfg, wcfg, min_cov, mode)
     return state
 
 
@@ -350,15 +507,21 @@ def extend_walks(
     superstep_hops: int = 64,
     max_supersteps: int = 64,
 ) -> WalkState:
-    """Extend every walk lane to completion; returns a new state."""
+    """Extend every walk lane to completion; returns a new state.  Pair
+    mode needs the pair ring (``wcfg.pair_ring > 0``)."""
     if mode == "naive":
         raise NotImplementedError(_NAIVE)
-    if mode != "greedy" or terminators is not None:
-        raise NotImplementedError(_PAIR)
+    if terminators is not None:
+        raise NotImplementedError(_TERM)
+    if mode not in ("greedy", "pair"):
+        raise ValueError(f"unknown walk mode {mode!r}")
+    if mode == "pair" and wcfg.pair_ring <= 0:
+        raise ValueError("pair walks need a pair ring (WalkConfig.pair_ring > 0)")
     from ..ops import walk
 
     min_cov, bound = lane_args(state, min_cov, bound)
-    return walk.walk_greedy(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps)
+    run = walk.walk_pair if mode == "pair" else walk.walk_greedy
+    return run(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps)
 
 
 def harvest(state: WalkState) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -379,6 +542,9 @@ def walk_state_from_limbs(ref) -> WalkState:
     def arr(x, dtype):
         return torch.from_numpy(np.asarray(x).astype(dtype))
 
+    def limbs(x):
+        return None if x is None else from_limbs(x.lo, x.hi)
+
     return WalkState(
         buf=arr(ref.buf, np.uint8),
         pos=arr(ref.pos, np.int32),
@@ -388,4 +554,6 @@ def walk_state_from_limbs(ref) -> WalkState:
         status=arr(ref.status, np.int32),
         hops=arr(ref.hops, np.int32),
         path_min=arr(ref.path_min, np.float32),
+        ring_fh=limbs(ref.ring_fh),
+        ring_rh=limbs(ref.ring_rh),
     )

@@ -109,6 +109,10 @@ _SIGNATURES = {
         # cycle_window, cbf layout size_log2 num_hash decode kms, k stranded
         # left lookahead superstep_hops max_supersteps, stream
         "walk_greedy": [_P] * 10 + [_INT] * 3 + [_P, _INT, _INT, _INT, _P, _U64] + [_INT] * 6 + [_P],
+        # walk_greedy's, then ring_fh ring_rh, R probe_depth, rpkbf fpkbf,
+        # pkbf_size_log2 pkbf_num_hash read_dist frag_dist, stream
+        "walk_pair": [_P] * 10 + [_INT] * 3 + [_P, _INT, _INT, _INT, _P, _U64] + [_INT] * 6
+        + [_P, _P, _INT, _INT, _P, _P] + [_INT] * 4 + [_P],
     }),
 }
 
@@ -135,7 +139,7 @@ def kernels() -> ctypes.CDLL:
 
 
 def walk_kernels() -> ctypes.CDLL:
-    """The greedy-walk kernel library, built on first call."""
+    """The walk kernel library (greedy and pair modes), built on first call."""
     return _load(WALK_LIB)
 
 

@@ -5,6 +5,13 @@ Port of ``rnabloom_tpu/utils/checkpoint.py`` in the same on-disk format:
 filter array, trash cells included.  int32 counters are stored as
 MiniFloat bytes (codec "minifloat"); mf8 and u16 counters are stored raw,
 u16 as uint16.  A checkpoint written by either package loads in the other.
+
+The JAX package on a TPU writes filters in its merge layout (``merge:
+true`` in a filter's descriptor, and a trash block after the ``size``
+cells).  The port loads them as its scatter layout: the first ``size``
+cells, then one zeroed trash cell (``bloom_indices`` masks every query
+into the first ``size``), so such a checkpoint saved again by the port has
+``merge: false`` and one trash cell.
 """
 
 from __future__ import annotations
@@ -96,20 +103,32 @@ def update_fragment_distance(prefix: str, d: int) -> None:
 
 def load_graph(prefix: str, device="cuda"):
     """Restore (state, cfg) from a save_graph checkpoint onto ``device``:
-    the card unless the caller asks for the CPU; raises without a card."""
+    the card unless the caller asks for the CPU; raises without a card.
+    Filters saved in the merge layout come back in the scatter layout."""
     device = require_device(device)
     with open(f"{prefix}.graph.json") as f:
         desc = json.load(f)
+
+    def scatter(fields):  # the config in the scatter layout
+        return {**fields, "merge": False}
+
     cfg = dbg.GraphConfig(
         k=desc["k"],
         stranded=desc["stranded"],
         exact_counts=desc["exact_counts"],
         read_pair_distance=desc["read_pair_distance"],
         fragment_pair_distance=desc["fragment_pair_distance"],
-        dbgbf=BloomConfig(**desc["dbgbf"]),
-        cbf=CountingConfig(**desc["cbf"]),
-        pkbf=BloomConfig(**desc["pkbf"]) if desc["pkbf"] else None,
+        dbgbf=BloomConfig(**scatter(desc["dbgbf"])),
+        cbf=CountingConfig(**scatter(desc["cbf"])),
+        pkbf=BloomConfig(**scatter(desc["pkbf"])) if desc["pkbf"] else None,
     )
+    # filter -> its cell count when its descriptor has the merge layout
+    merged = {
+        name: fields["size_log2"]
+        for name, fields in (("dbgbf", desc["dbgbf"]), ("cbf", desc["cbf"]), ("rpkbf", desc["pkbf"]),
+                             ("fpkbf", desc["pkbf"]))
+        if fields and fields.get("merge")
+    }
     arrays = {}
     base = os.path.dirname(prefix)
     codecs = desc.get("codecs", {})
@@ -119,6 +138,8 @@ def load_graph(prefix: str, device="cuda"):
             arrays[name] = None
             continue
         host = np.load(os.path.join(base, fname))
+        if name in merged:
+            host = np.concatenate([host[: 1 << merged[name]], np.zeros(1, host.dtype)])
         if host.dtype == np.uint16:
             host = host.view(np.int16)
         arr = torch.from_numpy(host)

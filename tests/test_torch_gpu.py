@@ -1,5 +1,5 @@
-"""CUDA kernels (insert, greedy walk) vs their plain PyTorch versions, on
-the card.
+"""CUDA kernels (insert, greedy and pair walks) vs their plain PyTorch
+versions, on the card.
 
 Imports no JAX (the machine with the card has none), so it runs there with
 
@@ -193,6 +193,50 @@ def test_set_edge_cases_match_plain(cuda, case):
         assert int(kern[4242 if case == "hot_cell" else -1]) == 1
 
 
+def _add_batch(case, numel, rng):
+    """(prefilled int32 table, idx) for one add edge case."""
+    table = rng.integers(0, 1 << 20, numel).astype(np.int32)
+    if case == "one_cell_every_tile":
+        idx = np.full(1 << 20, 4242)  # 2^20 hits: one RED per tile
+    elif case == "adjacent_hot":
+        idx = np.concatenate([rng.integers(0, numel, 50_000), np.tile([200, 201], 40_000)])
+    elif case == "blocked_row_hot":  # all 128 lanes of one blocked row, many times
+        idx = np.concatenate([rng.integers(0, numel, 50_000), np.tile(np.arange(128 * 7, 128 * 8), 500)])
+    elif case == "trash_row":
+        idx = np.concatenate([rng.integers(0, numel, 50_000), np.tile(np.arange(numel - 128, numel), 100)])
+    elif case == "empty":
+        idx = np.zeros(0, np.int64)
+    elif case == "one_index":
+        idx = np.array([numel - 1])
+    else:  # "ragged": no multiple of the tile, dropped and negative indices
+        idx = np.concatenate([
+            rng.integers(0, numel, 3 * TILE + 17), np.full(300, numel), np.full(300, -3),
+            np.full(300, 1 << 40),
+        ])
+    rng.shuffle(idx)
+    return torch.from_numpy(table), torch.from_numpy(idx.astype(np.int64))
+
+
+@pytest.mark.parametrize(
+    "case", ["one_cell_every_tile", "adjacent_hot", "blocked_row_hot", "trash_row", "empty", "one_index", "ragged"]
+)
+def test_add_edge_cases_match_plain(cuda, case):
+    """The int32 add on a blocked cbf's shape (2^20 cells and a 128-cell
+    trash row), against plain and index_add_."""
+    rng = np.random.default_rng(8)
+    table, idx = _add_batch(case, (1 << 20) + 128, rng)
+    kern, plain, idx = table.to(cuda), table.to(cuda), idx.to(cuda)
+    lib = table.to(cuda)
+    ci.cell_insert(kern, idx, "add")
+    ci.cell_insert_plain(plain, idx, "add")
+    sel = idx[(idx >= 0) & (idx < lib.numel())]
+    lib.index_add_(0, sel, torch.ones_like(sel, dtype=torch.int32))
+    torch.cuda.synchronize()
+    assert torch.equal(kern, plain) and torch.equal(kern, lib)
+    if case == "one_cell_every_tile":
+        assert int(kern[4242]) == int(table[4242]) + (1 << 20)
+
+
 def test_add_u16_uses_no_scratch(cuda):
     """Neither add_u16 nor set allocates an insert buffer; add_mf8's batch
     table is at most 16 B an index of a 2^20-index batch; mf8 and u16
@@ -209,7 +253,7 @@ def test_add_u16_uses_no_scratch(cuda):
     ci.cell_insert(table, torch.randint(0, table.numel(), (n,), device=cuda), "add_mf8")
     torch.cuda.synchronize()
     assert 0 < ci.batch_table_bytes() <= 16 * n
-    for dtype, op in ((torch.int16, "add_u16"), (torch.uint8, "add_mf8")):
+    for dtype, op in ((torch.int16, "add_u16"), (torch.uint8, "add_mf8")):  # add takes any length
         too_long = torch.empty(1 << 32, dtype=dtype, device=cuda)  # uint32 keys: < 2^32 cells
         with pytest.raises(ValueError):
             ci.cell_insert(too_long, torch.zeros(1, dtype=torch.int64, device=cuda), op)
@@ -333,7 +377,7 @@ def test_walk_kernel_odd_lane_counts(cuda, W, lookahead):
     from rnabloom_tpu_torch.graph import traverse
 
     cfg, graph, wcfg, st, min_cov, bound = _walks(cuda, lookahead=lookahead)
-    st = traverse.WalkState(*(t[:W].contiguous() for t in st))
+    st = traverse.take_lanes(st, slice(0, W))
     min_cov, bound = min_cov[:W].contiguous(), bound[:W].contiguous()
     kern = _kernel_and_plain(graph, cfg, wcfg, st, min_cov, bound)
     assert kern.pos.shape[0] == W and int(kern.hops.sum()) > 0
@@ -373,3 +417,148 @@ def test_stage2_card_equals_cpu(cuda, tmp_path):
         for f in files:
             a = os.path.join(root, f)
             assert filecmp.cmp(a, a.replace(outs["cpu"], outs["cuda"], 1), shallow=False), a
+
+
+# ---- the walk kernel in pair mode vs its plain version ----
+
+PAIR_FIELDS = WALK_FIELDS + ("ring_fh", "ring_rh")
+_pair_graphs = {}
+
+
+def _pair_graph(dtype, blocked, stranded, dev, num_hash=2, pk_hash=2, frag=True, read=True):
+    """The walk graph's reads, with the read-pair keys (distance 40) and the
+    fragment-pair keys of the same reads (distance 60) as stage 2b inserts
+    them; fragment seeds (100-base read rows, some cut short, one empty),
+    reverse-complemented for left walks by the caller; cached."""
+    key = (dtype, blocked, stranded, num_hash, pk_hash, frag, read, str(dev))
+    if key not in _pair_graphs:
+        rng = np.random.default_rng(7)
+        cfg = dbg.GraphConfig(
+            k=25, stranded=stranded, dbgbf=BloomConfig(18, 2),
+            cbf=CountingConfig(18, num_hash, blocked=blocked, dtype=dtype), pkbf=BloomConfig(18, pk_hash),
+            read_pair_distance=40 if read else -1, fragment_pair_distance=60 if frag else -1,
+        )
+        tx = rng.integers(0, 4, size=(24, 600), dtype=np.uint8)
+        tx[1, :200] = tx[0, :200]
+        reads = []
+        for t, depth in zip(tx, rng.integers(1, 9, size=24)):
+            for _ in range(depth):
+                for s in range(0, 500, 20):
+                    r = t[s : s + 100].copy()
+                    if rng.random() < 0.3:
+                        r[rng.integers(100)] = rng.integers(4)
+                    reads.append(r)
+        reads = torch.from_numpy(np.stack(reads)).to(dev)
+        state = dbg.make_graph(cfg, with_rpkbf=read, with_fpkbf=frag, device=dev)
+        state = dbg.build_step(state, cfg, reads, add_read_pairs=read)
+        if frag:
+            state = dbg.rebuild_step(state, cfg, reads, salt=1)
+        frags = reads.cpu().numpy()[::29][:90].copy()
+        lens = np.full(len(frags), 100)
+        lens[3], lens[4], lens[5] = 60, 0, 24
+        _pair_graphs[key] = (cfg, state, frags, lens)
+    return _pair_graphs[key]
+
+
+def _pair_walks(cuda, dtype="mf8", blocked=False, stranded=False, left=False, num_hash=2, pk_hash=2, ring=64,
+                depth=24, lane_args=True, **kw):
+    from rnabloom_tpu_torch.graph import traverse
+
+    cfg, graph, frags, lens = _pair_graph(dtype, blocked, stranded, cuda, num_hash, pk_hash, **kw)
+    wcfg = traverse.WalkConfig(max_len=25 + 500, left=left, pair_ring=ring, pair_probe_depth=depth)
+    seeds = 3 - frags[:, ::-1] if left else frags
+    st = traverse.make_walks(cfg, wcfg, np.ascontiguousarray(seeds), lens, device=cuda)
+    rng = np.random.default_rng(5)
+    W = st.pos.shape[0]
+    if lane_args:
+        min_cov, bound = traverse.lane_args(st, rng.choice([1.0, 2.0, 3.5], size=W).astype(np.float32),
+                                            rng.integers(100, 500, size=W).astype(np.int32))
+    else:
+        min_cov, bound = traverse.lane_args(st, 1.0, 400)
+    return cfg, graph, wcfg, st, min_cov, bound
+
+
+def _pair_kernel_and_plain(graph, cfg, wcfg, st, min_cov, bound, **kw):
+    from rnabloom_tpu_torch.graph import traverse
+    from rnabloom_tpu_torch.ops import walk
+
+    n0 = walk.LAUNCHES["walk_pair"]
+    kern = walk.walk_pair(st, graph, cfg, wcfg, min_cov, bound, **kw)
+    plain = walk.walk_pair_plain(st, graph, cfg, wcfg, min_cov, bound, **kw)
+    torch.cuda.synchronize()
+    assert walk.LAUNCHES["walk_pair"] == n0 + 1
+    for name in PAIR_FIELDS:
+        assert torch.equal(getattr(kern, name), getattr(plain, name)), name
+    assert int((kern.status == traverse.BRANCH).sum()) == 0 or kw
+    return kern
+
+
+@pytest.mark.parametrize("dtype,blocked", WALK_GRAPHS)
+@pytest.mark.parametrize("stranded,left", [(False, False), (False, True), (True, False), (True, True)])
+def test_pair_kernel_matches_plain(cuda, dtype, blocked, stranded, left):
+    """Every layout, strand mode and walk side; fragment seeds longer than
+    the ring."""
+    from rnabloom_tpu_torch.graph import traverse
+
+    kern = _pair_kernel_and_plain(*_pair_args(_pair_walks(cuda, dtype, blocked, stranded, left)))
+    assert int(kern.hops.sum()) > 0
+    if not stranded:
+        assert int((kern.status == traverse.STOPPED_BRANCH).sum()) > 0
+
+
+def _pair_args(walks):
+    cfg, graph, wcfg, st, min_cov, bound = walks
+    return graph, cfg, wcfg, st, min_cov, bound
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [{"num_hash": 1}, {"num_hash": 3}, {"num_hash": 4}, {"pk_hash": 1}, {"pk_hash": 3}, {"pk_hash": 5},
+     {"ring": 48}, {"ring": 40}, {"ring": 1024}, {"depth": 1}, {"depth": 2}, {"depth": 8},
+     {"frag": False}, {"read": False}, {"frag": False, "read": False}, {"lane_args": False}],
+    ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()),
+)
+def test_pair_kernel_options_match_plain(cuda, kw):
+    """num_hash 1-3 (the specialised kernels) and 4 (the generic one), pkbf
+    hashes, rings shorter than a fragment and exactly the read pair
+    distance, probe depths, a missing pair class or both."""
+    _pair_kernel_and_plain(*_pair_args(_pair_walks(cuda, **kw)))
+
+
+@pytest.mark.parametrize("W", [1, 45])
+def test_pair_kernel_odd_lane_counts(cuda, W):
+    from rnabloom_tpu_torch.graph import traverse
+
+    graph, cfg, wcfg, st, min_cov, bound = _pair_args(_pair_walks(cuda))
+    st = traverse.take_lanes(st, slice(0, W))
+    _pair_kernel_and_plain(graph, cfg, wcfg, st, min_cov[:W].contiguous(), bound[:W].contiguous())
+
+
+def test_pair_kernel_superstep_cap(cuda):
+    graph, cfg, wcfg, st, min_cov, bound = _pair_args(_pair_walks(cuda, lane_args=False))
+    _pair_kernel_and_plain(graph, cfg, wcfg, st, min_cov, bound, superstep_hops=5, max_supersteps=7)
+
+
+@pytest.mark.parametrize("stranded", [False, True])
+def test_extend_fragments_pair_card_equals_cpu(cuda, stranded):
+    """The stage-3 extension (right walks, the reverse-complement hand-off,
+    left walks) on the card and on the CPU, at stage 3's sizes."""
+    from rnabloom_tpu_torch.assembly import transcripts
+    from rnabloom_tpu_torch.ops import walk
+
+    cfg, graph, frags, lens = _pair_graph("mf8", False, stranded, cuda)
+    cpu = dbg.GraphState(*(None if t is None else t.cpu() for t in graph))
+    n0 = walk.LAUNCHES["walk_pair"]
+    got = transcripts.extend_fragments_pair(graph, cfg, frags, lens, transcripts.TranscriptParams())
+    assert walk.LAUNCHES["walk_pair"] == n0 + 2
+    want = transcripts.extend_fragments_pair(cpu, cfg, frags, lens, transcripts.TranscriptParams())
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_pair_walk_refuses_a_greedy_ring(cuda):
+    from rnabloom_tpu_torch.ops import walk
+
+    graph, cfg, wcfg, st, min_cov, bound = _pair_args(_pair_walks(cuda))
+    with pytest.raises(ValueError, match="pair ring"):
+        walk.walk_greedy(st, graph, cfg, wcfg, min_cov, bound)

@@ -209,6 +209,65 @@ def test_u16_tile_totals_match_jax_and_plain(case, tile):
     assert (want != table).any() == (case != "empty")
 
 
+# --- add in tiles: the schedule of the CUDA kernel ----
+#
+# The int32 add totals each warp's 32 indices per cell (__match_any_sync)
+# and adds the totals, warps in any order; any other split of the batch
+# (T = 1000, 4096) must give the same table.  That must be JAX's scatter add.
+
+
+def _add_case(case, tile, rng):
+    """(table int32 (U16_NUMEL,), idx int64) for one case."""
+    table = rng.integers(-(1 << 20), 1 << 20, U16_NUMEL).astype(np.int32)
+    idx = rng.integers(0, U16_NUMEL, U16_N)
+    if case == "one_cell_every_tile":
+        idx[::tile] = 777  # the cell in every tile (all of them at T = 1)
+    elif case == "hot_cell":
+        idx[:5000] = 4242  # half the batch on one cell
+    elif case == "trash_cell":
+        idx[:2000] = U16_NUMEL - 1
+    elif case == "dropped_and_negative":
+        junk = np.array([U16_NUMEL, U16_NUMEL + 1, 1 << 20, 1 << 40, -1, -5, -(1 << 40)])
+        idx[:3500] = junk.repeat(500)
+    elif case == "empty":
+        idx = idx[:0]
+    elif case == "one_index":
+        idx = idx[:1]
+    rng.shuffle(idx)
+    return table, idx
+
+
+def _add_in_tiles(table, idx, tile, rng):
+    """Numpy emulation of the kernel's schedule: tile totals, added in a
+    shuffled tile order."""
+    out = table.astype(np.int64)
+    for start in rng.permutation(np.arange(0, len(idx), tile)):
+        part = idx[start : start + tile]
+        cells, n = np.unique(part[(part >= 0) & (part < len(table))], return_counts=True)
+        out[cells] += n
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("tile", [32, 1000, 4096])
+@pytest.mark.parametrize(
+    "case", ["one_cell_every_tile", "hot_cell", "trash_cell", "dropped_and_negative", "empty", "one_index"]
+)
+def test_add_tile_totals_match_jax_and_plain(case, tile):
+    rng = np.random.default_rng(9)
+    table, idx = _add_case(case, tile, rng)
+    got = _add_in_tiles(table, idx, tile, rng)
+
+    kept = idx[(idx >= 0) & (idx < U16_NUMEL)]
+    want = np.asarray(jnp.asarray(table).at[jnp.asarray(kept)].add(1, mode="drop"))
+    np.testing.assert_array_equal(got, want)
+    hist = np.bincount(kept, minlength=U16_NUMEL).astype(np.int32)
+    np.testing.assert_array_equal(np.asarray(jf.apply_cell_increments(jnp.asarray(table), jnp.asarray(hist), "int32")),
+                                  want)
+    plain = ci.cell_insert_plain(torch.from_numpy(table.copy()), torch.from_numpy(idx), "add")
+    np.testing.assert_array_equal(plain.numpy(), want)
+    assert (want != table).any() == (case != "empty")
+
+
 # --- add_mf8 in tiles and a batch table: the schedule of the CUDA kernel ----
 #
 # Pass 1 totals each tile of T indices per cell and adds the tile totals,

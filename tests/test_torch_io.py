@@ -175,3 +175,43 @@ def test_fragstore_files(tmp_path, long_threshold, polya_priority):
     assert sorted(got) == sorted(want) and len(got) > 8
     for f in want:
         assert got[f] == want[f], f
+
+
+def _batches(store, batch, width):
+    return [tuple(np.array(x) for x in b) for b in store.iter_batches(batch, width=width)]
+
+
+@pytest.mark.parametrize("batch,width", [(7, None), (64, 90), (1024, 400)])
+@pytest.mark.parametrize("long_threshold,polya_priority", [(200, False), (120, True)])
+def test_fragstore_reading(tmp_path, long_threshold, polya_priority, batch, width):
+    """The reading side on a store the port wrote: flushed while open, then
+    closed and reopened; batches (codes, lengths, coverages, connected), the
+    stratum order and the lengths equal the JAX package's."""
+    frags, covs, connected, pa = _fragments(6, 300)
+    stores = {"port": tfragstore.FragmentStore(str(tmp_path / "port"), long_threshold, polya_priority),
+              "jax": jfragstore.FragmentStore(str(tmp_path / "jax"), long_threshold, polya_priority)}
+    for store in stores.values():
+        for f, c, conn, p in zip(frags[:200], covs, connected, pa):
+            store.add(f, float(c), bool(conn), polya=bool(p))
+        store.flush()
+    got, want = (_batches(stores[who], batch, width) for who in ("port", "jax"))
+    assert len(got) == len(want) > 1
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+    for store in stores.values():
+        for f, c, conn, p in zip(frags[200:], covs[200:], connected[200:], pa[200:]):
+            store.add(f, float(c), bool(conn), polya=bool(p))
+        store.close()
+    port, jax_ = tfragstore.FragmentStore.open(str(tmp_path / "port")), jfragstore.FragmentStore.open(str(tmp_path / "port"))
+    assert (port.count, port.max_len, port.long_threshold, port.polya_priority) == \
+        (jax_.count, jax_.max_len, jax_.long_threshold, jax_.polya_priority) == \
+        (len(frags), max(len(f) for f in frags), long_threshold, polya_priority)
+    assert port._ordered_keys() == jax_._ordered_keys() and len(port._ordered_keys()) > 4
+    assert list(port.iter_lengths()) == list(jax_.iter_lengths())
+    got, want = _batches(port, batch, width), _batches(jax_, batch, width)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+    assert tfragstore.FragmentStore.open(str(tmp_path / "none")) is None

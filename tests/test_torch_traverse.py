@@ -164,8 +164,8 @@ def _port_cfg(case):
     return ttr.WalkConfig(max_len=max_len, lookahead=la, left=left, cycle_window=cw), hops, steps
 
 
-def _assert_states_equal(got, want, what):
-    for f in FIELDS:
+def _assert_states_equal(got, want, what, fields=FIELDS):
+    for f in fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f"{what}: {f} differs"
 
 
@@ -465,14 +465,143 @@ def test_kernel_emulation_equals_jax(graphs, jax_walks, case):
                 f"G={G} lane {w}: path_min"
 
 
-@pytest.mark.parametrize("what", ["naive", "pair", "back_branches", "terminators", "pair_ring", "reseed"])
+@pytest.mark.parametrize("what", ["naive", "back_branches", "terminators"])
 def test_unported_walk_modes_raise(graphs, what):
     _, _, ct, gt, seeds = graphs("traverse")
-    kw = {"back_branches": {"check_back_branches": True}, "terminators": {"use_terminators": True},
-          "pair_ring": {"pair_ring": 64}}.get(what, {})
+    kw = {"back_branches": {"check_back_branches": True}, "terminators": {"use_terminators": True}}.get(what, {})
     with pytest.raises(NotImplementedError, match="ROADMAP queue-1 item"):
         wcfg = ttr.WalkConfig(max_len=200, **kw)
         st = ttr.make_walks(ct, wcfg, seeds)
-        if what == "reseed":
-            ttr.revcomp_reseed(ct, wcfg, st.buf, st.pos)
-        ttr.extend_walks(st, gt, ct, wcfg, 1.0, 100, mode=what if what in ("naive", "pair") else "greedy")
+        ttr.extend_walks(st, gt, ct, wcfg, 1.0, 100, mode=what if what == "naive" else "greedy")
+
+
+# ---- pair mode: branches resolved by read/fragment pair support ----
+
+PAIR_FIELDS = FIELDS + ("ring_fh", "ring_rh")
+
+
+@pytest.fixture(scope="module")
+def pair_graphs():
+    """(data, dtype, blocked, stranded, pkbf hashes, with fpkbf) -> (cfg_j,
+    graph_j, cfg_t, graph_t, reads, seeds): the cbf and the read-pair keys
+    from the reads (read pair distance 40), and, with an fpkbf, the
+    fragment-pair keys from the same reads (distance 60), as stage 2b
+    inserts them; tables asserted equal."""
+    cache = {}
+
+    def get(data, dtype="mf8", blocked=False, stranded=False, pk_hashes=2, frag=True):
+        key = (data, dtype, blocked, stranded, pk_hashes, frag)
+        if key not in cache:
+            reads, seeds = _DATA[data]()
+            kw = dict(k=K, stranded=stranded, read_pair_distance=40, fragment_pair_distance=60 if frag else -1)
+            cj = jdbg.GraphConfig(dbgbf=jf.BloomConfig(18, 2), cbf=jf.CountingConfig(18, 2, blocked=blocked, dtype=dtype),
+                                  pkbf=jf.BloomConfig(18, pk_hashes), **kw)
+            ct = tdbg.GraphConfig(dbgbf=tf.BloomConfig(18, 2), cbf=tf.CountingConfig(18, 2, blocked=blocked, dtype=dtype),
+                                  pkbf=tf.BloomConfig(18, pk_hashes), **kw)
+            gj = jdbg.build_step(jdbg.make_graph(cj, with_rpkbf=True, with_fpkbf=frag), cj, jnp.asarray(reads),
+                                 add_read_pairs=True)
+            gt = tdbg.build_step(tdbg.make_graph(ct, with_rpkbf=True, with_fpkbf=frag), ct, torch.from_numpy(reads),
+                                 add_read_pairs=True)
+            if frag:
+                gj = jdbg.rebuild_step(gj, cj, jnp.asarray(reads), salt=1)
+                gt = tdbg.rebuild_step(gt, ct, torch.from_numpy(reads), salt=1)
+            for name in ("cbf", "rpkbf", "fpkbf"):
+                if getattr(gj, name) is not None:
+                    want = np.asarray(getattr(gj, name))
+                    np.testing.assert_array_equal(getattr(gt, name).numpy().view(want.dtype), want, err_msg=name)
+            cache[key] = (cj, gj, ct, gt, reads, seeds)
+        return cache[key]
+
+    return get
+
+
+def _pair_seeds(data, reads, seeds, left=False):
+    """Fragment-like seeds: read rows of 100 bases (76 k-mers: longer than
+    a 64-slot ring), reverse-complemented for left walks, some cut short,
+    one empty, one shorter than k, one with an N; for the
+    tests/test_traverse.py graphs their k-mer seeds."""
+    if data == "traverse":
+        return seeds, None
+    kmers = np.concatenate([seeds[:8], np.full((8, 100 - K), 4, np.uint8)], axis=1)
+    frags = reads[::37][:56, :100]
+    rows = np.concatenate([3 - frags[:, ::-1] if left else frags, kmers])
+    lens = np.full(len(rows), 100)
+    lens[-8:] = K
+    lens[3], lens[4], lens[5] = 60, 0, K - 1
+    rows[6, 50] = 4
+    return rows, lens
+
+
+# case -> (data, dtype, blocked, stranded, left, pkbf hashes, fpkbf, ring, max_len, per-lane args)
+PAIR_CASES = {
+    "right": ("sim", "mf8", False, False, False, 2, True, 64, K + 400, False),
+    "left": ("sim", "mf8", False, False, True, 2, True, 64, K + 400, True),
+    "stranded_right": ("sim", "mf8", False, True, False, 2, True, 64, K + 400, False),
+    "stranded_left": ("sim", "mf8", False, True, True, 2, True, 64, K + 400, False),
+    "u16_pk_hash3": ("sim", "u16", False, False, False, 3, True, 64, K + 400, True),
+    "int32_blocked": ("sim", "int32", True, False, True, 2, True, 64, K + 400, False),
+    "short_ring": ("sim", "mf8", False, False, False, 2, True, 48, K + 400, False),
+    "ring_exactly_read_distance": ("sim", "mf8", False, False, False, 2, True, 40, K + 400, False),
+    "rpkbf_only_traverse_graphs": ("traverse", "mf8", False, False, False, 2, False, 128, 512, False),
+}
+
+
+def _pair_args(case, W):
+    lane_args = PAIR_CASES[case][9]
+    if not lane_args:
+        return np.float32(1.0), np.int32(300)
+    rng = np.random.default_rng(len(case))
+    return (rng.choice([1.0, 2.0, 3.5, 0.5], size=W).astype(np.float32),
+            rng.integers(50, 400, size=W).astype(np.int32))
+
+
+@pytest.mark.parametrize("case", list(PAIR_CASES))
+def test_pair_walk_equals_jax(pair_graphs, case):
+    data, dtype, blocked, stranded, left, pkh, frag, ring, max_len, _ = PAIR_CASES[case]
+    cj, gj, ct, gt, reads, seeds = pair_graphs(data, dtype, blocked, stranded, pkh, frag)
+    rows, lens = _pair_seeds(data, reads, seeds, left)
+    wj = jtr.WalkConfig(max_len=max_len, pair_ring=ring, left=left)
+    wt = ttr.WalkConfig(max_len=max_len, pair_ring=ring, left=left)
+    j0 = jtr.make_walks(cj, wj, rows, lens)
+    s0 = ttr.make_walks(ct, wt, rows, lens)
+    _assert_states_equal(s0, ttr.walk_state_from_limbs(jax.device_get(j0)), "make_walks", PAIR_FIELDS)
+    min_cov, bound = _pair_args(case, s0.pos.shape[0])
+    want = ttr.walk_state_from_limbs(jax.device_get(jtr.extend_walks(j0, gj, cj, wj, min_cov, bound, mode="pair")))
+    got = ttr.extend_walks(s0, gt, ct, wt, min_cov, bound, mode="pair")
+    _assert_states_equal(got, want, "extend_walks(mode='pair')", PAIR_FIELDS)
+    status = set(got.status.tolist())
+    assert ttr.DEAD in status and int(got.hops.sum()) > 0
+    assert ttr.STOPPED_BRANCH in status or case not in ("right", "left")
+
+
+@pytest.mark.parametrize("stranded", [False, True])
+def test_pair_walk_revcomp_reseed_equals_jax(pair_graphs, stranded):
+    """Right pair walks, the reverse-complement hand-off (a seed of up to
+    max_len bases: far more k-mers than the ring holds), then left pair
+    walks."""
+    cj, gj, ct, gt, reads, seeds = pair_graphs("sim", stranded=stranded)
+    rows, lens = _pair_seeds("sim", reads, seeds)
+    wj, wt = jtr.WalkConfig(max_len=K + 400, pair_ring=64), ttr.WalkConfig(max_len=K + 400, pair_ring=64)
+    wjl = jtr.WalkConfig(max_len=K + 400, pair_ring=64, left=True)
+    wtl = ttr.WalkConfig(max_len=K + 400, pair_ring=64, left=True)
+    jr = jtr.extend_walks(jtr.make_walks(cj, wj, rows, lens), gj, cj, wj, 1.0, 400, mode="pair")
+    tr = ttr.extend_walks(ttr.make_walks(ct, wt, rows, lens), gt, ct, wt, 1.0, 400, mode="pair")
+    _assert_states_equal(tr, ttr.walk_state_from_limbs(jax.device_get(jr)), "right walks", PAIR_FIELDS)
+    assert int(tr.pos.max()) - K + 1 > 64
+    jl0 = jtr.revcomp_reseed(cj, wjl, jr.buf, jr.pos)
+    tl0 = ttr.revcomp_reseed(ct, wtl, tr.buf, tr.pos)
+    _assert_states_equal(tl0, ttr.walk_state_from_limbs(jax.device_get(jl0)), "revcomp_reseed", PAIR_FIELDS)
+    jl = jtr.extend_walks(jl0, gj, cj, wjl, 1.0, 400, mode="pair")
+    tl = ttr.extend_walks(tl0, gt, ct, wtl, 1.0, 400, mode="pair")
+    _assert_states_equal(tl, ttr.walk_state_from_limbs(jax.device_get(jl)), "left walks", PAIR_FIELDS)
+
+
+def test_pair_walks_refuse_what_they_cannot_do(pair_graphs):
+    _, _, ct, gt, reads, seeds = pair_graphs("sim")
+    st = ttr.make_walks(ct, ttr.WalkConfig(max_len=200), seeds)
+    with pytest.raises(ValueError, match="pair ring"):
+        ttr.extend_walks(st, gt, ct, ttr.WalkConfig(max_len=200), 1.0, 100, mode="pair")
+    wcfg = ttr.WalkConfig(max_len=200, pair_ring=64, pair_probe_depth=K)
+    st = ttr.make_walks(ct, wcfg, reads[:4, :100])
+    with pytest.raises(AssertionError, match="below k"):
+        ttr.extend_walks(st, gt, ct, wcfg, 1.0, 100, mode="pair")
