@@ -35,16 +35,21 @@ Phases (any failure raises and exits nonzero):
    prints the share of its in-range indices whose lane was already 1.
    Each op's bound: the index bytes plus one 32 B sector per distinct
    cell, read and written (written only, for ``set``), over 3.35 TB/s.
-3. The main path: ``cli -stage 2 -savebf --device cuda`` with ``-cnt mf8``
-   (the default) and ``-stage 1 -savebf -cnt u16``, both on the 1,000,000
-   pairs at the default ``-mem 1``.  The launch
-   counters must show the insert kernels and (stage 2) the walk kernel
-   ran; every valid k-mer of 10,000 sampled input reads must count >= 1 on
-   each saved graph (a count-min filter never undercounts).  Each run
-   prints its rates, its peak device memory and its insert buffer
-   (add_mf8's batch table: at most 64 MiB for mf8, none for u16), and the
-   share of its ``set`` indices that found their lane already set (1 - set
-   lanes in the saved rpkbf / set indices applied).
+3. The main path: ``cli -stage 3 -norr -savebf --device cuda`` with
+   ``-cnt mf8`` (the default) and ``-stage 1 -savebf -cnt u16``, both on
+   the 1,000,000 pairs at the default ``-mem 1``, stage 3 over all of its
+   batches of 2048.  The launch counters must show the
+   insert kernels and the walk kernel ran, and in stage 3 both walk modes
+   and ``set`` (the screen); every valid k-mer of 10,000 sampled input
+   reads must count >= 1 on each saved graph (a count-min filter never
+   undercounts); the transcript files must be well formed.  Each run
+   prints its rates (stage 1 reads/s, stage 2 pairs/s, stage 2b and stage 3
+   fragments/s), stage 3's wall time by ``utils/timer`` span, its launches
+   per stage and per stage-3 use of the greedy kernel, its peak device
+   memory and its insert buffer (add_mf8's batch table: at most 64 MiB for
+   mf8, none for u16), and the share of its stage-1-2 ``set`` indices
+   that found their lane already set (1 - set lanes in the saved rpkbf /
+   set indices applied).
 4. Walk kernel vs its plain PyTorch version on the card, at stage-2
    shapes: the bridge-walk seeds of the first stage-2 batch (8192 pairs,
    error-corrected and overlap-tested as ``assemble_fragments_batch``
@@ -66,7 +71,12 @@ Phases (any failure raises and exits nonzero):
    statistics, the stamps) must be byte-identical.  Stage 2b
    (``pipeline.rebuild_fragment_graph``) then runs on each of those outputs
    on the card and on the CPU: the rebuilt cbf, rpkbf and fpkbf, saved as
-   checkpoints, must be byte-identical.
+   checkpoints, must be byte-identical.  ``-stage 3 -norr`` on the first
+   2000 pairs on the card and on the CPU: every file byte-identical (the
+   transcripts included), report.json equal but for elapsed_s.  The repo's
+   golden dataset (``utils/pesim.write_golden_fastq``, the reads of
+   ``tests/test_golden.py``) through ``assemble_pe`` on the card: the
+   strand-normalised sha1 set must equal ``tests/golden/pe_golden.json``.
 6. Stage 2b and the stage-3 extension, the main path of the latest slice,
    with every launch count set to 0 before it: the 1M-pair ``-cnt mf8``
    output of phase 3 loaded on the card and rebuilt (fragments/s, batches,
@@ -84,6 +94,17 @@ Phases (any failure raises and exits nonzero):
    32 B sectors plus the walk state read and written, over 3.35 TB/s;
    beside it one torch gather of as many random cbf cells and fpkbf lanes.
    The right walks of stage 3's first batch are timed too.
+7. Stage 3's greedy walks on the rebuilt graph of phase 6: stage 3's
+   batches in its own order on a fresh screen (as phase 3 ran them) up to
+   the first that issues gap re-walks; that batch again from the screen it
+   started with, with
+   ``-maxclip 8`` (the default never reaches the blunt-end probes; later
+   batches if that one has no candidate), for the depth probes on the
+   graph and on the screen viewed as an mf8 graph.  Every captured walk by
+   the kernel and the plain loop, every field equal; per use (gap
+   re-walks; tip and depth probes; the screen as a graph) the largest
+   batch timed, replayed by ``walk_tally`` for its reads and bound, beside
+   one gather of as many random cells of its table.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -154,6 +175,15 @@ REAL_READS = 4096  # one stage-1 batch
 PAIRS = 1_000_000
 BATCH2 = 8192  # pairs per stage-2 batch
 CBF_LOG2 = {"mf8": 29, "u16": 28}  # default cbf at -mem 1, before any resize
+STAGE3_PAIRS = 2000  # the card-vs-CPU -stage 3 -norr run
+MAXCLIP = 8  # -maxclip of phase 7's rerun, which reaches the screen-as-graph probe
+GOLDEN = "tests/golden/pe_golden.json"
+# stage-3 uses of the greedy walk kernel: kind -> the kernels line's name
+GREEDY_USES = {
+    "gap_rewalk": "walk_greedy[stage-3 gap re-walks]",
+    "probe": "walk_greedy[stage-3 tip and depth probes]",
+    "screen": "walk_greedy[stage-3 screen as a graph]",
+}
 _T0 = time.time()
 
 
@@ -519,7 +549,7 @@ def head_fastq(src: str, dst: str, n_records: int) -> None:
 def run_cli(left: str, right: str, out: str, device: str, counter: str = "mf8", stage: int = 1):
     return cli.run([
         "-left", left, "-right", right, "-revcomp-right", "-o", out, "-stage", str(stage),
-        "-savebf", "-f", "-cnt", counter, "--device", device,
+        "-savebf", "-f", "-cnt", counter, "--device", device, *(["-norr"] if stage == 3 else []),
     ])
 
 
@@ -536,23 +566,145 @@ def same_tree(a: str, b: str) -> list:
     return rel
 
 
+class CountedStore:
+    """A fragment store whose ``iter_batches`` counts the batches and
+    fragments it gave, and prints its progress every 50 batches."""
+
+    def __init__(self, store: FragmentStore):
+        self._store = store
+        self.batches = self.fragments = 0
+
+    def __getattr__(self, name):
+        return getattr(self._store, name)
+
+    def iter_batches(self, batch_size: int, width=None):
+        t0 = time.time()
+        for item in self._store.iter_batches(batch_size, width):
+            if self.batches and self.batches % 50 == 0:
+                print(f"  stage 3: {self.batches} batches, {self.fragments} fragments in {time.time() - t0:.1f} s",
+                      flush=True)
+            self.batches += 1
+            self.fragments += int((item[1] > 0).sum())
+            yield item
+
+
+class Stage3Probe:
+    """Stage 2b and stage 3 of a pipeline run, instrumented from outside the
+    port: the wall time (card synchronised) and the insert and walk launches
+    of ``rebuild_fragment_graph`` and of ``_run_stage3`` (its store counted,
+    ``CountedStore``); the greedy walk launches attributed to their stage-3
+    use (``GREEDY_USES``); and, with ``capture``, a copy of each stage-3
+    greedy walk's inputs."""
+
+    def __init__(self, capture: bool = False):
+        self.capture = capture
+        self.uses = {kind: 0 for kind in GREEDY_USES}
+        self.captured = []  # (kind, state, graph, cfg, wcfg, min_cov, bound)
+        self.times, self.launches, self.indices_before, self.store = {}, {}, {}, None
+        self._kind = None
+
+    def _counts(self) -> dict:
+        return {**ci.launch_counts(), **walk.launch_counts()}
+
+    def _timed(self, name: str, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            self.indices_before[name] = ci.index_counts()
+            c0, t0 = self._counts(), time.time()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.times[name] = time.time() - t0
+            c1 = self._counts()
+            self.launches[name] = {key: c1[key] - c0[key] for key in c1}
+            return out
+        return run
+
+    @contextlib.contextmanager
+    def installed(self):
+        saved = (pipeline.rebuild_fragment_graph, pipeline._run_stage3, transcripts._gap_rewalk,
+                 transcripts._depth_probe, engine.extend_walks)
+        rebuild, run3, gap, depth, extend = saved
+
+        def run_stage3(state, cfg, store, *args):
+            store = self.store = CountedStore(store)
+            return self._timed("stage3", run3)(state, cfg, store, *args)
+
+        def gap_rewalk(*args, **kw):
+            self._kind = ["gap_rewalk"]
+            try:
+                return gap(*args, **kw)
+            finally:
+                self._kind = None
+
+        def depth_probe(graph, cfg, *args, **kw):
+            self._kind = ["screen" if cfg.pkbf is None else "probe"]  # the screen as a graph has no pair keys
+            try:
+                return depth(graph, cfg, *args, **kw)
+            finally:
+                self._kind = None
+
+        def extend_walks(st, graph, cfg, wcfg, min_cov, bound, mode="greedy"):
+            if self._kind is None or mode != "greedy":
+                return extend(st, graph, cfg, wcfg, min_cov, bound, mode=mode)
+            kind = self._kind[0]
+            self._kind[0] = "probe"  # a gap re-walk's second walk is its tip probe
+            if self.capture:
+                mc, bd = traverse.lane_args(st, min_cov, bound)
+                g = dbg.GraphState(None, graph.cbf.clone(), None, None) if kind == "screen" else graph
+                self.captured.append((kind, traverse.clone_state(st), g, cfg, wcfg, mc, bd))
+            n0 = walk.LAUNCHES["walk_greedy"]
+            out = extend(st, graph, cfg, wcfg, min_cov, bound, mode=mode)
+            self.uses[kind] += walk.LAUNCHES["walk_greedy"] - n0
+            return out
+
+        pipeline.rebuild_fragment_graph = self._timed("rebuild", rebuild)
+        pipeline._run_stage3 = run_stage3
+        transcripts._gap_rewalk, transcripts._depth_probe = gap_rewalk, depth_probe
+        engine.extend_walks = extend_walks
+        try:
+            yield self
+        finally:
+            (pipeline.rebuild_fragment_graph, pipeline._run_stage3, transcripts._gap_rewalk,
+             transcripts._depth_probe, engine.extend_walks) = saved
+
+
+def check_transcripts(out: str, report, k: int) -> dict:
+    """The -stage 3 files: as many records as the report counts, upper-case
+    ACGT bodies (a poly-A tail lower-cased), transcripts at least 200 bases
+    and short ones under 200 but at least k."""
+    body = re.compile(r"^[ACGT]+[acgt]*$")
+    lengths = {}
+    for name, count, ok in (("transcripts.fa", report.num_transcripts, lambda n: n >= 200),
+                            ("transcripts.short.fa", report.num_short, lambda n: k <= n < 200)):
+        seqs = [s for _, s in fastx.read_fasta(os.path.join(out, f"rnabloom.{name}"))]
+        assert len(seqs) == count, (name, len(seqs), count)
+        bad = [s for s in seqs if not body.match(s) or not ok(len(s))]
+        assert not bad, f"{name}: {len(bad)} malformed records, e.g. {bad[0][:80]}"
+        lengths[name] = [len(s) for s in seqs]
+    return lengths
+
+
 def main_path(left: str, right: str, out: str, counter: str, stage: int, n_pairs: int,
               codes: np.ndarray, card: str, dev):
     """One main-path run on the card with the launch counts and the peak
     device memory of that run alone; checks the saved graph, which stays
-    on disk."""
+    on disk.  ``-stage 3`` runs with ``-norr`` and is checked and reported
+    (rates, spans, launches per stage and per greedy use)."""
     ci.reset_launch_counts()
     walk.reset_launch_counts()
     ci._batch_tables.clear()  # the run's own insert buffer only
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
+    probe = Stage3Probe()
     t0 = time.time()
-    report = run_cli(left, right, out, "cuda", counter, stage)
+    with probe.installed() if stage == 3 else contextlib.nullcontext():
+        report = run_cli(left, right, out, "cuda", counter, stage)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {**ci.launch_counts(), **walk.launch_counts()}
-    set_indices = ci.index_counts()["set"]
+    # the saved graph is stage 2's: its rpkbf took the set indices of stages 1-2
+    set_indices = (probe.indices_before["rebuild"] if stage == 3 else ci.index_counts())["set"]
     peak = torch.cuda.max_memory_allocated()
     buffer = ci.batch_table_bytes()
     s1 = report.stage1
@@ -565,13 +717,16 @@ def main_path(left: str, right: str, out: str, counter: str, stage: int, n_pairs
     print(f"{tag}: stage-1 build {s1.num_reads / s1.elapsed_s:.0f} reads/s (last build pass, "
           f"{s1.elapsed_s:.2f} s); CLI wall {wall:.2f} s incl. read sampling"
           f"{' and the resized rebuild' if resized else ''} [{card}]")
-    if stage == 2:
+    if stage >= 2:
         print(f"{tag}: stage 2 {report.num_pairs / report.stage2_s:.1f} pairs/s ({report.num_pairs} pairs, "
               f"{report.stage2_batches} batches, {report.stage2_s:.2f} s); fragments stored "
               f"{report.num_fragments}; d_frag {report.fragment_pair_distance}; graph desc "
               f"fragment_pair_distance {cfg.fragment_pair_distance}; dispatches {report.stage2_dispatches} [{card}]")
         assert report.num_pairs == n_pairs and report.num_fragments > n_pairs // 2, report
         assert cfg.fragment_pair_distance == report.fragment_pair_distance > 0
+    stage3 = None
+    if stage == 3:
+        stage3 = stage3_report(tag, report, probe, out, card)
     print(f"{tag}: peak device memory {peak} B ({peak / 2**30:.3f} GiB; {held} B held before "
           f"the run); insert buffer (add_mf8's batch table) after it: {buffer} B")
     # stage 1 gives every set index in range (an invalid window goes to the
@@ -595,7 +750,39 @@ def main_path(left: str, right: str, out: str, counter: str, stage: int, n_pairs
           f"count >= 1 (min {float(counts[valid].min())})", flush=True)
     del state
     torch.cuda.empty_cache()
-    return launches, report, peak, buffer
+    return launches, report, peak, buffer, stage3
+
+
+def stage3_report(tag: str, report, probe: "Stage3Probe", out: str, card: str) -> dict:
+    """Stage 2b's and stage 3's numbers of a -stage 3 main-path run, and the
+    check of its transcripts."""
+    store = probe.store
+    lengths = check_transcripts(out, report, K)
+    r = {
+        "fragments": report.num_fragments, "rebuild_s": probe.times["rebuild"],
+        "rebuild_fragments_per_s": report.num_fragments / probe.times["rebuild"],
+        "stage3_batches": store.batches, "stage3_fragments": store.fragments, "stage3_s": probe.times["stage3"],
+        "stage3_fragments_per_s": store.fragments / probe.times["stage3"],
+        "transcripts": report.num_transcripts, "short": report.num_short, "spans": report.stage3_spans,
+        "rebuild_launches": probe.launches["rebuild"], "stage3_launches": probe.launches["stage3"],
+        "greedy_uses": dict(probe.uses),
+    }
+    print(f"{tag}: stage 2b {r['rebuild_fragments_per_s']:.1f} fragments/s ({report.num_fragments} fragments, "
+          f"{r['rebuild_s']:.2f} s); stage 3 in batches of 2048: {store.batches} batches, "
+          f"{store.fragments} fragments in {r['stage3_s']:.2f} s, {r['stage3_fragments_per_s']:.1f} fragments/s "
+          f"[{card}]")
+    spans = ", ".join(f"{name} {sec:.2f} s" for name, sec in sorted(report.stage3_spans.items()))
+    print(f"{tag}: stage 3 wall time by span: {spans} (screen_rewalk is inside screen; stage3_s "
+          f"{report.stage3_s:.2f} s includes the rebuild)")
+    print(f"{tag}: transcripts {report.num_transcripts} (mean {np.mean(lengths['transcripts.fa'] or [0]):.1f} "
+          f"bases), short {report.num_short}; all well-formed")
+    print(f"{tag}: launches in stage 2b {r['rebuild_launches']}; in stage 3 {r['stage3_launches']} (set: the "
+          f"screen's inserts); greedy walk launches by stage-3 use {r['greedy_uses']}", flush=True)
+    assert report.num_transcripts > 0 and store.batches > 0
+    s3 = r["stage3_launches"]
+    assert s3["walk_pair"] > 0 and s3["walk_greedy"] > 0 and s3["set"] > 0, s3
+    assert s3["walk_greedy"] == sum(r["greedy_uses"].values()), (s3, r["greedy_uses"])
+    return r
 
 
 def stage2_walk_seeds(left: str, right: str, graph, cfg) -> np.ndarray:
@@ -1023,6 +1210,159 @@ def pair_vs_plain(graph, cfg, store: FragmentStore, card: str, dev) -> dict:
     return r
 
 
+def greedy_vs_plain(walks: list, what: str, card: str, dev) -> dict:
+    """Each captured greedy walk (kind, state, graph, cfg, wcfg, min_cov,
+    bound) by the kernel and by the plain loop, every field equal; the
+    largest one (lanes x max_len) timed in turns, replayed by ``walk_tally``
+    (which must end in the plain loop's state) for its reads and bound, and
+    beside it one gather of as many random cells of its table."""
+    err = 0.0
+    for _, st, graph, cfg, wcfg, mc, bd in walks:
+        kern = walk.walk_greedy(st, graph, cfg, wcfg, mc, bd)
+        plain = walk.walk_greedy_plain(st, graph, cfg, wcfg, mc, bd)
+        torch.cuda.synchronize()
+        bad = _same_state(kern, plain)
+        if bad:
+            raise AssertionError(f"walk_greedy != plain on {what}: {bad} differ")
+        err = max(err, _max_abs_diff(kern, plain))
+    _, st, graph, cfg, wcfg, mc, bd = max(walks, key=lambda w: w[1].pos.shape[0] * w[4].max_len)
+    kernel = lambda: walk.walk_greedy(st, graph, cfg, wcfg, mc, bd)  # noqa: E731
+    plain_fn = lambda: walk.walk_greedy_plain(st, graph, cfg, wcfg, mc, bd)  # noqa: E731
+    t = {"kernel": [_time_ms(kernel, reps=5)], "plain": [_time_ms(plain_fn, reps=1)]}
+    t["kernel"].append(_time_ms(kernel, reps=5))
+    tally = walk_tally(st, graph, cfg, wcfg, mc, bd)
+    plain = plain_fn()
+    bad = _same_state(tally["state"], plain)
+    if bad:
+        raise AssertionError(f"the tallied replay of the plain loop differs on {what}: {bad}")
+    reads = int(tally["reads"].sum())
+    idx = torch.randint(0, graph.cbf.numel(), (max(reads, 1),), device=dev)
+    graph.cbf[idx]
+    gather_ms = min(_time_ms(lambda: graph.cbf[idx], reps=3) for _ in range(3))
+    kern = kernel()
+    r = {
+        "walks": len(walks), "lanes": int(st.pos.shape[0]), "max_len": wcfg.max_len, "max_abs_err": err,
+        "ms": sum(t["kernel"]) / 2, "plain_ms": t["plain"][0], "cell_reads": reads,
+        "bound_ms": walk_bound_ms(st, mc, bd, reads), "gather_ms": gather_ms,
+        "hops": int(kern.hops.sum()), "resolves": int(tally["resolves"].sum()),
+        "table_cells": int(graph.cbf.numel()), "layout": cfg.cbf.dtype, "num_hash": cfg.cbf.num_hash,
+    }
+    print(f"walk_greedy ({what}): {len(walks)} walk batches, every field equal to the plain loop; the largest, "
+          f"{r['lanes']} lanes of max_len {r['max_len']} ({r['layout']} table of {r['table_cells']} cells, "
+          f"{r['num_hash']} hashes): kernel {r['ms']:.4f} ms ({', '.join(f'{x:.4f}' for x in t['kernel'])}), plain "
+          f"{r['plain_ms']:.2f} ms; {r['hops']} hops, {r['resolves']} resolves, {reads} cell reads: bound "
+          f"{r['bound_ms']:.4f} ms at 3.35 TB/s; one gather of as many random cells {gather_ms:.4f} ms [{card}]",
+          flush=True)
+    return r
+
+
+def stage3_walks_vs_plain(graph, cfg, store: FragmentStore, card: str, dev) -> dict:
+    """Stage 3's greedy walks on the rebuilt 1M-pair graph: stage 3's
+    batches in its own order on a fresh screen (as the main path ran them),
+    up to the first batch that issues gap re-walks; that batch's gap
+    re-walks (and tip probes) by the kernel and the plain loop.  Then that
+    batch and the next ones again, each from the screen it started with,
+    with -maxclip, for the depth probes on the graph and on the screen as an
+    mf8 graph, up to the first batch whose screen probe walks at least one
+    hop (else the first whose screen probe ran at all)."""
+    params = pipeline.PipelineParams()
+    tparams = pipeline._transcript_params(cfg, params)
+    clip = pipeline._transcript_params(cfg, pipeline.PipelineParams(max_edge_clip=MAXCLIP))
+    scfg = filters.BloomConfig(cfg.pkbf.size_log2, cfg.pkbf.num_hash)
+    screen = filters.make_bloom(scfg, device=dev)
+    width = int(min(max(store.max_len, cfg.k), params.max_walk_len))
+    probe = Stage3Probe(capture=True)
+    found, first_screen = {}, None
+    with probe.installed():
+        for i, (sel, lens, covs, _) in enumerate(store.iter_batches(params.stage3_batch, width=width)):
+            gate = pipeline._stratum_gate(params, covs, lens)
+            before = screen.clone()
+            probe.captured.clear()
+            transcripts.assemble_transcripts_batch(graph, cfg, screen, scfg, sel, lens, tparams, gate)
+            if "gap_rewalk" not in found and any(w[0] == "gap_rewalk" for w in probe.captured):
+                found["gap_rewalk"] = (i, list(probe.captured))
+            if "gap_rewalk" in found and "screen" not in found:
+                probe.captured.clear()
+                transcripts.assemble_transcripts_batch(graph, cfg, before, scfg, sel, lens, clip, gate)
+                screens = [w[1:] for w in probe.captured if w[0] == "screen"]
+                if screens:
+                    first_screen = first_screen or (i, list(probe.captured))
+                    if any(int(walk.walk_greedy(*w).hops.sum()) > 0 for w in screens):
+                        found["screen"] = (i, list(probe.captured))
+            del before
+            if len(found) == 2:
+                break
+    if "screen" not in found and first_screen is not None:
+        print("walk_greedy (the screen as a graph): no batch's screen probe walked a hop; checking the first that ran",
+              flush=True)
+        found["screen"] = first_screen
+    assert set(found) == {"gap_rewalk", "screen"}, f"stage 3's batches reached only {sorted(found)}"
+    (gi, gap), (si, probes) = found["gap_rewalk"], found["screen"]
+    out = {"gap_batch": gi, "probe_batch": si}
+    out["gap_rewalk"] = greedy_vs_plain([w for w in gap if w[0] == "gap_rewalk"],
+                                        f"gap re-walks of stage 3's batch {gi}", card, dev)
+    tips = [w for w in gap + probes if w[0] == "probe"]
+    out["probe"] = greedy_vs_plain(tips, f"tip and depth probes of stage 3's batches {gi}, {si} (-maxclip {MAXCLIP})",
+                                   card, dev)
+    out["screen"] = greedy_vs_plain([w for w in probes if w[0] == "screen"],
+                                    f"the screen as a graph, batch {si} with -maxclip {MAXCLIP}", card, dev)
+    return out
+
+
+def golden_on_card(tmp: str, card: str) -> list:
+    """The repo's golden dataset through the port's ``assemble_pe`` on the
+    card, with the golden run's parameters: the strand-normalised sha1 set
+    of transcripts.fa must equal ``tests/golden/pe_golden.json``."""
+    import hashlib
+
+    d = os.path.join(tmp, "golden")
+    os.makedirs(d)
+    left, right = pesim.write_golden_fastq(d)
+    params = pipeline.PipelineParams(total_mem_bytes=1 << 22, batch_size=256, sample_size=100, no_reduce=True)
+    report = pipeline.assemble_pe(left, right, os.path.join(d, "out"), params, device="cuda")
+    rc = str.maketrans("ACGT", "TGCA")
+    got = sorted(hashlib.sha1(min(s.upper(), s.upper().translate(rc)[::-1]).encode()).hexdigest()[:16]
+                 for _, s in fastx.read_fasta(os.path.join(d, "out", "rnabloom.transcripts.fa")))
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), GOLDEN)) as f:
+        want = json.load(f)["transcript_sha1"]
+    if got != want or report.num_transcripts != len(want):
+        raise AssertionError(f"golden set on the card: {got} != {want}")
+    print(f"golden dataset on the card: {len(got)} transcripts, sha1 set equal to {GOLDEN} [{card}]", flush=True)
+    shutil.rmtree(d)
+    return got
+
+
+def stage3_card_vs_cpu(left: str, right: str, tmp: str) -> dict:
+    """-stage 3 -norr on the card and on the CPU: every output file
+    byte-identical, report.json equal but for elapsed_s."""
+    gpu_out, cpu_out = os.path.join(tmp, "gpu3"), os.path.join(tmp, "cpu3")
+    walk.reset_launch_counts()
+    t0 = time.time()
+    rep = run_cli(left, right, gpu_out, "cuda", "mf8", 3)
+    t_gpu = time.time() - t0
+    n_walk = walk.launch_counts()
+    t0 = time.time()
+    run_cli(left, right, cpu_out, "cpu", "mf8", 3)
+    t_cpu = time.time() - t0
+    report_json = "rnabloom.report.json"
+    with open(os.path.join(gpu_out, report_json)) as f, open(os.path.join(cpu_out, report_json)) as g:
+        a, b = json.load(f), json.load(g)
+    a.pop("elapsed_s"), b.pop("elapsed_s")
+    if a != b:
+        raise AssertionError(f"-stage 3 report.json differs between card and CPU: {a} != {b}")
+    os.remove(os.path.join(gpu_out, report_json))
+    os.remove(os.path.join(cpu_out, report_json))
+    files = same_tree(gpu_out, cpu_out)
+    check_transcripts(gpu_out, rep, K)
+    assert rep.num_transcripts > 0 and n_walk["walk_pair"] > 0, (rep.num_transcripts, n_walk)
+    print(f"-cnt mf8 -stage 3 -norr on {rep.num_pairs} pairs: card and CPU outputs byte-identical ({len(files)} "
+          f"files, report.json equal but elapsed_s); {rep.num_transcripts} transcripts, {rep.num_short} short; "
+          f"card walk launches {n_walk}; CLI wall card {t_gpu:.1f} s, CPU {t_cpu:.1f} s", flush=True)
+    shutil.rmtree(gpu_out)
+    shutil.rmtree(cpu_out)
+    return {"transcripts": rep.num_transcripts, "walk_launches": n_walk}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--walk-variant", action="append", default=[], metavar="NAME=PATH",
@@ -1081,7 +1421,7 @@ def main(argv=None) -> int:
         )
         print(f"simulated 1,000,000 pairs (2000 transcripts, seed 0) in {time.time() - t0:.1f} s", flush=True)
         heads = {}
-        for n in (BATCH2, 20_000):
+        for n in (BATCH2, 20_000, STAGE3_PAIRS):
             heads[n] = (os.path.join(tmp, f"head{n}_1.fq"), os.path.join(tmp, f"head{n}_2.fq"))
             head_fastq(left, heads[n][0], n)
             head_fastq(right, heads[n][1], n)
@@ -1092,17 +1432,18 @@ def main(argv=None) -> int:
         real_indices = {op: b.numel() for op, b in real.items()}
         del real
 
-        phase("3 main path: -stage 2 -savebf -cnt mf8 and -stage 1 -savebf -cnt u16 on 1,000,000 pairs, "
+        phase("3 main path: -stage 3 -norr -savebf -cnt mf8 and -stage 1 -savebf -cnt u16 on 1,000,000 pairs, "
               "--device cuda, -mem 1")
         rng = np.random.default_rng(1)
         picks = set(rng.choice(PAIRS, 5_000, replace=False).tolist())
         codes = np.concatenate([sample_reads(p, picks, READ_LEN) for p in (left, right)])
         out_mf8 = os.path.join(tmp, "out_mf8")
-        launches, s2_report, s2_peak, s2_buffer = main_path(left, right, out_mf8, "mf8", 2, PAIRS, codes, card, dev)
+        launches, s2_report, s2_peak, s2_buffer, s3 = main_path(left, right, out_mf8, "mf8", 3, PAIRS, codes, card, dev)
         assert launches["add_mf8"] > 0 and launches["set"] > 0 and launches["walk_greedy"] > 0, launches
+        assert launches["walk_pair"] > 0, launches
         assert 0 < s2_buffer <= 64 << 20, f"the -cnt mf8 run's insert buffer is {s2_buffer} B"
         out_u16 = os.path.join(tmp, "out_u16")
-        u16_launches, _, _, u16_buffer = main_path(left, right, out_u16, "u16", 1, PAIRS, codes, card, dev)
+        u16_launches, _, _, u16_buffer, _ = main_path(left, right, out_u16, "u16", 1, PAIRS, codes, card, dev)
         assert u16_launches["add_u16"] > 0 and u16_launches["set"] > 0, u16_launches
         assert u16_buffer == 0, "the -cnt u16 run allocated an insert buffer"
 
@@ -1115,10 +1456,11 @@ def main(argv=None) -> int:
         }
         shutil.rmtree(out_u16)
 
-        phase("5 card vs CPU: -stage 1 on 20,000 pairs, -stage 2 on 8192 pairs, byte-identical outputs")
+        phase("5 card vs CPU: -stage 1 on 20,000 pairs, -stage 2 on 8192 pairs, -stage 3 -norr on 2000 pairs, "
+              "byte-identical outputs; the golden dataset on the card")
         run_launches = {"add_mf8": launches["add_mf8"], "set": launches["set"],
                         "add_u16": u16_launches["add_u16"]}
-        mf8_run = "main path, -cnt mf8 -stage 2, 1M pairs"
+        mf8_run = "main path, -cnt mf8 -stage 3 -norr, 1M pairs"
         run_of = {"add_mf8": mf8_run, "set": mf8_run, "add_u16": "main path, -cnt u16 -stage 1, 1M pairs"}
         for counter, op in (("mf8", "add_mf8"), ("u16", "add_u16"), ("int32", "add")):
             ci.reset_launch_counts()
@@ -1164,6 +1506,8 @@ def main(argv=None) -> int:
                   f"({', '.join(REBUILT_FILES)}); card launches {n_rebuild}", flush=True)
             shutil.rmtree(gpu_out)
             shutil.rmtree(cpu_out)
+        card_cpu3 = stage3_card_vs_cpu(*heads[STAGE3_PAIRS], tmp)
+        golden_on_card(tmp, card)
 
         phase("6 stage 2b and the stage-3 extension walks on the 1M-pair -cnt mf8 -stage 2 output, on the card")
         # the main path of this slice: the rebuild, then the extension of
@@ -1177,6 +1521,10 @@ def main(argv=None) -> int:
         assert rebuild_launches["add_mf8"] > 0 and rebuild_launches["set"] > 0, rebuild_launches
         print(f"phase 6 main-path launches: rebuild {rebuild_launches}, extension walk_pair {pair['launches']}",
               flush=True)
+
+        phase("7 stage 3's greedy walks (gap re-walks, tip and depth probes, the screen as a graph) vs plain PyTorch "
+              "on the rebuilt 1M-pair graph")
+        greedy3 = stage3_walks_vs_plain(rebuilt, cfg6, store6, card, dev)
         del rebuilt
         torch.cuda.empty_cache()
         shutil.rmtree(out_mf8)
@@ -1209,6 +1557,8 @@ def main(argv=None) -> int:
         for op in ("add_mf8", "set", "add_u16", "add")
     ]
     kernels[0]["run_insert_buffer_bytes"] = s2_buffer
+    kernels[1]["stage3_screen_launches"] = s3["stage3_launches"]["set"]
+    kernels[1]["stage2b_launches"] = s3["rebuild_launches"]["set"]
     wm, wu = walk_t["mf8"], walk_t["u16"]
     kernels.append({
         "name": "walk_greedy",
@@ -1239,17 +1589,18 @@ def main(argv=None) -> int:
         "stage2_pairs_per_s": s2_report.num_pairs / s2_report.stage2_s,
         "stage2_pairs": s2_report.num_pairs,
         "stage1_reads_per_s": s2_report.stage1.num_reads / s2_report.stage1.elapsed_s,
-        "stage2_peak_device_bytes": s2_peak,
+        "run_peak_device_bytes": s2_peak,
+        "stage3_launches": s3["stage3_launches"]["walk_greedy"],
     })
     kernels.append({
         "name": "walk_pair",
         "route": "cuda",
         "source": WALK_SOURCE,
         "replaces": WALK_REPLACES,
-        "launches": pair["launches"],
-        "run": f"phase 6 main path: extend_fragments_pair on stage 3's first {pair['batches']} batches of the rebuilt "
-               f"1M-pair graph; times, bound and plain on batch {pair['batch']}, the first full one (stratum "
-               f"{pair['stratum']})",
+        "launches": launches["walk_pair"],
+        "run": f"{mf8_run}; times, bound and plain on phase 6's walks (extend_fragments_pair on stage 3's first "
+               f"{pair['batches']} batches of the rebuilt 1M-pair graph, {pair['launches']} launches; batch "
+               f"{pair['batch']}, the first full one, stratum {pair['stratum']})",
         "max_abs_err": pair["max_abs_err"],
         "ms": pair["ms"],
         "plain_ms": pair["plain_ms"],
@@ -1268,7 +1619,33 @@ def main(argv=None) -> int:
         "rebuild_launches": rebuild_launches,
         "rebuild_peak_device_bytes": rebuild["peak_bytes"],
         "rebuild_batch_table_bytes": rebuild["batch_table_bytes"],
+        "stage3": {key: s3[key] for key in ("rebuild_fragments_per_s", "stage3_batches", "stage3_fragments",
+                                            "stage3_s", "stage3_fragments_per_s", "transcripts", "short", "spans")},
+        "stage3_card_vs_cpu_transcripts": card_cpu3["transcripts"],
     })
+    for kind, name in GREEDY_USES.items():
+        g = greedy3[kind]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": WALK_SOURCE,
+            "replaces": WALK_REPLACES,
+            "launches": s3["greedy_uses"][kind],
+            "run": f"{mf8_run}; times, bound and plain on phase 7's walks (stage 3's batch "
+                   f"{greedy3['gap_batch' if kind == 'gap_rewalk' else 'probe_batch']}"
+                   f"{'' if kind == 'gap_rewalk' else f', -maxclip {MAXCLIP}'})",
+            "max_abs_err": g["max_abs_err"],
+            "ms": g["ms"],
+            "plain_ms": g["plain_ms"],
+            "bound_ms": g["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "lanes": g["lanes"],
+            "max_len": g["max_len"],
+            "walks_checked": g["walks"],
+            "cell_reads": g["cell_reads"],
+            "gather_ms": g["gather_ms"],
+        })
     print(f"\nsmoke wall time {time.time() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

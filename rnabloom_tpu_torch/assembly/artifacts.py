@@ -1,0 +1,259 @@
+"""Assembly artifact detection and trimming.
+
+The port's copy of what stage 3 calls of ``rnabloom_tpu/assembly/artifacts.py``,
+host-side equivalents of the reference's artifact family (GraphUtils):
+  * reverse-complement / hairpin artifacts: a sequence whose tail is the
+    reverse complement of its head (template switching during library prep)
+    — trimReverseComplementArtifact :7762/:7918/:8588 + hairpin trimming
+    :8059-8304.  The reference aligns the sequence to its own revcomp with
+    banded percent identity; here the fold point is located with exact
+    seed matching plus a mismatch-tolerant extension.
+  * chimeras: both halves were previously assembled separately but the
+    junction has no support — isChimera :7674; detected from the screening
+    filter's seen-k-mer profile.
+  * template switches and blunt ends: the seen-profile signatures of
+    isTemplateSwitch :8305/:8434 and isBluntEndArtifact :8535-8585.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+
+def _revcomp(codes: np.ndarray) -> np.ndarray:
+    return (3 - codes[::-1]).astype(codes.dtype)
+
+
+def find_rc_fold(codes: np.ndarray, seed: int = 16, max_mismatch_frac: float = 0.1) -> Optional[int]:
+    """Detect a self-revcomp fold: suffix == rc(prefix).
+
+    Returns the fold midpoint (trim position) or None.  Seeds on the last
+    ``seed`` bases: finds rc(tail seed) in the head region, then verifies
+    the implied palindromic overlap with a mismatch budget.
+    """
+    n = len(codes)
+    if n < 2 * seed:
+        return None
+    tail = codes[n - seed :]
+    probe = _revcomp(tail)
+    # search for probe in the first half
+    half = n // 2 + seed
+    hay = codes[:half]
+    if len(hay) < seed:
+        return None
+    win = np.lib.stride_tricks.sliding_window_view(hay, seed)
+    hits = np.flatnonzero((win == probe).all(axis=1))
+    if len(hits) == 0:
+        return None
+    p = int(hits[0])
+    # implied arm length: sequence[p:] folds back onto itself
+    arm = (n - p) // 2
+    a = codes[p : p + arm]
+    b = _revcomp(codes[n - arm : n])
+    mism = int((a != b).sum())
+    if arm >= seed and mism <= max(1, int(arm * max_mismatch_frac)):
+        return p + arm  # keep [0, fold)
+    return None
+
+
+def _kmer_positions(codes: np.ndarray, k: int):
+    """dict: k-mer bytes -> sorted positions (exact, host-side)."""
+    n = len(codes) - k + 1
+    if n <= 0:
+        return {}
+    win = np.lib.stride_tricks.sliding_window_view(codes, k)
+    pos: dict = {}
+    for i in range(n):
+        pos.setdefault(win[i].tobytes(), []).append(i)
+    return pos
+
+
+def trim_hairpin(
+    codes: np.ndarray, k: int, percent_identity: float = 0.9
+) -> np.ndarray:
+    """Hairpin trimming by self-revcomp k-mer matching
+    (trimHairpinBySequenceMatching, GraphUtils.java:8059-8205).
+
+    Seeds every k-th k-mer within 200 k-mers of the head (then the tail);
+    a seed whose reverse complement occurs downstream marks a fold.  Short
+    loops cut at the fold midpoint outright (keeping the longer half);
+    long candidate loops first verify the two arms at >= percent_identity
+    (arms may differ in length and fold internally — cases the simple
+    suffix-fold scan misses)."""
+    from ..utils import align
+
+    n = len(codes) - k + 1
+    if n < 4:
+        return codes
+    half_n = n // 2
+    max_seed_depth = min(half_n, 200)
+    max_loop = max(200, half_n)
+    max_loop_diam = max_loop // 2
+    pos = _kmer_positions(codes, k)
+    win = np.lib.stride_tricks.sliding_window_view(codes, k)
+
+    def cut_at(half_idx: int) -> np.ndarray:
+        # keep the longer half (the reference keeps [half:] when the fold
+        # midpoint is left of center, else [:half]) — in k-mer index space
+        if half_idx < half_n:
+            return codes[half_idx:]
+        return codes[: half_idx + k - 1]
+
+    def check(i: int, j: int) -> Optional[np.ndarray]:
+        half = (i + j) // 2
+        if i >= j - max_loop:
+            return cut_at(half)
+        # verify arm identity outside the loop allowance
+        a0, a1 = i, half - max_loop_diam + 1
+        if a1 <= a0:
+            return None
+        left = codes[a0 : a1 + k - 1]
+        right = _revcomp(codes[j - (a1 - a0) + 1 : j + k])
+        if align.percent_identity(left, right) >= percent_identity:
+            return cut_at(half)
+        return None
+
+    # head-anchored scan
+    for i in range(0, max_seed_depth, k):
+        rc = _revcomp(win[i]).tobytes()
+        hits = pos.get(rc)
+        if hits:
+            import bisect
+
+            z = bisect.bisect_right(hits, i)
+            if z < len(hits):
+                out = check(i, hits[z])
+                if out is not None:
+                    return out
+            break
+    # tail-anchored scan
+    for i in range(n - 1, max(n - 1 - max_seed_depth, -1), -k):
+        rc = _revcomp(win[i]).tobytes()
+        hits = pos.get(rc)
+        if hits:
+            import bisect
+
+            z = bisect.bisect_left(hits, i)
+            if z > 0:
+                j = hits[z - 1]
+                out = check(j, i)
+                if out is not None:
+                    return out
+            break
+    return codes
+
+
+def trim_rc_artifact(codes: np.ndarray, k: int = 0) -> np.ndarray:
+    """Trim self-revcomp artifacts: the quick suffix-fold scan first
+    (trimReverseComplementArtifact :7762/:7918/:8588), then — when a k is
+    given — the full hairpin matcher for unequal arms / internal folds
+    (trimHairpinBySequenceMatching :8059-8205)."""
+    fold = find_rc_fold(codes)
+    if fold is not None:
+        return codes[:fold]
+    if k > 0 and len(codes) >= 4 * k:
+        return trim_hairpin(codes, k)
+    return codes
+
+
+def is_chimera(seen: np.ndarray, valid: np.ndarray, k: int, min_arm: int = 10) -> bool:
+    """Chimera signature over a screening-filter profile of a sequence's
+    k-mers: a long fully-seen head arm and a long fully-seen tail arm
+    separated by a short unseen junction (isChimera :7674).
+    """
+    n = len(seen)
+    idx = np.flatnonzero(valid)
+    if len(idx) < 2 * min_arm + 1:
+        return False
+    s = seen[idx]
+    unseen = np.flatnonzero(~s)
+    if len(unseen) == 0 or len(unseen) >= k:
+        return False
+    lo, hi = unseen[0], unseen[-1]
+    if hi - lo + 1 != len(unseen):
+        return False  # unseen k-mers are not one contiguous junction
+    return lo >= min_arm and (len(s) - hi - 1) >= min_arm
+
+
+def template_switch_tip(
+    seen: np.ndarray, valid: np.ndarray, k: int, min_tip: int = 3
+) -> Optional[Tuple[int, int]]:
+    """K-mer range of the unassembled tip if the seen-profile matches the
+    template-switch signature (isTemplateSwitch :8434 / isTemplateSwitch2
+    :8305): one end previously assembled, the other end an unassembled tip
+    whose reverse complement may echo the assembled backbone.  The k-mers
+    adjacent to the junction (the fold-back loop, up to k of them) are
+    excluded from the tip.  Returns None when the profile doesn't match;
+    the caller must still check the tip's revcomp against the screen.
+    """
+    idx = np.flatnonzero(valid)
+    n = len(idx)
+    if n < min_tip + 2:
+        return None
+    s = seen[idx]
+    if s[-1] and not s[0]:
+        # unassembled prefix tip (isTemplateSwitch2; loop slack 2k)
+        j = int(np.flatnonzero(~s)[-1]) + 1  # assembled suffix = [j, n)
+        tip_end = max(j - 2 * k, 0)
+        if tip_end >= min_tip and (~s[:j]).mean() >= 0.5:
+            return int(idx[0]), int(idx[tip_end - 1]) + 1
+        return None
+    if s[0] and not s[-1]:
+        # unassembled suffix tip (isTemplateSwitch; loop slack k)
+        i = int(np.flatnonzero(~s)[0])  # assembled prefix = [0, i)
+        tip_start = min(i + k, n)
+        if n - tip_start >= min_tip and (~s[tip_start:]).mean() >= 0.5:
+            return int(idx[tip_start]), int(idx[-1]) + 1
+    return None
+
+
+def blunt_end_candidate(
+    seen: np.ndarray,
+    valid: np.ndarray,
+    counts: np.ndarray,
+    d: int,
+    max_depth: int,
+):
+    """Candidate blunt-end artifact needing graph-depth confirmation, or
+    None (isBluntEndArtifact :8535-8585 coverage/stub conditions).
+
+    Returns (side, end_kmer, alt_kmer, stub_len) in VALID-k-mer index
+    space: ``side`` is 'r' when the unassembled stub is at the right end
+    (the reference's first branch) else 'l'; ``end_kmer`` indexes the
+    sequence's terminal k-mer (the stub end that must be a graph DEAD END
+    within max_depth); ``alt_kmer`` the last/first assembled k-mer (from
+    which an ASSEMBLED-restricted continuation of >= stub_len must exist);
+    ``stub_len`` the unassembled stub's k-mer count.
+    """
+    idx = np.flatnonzero(valid)
+    if len(idx) < 3 or max_depth <= 0:
+        return None
+    s = seen[idx]
+    c = counts[idx]
+    n = len(s)
+    edge = min(max_depth, n)
+    left_cov = c[:edge].min()
+    right_cov = c[-edge:].min()
+
+    def med(x):
+        return float(np.median(x)) if len(x) else 0.0
+
+    if s[0] and (not s[-1] or left_cov > right_cov):
+        i = int(np.flatnonzero(~s)[0]) if not s.all() else n
+        if i == n or i < n - d:
+            return None
+        if med(c[:i]) > med(c[i:]):
+            return ("r", int(idx[n - 1]), int(idx[i - 1]), n - i)
+        return None
+    if s[-1] and (not s[0] or left_cov < right_cov):
+        if s.all():
+            return None
+        j = int(np.flatnonzero(~s)[-1])
+        if j > d:
+            return None
+        if med(c[j + 1 :]) > med(c[: j + 1]):
+            return ("l", int(idx[0]), int(idx[j + 1]), j + 1)
+        return None
+    return None

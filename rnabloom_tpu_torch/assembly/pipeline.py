@@ -11,9 +11,17 @@ Port of ``rnabloom_tpu/assembly/pipeline.py``: ``assemble_pe`` runs
            set the fragment pair distance (Q1 - k - minNumKmerPairs) and
            the walk bound (Q3 + 1.5 IQR) (RNABloom.java:4465-4663)
 
-``rebuild_fragment_graph`` is stage 2b, the fragment-graph rebuild that
-opens stage 3 (populateGraphFromFragments, RNABloom.java:1553-1560).
-Stage 3 proper (transcripts), ``-extend``, ``-rescue`` and unpaired reads
+  Stage 2b fragment-graph rebuild (``rebuild_fragment_graph``,
+           populateGraphFromFragments, RNABloom.java:1553-1560), with the
+           ``-ref`` reference transcripts
+  Stage 3  transcripts in batches of fragments in the store's priority
+           order (``_run_stage3``, assembleTranscriptsMultiThreaded
+           RNABloom.java:4886-4954) -> {name}.transcripts.fa,
+           {name}.transcripts.short.fa and {name}.report.json
+
+A rerun into the same directory with a saved graph and the stage-2 stamp
+resumes at stage 2b.  The non-redundant pass (stage 3 without
+``no_reduce``), ``-extend``, ``-rescue`` and unpaired reads
 (``-sef``/``-ser``) are not ported yet: asking for them raises before any
 work is done.
 """
@@ -29,18 +37,20 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..bloom import filters
+from ..bloom.filters import BloomConfig
 from ..graph import dbg, engine
 from ..io import fastx, native
 from ..utils import checkpoint as ckpt, polya, seq as sequtils
-from ..utils.timer import Timer
-from . import correct, fragments as fragmod, stage1
+from ..utils.timer import Timer, span, span_totals
+from . import correct, fragments as fragmod, stage1, transcripts as txmod
 from .fragstore import FragmentStore
 
 
 @dataclass
 class PipelineParams:
     """The JAX package's pipeline parameters, field for field; the fields
-    of stages 0-2 are read."""
+    of stages 0-3 are read."""
 
     k: int = 25
     stranded: bool = False
@@ -139,6 +149,30 @@ class PipelineReport:
     stage2_batches: int = 0
     stage2_s: float = 0.0
     stage3_s: float = 0.0
+    stage3_spans: dict = field(default_factory=dict)  # seconds per utils/timer span
+
+
+# coverage strata, lowest first (RNABloom.java:150-158: 01 < e0 < .. < e5)
+_STRATA = ("01", "e0", "e1", "e2", "e3", "e4", "e5")
+
+
+def _stratum_rank(s: str) -> int:
+    return _STRATA.index(s)
+
+
+def _fragment_stratum(min_cov: float) -> str:
+    if min_cov <= 1:
+        return "01"
+    return f"e{min(fragmod.coverage_order_of_magnitude(min_cov), 5)}"
+
+
+def _stratum_gate(params: "PipelineParams", covs: np.ndarray, lens: np.ndarray) -> Optional[np.ndarray]:
+    """-stratum: the rows of a stage-3 batch whose fragments lie in a
+    stratum below the threshold, which extend only when branch-free
+    (RNABloom.java:4912-4954); None when there are none."""
+    thr_rank = _stratum_rank(params.branch_free_stratum)
+    gate = np.array([n > 0 and _stratum_rank(_fragment_stratum(c)) < thr_rank for c, n in zip(covs, lens)], bool)
+    return gate if gate.any() else None
 
 
 # ---- stage 2 (fragments) ----
@@ -445,29 +479,151 @@ def _stage2_pair_loop(
 
 
 def rebuild_fragment_graph(
-    state: dbg.GraphState, cfg: dbg.GraphConfig, store: FragmentStore, params: PipelineParams
+    state: dbg.GraphState, cfg: dbg.GraphConfig, store: FragmentStore, params: PipelineParams,
+    ref_paths: Sequence[str] = (),
 ) -> dbg.GraphState:
     """Stage 2b: the fragment graph on ``state``'s device.  Zeroed counters
     and a fresh fpkbf, the read-pair keys kept (shared with ``state``); the
     stored fragments go in, in batches of 1024 in the store's priority
     order, each batch's counter (0, 1, ...) salting the mf8 rounding.  The
     fragment-pair keys go in when a fragment row holds more k-mers than the
-    fragment pair distance.  The ``-ref`` augmentation waits for ``-ref``
-    (ROADMAP queue-1 item 11)."""
+    fragment pair distance.  Then the reference transcripts of
+    ``ref_paths`` (``-ref``, populateGraphFromFragments' refFastas branch),
+    one row of ``max_walk_len`` bases a step, salts counting on."""
     k = cfg.k
     frag_L = int(min(max(store.max_len, 2 * k), params.max_walk_len))
     add_pairs = frag_L - k + 1 > cfg.fragment_pair_distance
     state = engine.fresh_rebuild_state(state, cfg)
-    for nbatch, (codes, _lens, _covs, _conn) in enumerate(store.iter_batches(1024, width=frag_L)):
+    nbatch = 0
+    for codes, _lens, _covs, _conn in store.iter_batches(1024, width=frag_L):
         state = engine.rebuild_step(state, cfg, codes, add_frag_pairs=add_pairs, salt=nbatch)
+        nbatch += 1
+
+    W = params.max_walk_len
+    for rp in ref_paths:
+        for _, rseq in fastx.read_fasta(rp):
+            codes_r = sequtils.encode(rseq.upper())
+            if len(codes_r) < k:
+                continue
+            for s0 in range(0, len(codes_r), W - k + 1):
+                chunk = np.full((1, W), 4, np.uint8)
+                piece = codes_r[s0 : s0 + W]
+                chunk[0, : len(piece)] = piece
+                state = engine.rebuild_step(
+                    state, cfg, chunk, add_frag_pairs=W - k + 1 > cfg.fragment_pair_distance, salt=nbatch
+                )
+                nbatch += 1
     return state
 
 
+def _transcript_params(cfg: dbg.GraphConfig, params: PipelineParams) -> "txmod.TranscriptParams":
+    return txmod.TranscriptParams(
+        min_transcript_length=params.min_transcript_length,
+        max_walk_len=params.max_walk_len,
+        # -a > 0 disables the blunt-end clip screen (RNABloom.java:1820)
+        max_edge_clip=0 if params.polya_min_len > 0 else params.max_edge_clip,
+        template_switch_filter=params.template_switch_filter,
+        max_indel=params.max_indel,
+        percent_identity=params.percent_identity,
+        lookahead=params.lookahead,
+        tip_probe_depth=min(params.max_tip_length, cfg.k - 1) if params.max_tip_length >= 0 else 8,
+        # -tiplength also bounds the screen's forgivable edge clip
+        # (represented()'s maxEdgeClipLength = maxTipLength); -1 = auto
+        screen_max_edge_clip=params.max_tip_length,
+        keep_chimeras=params.keep_chimeras,
+        keep_artifacts=params.keep_artifacts,
+        frag_consistency=params.frag_consistency,
+    )
+
+
+def _write_transcript(w: "fastx.FastaWriter", name: str, t: "txmod.Transcript", params: PipelineParams) -> None:
+    """One transcripts.fa record: a poly-T-headed transcript flipped into
+    poly-A-tail orientation under -a (TranscriptWriter RNABloom.java:
+    1652-1676), then the PAS positions in the header and the tail
+    lowercase-masked (:1752-1766)."""
+    if params.polya_min_len > 0 and not params.stranded:
+        if polya.find_polya_tail(t.codes) is None and polya.find_polyt_head(t.codes) is not None:
+            t.codes = sequtils.revcomp_codes(t.codes)
+    seq = sequtils.decode(t.codes)
+    comment = f"l={t.length}"
+    tail = polya.find_polya_tail(t.codes)
+    if tail is not None:
+        pas = polya.find_pas_positions(seq, tail[0])
+        if pas:
+            comment += " pas=" + ",".join(map(str, pas))
+        seq = seq[: tail[0]] + seq[tail[0] :].lower()
+    w.write(name, seq, comment)
+
+
+def _run_stage3(
+    state: dbg.GraphState,
+    cfg: dbg.GraphConfig,
+    store: FragmentStore,
+    outdir: str,
+    params: PipelineParams,
+    report: PipelineReport,
+) -> None:
+    """Stratified transcript assembly (without the nr pass, which is
+    refused before any work).  Fragments stream from the stratified store
+    in the reference's priority order in fixed-size batches; the screening
+    filter lives on the graph's device (assembleTranscriptsMultiThreaded,
+    RNABloom.java:4886-4954).  Fills the report's stage-3 counts, dispatches
+    and spans."""
+    sbf_log2 = (
+        filters.pow2_size(params.sbf_mem_bytes).bit_length() - 1
+        if params.sbf_mem_bytes > 0
+        else cfg.pkbf.size_log2
+    )
+    scfg = BloomConfig(sbf_log2, params.sbf_hash or cfg.pkbf.num_hash)
+    screen = filters.make_bloom(scfg, device=state.cbf.device)
+    tparams = _transcript_params(cfg, params)
+    _d0, _s0 = engine.dispatch_counts(), span_totals()
+    frag_L = int(min(max(store.max_len, cfg.k), params.max_walk_len))
+    tx_path = os.path.join(outdir, f"{params.name}.transcripts.fa")
+    short_path = os.path.join(outdir, f"{params.name}.transcripts.short.fa")
+    with fastx.FastaWriter(tx_path, uracil=params.write_uracil) as wtx, fastx.FastaWriter(
+        short_path, uracil=params.write_uracil
+    ) as wsh:
+        for sel, sel_len, covs, _conn in store.iter_batches(params.stage3_batch, width=frag_L):
+            txs, shorts, screen = txmod.assemble_transcripts_batch(
+                state, cfg, screen, scfg, sel, sel_len, tparams,
+                require_branch_free=_stratum_gate(params, covs, sel_len),
+            )
+            with span("write"):
+                for t in txs:
+                    _write_transcript(wtx, f"{params.header_prefix}{params.name}.{report.num_transcripts}", t, params)
+                    report.num_transcripts += 1
+                for t in shorts:
+                    wsh.write(f"{params.header_prefix}{params.name}.s{report.num_short}", sequtils.decode(t.codes))
+                    report.num_short += 1
+    _d1, _s1 = engine.dispatch_counts(), span_totals()
+    report.stage3_dispatches = {k: _d1[k] - _d0[k] for k in _d1}
+    report.stage3_spans = {k: v - _s0.get(k, 0.0) for k, v in _s1.items()}
+
+
+def _finish_pe_stage3(
+    state: dbg.GraphState,
+    cfg: dbg.GraphConfig,
+    store: FragmentStore,
+    outdir: str,
+    params: PipelineParams,
+    report: PipelineReport,
+    ref_paths: Sequence[str] = (),
+) -> None:
+    """Stage 2b (the fragment-graph rebuild, ``-ref`` transcripts added)
+    then stage 3, both streaming the store's batches; stamps the stage-3
+    steps done."""
+    state = rebuild_fragment_graph(state, cfg, store, params, ref_paths)
+    _run_stage3(state, cfg, store, outdir, params, report)
+    ckpt.touch_stamp(outdir, ckpt.STAMP_TRANSCRIPTS_DONE)
+    ckpt.touch_stamp(outdir, ckpt.STAMP_TRANSCRIPTS_NR_DONE)
+
+
 def _refuse_unported(params: PipelineParams, sef_paths, ser_paths) -> None:
-    if params.stop_stage >= 3:
+    if params.stop_stage >= 3 and not params.no_reduce:
         raise NotImplementedError(
-            f"-stage {params.stop_stage}: the port's CLI runs stages 1-2 (stage 2b and the extension walks "
-            "are Python API); transcripts are ROADMAP queue-1 item 10b"
+            f"-stage {params.stop_stage} without -norr: the non-redundant pass (transcripts.nr.fa) is "
+            "ROADMAP queue-1 item 11"
         )
     if params.extend_fragments:
         raise NotImplementedError(fragmod._EXTEND)
@@ -489,12 +645,18 @@ def assemble_pe(
     device="cuda",
     sef_paths: Sequence[str] = (),
     ser_paths: Sequence[str] = (),
+    ref_paths: Sequence[str] = (),
 ) -> PipelineReport:
-    """Bulk paired-end assembly through ``params.stop_stage`` (1 or 2) on
-    ``device`` (the card unless the caller asks for the CPU; raises when
-    there is no card).  With ``save_graph`` the graph is checkpointed under
-    {outdir}/{name}.graph after the last stage run; stage 2 writes the
-    fragment store under {outdir}/fragments."""
+    """Bulk paired-end assembly through ``params.stop_stage`` on ``device``
+    (the card unless the caller asks for the CPU; raises when there is no
+    card).  With ``save_graph`` the graph is checkpointed under
+    {outdir}/{name}.graph after stage 1 or 2; stage 2 writes the fragment
+    store under {outdir}/fragments; stage 3 (``no_reduce`` only) writes
+    {outdir}/{name}.transcripts.fa, .transcripts.short.fa and
+    .report.json.  ``ref_paths``: reference transcript FASTAs added to the
+    fragment graph (-ref).  A stage-3 run into a directory that holds the
+    stage-2 stamp and a saved graph (and without ``force``) resumes at stage
+    2b and writes no report.json, as the JAX package does."""
     _refuse_unported(params, sef_paths, ser_paths)
     device = engine.require_device(device)
     t0 = time.time()
@@ -506,6 +668,24 @@ def assemble_pe(
     report = PipelineReport()
     timer = Timer(quiet=not params.verbose)
     k = params.k
+
+    # resume: stages 1 and 2 complete with a saved graph -> jump to stage 2b
+    # (the JAX package takes this jump whatever -stage says; the port, as
+    # the reference, only when stage 3 was asked for)
+    if (
+        params.stop_stage >= 3
+        and not force
+        and ckpt.has_stamp(outdir, ckpt.STAMP_FRAGMENTS_DONE)
+        and os.path.exists(graph_prefix + ".graph.json")
+    ):
+        store = FragmentStore.open(outdir)
+        if store is not None and store.count > 0:
+            state, cfg = ckpt.load_graph(graph_prefix, device=device)
+            report.num_fragments = store.count
+            report.fragment_pair_distance = cfg.fragment_pair_distance
+            _finish_pe_stage3(state, cfg, store, outdir, params, report)
+            report.elapsed_s = time.time() - t0
+            return report
 
     # ---- stage 0: read length params (quartiles persisted to .readstats so
     # reruns skip the sampling pass, RNABloom.java:2669-2714)
@@ -613,5 +793,28 @@ def assemble_pe(
         ckpt.save_graph(graph_prefix, engine.to_host_state(state, cfg), cfg)
         ckpt.update_fragment_distance(graph_prefix, d_frag)
     ckpt.touch_stamp(outdir, ckpt.STAMP_FRAGMENTS_DONE)
+    if params.stop_stage <= 2:  # -stage 2: stop after fragment assembly
+        report.elapsed_s = time.time() - t0
+        return report
+
+    timer.start("stage 3: transcript assembly")
+    t_s3 = time.time()
+    _finish_pe_stage3(state, cfg, store, outdir, params, report, ref_paths=ref_paths)
+    if state.cbf.is_cuda:
+        torch.cuda.synchronize(state.cbf.device)
+    report.stage3_s = time.time() - t_s3
+    timer.done("transcripts assembled", f"{report.num_transcripts} transcripts, {report.num_nr} nr")
     report.elapsed_s = time.time() - t0
+    with open(os.path.join(outdir, f"{params.name}.report.json"), "w") as f:
+        json.dump(
+            {
+                "num_pairs": report.num_pairs,
+                "num_fragments": report.num_fragments,
+                "num_transcripts": report.num_transcripts,
+                "num_short": report.num_short,
+                "fragment_pair_distance": report.fragment_pair_distance,
+                "elapsed_s": report.elapsed_s,
+            },
+            f,
+        )
     return report

@@ -84,8 +84,8 @@ def bloom_indices(
     return idx
 
 
-def make_bloom(cfg: BloomConfig, device="cpu") -> torch.Tensor:
-    """Fresh bit-lane array (uint8, size + trash cell)."""
+def make_bloom(cfg: BloomConfig, *, device) -> torch.Tensor:
+    """Fresh bit-lane array (uint8, size + trash cell) on ``device``."""
     return torch.zeros(cfg.size + cfg.trash, dtype=torch.uint8, device=device)
 
 
@@ -179,7 +179,8 @@ class CountingConfig:
         return _TORCH_DTYPES[self.dtype]
 
 
-def make_counting(cfg: CountingConfig, device="cpu") -> torch.Tensor:
+def make_counting(cfg: CountingConfig, *, device) -> torch.Tensor:
+    """Fresh counter array (size + trash cells) on ``device``."""
     assert cfg.dtype == "int32" or not cfg.blocked, "narrow counters are unblocked"
     return torch.zeros(cfg.size + cfg.trash, dtype=cfg.torch_dtype, device=device)
 

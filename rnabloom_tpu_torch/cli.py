@@ -1,14 +1,15 @@
 """Command-line entry point of the PyTorch/CUDA port.
 
 The JAX package's option names (RNABloom.java:5839-6410) for the part of
-the paired-end path that is ported: stage 0, the stage-1 graph build and
-stage-2 fragment assembly (``-stage 2``), with ``-savebf`` to save the
-graph.  ``-stage 3``, ``-extend``, ``-rescue`` and ``-sef``/``-ser`` are
-accepted and refused.  ``--device`` picks the torch device (default
-``cuda``); asking for CUDA where there is none raises.
+the paired-end path that is ported: stage 0, the stage-1 graph build,
+stage-2 fragment assembly and stage 3's transcripts without the
+non-redundant pass (``-stage 3 -norr``), with ``-savebf`` to save the
+graph.  ``-stage 3`` without ``-norr``, ``-extend``, ``-rescue`` and
+``-sef``/``-ser`` are accepted and refused.  ``--device`` picks the torch
+device (default ``cuda``); asking for CUDA where there is none raises.
 
     python -m rnabloom_tpu_torch.cli -left r1.fq -right r2.fq -revcomp-right \\
-        -o out/ -stage 2 -savebf
+        -o out/ -stage 3 -norr
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rnabloom-tpu-torch",
-        description="PyTorch/CUDA port of rnabloom-tpu (paired-end stages 1-2)",
+        description="PyTorch/CUDA port of rnabloom-tpu (paired-end stages 1-3, no nr pass yet)",
     )
     p.add_argument("-left", "--left", required=True, help="left read file (FASTQ/FASTA, gz ok)")
     p.add_argument("-right", "--right", required=True, help="right read file")
@@ -32,20 +33,26 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("-sef", "--sef", nargs="*", help="single-end forward reads (not ported: refused)")
     p.add_argument("-ser", "--ser", nargs="*", help="single-end reverse reads (not ported: refused)")
+    p.add_argument("-ref", "--ref", nargs="*", help="reference transcripts to augment the graph")
     p.add_argument("-o", "--outdir", default="rnabloom_out", help="output directory")
     p.add_argument("-n", "--name", default="rnabloom", help="assembly name (output file prefix) [rnabloom]")
     p.add_argument("-k", "--kmer", type=int, default=25, help="k-mer size [25]")
     p.add_argument("-q", "--qual", type=int, default=3, help="min base quality [3]")
     p.add_argument("-mem", "--mem", type=float, default=1.0, help="Bloom memory budget (GB) [1]")
+    p.add_argument("-length", "--length", type=int, default=200, help="min transcript length [200]")
     p.add_argument("-overlap", "--overlap", type=int, default=10, help="min read overlap [10]")
     p.add_argument("-bound", "--bound", type=int, default=500, help="max gap walk length [500]")
     p.add_argument("-hash", "--hash", type=int, default=2, help="hash functions per filter [2]")
+    p.add_argument("-sh", "--sbf-hash", dest="sbf_hash", type=int, default=0,
+                   help="hash functions for the screening Bloom filter [=hash]")
     p.add_argument("-dh", "--dbgbf-hash", dest="dbgbf_hash", type=int, default=0,
                    help="hash functions for the de Bruijn graph Bloom filter [=hash]")
     p.add_argument("-ch", "--cbf-hash", dest="cbf_hash", type=int, default=0,
                    help="hash functions for the k-mer counting filter [=hash]")
     p.add_argument("-ph", "--pkbf-hash", dest="pkbf_hash", type=int, default=0,
                    help="hash functions for the paired-k-mers Bloom filter [=hash]")
+    p.add_argument("-sm", "--sbf-mem", dest="sbf_mem", type=float, default=0,
+                   help="memory (GB) for the screening Bloom filter [auto]")
     p.add_argument("-dm", "--dbgbf-mem", dest="dbgbf_mem", type=float, default=0,
                    help="memory (GB) for the de Bruijn graph Bloom filter [auto]")
     p.add_argument("-cm", "--cbf-mem", dest="cbf_mem", type=float, default=0,
@@ -73,11 +80,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="extend fragments outward (not ported: refused)")
     p.add_argument("-rescue", "--rescue", action="store_true",
                    help="retry unconnected read pairs (not ported: refused)")
+    p.add_argument("-nofc", "--nofc", action="store_true",
+                   help="turn off assembly consistency with fragment paired k-mers")
+    p.add_argument("-artifact", "--artifact", action="store_true",
+                   help="keep potential sequencing artifacts")
+    p.add_argument("-chimera", "--chimera", action="store_true",
+                   help="keep potential chimeras")
+    p.add_argument("-stratum", "--stratum", default="e0",
+                   choices=("01", "e0", "e1", "e2", "e3", "e4", "e5"),
+                   help="fragments below this stratum extend only if branch-free [e0]")
+    p.add_argument("-a", "--polya", type=int, default=0,
+                   help="prioritize poly-A transcripts with tails of this min length [0]")
+    p.add_argument("-maxclip", "--max-edge-clip", dest="max_edge_clip", type=int, default=0,
+                   help="max end clip for blunt-end artifact screening (0 = off)")
+    p.add_argument("-ts", "--template-switch", dest="template_switch", action="store_true",
+                   help="screen template-switch artifacts (stranded mode)")
+    p.add_argument("-u", "--uracil", action="store_true",
+                   help="write transcripts as RNA (U instead of T)")
+    p.add_argument("-prefix", "--prefix", default="",
+                   help="name prefix in FASTA headers for assembled transcripts")
+    p.add_argument("-norr", "--norr", action="store_true",
+                   help="skip redundancy reduction (no transcripts.nr.fa; without it -stage 3 is refused)")
     p.add_argument("-sample", "--sample", type=int, default=1000,
                    help="sample size for read/fragment length estimation [1000]")
     p.add_argument("-stage", "--stage", type=int, default=3, choices=(1, 2, 3),
-                   help="assembly termination stage: 1=graph, 2=fragments; 3 is not ported [3]")
-    p.add_argument("-savebf", "--savebf", action="store_true", help="save the graph Bloom filters")
+                   help="assembly termination stage: 1=graph, 2=fragments, 3=transcripts (with -norr) [3]")
+    p.add_argument("-savebf", "--savebf", action="store_true", help="save graph Bloom filters for resume")
     p.add_argument("-f", "--force", action="store_true", help="overwrite (ignore stage stamps)")
     p.add_argument("--device", default="cuda", help="torch device to run on [cuda]")
     return p
@@ -96,6 +124,19 @@ def run(argv=None):
         min_qual=args.qual,
         total_mem_bytes=int(args.mem * (1 << 30)),
         num_hash=args.hash,
+        min_transcript_length=args.length,
+        max_edge_clip=args.max_edge_clip,
+        template_switch_filter=args.template_switch,
+        write_uracil=args.uracil,
+        header_prefix=args.prefix,
+        no_reduce=args.norr,
+        frag_consistency=not args.nofc,
+        keep_artifacts=args.artifact,
+        keep_chimeras=args.chimera,
+        branch_free_stratum=args.stratum,
+        polya_min_len=args.polya,
+        sbf_hash=args.sbf_hash,
+        sbf_mem_bytes=int(args.sbf_mem * (1 << 30)),
         expected_num_kmers=args.nk,
         max_fpr=args.fpr,
         name=args.name,
@@ -124,7 +165,7 @@ def run(argv=None):
         args.left, args.right, args.outdir, params,
         revcomp_left=args.revcomp_left, revcomp_right=args.revcomp_right,
         save_graph=args.savebf, force=args.force, device=device,
-        sef_paths=args.sef or (), ser_paths=args.ser or (),
+        sef_paths=args.sef or (), ser_paths=args.ser or (), ref_paths=args.ref or (),
     )
 
 

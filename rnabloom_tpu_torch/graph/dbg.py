@@ -51,15 +51,15 @@ class GraphState(NamedTuple):
 
 
 def make_graph(
-    cfg: GraphConfig, with_rpkbf: bool = False, with_fpkbf: bool = False, device="cpu"
+    cfg: GraphConfig, with_rpkbf: bool = False, with_fpkbf: bool = False, *, device
 ) -> GraphState:
     if cfg.exact_counts:
         raise NotImplementedError(_EXACT)
     return GraphState(
         dbgbf=None,
-        cbf=filters.make_counting(cfg.cbf, device),
-        rpkbf=filters.make_bloom(cfg.pkbf, device) if with_rpkbf else None,
-        fpkbf=filters.make_bloom(cfg.pkbf, device) if with_fpkbf else None,
+        cbf=filters.make_counting(cfg.cbf, device=device),
+        rpkbf=filters.make_bloom(cfg.pkbf, device=device) if with_rpkbf else None,
+        fpkbf=filters.make_bloom(cfg.pkbf, device=device) if with_fpkbf else None,
     )
 
 

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..bloom import filters
+from ..ops import nthash
 from . import dbg, traverse
 from .dbg import GraphConfig, GraphState
 
@@ -39,7 +40,7 @@ def require_device(device) -> torch.device:
 
 
 def make_graph(
-    cfg: GraphConfig, with_rpkbf: bool = False, with_fpkbf: bool = False, device="cpu"
+    cfg: GraphConfig, with_rpkbf: bool = False, with_fpkbf: bool = False, *, device
 ) -> GraphState:
     return dbg.make_graph(cfg, with_rpkbf=with_rpkbf, with_fpkbf=with_fpkbf, device=device)
 
@@ -78,7 +79,7 @@ def fresh_rebuild_state(
         dbgbf=None,
         cbf=torch.zeros_like(graph.cbf),
         rpkbf=rpk,
-        fpkbf=filters.make_bloom(cfg.pkbf, graph.cbf.device) if with_fpkbf else None,
+        fpkbf=filters.make_bloom(cfg.pkbf, device=graph.cbf.device) if with_fpkbf else None,
     )
 
 
@@ -117,6 +118,28 @@ def counts_and_read_support(graph: GraphState, cfg: GraphConfig, codes):
     d = cfg.read_pair_distance if graph.rpkbf is not None else 0
     sup = _pair_plane(graph, cfg, fh, rh, valid, d, dbg.lookup_read_pair)
     return counts.cpu().numpy(), valid.cpu().numpy(), sup.cpu().numpy()
+
+
+def variant_exists(graph: GraphState, cfg: GraphConfig, codes) -> Tuple[np.ndarray, np.ndarray]:
+    """Per k-mer: does any left or right SNV variant exist in the graph?
+    (hit, valid) as numpy, both (B, P).
+
+    The reference's isBranchFree (GraphUtils.java:7651-7672) additionally
+    requires the variant to have depth > maxTipLength; here, as in the JAX
+    package, any existing variant counts as a branch."""
+    _tick("query")
+    codes = _on_device(codes, graph)
+    fh, rh, _, valid = dbg.seq_hashes(cfg, codes)
+    P = fh.shape[-1]
+    last = codes[:, cfg.k - 1 : cfg.k - 1 + P]
+    first = codes[:, :P]
+    hit = torch.zeros_like(valid)
+    for variants, cur in ((nthash.variant_hashes_right, last), (nthash.variant_hashes_left, first)):
+        f4, r4 = variants(fh, cur, cfg.k, rh)
+        counts4 = dbg.get_counts(graph, cfg, nthash.canonical(f4, r4))  # (B, P, 4)
+        is_self = torch.arange(4, device=codes.device) == cur.long()[..., None]
+        hit |= ((counts4 > 0) & ~is_self).any(dim=-1)
+    return (hit & valid).cpu().numpy(), valid.cpu().numpy()
 
 
 def extend_walks(wstate, graph: GraphState, cfg: GraphConfig, wcfg, min_cov, bound, mode: str = "greedy"):

@@ -51,7 +51,7 @@ FULL = 5  # reached max buffer length / bound
 STOPPED_BRANCH = 6  # naive mode: too many good branches; pair mode: no viable one
 
 _NAIVE = "naive and back-branch walks (-extend) are ROADMAP queue-1 item 7a"
-_TERM = "terminators (the screening filter as walk stops) are ROADMAP queue-1 item 10b"
+_TERM = "terminators (the screening filter as walk stops) are ROADMAP queue-1 item 14, with the oracle that uses them"
 
 
 @dataclass(frozen=True)
@@ -139,7 +139,8 @@ def make_walks(
     wcfg: WalkConfig,
     seeds: np.ndarray,
     seed_lens: Optional[np.ndarray] = None,
-    device="cpu",
+    *,
+    device,
 ) -> WalkState:
     """Walks from seed sequences (k-mers or whole fragments) on ``device``.
 

@@ -1,7 +1,7 @@
 """FASTQ/FASTA readers (gzip-aware, format-sniffing).
 
-The port's copy of the readers of ``rnabloom_tpu/io/fastx.py``, line for
-line (the writers are not used by the port's stages and are left out).
+The port's copy of the readers and of ``FastaWriter`` (stage 3's output)
+of ``rnabloom_tpu/io/fastx.py``, line for line.
 Readers yield (name, seq[, qual]) tuples of str; batching and quality
 segmentation live in ``utils/seq.py`` and the pipeline.
 """
@@ -124,3 +124,38 @@ def read_paired(
         raise ValueError(f"{left} has more reads than {right}")
     for leftover in ri:
         raise ValueError(f"{right} has more reads than {left}")
+
+
+class FastaWriter:
+    """Gzip-aware FASTA writer with optional line wrapping."""
+
+    def __init__(self, path: str, wrap: int = 0, append: bool = False, uracil: bool = False):
+        mode = "ab" if append else "wb"
+        if path.endswith(".gz"):
+            self._f = gzip.open(path, mode, compresslevel=4)
+        else:
+            self._f = open(path, mode, buffering=BUFFER_SIZE)
+        self._wrap = wrap
+        self._uracil = uracil  # -u: write RNA (T -> U), FastaWriter.java
+
+    _URACIL = str.maketrans("Tt", "Uu")
+
+    def write(self, name: str, seq: str, comment: str = "") -> None:
+        if self._uracil:
+            seq = seq.translate(self._URACIL)
+        header = f">{name} {comment}\n" if comment else f">{name}\n"
+        self._f.write(header.encode("ascii"))
+        if self._wrap and len(seq) > self._wrap:
+            for i in range(0, len(seq), self._wrap):
+                self._f.write(seq[i : i + self._wrap].encode("ascii") + b"\n")
+        else:
+            self._f.write(seq.encode("ascii") + b"\n")
+
+    def close(self) -> None:
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

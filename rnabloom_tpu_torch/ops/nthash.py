@@ -1,10 +1,11 @@
 """Batched ntHash on int64 tensors.
 
-Port of ``rnabloom_tpu/ops/nthash.py`` (rolling hash, canonical, multi-hash
-and pair combine).  Hash values are carried as int64 two's-complement bit
-patterns of the reference's u64 values: multiply and add wrap, a logical
-right shift is ``(x >> s) & ((1 << (64 - s)) - 1)`` and the signed-min
-canonical hash is ``torch.minimum``.
+Port of ``rnabloom_tpu/ops/nthash.py`` (rolling hash, canonical, multi-hash,
+pair combine, successor and SNV-variant hashes).  Hash values are carried
+as int64 two's-complement bit patterns of the reference's u64 values:
+multiply and add wrap, a logical right shift is
+``(x >> s) & ((1 << (64 - s)) - 1)`` and the signed-min canonical hash is
+``torch.minimum``.
 
 The rolling hash uses the direct form
 
@@ -174,3 +175,34 @@ def combine_canonical(
     """Canonical pair hash: signed min(combine(fl, fr), combine(rr, rl));
     the reverse complement of the pair (L, R) is (rc(R), rc(L))."""
     return torch.minimum(combine(fh_l, fh_r), combine(rh_r, rh_l))
+
+
+def _variants(h: torch.Tensor, codes: torch.Tensor, table: torch.Tensor, comp: bool) -> torch.Tensor:
+    """h ^ table[c] ^ table[b] for each new base b = A/C/G/T, shape
+    (..., 4); with ``comp`` the complements of the code c and of b."""
+    c = torch.clamp(codes.long(), max=4)
+    if comp:
+        return (h ^ table[comp_codes(c)])[..., None] ^ table[:4].flip(0)  # comp(b) = 3 - b
+    return (h ^ table[c])[..., None] ^ table[:4]
+
+
+def variant_hashes_right(
+    fh: torch.Tensor, last_codes: torch.Tensor, k: int, rh: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Hashes of the k-mers with the LAST base substituted by each of
+    A/C/G/T, shape (..., 4): the last base has rotation 0 in the forward
+    sum and its complement rotation k-1 on the reverse strand
+    (RightVariantsNTHashIterator)."""
+    ident, _, rot_km1, _ = _step_tables(k, str(fh.device))
+    rh4 = None if rh is None else _variants(rh, last_codes, rot_km1, True)
+    return _variants(fh, last_codes, ident, False), rh4
+
+
+def variant_hashes_left(
+    fh: torch.Tensor, first_codes: torch.Tensor, k: int, rh: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Hashes of the k-mers with the FIRST base substituted (rotation k-1
+    forward, rotation 0 of the complement on the reverse strand)."""
+    ident, _, rot_km1, _ = _step_tables(k, str(fh.device))
+    rh4 = None if rh is None else _variants(rh, first_codes, ident, True)
+    return _variants(fh, first_codes, rot_km1, False), rh4

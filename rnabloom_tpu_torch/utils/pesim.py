@@ -87,3 +87,30 @@ def write_pe_fastq(
             fl.write(fastq_bytes(left, first, 1))
             fr.write(fastq_bytes(right, first, 2))
     return tx
+
+
+def write_golden_fastq(directory: str) -> Tuple[str, str]:
+    """The repo's golden paired-end dataset (``tests/test_golden.py``,
+    which locks ``tests/golden/pe_golden.json``): 3 random transcripts of
+    420, 380 and 500 bases (seed 20240817), 80 pairs each of 100-base mates
+    off 250-base fragments, the right mate reverse-complemented, qualities
+    all 'I'.  Writes {directory}/g_1.fq.gz and g_2.fq.gz; returns their
+    paths."""
+    import gzip
+    import os
+
+    rng = np.random.default_rng(20240817)
+    transcripts = ["".join(rng.choice(list("ACGT"), size=n)) for n in (420, 380, 500)]
+    left, right = os.path.join(directory, "g_1.fq.gz"), os.path.join(directory, "g_2.fq.gz")
+    q = "I" * 100
+    rc = str.maketrans("ACGT", "TGCA")
+    with gzip.open(left, "wt") as fl, gzip.open(right, "wt") as fr:
+        rid = 0
+        for t in transcripts:
+            for _ in range(80):
+                s = rng.integers(0, len(t) - 250 + 1)
+                frag = t[s : s + 250]
+                fl.write(f"@r{rid}/1\n{frag[:100]}\n+\n{q}\n")
+                fr.write(f"@r{rid}/2\n{frag[-100:].translate(rc)[::-1]}\n+\n{q}\n")
+                rid += 1
+    return left, right

@@ -6,15 +6,24 @@ right-to-left with a running seed-length identity (findPolyASeed
 :200-275) and window-chained tail growth across bounded gaps
 (findPolyATail :317-337).  Operates on 2-bit code arrays (A=0 C=1 G=2
 T=3).  Stage 2 uses it to file poly-A-tailed fragments first when
-``-a`` asks for it.
+``-a`` asks for it; stage 3's writer flips poly-T-headed transcripts
+(``find_polyt_head``) and annotates PAS motifs (``find_pas_positions``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
+
+# PolyATailFinder.POLY_A_SIGNALS (:29-34) — PMID 27382025
+PAS_MOTIFS = [
+    "AATAAA", "ATTAAA", "AGTAAA", "TATAAA", "CATAAA", "GATAAA",
+    "AATATA", "AATACA", "AATAGA", "AAAAAG", "ACTAAA", "AAGAAA",
+    "AATGAA", "TTTAAA", "AAAACA", "GGGGCT", "AATAAT", "AACAAA",
+    "ATTACA", "ATTATA", "AACAAG", "AATAAG", "TTTTTT",
+]
 
 
 @dataclass(frozen=True)
@@ -25,6 +34,8 @@ class PolyAProfile:
     min_identity: float = 0.9
     max_gap: int = 4
     window: int = 100
+    pas_search_start: int = 60  # bases upstream of the cleavage site
+    pas_search_end: int = 5
 
 
 ONT = PolyAProfile()
@@ -104,3 +115,35 @@ def find_polya_tail(
         else:
             break
     return best
+
+
+def find_polyt_head(
+    codes: np.ndarray, profile: PolyAProfile = ONT
+) -> Optional[Tuple[int, int]]:
+    """(start, end) of a poly-T head near the 5' end (antisense tail) —
+    the poly-A engine over the reverse complement."""
+    rc = (3 - codes[::-1]).astype(codes.dtype)
+    rc = np.where(codes[::-1] > 3, codes[::-1], rc)  # keep pads invalid
+    hit = find_polya_tail(rc, profile)
+    if hit is None:
+        return None
+    n = len(codes)
+    return (n - hit[1], n - hit[0])
+
+
+def find_pas_positions(
+    seq: str, tail_start: int, profile: PolyAProfile = ONT
+) -> List[int]:
+    """PAS motif positions in [cleavage - pas_search_start,
+    cleavage - pas_search_end) (hasPolyASignal/getPolyASignalPositions,
+    PolyATailFinder.java:126-192)."""
+    lo = max(0, tail_start - profile.pas_search_start)
+    hi = max(0, tail_start - profile.pas_search_end)
+    region = seq[lo:hi].upper()
+    out = []
+    for motif in PAS_MOTIFS:
+        idx = region.find(motif)
+        while idx >= 0:
+            out.append(lo + idx)
+            idx = region.find(motif, idx + 1)
+    return sorted(set(out))

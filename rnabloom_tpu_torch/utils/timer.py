@@ -1,11 +1,32 @@
 """Stage timing + progress reporting (util/Timer.java equivalent).
 
-The port's copy of ``rnabloom_tpu/utils/timer.py``."""
+The port's copy of ``rnabloom_tpu/utils/timer.py``, plus named spans:
+``span(name)`` adds the wall time of its block to ``SPANS[name]`` (always
+on; a caller reads ``span_totals()`` before and after the work it splits).
+"""
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
+from typing import Dict
+
+SPANS: Dict[str, float] = {}
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """Add the wall time of the block to ``SPANS[name]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        SPANS[name] = SPANS.get(name, 0.0) + time.perf_counter() - t0
+
+
+def span_totals() -> Dict[str, float]:
+    return dict(SPANS)
 
 
 def dhms(seconds: float) -> str:

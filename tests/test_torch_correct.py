@@ -32,7 +32,7 @@ def _graphs(reads: np.ndarray, dtype="mf8"):
     ct = tdbg.GraphConfig(dbgbf=tf.BloomConfig(18, 2), cbf=tf.CountingConfig(18, 2, dtype=dtype),
                           pkbf=tf.BloomConfig(18, 2), **kw)
     gj = jdbg.build_step(jdbg.make_graph(cj), cj, jnp.asarray(reads))
-    gt = tdbg.build_step(tdbg.make_graph(ct), ct, torch.from_numpy(reads))
+    gt = tdbg.build_step(tdbg.make_graph(ct, device="cpu"), ct, torch.from_numpy(reads))
     return cj, gj, ct, gt
 
 

@@ -39,7 +39,7 @@ def _graphs(reads, stranded=False):
     ct = tdbg.GraphConfig(dbgbf=tf.BloomConfig(20, 2), cbf=tf.CountingConfig(20, 2),
                           pkbf=tf.BloomConfig(20, 2), **kw)
     gj = jdbg.build_step(jdbg.make_graph(cj, with_rpkbf=True), cj, jnp.asarray(codes), add_read_pairs=True)
-    gt = tdbg.build_step(tdbg.make_graph(ct, with_rpkbf=True), ct, torch.from_numpy(codes), add_read_pairs=True)
+    gt = tdbg.build_step(tdbg.make_graph(ct, with_rpkbf=True, device="cpu"), ct, torch.from_numpy(codes), add_read_pairs=True)
     return cj, gj, ct, gt
 
 

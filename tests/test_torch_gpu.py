@@ -562,3 +562,119 @@ def test_pair_walk_refuses_a_greedy_ring(cuda):
     graph, cfg, wcfg, st, min_cov, bound = _pair_args(_pair_walks(cuda))
     with pytest.raises(ValueError, match="pair ring"):
         walk.walk_greedy(st, graph, cfg, wcfg, min_cov, bound)
+
+
+# ---- stage 3's greedy walks: gap re-walks, depth probes, the screen as a graph ----
+
+
+def _screen_on(cuda, cfg, rows, num_hash=2):
+    """A screening filter (2^18 lanes) on the card holding ``rows``."""
+    from rnabloom_tpu_torch.assembly import transcripts
+    from rnabloom_tpu_torch.bloom import filters
+
+    scfg = BloomConfig(18, num_hash)
+    return scfg, transcripts.screen_add(filters.make_bloom(scfg, device=cuda), scfg, cfg, rows)
+
+
+def test_gap_rewalk_walks_match_plain(cuda):
+    """The greedy walk batch of a gap re-walk: k-mer seeds in a power-of-two
+    lane count, a per-lane bound (0 on the padded lanes), ``max_len = k +
+    max_ext`` with ``max_ext`` a power of two of at least 64."""
+    from rnabloom_tpu_torch.graph import traverse
+
+    cfg, graph, seeds = _walk_graph("mf8", False, False, cuda)
+    rng = np.random.default_rng(4)
+    n = 45
+    wcfg = traverse.WalkConfig(max_len=25 + 128, lookahead=3)
+    st = traverse.make_walks(cfg, wcfg, seeds[:n], device=cuda)
+    bounds = np.zeros(st.pos.shape[0], np.int32)
+    bounds[:n] = rng.integers(1, 128, n)
+    min_cov, bound = traverse.lane_args(st, 1.0, bounds)
+    kern = _kernel_and_plain(graph, cfg, wcfg, st, min_cov, bound)
+    assert int(kern.hops[n:].sum()) == 0 and int(kern.hops[:n].sum()) > 0
+
+
+@pytest.mark.parametrize("bound", [8, 40])
+@pytest.mark.parametrize("num_hash", [2, 3])
+def test_depth_probe_walks_match_plain(cuda, bound, num_hash):
+    """The depth probes' walks, on the graph and on the screen viewed as an
+    mf8 graph (lanes 0/1, the screen's num_hash): seeds padded with all-A
+    rows (live walks), ``max_len = 1 << max(6, (k + bound).bit_length())``."""
+    from rnabloom_tpu_torch.assembly import transcripts
+    from rnabloom_tpu_torch.graph import traverse
+
+    cfg, graph, seeds = _walk_graph("mf8", False, False, cuda)
+    tx = np.random.default_rng(7).integers(0, 4, size=(24, 600), dtype=np.uint8)  # the graph's transcripts
+    scfg, screen = _screen_on(cuda, cfg, tx[:12], num_hash)
+    sgraph, pcfg = transcripts._screen_as_graph(screen, scfg, cfg)
+    assert sgraph.cbf is screen and pcfg.cbf.dtype == "mf8" and pcfg.cbf.num_hash == num_hash
+    rows = np.zeros((32, 25), np.uint8)  # 20 seeds (12 of them screened), then all-A rows
+    rows[:20] = seeds[:20]
+    wcfg = traverse.WalkConfig(max_len=1 << max(6, (25 + bound).bit_length()), lookahead=3)
+    for g, c in ((graph, cfg), (sgraph, pcfg)):
+        st = traverse.make_walks(c, wcfg, rows, device=cuda)
+        min_cov, bd = traverse.lane_args(st, 1.0, bound)
+        _kernel_and_plain(g, c, wcfg, st, min_cov, bd)
+
+
+def test_stage3_screen_and_probes_card_equal_cpu(cuda):
+    """``screen_represented`` with the graph (its gap re-walks and tip
+    probes) and ``_depth_probe`` on the screen as a graph, card against
+    CPU; the card's calls launch the walk kernel."""
+    from rnabloom_tpu_torch.assembly import transcripts
+    from rnabloom_tpu_torch.ops import walk
+
+    cfg, graph, seeds = _walk_graph("mf8", False, False, cuda)
+    cpu = dbg.GraphState(*(None if t is None else t.cpu() for t in graph))
+    rng = np.random.default_rng(5)
+    tx = rng.integers(0, 4, size=(8, 400), dtype=np.uint8)
+    rows = np.full((16, 512), 4, np.uint8)
+    rows[:8, :400] = tx
+    for i in range(8, 16):  # errors clustered inside, and at the edges
+        rows[i, :400] = tx[i - 8]
+        for p in (200, 212, 2, 396):
+            rows[i, p] = (rows[i, p] + 1) % 4
+    lens = np.full(16, 400)
+    scfg, screen = _screen_on(cuda, cfg, rows[:8])
+    n0 = walk.LAUNCHES["walk_greedy"]
+    got = transcripts.screen_represented(screen, scfg, cfg, rows, lens, transcripts.TranscriptParams(), graph=graph)
+    want = transcripts.screen_represented(screen.cpu(), scfg, cfg, rows, lens, transcripts.TranscriptParams(),
+                                          graph=cpu)
+    np.testing.assert_array_equal(got, want)
+    sgraph, pcfg = transcripts._screen_as_graph(screen, scfg, cfg)
+    sgraph_cpu, _ = transcripts._screen_as_graph(screen.cpu(), scfg, cfg)
+    probe = [tx[i, 100:125] for i in range(8)]
+    np.testing.assert_array_equal(transcripts._depth_probe(sgraph, pcfg, probe, 50),
+                                  transcripts._depth_probe(sgraph_cpu, pcfg, probe, 50))
+    assert walk.LAUNCHES["walk_greedy"] > n0 + 1
+
+
+def test_stage3_card_equals_cpu(cuda, tmp_path):
+    """``-stage 3 -norr`` on the card and on the CPU: every output file
+    byte-identical but report.json's elapsed_s."""
+    import json
+    import os
+
+    from rnabloom_tpu_torch import cli
+    from rnabloom_tpu_torch.ops import walk
+    from rnabloom_tpu_torch.utils import pesim
+
+    left, right = str(tmp_path / "r_1.fq"), str(tmp_path / "r_2.fq")
+    pesim.write_pe_fastq(left, right, seed=11, num_transcripts=20, tx_len=(500, 1500), num_pairs=600)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = str(tmp_path / dev)
+        n0 = walk.launch_counts()
+        cli.run(["-left", left, "-right", right, "-revcomp-right", "-o", outs[dev], "-stage", "3", "-norr",
+                 "-mem", "0.00390625", "-batch", "1024", "-sample", "300", "-bound", "200", "--device", dev])
+        if dev == "cuda":
+            assert walk.LAUNCHES["walk_pair"] > n0["walk_pair"]
+    for root, _, files in os.walk(outs["cpu"]):
+        for f in files:
+            a = os.path.join(root, f)
+            with open(a, "rb") as fa, open(a.replace(outs["cpu"], outs["cuda"], 1), "rb") as fb:
+                x, y = fa.read(), fb.read()
+            if f.endswith("report.json"):
+                x, y = json.loads(x), json.loads(y)
+                x.pop("elapsed_s"), y.pop("elapsed_s")
+            assert x == y, a

@@ -44,7 +44,7 @@ def _codes(seed):
 def test_build_and_count_steps_match_jax(dtype, blocked, stranded):
     cj, ct = _cfgs(dtype, blocked, stranded)
     sj = jdbg.make_graph(cj, with_rpkbf=True)
-    st = engine.make_graph(ct, with_rpkbf=True)
+    st = engine.make_graph(ct, with_rpkbf=True, device="cpu")
     for salt in range(3):
         codes = _codes(salt)
         sj = jdbg.build_step(sj, cj, jnp.asarray(codes), add_read_pairs=True, salt=salt)
@@ -65,7 +65,7 @@ def test_exact_counts_is_not_ported():
     from dataclasses import replace
 
     with pytest.raises(NotImplementedError):
-        tdbg.make_graph(replace(ct, exact_counts=True))
+        tdbg.make_graph(replace(ct, exact_counts=True), device="cpu")
 
 
 @pytest.mark.parametrize("dtype,blocked", COUNTERS)
@@ -76,7 +76,7 @@ def test_stage2_queries_match_jax(dtype, blocked):
 
     cj, ct = _cfgs(dtype, blocked)
     sj = jdbg.make_graph(cj, with_rpkbf=True, with_fpkbf=True)
-    st = engine.make_graph(ct, with_rpkbf=True, with_fpkbf=True)
+    st = engine.make_graph(ct, with_rpkbf=True, with_fpkbf=True, device="cpu")
     codes = _codes(4)
     sj = jdbg.build_step(sj, cj, jnp.asarray(codes), add_read_pairs=True)
     st = engine.build_step(st, ct, codes, add_read_pairs=True)
@@ -93,3 +93,29 @@ def test_stage2_queries_match_jax(dtype, blocked):
         )
     for got, want in zip(engine.counts_and_read_support(st, ct, q), jengine.counts_and_read_support(sj, cj, q)):
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,blocked", COUNTERS)
+@pytest.mark.parametrize("stranded", [False, True])
+def test_variant_exists_matches_jax(dtype, blocked, stranded):
+    """The SNV-variant lookups of the -stratum branch-free gate: reads with
+    single-base variants of earlier reads (so many k-mers have a variant in
+    the graph), queried with N bases."""
+    from rnabloom_tpu.graph import engine as jengine
+
+    cj, ct = _cfgs(dtype, blocked, stranded)
+    codes = _codes(6)
+    rng = np.random.default_rng(6)
+    codes[80:160] = codes[:80]
+    cols = rng.integers(0, 100, 80)
+    codes[np.arange(80, 160), cols] = (codes[np.arange(80, 160), cols] + 1) % 4
+    sj = jdbg.build_step(jdbg.make_graph(cj), cj, jnp.asarray(codes))
+    st = engine.build_step(engine.make_graph(ct, device="cpu"), ct, codes)
+    q = np.concatenate([codes[:40], _codes(7)[:40]])
+    hit_j, val_j = jengine.variant_exists(sj, cj, q)
+    n0 = engine.dispatch_counts()["query"]
+    hit_t, val_t = engine.variant_exists(st, ct, q)
+    assert engine.dispatch_counts()["query"] == n0 + 1
+    np.testing.assert_array_equal(val_t, np.asarray(val_j))
+    np.testing.assert_array_equal(hit_t, np.asarray(hit_j))
+    assert hit_t[:40].any() and not hit_t[~val_t].any()

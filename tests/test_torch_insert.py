@@ -51,7 +51,7 @@ def _np(t: torch.Tensor, like: np.ndarray) -> np.ndarray:
 def test_bloom_add_matches_jax_scatter():
     rng = np.random.default_rng(0)
     cfg_j, cfg_t = jf.BloomConfig(SIZE_LOG2, 2), tf.BloomConfig(SIZE_LOG2, 2)
-    bits_j, bits_t = jf.make_bloom(cfg_j), tf.make_bloom(cfg_t)
+    bits_j, bits_t = jf.make_bloom(cfg_j), tf.make_bloom(cfg_t, device="cpu")
     for _ in range(3):
         vals, valid = _hash_batch(rng)
         bits_j = jf.bloom_add(bits_j, cfg_j, *_jax(vals, valid))
@@ -73,7 +73,7 @@ def test_counting_increment_cm_matches_jax_scatter(dtype, blocked):
     rng = np.random.default_rng(1)
     cfg_j = jf.CountingConfig(SIZE_LOG2, 2, blocked=blocked, dtype=dtype)
     cfg_t = tf.CountingConfig(SIZE_LOG2, 2, blocked=blocked, dtype=dtype)
-    cnt_j, cnt_t = jf.make_counting(cfg_j), tf.make_counting(cfg_t)
+    cnt_j, cnt_t = jf.make_counting(cfg_j), tf.make_counting(cfg_t, device="cpu")
     for salt in (0, 1, 2):  # three successive salted batches
         vals, valid = _hash_batch(rng)
         hj, vj = _jax(vals, valid)
@@ -94,7 +94,7 @@ def test_u16_saturates_like_jax():
     vals = np.full((70_000, 1), 12345 << 1, np.uint64)  # one cell, 70k times
     valid = np.ones(70_000, bool)
     cnt_j = jf.counting_increment_cm(jf.make_counting(cfg_j), cfg_j, *_jax(vals, valid))
-    cnt_t = tf.counting_increment_cm(tf.make_counting(cfg_t), cfg_t, *_torch(vals, valid))
+    cnt_t = tf.counting_increment_cm(tf.make_counting(cfg_t, device="cpu"), cfg_t, *_torch(vals, valid))
     want = np.asarray(cnt_j)
     assert want.max() == 65535
     np.testing.assert_array_equal(_np(cnt_t, want), want)

@@ -1,7 +1,8 @@
 """The port's copies of the JAX package's host modules give exactly what the
-originals give: the FASTX readers, the native batch readers, the sequence
-codecs, the poly-A tail finder, ``.nbits`` files and the fragment store's
-files, on the same seeded inputs.
+originals give: the FASTX readers and ``FastaWriter``, the native batch
+readers, the sequence codecs, the poly-A tail and poly-T head finders and
+PAS positions, ``.nbits`` files, the fragment store's files, the artifact
+screens and percent identity, on the same seeded inputs.
 """
 
 import gzip
@@ -10,12 +11,12 @@ import os
 import numpy as np
 import pytest
 
-from rnabloom_tpu.assembly import fragstore as jfragstore
+from rnabloom_tpu.assembly import artifacts as jart, fragstore as jfragstore
 from rnabloom_tpu.io import fastx as jfastx, native as jnative, nbits as jnbits
-from rnabloom_tpu.utils import polya as jpolya, seq as jseq
-from rnabloom_tpu_torch.assembly import fragstore as tfragstore
+from rnabloom_tpu.utils import align as jalign, polya as jpolya, seq as jseq
+from rnabloom_tpu_torch.assembly import artifacts as tart, fragstore as tfragstore
 from rnabloom_tpu_torch.io import fastx as tfastx, native as tnative, nbits as tnbits
-from rnabloom_tpu_torch.utils import polya as tpolya, seq as tseq
+from rnabloom_tpu_torch.utils import align as talign, polya as tpolya, seq as tseq
 
 
 def _reads(seed, n):
@@ -124,6 +125,89 @@ def test_polya_tail(seed):
         tail = np.where(rng.random(int(rng.integers(0, 60))) < 0.93, 0, rng.integers(1, 4)).astype(np.uint8)
         codes = np.concatenate([body, tail, rng.integers(0, 4, int(rng.integers(0, 4)), dtype=np.uint8)])
         assert tpolya.find_polya_tail(codes) == jpolya.find_polya_tail(codes)
+        head = (3 - codes[::-1]).astype(np.uint8)  # the tail as a poly-T head
+        assert tpolya.find_polyt_head(head) == jpolya.find_polyt_head(head)
+        assert tpolya.find_polyt_head(codes) == jpolya.find_polyt_head(codes)
+        seq = tseq.decode(codes)
+        for tail_start in (0, 3, len(codes) // 2, len(codes) - len(tail), len(codes)):
+            assert tpolya.find_pas_positions(seq, tail_start) == jpolya.find_pas_positions(seq, tail_start)
+    assert tpolya.PAS_MOTIFS == jpolya.PAS_MOTIFS
+
+
+@pytest.mark.parametrize("name,kw", [("t.fa", {}), ("t.fa.gz", {}), ("w.fa", {"wrap": 60}), ("u.fa", {"uracil": True})])
+def test_fasta_writer(tmp_path, name, kw):
+    rng = np.random.default_rng(5)
+    recs = [(f"rnabloom.{i}", "".join(rng.choice(list("ACGTacgt"), int(rng.integers(1, 200)))),
+             f"l={i}" if i % 2 else "") for i in range(30)]
+    for mod, sub in ((jfastx, "j"), (tfastx, "t")):
+        (tmp_path / sub).mkdir()
+        with mod.FastaWriter(str(tmp_path / sub / name), **kw) as w:
+            for r in recs:
+                w.write(*r)
+        with mod.FastaWriter(str(tmp_path / sub / name), append=True, **kw) as w:
+            w.write("extra", "ACGT")
+    opener = gzip.open if name.endswith(".gz") else open
+    with opener(tmp_path / "j" / name, "rb") as a, opener(tmp_path / "t" / name, "rb") as b:
+        assert a.read() == b.read()
+
+
+def _profiles(rng, n):
+    """(seen, valid, counts) k-mer profiles of n rows: assembled arms,
+    unseen junctions, tips and stubs, a few invalid k-mers."""
+    out = []
+    for i in range(n):
+        m = int(rng.integers(2, 120))
+        seen = np.ones(m, bool)
+        kind = i % 5
+        if kind == 0:  # a junction
+            a = int(rng.integers(0, m))
+            seen[a : a + int(rng.integers(1, 30))] = False
+        elif kind == 1:  # an unseen head tip
+            seen[: int(rng.integers(0, m))] = False
+        elif kind == 2:  # an unseen tail stub
+            seen[int(rng.integers(0, m)) :] = False
+        elif kind == 3:
+            seen = rng.random(m) < 0.7
+        valid = rng.random(m) > 0.05
+        counts = np.where(seen, rng.uniform(5, 50, m), rng.uniform(0, 8, m)).astype(np.float32)
+        out.append((seen, valid, counts))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_artifact_screens(seed):
+    rng = np.random.default_rng(seed)
+    for seen, valid, counts in _profiles(rng, 200):
+        for k in (5, 25):
+            assert tart.is_chimera(seen, valid, k) == jart.is_chimera(seen, valid, k)
+            assert tart.template_switch_tip(seen, valid, k) == jart.template_switch_tip(seen, valid, k)
+        for d, depth in ((10, 8), (40, 30), (3, 0)):
+            assert tart.blunt_end_candidate(seen, valid, counts, d, depth) == jart.blunt_end_candidate(
+                seen, valid, counts, d, depth)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rc_trims_and_percent_identity(seed):
+    """Self-revcomp folds (exact, with mismatches, with a loop, none) for
+    the suffix-fold scan and the hairpin matcher; percent identity of
+    mutated copies."""
+    rng = np.random.default_rng(seed)
+    for i in range(40):
+        arm = rng.integers(0, 4, int(rng.integers(20, 200)), dtype=np.uint8)
+        loop = rng.integers(0, 4, int(rng.integers(0, 300)), dtype=np.uint8)
+        back = (3 - arm[::-1]).astype(np.uint8)
+        back[rng.random(len(back)) < 0.04 * (i % 3)] = rng.integers(0, 4)
+        codes = np.concatenate([rng.integers(0, 4, int(rng.integers(0, 50)), dtype=np.uint8), arm, loop, back])
+        if i % 7 == 0:
+            codes = rng.integers(0, 4, len(codes), dtype=np.uint8)
+        for k in (0, 15, 25):
+            np.testing.assert_array_equal(tart.trim_rc_artifact(codes, k=k), jart.trim_rc_artifact(codes, k=k))
+        other = codes.copy()
+        other[rng.random(len(other)) < 0.08] = rng.integers(0, 4)
+        other = np.delete(other, rng.integers(0, len(other), int(rng.integers(0, 4))))
+        assert talign.percent_identity(codes, other) == jalign.percent_identity(codes, other)
+        assert talign.banded_edit_distance(codes, other, 3) == jalign.banded_edit_distance(codes, other, 3)
+    assert talign.percent_identity(codes[:0], codes[:0]) == jalign.percent_identity(codes[:0], codes[:0])
 
 
 def _fragments(seed, n):

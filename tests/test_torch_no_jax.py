@@ -6,6 +6,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -29,7 +30,7 @@ from rnabloom_tpu_torch.utils import pesim
 out = sys.argv[1]
 left, right = out + "/r_1.fq", out + "/r_2.fq"
 pesim.write_pe_fastq(left, right, seed=5, num_transcripts=5, tx_len=(500, 800), num_pairs=300)
-assert cli.main(["-left", left, "-right", right, "-o", out + "/asm", "-stage", "2", "-savebf",
+assert cli.main(["-left", left, "-right", right, "-o", out + "/asm", "-stage", "3", "-norr", "-savebf",
                  "-mem", "0.00390625", "--device", "cpu"]) == 0
 loaded = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in ("jax", "rnabloom_tpu"))
@@ -50,6 +51,8 @@ def test_cpu_slice_runs_with_jax_blocked(tmp_path):
     assert os.path.getsize(tmp_path / "asm" / "rnabloom.graph.cbf.npy") > 0
     assert os.path.exists(tmp_path / "asm" / "FRAGMENTS.DONE")
     assert os.path.exists(tmp_path / "asm" / "fragments" / "fragments.meta.json")
+    assert os.path.getsize(tmp_path / "asm" / "rnabloom.transcripts.fa") > 0
+    assert os.path.exists(tmp_path / "asm" / "TRANSCRIPTS.DONE")
 
 
 _IMPORT_OF_JAX = re.compile(r"^\s*(from|import)\s+(jax|rnabloom_tpu)(?!_torch)\b", re.M)
@@ -84,20 +87,77 @@ def test_cuda_device_without_a_card_raises(tmp_path):
 
 
 def test_later_stages_are_refused_before_any_work(tmp_path):
+    """-stage 3 without -norr needs the non-redundant pass (item 11)."""
     left, right = str(tmp_path / "r_1.fq"), str(tmp_path / "r_2.fq")
     pesim.write_pe_fastq(left, right, seed=6, num_transcripts=2, tx_len=(500, 600), num_pairs=10)
     out = tmp_path / "asm"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue-1 item 11"):
         pipeline.assemble_pe(left, right, str(out), pipeline.PipelineParams(stop_stage=3), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue-1 item 11"):
+        cli.run(["-left", left, "-right", right, "-o", str(out), "--device", "cpu"])  # -stage 3 is the default
     assert not out.exists()
 
 
-@pytest.mark.parametrize("entry", ["assemble_pe", "build_graph_autosized", "load_graph"])
-def test_entry_points_default_to_the_card(tmp_path, entry):
+class _Stop(Exception):
+    pass
+
+
+def _stage3_devices(entry, monkeypatch) -> list:
+    """The devices stage 3 creates its screen (``screen``) or its gap
+    re-walks and depth probes (``screen_walks``) on, for a graph on the
+    ``meta`` device: each spied constructor records its device and stops."""
+    from rnabloom_tpu_torch.assembly import transcripts
+    from rnabloom_tpu_torch.assembly.fragstore import FragmentStore
+    from rnabloom_tpu_torch.bloom import filters
+    from rnabloom_tpu_torch.graph import dbg, traverse
+
+    cfg = dbg.GraphConfig(k=25, stranded=False, dbgbf=filters.BloomConfig(12, 2),
+                          cbf=filters.CountingConfig(12, 2, dtype="mf8"), pkbf=filters.BloomConfig(12, 2),
+                          read_pair_distance=40, fragment_pair_distance=60)
+    graph = dbg.make_graph(cfg, with_rpkbf=True, with_fpkbf=True, device="meta")
+    seen = []
+
+    def spy(fn):
+        def wrapped(*args, device, **kw):
+            seen.append(torch.device(device))
+            raise _Stop
+        monkeypatch.setattr(fn[0], fn[1], wrapped)
+
+    if entry == "screen":
+        spy((filters, "make_bloom"))
+        with pytest.raises(_Stop):
+            pipeline._run_stage3(graph, cfg, FragmentStore("unused", 200), "unused", pipeline.PipelineParams(),
+                                 pipeline.PipelineReport())
+        return seen
+    spy((traverse, "make_walks"))
+    screen = filters.make_bloom(filters.BloomConfig(12, 2), device="meta")
+    sgraph, pcfg = transcripts._screen_as_graph(screen, filters.BloomConfig(12, 2), cfg)
+    assert sgraph.cbf is screen
+    seed = np.zeros(25, np.uint8)
+    for g, c in ((graph, cfg), (sgraph, pcfg)):
+        with pytest.raises(_Stop):
+            transcripts._depth_probe(g, c, [seed], 10)
+    codes = np.zeros((1, 60), np.uint8)
+    seen_k = np.ones((1, 36), bool)
+    seen_k[0, 10:14] = False
+    with pytest.raises(_Stop):
+        transcripts._gap_rewalk(graph, screen, filters.BloomConfig(12, 2), cfg, codes, np.array([60]), seen_k,
+                                np.ones((1, 36), bool), transcripts.TranscriptParams())
+    return seen
+
+
+@pytest.mark.parametrize("entry", ["assemble_pe", "build_graph_autosized", "load_graph", "screen", "screen_walks"])
+def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
     """Without ``device="cpu"`` the entry points run on the card, and raise
-    where there is none, before any work is done."""
+    where there is none, before any work is done.  Stage 3 creates its
+    screen and the walks of its screen (gap re-walks, depth probes, the
+    screen viewed as a graph) on the graph's device."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    if entry in ("screen", "screen_walks"):
+        devices = _stage3_devices(entry, monkeypatch)
+        assert devices == [torch.device("meta")] * (1 if entry == "screen" else 3)
+        return
     left, right = str(tmp_path / "r_1.fq"), str(tmp_path / "r_2.fq")
     pesim.write_pe_fastq(left, right, seed=6, num_transcripts=2, tx_len=(500, 600), num_pairs=10)
     out = tmp_path / "asm"

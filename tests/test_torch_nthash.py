@@ -108,3 +108,27 @@ def test_successor_hashes_match_jax(k):
     rows, cols = np.nonzero(idx < 4)
     np.testing.assert_array_equal(cand_f[rows, cols, idx[rows, cols]], nxt_f[rows, cols])
     np.testing.assert_array_equal(cand_r[rows, cols, idx[rows, cols]], nxt_r[rows, cols])
+
+
+@pytest.mark.parametrize("k", [17, 25, 31])
+@pytest.mark.parametrize("side", ["right", "left"])
+def test_variant_hashes_match_jax(k, side):
+    """The 4 SNV variants of each k-mer's last (right) or first (left)
+    base, N bases included; the variant with the k-mer's own base is the
+    k-mer's hash."""
+    codes = _codes(k * 7 + len(side), (5, k + 40))
+    fh, rh, _ = jnh.rolling_hash(jnp.asarray(codes), k, False)
+    tfh, trh, tvalid = tnh.rolling_hash(torch.from_numpy(codes), k, False)
+    P = tfh.shape[1]
+    cur = codes[:, k - 1 : k - 1 + P] if side == "right" else codes[:, :P]
+    jfn, tfn = (jnh.variant_hashes_right, tnh.variant_hashes_right) if side == "right" else (
+        jnh.variant_hashes_left, tnh.variant_hashes_left)
+    f4, r4 = jfn(fh, jnp.asarray(cur), k, rh)
+    tf4, tr4 = tfn(tfh, torch.from_numpy(cur), k, trh)
+    np.testing.assert_array_equal(_u64_jax(f4), _u64_torch(tf4))
+    np.testing.assert_array_equal(_u64_jax(r4), _u64_torch(tr4))
+    rows, cols = np.nonzero(tvalid.numpy())
+    own = cur[rows, cols]
+    np.testing.assert_array_equal(_u64_torch(tf4)[rows, cols, own], _u64_torch(tfh)[rows, cols])
+    np.testing.assert_array_equal(_u64_torch(tr4)[rows, cols, own], _u64_torch(trh)[rows, cols])
+    assert tnh.variant_hashes_right(tfh, torch.from_numpy(cur), k)[1] is None

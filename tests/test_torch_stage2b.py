@@ -55,14 +55,33 @@ def stage2_outputs(tmp_path_factory):
     return outs
 
 
-def _jax_rebuild(prefix, outdir, max_walk_len, **fresh):
+def _jax_rebuild(prefix, outdir, max_walk_len, ref_paths=(), **fresh):
+    """The rebuild loop of the JAX package's ``_finish_pe_stage3``, its
+    ``-ref`` branch included."""
+    from rnabloom_tpu.io import fastx as jfastx
+    from rnabloom_tpu.utils import seq as jseq
+
     state, cfg = jckpt.load_graph(prefix)
     store = jfragstore.FragmentStore.open(outdir)
     frag_L = int(min(max(store.max_len, 2 * K), max_walk_len))
     state = jengine.fresh_rebuild_state(state, cfg, **fresh)
     add_pairs = frag_L - K + 1 > cfg.fragment_pair_distance
-    for nbatch, (codes, _, _, _) in enumerate(store.iter_batches(1024, width=frag_L)):
+    nbatch = 0
+    for codes, _, _, _ in store.iter_batches(1024, width=frag_L):
         state = jengine.rebuild_step(state, cfg, codes, add_frag_pairs=add_pairs, salt=nbatch)
+        nbatch += 1
+    for rp in ref_paths:
+        for _, rseq in jfastx.read_fasta(rp):
+            codes_r = jseq.encode(rseq.upper())
+            if len(codes_r) < K:
+                continue
+            for s0 in range(0, len(codes_r), max_walk_len - K + 1):
+                chunk_np = np.full((1, max_walk_len), 4, np.uint8)
+                piece = codes_r[s0 : s0 + max_walk_len]
+                chunk_np[0, : len(piece)] = piece
+                state = jengine.rebuild_step(state, cfg, chunk_np, add_frag_pairs=max_walk_len - K + 1 >
+                                             cfg.fragment_pair_distance, salt=nbatch)
+                nbatch += 1
     return state, add_pairs
 
 
@@ -93,6 +112,31 @@ def test_rebuild_equals_jax(stage2_outputs, counter, max_walk_len):
     assert got.rpkbf is state.rpkbf and torch.equal(got.rpkbf, rpkbf)  # kept, not written
     assert int(got.cbf.count_nonzero()) > 0
     assert bool(got.fpkbf.any()) == add_pairs
+
+
+@pytest.mark.parametrize("max_walk_len", [4096, 300])
+def test_rebuild_with_reference_transcripts_equals_jax(stage2_outputs, tmp_path, max_walk_len):
+    """-ref: reference transcripts (one longer than a row, one shorter than
+    k, one with lower-case bases and Ns) go into the rebuilt graph after
+    the fragments, one row of ``max_walk_len`` bases a step."""
+    out = stage2_outputs["mf8"]
+    prefix = os.path.join(out, "rnabloom.graph")
+    rng = np.random.default_rng(8)
+    seqs = ["".join(rng.choice(list("ACGT"), n)) for n in (900, 20, 400)]
+    seqs[2] = seqs[2][:100].lower() + "NN" + seqs[2][102:]
+    refs = [str(tmp_path / "a.fa"), str(tmp_path / "b.fa")]
+    with open(refs[0], "w") as f:
+        f.write(f">r0\n{seqs[0]}\n>r1\n{seqs[1]}\n")
+    with open(refs[1], "w") as f:
+        f.write(f">r2\n{seqs[2][:200]}\n{seqs[2][200:]}\n")
+    want, _ = _jax_rebuild(prefix, out, max_walk_len, ref_paths=refs)
+    state, cfg = tckpt.load_graph(prefix, device="cpu")
+    store = tfragstore.FragmentStore.open(out)
+    params = tpipe.PipelineParams(max_walk_len=max_walk_len)
+    got = tpipe.rebuild_fragment_graph(state, cfg, store, params, ref_paths=refs)
+    _assert_filters_equal(got, want)
+    plain = tpipe.rebuild_fragment_graph(tckpt.load_graph(prefix, device="cpu")[0], cfg, store, params)
+    assert not torch.equal(plain.cbf, got.cbf)
 
 
 @pytest.mark.parametrize(

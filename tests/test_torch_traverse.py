@@ -104,7 +104,7 @@ def graphs():
             reads, seeds = _DATA[data]()
             cj, ct = _cfgs(dtype, blocked, stranded, hashes)
             gj = jdbg.build_step(jdbg.make_graph(cj), cj, jnp.asarray(reads))
-            gt = tdbg.build_step(tdbg.make_graph(ct), ct, torch.from_numpy(reads))
+            gt = tdbg.build_step(tdbg.make_graph(ct, device="cpu"), ct, torch.from_numpy(reads))
             want = np.asarray(gj.cbf)
             np.testing.assert_array_equal(gt.cbf.numpy().view(want.dtype), want)
             cache[key] = (cj, gj, ct, gt, seeds)
@@ -175,7 +175,7 @@ def test_plain_walk_equals_jax(graphs, jax_walks, case):
     _, _, ct, gt, seeds = graphs(data, dtype, blocked, stranded, CASES[case][11])
     j0, jout, min_cov, bound = jax_walks(case)
     wcfg, hops, steps = _port_cfg(case)
-    s0 = ttr.make_walks(ct, wcfg, seeds)
+    s0 = ttr.make_walks(ct, wcfg, seeds, device="cpu")
     _assert_states_equal(s0, ttr.walk_state_from_limbs(j0), "make_walks")
     out = ttr.extend_walks(s0, gt, ct, wcfg, min_cov, bound, superstep_hops=hops, max_supersteps=steps)
     _assert_states_equal(out, ttr.walk_state_from_limbs(jout), "extend_walks")
@@ -471,7 +471,7 @@ def test_unported_walk_modes_raise(graphs, what):
     kw = {"back_branches": {"check_back_branches": True}, "terminators": {"use_terminators": True}}.get(what, {})
     with pytest.raises(NotImplementedError, match="ROADMAP queue-1 item"):
         wcfg = ttr.WalkConfig(max_len=200, **kw)
-        st = ttr.make_walks(ct, wcfg, seeds)
+        st = ttr.make_walks(ct, wcfg, seeds, device="cpu")
         ttr.extend_walks(st, gt, ct, wcfg, 1.0, 100, mode=what if what == "naive" else "greedy")
 
 
@@ -500,7 +500,7 @@ def pair_graphs():
                                   pkbf=tf.BloomConfig(18, pk_hashes), **kw)
             gj = jdbg.build_step(jdbg.make_graph(cj, with_rpkbf=True, with_fpkbf=frag), cj, jnp.asarray(reads),
                                  add_read_pairs=True)
-            gt = tdbg.build_step(tdbg.make_graph(ct, with_rpkbf=True, with_fpkbf=frag), ct, torch.from_numpy(reads),
+            gt = tdbg.build_step(tdbg.make_graph(ct, with_rpkbf=True, with_fpkbf=frag, device="cpu"), ct, torch.from_numpy(reads),
                                  add_read_pairs=True)
             if frag:
                 gj = jdbg.rebuild_step(gj, cj, jnp.asarray(reads), salt=1)
@@ -563,7 +563,7 @@ def test_pair_walk_equals_jax(pair_graphs, case):
     wj = jtr.WalkConfig(max_len=max_len, pair_ring=ring, left=left)
     wt = ttr.WalkConfig(max_len=max_len, pair_ring=ring, left=left)
     j0 = jtr.make_walks(cj, wj, rows, lens)
-    s0 = ttr.make_walks(ct, wt, rows, lens)
+    s0 = ttr.make_walks(ct, wt, rows, lens, device="cpu")
     _assert_states_equal(s0, ttr.walk_state_from_limbs(jax.device_get(j0)), "make_walks", PAIR_FIELDS)
     min_cov, bound = _pair_args(case, s0.pos.shape[0])
     want = ttr.walk_state_from_limbs(jax.device_get(jtr.extend_walks(j0, gj, cj, wj, min_cov, bound, mode="pair")))
@@ -585,7 +585,7 @@ def test_pair_walk_revcomp_reseed_equals_jax(pair_graphs, stranded):
     wjl = jtr.WalkConfig(max_len=K + 400, pair_ring=64, left=True)
     wtl = ttr.WalkConfig(max_len=K + 400, pair_ring=64, left=True)
     jr = jtr.extend_walks(jtr.make_walks(cj, wj, rows, lens), gj, cj, wj, 1.0, 400, mode="pair")
-    tr = ttr.extend_walks(ttr.make_walks(ct, wt, rows, lens), gt, ct, wt, 1.0, 400, mode="pair")
+    tr = ttr.extend_walks(ttr.make_walks(ct, wt, rows, lens, device="cpu"), gt, ct, wt, 1.0, 400, mode="pair")
     _assert_states_equal(tr, ttr.walk_state_from_limbs(jax.device_get(jr)), "right walks", PAIR_FIELDS)
     assert int(tr.pos.max()) - K + 1 > 64
     jl0 = jtr.revcomp_reseed(cj, wjl, jr.buf, jr.pos)
@@ -598,10 +598,10 @@ def test_pair_walk_revcomp_reseed_equals_jax(pair_graphs, stranded):
 
 def test_pair_walks_refuse_what_they_cannot_do(pair_graphs):
     _, _, ct, gt, reads, seeds = pair_graphs("sim")
-    st = ttr.make_walks(ct, ttr.WalkConfig(max_len=200), seeds)
+    st = ttr.make_walks(ct, ttr.WalkConfig(max_len=200), seeds, device="cpu")
     with pytest.raises(ValueError, match="pair ring"):
         ttr.extend_walks(st, gt, ct, ttr.WalkConfig(max_len=200), 1.0, 100, mode="pair")
     wcfg = ttr.WalkConfig(max_len=200, pair_ring=64, pair_probe_depth=K)
-    st = ttr.make_walks(ct, wcfg, reads[:4, :100])
+    st = ttr.make_walks(ct, wcfg, reads[:4, :100], device="cpu")
     with pytest.raises(AssertionError, match="below k"):
         ttr.extend_walks(st, gt, ct, wcfg, 1.0, 100, mode="pair")
