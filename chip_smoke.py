@@ -35,18 +35,19 @@ Phases (any failure raises and exits nonzero):
    prints the share of its in-range indices whose lane was already 1.
    Each op's bound: the index bytes plus one 32 B sector per distinct
    cell, read and written (written only, for ``set``), over 3.35 TB/s.
-3. The main path: ``cli -stage 3 -norr -savebf --device cuda`` with
-   ``-cnt mf8`` (the default) and ``-stage 1 -savebf -cnt u16``, both on
-   the 1,000,000 pairs at the default ``-mem 1``, stage 3 over all of its
-   batches of 2048.  The launch counters must show the
+3. The main path: ``cli -stage 3 -savebf --device cuda`` (the nr pass
+   included) with ``-cnt mf8`` (the default) and ``-stage 1 -savebf -cnt
+   u16``, both on the 1,000,000 pairs at the default ``-mem 1``, stage 3
+   over all of its batches of 2048.  The launch counters must show the
    insert kernels and the walk kernel ran, and in stage 3 both walk modes
    and ``set`` (the screen); every valid k-mer of 10,000 sampled input
    reads must count >= 1 on each saved graph (a count-min filter never
    undercounts); the transcript files must be well formed.  Each run
    prints its rates (stage 1 reads/s, stage 2 pairs/s, stage 2b and stage 3
    fragments/s), stage 3's wall time by ``utils/timer`` span, its launches
-   per stage and per stage-3 use of the greedy kernel, its peak device
-   memory and its insert buffer (add_mf8's batch table: at most 64 MiB for
+   per stage and per stage-3 use of the greedy kernel, the nr pass's
+   seconds (span ``nr``), ``num_nr`` and the size of ``transcripts.nr.fa``
+   (its records well formed), its peak device memory and its insert buffer (add_mf8's batch table: at most 64 MiB for
    mf8, none for u16), and the share of its stage-1-2 ``set`` indices
    that found their lane already set (1 - set lanes in the saved rpkbf /
    set indices applied).
@@ -71,9 +72,11 @@ Phases (any failure raises and exits nonzero):
    statistics, the stamps) must be byte-identical.  Stage 2b
    (``pipeline.rebuild_fragment_graph``) then runs on each of those outputs
    on the card and on the CPU: the rebuilt cbf, rpkbf and fpkbf, saved as
-   checkpoints, must be byte-identical.  ``-stage 3 -norr`` on the first
-   2000 pairs on the card and on the CPU: every file byte-identical (the
-   transcripts included), report.json equal but for elapsed_s.  The repo's
+   checkpoints, must be byte-identical.  ``-stage 3`` on the first 2000
+   pairs on the card and on the CPU: every file byte-identical (the
+   transcripts and ``transcripts.nr.fa`` included), report.json equal but
+   for elapsed_s.  ``-stage 2 -extend`` on the first 8192 pairs on the
+   card and on the CPU: every file byte-identical.  The repo's
    golden dataset (``utils/pesim.write_golden_fastq``, the reads of
    ``tests/test_golden.py``) through ``assemble_pe`` on the card: the
    strand-normalised sha1 set must equal ``tests/golden/pe_golden.json``.
@@ -105,6 +108,19 @@ Phases (any failure raises and exits nonzero):
    re-walks; tip and depth probes; the screen as a graph) the largest
    batch timed, replayed by ``walk_tally`` for its reads and bound, beside
    one gather of as many random cells of its table.
+8. The naive walk kernel (``-extend``) vs its plain version: the first
+   stage-2 batch of the 1M pairs joined into fragments on phase 3's mf8
+   graph as stage 2 does, then extended; its two naive walks (right, then
+   left; back-branch checks, tip_probe_depth 8, buffers padded to a power
+   of two) run again by the kernel and once by the plain loop: every
+   field equal, the extension's own run too.  Times in turns; a replay of
+   the plain loop (``naive_tally``) counts the cells the kernel's naive
+   schedule reads; the bound is those reads as 32 B sectors plus the walk
+   state read and written, over 3.35 TB/s; beside it one gather of as
+   many random cells.  Then the main path of this slice, with every
+   launch count set to 0 before it: ``-stage 2 -extend`` on the first 16
+   batches of the 1M pairs (131,072 pairs: a depth cut), its pairs/s and
+   its launches (``walk_naive`` among them).
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -175,7 +191,8 @@ REAL_READS = 4096  # one stage-1 batch
 PAIRS = 1_000_000
 BATCH2 = 8192  # pairs per stage-2 batch
 CBF_LOG2 = {"mf8": 29, "u16": 28}  # default cbf at -mem 1, before any resize
-STAGE3_PAIRS = 2000  # the card-vs-CPU -stage 3 -norr run
+STAGE3_PAIRS = 2000  # the card-vs-CPU -stage 3 run (with the nr pass)
+EXTEND_BATCHES = 16  # stage-2 batches of the -extend main-path run: a depth cut of the 1M pairs
 MAXCLIP = 8  # -maxclip of phase 7's rerun, which reaches the screen-as-graph probe
 GOLDEN = "tests/golden/pe_golden.json"
 # stage-3 uses of the greedy walk kernel: kind -> the kernels line's name
@@ -200,10 +217,10 @@ def ptxas_report(log: str) -> list:
     template arguments, registers, stack frame and spills."""
     out, name = [], None
     for line in log.splitlines():
-        m = re.search(r"Function properties for \S*walk_greedy_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E", line)
+        m = re.search(r"Function properties for \S*walk_greedy_kernelILi(\d+)ELi(\d+)ELb([01])ELi(\d)E", line)
         if m:
             name = (f"<{WALK_LAYOUTS[int(m.group(1))]}, {m.group(2)}, {('no', 'yes')[int(m.group(3))]}, "
-                    f"{('greedy', 'pair')[int(m.group(4))]}>")
+                    f"{('greedy', 'pair', 'naive')[int(m.group(4))]}>")
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -546,10 +563,12 @@ def head_fastq(src: str, dst: str, n_records: int) -> None:
         g.writelines(itertools.islice(f, 4 * n_records))
 
 
-def run_cli(left: str, right: str, out: str, device: str, counter: str = "mf8", stage: int = 1):
+def run_cli(left: str, right: str, out: str, device: str, counter: str = "mf8", stage: int = 1,
+            extend: bool = False):
+    """The port's CLI with -savebf -f; ``-stage 3`` runs the nr pass."""
     return cli.run([
         "-left", left, "-right", right, "-revcomp-right", "-o", out, "-stage", str(stage),
-        "-savebf", "-f", "-cnt", counter, "--device", device, *(["-norr"] if stage == 3 else []),
+        "-savebf", "-f", "-cnt", counter, "--device", device, *(["-extend"] if extend else []),
     ])
 
 
@@ -671,16 +690,23 @@ class Stage3Probe:
 def check_transcripts(out: str, report, k: int) -> dict:
     """The -stage 3 files: as many records as the report counts, upper-case
     ACGT bodies (a poly-A tail lower-cased), transcripts at least 200 bases
-    and short ones under 200 but at least k."""
+    and short ones under 200 but at least k; the nr pass's unitigs (ACGT,
+    at least 200 bases, headers ``.nr.{j} l={length}``), no more of them
+    than transcripts."""
     body = re.compile(r"^[ACGT]+[acgt]*$")
     lengths = {}
     for name, count, ok in (("transcripts.fa", report.num_transcripts, lambda n: n >= 200),
-                            ("transcripts.short.fa", report.num_short, lambda n: k <= n < 200)):
-        seqs = [s for _, s in fastx.read_fasta(os.path.join(out, f"rnabloom.{name}"))]
+                            ("transcripts.short.fa", report.num_short, lambda n: k <= n < 200),
+                            ("transcripts.nr.fa", report.num_nr, lambda n: n >= 200)):
+        recs = list(fastx.read_fasta(os.path.join(out, f"rnabloom.{name}"), full_header=True))
+        seqs = [s for _, s in recs]
         assert len(seqs) == count, (name, len(seqs), count)
         bad = [s for s in seqs if not body.match(s) or not ok(len(s))]
         assert not bad, f"{name}: {len(bad)} malformed records, e.g. {bad[0][:80]}"
+        if name == "transcripts.nr.fa":
+            assert all(h == f"rnabloom.nr.{j} l={len(s)}" for j, (h, s) in enumerate(recs)), recs[0][0]
         lengths[name] = [len(s) for s in seqs]
+    assert 0 < report.num_nr <= report.num_transcripts, (report.num_nr, report.num_transcripts)
     return lengths
 
 
@@ -688,7 +714,7 @@ def main_path(left: str, right: str, out: str, counter: str, stage: int, n_pairs
               codes: np.ndarray, card: str, dev):
     """One main-path run on the card with the launch counts and the peak
     device memory of that run alone; checks the saved graph, which stays
-    on disk.  ``-stage 3`` runs with ``-norr`` and is checked and reported
+    on disk.  ``-stage 3`` (the nr pass included) is checked and reported
     (rates, spans, launches per stage and per greedy use)."""
     ci.reset_launch_counts()
     walk.reset_launch_counts()
@@ -764,6 +790,8 @@ def stage3_report(tag: str, report, probe: "Stage3Probe", out: str, card: str) -
         "stage3_batches": store.batches, "stage3_fragments": store.fragments, "stage3_s": probe.times["stage3"],
         "stage3_fragments_per_s": store.fragments / probe.times["stage3"],
         "transcripts": report.num_transcripts, "short": report.num_short, "spans": report.stage3_spans,
+        "nr": report.num_nr, "nr_s": report.stage3_spans["nr"],
+        "nr_fa_bytes": os.path.getsize(os.path.join(out, "rnabloom.transcripts.nr.fa")),
         "rebuild_launches": probe.launches["rebuild"], "stage3_launches": probe.launches["stage3"],
         "greedy_uses": dict(probe.uses),
     }
@@ -776,6 +804,9 @@ def stage3_report(tag: str, report, probe: "Stage3Probe", out: str, card: str) -
           f"{report.stage3_s:.2f} s includes the rebuild)")
     print(f"{tag}: transcripts {report.num_transcripts} (mean {np.mean(lengths['transcripts.fa'] or [0]):.1f} "
           f"bases), short {report.num_short}; all well-formed")
+    print(f"{tag}: the nr pass (span nr) {r['nr_s']:.2f} s over {report.num_transcripts} transcripts: num_nr "
+          f"{report.num_nr} (mean {np.mean(lengths['transcripts.nr.fa'] or [0]):.1f} bases), transcripts.nr.fa "
+          f"{r['nr_fa_bytes']} B, well-formed [{card}]")
     print(f"{tag}: launches in stage 2b {r['rebuild_launches']}; in stage 3 {r['stage3_launches']} (set: the "
           f"screen's inserts); greedy walk launches by stage-3 use {r['greedy_uses']}", flush=True)
     assert report.num_transcripts > 0 and store.batches > 0
@@ -1333,8 +1364,8 @@ def golden_on_card(tmp: str, card: str) -> list:
 
 
 def stage3_card_vs_cpu(left: str, right: str, tmp: str) -> dict:
-    """-stage 3 -norr on the card and on the CPU: every output file
-    byte-identical, report.json equal but for elapsed_s."""
+    """-stage 3 (the nr pass included) on the card and on the CPU: every
+    output file byte-identical, report.json equal but for elapsed_s."""
     gpu_out, cpu_out = os.path.join(tmp, "gpu3"), os.path.join(tmp, "cpu3")
     walk.reset_launch_counts()
     t0 = time.time()
@@ -1355,12 +1386,232 @@ def stage3_card_vs_cpu(left: str, right: str, tmp: str) -> dict:
     files = same_tree(gpu_out, cpu_out)
     check_transcripts(gpu_out, rep, K)
     assert rep.num_transcripts > 0 and n_walk["walk_pair"] > 0, (rep.num_transcripts, n_walk)
-    print(f"-cnt mf8 -stage 3 -norr on {rep.num_pairs} pairs: card and CPU outputs byte-identical ({len(files)} "
-          f"files, report.json equal but elapsed_s); {rep.num_transcripts} transcripts, {rep.num_short} short; "
-          f"card walk launches {n_walk}; CLI wall card {t_gpu:.1f} s, CPU {t_cpu:.1f} s", flush=True)
+    assert "rnabloom.transcripts.nr.fa" in files
+    print(f"-cnt mf8 -stage 3 on {rep.num_pairs} pairs: card and CPU outputs byte-identical ({len(files)} "
+          f"files, transcripts.nr.fa included, report.json equal but elapsed_s); {rep.num_transcripts} "
+          f"transcripts, {rep.num_short} short, {rep.num_nr} nr; card walk launches {n_walk}; CLI wall card "
+          f"{t_gpu:.1f} s, CPU {t_cpu:.1f} s", flush=True)
     shutil.rmtree(gpu_out)
     shutil.rmtree(cpu_out)
-    return {"transcripts": rep.num_transcripts, "walk_launches": n_walk}
+    return {"transcripts": rep.num_transcripts, "nr": rep.num_nr, "walk_launches": n_walk}
+
+
+def extend_card_vs_cpu(left: str, right: str, tmp: str) -> dict:
+    """-stage 2 -extend on the card and on the CPU: every output file
+    byte-identical; the naive walk kernel ran on the card."""
+    gpu_out, cpu_out = os.path.join(tmp, "gpu2x"), os.path.join(tmp, "cpu2x")
+    walk.reset_launch_counts()
+    t0 = time.time()
+    rep = run_cli(left, right, gpu_out, "cuda", "mf8", 2, extend=True)
+    t_gpu = time.time() - t0
+    n_walk = walk.launch_counts()
+    t0 = time.time()
+    run_cli(left, right, cpu_out, "cpu", "mf8", 2, extend=True)
+    t_cpu = time.time() - t0
+    files = same_tree(gpu_out, cpu_out)
+    assert n_walk["walk_naive"] > 0 and rep.num_fragments > 0, (n_walk, rep.num_fragments)
+    print(f"-cnt mf8 -stage 2 -extend on {rep.num_pairs} pairs: card and CPU outputs byte-identical ({len(files)} "
+          f"files); {rep.num_fragments} fragments; card walk launches {n_walk}; CLI wall card {t_gpu:.1f} s, CPU "
+          f"{t_cpu:.1f} s", flush=True)
+    shutil.rmtree(gpu_out)
+    shutil.rmtree(cpu_out)
+    return {"fragments": rep.num_fragments, "walk_launches": n_walk}
+
+
+def naive_tally(st, graph, cfg, wcfg, mc, bd, superstep_hops: int = 64, max_supersteps: int = 64) -> dict:
+    """The plain loop in naive mode (``extend_walks_plain``), replayed one
+    hop at a time with the plain version's own steps, counting per lane
+    the k-mers the kernel's naive schedule reads: a hop its 4 candidates
+    and, with back-branch checks, the left variants but the k-mer itself;
+    each step of a variant probe the 4 successors of every live variant;
+    each step of a resolve's beam probe those of every live slot; num_hash
+    cells a k-mer.  Dependent read rounds: a hop 1 plus its variant
+    probe's steps, a resolve its beam probe's steps.  Returns the tallies
+    and the final state."""
+    from rnabloom_tpu_torch.graph import dbg
+
+    state = traverse.clone_state(st)
+    W, k, h, dev = st.pos.shape[0], cfg.k, cfg.cbf.num_hash, st.pos.device
+    hops = torch.zeros(W, dtype=torch.int64, device=dev)
+    resolves, kmers, rounds = hops.clone(), hops.clone(), hops.clone()
+    floor = torch.clamp(mc, min=1.0)[:, None]
+    rows4 = torch.arange(W * 4, device=dev)
+
+    def probe(fh, rh, alive, outc_of, beam):
+        """Step through a beam probe (the plain version's rule) counting
+        the live slots' successors; alive is (W, 4 * beam)."""
+        nonlocal kmers, rounds
+        fh, rh, al = fh.reshape(-1), rh.reshape(-1), alive.reshape(-1)
+        mcx = floor.expand(W, 4 * beam).reshape(-1, 1)
+        for i in range(wcfg.tip_probe_depth - 1):
+            live = al.reshape(W, 4 * beam)
+            if not bool(live.any()):
+                break
+            kmers += live.sum(dim=1) * 4
+            rounds += live.any(dim=1)
+            f4, r4 = nthash.successor_hashes(fh, outc_of(i).reshape(-1), k, rh=rh)
+            cc = dbg.get_counts(graph, cfg, traverse._query_hash(cfg, wcfg, f4, r4))
+            if beam == 1:
+                ok = cc >= mcx
+                best = torch.argmax(torch.where(ok, cc, -1.0), dim=1)
+                al = al & ok.any(dim=1)
+                fh = torch.where(al, traverse._pick(f4, best), fh)
+                rh = torch.where(al, traverse._pick(r4, best), rh)
+                continue
+            ok = (cc >= mcx) & al[:, None]
+            score = torch.where(ok, cc, -1.0).reshape(W * 4, 8)
+            top1 = torch.argmax(score, dim=1)
+            s2 = score.clone()
+            s2[rows4, top1] = -1.0
+            pick = torch.stack([top1, torch.argmax(s2, dim=1)], dim=-1)
+            al = ok.reshape(W * 4, 8).gather(1, pick).reshape(-1)
+            fh = torch.where(al, f4.reshape(W * 4, 8).gather(1, pick).reshape(-1), fh)
+            rh = torch.where(al, r4.reshape(W * 4, 8).gather(1, pick).reshape(-1), rh)
+
+    for _ in range(max_supersteps):
+        if not bool(((state.status == traverse.ACTIVE) | (state.status == traverse.BRANCH)).any()):
+            break
+        for _ in range(superstep_hops):
+            active = state.status == traverse.ACTIVE
+            if not bool(active.any()):
+                break
+            hops += active
+            rounds += active
+            out = traverse._gather_out_codes(state.buf, state.pos, k)
+            kmers += active * 4
+            if wcfg.check_back_branches:
+                is_self = torch.arange(4, device=dev)[None, :] == out[:, None]
+                kmers += active * (~is_self).sum(dim=1)
+                flv, rlv = nthash.variant_hashes_left(state.fh, out, k, state.rh)
+                cv = dbg.get_counts(graph, cfg, traverse._query_hash(cfg, wcfg, flv, rlv))
+                alive = (cv >= floor) & ~is_self & active[:, None]
+                buf, pos = state.buf, state.pos
+                probe(flv, rlv, alive, lambda i: (torch.arange(4, device=dev).repeat(W) if i == 0 else
+                                                  traverse._buf_at(buf, pos - k + i)[:, None].expand(W, 4)), 1)
+            state = traverse.walk_superstep(state, graph, cfg, wcfg, mc, bd, 1)
+        branch = state.status == traverse.BRANCH
+        if bool(branch.any()):
+            resolves += branch
+            out = traverse._gather_out_codes(state.buf, state.pos, k)
+            fh4, rh4, q4 = traverse._successors(cfg, wcfg, state.fh, state.rh, out)
+            viable = (dbg.get_counts(graph, cfg, q4) >= floor) & branch[:, None]
+            dup = lambda x: x.reshape(W * 4, 1).expand(W * 4, 2).reshape(W, 8)  # noqa: E731
+            alive = torch.stack([viable, torch.zeros_like(viable)], dim=-1).reshape(W, 8)
+            buf, pos = state.buf, state.pos
+            probe(dup(fh4), dup(rh4), alive, lambda i: traverse._buf_at(buf, pos - k + 1 + i)[:, None].expand(W, 8), 2)
+            state = traverse.resolve_branches(state, graph, cfg, wcfg, mc, mode="naive")
+    return {"state": state, "hops": hops, "resolves": resolves, "reads": kmers * h, "rounds": rounds}
+
+
+def first_batch_naive_walks(graph_prefix: str, left: str, right: str, dev):
+    """The -extend walks (right, then left) of the first stage-2 batch's
+    fragments on a saved graph, as stage 2 runs that batch: its pairs
+    joined into fragments (EC, overlaps, bridges, validation), then the
+    extension, whose two naive walks are captured (inputs and outputs)."""
+    graph, cfg = checkpoint.load_graph(graph_prefix, device=dev)
+    params = pipeline.PipelineParams(extend_fragments=True)
+    fparams = fragments.FragmentParams(min_overlap=params.min_overlap, bound=params.bound,
+                                       lookahead=params.lookahead, extend_fragments=True,
+                                       ec_params=params.correct_params())
+    batches = pipeline._iter_pair_batches(left, right, params, K, False, True, READ_LEN)
+    lb, ll, rb, rl, multi = next(batches)
+    batches.close()
+    captured = []
+    saved = engine.extend_walks
+
+    def extend_walks(st, g, c, wcfg, min_cov, bound, mode="greedy"):
+        out = saved(st, g, c, wcfg, min_cov, bound, mode=mode)
+        if mode == "naive":
+            mc, bd = traverse.lane_args(st, min_cov, bound)
+            captured.append((traverse.clone_state(st), wcfg, mc, bd, out))
+        return out
+
+    engine.extend_walks = extend_walks
+    try:
+        pipeline._connect_multi_segments(graph, cfg, lb, ll, rb, rl, multi, fparams)
+        frags = fragments.assemble_fragments_batch(graph, cfg, lb, ll, rb, rl, fparams)
+    finally:
+        engine.extend_walks = saved
+    assert len(captured) == 2, len(captured)
+    n_frags = sum(f is not None for f in frags)
+    return graph, cfg, captured, n_frags
+
+
+def naive_vs_plain(graph_prefix: str, left: str, right: str, card: str, dev) -> dict:
+    """The naive walk kernel vs its plain version on the -extend walks of
+    the first stage-2 batch (right, then left): every field equal, times
+    in turns, the replayed reads and bound, one random gather beside."""
+    graph, cfg, captured, n_frags = first_batch_naive_walks(graph_prefix, left, right, dev)
+    r = {"fragments": n_frags, "walks": {}}
+    for side, (st, wcfg, mc, bd, run_out) in zip(("right", "left"), captured):
+        kern = walk.walk_naive(st, graph, cfg, wcfg, mc, bd)
+        plain = None
+
+        def plain_run():
+            nonlocal plain
+            plain = walk.walk_naive_plain(st, graph, cfg, wcfg, mc, bd)
+
+        t = {"plain": [_time_ms(plain_run, reps=1)], "kernel": []}
+        for who, got in (("kernel", kern), ("the extension's own run", run_out)):
+            bad = _same_state(got, plain)
+            if bad:
+                raise AssertionError(f"walk_naive ({side}, {who}) != plain: {bad} differ")
+        tally = naive_tally(st, graph, cfg, wcfg, mc, bd)
+        bad = _same_state(tally["state"], plain)
+        if bad:
+            raise AssertionError(f"the tallied replay of the plain naive loop differs ({side}): {bad}")
+        for who in ("kernel", "kernel"):
+            t[who].append(_time_ms(lambda: walk.walk_naive(st, graph, cfg, wcfg, mc, bd), reps=5))
+        t["plain"].append(_time_ms(lambda: walk.walk_naive_plain(st, graph, cfg, wcfg, mc, bd), reps=1))
+        reads = int(tally["reads"].sum())
+        idx = torch.randint(0, graph.cbf.numel(), (max(reads, 1),), device=dev)
+        graph.cbf[idx]
+        gather_ms = min(_time_ms(lambda: graph.cbf[idx], reps=3) for _ in range(3))
+        del idx
+        status = torch.bincount(kern.status.long(), minlength=7).tolist()
+        w = r["walks"][side] = {
+            "max_abs_err": _max_abs_diff(kern, plain), "ms": sum(t["kernel"]) / 2, "plain_ms": sum(t["plain"]) / 2,
+            "turns_ms": t["kernel"], "lanes": int(st.pos.shape[0]), "max_len": wcfg.max_len,
+            "hops": int(kern.hops.sum()), "hops_tried": int(tally["hops"].sum()),
+            "resolves": int(tally["resolves"].sum()), "cell_reads": reads,
+            "bound_ms": walk_bound_ms(st, mc, bd, reads), "gather_ms": gather_ms,
+            "max_rounds": int(tally["rounds"].max()), "statuses": status,
+        }
+        print(f"walk_naive ({side} -extend walks of the first stage-2 batch, {n_frags} fragments in {w['lanes']} "
+              f"lanes, max_len {w['max_len']}, back-branch checks, tip_probe_depth {wcfg.tip_probe_depth}): every "
+              f"WalkState field equal to plain; {w['hops']} hops, statuses {status}; kernel {w['ms']:.4f} ms "
+              f"({', '.join(f'{x:.4f}' for x in t['kernel'])}), plain {w['plain_ms']:.2f} ms [{card}]", flush=True)
+        print(f"walk_naive ({side}): {w['hops_tried']} hops tried, {w['resolves']} resolves, {reads} cell reads: "
+              f"bound {w['bound_ms']:.4f} ms by bytes at 3.35 TB/s; one gather of as many random cells "
+              f"{gather_ms:.4f} ms; most dependent read rounds of a lane {w['max_rounds']} [{card}]", flush=True)
+        del kern, plain, tally
+    del graph
+    torch.cuda.empty_cache()
+    return r
+
+
+def extend_main_path(left: str, right: str, out: str, card: str) -> dict:
+    """-stage 2 -extend on the card over the first EXTEND_BATCHES batches,
+    every launch count set to 0 just before and read just after."""
+    ci.reset_launch_counts()
+    walk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    rep = run_cli(left, right, out, "cuda", "mf8", 2, extend=True)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {**ci.launch_counts(), **walk.launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    assert launches["walk_naive"] > 0 and launches["walk_greedy"] > 0 and launches["add_mf8"] > 0, launches
+    assert rep.stage2_batches == EXTEND_BATCHES and rep.num_fragments > 0, rep
+    r = {"pairs": rep.num_pairs, "pairs_per_s": rep.num_pairs / rep.stage2_s, "stage2_s": rep.stage2_s,
+         "fragments": rep.num_fragments, "launches": launches, "peak_bytes": peak, "wall_s": wall}
+    print(f"-cnt mf8 -stage 2 -extend on the first {EXTEND_BATCHES} batches ({rep.num_pairs} pairs, a depth cut of "
+          f"the 1M): stage 2 {r['pairs_per_s']:.1f} pairs/s ({rep.stage2_s:.2f} s), {rep.num_fragments} fragments; "
+          f"launches {launches}; peak device memory {peak} B ({peak / 2**30:.3f} GiB); CLI wall {wall:.1f} s "
+          f"[{card}]", flush=True)
+    shutil.rmtree(out)
+    return r
 
 
 def main(argv=None) -> int:
@@ -1421,7 +1672,7 @@ def main(argv=None) -> int:
         )
         print(f"simulated 1,000,000 pairs (2000 transcripts, seed 0) in {time.time() - t0:.1f} s", flush=True)
         heads = {}
-        for n in (BATCH2, 20_000, STAGE3_PAIRS):
+        for n in (BATCH2, 20_000, STAGE3_PAIRS, EXTEND_BATCHES * BATCH2):
             heads[n] = (os.path.join(tmp, f"head{n}_1.fq"), os.path.join(tmp, f"head{n}_2.fq"))
             head_fastq(left, heads[n][0], n)
             head_fastq(right, heads[n][1], n)
@@ -1432,8 +1683,8 @@ def main(argv=None) -> int:
         real_indices = {op: b.numel() for op, b in real.items()}
         del real
 
-        phase("3 main path: -stage 3 -norr -savebf -cnt mf8 and -stage 1 -savebf -cnt u16 on 1,000,000 pairs, "
-              "--device cuda, -mem 1")
+        phase("3 main path: -stage 3 -savebf -cnt mf8 (the nr pass included) and -stage 1 -savebf -cnt u16 on "
+              "1,000,000 pairs, --device cuda, -mem 1")
         rng = np.random.default_rng(1)
         picks = set(rng.choice(PAIRS, 5_000, replace=False).tolist())
         codes = np.concatenate([sample_reads(p, picks, READ_LEN) for p in (left, right)])
@@ -1456,11 +1707,11 @@ def main(argv=None) -> int:
         }
         shutil.rmtree(out_u16)
 
-        phase("5 card vs CPU: -stage 1 on 20,000 pairs, -stage 2 on 8192 pairs, -stage 3 -norr on 2000 pairs, "
-              "byte-identical outputs; the golden dataset on the card")
+        phase("5 card vs CPU: -stage 1 on 20,000 pairs, -stage 2 (also -extend) on 8192 pairs, -stage 3 on 2000 "
+              "pairs, byte-identical outputs; the golden dataset on the card")
         run_launches = {"add_mf8": launches["add_mf8"], "set": launches["set"],
                         "add_u16": u16_launches["add_u16"]}
-        mf8_run = "main path, -cnt mf8 -stage 3 -norr, 1M pairs"
+        mf8_run = "main path, -cnt mf8 -stage 3, 1M pairs"
         run_of = {"add_mf8": mf8_run, "set": mf8_run, "add_u16": "main path, -cnt u16 -stage 1, 1M pairs"}
         for counter, op in (("mf8", "add_mf8"), ("u16", "add_u16"), ("int32", "add")):
             ci.reset_launch_counts()
@@ -1507,6 +1758,7 @@ def main(argv=None) -> int:
             shutil.rmtree(gpu_out)
             shutil.rmtree(cpu_out)
         card_cpu3 = stage3_card_vs_cpu(*heads[STAGE3_PAIRS], tmp)
+        extend_cpu = extend_card_vs_cpu(*heads[BATCH2], tmp)
         golden_on_card(tmp, card)
 
         phase("6 stage 2b and the stage-3 extension walks on the 1M-pair -cnt mf8 -stage 2 output, on the card")
@@ -1527,7 +1779,12 @@ def main(argv=None) -> int:
         greedy3 = stage3_walks_vs_plain(rebuilt, cfg6, store6, card, dev)
         del rebuilt
         torch.cuda.empty_cache()
+
+        phase("8 naive walk kernel vs plain PyTorch (-extend walks of the first stage-2 batch on the 1M-pair mf8 "
+              "graph), then -stage 2 -extend on the first 16 batches, on the card")
+        naive = naive_vs_plain(os.path.join(out_mf8, "rnabloom.graph"), left, right, card, dev)
         shutil.rmtree(out_mf8)
+        extend_run = extend_main_path(*heads[EXTEND_BATCHES * BATCH2], os.path.join(tmp, "out_extend"), card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1620,7 +1877,8 @@ def main(argv=None) -> int:
         "rebuild_peak_device_bytes": rebuild["peak_bytes"],
         "rebuild_batch_table_bytes": rebuild["batch_table_bytes"],
         "stage3": {key: s3[key] for key in ("rebuild_fragments_per_s", "stage3_batches", "stage3_fragments",
-                                            "stage3_s", "stage3_fragments_per_s", "transcripts", "short", "spans")},
+                                            "stage3_s", "stage3_fragments_per_s", "transcripts", "short", "spans",
+                                            "nr", "nr_s", "nr_fa_bytes")},
         "stage3_card_vs_cpu_transcripts": card_cpu3["transcripts"],
     })
     for kind, name in GREEDY_USES.items():
@@ -1646,6 +1904,36 @@ def main(argv=None) -> int:
             "cell_reads": g["cell_reads"],
             "gather_ms": g["gather_ms"],
         })
+    nr, nl = naive["walks"]["right"], naive["walks"]["left"]
+    kernels.append({
+        "name": "walk_naive",
+        "route": "cuda",
+        "source": WALK_SOURCE,
+        "replaces": WALK_REPLACES,
+        "launches": extend_run["launches"]["walk_naive"],
+        "run": f"main path of phase 8, -cnt mf8 -stage 2 -extend on the first {EXTEND_BATCHES} batches "
+               f"({extend_run['pairs']} pairs); times, bound and plain on the right -extend walks of the first "
+               f"stage-2 batch's {naive['fragments']} fragments on phase 3's 1M-pair graph",
+        "max_abs_err": max(nr["max_abs_err"], nl["max_abs_err"]),
+        "ms": nr["ms"],
+        "plain_ms": nr["plain_ms"],
+        "bound_ms": nr["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "lanes": nr["lanes"],
+        "resolves": nr["resolves"],
+        "cell_reads": nr["cell_reads"],
+        "gather_ms": nr["gather_ms"],
+        "left_ms": nl["ms"],
+        "left_plain_ms": nl["plain_ms"],
+        "left_bound_ms": nl["bound_ms"],
+        "left_gather_ms": nl["gather_ms"],
+        "extend_stage2_pairs_per_s": extend_run["pairs_per_s"],
+        "extend_stage2_pairs": extend_run["pairs"],
+        "extend_run_launches": extend_run["launches"],
+        "extend_card_vs_cpu_fragments": extend_cpu["fragments"],
+        "extend_card_vs_cpu_launches": extend_cpu["walk_launches"]["walk_naive"],
+    })
     print(f"\nsmoke wall time {time.time() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,8 @@
 """Stage 2: fragment reconstruction from read pairs.
 
 Port of ``rnabloom_tpu/assembly/fragments.py`` (FragmentAssembler,
-RNABloom.java:2038-2321, and the GraphUtils connect family) without
-``-extend``.  Per batch of read pairs (right mate reverse-complemented into
-fragment orientation):
+RNABloom.java:2038-2321, and the GraphUtils connect family).  Per batch of
+read pairs (right mate reverse-complemented into fragment orientation):
 
   1. error-correct both mates with a shared pair threshold (``correct``);
   2. take the largest exact suffix-prefix overlap of the mates;
@@ -13,7 +12,10 @@ fragment orientation):
      lies on the right walk, the left tail on the left walk, or the two
      walks share a k-mer;
   4. keep the longest range supported by consecutive read-pair k-mers;
-  5. score the fragment by its minimum k-mer coverage (float32).
+  5. score the fragment by its minimum k-mer coverage (float32);
+  6. with ``-extend``, extend each fragment right then left by naive walks
+     that stop at branches and back branches (the walk kernel's naive
+     mode on the card).
 
 The host code is the JAX package's, line for line; the graph queries and
 walks run on the graph's device.
@@ -30,9 +32,6 @@ from ..graph import engine, traverse
 from ..graph.dbg import GraphConfig, GraphState
 from ..utils import seq as sequtils
 from . import correct
-
-_EXTEND = "-extend (naive fragment extension) is ROADMAP queue-1 item 7a"
-
 
 @dataclass
 class FragmentParams:
@@ -197,8 +196,6 @@ def assemble_fragments_batch(
 
     left/right: (B, L) uint8 codes, right already reverse-complemented into
     fragment orientation.  Returns one Fragment (or None) per pair."""
-    if params.extend_fragments:
-        raise NotImplementedError(_EXTEND)
     k = cfg.k
     B, L = left.shape
 
@@ -262,6 +259,46 @@ def assemble_fragments_batch(
                 continue
             mc = float(counts[i, ks:ke][v].min())
             results[b] = Fragment(codes=seq, min_cov=mc, length=len(seq), connected=True)
+
+    if params.extend_fragments:
+        # -extend (FragmentAssembler, RNABloom.java:2264-2278): naive-extend
+        # connected fragments outward, stopping at branches and tips
+        rows = [b for b in range(B) if results[b] is not None]
+        if rows:
+            results = _naive_extend_fragments(graph, cfg, results, rows, params)
+    return results
+
+
+def _naive_extend_fragments(
+    graph: GraphState, cfg: GraphConfig, results: List[Optional[Fragment]], rows: List[int], params: FragmentParams
+) -> List[Optional[Fragment]]:
+    """Extend each fragment right then left with branch-stopping walks:
+    naive mode WITH back-branch checks (naiveExtendRight,
+    GraphUtils.java:6835).  The buffer and the lane count pad to powers of
+    two as in the JAX package: the padding decides when walks go FULL."""
+    maxlen = max(results[b].length for b in rows)
+    pad = 1 << max(8, (maxlen + 2 * params.bound - 1).bit_length())
+    n_rows = 1 << max(6, (len(rows) - 1).bit_length())
+    wcfg = traverse.WalkConfig(max_len=pad, lookahead=params.lookahead, check_back_branches=True)
+    wcfg_l = traverse.WalkConfig(max_len=pad, lookahead=params.lookahead, left=True, check_back_branches=True)
+
+    seeds = np.full((n_rows, maxlen), 4, np.uint8)
+    lens = np.zeros(n_rows, np.int64)
+    for i, b in enumerate(rows):
+        f = results[b]
+        seeds[i, : f.length] = f.codes
+        lens[i] = f.length
+    st = traverse.make_walks(cfg, wcfg, seeds, lens, device=graph.cbf.device)
+    st = engine.extend_walks(st, graph, cfg, wcfg, 1.0, params.bound, mode="naive")
+    # the left extension re-seeds on the device
+    st = traverse.revcomp_reseed(cfg, wcfg_l, st.buf, st.pos)
+    st = engine.extend_walks(st, graph, cfg, wcfg_l, 1.0, params.bound, mode="naive")
+    lbuf, lpos, _ = traverse.harvest(st)
+    final = revcomp_rows(lbuf, lpos.astype(np.int64))
+
+    for i, b in enumerate(rows):
+        f = results[b]
+        results[b] = Fragment(codes=final[i, : lpos[i]], min_cov=f.min_cov, length=int(lpos[i]), connected=f.connected)
     return results
 
 

@@ -1,4 +1,4 @@
-"""Bulk paired-end assembly pipeline, through stage 2.
+"""Bulk paired-end assembly pipeline.
 
 Port of ``rnabloom_tpu/assembly/pipeline.py``: ``assemble_pe`` runs
 
@@ -19,11 +19,12 @@ Port of ``rnabloom_tpu/assembly/pipeline.py``: ``assemble_pe`` runs
            RNABloom.java:4886-4954) -> {name}.transcripts.fa,
            {name}.transcripts.short.fa and {name}.report.json
 
+           and, unless ``no_reduce``, the non-redundant pass over the
+           emitted transcripts -> {name}.transcripts.nr.fa
+
 A rerun into the same directory with a saved graph and the stage-2 stamp
-resumes at stage 2b.  The non-redundant pass (stage 3 without
-``no_reduce``), ``-extend``, ``-rescue`` and unpaired reads
-(``-sef``/``-ser``) are not ported yet: asking for them raises before any
-work is done.
+resumes at stage 2b.  ``-rescue`` and unpaired reads (``-sef``/``-ser``)
+are not ported yet: asking for them raises before any work is done.
 """
 
 from __future__ import annotations
@@ -41,6 +42,8 @@ from ..bloom import filters
 from ..bloom.filters import BloomConfig
 from ..graph import dbg, engine
 from ..io import fastx, native
+from ..io.seqstore import SeqStore
+from ..olc import layout as olc_layout, overlap as olc_overlap
 from ..utils import checkpoint as ckpt, polya, seq as sequtils
 from ..utils.timer import Timer, span, span_totals
 from . import correct, fragments as fragmod, stage1, transcripts as txmod
@@ -563,12 +566,12 @@ def _run_stage3(
     params: PipelineParams,
     report: PipelineReport,
 ) -> None:
-    """Stratified transcript assembly (without the nr pass, which is
-    refused before any work).  Fragments stream from the stratified store
-    in the reference's priority order in fixed-size batches; the screening
-    filter lives on the graph's device (assembleTranscriptsMultiThreaded,
-    RNABloom.java:4886-4954).  Fills the report's stage-3 counts, dispatches
-    and spans."""
+    """Stratified transcript assembly, then (unless ``no_reduce``) the
+    non-redundant pass.  Fragments stream from the stratified store in the
+    reference's priority order in fixed-size batches; the screening filter
+    lives on the graph's device (assembleTranscriptsMultiThreaded,
+    RNABloom.java:4886-4954).  Fills the report's stage-3 counts,
+    dispatches and spans."""
     sbf_log2 = (
         filters.pow2_size(params.sbf_mem_bytes).bit_length() - 1
         if params.sbf_mem_bytes > 0
@@ -581,6 +584,10 @@ def _run_stage3(
     frag_L = int(min(max(store.max_len, cfg.k), params.max_walk_len))
     tx_path = os.path.join(outdir, f"{params.name}.transcripts.fa")
     short_path = os.path.join(outdir, f"{params.name}.transcripts.short.fa")
+    # emitted transcripts (after the -a flip) spool to a disk-backed 2-bit
+    # store for the nr pass (the streamed analog of generateNonRedundant
+    # Transcripts re-reading transcripts.fa, RNABloom.java:5676)
+    emitted = SeqStore(os.path.join(outdir, f".{params.name}.nr_input.2bit"))
     with fastx.FastaWriter(tx_path, uracil=params.write_uracil) as wtx, fastx.FastaWriter(
         short_path, uracil=params.write_uracil
     ) as wsh:
@@ -592,10 +599,25 @@ def _run_stage3(
             with span("write"):
                 for t in txs:
                     _write_transcript(wtx, f"{params.header_prefix}{params.name}.{report.num_transcripts}", t, params)
+                    emitted.append(t.codes)
                     report.num_transcripts += 1
                 for t in shorts:
                     wsh.write(f"{params.header_prefix}{params.name}.s{report.num_short}", sequtils.decode(t.codes))
                     report.num_short += 1
+
+    # the nr pass: contained transcripts are dropped and unambiguously
+    # dovetailing ones merge into unitigs (the reference's minimap2 ava and
+    # Layout.extractSimplePaths, OverlapLayoutConsensus.overlapLayout :878)
+    if len(emitted) and not params.no_reduce:
+        with span("nr"):
+            op = olc_overlap.OverlapParams(min_overlap=max(params.min_transcript_length // 2, 100))
+            nr_seqs, _, _ = olc_layout.layout_unitigs(emitted, cfg.k, op, device=state.cbf.device)
+            nr_path = os.path.join(outdir, f"{params.name}.transcripts.nr.fa")
+            with fastx.FastaWriter(nr_path, uracil=params.write_uracil) as wnr:
+                for j, s in enumerate(nr_seqs):
+                    wnr.write(f"{params.header_prefix}{params.name}.nr.{j}", sequtils.decode(s), f"l={len(s)}")
+            report.num_nr = len(nr_seqs)
+    emitted.close(delete=True)
     _d1, _s1 = engine.dispatch_counts(), span_totals()
     report.stage3_dispatches = {k: _d1[k] - _d0[k] for k in _d1}
     report.stage3_spans = {k: v - _s0.get(k, 0.0) for k, v in _s1.items()}
@@ -620,13 +642,6 @@ def _finish_pe_stage3(
 
 
 def _refuse_unported(params: PipelineParams, sef_paths, ser_paths) -> None:
-    if params.stop_stage >= 3 and not params.no_reduce:
-        raise NotImplementedError(
-            f"-stage {params.stop_stage} without -norr: the non-redundant pass (transcripts.nr.fa) is "
-            "ROADMAP queue-1 item 11"
-        )
-    if params.extend_fragments:
-        raise NotImplementedError(fragmod._EXTEND)
     if params.rescue_unconnected:
         raise NotImplementedError("-rescue (the stage-2b rescue pass) is ROADMAP queue-1 item 12")
     if sef_paths or ser_paths:
@@ -651,10 +666,10 @@ def assemble_pe(
     (the card unless the caller asks for the CPU; raises when there is no
     card).  With ``save_graph`` the graph is checkpointed under
     {outdir}/{name}.graph after stage 1 or 2; stage 2 writes the fragment
-    store under {outdir}/fragments; stage 3 (``no_reduce`` only) writes
-    {outdir}/{name}.transcripts.fa, .transcripts.short.fa and
-    .report.json.  ``ref_paths``: reference transcript FASTAs added to the
-    fragment graph (-ref).  A stage-3 run into a directory that holds the
+    store under {outdir}/fragments; stage 3 writes
+    {outdir}/{name}.transcripts.fa, .transcripts.short.fa, (unless
+    ``no_reduce``) .transcripts.nr.fa, and .report.json.  ``ref_paths``:
+    reference transcript FASTAs added to the fragment graph (-ref).  A stage-3 run into a directory that holds the
     stage-2 stamp and a saved graph (and without ``force``) resumes at stage
     2b and writes no report.json, as the JAX package does."""
     _refuse_unported(params, sef_paths, ser_paths)

@@ -73,7 +73,7 @@ class TranscriptParams:
     screen_max_edge_clip: int = -1
     template_switch_filter: bool = False  # enable isTemplateSwitch screening
     lookahead: int = 3  # -lookahead: traversal lookahead depth
-    tip_probe_depth: int = 8  # read by naive and back-branch probes (item 7a): nothing reads it yet
+    tip_probe_depth: int = 8  # the JAX package hands it to the pair walks, which do not read it
     keep_chimeras: bool = False  # -chimera: skip the chimera screen
     keep_artifacts: bool = False  # -artifact: skip blunt-end / rc-fold trims
     frag_consistency: bool = True  # -nofc turns off frag-pair break checks

@@ -2,14 +2,13 @@
 
 The JAX package's option names (RNABloom.java:5839-6410) for the part of
 the paired-end path that is ported: stage 0, the stage-1 graph build,
-stage-2 fragment assembly and stage 3's transcripts without the
-non-redundant pass (``-stage 3 -norr``), with ``-savebf`` to save the
-graph.  ``-stage 3`` without ``-norr``, ``-extend``, ``-rescue`` and
-``-sef``/``-ser`` are accepted and refused.  ``--device`` picks the torch
-device (default ``cuda``); asking for CUDA where there is none raises.
+stage-2 fragment assembly (with ``-extend``) and stage 3's transcripts
+with the non-redundant pass (``transcripts.nr.fa``; ``-norr`` skips it),
+with ``-savebf`` to save the graph.  ``-rescue`` and ``-sef``/``-ser`` are
+accepted and refused.  ``--device`` picks the torch device (default
+``cuda``); asking for CUDA where there is none raises.
 
-    python -m rnabloom_tpu_torch.cli -left r1.fq -right r2.fq -revcomp-right \\
-        -o out/ -stage 3 -norr
+    python -m rnabloom_tpu_torch.cli -left r1.fq -right r2.fq -revcomp-right -o out/
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rnabloom-tpu-torch",
-        description="PyTorch/CUDA port of rnabloom-tpu (paired-end stages 1-3, no nr pass yet)",
+        description="PyTorch/CUDA port of rnabloom-tpu (paired-end stages 1-3)",
     )
     p.add_argument("-left", "--left", required=True, help="left read file (FASTQ/FASTA, gz ok)")
     p.add_argument("-right", "--right", required=True, help="right read file")
@@ -38,6 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-n", "--name", default="rnabloom", help="assembly name (output file prefix) [rnabloom]")
     p.add_argument("-k", "--kmer", type=int, default=25, help="k-mer size [25]")
     p.add_argument("-q", "--qual", type=int, default=3, help="min base quality [3]")
+    p.add_argument("-Q", "--qual-avg", dest="qual_avg", type=int, default=0, help="min average read quality [0]")
+    p.add_argument("-stranded", "--stranded", action="store_true", help="strand-specific reads")
     p.add_argument("-mem", "--mem", type=float, default=1.0, help="Bloom memory budget (GB) [1]")
     p.add_argument("-length", "--length", type=int, default=200, help="min transcript length [200]")
     p.add_argument("-overlap", "--overlap", type=int, default=10, help="min read overlap [10]")
@@ -66,8 +67,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-nk", "--nk", type=int, default=0,
                    help="expected number of distinct k-mers (sizes filters at 1%% FPR)")
     p.add_argument("-batch", "--batch", type=int, default=8192, help="stage-2 pair batch size")
+    p.add_argument("-c", "--mincov", type=float, default=1,
+                   help="minimum k-mer coverage [1]")
     p.add_argument("-e", "--errcorritr", type=int, default=2,
                    help="error-correction iterations per read [2]")
+    p.add_argument("-grad", "--maxcovgrad", type=float, default=0.50,
+                   help="max k-mer coverage gradient for error correction [0.50]")
     p.add_argument("-indel", "--indel", type=int, default=1,
                    help="max size of indels to be collapsed [1]")
     p.add_argument("-p", "--percent", type=float, default=0.90,
@@ -77,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-tiplength", "--tiplength", type=int, default=-1,
                    help="max number of bases in a tip [auto]")
     p.add_argument("-extend", "--extend", action="store_true",
-                   help="extend fragments outward (not ported: refused)")
+                   help="extend fragments outward during fragment reconstruction")
     p.add_argument("-rescue", "--rescue", action="store_true",
                    help="retry unconnected read pairs (not ported: refused)")
     p.add_argument("-nofc", "--nofc", action="store_true",
@@ -100,11 +105,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-prefix", "--prefix", default="",
                    help="name prefix in FASTA headers for assembled transcripts")
     p.add_argument("-norr", "--norr", action="store_true",
-                   help="skip redundancy reduction (no transcripts.nr.fa; without it -stage 3 is refused)")
+                   help="skip redundancy reduction (no transcripts.nr.fa)")
     p.add_argument("-sample", "--sample", type=int, default=1000,
                    help="sample size for read/fragment length estimation [1000]")
     p.add_argument("-stage", "--stage", type=int, default=3, choices=(1, 2, 3),
-                   help="assembly termination stage: 1=graph, 2=fragments, 3=transcripts (with -norr) [3]")
+                   help="assembly termination stage: 1=graph, 2=fragments, 3=transcripts [3]")
     p.add_argument("-savebf", "--savebf", action="store_true", help="save graph Bloom filters for resume")
     p.add_argument("-f", "--force", action="store_true", help="overwrite (ignore stage stamps)")
     p.add_argument("--device", default="cuda", help="torch device to run on [cuda]")
@@ -121,7 +126,9 @@ def run(argv=None):
 
     params = pipeline.PipelineParams(
         k=args.kmer,
+        stranded=args.stranded,
         min_qual=args.qual,
+        min_avg_qual=args.qual_avg,
         total_mem_bytes=int(args.mem * (1 << 30)),
         num_hash=args.hash,
         min_transcript_length=args.length,
@@ -154,6 +161,8 @@ def run(argv=None):
         sample_size=args.sample,
         err_corr_iters=args.errcorritr,
         max_indel=args.indel,
+        min_kmer_cov=args.mincov,
+        max_cov_gradient=args.maxcovgrad,
         percent_identity=args.percent,
         lookahead=args.lookahead,
         max_tip_length=args.tiplength,
@@ -176,6 +185,7 @@ def main(argv=None) -> int:
         "fragments": report.num_fragments,
         "transcripts": report.num_transcripts,
         "short": report.num_short,
+        "nr": report.num_nr,
         "elapsed_s": round(report.elapsed_s, 2),
     }))
     return 0

@@ -1,11 +1,11 @@
-// De Bruijn graph walks for Hopper (sm_90a), greedy and pair modes, bound
-// with ctypes.
+// De Bruijn graph walks for Hopper (sm_90a), greedy, pair and naive modes,
+// bound with ctypes.
 //
 // Replaces the XLA while-loop of rnabloom_tpu/graph/traverse.py::
-// _extend_walks_fused (mode="greedy" or "pair", no terminators, no
-// back-branch checks, spec_hops = 1): supersteps of walk_superstep
-// alternating with resolve_branches, until no lane is ACTIVE or BRANCH or
-// max_supersteps ran.  The walk state that comes out equals the lockstep
+// _extend_walks_fused (mode="greedy", "pair" or "naive", back-branch checks
+// in naive mode, no terminators, spec_hops = 1): supersteps of
+// walk_superstep alternating with resolve_branches, until no lane is ACTIVE
+// or BRANCH or max_supersteps ran.  The walk state that comes out equals the lockstep
 // loop's, field for field, the pair ring included
 // (graph/traverse.py::extend_walks_plain is the plain version).
 //
@@ -102,6 +102,38 @@
 // Pair mode is instantiated for the 4 layouts x num_hash 1-3 and the
 // generic one, without the lookahead split (it reads no lookahead tree).
 //
+// Naive mode (the -extend walks of stage 2, naiveExtendRight): depth probes
+// instead of lookahead scores, in one shape, beam_step.  Thread r of the
+// tile owns beam index r of each of 4 probes: slot r >> 2 (slots past the
+// beam's width are idle), successor base r & 3.  A step issues every
+// thread's 4 reads together, then per probe a tile reduction takes the
+// first maximum (and for a beam of 2 the first maximum of the rest) over
+// the beam indices in slot-major order, which is the plain version's
+// argmax over index slot * 4 + base; a successor below the coverage floor
+// scores -1, so a pick may be dead, and a second pick that falls back on
+// the first (index 0) duplicates it.  Every thread keeps every probe's beam
+// hashes and recomputes the picked children, so no hash is shuffled.
+//  * A resolve probes the 4 candidates with a beam of 2
+//    (traverse.py::_tip_probe), tip_probe_depth - 1 dependent rounds at
+//    most; exactly one deep candidate advances, else the lane stops.
+//  * With back-branch checks a hop reads the 4 left variants of its k-mer
+//    (the first base substituted) in the candidates' round, threads 4-7
+//    beside the candidates' 0-3.  A viable variant other than the k-mer
+//    itself is probed with a beam of 1 (traverse.py::_variant_depth_probe:
+//    its first step departs the variant's own base, later ones the
+//    buffer); a variant that reaches tip_probe_depth stops the lane before
+//    any other status.  A hop with no viable variant needs no probe: every
+//    depth is 0 then.
+//  * A probe ends early once all its slots are dead: nothing moves any
+//    more.  The choice of a resolve is not handed to the next hop.
+// What bounds it: latency again.  On the -extend walks of a stage-2 batch
+// (8,192 lanes) most lanes stop at a branch within a few hops, and the
+// batch takes as long as its longest lane's dependent rounds (about 200:
+// hops, variant probe steps, resolve probe steps), some 19 times its reads'
+// bytes at the memory rate of an H100 (chip_smoke.py phase 8).
+// Naive mode is instantiated for the 4 layouts x num_hash 1-3 and the
+// generic one.
+//
 // The entry points launch on the caller's stream, do not synchronise,
 // allocate nothing and return cudaGetLastError() as an int.
 
@@ -169,7 +201,14 @@ struct Walk {
   uint64_t pmask;  // pkbf lanes - 1
   int pnh;  // pkbf num_hash
   int dist[2];  // read and fragment pair distances (0: the class is off)
+  // naive mode
+  int T;     // tip_probe_depth
+  int back;  // back-branch checks on
 };
+
+constexpr int kGreedy = 0;
+constexpr int kPairMode = 1;
+constexpr int kNaive = 2;
 
 template <typename T>
 __device__ __forceinline__ T pick4(T a0, T a1, T a2, T a3, int i) {
@@ -305,13 +344,28 @@ __device__ __forceinline__ unsigned tile_or(Tile tile, unsigned v) {
   return v;
 }
 
+// the first maximum of (v, i) across the tile: the larger v, then the
+// smaller i
+__device__ __forceinline__ void tile_argmax(Tile tile, float& v, int& i) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+    const float v2 = tile.shfl_xor(v, o);
+    const int i2 = tile.shfl_xor(i, o);
+    if (v2 > v || (v2 == v && i2 < i)) {
+      v = v2;
+      i = i2;
+    }
+  }
+}
+
 // the pair-hash combiner, a ^ (b + 0x9e3779b9 + (a << 6) + (b >>> 2))
 __device__ __forceinline__ uint64_t combine(uint64_t a, uint64_t b) {
   return a ^ (b + kPairConst + (a << 6) + (b >> 2));
 }
 
-template <int L, int H, bool kDeep, bool kPair>
+template <int L, int H, bool kDeep, int kMode>
 struct Lane {
+  static constexpr bool kPair = kMode == kPairMode;
   static constexpr int M1 = (16 + G - 1) / G;  // level-1 k-mers per thread
   static constexpr int M2 = 64 / G;            // level-2 k-mers (leaves) per thread
 
@@ -336,6 +390,10 @@ struct Lane {
   uint64_t f4[4], r4[4], q4[4];
   float cnt[4];
   unsigned seen;
+  // naive mode with back-branch checks: the 4 left variants of the current
+  // k-mer, read in the candidates' round
+  uint64_t vf[4], vr[4];
+  float vcnt[4];
 
   __device__ int buf_at(int i) const {
     i = i < 0 ? 0 : (i > p.max_len - 1 ? p.max_len - 1 : i);
@@ -365,16 +423,123 @@ struct Lane {
   }
 
   // level 0: thread c < 4 reads candidate c; the ring is scanned while the
-  // reads are in flight
+  // reads are in flight.  With back-branch checks thread 4 + v reads left
+  // variant v (not the k-mer itself) in the same round.
   __device__ void read_candidates() {
     set_candidates();
-    const uint64_t mine[1] = {pick4(q4, rank & 3)};
-    const bool on[1] = {rank < 4};
+    const bool variants = kMode == kNaive && p.back;
+    uint64_t mine[1] = {pick4(q4, rank & 3)};
+    if constexpr (kMode == kNaive) {
+      if (variants) {
+        // the first base substituted: rotation k-1 forward, the
+        // complement's rotation 0 on the reverse strand
+        const uint64_t tf = fh ^ rotl(seed_of(out), p.k - 1);
+        const uint64_t tr = rh ^ seed_of(out < 4 ? 3 - out : out);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          vf[v] = tf ^ rotl(seed_of(v), p.k - 1);
+          vr[v] = tr ^ seed_of(3 - v);
+        }
+        if (rank >= 4) mine[0] = query(p, pick4(vf, rank & 3), pick4(vr, rank & 3));
+      }
+    }
+    const bool on[1] = {rank < 4 || (variants && rank < 8 && (rank & 3) != out)};
     float got[1];
     count_many<L, H, 1>(p, dec, mine, on, got, [&] { check_ring(); });
 #pragma unroll
     for (int c = 0; c < 4; ++c) cnt[c] = tile.shfl(got[0], c);
+    if (variants) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) vcnt[c] = tile.shfl(got[0], 4 + c);
+    }
     cached = true;
+  }
+
+  // One step of a beam probe of B slots (1 or 2) over 4 probes, as the
+  // head comment says: slot s of probe c is (hf, hr)[c][s], live in
+  // alive[c][s]; it departs base outc[c].  A probe with a live slot after
+  // the step gains a level of depth.
+  template <int B>
+  __device__ void beam_step(uint64_t (&hf)[4][2], uint64_t (&hr)[4][2], bool (&alive)[4][2], const int (&outc)[4],
+                            int (&depth)[4]) {
+    const bool mine = (rank >> 2) < B, s1 = mine && (rank >> 2) == 1;  // this thread's slot: 0 or 1
+    const int n = rank & 3;
+    uint64_t q[4];
+    bool on[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint64_t f, r;
+      child(slide(p, s1 ? hf[c][1] : hf[c][0], s1 ? hr[c][1] : hr[c][0], outc[c]), n, rs, f, r);
+      q[c] = query(p, f, r);
+      on[c] = mine && (s1 ? alive[c][1] : alive[c][0]);
+    }
+    float got[4];
+    count_many<L, H, 4>(p, dec, q, on, got);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float sc = on[c] && got[c] >= floor ? got[c] : -1.0f;
+      float v1 = sc;
+      int i1 = rank;
+      tile_argmax(tile, v1, i1);
+      const bool alive0 = v1 >= 0.0f;
+      bool alive1 = false;
+      uint64_t nf[2], nr[2];
+      const bool p1 = (i1 >> 2) & 1;
+      child(slide(p, p1 ? hf[c][1] : hf[c][0], p1 ? hr[c][1] : hr[c][0], outc[c]), i1 & 3, rs, nf[0], nr[0]);
+      if (B == 2) {
+        float v2 = rank == i1 ? -1.0f : sc;
+        int i2 = rank;
+        tile_argmax(tile, v2, i2);
+        // the plain version takes slot 1's liveness from the unmasked
+        // scores: when every other score is -1 the second pick is index
+        // 0, the first pick itself when that is 0, and slot 1 then
+        // follows the same k-mer as slot 0
+        alive1 = i2 == i1 ? alive0 : v2 >= 0.0f;
+        const bool p2 = (i2 >> 2) & 1;
+        child(slide(p, p2 ? hf[c][1] : hf[c][0], p2 ? hr[c][1] : hr[c][0], outc[c]), i2 & 3, rs, nf[1], nr[1]);
+      }
+      if (alive0) {
+        hf[c][0] = nf[0];
+        hr[c][0] = nr[0];
+      }
+      alive[c][0] = alive0;
+      if (B == 2) {
+        if (alive1) {
+          hf[c][1] = nf[1];
+          hr[c][1] = nr[1];
+        }
+        alive[c][1] = alive1;
+      }
+      depth[c] += (alive0 || alive1) ? 1 : 0;
+    }
+  }
+
+  // the back-branch check of the current k-mer: does a left variant other
+  // than the k-mer itself reach tip_probe_depth?
+  __device__ bool back_branch() {
+    if (p.T <= 0) return true;  // every depth reaches it
+    uint64_t hf[4][2], hr[4][2];
+    bool alive[4][2];
+    int depth[4];
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      alive[c][0] = c != out && vcnt[c] >= floor;
+      alive[c][1] = false;
+      hf[c][0] = hf[c][1] = vf[c];
+      hr[c][0] = hr[c][1] = vr[c];
+      depth[c] = alive[c][0] ? 1 : 0;
+      any |= alive[c][0];
+    }
+    for (int i = 0; i < p.T - 1 && any; ++i) {
+      int outc[4];
+      const int b = buf_at(pos - p.k + i);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) outc[c] = i == 0 ? c : b;
+      beam_step<1>(hf, hr, alive, outc, depth);
+      any = alive[0][0] || alive[1][0] || alive[2][0] || alive[3][0];
+    }
+    return depth[0] >= p.T || depth[1] >= p.T || depth[2] >= p.T || depth[3] >= p.T;
   }
 
   __device__ void advance(int c) {
@@ -407,7 +572,9 @@ struct Lane {
       }
     }
     if (code < 0) code = 0;
-    if (nviable == 0) {
+    if (kMode == kNaive && p.back && back_branch()) {
+      status = kStoppedBranch;
+    } else if (nviable == 0) {
       status = kDead;
     } else if (nviable > 1) {
       status = kBranch;  // the candidates stay cached for the resolve
@@ -709,10 +876,57 @@ struct Lane {
   }
 
   __device__ void resolve() {
-    if constexpr (kPair) {
+    if constexpr (kMode == kPairMode) {
       resolve_pair();
+    } else if constexpr (kMode == kNaive) {
+      resolve_naive();
     } else {
       resolve_greedy();
+    }
+  }
+
+  // resolve_branches(mode="naive") for one BRANCH lane
+  __device__ void resolve_naive() {
+    if (!cached) read_candidates();
+    uint64_t hf[4][2], hr[4][2];
+    bool alive[4][2];
+    int depth[4];
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      alive[c][0] = cnt[c] >= floor;
+      alive[c][1] = false;
+      hf[c][0] = hf[c][1] = f4[c];
+      hr[c][0] = hr[c][1] = r4[c];
+      depth[c] = alive[c][0] ? 1 : 0;
+      any |= alive[c][0];
+    }
+    for (int i = 0; i < p.T - 1 && any; ++i) {
+      const int b = buf_at(pos - p.k + 1 + i);
+      const int outc[4] = {b, b, b, b};
+      beam_step<2>(hf, hr, alive, outc, depth);
+      any = false;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) any |= alive[c][0] || alive[c][1];
+    }
+    int ndeep = 0;
+    float key[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const bool deep = depth[c] >= p.T;
+      ndeep += deep ? 1 : 0;
+      key[c] = deep ? cnt[c] : -1.0f;
+    }
+    const int best = argmax4(key);
+    if ((seen >> best) & 1u) {
+      status = kCycle;
+    } else if (pos >= p.max_len - 1) {
+      status = kFull;
+    } else if (ndeep != 1) {
+      status = kStoppedBranch;
+    } else {
+      status = kActive;
+      advance(best);
     }
   }
 
@@ -769,8 +983,9 @@ struct Lane {
   }
 };
 
-template <int L, int H, bool kDeep, bool kPair>
-__global__ void __launch_bounds__(kThreads, kPair ? 2 : (kDeep ? 1 : kBlocksPerSm)) walk_greedy_kernel(Walk p) {
+template <int L, int H, bool kDeep, int kMode>
+__global__ void __launch_bounds__(kThreads, kMode != kGreedy ? 2 : (kDeep ? 1 : kBlocksPerSm))
+    walk_greedy_kernel(Walk p) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* dec = (float*)smem;
   if (L == kMf8) {
@@ -787,8 +1002,8 @@ __global__ void __launch_bounds__(kThreads, kPair ? 2 : (kDeep ? 1 : kBlocksPerS
   const int64_t* hist = p.hist + (size_t)w * p.cycle_window;
   for (int j = rank; j < p.cycle_window; j += G) ring[j] = hist[j];
 
-  Lane<L, H, kDeep, kPair> lane{p, tile, dec, ring, p.buf + (size_t)w * p.max_len, rank};
-  if (kPair) {
+  Lane<L, H, kDeep, kMode> lane{p, tile, dec, ring, p.buf + (size_t)w * p.max_len, rank};
+  if (kMode == kPairMode) {
     lane.pair_fh = p.ring_fh + (size_t)w * p.R;
     lane.pair_rh = p.ring_rh + (size_t)w * p.R;
     lane.probe_cnt = (float*)(rings + (size_t)(blockDim.x / G) * p.ring_stride) + (size_t)tile_in_block * 4 * p.D;
@@ -827,52 +1042,54 @@ size_t smem_bytes(const Walk& p, int threads, bool pair) {
   return kDecodeBytes + tiles * p.ring_stride * sizeof(int64_t) + (pair ? tiles * 4 * p.D * sizeof(float) : 0);
 }
 
-template <int L, int H, bool kDeep, bool kPair>
+template <int L, int H, bool kDeep, int kMode>
 int launch(const Walk& p, cudaStream_t stream) {
+  const bool pair = kMode == kPairMode;
   // fewer lanes a block when their shared memory would pass the default 48 KB
   int threads = kThreads;
-  while (threads > G && smem_bytes(p, threads, kPair) > 48 * 1024) threads /= 2;
-  const size_t smem = smem_bytes(p, threads, kPair);
+  while (threads > G && smem_bytes(p, threads, pair) > 48 * 1024) threads /= 2;
+  const size_t smem = smem_bytes(p, threads, pair);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(walk_greedy_kernel<L, H, kDeep, kPair>,
+    const cudaError_t err = cudaFuncSetAttribute(walk_greedy_kernel<L, H, kDeep, kMode>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int tiles = threads / G;
-  walk_greedy_kernel<L, H, kDeep, kPair><<<(p.W + tiles - 1) / tiles, threads, smem, stream>>>(p);
+  walk_greedy_kernel<L, H, kDeep, kMode><<<(p.W + tiles - 1) / tiles, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <int L, bool kDeep, bool kPair>
+template <int L, bool kDeep, int kMode>
 int launch_hash(const Walk& p, cudaStream_t stream) {
   switch (p.num_hash) {
     case 1:
-      return launch<L, 1, kDeep, kPair>(p, stream);
+      return launch<L, 1, kDeep, kMode>(p, stream);
     case 2:
-      return launch<L, 2, kDeep, kPair>(p, stream);
+      return launch<L, 2, kDeep, kMode>(p, stream);
     case 3:
-      return launch<L, 3, kDeep, kPair>(p, stream);
+      return launch<L, 3, kDeep, kMode>(p, stream);
     default:
-      return launch<L, 0, kDeep, kPair>(p, stream);
+      return launch<L, 0, kDeep, kMode>(p, stream);
   }
 }
 
 template <int L>
-int launch_layout(const Walk& p, bool pair, cudaStream_t stream) {
-  if (pair) return launch_hash<L, false, true>(p, stream);
-  return p.lookahead > 3 ? launch_hash<L, true, false>(p, stream) : launch_hash<L, false, false>(p, stream);
+int launch_layout(const Walk& p, int mode, cudaStream_t stream) {
+  if (mode == kPairMode) return launch_hash<L, false, kPairMode>(p, stream);
+  if (mode == kNaive) return launch_hash<L, false, kNaive>(p, stream);
+  return p.lookahead > 3 ? launch_hash<L, true, kGreedy>(p, stream) : launch_hash<L, false, kGreedy>(p, stream);
 }
 
-int launch_walk(const Walk& p, int layout, bool pair, cudaStream_t s) {
+int launch_walk(const Walk& p, int layout, int mode, cudaStream_t s) {
   switch (layout) {
     case kMf8:
-      return launch_layout<kMf8>(p, pair, s);
+      return launch_layout<kMf8>(p, mode, s);
     case kU16:
-      return launch_layout<kU16>(p, pair, s);
+      return launch_layout<kU16>(p, mode, s);
     case kI32:
-      return launch_layout<kI32>(p, pair, s);
+      return launch_layout<kI32>(p, mode, s);
     case kI32Blocked:
-      return launch_layout<kI32Blocked>(p, pair, s);
+      return launch_layout<kI32Blocked>(p, mode, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -907,7 +1124,7 @@ int walk_greedy(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* h
   const Walk p = make_walk(buf, pos, fh, rh, hist, status, hops, path_min, min_cov, bound, W, max_len,
                            cycle_window, cbf, size_log2, num_hash, decode, kms, k, stranded, left, lookahead,
                            superstep_hops, max_supersteps);
-  return launch_walk(p, layout, false, (cudaStream_t)stream);
+  return launch_walk(p, layout, kGreedy, (cudaStream_t)stream);
 }
 
 // walk_greedy's arguments, then the pair ring (W, R) of each hash, R, the
@@ -939,7 +1156,25 @@ int walk_pair(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* his
   p.dist[1] = frag_dist > 0 && fpkbf ? frag_dist : 0;
   p.pmask = pk_size_log2 >= 32 ? 0xFFFFFFFFull : (1ull << pk_size_log2) - 1;
   p.pnh = pk_num_hash;
-  return launch_walk(p, layout, true, (cudaStream_t)stream);
+  return launch_walk(p, layout, kPairMode, (cudaStream_t)stream);
+}
+
+// walk_greedy's arguments, then tip_probe_depth and whether hops check
+// back branches (0 or 1)
+int walk_naive(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* hist,
+               int32_t* status, int32_t* hops, float* path_min, const float* min_cov,
+               const int32_t* bound, int W, int max_len, int cycle_window, const void* cbf,
+               int layout, int size_log2, int num_hash, const float* decode,
+               unsigned long long kms, int k, int stranded, int left, int lookahead,
+               int superstep_hops, int max_supersteps, int tip_probe_depth, int back, void* stream) {
+  if (W <= 0) return 0;
+  if (num_hash < 1 || cycle_window < 1) return (int)cudaErrorInvalidValue;
+  Walk p = make_walk(buf, pos, fh, rh, hist, status, hops, path_min, min_cov, bound, W, max_len,
+                     cycle_window, cbf, size_log2, num_hash, decode, kms, k, stranded, left, lookahead,
+                     superstep_hops, max_supersteps);
+  p.T = tip_probe_depth;
+  p.back = back;
+  return launch_walk(p, layout, kNaive, (cudaStream_t)stream);
 }
 
 }  // extern "C"

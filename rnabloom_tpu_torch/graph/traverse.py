@@ -1,25 +1,28 @@
-"""Frontier-batched de Bruijn graph walks, greedy and pair modes.
+"""Frontier-batched de Bruijn graph walks: greedy, pair and naive modes.
 
-Port of ``rnabloom_tpu/graph/traverse.py`` for ``mode="greedy"`` and
-``mode="pair"`` (with the pair ring) without terminators, back-branch
-checks or speculative hops; asking for naive walks, back-branch checks or
+Port of ``rnabloom_tpu/graph/traverse.py`` for ``mode="greedy"``,
+``mode="pair"`` (with the pair ring) and ``mode="naive"``, with the
+back-branch check, without terminators or speculative hops; asking for
 terminators raises ``NotImplementedError`` naming its ROADMAP item.  W
 walks advance as lanes of one batch:
 
   * a superstep advances every ACTIVE lane while it has exactly one viable
     successor, for up to ``superstep_hops`` hops; a lane freezes at a dead
     end (DEAD), a branch (BRANCH), a recent k-mer (CYCLE) or its buffer or
-    hop bound (FULL);
-  * BRANCH lanes are then resolved, by greedy lookahead scoring or (pair
+    hop bound (FULL), and with ``check_back_branches`` where a left variant
+    of its k-mer is deep (an incoming branch merges: STOPPED_BRANCH);
+  * BRANCH lanes are then resolved, by greedy lookahead scoring, (pair
     mode) by read- and fragment-pair support of naive probes against the
-    walk's ring of recent k-mer hashes, and resume;
+    walk's ring of recent k-mer hashes, or (naive mode) by a depth probe of
+    each candidate that lets exactly one deep candidate continue, and
+    resume;
   * supersteps repeat while any lane is ACTIVE or BRANCH, at most
     ``max_supersteps`` times.
 
-``extend_walks`` goes through ``ops.walk.walk_greedy`` or ``walk_pair``:
-the CUDA kernel ``csrc/walk_greedy.cu`` (a tile of threads per lane, the
-whole loop on the card) for a CUDA graph, and ``extend_walks_plain`` for a
-CPU graph.
+``extend_walks`` goes through ``ops.walk.walk_greedy``, ``walk_pair`` or
+``walk_naive``: the CUDA kernel ``csrc/walk_greedy.cu`` (a tile of threads
+per lane, the whole loop on the card) for a CUDA graph, and
+``extend_walks_plain`` for a CPU graph.
 ``extend_walks_plain`` is the lockstep loop of the JAX package, op for op
 on whole lanes; it is what the CPU tests hold against JAX and what the
 kernel is held against on the card.
@@ -48,30 +51,31 @@ DEAD = 2  # no viable successor
 CYCLE = 3  # revisited a recent k-mer
 TERM = 4  # hit a terminator (screening BF)
 FULL = 5  # reached max buffer length / bound
-STOPPED_BRANCH = 6  # naive mode: too many good branches; pair mode: no viable one
+STOPPED_BRANCH = 6  # naive mode: not one deep branch, or a deep back branch; pair mode: no viable one
 
-_NAIVE = "naive and back-branch walks (-extend) are ROADMAP queue-1 item 7a"
 _TERM = "terminators (the screening filter as walk stops) are ROADMAP queue-1 item 14, with the oracle that uses them"
 
 
 @dataclass(frozen=True)
 class WalkConfig:
-    """Static traversal parameters (the JAX package's fields that greedy
-    and pair walks read, and those that select an unported mode)."""
+    """Static traversal parameters (the JAX package's fields that the
+    ported modes read, and ``use_terminators``, which selects an unported
+    one)."""
 
     max_len: int  # output buffer length (incl. seed)
     lookahead: int = 3
-    tip_probe_depth: int = 8  # read by naive and back-branch probes (item 7a): nothing reads it yet
+    tip_probe_depth: int = 8  # naive and back-branch probe depth (< k: probes read the buffer)
     cycle_window: int = 64
     left: bool = False  # walk is the reverse complement of the sequence
+    # stop where the current k-mer has a DEEP left SNV variant, an incoming
+    # branch (naiveExtendRight's back-branch check, GraphUtils.java:
+    # 6846-6851), depth-qualified by a probe of tip_probe_depth steps
     check_back_branches: bool = False
     use_terminators: bool = False
     pair_ring: int = 0  # > 0: a ring of the last k-mer hashes for pair lookups
     pair_probe_depth: int = 24  # naive probe length per candidate (< k)
 
     def __post_init__(self):
-        if self.check_back_branches:
-            raise NotImplementedError(_NAIVE)
         if self.use_terminators:
             raise NotImplementedError(_TERM)
 
@@ -270,11 +274,22 @@ def walk_superstep(
         code = _first_true(viable)  # the single viable candidate when nviable == 1
         cyc = _in_hist(state.hist, _pick(q4, code))
         full = (state.pos >= wcfg.max_len - 1) | (state.hops >= bound)
-        advance = active & (nviable == 1) & ~cyc & ~full
+        back = torch.zeros_like(cyc)
+        if wcfg.check_back_branches:
+            # an incoming branch merges here when a left variant of the
+            # k-mer (not the k-mer itself) is viable and deep
+            flv, rlv = nthash.variant_hashes_left(state.fh, out_codes, cfg.k, state.rh)
+            cv = dbg.get_counts(graph, cfg, _query_hash(cfg, wcfg, flv, rlv))
+            is_self = torch.arange(4, device=out_codes.device)[None, :] == out_codes[:, None]
+            viable_v = (cv >= floor) & ~is_self & active[:, None]  # other lanes' depths are not read
+            depth_v = _variant_depth_probe(graph, cfg, wcfg, state.buf, state.pos, flv, rlv, viable_v, min_cov)
+            back = (depth_v >= wcfg.tip_probe_depth).any(dim=1)
+        advance = active & (nviable == 1) & ~cyc & ~full & ~back
         status = torch.where(
-            nviable == 0, DEAD,
-            torch.where(nviable > 1, BRANCH,
-                        torch.where(cyc, CYCLE, torch.where(full, FULL, ACTIVE))),
+            back, STOPPED_BRANCH,
+            torch.where(nviable == 0, DEAD,
+                        torch.where(nviable > 1, BRANCH,
+                                    torch.where(cyc, CYCLE, torch.where(full, FULL, ACTIVE)))),
         )
         new_status = torch.where(active, status, state.status).to(torch.int32)
         state = _apply_advance(state, wcfg, advance, code, fh4, rh4, q4, counts)
@@ -316,6 +331,69 @@ def _expand_scores(
         fh_c, rh_c = _pick(f4, best), _pick(r4, best)
         pmin = torch.minimum(pmin, _pick(cc, best))
     return pmin.reshape(W, 4, 16).amax(dim=-1)
+
+
+def _variant_depth_probe(graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, buf, pos, flv, rlv, viable0, min_cov):
+    """Greedy forward depth (W, 4) of each left variant of the current
+    k-mer (the variant itself is depth 1 when viable0): ``tip_probe_depth
+    - 1`` steps, each to the first max-count successor that reaches the
+    coverage floor.  The first step departs the variant's own base, later
+    ones the walk buffer (the variant path rejoins the walk's suffix)."""
+    W, k = pos.shape[0], cfg.k
+    depth = viable0.to(torch.int32)
+    fh_c, rh_c = flv.reshape(W * 4), rlv.reshape(W * 4)
+    alive = viable0.reshape(W * 4)
+    var_base = torch.arange(4, device=pos.device).repeat(W)
+    mc = torch.clamp(min_cov, min=1.0)[:, None].expand(W, 4).reshape(W * 4, 1)
+    for i in range(wcfg.tip_probe_depth - 1):
+        if not bool(alive.any()):
+            break  # nothing moves any more
+        outc = var_base if i == 0 else _buf_at(buf, pos - k + i)[:, None].expand(W, 4).reshape(W * 4)
+        f4, r4 = nthash.successor_hashes(fh_c, outc, k, rh=rh_c)
+        cc = dbg.get_counts(graph, cfg, _query_hash(cfg, wcfg, f4, r4))  # (W*4, 4)
+        ok = cc >= mc
+        best = torch.argmax(torch.where(ok, cc, -1.0), dim=1)  # first maximum
+        alive = alive & ok.any(dim=1)
+        fh_c = torch.where(alive, _pick(f4, best), fh_c)
+        rh_c = torch.where(alive, _pick(r4, best), rh_c)
+        depth = depth + alive.reshape(W, 4).to(torch.int32)
+    return depth
+
+
+def _tip_probe(graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, buf, pos, fh4, rh4, viable0, min_cov):
+    """Beam-2 depth probe per candidate (W, 4) (the candidate is depth 1
+    when viable0): ``tip_probe_depth - 1`` steps following the two best
+    viable successor paths.  Slot 1 of a candidate's beam starts dead;
+    each step reads the successors of both slots and keeps the top 2 of
+    the 8 by count in slot-major order (index slot * 4 + base, first
+    maximum first; a successor that is not viable scores -1, so the second
+    pick may be dead; when every other score is -1 the second pick is
+    index 0, which may be the first pick, and slot 1 then follows the same
+    k-mer, alive).  Out codes come from the walk buffer."""
+    W, k = pos.shape[0], cfg.k
+    depth = viable0.to(torch.int32)
+    fh_c = fh4.reshape(W * 4, 1).expand(W * 4, 2).reshape(W * 8)
+    rh_c = rh4.reshape(W * 4, 1).expand(W * 4, 2).reshape(W * 8)
+    alive = torch.stack([viable0.reshape(W * 4), torch.zeros_like(viable0.reshape(W * 4))], dim=-1).reshape(W * 8)
+    mc = torch.clamp(min_cov, min=1.0)[:, None].expand(W, 8).reshape(W * 8, 1)
+    rows = torch.arange(W * 4, device=pos.device)
+    for i in range(wcfg.tip_probe_depth - 1):
+        if not bool(alive.any()):
+            break  # nothing moves any more
+        outc = _buf_at(buf, pos - k + 1 + i)[:, None].expand(W, 8).reshape(W * 8)
+        f4, r4 = nthash.successor_hashes(fh_c, outc, k, rh=rh_c)  # (W*8, 4)
+        cc = dbg.get_counts(graph, cfg, _query_hash(cfg, wcfg, f4, r4))
+        ok = (cc >= mc) & alive[:, None]
+        score = torch.where(ok, cc, -1.0).reshape(W * 4, 8)
+        top1 = torch.argmax(score, dim=1)
+        s2 = score.clone()
+        s2[rows, top1] = -1.0
+        pick = torch.stack([top1, torch.argmax(s2, dim=1)], dim=-1)  # (W*4, 2)
+        alive = ok.reshape(W * 4, 8).gather(1, pick).reshape(W * 8)
+        fh_c = torch.where(alive, f4.reshape(W * 4, 8).gather(1, pick).reshape(W * 8), fh_c)
+        rh_c = torch.where(alive, r4.reshape(W * 4, 8).gather(1, pick).reshape(W * 8), rh_c)
+        depth = depth + alive.reshape(W, 4, 2).any(dim=-1).to(torch.int32)
+    return depth
 
 
 def _probe_with_hashes(graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, buf, pos, fh4, rh4, q4, min_cov):
@@ -420,7 +498,11 @@ def resolve_branches(
       the walk's pair ring (``_pair_scores``); the best score wins (ties:
       higher median, then smaller base); no viable candidate stops the lane
       (STOPPED_BRANCH).
-    Either way the chosen k-mer in the cycle ring stops the lane (CYCLE),
+    naive: each candidate's beam-2 depth probe (``_tip_probe``) must reach
+      ``tip_probe_depth``; exactly one deep candidate resumes the walk (the
+      first of the highest count among the deep ones), none or several stop
+      the lane (STOPPED_BRANCH).
+    In every mode the chosen k-mer in the cycle ring stops the lane (CYCLE),
     before a full buffer does (FULL)."""
     at_branch = state.status == BRANCH
     out_codes = _gather_out_codes(state.buf, state.pos, cfg.k)
@@ -436,6 +518,13 @@ def resolve_branches(
         best = torch.argmax(torch.where(is_best, med, -1.0), dim=1)
         advance = at_branch & any_ok
         resumed = torch.where(any_ok, ACTIVE, STOPPED_BRANCH)
+    elif mode == "naive":
+        depth = _tip_probe(graph, cfg, wcfg, state.buf, state.pos, fh4, rh4, viable & at_branch[:, None], min_cov)
+        deep = depth >= wcfg.tip_probe_depth
+        ndeep = deep.sum(dim=1)
+        best = torch.argmax(torch.where(deep, counts, -1.0), dim=1)
+        advance = at_branch & (ndeep == 1)
+        resumed = torch.where(ndeep == 1, ACTIVE, STOPPED_BRANCH)
     else:
         scores = _expand_scores(graph, cfg, wcfg, state.buf, state.pos, fh4, rh4, q4)
         scores = torch.where(viable, scores, -1.0)
@@ -509,19 +598,21 @@ def extend_walks(
     max_supersteps: int = 64,
 ) -> WalkState:
     """Extend every walk lane to completion; returns a new state.  Pair
-    mode needs the pair ring (``wcfg.pair_ring > 0``)."""
-    if mode == "naive":
-        raise NotImplementedError(_NAIVE)
+    mode needs the pair ring (``wcfg.pair_ring > 0``); back-branch checks
+    are taken in naive mode, the only mode that the JAX package runs them
+    in (``-extend``)."""
     if terminators is not None:
         raise NotImplementedError(_TERM)
-    if mode not in ("greedy", "pair"):
+    if mode not in ("greedy", "pair", "naive"):
         raise ValueError(f"unknown walk mode {mode!r}")
     if mode == "pair" and wcfg.pair_ring <= 0:
         raise ValueError("pair walks need a pair ring (WalkConfig.pair_ring > 0)")
+    if mode != "naive" and wcfg.check_back_branches:
+        raise ValueError(f"back-branch checks in {mode} walks: only naive walks take them")
     from ..ops import walk
 
     min_cov, bound = lane_args(state, min_cov, bound)
-    run = walk.walk_pair if mode == "pair" else walk.walk_greedy
+    run = {"greedy": walk.walk_greedy, "pair": walk.walk_pair, "naive": walk.walk_naive}[mode]
     return run(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps)
 
 

@@ -113,6 +113,8 @@ _SIGNATURES = {
         # pkbf_size_log2 pkbf_num_hash read_dist frag_dist, stream
         "walk_pair": [_P] * 10 + [_INT] * 3 + [_P, _INT, _INT, _INT, _P, _U64] + [_INT] * 6
         + [_P, _P, _INT, _INT, _P, _P] + [_INT] * 4 + [_P],
+        # walk_greedy's, then tip_probe_depth back, stream
+        "walk_naive": [_P] * 10 + [_INT] * 3 + [_P, _INT, _INT, _INT, _P, _U64] + [_INT] * 8 + [_P],
     }),
 }
 
@@ -139,7 +141,7 @@ def kernels() -> ctypes.CDLL:
 
 
 def walk_kernels() -> ctypes.CDLL:
-    """The walk kernel library (greedy and pair modes), built on first call."""
+    """The walk kernel library (greedy, pair and naive modes), built on first call."""
     return _load(WALK_LIB)
 
 

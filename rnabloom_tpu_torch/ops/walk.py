@@ -1,11 +1,13 @@
 """Walk loops: every lane of a walk batch extended to completion.
 
-``walk_greedy`` (greedy lookahead resolves) and ``walk_pair`` (pair-scored
-resolves against the walk's pair ring) launch the hand-written CUDA kernel
-(``csrc/walk_greedy.cu``, a tile of threads per lane, which states its
-design) for walks on a CUDA device, and run ``walk_greedy_plain`` /
-``walk_pair_plain`` for walks on the CPU.  The plain versions are
-``graph/traverse.py::extend_walks_plain``, the JAX package's lockstep loop
+``walk_greedy`` (greedy lookahead resolves), ``walk_pair`` (pair-scored
+resolves against the walk's pair ring) and ``walk_naive`` (depth-probed
+resolves and, with ``check_back_branches``, back-branch stops) launch the
+hand-written CUDA kernel (``csrc/walk_greedy.cu``, a tile of threads per
+lane, which states its design) for walks on a CUDA device, and run
+``walk_greedy_plain`` / ``walk_pair_plain`` / ``walk_naive_plain`` for walks
+on the CPU.  The plain versions are ``graph/traverse.py::
+extend_walks_plain``, the JAX package's lockstep loop
 (``traverse._extend_walks_fused``) op for op.  ``LAUNCHES`` counts kernel
 launches per mode.
 """
@@ -18,7 +20,7 @@ import torch
 
 from . import minifloat, nthash
 
-LAUNCHES: Dict[str, int] = {"walk_greedy": 0, "walk_pair": 0}
+LAUNCHES: Dict[str, int] = {"walk_greedy": 0, "walk_pair": 0, "walk_naive": 0}
 
 _LAYOUTS = {"mf8": 0, "u16": 1, "int32": 2}
 _I32_BLOCKED = 3
@@ -52,6 +54,15 @@ def walk_pair_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops=64, 
     )
 
 
+def walk_naive_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops=64, max_supersteps=64):
+    """Plain PyTorch version of the kernel in naive mode (any device)."""
+    from ..graph import traverse
+
+    return traverse.extend_walks_plain(
+        state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps, mode="naive"
+    )
+
+
 def _decode_table(device: torch.device) -> torch.Tensor:
     t = _decode.get(device)
     if t is None:
@@ -59,7 +70,10 @@ def _decode_table(device: torch.device) -> torch.Tensor:
     return t
 
 
-def _check(state, graph, min_cov, bound, wcfg, pair: bool) -> None:
+def _check(state, graph, min_cov, bound, wcfg, mode: str) -> None:
+    pair = mode == "walk_pair"
+    if wcfg.check_back_branches and mode != "walk_naive":
+        raise ValueError(f"{mode}: back-branch checks are a naive-mode option")
     dev = graph.cbf.device
     W = state.pos.shape[0]
     want = {
@@ -72,7 +86,7 @@ def _check(state, graph, min_cov, bound, wcfg, pair: bool) -> None:
             raise ValueError("pair walks need the pair ring (WalkConfig.pair_ring > 0, make_walks fills it)")
         want.update(ring_fh=(torch.int64, (W, wcfg.pair_ring)), ring_rh=(torch.int64, (W, wcfg.pair_ring)))
     elif state.ring_fh is not None:
-        raise ValueError("greedy walks with a pair ring: no caller writes the ring outside pair mode")
+        raise ValueError(f"{mode} with a pair ring: no caller writes the ring outside pair mode")
     for name, (dtype, shape) in want.items():
         t = getattr(state, name)
         if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev:
@@ -111,7 +125,7 @@ def _launch(name: str, state, graph, cfg, wcfg, min_cov, bound, superstep_hops, 
     dev = graph.cbf.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    _check(state, graph, min_cov, bound, wcfg, pair)
+    _check(state, graph, min_cov, bound, wcfg, name)
     from ..graph.traverse import clone_state
     from ._build import walk_kernels
 
@@ -130,6 +144,8 @@ def _launch(name: str, state, graph, cfg, wcfg, min_cov, bound, superstep_hops, 
     ]
     if pair:
         args += _pair_args(graph, cfg, wcfg, out)
+    elif name == "walk_naive":
+        args += [wcfg.tip_probe_depth, int(wcfg.check_back_branches)]
     err = getattr(lib, name)(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
@@ -155,3 +171,12 @@ def walk_pair(state, graph, cfg, wcfg, min_cov, bound, superstep_hops=64, max_su
     if graph.cbf.device.type == "cpu":
         return walk_pair_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps)
     return _launch("walk_pair", state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps)
+
+
+def walk_naive(state, graph, cfg, wcfg, min_cov, bound, superstep_hops=64, max_supersteps=64):
+    """Extend every lane of ``state`` with naive (depth-probed) branch
+    resolution, and back-branch stops when ``wcfg.check_back_branches``;
+    returns a new WalkState.  Same device rule as ``walk_greedy``."""
+    if graph.cbf.device.type == "cpu":
+        return walk_naive_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps)
+    return _launch("walk_naive", state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps)

@@ -1,7 +1,10 @@
-"""Shared inputs and checks of the port's stage-3 parity tests
-(``tests/test_torch_stage3.py``, ``tests/test_torch_stage3_options.py``):
-the simulated read sets, a reference FASTA, and the comparison of two
-output directories."""
+"""Shared inputs and checks of the port's parity tests: for the stage-3
+and nr-pass tests (``tests/test_torch_stage3.py``,
+``tests/test_torch_stage3_options.py``, ``tests/test_torch_nr.py``) the
+simulated read sets, a reference FASTA and the comparison of two output
+directories; for the walk tests (``tests/test_torch_traverse.py`` on the
+CPU, ``tests/test_torch_gpu.py`` on the card) the walk graphs' reads and
+seeds and the naive-walk cases.  Imports no JAX."""
 
 import json
 import os
@@ -80,3 +83,89 @@ def assert_same_outputs(tout, jout, report=True):
         assert got[f] == want[f], f
     assert want["rnabloom.transcripts.fa"]
     return want
+
+
+WALK_K = 25
+
+
+def sim_walk_data():
+    """Simulated reads of 16 transcripts at uneven depth, 30% with one
+    substitution; two transcripts share a 200-base prefix.  Seeds: head,
+    middle and reverse-complemented tail k-mers, and one with an N."""
+    K = WALK_K
+    rng = np.random.default_rng(7)
+    tx = rng.integers(0, 4, size=(16, 600), dtype=np.uint8)
+    tx[1, :200] = tx[0, :200]
+    reads = []
+    for t, depth in zip(tx, rng.integers(1, 9, size=16)):
+        for _ in range(depth):
+            for s in range(0, 500, 20):
+                r = t[s : s + 100].copy()
+                if rng.random() < 0.3:
+                    r[rng.integers(100)] = rng.integers(4)
+                reads.append(r)
+    seeds = np.concatenate([tx[:, :K], tx[:, 300 : 300 + K], 3 - tx[:, -K:][:, ::-1]])
+    seeds[5, 10] = 4
+    return np.stack(reads), seeds
+
+
+def traverse_walk_data():
+    """The tests/test_traverse.py graphs in one read set: a linear
+    transcript, a branch at 8x against 2x, and a unit repeated three
+    times; seeds at the head of each."""
+    K = WALK_K
+    rng = np.random.default_rng(2024)
+    rand = lambda n: rng.integers(0, 4, size=n, dtype=np.uint8)  # noqa: E731
+    linear = rand(300)
+    prefix = rand(100)
+    high, low = np.concatenate([prefix, rand(150)]), np.concatenate([prefix, rand(150)])
+    unit = rand(60)
+    cyc = np.concatenate([rand(80), unit, unit, unit])
+    L = 260
+    reads = []
+    for seq, copies in ((linear, 2), (high, 8), (low, 2), (cyc, 2)):
+        for s in range(0, max(len(seq) - L, 0) + 1, 20):
+            chunk = np.full(L, 4, np.uint8)
+            piece = seq[s : s + L]
+            chunk[: len(piece)] = piece
+            reads += [chunk] * copies
+    seeds = np.stack([linear[:K], prefix[:K], cyc[:K], linear[100 : 100 + K]])
+    return np.stack(reads), seeds
+
+
+WALK_DATA = {"sim": sim_walk_data, "traverse": traverse_walk_data}
+
+# naive walks (-extend): case -> (data, dtype, blocked, stranded, num_hash,
+# left, check_back_branches, tip_probe_depth, max_len, per-lane args, the
+# stops the case must show: "back" (a deep left variant), "none_deep" /
+# "several_deep" (a resolve with 0 / 2+ deep candidates), FULL, CYCLE)
+NAIVE_CASES = {
+    "mf8_right": ("sim", "mf8", False, False, 2, False, True, 8, WALK_K + 700, True,
+                  {"back", "several_deep", "full"}),
+    "u16_left_deep_probe": ("sim", "u16", False, False, 2, True, True, 20, WALK_K + 700, False,
+                            {"back", "none_deep", "several_deep"}),
+    "mf8_stranded_left": ("sim", "mf8", False, True, 2, True, True, 8, WALK_K + 700, False, {"back"}),
+    "int32_blocked_hash3": ("sim", "int32", True, False, 3, False, True, 8, WALK_K + 700, True, {"back"}),
+    "traverse_no_back_branches": ("traverse", "mf8", False, False, 2, False, False, 8, 512, False,
+                                  {"several_deep", "cycle"}),
+    "traverse_u16_short_buffer": ("traverse", "u16", False, False, 2, True, True, 8, 300, False, {"back", "full"}),
+}
+
+
+def naive_walk_rows(data, reads, seeds, stranded=False, left=False):
+    """The naive cases' seeds: the data's seeds and, for the simulated
+    graph, the first k-mer of every 40th read; reverse-complemented for
+    stranded left walks (a left walk extends the reverse complement)."""
+    rows = seeds if data == "traverse" else np.concatenate([seeds, reads[::40][:, :WALK_K]])
+    if stranded and left:
+        rows = np.where(rows < 4, 3 - rows, rows)[:, ::-1].copy()
+    return rows
+
+
+def naive_lane_args(case, W):
+    """(min_cov, bound) of a naive case: scalars, or per-lane values."""
+    if not NAIVE_CASES[case][9]:
+        return np.float32(1.0), np.int32(500)
+    rng = np.random.default_rng(len(case))
+    return (rng.choice([1.0, 2.0, 3.5, 0.5], size=W).astype(np.float32),
+            rng.integers(50, 700, size=W).astype(np.int32))

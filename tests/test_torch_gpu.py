@@ -1,5 +1,5 @@
-"""CUDA kernels (insert, greedy and pair walks) vs their plain PyTorch
-versions, on the card.
+"""CUDA kernels (insert; greedy, pair and naive walks) vs their plain
+PyTorch versions, on the card.
 
 Imports no JAX (the machine with the card has none), so it runs there with
 
@@ -565,6 +565,137 @@ def test_pair_walk_refuses_a_greedy_ring(cuda):
 
 
 # ---- stage 3's greedy walks: gap re-walks, depth probes, the screen as a graph ----
+
+
+_naive_graphs = {}
+
+
+def _naive_walks(cuda, case):
+    """The walks of a naive case of the CPU tests (``stage3_common.
+    NAIVE_CASES``: the same graphs, seeds and lane arguments) on the card."""
+    from rnabloom_tpu_torch.graph import traverse
+    from stage3_common import NAIVE_CASES, WALK_DATA, naive_lane_args, naive_walk_rows
+
+    data, dtype, blocked, stranded, nh, left, back, tpd, max_len = NAIVE_CASES[case][:9]
+    key = (data, dtype, blocked, stranded, nh)
+    if key not in _naive_graphs:
+        reads, seeds = WALK_DATA[data]()
+        cfg = dbg.GraphConfig(k=25, stranded=stranded, dbgbf=BloomConfig(18, 2),
+                              cbf=CountingConfig(18, nh, blocked=blocked, dtype=dtype), pkbf=BloomConfig(18, 2),
+                              read_pair_distance=40)
+        graph = dbg.build_step(dbg.make_graph(cfg, device=cuda), cfg, torch.from_numpy(reads).to(cuda))
+        _naive_graphs[key] = (cfg, graph, naive_walk_rows(data, reads, seeds, stranded, left))
+    cfg, graph, rows = _naive_graphs[key]
+    wcfg = traverse.WalkConfig(max_len=max_len, left=left, check_back_branches=back, tip_probe_depth=tpd)
+    st = traverse.make_walks(cfg, wcfg, rows, device=cuda)
+    min_cov, bound = traverse.lane_args(st, *naive_lane_args(case, st.pos.shape[0]))
+    return cfg, graph, wcfg, st, min_cov, bound
+
+
+def _naive_kernel_and_plain(graph, cfg, wcfg, st, min_cov, bound, **kw):
+    from rnabloom_tpu_torch.ops import walk
+
+    n0 = walk.LAUNCHES["walk_naive"]
+    kern = walk.walk_naive(st, graph, cfg, wcfg, min_cov, bound, **kw)
+    plain = walk.walk_naive_plain(st, graph, cfg, wcfg, min_cov, bound, **kw)
+    torch.cuda.synchronize()
+    assert walk.LAUNCHES["walk_naive"] == n0 + 1
+    for name in WALK_FIELDS:
+        assert torch.equal(getattr(kern, name), getattr(plain, name)), name
+    return kern
+
+
+def _naive_case_ids():
+    from stage3_common import NAIVE_CASES
+
+    return list(NAIVE_CASES)
+
+
+@pytest.mark.parametrize("case", _naive_case_ids())
+def test_naive_kernel_matches_plain(cuda, case):
+    """The naive cases of tests/test_torch_traverse.py (every field there
+    equals the JAX package's): back-branch stops, resolves with none,
+    one and several deep candidates, FULL and CYCLE."""
+    cfg, graph, wcfg, st, min_cov, bound = _naive_walks(cuda, case)
+    kern = _naive_kernel_and_plain(graph, cfg, wcfg, st, min_cov, bound)
+    assert int(kern.hops.sum()) > 0
+
+
+NAIVE_OPTIONS = (
+    # every layout, strand mode and walk side with back-branch checks
+    [(d, b, s, l, True, 8, 2) for d, b in WALK_GRAPHS for s, l in [(False, False), (True, False), (True, True)]]
+    # every layout without them
+    + [(d, b, False, False, False, 8, 2) for d, b in WALK_GRAPHS]
+    # probe depths 0 (every probe is deep), 1 (no probe step) to 20, num_hash 1-3 and 4 (the generic kernel)
+    + [("mf8", False, False, False, back, tpd, nh) for back in (True, False)
+       for tpd, nh in [(3, 1), (1, 2), (0, 2), (20, 3), (8, 4)]]
+)
+
+
+@pytest.mark.parametrize("dtype,blocked,stranded,left,back,tip_probe_depth,num_hash", NAIVE_OPTIONS)
+def test_naive_kernel_options_match_plain(cuda, dtype, blocked, stranded, left, back, tip_probe_depth, num_hash):
+    """Naive walks from the greedy tests' seeds on their graph, with the
+    options of ``NAIVE_OPTIONS``."""
+    from rnabloom_tpu_torch.graph import traverse
+
+    cfg, graph, seeds = _walk_graph(dtype, blocked, stranded, cuda, num_hash)
+    wcfg = traverse.WalkConfig(max_len=25 + 700, left=left, check_back_branches=back, tip_probe_depth=tip_probe_depth)
+    st = traverse.make_walks(cfg, wcfg, seeds, device=cuda)
+    rng = np.random.default_rng(4)
+    min_cov, bound = traverse.lane_args(
+        st, rng.choice([1.0, 2.0, 3.5], size=st.pos.shape[0]).astype(np.float32),
+        rng.integers(100, 700, size=st.pos.shape[0]).astype(np.int32),
+    )
+    _naive_kernel_and_plain(graph, cfg, wcfg, st, min_cov, bound)
+
+
+@pytest.mark.parametrize("W", [1, 45])
+def test_naive_kernel_odd_lane_counts_and_cap(cuda, W):
+    """A single lane, a lane count that is no multiple of a block's lanes,
+    and the superstep cap cutting live lanes."""
+    from rnabloom_tpu_torch.graph import traverse
+
+    cfg, graph, wcfg, st, min_cov, bound = _naive_walks(cuda, "mf8_right")
+    st = traverse.take_lanes(st, slice(0, W))
+    _naive_kernel_and_plain(graph, cfg, wcfg, st, min_cov[:W].contiguous(), bound[:W].contiguous())
+    cfg, graph, wcfg, st, min_cov, bound = _naive_walks(cuda, "mf8_right")
+    _naive_kernel_and_plain(graph, cfg, wcfg, st, min_cov, bound, superstep_hops=5, max_supersteps=7)
+
+
+def test_naive_walk_refuses_a_ring_and_greedy_back_branches(cuda):
+    from rnabloom_tpu_torch.graph import traverse
+    from rnabloom_tpu_torch.ops import walk
+
+    cfg, graph, seeds = _walk_graph("mf8", False, False, cuda)
+    wcfg = traverse.WalkConfig(max_len=200, pair_ring=64)
+    st = traverse.make_walks(cfg, wcfg, seeds, device=cuda)
+    min_cov, bound = traverse.lane_args(st, 1.0, 100)
+    with pytest.raises(ValueError, match="pair ring"):
+        walk.walk_naive(st, graph, cfg, wcfg, min_cov, bound)
+    wcfg = traverse.WalkConfig(max_len=200, check_back_branches=True)
+    st = traverse.make_walks(cfg, wcfg, seeds, device=cuda)
+    with pytest.raises(ValueError, match="naive-mode option"):
+        walk.walk_greedy(st, graph, cfg, wcfg, min_cov, bound)
+
+
+def test_extend_fragments_card_equals_cpu(cuda):
+    """-extend's walks (naive with back-branch checks, right, the
+    reverse-complement hand-off, left) on the card and on the CPU."""
+    from rnabloom_tpu_torch.assembly import fragments
+    from rnabloom_tpu_torch.ops import walk
+
+    cfg, graph, seeds = _walk_graph("mf8", False, False, cuda)
+    cpu = dbg.GraphState(*(None if t is None else t.cpu() for t in graph))
+    frags = [fragments.Fragment(codes=s, min_cov=1.0, length=len(s), connected=True) for s in seeds]
+    params = fragments.FragmentParams(bound=300)
+    rows = list(range(len(frags)))
+    n0 = walk.LAUNCHES["walk_naive"]
+    got = fragments._naive_extend_fragments(graph, cfg, list(frags), rows, params)
+    assert walk.LAUNCHES["walk_naive"] == n0 + 2
+    want = fragments._naive_extend_fragments(cpu, cfg, list(frags), rows, params)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.codes, b.codes)
+        assert a.length == b.length
 
 
 def _screen_on(cuda, cfg, rows, num_hash=2):

@@ -30,7 +30,7 @@ from rnabloom_tpu_torch.utils import pesim
 out = sys.argv[1]
 left, right = out + "/r_1.fq", out + "/r_2.fq"
 pesim.write_pe_fastq(left, right, seed=5, num_transcripts=5, tx_len=(500, 800), num_pairs=300)
-assert cli.main(["-left", left, "-right", right, "-o", out + "/asm", "-stage", "3", "-norr", "-savebf",
+assert cli.main(["-left", left, "-right", right, "-o", out + "/asm", "-savebf", "-extend",
                  "-mem", "0.00390625", "--device", "cpu"]) == 0
 loaded = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in ("jax", "rnabloom_tpu"))
@@ -52,6 +52,7 @@ def test_cpu_slice_runs_with_jax_blocked(tmp_path):
     assert os.path.exists(tmp_path / "asm" / "FRAGMENTS.DONE")
     assert os.path.exists(tmp_path / "asm" / "fragments" / "fragments.meta.json")
     assert os.path.getsize(tmp_path / "asm" / "rnabloom.transcripts.fa") > 0
+    assert os.path.getsize(tmp_path / "asm" / "rnabloom.transcripts.nr.fa") > 0
     assert os.path.exists(tmp_path / "asm" / "TRANSCRIPTS.DONE")
 
 
@@ -74,6 +75,9 @@ def test_no_jax_import_in_package_source():
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    # the nr pass's copies are among them
+    assert {os.path.join(PKG, "olc", name) for name in ("overlap.py", "graph.py", "layout.py")} <= set(paths)
+    assert os.path.join(PKG, "io", "seqstore.py") in paths
     for path in paths:
         with open(path) as fh:
             assert not _IMPORT_OF_JAX.search(fh.read()), path
@@ -87,14 +91,16 @@ def test_cuda_device_without_a_card_raises(tmp_path):
 
 
 def test_later_stages_are_refused_before_any_work(tmp_path):
-    """-stage 3 without -norr needs the non-redundant pass (item 11)."""
+    """The default -stage 3 runs (the nr pass is ported), but its rescue
+    pass (-rescue, stage 2b) is item 12: refused before any work."""
     left, right = str(tmp_path / "r_1.fq"), str(tmp_path / "r_2.fq")
     pesim.write_pe_fastq(left, right, seed=6, num_transcripts=2, tx_len=(500, 600), num_pairs=10)
     out = tmp_path / "asm"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue-1 item 11"):
-        pipeline.assemble_pe(left, right, str(out), pipeline.PipelineParams(stop_stage=3), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue-1 item 11"):
-        cli.run(["-left", left, "-right", right, "-o", str(out), "--device", "cpu"])  # -stage 3 is the default
+    with pytest.raises(NotImplementedError, match="ROADMAP queue-1 item 12"):
+        pipeline.assemble_pe(left, right, str(out), pipeline.PipelineParams(stop_stage=3, rescue_unconnected=True),
+                             device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue-1 item 12"):
+        cli.run(["-left", left, "-right", right, "-o", str(out), "-rescue", "--device", "cpu"])  # -stage 3: default
     assert not out.exists()
 
 
@@ -102,10 +108,12 @@ class _Stop(Exception):
     pass
 
 
-def _stage3_devices(entry, monkeypatch) -> list:
-    """The devices stage 3 creates its screen (``screen``) or its gap
-    re-walks and depth probes (``screen_walks``) on, for a graph on the
-    ``meta`` device: each spied constructor records its device and stops."""
+def _stage3_devices(entry, monkeypatch, tmp) -> list:
+    """The devices stage 3 creates its screen (``screen``), its gap
+    re-walks and depth probes (``screen_walks``) or the nr pass's minimizer
+    keys (``nr``) on, and stage 2's -extend its naive walks
+    (``extend_walks``), for a graph on the ``meta`` device: each spied
+    function records its device and stops."""
     from rnabloom_tpu_torch.assembly import transcripts
     from rnabloom_tpu_torch.assembly.fragstore import FragmentStore
     from rnabloom_tpu_torch.bloom import filters
@@ -129,6 +137,28 @@ def _stage3_devices(entry, monkeypatch) -> list:
             pipeline._run_stage3(graph, cfg, FragmentStore("unused", 200), "unused", pipeline.PipelineParams(),
                                  pipeline.PipelineReport())
         return seen
+    if entry == "nr":
+        # one batch of one fragment that assembles into one transcript,
+        # then the nr pass over it
+        from rnabloom_tpu_torch.olc import layout as olc_layout
+
+        batch = (np.zeros((1, 300), np.uint8), np.array([300]), np.array([5.0], np.float32), [True])
+        monkeypatch.setattr(FragmentStore, "iter_batches", lambda self, n, width: iter([batch]))
+        monkeypatch.setattr(transcripts, "assemble_transcripts_batch", lambda graph, cfg, screen, *a, **kw: (
+            [transcripts.Transcript(codes=np.arange(300, dtype=np.uint8) % 4, length=300)], [], screen))
+        spy((olc_layout, "layout_unitigs"))
+        with pytest.raises(_Stop):
+            pipeline._run_stage3(graph, cfg, FragmentStore(str(tmp), 200), str(tmp), pipeline.PipelineParams(),
+                                 pipeline.PipelineReport())
+        return seen
+    if entry == "extend_walks":
+        from rnabloom_tpu_torch.assembly import fragments
+
+        spy((traverse, "make_walks"))
+        frag = fragments.Fragment(codes=np.zeros(60, np.uint8), min_cov=1.0, length=60, connected=True)
+        with pytest.raises(_Stop):
+            fragments._naive_extend_fragments(graph, cfg, [frag], [0], fragments.FragmentParams())
+        return seen
     spy((traverse, "make_walks"))
     screen = filters.make_bloom(filters.BloomConfig(12, 2), device="meta")
     sgraph, pcfg = transcripts._screen_as_graph(screen, filters.BloomConfig(12, 2), cfg)
@@ -146,17 +176,20 @@ def _stage3_devices(entry, monkeypatch) -> list:
     return seen
 
 
-@pytest.mark.parametrize("entry", ["assemble_pe", "build_graph_autosized", "load_graph", "screen", "screen_walks"])
+@pytest.mark.parametrize("entry", ["assemble_pe", "build_graph_autosized", "load_graph", "screen", "screen_walks",
+                                   "nr", "extend_walks"])
 def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
     """Without ``device="cpu"`` the entry points run on the card, and raise
     where there is none, before any work is done.  Stage 3 creates its
     screen and the walks of its screen (gap re-walks, depth probes, the
-    screen viewed as a graph) on the graph's device."""
+    screen viewed as a graph) on the graph's device, and hashes the nr
+    pass's minimizers there (``layout_unitigs``); -extend makes its naive
+    walks (``walk_naive``) there."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    if entry in ("screen", "screen_walks"):
-        devices = _stage3_devices(entry, monkeypatch)
-        assert devices == [torch.device("meta")] * (1 if entry == "screen" else 3)
+    if entry in ("screen", "screen_walks", "nr", "extend_walks"):
+        devices = _stage3_devices(entry, monkeypatch, tmp_path)
+        assert devices == [torch.device("meta")] * (3 if entry == "screen_walks" else 1)
         return
     left, right = str(tmp_path / "r_1.fq"), str(tmp_path / "r_2.fq")
     pesim.write_pe_fastq(left, right, seed=6, num_transcripts=2, tx_len=(500, 600), num_pairs=10)
@@ -172,7 +205,7 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
     assert not out.exists()
 
 
-@pytest.mark.parametrize("flag", ["-extend", "-rescue", "-sef", "-ser"])
+@pytest.mark.parametrize("flag", ["-rescue", "-sef", "-ser"])
 def test_unported_stage2_options_are_refused_before_any_work(tmp_path, flag):
     left, right = str(tmp_path / "r_1.fq"), str(tmp_path / "r_2.fq")
     pesim.write_pe_fastq(left, right, seed=6, num_transcripts=2, tx_len=(500, 600), num_pairs=10)

@@ -91,3 +91,27 @@ def test_stage2_outputs_byte_identical(reads, tmp_path, monkeypatch, counter, ba
     assert any(f.startswith("fragments") and f.endswith(".nbits") for f in got)
     for f in want:
         assert got[f] == want[f], f"{f} differs"
+
+
+def test_stage2_cli_quality_and_coverage_flags_byte_identical(reads, tmp_path):
+    """-stranded, -Q, -c and -grad through the port's CLI against the JAX
+    package's assemble_pe with the same PipelineParams fields."""
+    left, right = reads
+    jout, tout = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jrep = jpipe.assemble_pe(
+        left, right, jout,
+        jpipe.PipelineParams(stop_stage=2, total_mem_bytes=MEM, sharded="off", batch_size=8192, sample_size=1000,
+                             bound=200, stranded=True, min_avg_qual=30, min_kmer_cov=2, max_cov_gradient=0.3),
+        save_graph=True,
+    )
+    trep = cli.run([
+        "-left", left, "-right", right, "-revcomp-right", "-o", tout, "-stage", "2", "-savebf",
+        "-mem", repr(MEM / (1 << 30)), "-bound", "200", "-stranded", "-Q", "30", "-c", "2", "-grad", "0.3",
+        "--device", "cpu",
+    ])
+    assert (trep.num_pairs, trep.num_fragments) == (jrep.num_pairs, jrep.num_fragments)
+    assert 0 < trep.num_fragments
+    want, got = _files(jout), _files(tout)
+    assert sorted(got) == sorted(want)
+    for f in want:
+        assert got[f] == want[f], f"{f} differs"

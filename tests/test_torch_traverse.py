@@ -28,6 +28,7 @@ from rnabloom_tpu.ops import nthash_ref
 from rnabloom_tpu_torch.bloom import filters as tf
 from rnabloom_tpu_torch.graph import dbg as tdbg, traverse as ttr
 from rnabloom_tpu_torch.ops import minifloat, nthash
+from stage3_common import NAIVE_CASES, WALK_DATA, naive_lane_args, naive_walk_rows
 
 torch.set_num_threads(2)
 
@@ -47,50 +48,7 @@ def _cfgs(dtype="mf8", blocked=False, stranded=False, hashes=2):
     )
 
 
-def _sim_data():
-    """Simulated reads of 16 transcripts at uneven depth, 30% with one
-    substitution; two transcripts share a 200-base prefix.  Seeds: head,
-    middle and reverse-complemented tail k-mers, and one with an N."""
-    rng = np.random.default_rng(7)
-    tx = rng.integers(0, 4, size=(16, 600), dtype=np.uint8)
-    tx[1, :200] = tx[0, :200]
-    reads = []
-    for t, depth in zip(tx, rng.integers(1, 9, size=16)):
-        for _ in range(depth):
-            for s in range(0, 500, 20):
-                r = t[s : s + 100].copy()
-                if rng.random() < 0.3:
-                    r[rng.integers(100)] = rng.integers(4)
-                reads.append(r)
-    seeds = np.concatenate([tx[:, :K], tx[:, 300 : 300 + K], 3 - tx[:, -K:][:, ::-1]])
-    seeds[5, 10] = 4
-    return np.stack(reads), seeds
-
-
-def _traverse_data():
-    """The tests/test_traverse.py graphs in one read set: a linear
-    transcript, a branch at 8x against 2x, and a unit repeated three
-    times; seeds at the head of each."""
-    rng = np.random.default_rng(2024)
-    rand = lambda n: rng.integers(0, 4, size=n, dtype=np.uint8)  # noqa: E731
-    linear = rand(300)
-    prefix = rand(100)
-    high, low = np.concatenate([prefix, rand(150)]), np.concatenate([prefix, rand(150)])
-    unit = rand(60)
-    cyc = np.concatenate([rand(80), unit, unit, unit])
-    L = 260
-    reads = []
-    for seq, copies in ((linear, 2), (high, 8), (low, 2), (cyc, 2)):
-        for s in range(0, max(len(seq) - L, 0) + 1, 20):
-            chunk = np.full(L, 4, np.uint8)
-            piece = seq[s : s + L]
-            chunk[: len(piece)] = piece
-            reads += [chunk] * copies
-    seeds = np.stack([linear[:K], prefix[:K], cyc[:K], linear[100 : 100 + K]])
-    return np.stack(reads), seeds
-
-
-_DATA = {"sim": _sim_data, "traverse": _traverse_data}
+_DATA = WALK_DATA
 
 
 @pytest.fixture(scope="module")
@@ -465,14 +423,73 @@ def test_kernel_emulation_equals_jax(graphs, jax_walks, case):
                 f"G={G} lane {w}: path_min"
 
 
-@pytest.mark.parametrize("what", ["naive", "back_branches", "terminators"])
+@pytest.mark.parametrize("what", ["back_branches", "terminators"])
 def test_unported_walk_modes_raise(graphs, what):
+    """Terminators wait for the oracle (item 14); back-branch checks are
+    ported in naive mode only, the one mode the JAX package runs them in."""
     _, _, ct, gt, seeds = graphs("traverse")
-    kw = {"back_branches": {"check_back_branches": True}, "terminators": {"use_terminators": True}}.get(what, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP queue-1 item"):
-        wcfg = ttr.WalkConfig(max_len=200, **kw)
+    if what == "terminators":
+        with pytest.raises(NotImplementedError, match="ROADMAP queue-1 item 14"):
+            ttr.WalkConfig(max_len=200, use_terminators=True)
+        return
+    for mode, ring in (("greedy", 0), ("pair", 64)):
+        wcfg = ttr.WalkConfig(max_len=200, check_back_branches=True, pair_ring=ring)
         st = ttr.make_walks(ct, wcfg, seeds, device="cpu")
-        ttr.extend_walks(st, gt, ct, wcfg, 1.0, 100, mode=what if what == "naive" else "greedy")
+        with pytest.raises(ValueError, match="only naive walks"):
+            ttr.extend_walks(st, gt, ct, wcfg, 1.0, 100, mode=mode)
+
+
+# ---- naive mode (-extend): depth-probed resolves and back-branch stops ----
+
+
+def naive_stops(st, graph, cfg, wcfg, min_cov) -> set:
+    """The kinds of stop among the finished walks ``st``: a lane stops
+    where it froze, so its final state is the state of the stop.  A
+    STOPPED_BRANCH lane whose k-mer has a deep left variant stopped on a
+    back branch (a hop checks it before any other status); any other one
+    at a resolve with no deep candidate or with several."""
+    W = st.pos.shape[0]
+    mc = torch.as_tensor(min_cov, dtype=torch.float32).expand(W).contiguous()
+    floor = torch.clamp(mc, min=1.0)[:, None]
+    out = ttr._gather_out_codes(st.buf, st.pos, cfg.k)
+    back = torch.zeros(W, dtype=torch.bool)
+    if wcfg.check_back_branches:
+        flv, rlv = nthash.variant_hashes_left(st.fh, out, cfg.k, st.rh)
+        cv = tdbg.get_counts(graph, cfg, ttr._query_hash(cfg, wcfg, flv, rlv))
+        viable_v = (cv >= floor) & (torch.arange(4)[None, :] != out[:, None])
+        back = (ttr._variant_depth_probe(graph, cfg, wcfg, st.buf, st.pos, flv, rlv, viable_v, mc)
+                >= wcfg.tip_probe_depth).any(dim=1)
+    fh4, rh4, q4 = ttr._successors(cfg, wcfg, st.fh, st.rh, out)
+    viable = tdbg.get_counts(graph, cfg, q4) >= floor
+    ndeep = (ttr._tip_probe(graph, cfg, wcfg, st.buf, st.pos, fh4, rh4, viable, mc) >= wcfg.tip_probe_depth).sum(1)
+    stopped = st.status == ttr.STOPPED_BRANCH
+    kinds = {
+        "back": stopped & back, "none_deep": stopped & ~back & (ndeep == 0),
+        "several_deep": stopped & ~back & (ndeep >= 2), "full": st.status == ttr.FULL,
+        "cycle": st.status == ttr.CYCLE,
+    }
+    assert not bool((stopped & ~back & (ndeep == 1)).any()), "a stop that neither rule explains"
+    return {name for name, m in kinds.items() if bool(m.any())}
+
+
+@pytest.mark.parametrize("case", list(NAIVE_CASES))
+def test_naive_walk_equals_jax(graphs, case):
+    """extend_walks(mode="naive") on the port's plain loop against the JAX
+    package's, every field equal; each case shows the stops it names."""
+    data, dtype, blocked, stranded, nh, left, back, tpd, max_len, _, stops = NAIVE_CASES[case]
+    cj, gj, ct, gt, seeds = graphs(data, dtype, blocked, stranded, nh)
+    rows = naive_walk_rows(data, _DATA[data]()[0], seeds, stranded, left)
+    kw = dict(max_len=max_len, left=left, check_back_branches=back, tip_probe_depth=tpd)
+    wj, wt = jtr.WalkConfig(**kw), ttr.WalkConfig(**kw)
+    j0 = jtr.make_walks(cj, wj, rows)
+    s0 = ttr.make_walks(ct, wt, rows, device="cpu")
+    _assert_states_equal(s0, ttr.walk_state_from_limbs(jax.device_get(j0)), "make_walks")
+    min_cov, bound = naive_lane_args(case, s0.pos.shape[0])
+    want = ttr.walk_state_from_limbs(jax.device_get(jtr.extend_walks(j0, gj, cj, wj, min_cov, bound, mode="naive")))
+    got = ttr.extend_walks(s0, gt, ct, wt, min_cov, bound, mode="naive")
+    _assert_states_equal(got, want, "extend_walks(mode='naive')")
+    assert int(got.hops.sum()) > 0
+    assert naive_stops(got, gt, ct, wt, min_cov) >= stops
 
 
 # ---- pair mode: branches resolved by read/fragment pair support ----
