@@ -5,8 +5,9 @@
 
 Run from the root of a checkout on a machine with a CUDA card.  It imports
 no JAX.  ``--walk-variant`` adds another walk kernel source with the same C
-entry point (a copy of ``csrc/walk_greedy.cu`` with another tile width, or
-an older commit's kernel from ``git show``) to phase 4, built beside the
+entry points (a copy of ``csrc/walk_greedy.cu`` with another constant, or
+an older commit's kernel from ``git show``) to phases 4 (greedy walks) and
+6 (pair walks, where the source has ``walk_pair``), built beside the
 port's kernels, held to the same equality and timed in the same turns.
 ``--insert-variant`` does the same for another ``csrc/cell_insert.cu`` in
 phase 2 (an older source whose mf8 entry point is ``cell_add_mf8``, with
@@ -18,7 +19,9 @@ Phases (any failure raises and exits nonzero):
    together) and their build times, and what ``nvcc -Xptxas -v`` reports
    for each instantiation of the walk kernel (registers, stack, spills)
    and for each insert kernel (registers, spills) when this run built
-   them.  Then 1,000,000 simulated 150 bp pairs are written (seed 0).
+   them; ``tools/dependent_read.cu`` (phase 6's latency probe) is built
+   beside them.  Then 1,000,000 simulated 150 bp pairs are written (seed
+   0).
 2. Insert kernel vs its plain PyTorch version on the card, per op, at the
    stage-1 shapes of ``-mem 1`` (2^29-cell mf8 cbf, 2^28-cell u16 cbf,
    2^27-cell blocked int32 cbf, 2^27-lane rpkbf), on two kinds of batch:
@@ -50,7 +53,10 @@ Phases (any failure raises and exits nonzero):
    (its records well formed), its peak device memory and its insert buffer (add_mf8's batch table: at most 64 MiB for
    mf8, none for u16), and the share of its stage-1-2 ``set`` indices
    that found their lane already set (1 - set lanes in the saved rpkbf /
-   set indices applied).
+   set indices applied).  The ``-stage 3`` run records a pair of CUDA
+   events around every kernel launch (``ops/launch_timer.py``, read once
+   after the run): launches and summed card time per kernel, and
+   ``walk_pair``'s launches by lane count beside the ``extend`` span.
 4. Walk kernel vs its plain PyTorch version on the card, at stage-2
    shapes: the bridge-walk seeds of the first stage-2 batch (8192 pairs,
    error-corrected and overlap-tested as ``assemble_fragments_batch``
@@ -66,7 +72,7 @@ Phases (any failure raises and exits nonzero):
    random-read rate.
 5. Card against CPU: ``-stage 1`` on a 20,000-pair subset for ``-cnt
    mf8``, ``u16`` and ``int32`` (byte-identical checkpoints), and
-   ``-stage 2 -savebf`` on the first 8192 pairs (one stage-2 batch) for
+   ``-stage 2 -savebf`` on the first 4096 pairs (half a stage-2 batch) for
    ``-cnt mf8`` and ``u16``: every file under the output directory (the
    fragment store, the checkpoint with its fragment distance, the read
    statistics, the stamps) must be byte-identical.  Stage 2b
@@ -75,7 +81,7 @@ Phases (any failure raises and exits nonzero):
    checkpoints, must be byte-identical.  ``-stage 3`` on the first 2000
    pairs on the card and on the CPU: every file byte-identical (the
    transcripts and ``transcripts.nr.fa`` included), report.json equal but
-   for elapsed_s.  ``-stage 2 -extend`` on the first 8192 pairs on the
+   for elapsed_s.  ``-stage 2 -extend`` on the first 2000 pairs on the
    card and on the CPU: every file byte-identical.  The repo's
    golden dataset (``utils/pesim.write_golden_fastq``, the reads of
    ``tests/test_golden.py``) through ``assemble_pe`` on the card: the
@@ -90,13 +96,20 @@ Phases (any failure raises and exits nonzero):
    order (one stratum at a time, a stratum's last batch padded), up to and
    including the first full batch.  On that batch each walk is run again
    by the kernel and once by the plain loop: every field equal, the pair
-   ring included.  Times of the right walks in turns (the plain loop's
-   equality run is its turn); a replay of the plain loop (``pair_tally``,
-   which must end in the plain loop's state) counts the cell, pkbf-lane
-   and ring reads the kernel's schedule makes; the bound is those reads as
-   32 B sectors plus the walk state read and written, over 3.35 TB/s;
-   beside it one torch gather of as many random cbf cells and fpkbf lanes.
-   The right walks of stage 3's first batch are timed too.
+   ring included; the right walks of it, of stage 3's first batch and of
+   that batch's fragments alone (in a launch of their own) by each
+   ``--walk-variant`` too, and by the plain loop.  Times of the right
+   walks of the three in turns (kernel, variants,
+   variants, kernel; the plain loop's equality run is its turn); a replay
+   of the plain loop (``pair_tally``, which must end in the plain loop's
+   state) counts the cell, pkbf-lane and ring reads the plain loop needs
+   (the bound: those reads as 32 B sectors plus the walk state read and
+   written, over 3.35 TB/s), the cells this kernel's schedule reads, and
+   each lane's dependent rounds under this schedule and the one-step one; beside it
+   one torch gather of as many random cbf cells and fpkbf lanes.  The lane
+   with the most rounds is walked alone (the latency floor; time per
+   round), beside one thread's chain of dependent random reads of the cbf
+   (the card's latency of one dependent read).
 7. Stage 3's greedy walks on the rebuilt graph of phase 6: stage 3's
    batches in its own order on a fresh screen (as phase 3 ran them) up to
    the first that issues gap re-walks; that batch again from the screen it
@@ -118,8 +131,8 @@ Phases (any failure raises and exits nonzero):
    schedule reads; the bound is those reads as 32 B sectors plus the walk
    state read and written, over 3.35 TB/s; beside it one gather of as
    many random cells.  Then the main path of this slice, with every
-   launch count set to 0 before it: ``-stage 2 -extend`` on the first 16
-   batches of the 1M pairs (131,072 pairs: a depth cut), its pairs/s and
+   launch count set to 0 before it: ``-stage 2 -extend`` on the first 8
+   batches of the 1M pairs (65,536 pairs: a depth cut), its pairs/s and
    its launches (``walk_naive`` among them).
 
 The line before the last is a JSON object of the kernels; the last line is
@@ -152,13 +165,14 @@ from rnabloom_tpu_torch.assembly.fragstore import FragmentStore
 from rnabloom_tpu_torch.bloom import filters
 from rnabloom_tpu_torch.graph import dbg, engine, traverse
 from rnabloom_tpu_torch.io import fastx, native
-from rnabloom_tpu_torch.ops import _build, cell_insert as ci, nthash, walk
+from rnabloom_tpu_torch.ops import _build, cell_insert as ci, launch_timer, nthash, walk
 from rnabloom_tpu_torch.utils import checkpoint, pesim, seq as sequtils
 
 KERNEL_SOURCE = "rnabloom_tpu_torch/csrc/cell_insert.cu"
 TPU_KERNEL = "rnabloom_tpu/ops/histmerge.py:187"
 WALK_SOURCE = "rnabloom_tpu_torch/csrc/walk_greedy.cu"
 WALK_REPLACES = "rnabloom_tpu/graph/traverse.py:1032"
+CHASE_SOURCE = "tools/dependent_read.cu"  # phase 6's dependent-read latency probe
 CKPT_FILES = ("rnabloom.graph.graph.json", "rnabloom.graph.cbf.npy", "rnabloom.graph.rpkbf.npy")
 WALK_FIELDS = ("buf", "pos", "status", "hops", "path_min", "fh", "rh", "hist")
 PAIR_FIELDS = WALK_FIELDS + ("ring_fh", "ring_rh")
@@ -192,7 +206,8 @@ PAIRS = 1_000_000
 BATCH2 = 8192  # pairs per stage-2 batch
 CBF_LOG2 = {"mf8": 29, "u16": 28}  # default cbf at -mem 1, before any resize
 STAGE3_PAIRS = 2000  # the card-vs-CPU -stage 3 run (with the nr pass)
-EXTEND_BATCHES = 16  # stage-2 batches of the -extend main-path run: a depth cut of the 1M pairs
+EXTEND_BATCHES = 8  # stage-2 batches of the -extend main-path run: a depth cut of the 1M pairs
+STAGE2_PAIRS = 4096  # the card-vs-CPU -stage 2 runs and their stage 2b: half a stage-2 batch
 MAXCLIP = 8  # -maxclip of phase 7's rerun, which reaches the screen-as-graph probe
 GOLDEN = "tests/golden/pe_golden.json"
 # stage-3 uses of the greedy walk kernel: kind -> the kernels line's name
@@ -257,8 +272,8 @@ def insert_ptxas(log: str) -> list:
 def build_variant(kind: str, i: int, src: str) -> ctypes.CDLL:
     """Another ``kind`` ("walk" or "insert") kernel source, built with the
     port's nvcc flags into ``build/{kind}_variants/``, its entry points
-    bound as the port's are.  A walk source may lack ``walk_pair`` (phase 4
-    times greedy mode); an insert source may have, in place of
+    bound as the port's are.  A walk source may lack ``walk_pair`` (then
+    phase 6 skips it); an insert source may have, in place of
     ``cell_add_mf8_batch``, the older ``cell_add_mf8`` (an int32 scratch as
     long as the table)."""
     lib = os.path.join(_build.BUILD_DIR, f"{kind}_variants", f"lib{i}.so")
@@ -282,13 +297,29 @@ def build_variant(kind: str, i: int, src: str) -> ctypes.CDLL:
 
 @contextlib.contextmanager
 def walk_library(lib: ctypes.CDLL):
-    """Route ``walk.walk_greedy`` to ``lib`` (a ``--walk-variant`` build)."""
+    """Route the walk wrappers to ``lib`` (a ``--walk-variant`` build)."""
     saved = _build.walk_kernels()
     _build._libs[_build.WALK_LIB] = lib
     try:
         yield
     finally:
         _build._libs[_build.WALK_LIB] = saved
+
+
+def build_chase() -> ctypes.CDLL:
+    """``tools/dependent_read.cu``, built with the port's nvcc flags into
+    ``build/tools/``."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), CHASE_SOURCE)
+    lib = os.path.join(_build.BUILD_DIR, "tools", "libdependent_read.so")
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, src, "-o", lib], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    so = ctypes.CDLL(lib)
+    so.dependent_read.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_ulonglong,
+                                  ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    so.dependent_read.restype = ctypes.c_int
+    return so
 
 
 def phase(name: str) -> None:
@@ -724,10 +755,11 @@ def main_path(left: str, right: str, out: str, counter: str, stage: int, n_pairs
     held = torch.cuda.memory_allocated()
     probe = Stage3Probe()
     t0 = time.time()
-    with probe.installed() if stage == 3 else contextlib.nullcontext():
+    with probe.installed() if stage == 3 else contextlib.nullcontext(), launch_timer.recording() as rec:
         report = run_cli(left, right, out, "cuda", counter, stage)
     torch.cuda.synchronize()
     wall = time.time() - t0
+    card_times = rec.times()
     launches = {**ci.launch_counts(), **walk.launch_counts()}
     # the saved graph is stage 2's: its rpkbf took the set indices of stages 1-2
     set_indices = (probe.indices_before["rebuild"] if stage == 3 else ci.index_counts())["set"]
@@ -753,6 +785,7 @@ def main_path(left: str, right: str, out: str, counter: str, stage: int, n_pairs
     stage3 = None
     if stage == 3:
         stage3 = stage3_report(tag, report, probe, out, card)
+        stage3["card_time"] = card_time_report(tag, card_times, report.stage3_spans["extend"], card)
     print(f"{tag}: peak device memory {peak} B ({peak / 2**30:.3f} GiB; {held} B held before "
           f"the run); insert buffer (add_mf8's batch table) after it: {buffer} B")
     # stage 1 gives every set index in range (an invalid window goes to the
@@ -814,6 +847,27 @@ def stage3_report(tag: str, report, probe: "Stage3Probe", out: str, card: str) -
     assert s3["walk_pair"] > 0 and s3["walk_greedy"] > 0 and s3["set"] > 0, s3
     assert s3["walk_greedy"] == sum(r["greedy_uses"].values()), (s3, r["greedy_uses"])
     return r
+
+
+def card_time_report(tag: str, times: list, extend_s: float, card: str) -> dict:
+    """Launches and summed card time (CUDA events around each launch, read
+    once after the run) per kernel of a main-path run, and a histogram of
+    walk_pair's lane counts."""
+    out = {}
+    for name, size, ms in times:
+        r = out.setdefault(name, {"launches": 0, "ms": 0.0, "sizes": {}})
+        r["launches"] += 1
+        r["ms"] += ms
+        r["sizes"][size] = r["sizes"].get(size, 0) + 1
+    for name, r in sorted(out.items()):
+        print(f"{tag}: card time of {name}: {r['launches']} launches, {r['ms']:.2f} ms in all, "
+              f"{r['ms'] / r['launches']:.4f} ms a launch [{card}]")
+    pair = out.get("walk_pair", {"ms": 0.0, "sizes": {}})
+    hist = ", ".join(f"{lanes} lanes x{n}" for lanes, n in sorted(pair["sizes"].items()))
+    print(f"{tag}: walk_pair launches by lane count: {hist}; their card time {pair['ms']:.2f} ms of the "
+          f"extend span's {extend_s * 1000:.1f} ms [{card}]", flush=True)
+    return {name: {"launches": r["launches"], "ms": r["ms"], "sizes": {str(k): v for k, v in r["sizes"].items()}}
+            for name, r in out.items()}
 
 
 def stage2_walk_seeds(left: str, right: str, graph, cfg) -> np.ndarray:
@@ -1096,18 +1150,34 @@ def stage3_batches(store: FragmentStore, n: int, width: int) -> list:
 
 def pair_tally(st, graph, cfg, wcfg, mc, bd) -> dict:
     """The plain pair loop replayed one hop at a time with the plain
-    version's own steps, counting what the kernel's schedule reads: 4 k-mers
-    a hop (not after a resolve that advanced: it read them at probe step
-    1), and per resolve the 4 successors of every live probe at each step,
-    num_hash cells a k-mer, and the pkbf lanes of every live probe whose
-    partner is in the ring (pkbf num_hash a key), plus the ring entry of
-    each such partner.  Returns the tallies and the final state."""
+    version's own steps, counting per lane what two schedules of the kernel
+    read and how many dependent rounds they take.
+
+    Both read num_hash cells a k-mer, and the pkbf lanes (pkbf num_hash a
+    key) of every live probe depth whose partner is in the ring, plus the
+    ring entry of each such partner.  Reads the plain loop needs (the
+    bound): 4 k-mers a hop (not after a resolve that advanced: read at its
+    probe step 1), the 4 successors of every live probe at each step.
+
+    The one-step schedule (``old``): a hop that reads is a round; a resolve is D +
+    1 rounds (the first partner, D - 1 steps, the last lookups).
+
+    This schedule (``new``): a hop that reads also reads the candidates'
+    16 children, and a hop that advances hands its choice's children to
+    the next hop, which costs no round; a resolve takes step 1 from the
+    children when it has them, then two steps a round (the 4 successors of
+    each live probe and their 16 children), then a round of last lookups; a
+    resolve that advances hands on step 1's counts, and the children of
+    step 1 when its first round took steps 1 and 2.  Returns the tallies
+    and the final state."""
     state = traverse.clone_state(st)
     h, k, D, R = cfg.cbf.num_hash, cfg.k, wcfg.pair_probe_depth, wcfg.pair_ring
     W, dev = st.pos.shape[0], st.pos.device
     zero = torch.zeros(W, dtype=torch.int64, device=dev)
     hops, resolves, cells, lanes, ring_reads = zero.clone(), zero.clone(), zero.clone(), zero.clone(), zero.clone()
+    old_rounds, new_rounds, new_cells, free_hops, res_rounds = (zero.clone() for _ in range(5))
     reused = torch.zeros(W, dtype=torch.bool, device=dev)
+    cached, kids = reused.clone(), reused.clone()
     classes = [d for d, t in ((cfg.read_pair_distance, graph.rpkbf), (cfg.fragment_pair_distance, graph.fpkbf))
                if t is not None and d > 0]
     j = torch.arange(D, device=dev)
@@ -1120,8 +1190,19 @@ def pair_tally(st, graph, cfg, wcfg, mc, bd) -> dict:
                 break
             hops += active
             cells += (active & ~reused) * 4 * h
+            old_rounds += active & ~reused
             reused &= ~active
+            read = active & ~cached
+            new_rounds += read
+            new_cells += read * 20 * h
+            free_hops += active & cached
+            kids |= read
+            cached |= read
+            pos0 = state.pos
             state = traverse.walk_superstep(state, graph, cfg, wcfg, mc, bd, 1)
+            adv = active & (state.pos > pos0)
+            cached = torch.where(adv, kids, cached)
+            kids &= ~adv
         branch = state.status == traverse.BRANCH
         if bool(branch.any()):
             out = traverse._gather_out_codes(state.buf, state.pos, k)
@@ -1129,6 +1210,22 @@ def pair_tally(st, graph, cfg, wcfg, mc, bd) -> dict:
             alive_p = traverse._probe_with_hashes(graph, cfg, wcfg, state.buf, state.pos, fh4, rh4, q4, mc)[3]
             resolves += branch
             cells += branch * alive_p[..., : D - 1].sum(dim=(1, 2)) * 4 * h
+            old_rounds += branch * (D + 1)
+            read = branch & ~cached
+            new_rounds += read
+            new_cells += read * 20 * h
+            kids |= read
+            entry_kids = kids.clone()
+            # rounds of two steps from step 2 (step 1 from the children) or 1
+            live = alive_p.sum(dim=1)  # (W, D): live probes at each depth
+            for j0, lanes_of in ((1, entry_kids & (D > 1)), (0, ~(entry_kids & (D > 1)))):
+                sel = branch & lanes_of
+                steps = D - 1 - j0
+                n_rounds = (steps + 1) // 2 + 1
+                new_rounds += sel * n_rounds
+                res_rounds += sel * n_rounds
+                for jj in range(j0 + 1, D, 2):
+                    new_cells += sel * live[:, jj - 1] * (20 if jj + 1 < D else 4) * h
             for dist in classes:
                 end = state.pos.long()[:, None] - dist + j
                 reach = (end >= k - 1) & (state.pos.long()[:, None] - end < R)  # (W, D)
@@ -1136,20 +1233,50 @@ def pair_tally(st, graph, cfg, wcfg, mc, bd) -> dict:
                 ring_reads += branch * reach.sum(dim=1) * 2
             pos0 = state.pos
             state = traverse.resolve_branches(state, graph, cfg, wcfg, mc, mode="pair")
-            reused |= branch & (state.pos > pos0) & (D > 1) & (k > 1)
+            adv = branch & (state.pos > pos0)
+            reused |= adv & (D > 1) & (k > 1)
+            cached = torch.where(branch, adv & (entry_kids | (D > 1)), cached)
+            kids = torch.where(branch, adv & ~entry_kids & (D > 2), kids)
     return {"state": state, "hops": hops, "resolves": resolves, "cells": cells, "lanes": lanes,
-            "ring_reads": ring_reads}
+            "ring_reads": ring_reads, "old_rounds": old_rounds, "new_rounds": new_rounds, "new_cells": new_cells,
+            "free_hops": free_hops, "resolve_rounds": res_rounds}
 
 
-def pair_vs_plain(graph, cfg, store: FragmentStore, card: str, dev) -> dict:
+def dependent_read_ns(lib: ctypes.CDLL, table: torch.Tensor, cells: int = 0, threads: int = 1,
+                      chains: int = 1) -> float:
+    """The card's latency of a round of dependent random reads of the first
+    ``cells`` bytes of ``table`` (a power of two; default: all of a
+    power-of-two table plus its trash cell), ``threads`` x ``chains``
+    reads in flight from one SM (``tools/dependent_read.cu``): the
+    difference of a long and a short run over their difference in rounds,
+    best of 3."""
+    out = torch.zeros(1, dtype=torch.int64, device=table.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    mask = (cells or 1 << (table.numel().bit_length() - 1)) - 1
+
+    def run(steps):
+        err = lib.dependent_read(table.data_ptr(), mask, steps, 12345, out.data_ptr(), threads, chains, stream)
+        if err:
+            raise RuntimeError(f"dependent_read launch failed: cudaError_t {err}")
+
+    run(1000)
+    long_ms = min(_time_ms(lambda: run(20_000), reps=1) for _ in range(3))
+    short_ms = min(_time_ms(lambda: run(2_000), reps=1) for _ in range(3))
+    return (long_ms - short_ms) * 1e6 / 18_000
+
+
+def pair_vs_plain(graph, cfg, store: FragmentStore, card: str, dev, variants: dict, chase) -> dict:
     """The stage-3 extension on the rebuilt graph: ``extend_fragments_pair``
     on stage 3's batches in its order up to the first full one (the main
     path's launches).  On that full batch, each of its walks (right; left
     from the kernel's right walks) by the kernel and once by the plain
-    loop, every field equal; the right walks' times in turns (the plain
-    loop's equality run is its timing turn); a replay of the plain loop
-    (its reads, the bound) that must end in the plain loop's state; the
-    gather yardstick.  The first batch's right walks are timed too."""
+    loop, every field equal; on it and on the first batch the right walks
+    by each ``--walk-variant`` too, equal to the plain loop, and the times
+    of the kernel and the variants in turns (the plain loop's equality
+    run is its turn); a replay of the plain loop (``pair_tally``, its
+    reads, the bound, both schedules' rounds) that must end in the plain
+    loop's state; the lane with the most rounds walked alone, beside the
+    card's latency of one dependent read; the gather yardstick."""
     params, tparams = pipeline.PipelineParams(), transcripts.TranscriptParams()
     width = int(min(max(store.max_len, cfg.k), params.max_walk_len))
     batches = stage3_batches(store, params.stage3_batch, width)
@@ -1174,9 +1301,19 @@ def pair_vs_plain(graph, cfg, store: FragmentStore, card: str, dev) -> dict:
         st = traverse.make_walks(cfg, wcfg(False), frags, lens, device=dev)
         return (st, *traverse.lane_args(st, 1.0, tparams.bound))
 
+    def call(who, st, lane_mc, lane_bd):
+        with walk_library(variants[who]) if who in variants else contextlib.nullcontext():
+            return walk.walk_pair(st, graph, cfg, wcfg(False), lane_mc, lane_bd)
+
+    def check(who, got, want, what):
+        torch.cuda.synchronize()
+        bad = [f for f in PAIR_FIELDS if not torch.equal(getattr(got, f), getattr(want, f))]
+        if bad:
+            raise AssertionError(f"walk_pair ({who}) != plain on {what}: {bad} differ")
+
     first, first_mc, first_bd = right_walks(*batches[0][1:])
-    first_ms = min(_time_ms(lambda: walk.walk_pair(first, graph, cfg, wcfg(False), first_mc, first_bd), reps=5)
-                   for _ in range(2))
+    live0 = batches[0][2] > 0
+    small, small_mc, small_bd = right_walks(batches[0][1][live0], batches[0][2][live0])  # padded to 2^j >= 64
     key, frags, lens = batches[-1]
     right, mc, bd = right_walks(frags, lens)
     kern_r = walk.walk_pair(right, graph, cfg, wcfg(False), mc, bd)
@@ -1188,17 +1325,29 @@ def pair_vs_plain(graph, cfg, store: FragmentStore, card: str, dev) -> dict:
         nonlocal plain_r
         plain_r = walk.walk_pair_plain(right, graph, cfg, wcfg(False), mc, bd)
 
-    kernel_right = lambda: walk.walk_pair(right, graph, cfg, wcfg(False), mc, bd)  # noqa: E731
-    t = {"kernel": [_time_ms(kernel_right, reps=5)], "plain": [_time_ms(plain_right, reps=1)]}
-    t["kernel"].append(_time_ms(kernel_right, reps=5))
+    builds = ["kernel", *variants]
+    t = {who: [] for who in builds}
+    t_first = {who: [] for who in builds}
+    t_small = {who: [] for who in builds}
+    t["plain"] = [_time_ms(plain_right, reps=1)]
+    t0 = time.time()
+    plain_first = walk.walk_pair_plain(first, graph, cfg, wcfg(False), first_mc, first_bd)
+    plain_first_s = time.time() - t0
+    plain_small = walk.walk_pair_plain(small, graph, cfg, wcfg(False), small_mc, small_bd)
+    for who in builds:
+        check(who, call(who, right, mc, bd), plain_r, "the right walks of stage 3's first full batch")
+        check(who, call(who, first, first_mc, first_bd), plain_first, "the right walks of stage 3's batch 0")
+        check(who, call(who, small, small_mc, small_bd), plain_small, "batch 0's fragments alone")
+    for who in (*builds, *builds[::-1]):
+        t[who].append(_time_ms(lambda: call(who, right, mc, bd), reps=5))
+        t_first[who].append(_time_ms(lambda: call(who, first, first_mc, first_bd), reps=5))
+        t_small[who].append(_time_ms(lambda: call(who, small, small_mc, small_bd), reps=5))
     t0 = time.time()
     plain_l = walk.walk_pair_plain(left, graph, cfg, wcfg(True), mc, bd)
     torch.cuda.synchronize()
     plain_left_s = time.time() - t0
     for what, kern, plain in (("right", kern_r, plain_r), ("left", kern_l, plain_l)):
-        bad = [f for f in PAIR_FIELDS if not torch.equal(getattr(kern, f), getattr(plain, f))]
-        if bad:
-            raise AssertionError(f"walk_pair != plain on the {what} walks of stage 3's batch: {bad} differ")
+        check("kernel", kern, plain, f"the {what} walks of stage 3's first full batch")
     # the main path's extension of this batch equals what the separate walks give
     assert torch.equal(kern_l.pos.cpu()[: frags.shape[0]], torch.from_numpy(ext_len.astype(np.int32)))
     t0 = time.time()
@@ -1207,6 +1356,20 @@ def pair_vs_plain(graph, cfg, store: FragmentStore, card: str, dev) -> dict:
     bad = [f for f in PAIR_FIELDS if not torch.equal(getattr(tally["state"], f), getattr(plain_r, f))]
     if bad:
         raise AssertionError(f"the tallied replay of the plain pair loop differs: {bad}")
+    # the lane with the most dependent rounds under this schedule, walked alone
+    w = int(torch.argmax(tally["new_rounds"]))
+    one = traverse.take_lanes(right, slice(w, w + 1))
+    one_mc, one_bd = mc[w : w + 1].contiguous(), bd[w : w + 1].contiguous()
+    lane_ms = {}
+    for who in builds:
+        alone = call(who, one, one_mc, one_bd)
+        torch.cuda.synchronize()
+        bad = [f for f in PAIR_FIELDS if not torch.equal(getattr(alone, f), getattr(plain_r, f)[w : w + 1])]
+        if bad:
+            raise AssertionError(f"walk_pair ({who}): lane {w} walked alone differs from the plain loop: {bad}")
+    for who in (*builds, *builds[::-1]):
+        lane_ms.setdefault(who, []).append(_time_ms(lambda: call(who, one, one_mc, one_bd), reps=5))
+    read_ns = dependent_read_ns(chase, graph.cbf)
     cells, pk_lanes = int(tally["cells"].sum()), int(tally["lanes"].sum())
     state_bytes = sum(x.numel() * x.element_size() for x in right if x is not None) * 2 + 8 * mc.numel()
     bound_ms = ((cells + pk_lanes) * SECTOR + state_bytes) / HBM_BYTES_PER_MS
@@ -1217,15 +1380,30 @@ def pair_vs_plain(graph, cfg, store: FragmentStore, card: str, dev) -> dict:
     gather_ms = min(_time_ms(gather, reps=3) for _ in range(3))
     del idx_c, idx_p
     status = torch.bincount(kern_r.status.long(), minlength=7).tolist()
+    lane_rounds = {name: int(tally[f"{name}_rounds"][w]) for name in ("old", "new")}
     r = {
         "lanes": int(right.pos.shape[0]), "batches": len(batches), "batch": len(batches) - 1, "stratum": key,
-        "plain_left_s": plain_left_s, "tally_s": tally_s,
-        "ms": sum(t["kernel"]) / 2, "plain_ms": t["plain"][0], "bound_ms": bound_ms, "gather_ms": gather_ms,
+        "plain_left_s": plain_left_s, "tally_s": tally_s, "plain_first_s": plain_first_s,
+        "ms": _mean(t["kernel"]), "plain_ms": t["plain"][0], "bound_ms": bound_ms, "gather_ms": gather_ms,
         "cells": cells, "pkbf_lanes": pk_lanes, "ring_reads": int(tally["ring_reads"].sum()),
+        "new_cells": int(tally["new_cells"].sum()),
         "hops": int(tally["hops"].sum()), "resolves": int(tally["resolves"].sum()),
+        "free_hops": int(tally["free_hops"].sum()),
         "max_hops": int(kern_r.hops.max()), "launches": launches,
-        "first_fragments": int((batches[0][2] > 0).sum()), "first_ms": first_ms,
+        "first_fragments": int(live0.sum()), "first_ms": _mean(t_first["kernel"]),
+        "small_lanes": int(small.pos.shape[0]), "small_ms": _mean(t_small["kernel"]),
         "max_abs_err": max(_max_abs_diff(kern_r, plain_r, PAIR_FIELDS), _max_abs_diff(kern_l, plain_l, PAIR_FIELDS)),
+        "rounds_old": int(tally["old_rounds"].sum()), "rounds_new": int(tally["new_rounds"].sum()),
+        "longest_lane": w, "longest_lane_rounds": lane_rounds["new"], "longest_lane_rounds_old": lane_rounds["old"],
+        "longest_lane_hops": int(tally["hops"][w]), "longest_lane_free_hops": int(tally["free_hops"][w]),
+        "longest_lane_resolves": int(tally["resolves"][w]),
+        "longest_lane_resolve_rounds": int(tally["resolve_rounds"][w]),
+        "longest_lane_ms": min(lane_ms["kernel"]), "dependent_read_ns": read_ns,
+        "round_ns": min(lane_ms["kernel"]) * 1e6 / max(lane_rounds["new"], 1),
+        "variants": {who: {"ms": _mean(t[who]), "first_ms": _mean(t_first[who]), "small_ms": _mean(t_small[who]),
+                           "longest_lane_ms": min(lane_ms[who]),
+                           "round_ns_old_schedule": min(lane_ms[who]) * 1e6 / max(lane_rounds["old"], 1)}
+                     for who in variants},
     }
     print(f"walk_pair: stage 3's batch {r['batch']}, the first full one ({r['lanes']} fragments of stratum {key}): "
           f"right and left walks (max_len {tparams.max_walk_len}, ring {tparams.pair_ring}, probe depth 24, bound "
@@ -1234,10 +1412,27 @@ def pair_vs_plain(graph, cfg, store: FragmentStore, card: str, dev) -> dict:
     print(f"walk_pair (right walks of that batch): kernel {r['ms']:.4f} ms ({', '.join(f'{x:.4f}' for x in t['kernel'])}), "
           f"plain {r['plain_ms']:.2f} ms; the batch needs {r['hops']} hops, {r['resolves']} pair resolves, {cells} cbf "
           f"cell reads, {pk_lanes} pkbf lane reads, {r['ring_reads']} ring entries: bound {bound_ms:.4f} ms "
-          f"({SECTOR} B a cell or lane, state and ring {state_bytes} B, at 3.35 TB/s); one gather of as many random "
-          f"cbf cells and fpkbf lanes {gather_ms:.4f} ms [{card}]", flush=True)
+          f"({SECTOR} B a cell or lane, state and ring {state_bytes} B, at 3.35 TB/s); this schedule reads "
+          f"{r['new_cells']} cbf cells ({r['new_cells'] / max(cells, 1):.2f} times); one gather of as many random "
+          f"cbf cells and fpkbf lanes as the bound counts {gather_ms:.4f} ms [{card}]", flush=True)
     print(f"walk_pair (right walks of stage 3's batch 0, stratum {batches[0][0]}, {r['first_fragments']} fragments in "
-          f"{first.pos.shape[0]} lanes): kernel {first_ms:.4f} ms [{card}]", flush=True)
+          f"{first.pos.shape[0]} lanes): kernel {r['first_ms']:.4f} ms "
+          f"({', '.join(f'{x:.4f}' for x in t_first['kernel'])}); equal to the plain loop ({plain_first_s:.1f} s); "
+          f"those fragments alone in {r['small_lanes']} lanes {r['small_ms']:.4f} ms "
+          f"({', '.join(f'{x:.4f}' for x in t_small['kernel'])}) [{card}]", flush=True)
+    print(f"walk_pair rounds: the batch's lanes take {r['rounds_old']} dependent rounds in all under the one-step schedule "
+          f"(a hop that reads 1, a resolve D + 1) and {r['rounds_new']} under this one ({r['free_hops']} of "
+          f"{r['hops']} hops cost no round); longest lane {w}: {r['longest_lane_hops']} hops "
+          f"({r['longest_lane_free_hops']} free), {r['longest_lane_resolves']} resolves "
+          f"({r['longest_lane_resolve_rounds']} rounds), {lane_rounds['new']} rounds (one-step schedule "
+          f"{lane_rounds['old']}), walked alone {r['longest_lane_ms']:.4f} ms: {r['round_ns']:.1f} ns a round; one "
+          f"dependent random read of the {graph.cbf.numel()}-cell cbf {read_ns:.1f} ns [{card}]", flush=True)
+    for who, v in r["variants"].items():
+        print(f"walk variant {who} (pair walks): equal to the plain loop on all three; full batch {v['ms']:.4f} ms "
+              f"({', '.join(f'{x:.4f}' for x in t[who])}), batch 0 {v['first_ms']:.4f} ms "
+              f"({', '.join(f'{x:.4f}' for x in t_first[who])}), its fragments alone {v['small_ms']:.4f} ms "
+              f"({', '.join(f'{x:.4f}' for x in t_small[who])}); longest lane alone {v['longest_lane_ms']:.4f} ms "
+              f"({v['round_ns_old_schedule']:.1f} ns a round of the one-step schedule) [{card}]", flush=True)
     return r
 
 
@@ -1617,7 +1812,7 @@ def extend_main_path(left: str, right: str, out: str, card: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--walk-variant", action="append", default=[], metavar="NAME=PATH",
-                    help="another walk kernel source (same C entry point) to check and time in phase 4")
+                    help="another walk kernel source (same C entry points) to check and time in phases 4 and 6")
     ap.add_argument("--insert-variant", action="append", default=[], metavar="NAME=PATH",
                     help="another insert kernel source (same C entry points) to check and time in phase 2")
     args = ap.parse_args(argv)
@@ -1636,13 +1831,15 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")
     t0 = time.time()
-    with ThreadPoolExecutor(1 + len(variant_srcs) + len(insert_srcs)) as pool:
+    with ThreadPoolExecutor(2 + len(variant_srcs) + len(insert_srcs)) as pool:
         port_build = pool.submit(_build.build_all)
+        chase_build = pool.submit(build_chase)
         variant_builds = {name: pool.submit(build_variant, "walk", i, src)
                           for i, (name, src) in enumerate(variant_srcs.items())}
         insert_builds = {name: pool.submit(build_variant, "insert", i, src)
                          for i, (name, src) in enumerate(insert_srcs.items())}
         built = port_build.result()
+        chase = chase_build.result()
         variants = {name: f.result() for name, f in variant_builds.items()}
         insert_variants = {name: f.result() for name, f in insert_builds.items()}
     print(f"kernels built in parallel in {time.time() - t0:.2f} s: "
@@ -1672,7 +1869,7 @@ def main(argv=None) -> int:
         )
         print(f"simulated 1,000,000 pairs (2000 transcripts, seed 0) in {time.time() - t0:.1f} s", flush=True)
         heads = {}
-        for n in (BATCH2, 20_000, STAGE3_PAIRS, EXTEND_BATCHES * BATCH2):
+        for n in (STAGE2_PAIRS, 20_000, STAGE3_PAIRS, EXTEND_BATCHES * BATCH2):
             heads[n] = (os.path.join(tmp, f"head{n}_1.fq"), os.path.join(tmp, f"head{n}_2.fq"))
             head_fastq(left, heads[n][0], n)
             head_fastq(right, heads[n][1], n)
@@ -1707,7 +1904,7 @@ def main(argv=None) -> int:
         }
         shutil.rmtree(out_u16)
 
-        phase("5 card vs CPU: -stage 1 on 20,000 pairs, -stage 2 (also -extend) on 8192 pairs, -stage 3 on 2000 "
+        phase("5 card vs CPU: -stage 1 on 20,000 pairs, -stage 2 on 4096 pairs, -stage 3 and -stage 2 -extend on 2000 "
               "pairs, byte-identical outputs; the golden dataset on the card")
         run_launches = {"add_mf8": launches["add_mf8"], "set": launches["set"],
                         "add_u16": u16_launches["add_u16"]}
@@ -1740,11 +1937,11 @@ def main(argv=None) -> int:
             gpu_out, cpu_out = os.path.join(tmp, f"gpu2_{counter}"), os.path.join(tmp, f"cpu2_{counter}")
             walk.reset_launch_counts()
             t0 = time.time()
-            rep = run_cli(*heads[BATCH2], gpu_out, "cuda", counter, 2)
+            rep = run_cli(*heads[STAGE2_PAIRS], gpu_out, "cuda", counter, 2)
             t_gpu = time.time() - t0
             n_walk = walk.launch_counts()["walk_greedy"]
             t0 = time.time()
-            run_cli(*heads[BATCH2], cpu_out, "cpu", counter, 2)
+            run_cli(*heads[STAGE2_PAIRS], cpu_out, "cpu", counter, 2)
             t_cpu = time.time() - t0
             files = same_tree(gpu_out, cpu_out)
             assert n_walk > 0 and rep.num_fragments > 0 and any(f.endswith(".nbits") for f in files)
@@ -1758,7 +1955,7 @@ def main(argv=None) -> int:
             shutil.rmtree(gpu_out)
             shutil.rmtree(cpu_out)
         card_cpu3 = stage3_card_vs_cpu(*heads[STAGE3_PAIRS], tmp)
-        extend_cpu = extend_card_vs_cpu(*heads[BATCH2], tmp)
+        extend_cpu = extend_card_vs_cpu(*heads[STAGE3_PAIRS], tmp)
         golden_on_card(tmp, card)
 
         phase("6 stage 2b and the stage-3 extension walks on the 1M-pair -cnt mf8 -stage 2 output, on the card")
@@ -1768,7 +1965,8 @@ def main(argv=None) -> int:
         walk.reset_launch_counts()
         rebuilt, cfg6, store6, rebuild = rebuild_main_path(out_mf8, card, dev)
         rebuild_launches = ci.launch_counts()
-        pair = pair_vs_plain(rebuilt, cfg6, store6, card, dev)
+        pair_variants = {name: lib for name, lib in variants.items() if hasattr(lib, "walk_pair")}
+        pair = pair_vs_plain(rebuilt, cfg6, store6, card, dev, pair_variants, chase)
         assert walk.launch_counts()["walk_greedy"] == 0
         assert rebuild_launches["add_mf8"] > 0 and rebuild_launches["set"] > 0, rebuild_launches
         print(f"phase 6 main-path launches: rebuild {rebuild_launches}, extension walk_pair {pair['launches']}",
@@ -1781,7 +1979,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
         phase("8 naive walk kernel vs plain PyTorch (-extend walks of the first stage-2 batch on the 1M-pair mf8 "
-              "graph), then -stage 2 -extend on the first 16 batches, on the card")
+              f"graph), then -stage 2 -extend on the first {EXTEND_BATCHES} batches, on the card")
         naive = naive_vs_plain(os.path.join(out_mf8, "rnabloom.graph"), left, right, card, dev)
         shutil.rmtree(out_mf8)
         extend_run = extend_main_path(*heads[EXTEND_BATCHES * BATCH2], os.path.join(tmp, "out_extend"), card)
@@ -1867,10 +2065,18 @@ def main(argv=None) -> int:
         "lanes": pair["lanes"],
         "first_batch_fragments": pair["first_fragments"],
         "first_batch_ms": pair["first_ms"],
+        "first_batch_alone_lanes": pair["small_lanes"],
+        "first_batch_alone_ms": pair["small_ms"],
         "resolves": pair["resolves"],
         "cell_reads": pair["cells"],
+        "schedule_cell_reads": pair["new_cells"],
         "pkbf_lane_reads": pair["pkbf_lanes"],
         "gather_ms": pair["gather_ms"],
+        **{key: pair[key] for key in ("rounds_old", "rounds_new", "free_hops", "hops", "longest_lane_rounds",
+                                      "longest_lane_rounds_old", "longest_lane_ms", "round_ns",
+                                      "dependent_read_ns")},
+        "variants": pair["variants"],
+        "stage3_card_time": s3["card_time"],
         "rebuild_fragments_per_s": rebuild["fragments_per_s"],
         "rebuild_batches": rebuild["batches"],
         "rebuild_launches": rebuild_launches,

@@ -45,7 +45,7 @@
 // lanes in flight to keep the memory system busy:
 //
 //  * A tile of G = 8 threads per lane (cooperative_groups::tiled_partition,
-//    fixed: 16 was no faster, 32 slower).  Every thread of a tile keeps the
+//    fixed: 16 was no faster, 32 slower; pair mode takes 16, below).  Every thread of a tile keeps the
 //    lane's state and follows its control flow, so one lane's phases never
 //    diverge.  16,384 lanes make 4,096 warps at G = 8, against the 512 of
 //    one thread per lane; the kernel asks for 3 blocks an SM
@@ -74,34 +74,62 @@
 //    exit, so the ring needs no barrier.  The buffer stays in global memory
 //    (rank 0 appends, tile.sync() publishes the byte to the tile).
 //
-// Pair mode (the stage-3 extension, extendRightPE): a hop also writes the
-// new k-mer's (fh, rh) into the lane's pair ring (global memory, slot
-// pos % R), and a resolve scores the candidates by pair support instead of
-// lookahead (traverse.py::_probe_with_hashes, ::_pair_scores):
+// Pair mode (the stage-3 extension, extendRightPE; the pair branch of
+// rnabloom_tpu/graph/traverse.py:1032, resolve_branches(mode="pair")): a
+// hop also writes the new k-mer's (fh, rh) into the lane's pair ring
+// (global memory, slot pos % R), and a resolve scores the candidates by
+// pair support instead of lookahead (traverse.py::_probe_with_hashes,
+// ::_pair_scores).
 //
-//  * Each candidate is probed by a greedy naive descent of D =
-//    pair_probe_depth k-mers, one dependent round a step: the tile reads
-//    the 4 successors of every live probe together (16 k-mers, 2 a
-//    thread); every thread then takes the same max-count successor per
-//    candidate (shuffles), so the probe state (hashes, alive) is in every
-//    thread, and rank 0 keeps each depth's count in shared memory.
-//  * Thread u < 8 owns the pair lookups of candidate u / 2 and class u % 2
-//    (read pairs, fragment pairs).  In step j it forms the pair key of
-//    depth j - 1 (the probe k-mer with its partner from the ring, read in
-//    the step before) and issues its pkbf bit reads, and loads the ring
-//    entry of depth j's partner, while the step's count reads are in
-//    flight: a resolve is D + 1 dependent rounds.
+// What bounds it on this card: a lane's chain of dependent rounds times
+// what a round costs.  Stage 3 launches 64-2048 lanes; the longest lane of
+// its first full batch walks 1,002 hops and 44 resolves, 2,058 rounds at
+// one probe step a round (a hop that reads 1, a resolve D + 1 = 25).  On an
+// H100 one dependent random read of the 512 MiB cbf takes about 190 ns,
+// but a round of 16 threads x 2 such reads from one SM about 600 ns and of
+// 16 x 10 about 820 ns, and a lane's on-chip work between two rounds (picks,
+// hashes, the advance, the ring scan) takes about twice a round's wait
+// for its counts (tools/pair_profile.py).  So this schedule halves the
+// rounds, at about 2.5 times the reads, and trims the on-chip chain:
+//
+//  * A tile of 16 threads a lane; thread 4c + n.
+//  * A hop's round reads the 4 candidates (threads 0-3) and their 16
+//    children (thread 4c + n: child n of candidate c).  A hop that
+//    advances with one viable candidate hands that candidate's 4 children
+//    to the next hop as its counts: that hop costs no round.  The cycle
+//    ring, the FULL checks, the pair-ring write and the append stay per
+//    hop, in order.
+//  * A resolve probes each candidate by a greedy naive descent of D =
+//    pair_probe_depth k-mers.  Thread 4c + n reads successor n of probe
+//    c's newest k-mer and that successor's 4 children, so a round takes
+//    two steps: step j is the group's first maximum among the successors
+//    that reach the floor (shuffles within the 4 threads), step j + 1 the
+//    first maximum among the chosen successor's children, which its
+//    reader holds.  Step 1 comes without a round from the children a hop
+//    read.  A resolve is ceil((D - 1 - s) / 2) + 1 rounds, s = 1 when step
+//    1 was known: 12 or 13 at D = 24.
+//  * Thread 4c + n looks up pair class n & 1 of probe c at pending depth
+//    n >> 1: the ring loads of a round's two depths and the lookups of the
+//    previous round's are issued while the round's counts are in flight,
+//    and a lookup's pkbf bytes are consumed a round later; the last
+//    depths' lookups are a resolve's last round.
 //  * The median of a candidate's live probe counts (a prefix of its
-//    probe) is selected by rank counting across the tile, then score =
-//    min(path_min, median) * (n_read + n_frag) / (last + 1) in float32,
-//    with IEEE rounding (no fast math: a rounding that differs from the
-//    plain version's flips picks).  The best score wins, ties to the higher
-//    median, then the smaller base; no viable candidate stops the lane.
-//  * A resolve that advances hands its choice's step-1 counts (its 4
-//    successors) to the next hop, as a greedy resolve does.
+//    probe) by rank selection within its group, from shared memory, then
+//    score = min(path_min, median) * (n_read + n_frag) / (last + 1) in
+//    float32 with IEEE rounding (no fast math: a rounding that differs
+//    from the plain version's flips picks).  The best score wins, ties to
+//    the higher median, then the smaller base; no viable candidate stops
+//    the lane.
+//  * A resolve that advances hands its choice's step-1 counts to the next
+//    hop, and, when its first round took steps 1 and 2, their children.
+//  * The pair-ring and cycle-ring slots are counters: an integer modulo a
+//    hop cost more than the rest of the advance.
+//  * Lanes spread over every SM before any SM takes a second block, and a
+//    block asks for up to 255 registers a thread (about 160, no spills).
 // Pair mode is instantiated for the 4 layouts x num_hash 1-3 and the
 // generic one, without the lookahead split (it reads no lookahead tree).
-//
+// kProfile = 1 builds a copy that times each phase of a lane with clock64.
+
 // Naive mode (the -extend walks of stage 2, naiveExtendRight): depth probes
 // instead of lookahead scores, in one shape, beam_step.  Thread r of the
 // tile owns beam index r of each of 4 probes: slot r >> 2 (slots past the
@@ -146,11 +174,12 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int G = 8;  // threads per walk lane
-static_assert(G >= 8 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two in [8, 32] (pair mode: a thread per "
-                                                         "candidate and pair class)");
+constexpr int G = 8;  // threads per walk lane (greedy and naive modes)
+static_assert(G >= 8 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two in [8, 32]");
+constexpr int kPairG = 16;  // threads per walk lane in pair mode: 4 probes x 4 successors
 constexpr int kThreads = 256;       // threads per block (fewer when rings need it)
 constexpr int kBlocksPerSm = 3;     // resident blocks an SM asks for: <= 85 registers a thread
+constexpr int kPairBlocksPerSm = 1;  // pair mode: up to 255 registers a thread (no spills)
 constexpr int kRingPad = 8;         // int64 slots between two lanes' rings
 constexpr int kDecodeBytes = 1024;  // the mf8 decode table in shared memory
 
@@ -162,6 +191,14 @@ constexpr int kFull = 5;
 constexpr int kStoppedBranch = 6;
 
 constexpr uint64_t kPairConst = 0x9E3779B9ull;
+
+// Pair-mode timing: with kProfile = 1 (tools/pair_profile.py builds such a
+// copy) rank 0 of each lane adds clock64() spans of each phase to g_prof
+// (cycles, then counts); with 0 it compiles away.
+constexpr int kProfile = 0;
+enum { kPfHopRead, kPfHopRest, kPfResHead, kPfResWait, kPfResStep, kPfResTail, kPfAdvance, kPfSync, kPfTake,
+       kPfPhases };
+__device__ unsigned long long g_prof[2 * kPfPhases];
 
 constexpr int kMf8 = 0;
 constexpr int kU16 = 1;
@@ -330,25 +367,31 @@ __device__ __forceinline__ int argmax4(const float (&v)[4]) {
   return best;
 }
 
-using Tile = cg::thread_block_tile<G>;
+template <int W>
+using TileOf = cg::thread_block_tile<W>;
 
-__device__ __forceinline__ float tile_max(Tile tile, float v) {
+// reductions over groups of W threads of a tile (W: the tile's width, or
+// a power of two below it)
+template <int W, typename T>
+__device__ __forceinline__ float tile_max(T tile, float v) {
 #pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1) v = fmaxf(v, tile.shfl_xor(v, o));
+  for (int o = W / 2; o > 0; o >>= 1) v = fmaxf(v, tile.shfl_xor(v, o));
   return v;
 }
 
-__device__ __forceinline__ unsigned tile_or(Tile tile, unsigned v) {
+template <int W, typename T>
+__device__ __forceinline__ unsigned tile_or(T tile, unsigned v) {
 #pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1) v |= tile.shfl_xor(v, o);
+  for (int o = W / 2; o > 0; o >>= 1) v |= tile.shfl_xor(v, o);
   return v;
 }
 
-// the first maximum of (v, i) across the tile: the larger v, then the
-// smaller i
-__device__ __forceinline__ void tile_argmax(Tile tile, float& v, int& i) {
+// the first maximum of (v, i) across each group of W threads: the larger
+// v, then the smaller i
+template <int W, typename T>
+__device__ __forceinline__ void tile_argmax(T tile, float& v, int& i) {
 #pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1) {
+  for (int o = W / 2; o > 0; o >>= 1) {
     const float v2 = tile.shfl_xor(v, o);
     const int i2 = tile.shfl_xor(i, o);
     if (v2 > v || (v2 == v && i2 < i)) {
@@ -366,8 +409,10 @@ __device__ __forceinline__ uint64_t combine(uint64_t a, uint64_t b) {
 template <int L, int H, bool kDeep, int kMode>
 struct Lane {
   static constexpr bool kPair = kMode == kPairMode;
-  static constexpr int M1 = (16 + G - 1) / G;  // level-1 k-mers per thread
-  static constexpr int M2 = 64 / G;            // level-2 k-mers (leaves) per thread
+  static constexpr int GT = kPair ? kPairG : G;  // threads per lane
+  using Tile = TileOf<GT>;
+  static constexpr int M1 = (16 + GT - 1) / GT;  // level-1 k-mers per thread
+  static constexpr int M2 = 64 / GT;            // level-2 k-mers (leaves) per thread
 
   const Walk& p;
   Tile tile;
@@ -383,7 +428,7 @@ struct Lane {
   uint64_t fh, rh;
   float path_min, floor;
   int out;       // buf[pos - k]: the current k-mer's first base
-  int out_next;  // buf[pos + 1 - k], loaded with the candidates
+  int out_next;  // buf[pos + 1 - k], loaded with the candidates (pair mode: at each advance)
   // the 4 candidates of the current k-mer, in every thread: hashes, counts
   // and which are in the cycle ring (bit c)
   bool cached = false;
@@ -394,15 +439,37 @@ struct Lane {
   // k-mer, read in the candidates' round
   uint64_t vf[4], vr[4];
   float vcnt[4];
+  // pair mode: thread 4c + n holds the count of child n of candidate c
+  // (departing out_next) when `kids`
+  bool kids = false;
+  float kid;
+  // pair mode: the slots of the next pair-ring write (pos % R) and the next
+  // cycle-ring push ((hops + 1) % cycle_window), counted, not divided
+  int pslot, cslot;
+
+  __device__ long long prof_now() const {
+    if constexpr (kProfile && kPair) return clock64();
+    return 0;
+  }
+
+  __device__ void prof_add(int phase, long long t0) const {
+    if constexpr (kProfile && kPair) {
+      if (rank == 0) {
+        atomicAdd(&g_prof[phase], (unsigned long long)(clock64() - t0));
+        atomicAdd(&g_prof[kPfPhases + phase], 1ull);
+      }
+    }
+  }
 
   __device__ int buf_at(int i) const {
     i = i < 0 ? 0 : (i > p.max_len - 1 ? p.max_len - 1 : i);
     return buf[i];
   }
 
-  // the candidates' hashes; starts the load of the next first base
+  // the candidates' hashes; in greedy and naive modes starts the load of
+  // the next first base (pair mode loads it at each advance)
   __device__ void set_candidates() {
-    out_next = buf_at(pos + 1 - p.k);
+    if constexpr (!kPair) out_next = buf_at(pos + 1 - p.k);
     const Slide s = slide(p, fh, rh, out);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
@@ -414,12 +481,12 @@ struct Lane {
   // which candidates are in the cycle ring: thread r scans its slots
   __device__ void check_ring() {
     unsigned hit = 0;
-    for (int j = rank; j < p.cycle_window; j += G) {
+    for (int j = rank; j < p.cycle_window; j += GT) {
       const uint64_t v = (uint64_t)ring[j];
 #pragma unroll
       for (int c = 0; c < 4; ++c) hit |= (unsigned)(v == q4[c]) << c;
     }
-    seen = tile_or(tile, hit);
+    seen = tile_or<GT>(tile, hit);
   }
 
   // level 0: thread c < 4 reads candidate c; the ring is scanned while the
@@ -427,6 +494,22 @@ struct Lane {
   // variant v (not the k-mer itself) in the same round.
   __device__ void read_candidates() {
     set_candidates();
+    if constexpr (kPair) {
+      // the 4 candidates (threads 0-3) and their 16 children (thread 4c + n:
+      // child n of candidate c) in one round; the ring is scanned meanwhile
+      const int c = rank >> 2;
+      uint64_t f, r;
+      child(slide(p, pick4(f4, c), pick4(r4, c), out_next), rank & 3, rs, f, r);
+      const uint64_t q[2] = {query(p, f, r), pick4(q4, rank & 3)};
+      const bool on[2] = {true, rank < 4};
+      float got[2];
+      count_many<L, H, 2>(p, dec, q, on, got, [&] { check_ring(); });
+#pragma unroll
+      for (int n = 0; n < 4; ++n) cnt[n] = tile.shfl(got[1], n);
+      kid = got[0];
+      kids = cached = true;
+      return;
+    }
     const bool variants = kMode == kNaive && p.back;
     uint64_t mine[1] = {pick4(q4, rank & 3)};
     if constexpr (kMode == kNaive) {
@@ -480,7 +563,7 @@ struct Lane {
       const float sc = on[c] && got[c] >= floor ? got[c] : -1.0f;
       float v1 = sc;
       int i1 = rank;
-      tile_argmax(tile, v1, i1);
+      tile_argmax<GT>(tile, v1, i1);
       const bool alive0 = v1 >= 0.0f;
       bool alive1 = false;
       uint64_t nf[2], nr[2];
@@ -489,7 +572,7 @@ struct Lane {
       if (B == 2) {
         float v2 = rank == i1 ? -1.0f : sc;
         int i2 = rank;
-        tile_argmax(tile, v2, i2);
+        tile_argmax<GT>(tile, v2, i2);
         // the plain version takes slot 1's liveness from the unmasked
         // scores: when every other score is -1 the second pick is index
         // 0, the first pick itself when that is 0, and slot 1 then
@@ -543,26 +626,56 @@ struct Lane {
   }
 
   __device__ void advance(int c) {
+    const long long t0 = prof_now();
     if (rank == 0) buf[pos < p.max_len - 1 ? pos : p.max_len - 1] = (uint8_t)c;
-    if (kPair && rank == 0) {  // the new k-mer ends at the old pos
-      pair_fh[pos % p.R] = (int64_t)pick4(f4, c);
-      pair_rh[pos % p.R] = (int64_t)pick4(r4, c);
+    if (kPair && rank == 0) {  // the new k-mer ends at the old pos: slot pos % R
+      pair_fh[pslot] = (int64_t)pick4(f4, c);
+      pair_rh[pslot] = (int64_t)pick4(r4, c);
     }
-    const int slot = (hops + 1) % p.cycle_window;
-    if (slot % G == rank) ring[slot] = (int64_t)pick4(q4, c);
+    const int slot = kPair ? cslot : (hops + 1) % p.cycle_window;
+    if (slot % GT == rank) ring[slot] = (int64_t)pick4(q4, c);
     fh = pick4(f4, c);
     rh = pick4(r4, c);
     path_min = fminf(path_min, pick4(cnt, c));
     ++pos;
     ++hops;
     cached = false;
+    const long long ts = prof_now();
     tile.sync();  // the appended byte is visible to the whole tile
-    out = p.k > 1 ? out_next : buf_at(pos - p.k);
+    prof_add(kPfSync, ts);
+    if constexpr (kPair) {
+      // both written: pair mode has k > D >= 1
+      out = out_next;
+      out_next = buf_at(pos + 1 - p.k);
+      kids = false;
+      pslot = pslot + 1 == p.R ? 0 : pslot + 1;
+      cslot = cslot + 1 == p.cycle_window ? 0 : cslot + 1;
+    } else {
+      out = p.k > 1 ? out_next : buf_at(pos - p.k);
+    }
+    prof_add(kPfAdvance, t0);
+  }
+
+  // the candidates of the k-mer just advanced to, with their counts known
+  // (read in an earlier round)
+  __device__ void take_candidates(const float (&known)[4]) {
+    const long long t0 = prof_now();
+    set_candidates();
+#pragma unroll
+    for (int n = 0; n < 4; ++n) cnt[n] = known[n];
+    check_ring();
+    cached = true;
+    prof_add(kPfTake, t0);
   }
 
   // walk_superstep's body for one ACTIVE lane
   __device__ void hop() {
-    if (!cached) read_candidates();
+    long long t0 = prof_now();
+    if (!cached) {
+      read_candidates();
+      prof_add(kPfHopRead, t0);
+      t0 = prof_now();
+    }
     int nviable = 0, code = -1;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
@@ -582,14 +695,24 @@ struct Lane {
       status = kCycle;
     } else if (pos >= p.max_len - 1 || hops >= bound) {
       status = kFull;
+    } else if constexpr (kPair) {
+      // the choice's children were read with the candidates: they are the
+      // next hop's candidates, which then costs no round
+      const bool hand = kids;
+      float next[4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) next[n] = tile.shfl(kid, 4 * code + n);
+      advance(code);
+      if (hand) take_candidates(next);
     } else {
       advance(code);
     }
+    prof_add(kPfHopRest, t0);
   }
 
   // greedy lookahead scores of the 4 candidates (levels 1 and deeper); only
   // viable candidates' scores are meaningful.  c1: this thread's level-1
-  // counts (k-mer j = rank + G*m is child j & 3 of candidate j >> 2)
+  // counts (k-mer j = rank + GT*m is child j & 3 of candidate j >> 2)
   __device__ void scores(const bool (&viable)[4], float (&s)[4], float (&c1)[M1]) {
     float best[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
     const int out1 = out_next;  // buf[pos - k + 1]
@@ -598,7 +721,7 @@ struct Lane {
     bool on1[M1];
 #pragma unroll
     for (int m = 0; m < M1; ++m) {
-      const int j = rank + G * m, c = (j >> 2) & 3;
+      const int j = rank + GT * m, c = (j >> 2) & 3;
       uint64_t f, r;
       child(slide(p, pick4(f4, c), pick4(r4, c), out1), j & 3, rs, f, r);
       q1[m] = query(p, f, r);
@@ -608,7 +731,7 @@ struct Lane {
     if (p.lookahead == 2) {
 #pragma unroll
       for (int m = 0; m < M1; ++m) {
-        const int c = ((rank + G * m) >> 2) & 3;
+        const int c = ((rank + GT * m) >> 2) & 3;
         const float v = on1[m] ? fminf(pick4(cnt, c), c1[m]) : -INFINITY;
 #pragma unroll
         for (int cc = 0; cc < 4; ++cc) best[cc] = cc == c ? fmaxf(best[cc], v) : best[cc];
@@ -621,7 +744,7 @@ struct Lane {
       float pm[M2], c2[M2];
 #pragma unroll
       for (int m = 0; m < M2; ++m) {
-        const int j = rank + G * m, c = j >> 4, j1 = j >> 2;
+        const int j = rank + GT * m, c = j >> 4, j1 = j >> 2;
         uint64_t f, r;
         child(slide(p, pick4(f4, c), pick4(r4, c), out1), j1 & 3, rs, f, r);
         child(slide(p, f, r, out2), j & 3, rs, fl[m], rl[m]);
@@ -630,8 +753,8 @@ struct Lane {
         float up = c1[0];
 #pragma unroll
         for (int s1 = 0; s1 < M1; ++s1) {
-          const float x = tile.shfl(c1[s1], j1 % G);
-          up = s1 == j1 / G ? x : up;
+          const float x = tile.shfl(c1[s1], j1 % GT);
+          up = s1 == j1 / GT ? x : up;
         }
         pm[m] = fminf(pick4(cnt, c), up);
       }
@@ -669,26 +792,14 @@ struct Lane {
       }
 #pragma unroll
       for (int m = 0; m < M2; ++m) {
-        const int c = (rank + G * m) >> 4;
+        const int c = (rank + GT * m) >> 4;
         const float v = on2[m] ? pm[m] : -INFINITY;
 #pragma unroll
         for (int cc = 0; cc < 4; ++cc) best[cc] = cc == c ? fmaxf(best[cc], v) : best[cc];
       }
     }
 #pragma unroll
-    for (int c = 0; c < 4; ++c) s[c] = tile_max(tile, best[c]);
-  }
-
-  // the count of k-mer i of this step (16 a step, k-mer i read by rank
-  // i % G as its (i / G)-th), shuffled to every thread
-  __device__ float shfl_count(const float (&got)[M1], int i) {
-    float v = got[0];
-#pragma unroll
-    for (int m = 0; m < M1; ++m) {
-      const float x = tile.shfl(got[m], i % G);
-      v = m == i / G ? x : v;
-    }
-    return v;
+    for (int c = 0; c < 4; ++c) s[c] = tile_max<GT>(tile, best[c]);
   }
 
   // the pair key of (probe k-mer hf/hr, its partner qf/qr), as
@@ -700,154 +811,215 @@ struct Lane {
     return (int64_t)a < (int64_t)b ? a : b;
   }
 
-  // resolve_branches(mode="pair") for one BRANCH lane
+  // resolve_branches(mode="pair") for one BRANCH lane.  Thread 4c + n works
+  // for probe c: it reads successor n of the probe's newest k-mer and that
+  // successor's 4 children, so a round takes two probe steps; its lookups
+  // are those of pair class n & 1 at pending depth n >> 1.
   __device__ void resolve_pair() {
+    long long t0 = prof_now();
     if (!cached) read_candidates();
     const int D = p.D;
-    const int u = rank & 7;  // this thread's lookups: candidate u >> 1, class u & 1
-    const int uc = u >> 1, cls = u & 1;
+    const int c = rank >> 2, n = rank & 3;
+    const int cls = n & 1, ds = n >> 1;
     const int dist = cls ? p.dist[1] : p.dist[0];
     const uint8_t* lanes = cls ? p.pk[1] : p.pk[0];
-    const bool looks = rank < 8 && dist > 0;
-    bool viable[4], alive[4];
-    uint64_t hf[4], hr[4];  // each candidate's probe k-mer at the current depth
-    int nv[4];  // live depths so far
+    bool viable[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      viable[c] = alive[c] = cnt[c] >= floor;
-      hf[c] = f4[c];
-      hr[c] = r4[c];
-      nv[c] = alive[c] ? 1 : 0;
+    for (int b = 0; b < 4; ++b) viable[b] = cnt[b] >= floor;
+    // probe c's newest k-mer and whether it is live (the same in the group)
+    bool alive = pick4(viable, c);
+    uint64_t hf = pick4(f4, c), hr = pick4(r4, c);
+    float* pc = probe_cnt + c * D;
+    if (n == 0) pc[0] = pick4(cnt, c);
+    int nv = alive ? 1 : 0;  // live depths
+    // the depths whose lookups are pending (np of them from da), their
+    // k-mers and liveness
+    int da = 0, np = 1;
+    uint64_t pf0 = hf, pr0 = hr, pf1 = 0, pr1 = 0;
+    bool pal0 = alive, pal1 = false;
+    // step 1's count of successor n of probe c and its children's: the next
+    // hop's candidates (and their children) if c is the choice
+    const bool had_kids = kids;
+    float c1 = kid, g1[4] = {INFINITY, INFINITY, INFINITY, INFINITY};
+
+    // step j from this thread's successor count v (successor n of the probe
+    // k-mer, departing o): the group's first maximum among the successors
+    // that reach the floor
+    auto step = [&](int at, float v, int o) {
+      float key = alive && v >= floor ? v : -1.0f;
+      int b = n;
+      tile_argmax<4>(tile, key, b);
+      alive = alive && key >= 0.0f;
+      if (alive) {
+        child(slide(p, hf, hr, o), b, rs, hf, hr);
+        ++nv;
+        if (n == 0) pc[at] = key;
+      }
+      return b;
+    };
+    int j = 1;
+    if (had_kids && D > 1) {  // step 1 from the children read with the candidates
+      step(1, kid, out_next);
+      pf1 = hf;
+      pr1 = hr;
+      pal1 = alive;
+      np = 2;
+      j = 2;
     }
-    if (rank == 0) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) probe_cnt[c * D] = cnt[c];
-    }
-    // this thread's partner of the current depth (the k-mer ending at
-    // pos - dist + depth), and whether it is in the ring
-    auto partner_at = [&](int depth, uint64_t& qf, uint64_t& qr) {
-      const int end = pos - dist + depth;
-      const bool reach = looks && end >= p.k - 1 && pos - end < p.R;
+
+    // this thread's partner at depth d: the k-mer ending at pos - dist + d,
+    // when the ring still holds it
+    auto partner = [&](int d, uint64_t& qf, uint64_t& qr) {
+      const int end = pos - dist + d;
+      const bool reach = dist > 0 && end >= p.k - 1 && pos - end < p.R;
       qf = reach ? (uint64_t)__ldcg((const long long*)pair_fh + end % p.R) : 0ull;
       qr = reach ? (uint64_t)__ldcg((const long long*)pair_rh + end % p.R) : 0ull;
       return reach;
     };
     uint64_t qf, qr;
-    bool reach_now = partner_at(0, qf, qr);
-    int nsup = 0, last = -1, reach_any = 0;
-    // the lookup of depth `depth` (the probe hashes in hf/hr, alive at it)
-    auto lookup = [&](int depth) {
-      const bool on = reach_now && pick4(alive, uc);
+    bool reach = ds < np && partner(ds, qf, qr);
+    // a lookup's first 4 lane bytes are consumed a round after they are
+    // issued (settle), so the pkbf reads overlap the next count reads
+    int nsup = 0, last = -1;
+    bool reach_any = false, pend = false;
+    int pend_d = 0;
+    uint8_t pb[4];
+    auto settle = [&] {
+      if (pend && pb[0] && pb[1] && pb[2] && pb[3]) {
+        ++nsup;
+        last = pend_d;
+      }
+      pend = false;
+    };
+    auto lookup = [&] {
+      const bool on = reach && ds < np && (ds ? pal1 : pal0);
       reach_any |= on;
       if (!on) return;
-      const uint64_t key = pair_key(pick4(hf, uc), pick4(hr, uc), qf, qr);
+      const uint64_t key = pair_key(ds ? pf1 : pf0, ds ? pr1 : pr0, qf, qr);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pb[i] = i < p.pnh ? __ldg(lanes + ((multi(p, key, i) >> 1) & p.pmask)) : 1;
       bool all = true;
-      for (int i0 = 0; i0 < p.pnh; i0 += 4) {
-        uint8_t b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) b[i] = i0 + i < p.pnh ? __ldg(lanes + ((multi(p, key, i0 + i) >> 1) & p.pmask)) : 1;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) all &= b[i] != 0;
-      }
-      if (all) {
-        ++nsup;
-        last = depth;
-      }
+      for (int i = 4; i < p.pnh; ++i) all &= __ldg(lanes + ((multi(p, key, i) >> 1) & p.pmask)) != 0;
+      pend = all;
+      pend_d = da + ds;
     };
-    float c1[M1];  // step 1's counts: the candidates' successors
+
+    int o0 = buf_at(pos - p.k + j), o1 = buf_at(pos - p.k + j + 1);  // steps j and j + 1 depart these
+    prof_add(kPfResHead, t0);
+    while (j < D) {
+      t0 = prof_now();
+      const bool two = j + 1 < D;
+      uint64_t sf, sr, q[5];
+      bool on[5];
+      child(slide(p, hf, hr, o0), n, rs, sf, sr);
+      q[0] = query(p, sf, sr);
+      on[0] = alive;
+      const Slide s2 = slide(p, sf, sr, o1);
 #pragma unroll
-    for (int m = 0; m < M1; ++m) c1[m] = INFINITY;
-    for (int j = 1; j < D; ++j) {
-      // the successors of every live probe, read while the lookups of
-      // depth j - 1 and the ring loads of depth j are in flight
-      const int outc = buf_at(pos - p.k + j);
-      uint64_t q[M1];
-      bool on[M1];
-#pragma unroll
-      for (int m = 0; m < M1; ++m) {
-        const int i = rank + G * m, c = (i >> 2) & 3;
+      for (int m = 0; m < 4; ++m) {
         uint64_t f, r;
-        child(slide(p, pick4(hf, c), pick4(hr, c), outc), i & 3, rs, f, r);
-        q[m] = query(p, f, r);
-        on[m] = i < 16 && pick4(alive, c);
+        child(s2, m, rs, f, r);
+        q[1 + m] = query(p, f, r);
+        on[1 + m] = alive && two;
       }
-      float got[M1];
-      uint64_t nqf, nqr;
-      bool reach_next = false;
-      count_many<L, H, M1>(p, dec, q, on, got, [&] {
-        reach_next = partner_at(j, nqf, nqr);
-        lookup(j - 1);
+      float got[5];
+      uint64_t nqf = 0, nqr = 0;
+      bool nreach;
+      int no0, no1;
+      // while the counts are in flight: the next round's out codes, the
+      // partners of this round's depths, the lookups of the last round's
+      const long long tw = prof_now();
+      count_many<L, H, 5>(p, dec, q, on, got, [&] {
+        no0 = buf_at(pos - p.k + j + 2);
+        no1 = buf_at(pos - p.k + j + 3);
+        nreach = (ds == 0 || two) && partner(j + ds, nqf, nqr);
+        settle();
+        lookup();
       });
+      prof_add(kPfResWait, tw);
       if (j == 1) {
+        c1 = got[0];
 #pragma unroll
-        for (int m = 0; m < M1; ++m) c1[m] = got[m];
+        for (int m = 0; m < 4; ++m) g1[m] = got[1 + m];
       }
-      // every thread takes each live probe's max-count successor
+      const int b = step(j, got[0], o0);
+      pf0 = hf;
+      pr0 = hr;
+      pal0 = alive;
+      da = j;
+      np = 1;
+      if (two) {
+        // step j + 1 among the children of the pick, which its reader holds
+        float k2[4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float v[4];
-#pragma unroll
-        for (int n = 0; n < 4; ++n) v[n] = shfl_count(got, 4 * c + n);
-        if (!alive[c]) continue;
-        float key[4];
-        bool any = false;
-#pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const bool ok = v[n] >= floor;
-          any |= ok;
-          key[n] = ok ? v[n] : -1.0f;
+        for (int m = 0; m < 4; ++m) k2[m] = got[1 + m] >= floor ? got[1 + m] : -1.0f;
+        int b2 = argmax4(k2);
+        const int src = (rank & ~3) | b;
+        const float kb2 = tile.shfl(pick4(k2, b2), src);
+        b2 = tile.shfl(b2, src);
+        alive = alive && kb2 >= 0.0f;
+        if (alive) {
+          child(slide(p, hf, hr, o1), b2, rs, hf, hr);
+          ++nv;
+          if (n == 0) pc[j + 1] = kb2;
         }
-        alive[c] = any;
-        if (!any) continue;
-        const int b = argmax4(key);
-        uint64_t f, r;
-        child(slide(p, hf[c], hr[c], outc), b, rs, f, r);
-        hf[c] = f;
-        hr[c] = r;
-        ++nv[c];
-        if (rank == 0) probe_cnt[c * D + j] = pick4(v, b);
+        pf1 = hf;
+        pr1 = hr;
+        pal1 = alive;
+        np = 2;
       }
       qf = nqf;
       qr = nqr;
-      reach_now = reach_next;
+      reach = nreach;
+      o0 = no0;
+      o1 = no1;
+      j += two ? 2 : 1;
+      prof_add(kPfResStep, t0);
     }
-    lookup(D - 1);
+    t0 = prof_now();
+    settle();
+    lookup();
+    settle();
     tile.sync();  // the probe counts are in shared memory
 
-    // per candidate: support counts and depths from the lookup threads, the
-    // median of the live probe counts by rank selection across the tile
-    float score[4], med[4];
+    // per probe: support and depth of both classes (threads n ^ 2 hold the
+    // class's other depths, n ^ 1 the other class), the median of the live
+    // probe counts by rank selection within the group
+    const int ns = nsup + tile.shfl_xor(nsup, 2), ls = max(last, tile.shfl_xor(last, 2));
+    const int ra = (int)reach_any | tile.shfl_xor((int)reach_any, 2);
+    const int ns_o = tile.shfl_xor(ns, 1), ra_o = tile.shfl_xor(ra, 1);
+    const int lst = max(ls, tile.shfl_xor(ls, 1));
+    const int nr = cls ? ns_o : ns, nf = cls ? ns : ns_o;
+    const bool rr = (cls ? ra_o : ra) != 0, rf = (cls ? ra : ra_o) != 0;
+    const int half = nv / 2;
+    const int lo = nv % 2 == 0 ? max(half - 1, 0) : half;
+    float vlo = -INFINITY, vhalf = -INFINITY;
+    for (int i = n; i < nv; i += 4) {
+      const float vi = pc[i];
+      int r = 0;
+      for (int t = 0; t < nv; ++t) r += (pc[t] < vi) || (t < i && pc[t] == vi);
+      vlo = r == lo ? vi : vlo;
+      vhalf = r == half ? vi : vhalf;
+    }
+    vlo = tile_max<4>(tile, vlo);
+    vhalf = tile_max<4>(tile, vhalf);
+    const float med = nv > 0 ? __fdiv_rn(__fadd_rn(vlo, vhalf), 2.0f) : 0.0f;
+    const bool ok = lst >= 0 && (!rr || nr > 0) && (!rf || nf > 0) && (rr || rf);
+    const float sc = ok && pick4(viable, c)
+                         ? __fdiv_rn(__fmul_rn(fminf(path_min, med), __int2float_rn(nr + nf)),
+                                     __int2float_rn(max(lst + 1, 1)))
+                         : -1.0f;
+    float score[4], meds[4];
     float top = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int nr = tile.shfl(nsup, 2 * c), nf = tile.shfl(nsup, 2 * c + 1);
-      const int lst = max(tile.shfl(last, 2 * c), tile.shfl(last, 2 * c + 1));
-      const bool rr = tile.shfl(reach_any, 2 * c) != 0, rf = tile.shfl(reach_any, 2 * c + 1) != 0;
-      const int n = nv[c];
-      const int half = n / 2;
-      const int lo = n % 2 == 0 ? max(half - 1, 0) : half;
-      float vlo = -INFINITY, vhalf = -INFINITY;
-      const float* s = probe_cnt + c * D;
-      for (int i = rank; i < n; i += G) {
-        const float vi = s[i];
-        int r = 0;
-        for (int t = 0; t < n; ++t) r += (s[t] < vi) || (t < i && s[t] == vi);
-        vlo = r == lo ? vi : vlo;
-        vhalf = r == half ? vi : vhalf;
-      }
-      vlo = tile_max(tile, vlo);
-      vhalf = tile_max(tile, vhalf);
-      med[c] = n > 0 ? __fdiv_rn(__fadd_rn(vlo, vhalf), 2.0f) : 0.0f;
-      const bool ok = lst >= 0 && (!rr || nr > 0) && (!rf || nf > 0) && (rr || rf);
-      score[c] = ok && viable[c]
-                     ? __fdiv_rn(__fmul_rn(fminf(path_min, med[c]), __int2float_rn(nr + nf)),
-                                 __int2float_rn(max(lst + 1, 1)))
-                     : -1.0f;
-      top = fmaxf(top, score[c]);
+    for (int b = 0; b < 4; ++b) {
+      score[b] = tile.shfl(sc, 4 * b);
+      meds[b] = tile.shfl(med, 4 * b);
+      top = fmaxf(top, score[b]);
     }
     float key[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) key[c] = score[c] >= top ? med[c] : -1.0f;
+    for (int b = 0; b < 4; ++b) key[b] = score[b] >= top ? meds[b] : -1.0f;
     const int best = argmax4(key);
     tile.sync();  // the probe counts are read before a later resolve writes them
     if ((seen >> best) & 1u) {
@@ -858,21 +1030,25 @@ struct Lane {
       status = kStoppedBranch;
     } else {
       status = kActive;
-      // the choice's successors were read at step 1: the next hop's
-      // candidates
-      const bool reuse = D > 1 && p.k > 1;
-      float kids[4];
+      // the choice's successors were read at step 1 (with the candidates or
+      // in the first round), their children in a first round of two steps:
+      // the next hop's candidates and their children
+      const bool reuse = had_kids || D > 1, more = !had_kids && D > 2;
+      float next[4], nk = INFINITY;
 #pragma unroll
-      for (int n = 0; n < 4; ++n) kids[n] = shfl_count(c1, 4 * best + n);
+      for (int m = 0; m < 4; ++m) {
+        next[m] = tile.shfl(c1, 4 * best + m);
+        const float x = tile.shfl(g1[m], 4 * best + c);
+        nk = m == n ? x : nk;
+      }
       advance(best);
-      if (reuse) {
-        set_candidates();
-#pragma unroll
-        for (int n = 0; n < 4; ++n) cnt[n] = kids[n];
-        check_ring();
-        cached = true;
+      if (reuse) take_candidates(next);
+      if (more) {
+        kid = nk;
+        kids = true;
       }
     }
+    prof_add(kPfResTail, t0);
   }
 
   __device__ void resolve() {
@@ -966,8 +1142,8 @@ struct Lane {
           kids[n] = c1[0];
 #pragma unroll
           for (int m = 0; m < M1; ++m) {
-            const float x = tile.shfl(c1[m], j % G);
-            kids[n] = m == j / G ? x : kids[n];
+            const float x = tile.shfl(c1[m], j % GT);
+            kids[n] = m == j / GT ? x : kids[n];
           }
         }
       }
@@ -984,7 +1160,8 @@ struct Lane {
 };
 
 template <int L, int H, bool kDeep, int kMode>
-__global__ void __launch_bounds__(kThreads, kMode != kGreedy ? 2 : (kDeep ? 1 : kBlocksPerSm))
+__global__ void __launch_bounds__(kThreads, kMode == kPairMode ? kPairBlocksPerSm
+                                                                : (kMode != kGreedy ? 2 : (kDeep ? 1 : kBlocksPerSm)))
     walk_greedy_kernel(Walk p) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* dec = (float*)smem;
@@ -992,26 +1169,31 @@ __global__ void __launch_bounds__(kThreads, kMode != kGreedy ? 2 : (kDeep ? 1 : 
     for (int i = threadIdx.x; i < 256; i += blockDim.x) dec[i] = p.decode[i];
     __syncthreads();
   }
-  Tile tile = cg::tiled_partition<G>(cg::this_thread_block());
-  const int tile_in_block = threadIdx.x / G;
-  const int w = blockIdx.x * (blockDim.x / G) + tile_in_block;
+  constexpr int GT = Lane<L, H, kDeep, kMode>::GT;
+  TileOf<GT> tile = cg::tiled_partition<GT>(cg::this_thread_block());
+  const int tile_in_block = threadIdx.x / GT;
+  const int w = blockIdx.x * (blockDim.x / GT) + tile_in_block;
   if (w >= p.W) return;  // the whole tile leaves together
   const int rank = tile.thread_rank();
   int64_t* rings = (int64_t*)(smem + kDecodeBytes);
   int64_t* ring = rings + (size_t)tile_in_block * p.ring_stride;
   const int64_t* hist = p.hist + (size_t)w * p.cycle_window;
-  for (int j = rank; j < p.cycle_window; j += G) ring[j] = hist[j];
+  for (int j = rank; j < p.cycle_window; j += GT) ring[j] = hist[j];
 
   Lane<L, H, kDeep, kMode> lane{p, tile, dec, ring, p.buf + (size_t)w * p.max_len, rank};
   if (kMode == kPairMode) {
     lane.pair_fh = p.ring_fh + (size_t)w * p.R;
     lane.pair_rh = p.ring_rh + (size_t)w * p.R;
-    lane.probe_cnt = (float*)(rings + (size_t)(blockDim.x / G) * p.ring_stride) + (size_t)tile_in_block * 4 * p.D;
+    lane.probe_cnt = (float*)(rings + (size_t)(blockDim.x / GT) * p.ring_stride) + (size_t)tile_in_block * 4 * p.D;
   }
 #pragma unroll
   for (int n = 0; n < 4; ++n) lane.rs[n] = rotl(seed_of(3 - n), p.k - 1);
   lane.pos = p.pos[w];
   lane.hops = p.hops[w];
+  if (kMode == kPairMode) {
+    lane.pslot = lane.pos % p.R;
+    lane.cslot = (lane.hops + 1) % p.cycle_window;
+  }
   lane.status = p.status[w];
   lane.bound = p.bound[w];
   lane.fh = (uint64_t)p.fh[w];
@@ -1019,12 +1201,13 @@ __global__ void __launch_bounds__(kThreads, kMode != kGreedy ? 2 : (kDeep ? 1 : 
   lane.path_min = p.path_min[w];
   lane.floor = fmaxf(p.min_cov[w], 1.0f);
   lane.out = lane.buf_at(lane.pos - p.k);
+  if (kMode == kPairMode) lane.out_next = lane.buf_at(lane.pos + 1 - p.k);
   for (int s = 0; s < p.max_supersteps; ++s) {
     if (lane.status != kActive && lane.status != kBranch) break;
     for (int h = 0; h < p.superstep_hops && lane.status == kActive; ++h) lane.hop();
     if (lane.status == kBranch) lane.resolve();
   }
-  for (int j = rank; j < p.cycle_window; j += G) p.hist[(size_t)w * p.cycle_window + j] = ring[j];
+  for (int j = rank; j < p.cycle_window; j += GT) p.hist[(size_t)w * p.cycle_window + j] = ring[j];
   if (rank == 0) {
     p.pos[w] = lane.pos;
     p.hops[w] = lane.hops;
@@ -1038,23 +1221,34 @@ __global__ void __launch_bounds__(kThreads, kMode != kGreedy ? 2 : (kDeep ? 1 : 
 // a block's shared memory: the mf8 decode table, each tile's cycle ring
 // and, in pair mode, each tile's probe counts
 size_t smem_bytes(const Walk& p, int threads, bool pair) {
-  const size_t tiles = threads / G;
+  const size_t tiles = threads / (pair ? kPairG : G);
   return kDecodeBytes + tiles * p.ring_stride * sizeof(int64_t) + (pair ? tiles * 4 * p.D * sizeof(float) : 0);
 }
 
 template <int L, int H, bool kDeep, int kMode>
 int launch(const Walk& p, cudaStream_t stream) {
   const bool pair = kMode == kPairMode;
+  constexpr int GT = Lane<L, H, kDeep, kMode>::GT;
   // fewer lanes a block when their shared memory would pass the default 48 KB
   int threads = kThreads;
-  while (threads > G && smem_bytes(p, threads, pair) > 48 * 1024) threads /= 2;
+  while (threads > GT && smem_bytes(p, threads, pair) > 48 * 1024) threads /= 2;
+  if (pair) {
+    // pair walks are few (64-2048 lanes) and latency-bound: spread them
+    // over every SM before any SM takes a second block
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    const int per_sm = sms > 0 ? (p.W + sms - 1) / sms : 1;
+    if (per_sm * GT < threads) threads = per_sm * GT;
+  }
   const size_t smem = smem_bytes(p, threads, pair);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(walk_greedy_kernel<L, H, kDeep, kMode>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int tiles = threads / G;
+  const int tiles = threads / GT;
   walk_greedy_kernel<L, H, kDeep, kMode><<<(p.W + tiles - 1) / tiles, threads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -1161,6 +1355,20 @@ int walk_pair(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* his
 
 // walk_greedy's arguments, then tip_probe_depth and whether hops check
 // back branches (0 or 1)
+// the pair-mode timing of a kProfile build: the 2 * 9 counters of g_prof
+// (cycles, then counts: hop reads, the rest of hops, resolve heads, resolve
+// rounds' count waits, whole resolve rounds, resolve tails; within those,
+// advances, their tile.sync, and the hand-offs to the next hop) into
+// `out` (host memory), then zeroed when `reset`
+int walk_profile(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
+  if (err == cudaSuccess && reset) {
+    static const unsigned long long zero[2 * kPfPhases] = {};
+    err = cudaMemcpyToSymbol(g_prof, zero, sizeof(g_prof));
+  }
+  return (int)err;
+}
+
 int walk_naive(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* hist,
                int32_t* status, int32_t* hops, float* path_min, const float* min_cov,
                const int32_t* bound, int W, int max_len, int cycle_window, const void* cbf,

@@ -18,7 +18,8 @@ applied.  Tables are updated in place.
 ``cell_insert`` launches the hand-written CUDA kernel
 (``csrc/cell_insert.cu``, which states its design) for a CUDA table, and
 runs ``cell_insert_plain`` for a CPU table.  ``LAUNCHES`` counts kernel
-launches per op, ``INDICES`` the indices those launches were given.
+launches per op, ``INDICES`` the indices those launches were given;
+``launch_timer.recording()`` times the launches on the card.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+
+from . import launch_timer
 
 OPS = {"set": torch.uint8, "add": torch.int32, "add_u16": torch.int16, "add_mf8": torch.uint8}
 
@@ -126,22 +129,25 @@ def cell_insert(table: torch.Tensor, idx: torch.Tensor, op: str, salt: int = 0) 
     lib = kernels()
     stream = torch.cuda.current_stream(table.device).cuda_stream
     numel, n = table.numel(), idx.numel()
+    if op in ("add_u16", "add_mf8") and numel >= 1 << 32:
+        raise ValueError(f"{op} keys cells as uint32; a table of {numel} cells is too long")
+    if op == "add_mf8":
+        if n >= 1 << 31:
+            raise ValueError(f"add_mf8 totals a cell in int32; a batch of {n} indices is too long")
+        batch = _batch_table_for(table.device, n)
+    start = launch_timer.begin(table.device)
     if op == "set":
         err = lib.cell_set_u8(table.data_ptr(), numel, idx.data_ptr(), n, stream)
     elif op == "add":
         err = lib.cell_add_i32(table.data_ptr(), numel, idx.data_ptr(), n, stream)
-    elif numel >= 1 << 32:
-        raise ValueError(f"{op} keys cells as uint32; a table of {numel} cells is too long")
     elif op == "add_u16":
         err = lib.cell_add_u16(table.data_ptr(), numel, idx.data_ptr(), n, stream)
     else:
-        if n >= 1 << 31:
-            raise ValueError(f"add_mf8 totals a cell in int32; a batch of {n} indices is too long")
-        batch = _batch_table_for(table.device, n)
         err = lib.cell_add_mf8_batch(
             table.data_ptr(), batch.data_ptr(), batch_slots(n), numel, idx.data_ptr(), n,
             int(salt) & 0xFFFFFFFF, stream,
         )
+    launch_timer.end(start, table.device, op, n)
     if err != 0:
         raise RuntimeError(f"cell_insert[{op}] launch failed: cudaError_t {err}")
     LAUNCHES[op] += 1

@@ -9,7 +9,7 @@ lane, which states its design) for walks on a CUDA device, and run
 on the CPU.  The plain versions are ``graph/traverse.py::
 extend_walks_plain``, the JAX package's lockstep loop
 (``traverse._extend_walks_fused``) op for op.  ``LAUNCHES`` counts kernel
-launches per mode.
+launches per mode; ``launch_timer.recording()`` times them on the card.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from typing import Dict
 
 import torch
 
-from . import minifloat, nthash
+from . import launch_timer, minifloat, nthash
 
 LAUNCHES: Dict[str, int] = {"walk_greedy": 0, "walk_pair": 0, "walk_naive": 0}
 
@@ -146,7 +146,9 @@ def _launch(name: str, state, graph, cfg, wcfg, min_cov, bound, superstep_hops, 
         args += _pair_args(graph, cfg, wcfg, out)
     elif name == "walk_naive":
         args += [wcfg.tip_probe_depth, int(wcfg.check_back_branches)]
+    start = launch_timer.begin(dev)
     err = getattr(lib, name)(*args, torch.cuda.current_stream(dev).cuda_stream)
+    launch_timer.end(start, dev, name, out.pos.shape[0])
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     LAUNCHES[name] += 1

@@ -461,18 +461,26 @@ def _pair_graph(dtype, blocked, stranded, dev, num_hash=2, pk_hash=2, frag=True,
 
 
 def _pair_walks(cuda, dtype="mf8", blocked=False, stranded=False, left=False, num_hash=2, pk_hash=2, ring=64,
-                depth=24, lane_args=True, **kw):
+                depth=24, lane_args=True, lanes=None, max_len=25 + 500, bounds=(100, 500), graph=None, **kw):
+    """Pair walks of the fragment seeds (``lanes``: that many lanes, the
+    seeds repeated; ``graph``: another (cfg, state, seeds, lens)), with
+    per-lane coverage floors and hop bounds drawn from ``bounds``."""
     from rnabloom_tpu_torch.graph import traverse
 
-    cfg, graph, frags, lens = _pair_graph(dtype, blocked, stranded, cuda, num_hash, pk_hash, **kw)
-    wcfg = traverse.WalkConfig(max_len=25 + 500, left=left, pair_ring=ring, pair_probe_depth=depth)
+    cfg, graph, frags, lens = graph or _pair_graph(dtype, blocked, stranded, cuda, num_hash, pk_hash, **kw)
+    if lanes is not None:
+        rows = np.arange(lanes) % len(frags)
+        frags, lens = frags[rows], lens[rows]
+    wcfg = traverse.WalkConfig(max_len=max_len, left=left, pair_ring=ring, pair_probe_depth=depth)
     seeds = 3 - frags[:, ::-1] if left else frags
     st = traverse.make_walks(cfg, wcfg, np.ascontiguousarray(seeds), lens, device=cuda)
+    if lanes is not None:
+        st = traverse.take_lanes(st, slice(0, lanes))
     rng = np.random.default_rng(5)
     W = st.pos.shape[0]
     if lane_args:
         min_cov, bound = traverse.lane_args(st, rng.choice([1.0, 2.0, 3.5], size=W).astype(np.float32),
-                                            rng.integers(100, 500, size=W).astype(np.int32))
+                                            rng.integers(*bounds, size=W).astype(np.int32))
     else:
         min_cov, bound = traverse.lane_args(st, 1.0, 400)
     return cfg, graph, wcfg, st, min_cov, bound
@@ -514,24 +522,76 @@ def _pair_args(walks):
 @pytest.mark.parametrize(
     "kw",
     [{"num_hash": 1}, {"num_hash": 3}, {"num_hash": 4}, {"pk_hash": 1}, {"pk_hash": 3}, {"pk_hash": 5},
-     {"ring": 48}, {"ring": 40}, {"ring": 1024}, {"depth": 1}, {"depth": 2}, {"depth": 8},
+     {"ring": 48}, {"ring": 40}, {"ring": 1024}, {"ring": 20}, {"ring": 16, "depth": 23},
+     {"depth": 1}, {"depth": 2}, {"depth": 3}, {"depth": 8}, {"depth": 23},
      {"frag": False}, {"read": False}, {"frag": False, "read": False}, {"lane_args": False}],
     ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()),
 )
 def test_pair_kernel_options_match_plain(cuda, kw):
     """num_hash 1-3 (the specialised kernels) and 4 (the generic one), pkbf
-    hashes, rings shorter than a fragment and exactly the read pair
-    distance, probe depths, a missing pair class or both."""
+    hashes, rings shorter than a fragment, exactly the read pair distance
+    and shorter than the probe, probe depths (odd and even rounds of two
+    steps: 1, 2, 3, 8, 23 and the default 24), a missing pair class or
+    both."""
     _pair_kernel_and_plain(*_pair_args(_pair_walks(cuda, **kw)))
 
 
-@pytest.mark.parametrize("W", [1, 45])
+@pytest.mark.parametrize("W", [1, 45, 64, 70, 2048, 3000])
 def test_pair_kernel_odd_lane_counts(cuda, W):
+    """One lane to several blocks an SM (the launch spreads the lanes over
+    every SM first)."""
+    _pair_kernel_and_plain(*_pair_args(_pair_walks(cuda, lanes=W)))
+
+
+@pytest.mark.parametrize(
+    "max_len,bounds,parities",
+    [(107, (100, 500), {0}), (108, (100, 500), {1}), (525, (1, 13), {0, 1})],
+    ids=["max_len_even_hops", "max_len_odd_hops", "small_bounds"],
+)
+def test_pair_kernel_full_on_either_hop_of_a_round(cuda, max_len, bounds, parities):
+    """FULL at max_len - 1 (after an even or an odd number of hops from the
+    100-base seeds) and at hop bounds of 1-12 (both), so on the first or
+    the second hop of a round's two."""
     from rnabloom_tpu_torch.graph import traverse
 
-    graph, cfg, wcfg, st, min_cov, bound = _pair_args(_pair_walks(cuda))
-    st = traverse.take_lanes(st, slice(0, W))
-    _pair_kernel_and_plain(graph, cfg, wcfg, st, min_cov[:W].contiguous(), bound[:W].contiguous())
+    kern = _pair_kernel_and_plain(*_pair_args(_pair_walks(cuda, max_len=max_len, bounds=bounds)))
+    full = kern.status == traverse.FULL
+    assert {int(h) % 2 for h in kern.hops[full].tolist()} == parities
+
+
+_cycle_graphs = {}
+
+
+def _cycle_graph(period, dev):
+    """Reads of a sequence that repeats every ``period`` bases (so a walk
+    comes back to a k-mer after ``period`` hops, within the cycle window),
+    with read- and fragment-pair keys; seeds are reads."""
+    key = (period, str(dev))
+    if key not in _cycle_graphs:
+        rng = np.random.default_rng(period)
+        cfg = dbg.GraphConfig(
+            k=25, stranded=False, dbgbf=BloomConfig(18, 2), cbf=CountingConfig(18, 2, dtype="mf8"),
+            pkbf=BloomConfig(18, 2), read_pair_distance=40, fragment_pair_distance=60,
+        )
+        tx = np.tile(rng.integers(0, 4, size=period, dtype=np.uint8), 600 // period + 1)[:600]
+        reads = np.stack([tx[s : s + 100] for _ in range(3) for s in range(0, 500, 10)])
+        t = torch.from_numpy(reads).to(dev)
+        state = dbg.build_step(dbg.make_graph(cfg, with_rpkbf=True, with_fpkbf=True, device=dev), cfg, t,
+                                 add_read_pairs=True)
+        state = dbg.rebuild_step(state, cfg, t, salt=1)
+        frags = reads[::7][:40].copy()
+        lens = 100 - (np.arange(len(frags)) % 3)
+        _cycle_graphs[key] = (cfg, state, frags, lens)
+    return _cycle_graphs[key]
+
+
+@pytest.mark.parametrize("period", [37, 38])
+def test_pair_kernel_cycle_on_either_hop_of_a_round(cuda, period):
+    """CYCLE after an odd or an even number of hops."""
+    from rnabloom_tpu_torch.graph import traverse
+
+    kern = _pair_kernel_and_plain(*_pair_args(_pair_walks(cuda, graph=_cycle_graph(period, cuda))))
+    assert int((kern.status == traverse.CYCLE).sum()) > 0
 
 
 def test_pair_kernel_superstep_cap(cuda):
