@@ -6,9 +6,10 @@
 Run from the root of a checkout on a machine with a CUDA card.  It imports
 no JAX.  ``--walk-variant`` adds another walk kernel source with the same C
 entry points (a copy of ``csrc/walk_greedy.cu`` with another constant, or
-an older commit's kernel from ``git show``) to phases 4 (greedy walks) and
-6 (pair walks, where the source has ``walk_pair``), built beside the
-port's kernels, held to the same equality and timed in the same turns.
+an older commit's kernel from ``git show``) to phases 4 and 7 (greedy
+walks), 6 (pair walks, where the source has ``walk_pair``) and 8 (naive
+walks, where it has ``walk_naive``), built beside the port's kernels, held
+to the same equality and timed in the same turns.
 ``--insert-variant`` does the same for another ``csrc/cell_insert.cu`` in
 phase 2 (an older source whose mf8 entry point is ``cell_add_mf8``, with
 its int32 scratch as long as the table, gets that scratch).
@@ -117,20 +118,27 @@ Phases (any failure raises and exits nonzero):
    ``-maxclip 8`` (the default never reaches the blunt-end probes; later
    batches if that one has no candidate), for the depth probes on the
    graph and on the screen viewed as an mf8 graph.  Every captured walk by
-   the kernel and the plain loop, every field equal; per use (gap
-   re-walks; tip and depth probes; the screen as a graph) the largest
-   batch timed, replayed by ``walk_tally`` for its reads and bound, beside
-   one gather of as many random cells of its table.
+   the kernel, each ``--walk-variant`` and the plain loop, every field
+   equal; per use (gap re-walks; tip and depth probes; the screen as a
+   graph) the largest batch timed in turns, replayed by ``walk_tally`` for
+   its reads and bound, beside one gather of as many random cells of its
+   table.
 8. The naive walk kernel (``-extend``) vs its plain version: the first
    stage-2 batch of the 1M pairs joined into fragments on phase 3's mf8
    graph as stage 2 does, then extended; its two naive walks (right, then
    left; back-branch checks, tip_probe_depth 8, buffers padded to a power
-   of two) run again by the kernel and once by the plain loop: every
-   field equal, the extension's own run too.  Times in turns; a replay of
-   the plain loop (``naive_tally``) counts the cells the kernel's naive
-   schedule reads; the bound is those reads as 32 B sectors plus the walk
-   state read and written, over 3.35 TB/s; beside it one gather of as
-   many random cells.  Then the main path of this slice, with every
+   of two) run again by the kernel, by each ``--walk-variant`` with
+   ``walk_naive`` and once by the plain loop: every field equal, the
+   extension's own run too.  Times in turns (kernel, variants, variants,
+   kernel); a replay of the plain loop (``naive_tally``, which must end in
+   its state) counts the cells the plain loop reads, the cells it needs
+   (a variant probe's steps once: all live variants follow one descent)
+   and the cells this schedule reads, and each lane's dependent rounds
+   under the one-step schedule and this one; the bound is the needed
+   cells as 32 B sectors plus the walk state read and written, over 3.35
+   TB/s; beside it one gather of as many random cells.  The lane with the
+   most rounds is walked alone (time a round).  Then the main path of
+   this slice, with every
    launch count set to 0 before it: ``-stage 2 -extend`` on the first 8
    batches of the 1M pairs (65,536 pairs: a depth cut), its pairs/s and
    its launches (``walk_naive`` among them).
@@ -1436,26 +1444,35 @@ def pair_vs_plain(graph, cfg, store: FragmentStore, card: str, dev, variants: di
     return r
 
 
-def greedy_vs_plain(walks: list, what: str, card: str, dev) -> dict:
+def greedy_vs_plain(walks: list, what: str, card: str, dev, variants: dict) -> dict:
     """Each captured greedy walk (kind, state, graph, cfg, wcfg, min_cov,
-    bound) by the kernel and by the plain loop, every field equal; the
-    largest one (lanes x max_len) timed in turns, replayed by ``walk_tally``
-    (which must end in the plain loop's state) for its reads and bound, and
-    beside it one gather of as many random cells of its table."""
+    bound) by the kernel, by each ``--walk-variant`` and by the plain loop,
+    every field equal; the largest one (lanes x max_len) timed in turns
+    (kernel, variants, variants, kernel), replayed by ``walk_tally`` (which
+    must end in the plain loop's state) for its reads and bound, and beside
+    it one gather of as many random cells of its table."""
+    builds = ["kernel", *variants]
+
+    def call(who, st, graph, cfg, wcfg, mc, bd):
+        with walk_library(variants[who]) if who in variants else contextlib.nullcontext():
+            return walk.walk_greedy(st, graph, cfg, wcfg, mc, bd)
+
     err = 0.0
     for _, st, graph, cfg, wcfg, mc, bd in walks:
-        kern = walk.walk_greedy(st, graph, cfg, wcfg, mc, bd)
         plain = walk.walk_greedy_plain(st, graph, cfg, wcfg, mc, bd)
-        torch.cuda.synchronize()
-        bad = _same_state(kern, plain)
-        if bad:
-            raise AssertionError(f"walk_greedy != plain on {what}: {bad} differ")
-        err = max(err, _max_abs_diff(kern, plain))
+        for who in builds:
+            kern = call(who, st, graph, cfg, wcfg, mc, bd)
+            torch.cuda.synchronize()
+            bad = _same_state(kern, plain)
+            if bad:
+                raise AssertionError(f"walk_greedy ({who}) != plain on {what}: {bad} differ")
+            err = max(err, _max_abs_diff(kern, plain))
     _, st, graph, cfg, wcfg, mc, bd = max(walks, key=lambda w: w[1].pos.shape[0] * w[4].max_len)
     kernel = lambda: walk.walk_greedy(st, graph, cfg, wcfg, mc, bd)  # noqa: E731
     plain_fn = lambda: walk.walk_greedy_plain(st, graph, cfg, wcfg, mc, bd)  # noqa: E731
-    t = {"kernel": [_time_ms(kernel, reps=5)], "plain": [_time_ms(plain_fn, reps=1)]}
-    t["kernel"].append(_time_ms(kernel, reps=5))
+    t = {"plain": [_time_ms(plain_fn, reps=1)], **{who: [] for who in builds}}
+    for who in (*builds, *builds[::-1]):
+        t[who].append(_time_ms(lambda: call(who, st, graph, cfg, wcfg, mc, bd), reps=5))
     tally = walk_tally(st, graph, cfg, wcfg, mc, bd)
     plain = plain_fn()
     bad = _same_state(tally["state"], plain)
@@ -1472,6 +1489,7 @@ def greedy_vs_plain(walks: list, what: str, card: str, dev) -> dict:
         "bound_ms": walk_bound_ms(st, mc, bd, reads), "gather_ms": gather_ms,
         "hops": int(kern.hops.sum()), "resolves": int(tally["resolves"].sum()),
         "table_cells": int(graph.cbf.numel()), "layout": cfg.cbf.dtype, "num_hash": cfg.cbf.num_hash,
+        "variants": {who: {"ms": _mean(t[who])} for who in variants},
     }
     print(f"walk_greedy ({what}): {len(walks)} walk batches, every field equal to the plain loop; the largest, "
           f"{r['lanes']} lanes of max_len {r['max_len']} ({r['layout']} table of {r['table_cells']} cells, "
@@ -1479,10 +1497,13 @@ def greedy_vs_plain(walks: list, what: str, card: str, dev) -> dict:
           f"{r['plain_ms']:.2f} ms; {r['hops']} hops, {r['resolves']} resolves, {reads} cell reads: bound "
           f"{r['bound_ms']:.4f} ms at 3.35 TB/s; one gather of as many random cells {gather_ms:.4f} ms [{card}]",
           flush=True)
+    for who in variants:
+        print(f"walk variant {who} ({what}): equal to the plain loop on every batch; the largest {_mean(t[who]):.4f} "
+              f"ms ({', '.join(f'{x:.4f}' for x in t[who])}) [{card}]", flush=True)
     return r
 
 
-def stage3_walks_vs_plain(graph, cfg, store: FragmentStore, card: str, dev) -> dict:
+def stage3_walks_vs_plain(graph, cfg, store: FragmentStore, card: str, dev, variants: dict) -> dict:
     """Stage 3's greedy walks on the rebuilt 1M-pair graph: stage 3's
     batches in its own order on a fresh screen (as the main path ran them),
     up to the first batch that issues gap re-walks; that batch's gap
@@ -1526,12 +1547,12 @@ def stage3_walks_vs_plain(graph, cfg, store: FragmentStore, card: str, dev) -> d
     (gi, gap), (si, probes) = found["gap_rewalk"], found["screen"]
     out = {"gap_batch": gi, "probe_batch": si}
     out["gap_rewalk"] = greedy_vs_plain([w for w in gap if w[0] == "gap_rewalk"],
-                                        f"gap re-walks of stage 3's batch {gi}", card, dev)
+                                        f"gap re-walks of stage 3's batch {gi}", card, dev, variants)
     tips = [w for w in gap + probes if w[0] == "probe"]
     out["probe"] = greedy_vs_plain(tips, f"tip and depth probes of stage 3's batches {gi}, {si} (-maxclip {MAXCLIP})",
-                                   card, dev)
+                                   card, dev, variants)
     out["screen"] = greedy_vs_plain([w for w in probes if w[0] == "screen"],
-                                    f"the screen as a graph, batch {si} with -maxclip {MAXCLIP}", card, dev)
+                                    f"the screen as a graph, batch {si} with -maxclip {MAXCLIP}", card, dev, variants)
     return out
 
 
@@ -1616,37 +1637,69 @@ def extend_card_vs_cpu(left: str, right: str, tmp: str) -> dict:
 def naive_tally(st, graph, cfg, wcfg, mc, bd, superstep_hops: int = 64, max_supersteps: int = 64) -> dict:
     """The plain loop in naive mode (``extend_walks_plain``), replayed one
     hop at a time with the plain version's own steps, counting per lane
-    the k-mers the kernel's naive schedule reads: a hop its 4 candidates
-    and, with back-branch checks, the left variants but the k-mer itself;
-    each step of a variant probe the 4 successors of every live variant;
-    each step of a resolve's beam probe those of every live slot; num_hash
-    cells a k-mer.  Dependent read rounds: a hop 1 plus its variant
-    probe's steps, a resolve its beam probe's steps.  Returns the tallies
-    and the final state."""
+    what two schedules of the kernel read and how many dependent rounds
+    they take.  num_hash cells a k-mer.
+
+    Reads of the plain loop (``reads``): a hop its 4
+    candidates and, with back-branch checks, the left variants but the
+    k-mer itself, and each step of the variant probe the 4 successors of
+    every live variant; each step of a resolve's beam probe those of every
+    live slot.  Reads it needs (``needed``, the bound): the same, but a
+    variant probe's steps once: every live variant's first step departs
+    its own base to the walk's own candidates (the rolling hash cancels
+    the substituted base), so all variants follow one greedy descent from
+    the candidates, whose step 0 needs no read.  The replay checks that
+    rule against the plain loop's back-branch stops at every hop.
+
+    The one-step schedule (``old_rounds``): a hop that reads is a
+    round, and each step of its variant probe; a resolve a round a step.
+
+    This schedule (``new_rounds``, ``new_reads``): a round that reads a
+    k-mer's candidates also reads their 16 children and, with back-branch
+    checks, the k-mer's left variants and each candidate's ("kids"); a hop
+    that advances with kids hands the next hop its counts and variants: it
+    costs no round.  A probe takes step 0 from the candidates (variant
+    probe) or their children (resolve), first reading the kids when they
+    are not known and step 1 needs them (variant probe: tip_probe_depth
+    >= 3; resolve: >= 2); then two steps a round (the successors of each
+    live slot and their children), a last single step when one is left.
+    A resolve that advances hands the next hop its counts and variants.
+    Returns the tallies and the final state."""
     from rnabloom_tpu_torch.graph import dbg
 
     state = traverse.clone_state(st)
     W, k, h, dev = st.pos.shape[0], cfg.k, cfg.cbf.num_hash, st.pos.device
-    hops = torch.zeros(W, dtype=torch.int64, device=dev)
-    resolves, kmers, rounds = hops.clone(), hops.clone(), hops.clone()
+    T, back = wcfg.tip_probe_depth, wcfg.check_back_branches
+    zero = torch.zeros(W, dtype=torch.int64, device=dev)
+    hops, resolves, reads, needed, new_reads, old_rounds, new_rounds, free_hops = (zero.clone() for _ in range(8))
+    cached = torch.zeros(W, dtype=torch.bool, device=dev)
+    kids = cached.clone()
     floor = torch.clamp(mc, min=1.0)[:, None]
     rows4 = torch.arange(W * 4, device=dev)
+    base = torch.arange(4, device=dev)
 
-    def probe(fh, rh, alive, outc_of, beam):
-        """Step through a beam probe (the plain version's rule) counting
-        the live slots' successors; alive is (W, 4 * beam)."""
-        nonlocal kmers, rounds
+    def counts(f, r):
+        return dbg.get_counts(graph, cfg, traverse._query_hash(cfg, wcfg, f, r))
+
+    def kid_kmers(out_next):
+        """k-mers a kids read adds: 16 children, and with back-branch
+        checks each candidate's left variants but itself."""
+        return 16 + (4 * (4 - (out_next < 4).long()) if back else 0)
+
+    def beam(fh, rh, alive, outc_of, width):
+        """The plain version's beam probe (width 1: _variant_depth_probe,
+        2: _tip_probe) from (W, 4 * width) slots; returns the live slots
+        before each step, (W, 4 * width) each, T - 1 of them."""
         fh, rh, al = fh.reshape(-1), rh.reshape(-1), alive.reshape(-1)
-        mcx = floor.expand(W, 4 * beam).reshape(-1, 1)
-        for i in range(wcfg.tip_probe_depth - 1):
-            live = al.reshape(W, 4 * beam)
-            if not bool(live.any()):
-                break
-            kmers += live.sum(dim=1) * 4
-            rounds += live.any(dim=1)
+        mcx = floor.expand(W, 4 * width).reshape(-1, 1)
+        live = []
+        for i in range(T - 1):
+            live.append(al.reshape(W, 4 * width))
+            if not bool(al.any()):
+                continue
             f4, r4 = nthash.successor_hashes(fh, outc_of(i).reshape(-1), k, rh=rh)
-            cc = dbg.get_counts(graph, cfg, traverse._query_hash(cfg, wcfg, f4, r4))
-            if beam == 1:
+            cc = counts(f4, r4)
+            if width == 1:
                 ok = cc >= mcx
                 best = torch.argmax(torch.where(ok, cc, -1.0), dim=1)
                 al = al & ok.any(dim=1)
@@ -1662,6 +1715,41 @@ def naive_tally(st, graph, cfg, wcfg, mc, bd, superstep_hops: int = 64, max_supe
             al = ok.reshape(W * 4, 8).gather(1, pick).reshape(-1)
             fh = torch.where(al, f4.reshape(W * 4, 8).gather(1, pick).reshape(-1), fh)
             rh = torch.where(al, r4.reshape(W * 4, 8).gather(1, pick).reshape(-1), rh)
+        return live
+
+    def descent(fh4, rh4, cnt, buf, pos):
+        """The variant probe's common greedy descent: alive after each of
+        its T - 1 steps, (W, T - 1); step 0 picks among the candidates."""
+        ok = cnt >= floor
+        alive = ok.any(dim=1)
+        best = torch.argmax(torch.where(ok, cnt, -1.0), dim=1)
+        f, r = traverse._pick(fh4, best), traverse._pick(rh4, best)
+        out = [alive]
+        for i in range(1, T - 1):
+            f4, r4 = nthash.successor_hashes(f, traverse._buf_at(buf, pos - k + i), k, rh=r)
+            cc = counts(f4, r4)
+            ok = cc >= floor
+            best = torch.argmax(torch.where(ok, cc, -1.0), dim=1)
+            alive = alive & ok.any(dim=1)
+            f = torch.where(alive, traverse._pick(f4, best), f)
+            r = torch.where(alive, traverse._pick(r4, best), r)
+            out.append(alive)
+        return torch.stack(out, dim=1) if T > 1 else torch.zeros((W, 0), dtype=torch.bool, device=dev)
+
+    def read_round(lanes, out, out_next):
+        """A round that reads the candidates, their variants and kids."""
+        nonlocal new_rounds, new_reads
+        own = 4 - (out < 4).long() if back else 0
+        new_rounds += lanes
+        new_reads += lanes * (4 + own + kid_kmers(out_next))
+        cached.logical_or_(lanes)
+        kids.logical_or_(lanes)
+
+    def kids_round(lanes, out_next):
+        nonlocal new_rounds, new_reads
+        new_rounds += lanes
+        new_reads += lanes * kid_kmers(out_next)
+        kids.logical_or_(lanes)
 
     for _ in range(max_supersteps):
         if not bool(((state.status == traverse.ACTIVE) | (state.status == traverse.BRANCH)).any()):
@@ -1670,32 +1758,79 @@ def naive_tally(st, graph, cfg, wcfg, mc, bd, superstep_hops: int = 64, max_supe
             active = state.status == traverse.ACTIVE
             if not bool(active.any()):
                 break
+            buf, pos = state.buf, state.pos
+            out = traverse._gather_out_codes(buf, pos, k)
+            out_next = traverse._buf_at(buf, pos - k + 1)
+            free_hops += active & cached
+            read_round(active & ~cached, out, out_next)
             hops += active
-            rounds += active
-            out = traverse._gather_out_codes(state.buf, state.pos, k)
-            kmers += active * 4
-            if wcfg.check_back_branches:
-                is_self = torch.arange(4, device=dev)[None, :] == out[:, None]
-                kmers += active * (~is_self).sum(dim=1)
+            old_rounds += active
+            reads += active * 4
+            needed += active * 4
+            stop = torch.zeros_like(active)
+            if back:
+                fh4, rh4, _ = traverse._successors(cfg, wcfg, state.fh, state.rh, out)
+                cnt = counts(fh4, rh4)
+                is_self = base[None, :] == out[:, None]
+                reads += active * (~is_self).sum(dim=1)
+                needed += active * (~is_self).sum(dim=1)
                 flv, rlv = nthash.variant_hashes_left(state.fh, out, k, state.rh)
-                cv = dbg.get_counts(graph, cfg, traverse._query_hash(cfg, wcfg, flv, rlv))
-                alive = (cv >= floor) & ~is_self & active[:, None]
-                buf, pos = state.buf, state.pos
-                probe(flv, rlv, alive, lambda i: (torch.arange(4, device=dev).repeat(W) if i == 0 else
-                                                  traverse._buf_at(buf, pos - k + i)[:, None].expand(W, 4)), 1)
+                valive = (counts(flv, rlv) >= floor) & ~is_self & active[:, None]
+                for live in beam(flv, rlv, valive, lambda i: (base.repeat(W) if i == 0 else
+                                                              traverse._buf_at(buf, pos - k + i)[:, None].expand(W, 4)), 1):
+                    old_rounds += live.any(dim=1)
+                    reads += live.sum(dim=1) * 4
+                vany = valive.any(dim=1)
+                A = descent(fh4, rh4, cnt, buf, pos)
+                for i in range(1, T - 1):
+                    needed += (vany & A[:, i - 1]) * 4
+                if T >= 3:  # step 1 reads the kids; then two steps a round from step 2
+                    probing = vany & A[:, 0]
+                    kids_round(probing & ~kids, out_next)
+                    for i in range(2, T - 1, 2):
+                        go = probing & A[:, i - 1]
+                        new_rounds += go
+                        new_reads += go * (20 if i + 1 <= T - 2 else 4)
+                stop = active & (torch.ones_like(vany) if T <= 0 else vany if T == 1 else vany & A[:, T - 2])
+            pos0 = state.pos
             state = traverse.walk_superstep(state, graph, cfg, wcfg, mc, bd, 1)
+            if not torch.equal(stop, active & (state.status == traverse.STOPPED_BRANCH)):
+                raise AssertionError("the common-descent rule disagrees with the plain loop's back-branch stops")
+            adv = active & (state.pos > pos0)
+            cached = torch.where(adv, kids, cached)
+            kids = kids & ~adv
         branch = state.status == traverse.BRANCH
         if bool(branch.any()):
             resolves += branch
-            out = traverse._gather_out_codes(state.buf, state.pos, k)
+            buf, pos = state.buf, state.pos
+            out = traverse._gather_out_codes(buf, pos, k)
+            out_next = traverse._buf_at(buf, pos - k + 1)
+            old_rounds += branch & ~cached  # a lane that starts at a branch reads its candidates first
+            needed += (branch & ~cached) * 4
+            read_round(branch & ~cached, out, out_next)
+            if T >= 2:
+                kids_round(branch & ~kids, out_next)
             fh4, rh4, q4 = traverse._successors(cfg, wcfg, state.fh, state.rh, out)
             viable = (dbg.get_counts(graph, cfg, q4) >= floor) & branch[:, None]
             dup = lambda x: x.reshape(W * 4, 1).expand(W * 4, 2).reshape(W, 8)  # noqa: E731
             alive = torch.stack([viable, torch.zeros_like(viable)], dim=-1).reshape(W, 8)
-            buf, pos = state.buf, state.pos
-            probe(dup(fh4), dup(rh4), alive, lambda i: traverse._buf_at(buf, pos - k + 1 + i)[:, None].expand(W, 8), 2)
+            live = beam(dup(fh4), dup(rh4), alive,
+                        lambda i: traverse._buf_at(buf, pos - k + 1 + i)[:, None].expand(W, 8), 2)
+            for i, lv in enumerate(live):
+                old_rounds += lv.any(dim=1)
+                reads += lv.sum(dim=1) * 4
+                needed += lv.sum(dim=1) * 4
+                if i % 2 == 1:  # step 0 comes from the kids; steps i, i + 1 a round
+                    new_rounds += lv.any(dim=1)
+                    new_reads += lv.sum(dim=1) * (20 if i + 1 <= T - 2 else 4)
+            pos0 = state.pos
             state = traverse.resolve_branches(state, graph, cfg, wcfg, mc, mode="naive")
-    return {"state": state, "hops": hops, "resolves": resolves, "reads": kmers * h, "rounds": rounds}
+            adv = branch & (state.pos > pos0)
+            cached = torch.where(branch, adv & kids, cached)
+            kids = kids & ~branch
+    return {"state": state, "hops": hops, "resolves": resolves, "reads": reads * h, "needed": needed * h,
+            "new_reads": new_reads * h, "old_rounds": old_rounds, "new_rounds": new_rounds, "free_hops": free_hops,
+            "rounds": old_rounds}
 
 
 def first_batch_naive_walks(graph_prefix: str, left: str, right: str, dev):
@@ -1732,12 +1867,21 @@ def first_batch_naive_walks(graph_prefix: str, left: str, right: str, dev):
     return graph, cfg, captured, n_frags
 
 
-def naive_vs_plain(graph_prefix: str, left: str, right: str, card: str, dev) -> dict:
+def naive_vs_plain(graph_prefix: str, left: str, right: str, card: str, dev, variants: dict) -> dict:
     """The naive walk kernel vs its plain version on the -extend walks of
-    the first stage-2 batch (right, then left): every field equal, times
-    in turns, the replayed reads and bound, one random gather beside."""
+    the first stage-2 batch (right, then left): every field equal, by the
+    kernel and each ``--walk-variant`` too; times in turns (kernel,
+    variants, variants, kernel); the replayed reads, bound and rounds
+    (``naive_tally``); the lane with the most rounds walked alone; one
+    random gather beside."""
     graph, cfg, captured, n_frags = first_batch_naive_walks(graph_prefix, left, right, dev)
     r = {"fragments": n_frags, "walks": {}}
+    builds = ["kernel", *variants]
+
+    def call(who, st, wcfg, mc, bd):
+        with walk_library(variants[who]) if who in variants else contextlib.nullcontext():
+            return walk.walk_naive(st, graph, cfg, wcfg, mc, bd)
+
     for side, (st, wcfg, mc, bd, run_out) in zip(("right", "left"), captured):
         kern = walk.walk_naive(st, graph, cfg, wcfg, mc, bd)
         plain = None
@@ -1746,8 +1890,10 @@ def naive_vs_plain(graph_prefix: str, left: str, right: str, card: str, dev) -> 
             nonlocal plain
             plain = walk.walk_naive_plain(st, graph, cfg, wcfg, mc, bd)
 
-        t = {"plain": [_time_ms(plain_run, reps=1)], "kernel": []}
-        for who, got in (("kernel", kern), ("the extension's own run", run_out)):
+        t = {"plain": [_time_ms(plain_run, reps=1)], **{who: [] for who in builds}}
+        for who, got in (("kernel", kern), ("the extension's own run", run_out),
+                         *((who, call(who, st, wcfg, mc, bd)) for who in variants)):
+            torch.cuda.synchronize()
             bad = _same_state(got, plain)
             if bad:
                 raise AssertionError(f"walk_naive ({side}, {who}) != plain: {bad} differ")
@@ -1755,30 +1901,66 @@ def naive_vs_plain(graph_prefix: str, left: str, right: str, card: str, dev) -> 
         bad = _same_state(tally["state"], plain)
         if bad:
             raise AssertionError(f"the tallied replay of the plain naive loop differs ({side}): {bad}")
-        for who in ("kernel", "kernel"):
-            t[who].append(_time_ms(lambda: walk.walk_naive(st, graph, cfg, wcfg, mc, bd), reps=5))
+        for who in (*builds, *builds[::-1]):
+            t[who].append(_time_ms(lambda: call(who, st, wcfg, mc, bd), reps=5))
         t["plain"].append(_time_ms(lambda: walk.walk_naive_plain(st, graph, cfg, wcfg, mc, bd), reps=1))
-        reads = int(tally["reads"].sum())
-        idx = torch.randint(0, graph.cbf.numel(), (max(reads, 1),), device=dev)
+        # the lane with the most dependent rounds under this schedule, walked alone
+        w = int(torch.argmax(tally["new_rounds"]))
+        one = traverse.take_lanes(st, slice(w, w + 1))
+        one_mc, one_bd = mc[w : w + 1].contiguous(), bd[w : w + 1].contiguous()
+        lane_ms = {who: [] for who in builds}
+        for who in builds:
+            bad = [f for f in WALK_FIELDS if not torch.equal(getattr(call(who, one, wcfg, one_mc, one_bd), f),
+                                                             getattr(plain, f)[w : w + 1])]
+            if bad:
+                raise AssertionError(f"walk_naive ({who}): lane {w} walked alone differs from the plain loop: {bad}")
+        for who in (*builds, *builds[::-1]):
+            lane_ms[who].append(_time_ms(lambda: call(who, one, wcfg, one_mc, one_bd), reps=5))
+        reads, needed = int(tally["reads"].sum()), int(tally["needed"].sum())
+        idx = torch.randint(0, graph.cbf.numel(), (max(needed, 1),), device=dev)
         graph.cbf[idx]
         gather_ms = min(_time_ms(lambda: graph.cbf[idx], reps=3) for _ in range(3))
         del idx
         status = torch.bincount(kern.status.long(), minlength=7).tolist()
-        w = r["walks"][side] = {
-            "max_abs_err": _max_abs_diff(kern, plain), "ms": sum(t["kernel"]) / 2, "plain_ms": sum(t["plain"]) / 2,
+        rounds = {name: int(tally[f"{name}_rounds"][w]) for name in ("old", "new")}
+        w_old = int(torch.argmax(tally["old_rounds"]))
+        v = r["walks"][side] = {
+            "max_abs_err": _max_abs_diff(kern, plain), "ms": _mean(t["kernel"]), "plain_ms": _mean(t["plain"]),
             "turns_ms": t["kernel"], "lanes": int(st.pos.shape[0]), "max_len": wcfg.max_len,
             "hops": int(kern.hops.sum()), "hops_tried": int(tally["hops"].sum()),
-            "resolves": int(tally["resolves"].sum()), "cell_reads": reads,
-            "bound_ms": walk_bound_ms(st, mc, bd, reads), "gather_ms": gather_ms,
-            "max_rounds": int(tally["rounds"].max()), "statuses": status,
+            "free_hops": int(tally["free_hops"].sum()), "resolves": int(tally["resolves"].sum()),
+            "cell_reads": needed, "plain_loop_cell_reads": reads, "schedule_cell_reads": int(tally["new_reads"].sum()),
+            "bound_ms": walk_bound_ms(st, mc, bd, needed), "plain_reads_bound_ms": walk_bound_ms(st, mc, bd, reads),
+            "gather_ms": gather_ms, "rounds_old": int(tally["old_rounds"].sum()),
+            "rounds_new": int(tally["new_rounds"].sum()), "max_rounds_old": int(tally["old_rounds"][w_old]),
+            "longest_lane": w, "longest_lane_rounds": rounds["new"], "longest_lane_rounds_old": rounds["old"],
+            "longest_lane_hops": int(tally["hops"][w]), "longest_lane_resolves": int(tally["resolves"][w]),
+            "longest_lane_ms": min(lane_ms["kernel"]),
+            "round_ns": min(lane_ms["kernel"]) * 1e6 / max(rounds["new"], 1), "statuses": status,
+            "variants": {who: {"ms": _mean(t[who]), "longest_lane_ms": min(lane_ms[who]),
+                               "round_ns_old_schedule": min(lane_ms[who]) * 1e6 / max(rounds["old"], 1)}
+                         for who in variants},
         }
-        print(f"walk_naive ({side} -extend walks of the first stage-2 batch, {n_frags} fragments in {w['lanes']} "
-              f"lanes, max_len {w['max_len']}, back-branch checks, tip_probe_depth {wcfg.tip_probe_depth}): every "
-              f"WalkState field equal to plain; {w['hops']} hops, statuses {status}; kernel {w['ms']:.4f} ms "
-              f"({', '.join(f'{x:.4f}' for x in t['kernel'])}), plain {w['plain_ms']:.2f} ms [{card}]", flush=True)
-        print(f"walk_naive ({side}): {w['hops_tried']} hops tried, {w['resolves']} resolves, {reads} cell reads: "
-              f"bound {w['bound_ms']:.4f} ms by bytes at 3.35 TB/s; one gather of as many random cells "
-              f"{gather_ms:.4f} ms; most dependent read rounds of a lane {w['max_rounds']} [{card}]", flush=True)
+        print(f"walk_naive ({side} -extend walks of the first stage-2 batch, {n_frags} fragments in {v['lanes']} "
+              f"lanes, max_len {v['max_len']}, back-branch checks, tip_probe_depth {wcfg.tip_probe_depth}): every "
+              f"WalkState field equal to plain; {v['hops']} hops, statuses {status}; kernel {v['ms']:.4f} ms "
+              f"({', '.join(f'{x:.4f}' for x in t['kernel'])}), plain {v['plain_ms']:.2f} ms [{card}]", flush=True)
+        print(f"walk_naive ({side}): {v['hops_tried']} hops tried ({v['free_hops']} cost no round), {v['resolves']} "
+              f"resolves; cell reads: {needed} needed (bound {v['bound_ms']:.4f} ms by bytes at 3.35 TB/s), the plain "
+              f"loop's {reads} (every live variant's probe apart: {v['plain_reads_bound_ms']:.4f} ms), this "
+              f"schedule's {v['schedule_cell_reads']}; one gather of as many random cells as needed {gather_ms:.4f} "
+              f"ms [{card}]", flush=True)
+        print(f"walk_naive ({side}) rounds: {v['rounds_old']} in all under the one-step schedule (most "
+              f"{v['max_rounds_old']}), {v['rounds_new']} under this one; longest lane {w}: {v['longest_lane_hops']} "
+              f"hops, {v['longest_lane_resolves']} resolves, {rounds['new']} rounds (one-step schedule "
+              f"{rounds['old']}), walked alone {v['longest_lane_ms']:.4f} ms "
+              f"({', '.join(f'{x:.4f}' for x in lane_ms['kernel'])}): {v['round_ns']:.1f} ns a round [{card}]",
+              flush=True)
+        for who, x in v["variants"].items():
+            print(f"walk variant {who} (naive, {side}): equal to the plain loop; batch {x['ms']:.4f} ms "
+                  f"({', '.join(f'{y:.4f}' for y in t[who])}); lane {w} alone {x['longest_lane_ms']:.4f} ms "
+                  f"({', '.join(f'{y:.4f}' for y in lane_ms[who])}; {x['round_ns_old_schedule']:.1f} ns a round of "
+                  f"the one-step schedule) [{card}]", flush=True)
         del kern, plain, tally
     del graph
     torch.cuda.empty_cache()
@@ -1812,7 +1994,7 @@ def extend_main_path(left: str, right: str, out: str, card: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--walk-variant", action="append", default=[], metavar="NAME=PATH",
-                    help="another walk kernel source (same C entry points) to check and time in phases 4 and 6")
+                    help="another walk kernel source (same C entry points) to check and time in phases 4, 6, 7 and 8")
     ap.add_argument("--insert-variant", action="append", default=[], metavar="NAME=PATH",
                     help="another insert kernel source (same C entry points) to check and time in phase 2")
     args = ap.parse_args(argv)
@@ -1974,13 +2156,14 @@ def main(argv=None) -> int:
 
         phase("7 stage 3's greedy walks (gap re-walks, tip and depth probes, the screen as a graph) vs plain PyTorch "
               "on the rebuilt 1M-pair graph")
-        greedy3 = stage3_walks_vs_plain(rebuilt, cfg6, store6, card, dev)
+        greedy3 = stage3_walks_vs_plain(rebuilt, cfg6, store6, card, dev, variants)
         del rebuilt
         torch.cuda.empty_cache()
 
         phase("8 naive walk kernel vs plain PyTorch (-extend walks of the first stage-2 batch on the 1M-pair mf8 "
               f"graph), then -stage 2 -extend on the first {EXTEND_BATCHES} batches, on the card")
-        naive = naive_vs_plain(os.path.join(out_mf8, "rnabloom.graph"), left, right, card, dev)
+        naive_variants = {name: lib for name, lib in variants.items() if hasattr(lib, "walk_naive")}
+        naive = naive_vs_plain(os.path.join(out_mf8, "rnabloom.graph"), left, right, card, dev, naive_variants)
         shutil.rmtree(out_mf8)
         extend_run = extend_main_path(*heads[EXTEND_BATCHES * BATCH2], os.path.join(tmp, "out_extend"), card)
     finally:
@@ -2109,6 +2292,7 @@ def main(argv=None) -> int:
             "walks_checked": g["walks"],
             "cell_reads": g["cell_reads"],
             "gather_ms": g["gather_ms"],
+            "variants": g["variants"],
         })
     nr, nl = naive["walks"]["right"], naive["walks"]["left"]
     kernels.append({
@@ -2128,12 +2312,15 @@ def main(argv=None) -> int:
         "library_ms": None,
         "lanes": nr["lanes"],
         "resolves": nr["resolves"],
-        "cell_reads": nr["cell_reads"],
-        "gather_ms": nr["gather_ms"],
-        "left_ms": nl["ms"],
-        "left_plain_ms": nl["plain_ms"],
-        "left_bound_ms": nl["bound_ms"],
-        "left_gather_ms": nl["gather_ms"],
+        **{key: nr[key] for key in ("cell_reads", "plain_loop_cell_reads", "schedule_cell_reads", "plain_reads_bound_ms",
+                                    "gather_ms", "free_hops", "hops_tried", "rounds_old", "rounds_new",
+                                    "longest_lane_rounds", "longest_lane_rounds_old", "longest_lane_ms", "round_ns")},
+        **{f"left_{key}": nl[key] for key in ("ms", "plain_ms", "bound_ms", "gather_ms", "longest_lane_rounds",
+                                              "longest_lane_rounds_old", "longest_lane_ms", "round_ns")},
+        "variants": {who: {"ms": x["ms"], "longest_lane_ms": x["longest_lane_ms"],
+                           "left_ms": nl["variants"][who]["ms"],
+                           "left_longest_lane_ms": nl["variants"][who]["longest_lane_ms"]}
+                     for who, x in nr["variants"].items()},
         "extend_stage2_pairs_per_s": extend_run["pairs_per_s"],
         "extend_stage2_pairs": extend_run["pairs"],
         "extend_run_launches": extend_run["launches"],

@@ -130,37 +130,60 @@
 // generic one, without the lookahead split (it reads no lookahead tree).
 // kProfile = 1 builds a copy that times each phase of a lane with clock64.
 
-// Naive mode (the -extend walks of stage 2, naiveExtendRight): depth probes
-// instead of lookahead scores, in one shape, beam_step.  Thread r of the
-// tile owns beam index r of each of 4 probes: slot r >> 2 (slots past the
-// beam's width are idle), successor base r & 3.  A step issues every
-// thread's 4 reads together, then per probe a tile reduction takes the
-// first maximum (and for a beam of 2 the first maximum of the rest) over
-// the beam indices in slot-major order, which is the plain version's
-// argmax over index slot * 4 + base; a successor below the coverage floor
-// scores -1, so a pick may be dead, and a second pick that falls back on
-// the first (index 0) duplicates it.  Every thread keeps every probe's beam
-// hashes and recomputes the picked children, so no hash is shuffled.
-//  * A resolve probes the 4 candidates with a beam of 2
-//    (traverse.py::_tip_probe), tip_probe_depth - 1 dependent rounds at
-//    most; exactly one deep candidate advances, else the lane stops.
-//  * With back-branch checks a hop reads the 4 left variants of its k-mer
-//    (the first base substituted) in the candidates' round, threads 4-7
-//    beside the candidates' 0-3.  A viable variant other than the k-mer
-//    itself is probed with a beam of 1 (traverse.py::_variant_depth_probe:
-//    its first step departs the variant's own base, later ones the
-//    buffer); a variant that reaches tip_probe_depth stops the lane before
-//    any other status.  A hop with no viable variant needs no probe: every
-//    depth is 0 then.
-//  * A probe ends early once all its slots are dead: nothing moves any
-//    more.  The choice of a resolve is not handed to the next hop.
-// What bounds it: latency again.  On the -extend walks of a stage-2 batch
-// (8,192 lanes) most lanes stop at a branch within a few hops, and the
-// batch takes as long as its longest lane's dependent rounds (about 200:
-// hops, variant probe steps, resolve probe steps), some 19 times its reads'
-// bytes at the memory rate of an H100 (chip_smoke.py phase 8).
+// Naive mode (the -extend walks of stage 2, naiveExtendRight; the naive
+// branch of traverse.py:1032 with the back-branch check): depth probes in
+// place of lookahead scores.  What bounds it on this card: a lane's chain
+// of dependent rounds, and on a whole batch the card's random reads.  On
+// the -extend walks of a stage-2 batch (8,192 lanes, tip_probe_depth T =
+// 8) most lanes stop at a branch within a few hops, the longest makes 153
+// hops and 5 resolves, and the one-step schedule (a round a hop, a round a
+// probe step) gave it 195 rounds at about 1.7 us each.  This schedule
+// halves the rounds, at 2.5 times the reads the plain loop needs, and
+// trims each round's on-chip chain (tools/pair_profile.py --naive):
+//
+//  * A warp a lane (kNaiveG = 32 threads), blocks of 2 lanes, up to 128
+//    registers a thread: finished lanes free their block's place for the
+//    next lanes (the hardware's block queue), and the 4 probes' picks run
+//    side by side in the warp's 4 groups of 8.
+//  * A round that reads a k-mer's candidates (threads 0-3) and its left
+//    variants but itself (20-23) also reads the "kids": the candidates'
+//    16 children (thread 4 + 4c + n) and each candidate's left variants
+//    (12 of 16, threads 24-31 and a second k-mer of threads 0-7), each
+//    thread's k-mers computed without divergent paths.  A hop that
+//    advances with the kids known hands the next hop its counts and
+//    whether a left variant of it is viable: that hop costs no round.  A
+//    resolve that advances hands them on too.
+//  * The back-branch check: every live left variant's first step departs
+//    its own base to the walk's own candidates (the rolling hash cancels
+//    the substituted base), so all variants follow one greedy descent
+//    from the candidates (traverse.py::_variant_depth_probe); it is run
+//    once, and only when a variant is viable.  Step 0 picks among the
+//    candidates' counts, step 1 among the kids; then two steps a round:
+//    threads 0-3 read the path's 4 successors, thread t < 16 child t & 3
+//    of successor t >> 2.  A variant that reaches T stops the lane before
+//    any other status.
+//  * A resolve probes each candidate with a beam of 2
+//    (traverse.py::_tip_probe): thread t works for probe t >> 3, beam
+//    successor t & 7 (slot (t >> 2) & 1, base t & 3), and reads that
+//    successor and its 4 children, so a round takes two steps: step j
+//    takes the top 2 of the group's 8 successors (8 shuffles, then a scan
+//    in registers in slot-major order: the first maximum, then the first
+//    maximum with the first pick's score taken as -1, which is index 0
+//    when every other score is -1), step j + 1 the top 2 of the two
+//    picks' children, which their readers hold.  Step 0 comes from the
+//    kids.  Each slot lives when its pick's own score reaches the floor;
+//    a probe is deep when a slot lives after T - 1 steps (dead slots stay
+//    dead); exactly one deep candidate advances, else the lane stops.
+//  * A probe ends once nothing moves any more; an odd number of steps
+//    ends on a one-step round.
+//  * Out codes come from a window of the buffer, buf[pos - k + t] in
+//    thread t, slid one base a shuffle at each advance (its new byte
+//    loaded one advance ahead); the k-dependent rotations from a table
+//    the host fills; the current k-mer's slide is kept; the cycle ring's
+//    slot is counted, and only the chosen candidate is looked up in it.
 // Naive mode is instantiated for the 4 layouts x num_hash 1-3 and the
-// generic one.
+// generic one.  chip_smoke.py phase 8 holds it to the plain loop and
+// replays both schedules (naive_tally).
 //
 // The entry points launch on the caller's stream, do not synchronise,
 // allocate nothing and return cudaGetLastError() as an int.
@@ -177,9 +200,12 @@ namespace {
 constexpr int G = 8;  // threads per walk lane (greedy and naive modes)
 static_assert(G >= 8 && G <= 32 && (G & (G - 1)) == 0, "G: a power of two in [8, 32]");
 constexpr int kPairG = 16;  // threads per walk lane in pair mode: 4 probes x 4 successors
+constexpr int kNaiveG = 32;  // threads per walk lane in naive mode: 4 probes x 8 beam successors
 constexpr int kThreads = 256;       // threads per block (fewer when rings need it)
 constexpr int kBlocksPerSm = 3;     // resident blocks an SM asks for: <= 85 registers a thread
 constexpr int kPairBlocksPerSm = 1;  // pair mode: up to 255 registers a thread (no spills)
+constexpr int kNaiveThreads = 64;    // naive mode: 2 lanes a block, so finished lanes free their SM early
+constexpr int kNaiveBlocksPerSm = 8;  // naive mode: <= 128 registers a thread
 constexpr int kRingPad = 8;         // int64 slots between two lanes' rings
 constexpr int kDecodeBytes = 1024;  // the mf8 decode table in shared memory
 
@@ -192,13 +218,17 @@ constexpr int kStoppedBranch = 6;
 
 constexpr uint64_t kPairConst = 0x9E3779B9ull;
 
-// Pair-mode timing: with kProfile = 1 (tools/pair_profile.py builds such a
-// copy) rank 0 of each lane adds clock64() spans of each phase to g_prof
-// (cycles, then counts); with 0 it compiles away.
+// Pair- and naive-mode timing: with kProfile = 1 (tools/pair_profile.py
+// builds such a copy) rank 0 of each lane adds clock64() spans of each
+// phase to g_prof (cycles, then counts); with 0 it compiles away.
 constexpr int kProfile = 0;
-enum { kPfHopRead, kPfHopRest, kPfResHead, kPfResWait, kPfResStep, kPfResTail, kPfAdvance, kPfSync, kPfTake,
-       kPfPhases };
-__device__ unsigned long long g_prof[2 * kPfPhases];
+enum { kPfHopRead, kPfHopRest, kPfResHead, kPfResWait, kPfResStep, kPfResTail, kPfAdvance, kPfSync, kPfTake };
+// naive mode (tools/pair_profile.py --naive names them in this order)
+constexpr int kNvHopRead = 0, kNvHopRest = 1, kNvVarRound = 2, kNvVarWait = 3, kNvResRound = 4, kNvResWait = 5,
+              kNvPick = 6, kNvCode = 7, kNvAdvance = 8, kNvResTail = 9, kNvKids = 10, kNvTake = 11, kNvResHead = 12,
+              kNvRing = 13, kNvBack = 14;
+constexpr int kProfSlots = 16;  // phases of either mode
+__device__ unsigned long long g_prof[2 * kProfSlots];
 
 constexpr int kMf8 = 0;
 constexpr int kU16 = 1;
@@ -241,6 +271,7 @@ struct Walk {
   // naive mode
   int T;     // tip_probe_depth
   int back;  // back-branch checks on
+  uint64_t rot_k[4];  // rotl(seed[c], k), from the host
 };
 
 constexpr int kGreedy = 0;
@@ -248,7 +279,7 @@ constexpr int kPairMode = 1;
 constexpr int kNaive = 2;
 
 template <typename T>
-__device__ __forceinline__ T pick4(T a0, T a1, T a2, T a3, int i) {
+__host__ __device__ __forceinline__ T pick4(T a0, T a1, T a2, T a3, int i) {
   return i == 0 ? a0 : (i == 1 ? a1 : (i == 2 ? a2 : a3));
 }
 
@@ -257,12 +288,12 @@ __device__ __forceinline__ T pick4(const T (&a)[4], int i) {
   return pick4(a[0], a[1], a[2], a[3], i);
 }
 
-__device__ __forceinline__ uint64_t rotl(uint64_t x, int s) {
+__host__ __device__ __forceinline__ uint64_t rotl(uint64_t x, int s) {
   s &= 63;
   return s ? (x << s) | (x >> (64 - s)) : x;
 }
 
-__device__ __forceinline__ uint64_t seed_of(int c) {
+__host__ __device__ __forceinline__ uint64_t seed_of(int c) {
   return c < 4 ? pick4(kSeed0, kSeed1, kSeed2, kSeed3, c) : 0ull;
 }
 
@@ -409,7 +440,7 @@ __device__ __forceinline__ uint64_t combine(uint64_t a, uint64_t b) {
 template <int L, int H, bool kDeep, int kMode>
 struct Lane {
   static constexpr bool kPair = kMode == kPairMode;
-  static constexpr int GT = kPair ? kPairG : G;  // threads per lane
+  static constexpr int GT = kPair ? kPairG : (kMode == kNaive ? kNaiveG : G);  // threads per lane
   using Tile = TileOf<GT>;
   static constexpr int M1 = (16 + GT - 1) / GT;  // level-1 k-mers per thread
   static constexpr int M2 = 64 / GT;            // level-2 k-mers (leaves) per thread
@@ -435,28 +466,34 @@ struct Lane {
   uint64_t f4[4], r4[4], q4[4];
   float cnt[4];
   unsigned seen;
-  // naive mode with back-branch checks: the 4 left variants of the current
-  // k-mer, read in the candidates' round
-  uint64_t vf[4], vr[4];
-  float vcnt[4];
+  // naive mode: whether a left variant of the current k-mer (not itself) is
+  // viable; the kids' variant viability (bit 4c + v: variant v of
+  // candidate c); thread t's out code buf[pos - k + t]
+  bool vany = false;
+  unsigned nv16 = 0;
+  int win = 0;
+  int nxt = 0;  // thread GT - 1's next window byte, loaded one advance ahead
+  Slide cur;    // the slide of the current k-mer (its candidates' common part)
   // pair mode: thread 4c + n holds the count of child n of candidate c
-  // (departing out_next) when `kids`
+  // (departing out_next) when `kids`; naive mode: thread 4 + 4c + n, and
+  // nv16 holds the variants of the candidates (naive_read)
   bool kids = false;
   float kid;
-  // pair mode: the slots of the next pair-ring write (pos % R) and the next
-  // cycle-ring push ((hops + 1) % cycle_window), counted, not divided
+  // the slots of the next pair-ring write (pos % R, pair mode) and the next
+  // cycle-ring push ((hops + 1) % cycle_window, pair and naive modes),
+  // counted, not divided
   int pslot, cslot;
 
   __device__ long long prof_now() const {
-    if constexpr (kProfile && kPair) return clock64();
+    if constexpr (kProfile && kMode != kGreedy) return clock64();
     return 0;
   }
 
   __device__ void prof_add(int phase, long long t0) const {
-    if constexpr (kProfile && kPair) {
+    if constexpr (kProfile && kMode != kGreedy) {
       if (rank == 0) {
         atomicAdd(&g_prof[phase], (unsigned long long)(clock64() - t0));
-        atomicAdd(&g_prof[kPfPhases + phase], 1ull);
+        atomicAdd(&g_prof[kProfSlots + phase], 1ull);
       }
     }
   }
@@ -490,8 +527,7 @@ struct Lane {
   }
 
   // level 0: thread c < 4 reads candidate c; the ring is scanned while the
-  // reads are in flight.  With back-branch checks thread 4 + v reads left
-  // variant v (not the k-mer itself) in the same round.
+  // reads are in flight
   __device__ void read_candidates() {
     set_candidates();
     if constexpr (kPair) {
@@ -510,119 +546,13 @@ struct Lane {
       kids = cached = true;
       return;
     }
-    const bool variants = kMode == kNaive && p.back;
-    uint64_t mine[1] = {pick4(q4, rank & 3)};
-    if constexpr (kMode == kNaive) {
-      if (variants) {
-        // the first base substituted: rotation k-1 forward, the
-        // complement's rotation 0 on the reverse strand
-        const uint64_t tf = fh ^ rotl(seed_of(out), p.k - 1);
-        const uint64_t tr = rh ^ seed_of(out < 4 ? 3 - out : out);
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          vf[v] = tf ^ rotl(seed_of(v), p.k - 1);
-          vr[v] = tr ^ seed_of(3 - v);
-        }
-        if (rank >= 4) mine[0] = query(p, pick4(vf, rank & 3), pick4(vr, rank & 3));
-      }
-    }
-    const bool on[1] = {rank < 4 || (variants && rank < 8 && (rank & 3) != out)};
+    const uint64_t mine[1] = {pick4(q4, rank & 3)};
+    const bool on[1] = {rank < 4};
     float got[1];
     count_many<L, H, 1>(p, dec, mine, on, got, [&] { check_ring(); });
 #pragma unroll
     for (int c = 0; c < 4; ++c) cnt[c] = tile.shfl(got[0], c);
-    if (variants) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) vcnt[c] = tile.shfl(got[0], 4 + c);
-    }
     cached = true;
-  }
-
-  // One step of a beam probe of B slots (1 or 2) over 4 probes, as the
-  // head comment says: slot s of probe c is (hf, hr)[c][s], live in
-  // alive[c][s]; it departs base outc[c].  A probe with a live slot after
-  // the step gains a level of depth.
-  template <int B>
-  __device__ void beam_step(uint64_t (&hf)[4][2], uint64_t (&hr)[4][2], bool (&alive)[4][2], const int (&outc)[4],
-                            int (&depth)[4]) {
-    const bool mine = (rank >> 2) < B, s1 = mine && (rank >> 2) == 1;  // this thread's slot: 0 or 1
-    const int n = rank & 3;
-    uint64_t q[4];
-    bool on[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      uint64_t f, r;
-      child(slide(p, s1 ? hf[c][1] : hf[c][0], s1 ? hr[c][1] : hr[c][0], outc[c]), n, rs, f, r);
-      q[c] = query(p, f, r);
-      on[c] = mine && (s1 ? alive[c][1] : alive[c][0]);
-    }
-    float got[4];
-    count_many<L, H, 4>(p, dec, q, on, got);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float sc = on[c] && got[c] >= floor ? got[c] : -1.0f;
-      float v1 = sc;
-      int i1 = rank;
-      tile_argmax<GT>(tile, v1, i1);
-      const bool alive0 = v1 >= 0.0f;
-      bool alive1 = false;
-      uint64_t nf[2], nr[2];
-      const bool p1 = (i1 >> 2) & 1;
-      child(slide(p, p1 ? hf[c][1] : hf[c][0], p1 ? hr[c][1] : hr[c][0], outc[c]), i1 & 3, rs, nf[0], nr[0]);
-      if (B == 2) {
-        float v2 = rank == i1 ? -1.0f : sc;
-        int i2 = rank;
-        tile_argmax<GT>(tile, v2, i2);
-        // the plain version takes slot 1's liveness from the unmasked
-        // scores: when every other score is -1 the second pick is index
-        // 0, the first pick itself when that is 0, and slot 1 then
-        // follows the same k-mer as slot 0
-        alive1 = i2 == i1 ? alive0 : v2 >= 0.0f;
-        const bool p2 = (i2 >> 2) & 1;
-        child(slide(p, p2 ? hf[c][1] : hf[c][0], p2 ? hr[c][1] : hr[c][0], outc[c]), i2 & 3, rs, nf[1], nr[1]);
-      }
-      if (alive0) {
-        hf[c][0] = nf[0];
-        hr[c][0] = nr[0];
-      }
-      alive[c][0] = alive0;
-      if (B == 2) {
-        if (alive1) {
-          hf[c][1] = nf[1];
-          hr[c][1] = nr[1];
-        }
-        alive[c][1] = alive1;
-      }
-      depth[c] += (alive0 || alive1) ? 1 : 0;
-    }
-  }
-
-  // the back-branch check of the current k-mer: does a left variant other
-  // than the k-mer itself reach tip_probe_depth?
-  __device__ bool back_branch() {
-    if (p.T <= 0) return true;  // every depth reaches it
-    uint64_t hf[4][2], hr[4][2];
-    bool alive[4][2];
-    int depth[4];
-    bool any = false;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      alive[c][0] = c != out && vcnt[c] >= floor;
-      alive[c][1] = false;
-      hf[c][0] = hf[c][1] = vf[c];
-      hr[c][0] = hr[c][1] = vr[c];
-      depth[c] = alive[c][0] ? 1 : 0;
-      any |= alive[c][0];
-    }
-    for (int i = 0; i < p.T - 1 && any; ++i) {
-      int outc[4];
-      const int b = buf_at(pos - p.k + i);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) outc[c] = i == 0 ? c : b;
-      beam_step<1>(hf, hr, alive, outc, depth);
-      any = alive[0][0] || alive[1][0] || alive[2][0] || alive[3][0];
-    }
-    return depth[0] >= p.T || depth[1] >= p.T || depth[2] >= p.T || depth[3] >= p.T;
   }
 
   __device__ void advance(int c) {
@@ -685,9 +615,7 @@ struct Lane {
       }
     }
     if (code < 0) code = 0;
-    if (kMode == kNaive && p.back && back_branch()) {
-      status = kStoppedBranch;
-    } else if (nviable == 0) {
+    if (nviable == 0) {
       status = kDead;
     } else if (nviable > 1) {
       status = kBranch;  // the candidates stay cached for the resolve
@@ -708,6 +636,373 @@ struct Lane {
       advance(code);
     }
     prof_add(kPfHopRest, t0);
+  }
+
+  // ---- naive mode (the head comment states the schedule) ----
+
+  // buf[pos - k + i] for a tile-uniform i >= 0: from the window while it
+  // holds it
+  __device__ int code_at(int i) const {
+    if (i < GT) return tile.shfl(win, i);
+    return buf_at(pos - p.k + i);
+  }
+
+  // slide(): the k-dependent rotation from the launch's table
+  __device__ Slide nslide(uint64_t f, uint64_t r, int o) const {
+    return {rotl(f, 1) ^ (o < 4 ? p.rot_k[o] : 0ull), rotl(r, 63) ^ rotl(seed_of(o < 4 ? 3 - o : o), 63)};
+  }
+
+  // candidate c of the current k-mer
+  __device__ void cand(int c, uint64_t& f, uint64_t& r) const { child(cur, c, rs, f, r); }
+
+  // left variant v of the k-mer (f, r) whose first base is `first`: the
+  // first base substituted, rotation k-1 forward (rs[3 - b] = rotl(seed[b],
+  // k-1)), the complement's rotation 0 on the reverse strand
+  __device__ uint64_t variant_query(uint64_t f, uint64_t r, int first, int v) const {
+    const uint64_t vf = f ^ (first < 4 ? pick4(rs, 3 - first) : 0ull) ^ pick4(rs, 3 - v);
+    const uint64_t vr = r ^ seed_of(first < 4 ? 3 - first : first) ^ seed_of(3 - v);
+    return query(p, vf, vr);
+  }
+
+  // is candidate c in the cycle ring?  Thread r scans its slots.
+  __device__ bool in_ring(int c) const {
+    const long long t0 = prof_now();
+    uint64_t f, r;
+    cand(c, f, r);
+    const uint64_t q = query(p, f, r);
+    bool hit = false;
+    for (int j = rank; j < p.cycle_window; j += GT) hit |= (uint64_t)ring[j] == q;
+    hit = tile.any(hit);
+    prof_add(kNvRing, t0);
+    return hit;
+  }
+
+  // A round that reads the kids: the candidates' 16 children (thread 4 +
+  // 4c + n: child n of candidate c) and, with back-branch checks, each
+  // candidate's left variants but itself (thread 24 + u, u < 8, and thread
+  // u - 8, u >= 8: variant u & 3 of candidate u >> 2).  Unless `known`,
+  // also the candidates (threads 0-3) and the k-mer's left variants but
+  // itself (threads 20-23).
+  __device__ void naive_read(bool known) {
+    const long long t0 = prof_now();
+    const int t = rank, n = t & 3;
+    // every thread computes each kind of k-mer and keeps its own (no
+    // divergent paths): candidate, child, own variant or a candidate's
+    const bool kc = t < 4, kchild = t >= 4 && t < 20, kown = t >= 20 && t < 24;
+    uint64_t f, r, cf, cr, q[2];
+    cand(kc ? t : ((t - (kchild ? 4 : 24)) >> 2) & 3, f, r);
+    child(nslide(f, r, out_next), n, rs, cf, cr);
+    const uint64_t vq = variant_query(kown ? fh : f, kown ? rh : r, kown ? out : out_next, n);
+    q[0] = kc ? query(p, f, r) : (kchild ? query(p, cf, cr) : vq);
+    cand(2 + ((t >> 2) & 1), f, r);  // thread t < 8: variant n of candidate 2 + (t >> 2)
+    q[1] = variant_query(f, r, out_next, n);
+    const bool on[2] = {kc ? !known : (kown ? p.back && !known && n != out : kchild || (p.back && n != out_next)),
+                        t < 8 && p.back && n != out_next};
+    float got[2];
+    count_many<L, H, 2>(p, dec, q, on, got);
+    const unsigned a = tile.ballot(on[0] && got[0] >= floor), b = tile.ballot(on[1] && got[1] >= floor);
+    if (!known) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) cnt[c] = tile.shfl(got[0], c);
+      vany = ((a >> 20) & 0xFu) != 0;
+    }
+    nv16 = ((a >> 24) & 0xFFu) | ((b & 0xFFu) << 8);
+    kid = got[0];
+    cached = kids = true;
+    prof_add(known ? kNvKids : kNvHopRead, t0);
+  }
+
+  // the naive advance to candidate c, with cnt[c] known: the append, the
+  // ring push at its counted slot, the window slid one base (the appended
+  // base lands at k - 1); with the kids known, the next hop's counts and
+  // variant viability handed on
+  __device__ void advance_naive(int c) {
+    const long long t0 = prof_now();
+    uint64_t f, r;
+    cand(c, f, r);
+    const int old = pos;
+    if (rank == 0) buf[old < p.max_len - 1 ? old : p.max_len - 1] = (uint8_t)c;
+    if ((cslot & (GT - 1)) == rank) ring[cslot] = (int64_t)query(p, f, r);
+    cslot = cslot + 1 == p.cycle_window ? 0 : cslot + 1;
+    fh = f;
+    rh = r;
+    path_min = fminf(path_min, pick4(cnt, c));
+    ++pos;
+    ++hops;
+    const bool hand = kids;
+    float next[4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) next[n] = tile.shfl(kid, 4 + 4 * c + n);
+    vany = ((nv16 >> (4 * c)) & 0xFu) != 0;
+    tile.sync();  // the appended byte is visible to the whole tile
+    int w = tile.shfl_down(win, 1);
+    if (rank == GT - 1) w = nxt;  // loaded at the last advance: never the byte just appended but for k = GT
+    if (rank == p.k - 1) w = c;
+    win = w;
+    if (old == 0) win = buf_at(pos - p.k + rank);  // a window reaching before the buffer reloads
+    nxt = buf_at(pos - p.k + GT);
+    out = tile.shfl(win, 0);
+    out_next = tile.shfl(win, 1);
+    cur = nslide(fh, rh, out);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) cnt[n] = next[n];
+    cached = hand;
+    kids = false;
+    prof_add(hand ? kNvTake : kNvAdvance, t0);
+  }
+
+  // the first maximum of 4 scores (count, or -1 below the floor): the
+  // picked index and whether it reaches the floor
+  __device__ int pick_floor(const float (&v)[4], bool& alive) const {
+    float s[4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) s[n] = v[n] >= floor ? v[n] : -1.0f;
+    const int b = argmax4(s);
+    alive = pick4(s, b) >= 0.0f;
+    return b;
+  }
+
+  // the back-branch check of the current k-mer (cnt and vany known): does
+  // a left variant other than the k-mer itself reach tip_probe_depth?
+  // Every live variant's first step departs its own base to the walk's own
+  // candidates, so all of them follow one greedy descent from the
+  // candidates: step 0 picks among their counts, step 1 among the kids,
+  // steps 2.. two a round.
+  __device__ bool back_naive() {
+    const int T = p.T;
+    if (T <= 0) return true;  // every depth reaches it
+    if (!vany) return false;
+    if (T == 1) return true;
+    bool alive;
+    const int b0 = pick_floor(cnt, alive);
+    if (!alive || T == 2) return alive;
+    if (!kids) naive_read(true);
+    long long t0 = prof_now();
+    float k4[4];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) k4[n] = tile.shfl(kid, 4 + 4 * b0 + n);
+    const int b1 = pick_floor(k4, alive);
+    if (!alive) return false;
+    uint64_t pf, pr;
+    cand(b0, pf, pr);
+    child(nslide(pf, pr, out_next), b1, rs, pf, pr);
+    prof_add(kNvPick, t0);
+    const int t = rank;
+    for (int i = 2; i <= T - 2; i += 2) {
+      t0 = prof_now();
+      const bool two = i + 1 <= T - 2;
+      const long long tc = prof_now();
+      const int o0 = code_at(i), o1 = code_at(i + 1);
+      prof_add(kNvCode, tc);
+      // thread t < 16: child t & 3 of successor t >> 2; thread t < 4 also
+      // successor t
+      const Slide sp = nslide(pf, pr, o0);
+      uint64_t sf, sr, f, r, q[2];
+      child(sp, (t >> 2) & 3, rs, sf, sr);
+      child(nslide(sf, sr, o1), t & 3, rs, f, r);
+      q[0] = query(p, f, r);
+      child(sp, t & 3, rs, f, r);
+      q[1] = query(p, f, r);
+      const bool on[2] = {two && t < 16, t < 4};
+      float got[2];
+      const long long tw = prof_now();
+      count_many<L, H, 2>(p, dec, q, on, got);
+      prof_add(kNvVarWait, tw);
+      const long long ta = prof_now();
+      float v[4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) v[n] = tile.shfl(got[1], n);
+      const int bi = pick_floor(v, alive);
+      if (alive) {
+        child(sp, bi, rs, pf, pr);
+        if (two) {
+#pragma unroll
+          for (int m = 0; m < 4; ++m) v[m] = tile.shfl(got[0], 4 * bi + m);
+          const int bj = pick_floor(v, alive);
+          child(nslide(pf, pr, o1), bj, rs, pf, pr);
+        }
+      }
+      prof_add(kNvPick, ta);
+      prof_add(kNvVarRound, t0);
+      if (!alive) return false;
+    }
+    return true;
+  }
+
+  // walk_superstep's body for one ACTIVE lane, naive mode
+  __device__ void hop_naive() {
+    if (!cached) naive_read(false);
+    const long long t0 = prof_now();
+    int nviable = 0, code = -1;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (cnt[c] >= floor) {
+        ++nviable;
+        if (code < 0) code = c;
+      }
+    }
+    if (code < 0) code = 0;
+    const long long tb = prof_now();
+    const bool stop = p.back && back_naive();
+    prof_add(kNvBack, tb);
+    if (stop) {
+      status = kStoppedBranch;
+    } else if (nviable == 0) {
+      status = kDead;
+    } else if (nviable > 1) {
+      status = kBranch;  // the candidates (and kids) stay known for the resolve
+    } else if (in_ring(code)) {
+      status = kCycle;
+    } else if (pos >= p.max_len - 1 || hops >= bound) {
+      status = kFull;
+    } else {
+      advance_naive(code);
+    }
+    prof_add(kNvHopRest, t0);
+  }
+
+  // the first and the second pick of a beam step over 8 scores in
+  // slot-major order (count, or -1 below the floor or from a dead slot):
+  // the first maximum, then the first maximum with the first pick's score
+  // taken as -1 (index 0 when every other score is -1, the first pick
+  // itself when that is 0); each slot lives when its pick's own score
+  // does (traverse.py::_tip_probe)
+  __device__ static void top2(const float (&v)[8], int& i1, bool& a1, int& i2, bool& a2) {
+    float top = v[0];
+    i1 = 0;
+#pragma unroll
+    for (int e = 1; e < 8; ++e) {
+      if (v[e] > top) {
+        top = v[e];
+        i1 = e;
+      }
+    }
+    float b = -INFINITY, own = -1.0f;
+    i2 = 0;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float x = e == i1 ? -1.0f : v[e];
+      if (x > b) {
+        b = x;
+        i2 = e;
+        own = v[e];
+      }
+    }
+    a1 = top >= 0.0f;
+    a2 = own >= 0.0f;
+  }
+
+  // resolve_branches(mode="naive") for one BRANCH lane: thread t works for
+  // probe c = t >> 3, beam successor s = t & 7 (slot s >> 2, base s & 3)
+  __device__ void resolve_naive() {
+    long long t0 = prof_now();
+    if (!cached) naive_read(false);
+    const int T = p.T;
+    const int c = rank >> 3, s = rank & 7, g = rank & ~7;
+    bool a0 = pick4(cnt, c) >= floor, a1 = false;  // the probe's slots
+    bool deep = T <= 0 || (T == 1 && a0);
+    if (T >= 2) {
+      if (!kids) naive_read(true);
+      // slot hashes (a dead slot's hash is never read)
+      uint64_t f0, r0, f1, r1;
+      cand(c, f0, r0);
+      // step 0 from the kids: the children of candidate c (slot 1 dead)
+      float v[8];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float x = tile.shfl(kid, 4 + 4 * c + n);
+        v[n] = a0 && x >= floor ? x : -1.0f;
+        v[4 + n] = -1.0f;
+      }
+      int i1, i2;
+      top2(v, i1, a0, i2, a1);
+      {
+        const Slide s0 = nslide(f0, r0, out_next);
+        child(s0, i2 & 3, rs, f1, r1);
+        child(s0, i1 & 3, rs, f0, r0);
+      }
+      prof_add(kNvResHead, t0);
+      for (int j = 1; j <= T - 2 && tile.any(a0 || a1); j += 2) {
+        t0 = prof_now();
+        const bool two = j + 1 <= T - 2;
+        const long long tc = prof_now();
+        const int o0 = code_at(1 + j), o1 = code_at(2 + j);  // steps j, j + 1 depart these
+        prof_add(kNvCode, tc);
+        const bool mine = s >> 2 ? a1 : a0;
+        uint64_t sf, sr, q[5];
+        child(nslide(s >> 2 ? f1 : f0, s >> 2 ? r1 : r0, o0), s & 3, rs, sf, sr);
+        q[0] = query(p, sf, sr);
+        const Slide s2 = nslide(sf, sr, o1);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          uint64_t f, r;
+          child(s2, m, rs, f, r);
+          q[1 + m] = query(p, f, r);
+        }
+        const bool on[5] = {mine, mine && two, mine && two, mine && two, mine && two};
+        float got[5];
+        const long long tw = prof_now();
+        count_many<L, H, 5>(p, dec, q, on, got);
+        prof_add(kNvResWait, tw);
+        const long long ta = prof_now();
+        // step j: the group's 8 successors
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float x = tile.shfl(got[0], g | e);
+          v[e] = (e >> 2 ? a1 : a0) && x >= floor ? x : -1.0f;
+        }
+        bool b0, b1;
+        top2(v, i1, b0, i2, b1);
+        uint64_t nf0, nr0, nf1, nr1;
+        child(nslide(i1 >> 2 ? f1 : f0, i1 >> 2 ? r1 : r0, o0), i1 & 3, rs, nf0, nr0);
+        child(nslide(i2 >> 2 ? f1 : f0, i2 >> 2 ? r1 : r0, o0), i2 & 3, rs, nf1, nr1);
+        if (two) {
+          // step j + 1: the children of the two picks, which their readers hold
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const float x = tile.shfl(got[1 + m], g | i1), y = tile.shfl(got[1 + m], g | i2);
+            v[m] = b0 && x >= floor ? x : -1.0f;
+            v[4 + m] = b1 && y >= floor ? y : -1.0f;
+          }
+          top2(v, i1, a0, i2, a1);
+          const Slide n0 = nslide(nf0, nr0, o1), n1 = nslide(nf1, nr1, o1);
+          child(i1 >> 2 ? n1 : n0, i1 & 3, rs, f0, r0);
+          child(i2 >> 2 ? n1 : n0, i2 & 3, rs, f1, r1);
+        } else {
+          a0 = b0;
+          a1 = b1;
+          f0 = nf0;
+          r0 = nr0;
+          f1 = nf1;
+          r1 = nr1;
+        }
+        prof_add(kNvPick, ta);
+        prof_add(kNvResRound, t0);
+      }
+      t0 = prof_now();
+      deep = a0 || a1;  // alive after every step (dead slots stay dead)
+    }
+    const unsigned dm = tile.ballot(s == 0 && deep);  // bit 8c: probe c is deep
+    int ndeep = 0;
+    float key[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const bool d = (dm >> (8 * b)) & 1u;
+      ndeep += d ? 1 : 0;
+      key[b] = d ? cnt[b] : -1.0f;
+    }
+    const int best = argmax4(key);
+    if (in_ring(best)) {
+      status = kCycle;
+    } else if (pos >= p.max_len - 1) {
+      status = kFull;
+    } else if (ndeep != 1) {
+      status = kStoppedBranch;
+    } else {
+      status = kActive;
+      advance_naive(best);
+    }
+    prof_add(kNvResTail, t0);
   }
 
   // greedy lookahead scores of the 4 candidates (levels 1 and deeper); only
@@ -1061,51 +1356,6 @@ struct Lane {
     }
   }
 
-  // resolve_branches(mode="naive") for one BRANCH lane
-  __device__ void resolve_naive() {
-    if (!cached) read_candidates();
-    uint64_t hf[4][2], hr[4][2];
-    bool alive[4][2];
-    int depth[4];
-    bool any = false;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      alive[c][0] = cnt[c] >= floor;
-      alive[c][1] = false;
-      hf[c][0] = hf[c][1] = f4[c];
-      hr[c][0] = hr[c][1] = r4[c];
-      depth[c] = alive[c][0] ? 1 : 0;
-      any |= alive[c][0];
-    }
-    for (int i = 0; i < p.T - 1 && any; ++i) {
-      const int b = buf_at(pos - p.k + 1 + i);
-      const int outc[4] = {b, b, b, b};
-      beam_step<2>(hf, hr, alive, outc, depth);
-      any = false;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) any |= alive[c][0] || alive[c][1];
-    }
-    int ndeep = 0;
-    float key[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const bool deep = depth[c] >= p.T;
-      ndeep += deep ? 1 : 0;
-      key[c] = deep ? cnt[c] : -1.0f;
-    }
-    const int best = argmax4(key);
-    if ((seen >> best) & 1u) {
-      status = kCycle;
-    } else if (pos >= p.max_len - 1) {
-      status = kFull;
-    } else if (ndeep != 1) {
-      status = kStoppedBranch;
-    } else {
-      status = kActive;
-      advance(best);
-    }
-  }
-
   // resolve_branches(mode="greedy") for one BRANCH lane
   __device__ void resolve_greedy() {
     if (!cached) read_candidates();
@@ -1160,8 +1410,10 @@ struct Lane {
 };
 
 template <int L, int H, bool kDeep, int kMode>
-__global__ void __launch_bounds__(kThreads, kMode == kPairMode ? kPairBlocksPerSm
-                                                                : (kMode != kGreedy ? 2 : (kDeep ? 1 : kBlocksPerSm)))
+__global__ void __launch_bounds__(kMode == kNaive ? kNaiveThreads : kThreads,
+                                  kMode == kPairMode ? kPairBlocksPerSm
+                                                     : (kMode == kNaive ? kNaiveBlocksPerSm
+                                                                        : (kDeep ? 1 : kBlocksPerSm)))
     walk_greedy_kernel(Walk p) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* dec = (float*)smem;
@@ -1190,9 +1442,11 @@ __global__ void __launch_bounds__(kThreads, kMode == kPairMode ? kPairBlocksPerS
   for (int n = 0; n < 4; ++n) lane.rs[n] = rotl(seed_of(3 - n), p.k - 1);
   lane.pos = p.pos[w];
   lane.hops = p.hops[w];
-  if (kMode == kPairMode) {
-    lane.pslot = lane.pos % p.R;
-    lane.cslot = (lane.hops + 1) % p.cycle_window;
+  if (kMode == kPairMode) lane.pslot = lane.pos % p.R;
+  if (kMode != kGreedy) lane.cslot = (lane.hops + 1) % p.cycle_window;
+  if (kMode == kNaive) {
+    lane.win = lane.buf_at(lane.pos - p.k + rank);
+    lane.nxt = lane.buf_at(lane.pos - p.k + kNaiveG);
   }
   lane.status = p.status[w];
   lane.bound = p.bound[w];
@@ -1201,10 +1455,17 @@ __global__ void __launch_bounds__(kThreads, kMode == kPairMode ? kPairBlocksPerS
   lane.path_min = p.path_min[w];
   lane.floor = fmaxf(p.min_cov[w], 1.0f);
   lane.out = lane.buf_at(lane.pos - p.k);
-  if (kMode == kPairMode) lane.out_next = lane.buf_at(lane.pos + 1 - p.k);
+  if (kMode != kGreedy) lane.out_next = lane.buf_at(lane.pos + 1 - p.k);
+  if (kMode == kNaive) lane.cur = lane.nslide(lane.fh, lane.rh, lane.out);
   for (int s = 0; s < p.max_supersteps; ++s) {
     if (lane.status != kActive && lane.status != kBranch) break;
-    for (int h = 0; h < p.superstep_hops && lane.status == kActive; ++h) lane.hop();
+    for (int h = 0; h < p.superstep_hops && lane.status == kActive; ++h) {
+      if constexpr (kMode == kNaive) {
+        lane.hop_naive();
+      } else {
+        lane.hop();
+      }
+    }
     if (lane.status == kBranch) lane.resolve();
   }
   for (int j = rank; j < p.cycle_window; j += GT) p.hist[(size_t)w * p.cycle_window + j] = ring[j];
@@ -1220,8 +1481,8 @@ __global__ void __launch_bounds__(kThreads, kMode == kPairMode ? kPairBlocksPerS
 
 // a block's shared memory: the mf8 decode table, each tile's cycle ring
 // and, in pair mode, each tile's probe counts
-size_t smem_bytes(const Walk& p, int threads, bool pair) {
-  const size_t tiles = threads / (pair ? kPairG : G);
+size_t smem_bytes(const Walk& p, int threads, int gt, bool pair) {
+  const size_t tiles = threads / gt;
   return kDecodeBytes + tiles * p.ring_stride * sizeof(int64_t) + (pair ? tiles * 4 * p.D * sizeof(float) : 0);
 }
 
@@ -1230,8 +1491,8 @@ int launch(const Walk& p, cudaStream_t stream) {
   const bool pair = kMode == kPairMode;
   constexpr int GT = Lane<L, H, kDeep, kMode>::GT;
   // fewer lanes a block when their shared memory would pass the default 48 KB
-  int threads = kThreads;
-  while (threads > GT && smem_bytes(p, threads, pair) > 48 * 1024) threads /= 2;
+  int threads = kMode == kNaive ? kNaiveThreads : kThreads;
+  while (threads > GT && smem_bytes(p, threads, GT, pair) > 48 * 1024) threads /= 2;
   if (pair) {
     // pair walks are few (64-2048 lanes) and latency-bound: spread them
     // over every SM before any SM takes a second block
@@ -1242,7 +1503,7 @@ int launch(const Walk& p, cudaStream_t stream) {
     const int per_sm = sms > 0 ? (p.W + sms - 1) / sms : 1;
     if (per_sm * GT < threads) threads = per_sm * GT;
   }
-  const size_t smem = smem_bytes(p, threads, pair);
+  const size_t smem = smem_bytes(p, threads, GT, pair);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(walk_greedy_kernel<L, H, kDeep, kMode>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1353,22 +1614,20 @@ int walk_pair(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* his
   return launch_walk(p, layout, kPairMode, (cudaStream_t)stream);
 }
 
-// walk_greedy's arguments, then tip_probe_depth and whether hops check
-// back branches (0 or 1)
-// the pair-mode timing of a kProfile build: the 2 * 9 counters of g_prof
-// (cycles, then counts: hop reads, the rest of hops, resolve heads, resolve
-// rounds' count waits, whole resolve rounds, resolve tails; within those,
-// advances, their tile.sync, and the hand-offs to the next hop) into
-// `out` (host memory), then zeroed when `reset`
+// the timing of a kProfile build: the 2 * kProfSlots counters of g_prof
+// (cycles, then counts, by phase: kPf* in pair mode, kNv* in naive mode)
+// into `out` (host memory), then zeroed when `reset`
 int walk_profile(unsigned long long* out, int reset) {
   cudaError_t err = cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof));
   if (err == cudaSuccess && reset) {
-    static const unsigned long long zero[2 * kPfPhases] = {};
+    static const unsigned long long zero[2 * kProfSlots] = {};
     err = cudaMemcpyToSymbol(g_prof, zero, sizeof(g_prof));
   }
   return (int)err;
 }
 
+// walk_greedy's arguments, then tip_probe_depth and whether hops check
+// back branches (0 or 1)
 int walk_naive(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* hist,
                int32_t* status, int32_t* hops, float* path_min, const float* min_cov,
                const int32_t* bound, int W, int max_len, int cycle_window, const void* cbf,
@@ -1382,6 +1641,7 @@ int walk_naive(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* hi
                      superstep_hops, max_supersteps);
   p.T = tip_probe_depth;
   p.back = back;
+  for (int c = 0; c < 4; ++c) p.rot_k[c] = rotl(seed_of(c), k);
   return launch_walk(p, layout, kNaive, (cudaStream_t)stream);
 }
 

@@ -689,6 +689,8 @@ NAIVE_OPTIONS = (
     # probe depths 0 (every probe is deep), 1 (no probe step) to 20, num_hash 1-3 and 4 (the generic kernel)
     + [("mf8", False, False, False, back, tpd, nh) for back in (True, False)
        for tpd, nh in [(3, 1), (1, 2), (0, 2), (20, 3), (8, 4)]]
+    # every layout with num_hash 1, 3 and 4
+    + [(d, b, False, False, True, 8, nh) for d, b in WALK_GRAPHS for nh in (1, 3, 4)]
 )
 
 
@@ -720,6 +722,151 @@ def test_naive_kernel_odd_lane_counts_and_cap(cuda, W):
     _naive_kernel_and_plain(graph, cfg, wcfg, st, min_cov[:W].contiguous(), bound[:W].contiguous())
     cfg, graph, wcfg, st, min_cov, bound = _naive_walks(cuda, "mf8_right")
     _naive_kernel_and_plain(graph, cfg, wcfg, st, min_cov, bound, superstep_hops=5, max_supersteps=7)
+
+
+_tail_graphs = {}
+
+
+def _tail_graph(dev):
+    """A 160-base line read without errors (3 copies of each 60-base window
+    at a stride of 5), and reads with the first base of a k-mer
+    substituted: left variants of the k-mers starting 20-48 bases before
+    the line's end, so that their probes' common descent dies 0-23 steps
+    on (or never, at the depths probed).  Seeds: those k-mers, and k-mers
+    along the line (walks that meet the variants on later hops, read or
+    handed off)."""
+    key = str(dev)
+    if key not in _tail_graphs:
+        rng = np.random.default_rng(11)
+        k, L = 25, 160
+        line = rng.integers(0, 4, L, dtype=np.uint8)
+        reads = [line[i : i + 60] for i in range(0, L - 59, 5) for _ in range(3)] + [line[-60:]] * 3
+        starts = list(range(L - k - 23, L - k + 1)) + [60, 75]
+        for p in starts:
+            r = np.full(60, 4, np.uint8)
+            seg = line[p : p + 60].copy()
+            seg[0] = (seg[0] + 1 + p % 3) % 4
+            r[: len(seg)] = seg
+            reads.append(r)
+        cfg = dbg.GraphConfig(k=k, stranded=False, dbgbf=BloomConfig(18, 2), cbf=CountingConfig(18, 2, dtype="mf8"),
+                              pkbf=BloomConfig(18, 2))
+        state = dbg.build_step(dbg.make_graph(cfg, device=dev), cfg, torch.from_numpy(np.stack(reads)).to(dev))
+        seeds = np.stack([line[p : p + k] for p in starts + list(range(0, 90, 3))])
+        _tail_graphs[key] = (cfg, state, seeds)
+    return _tail_graphs[key]
+
+
+def _naive_probe_walks(dev, graph_kind, tip_probe_depth, back, max_len=25 + 700, bounds=(100, 700)):
+    """Naive walks on the sim graph of the naive cases (its seeds and
+    reads' k-mers) or on ``_tail_graph``, per-lane floors and bounds."""
+    from rnabloom_tpu_torch.graph import traverse
+
+    if graph_kind == "tail":
+        cfg, graph, rows = _tail_graph(dev)
+    else:
+        cfg, graph, _, _, _, _ = _naive_walks(dev, "mf8_right")
+        rows = _naive_graphs[("sim", "mf8", False, False, 2)][2]
+    wcfg = traverse.WalkConfig(max_len=max_len, check_back_branches=back, tip_probe_depth=tip_probe_depth)
+    st = traverse.make_walks(cfg, wcfg, rows, device=dev)
+    rng = np.random.default_rng(tip_probe_depth)
+    min_cov, bound = traverse.lane_args(
+        st, rng.choice([1.0, 1.0, 2.0, 0.5], size=st.pos.shape[0]).astype(np.float32),
+        rng.integers(*bounds, size=st.pos.shape[0]).astype(np.int32),
+    )
+    return graph, cfg, wcfg, st, min_cov, bound
+
+
+@pytest.mark.parametrize("graph_kind", ["sim", "tail"])
+@pytest.mark.parametrize("back", [True, False])
+@pytest.mark.parametrize("tip_probe_depth", [1, 2, 3, 4, 5, 8, 24])
+def test_naive_kernel_probe_depths_match_plain(cuda, graph_kind, back, tip_probe_depth):
+    """Probe depths 1-5, 8 and k - 1: an odd or even number of steps, so a
+    probe's last round takes one step or two; on the tail graph the
+    variant probes' descent dies on every step of a round, the first and
+    the second; back-branch checks on and off; and the superstep caps."""
+    walks = _naive_probe_walks(cuda, graph_kind, tip_probe_depth, back)
+    kern = _naive_kernel_and_plain(*walks)
+    assert int(kern.hops.sum()) > 0
+    _naive_kernel_and_plain(*walks, superstep_hops=3, max_supersteps=5)
+
+
+@pytest.mark.parametrize(
+    "max_len,bounds", [(107, (100, 500)), (108, (100, 500)), (525, (1, 14))],
+    ids=["max_len_even", "max_len_odd", "small_bounds"],
+)
+@pytest.mark.parametrize("graph_kind", ["sim", "tail"])
+def test_naive_kernel_full_on_either_hop(cuda, max_len, bounds, graph_kind):
+    """FULL at max_len - 1 after an even or an odd number of hops, and at
+    hop bounds of 1-13: on a hop that read or was handed its counts, by a
+    hop or by a resolve."""
+    from rnabloom_tpu_torch.graph import traverse
+
+    kern = _naive_kernel_and_plain(*_naive_probe_walks(cuda, graph_kind, 8, True, max_len, bounds))
+    assert int((kern.status == traverse.FULL).sum()) > 0
+
+
+@pytest.mark.parametrize("period", [37, 38])
+@pytest.mark.parametrize("tip_probe_depth", [3, 8])
+def test_naive_kernel_cycle_on_either_hop(cuda, period, tip_probe_depth):
+    """CYCLE after an odd or an even number of hops."""
+    from rnabloom_tpu_torch.graph import traverse
+
+    cfg, graph, frags, lens = _cycle_graph(period, cuda)
+    wcfg = traverse.WalkConfig(max_len=600, check_back_branches=True, tip_probe_depth=tip_probe_depth)
+    st = traverse.make_walks(cfg, wcfg, frags, lens, device=cuda)
+    min_cov, bound = traverse.lane_args(st, 1.0, 500)
+    kern = _naive_kernel_and_plain(graph, cfg, wcfg, st, min_cov, bound)
+    assert int((kern.status == traverse.CYCLE).sum()) > 0
+
+
+def _tipped_cycle_walks(dev):
+    """A sequence repeating a 50-base unit, with a 3-k-mer tip (a changed
+    base, then the read ends) off the unit's k-mer at offset 20; seeds at
+    every offset.  A walk from offset 22 resolves the tip at offset 20
+    after a lap and hands its choice on; the next hop comes back to the
+    seed: CYCLE right after a resolve's hand-off."""
+    from rnabloom_tpu_torch.graph import traverse
+
+    rng = np.random.default_rng(50)
+    k, P, b = 25, 50, 20
+    unit = rng.integers(0, 4, P, dtype=np.uint8)
+    seq = np.tile(unit, 8)
+    reads = [seq[s : s + 100] for _ in range(3) for s in range(0, len(seq) - 99, 10)]
+    tip = np.full(100, 4, np.uint8)
+    tip[: k + 2] = seq[P + b : P + b + k + 2]
+    tip[k] = (tip[k] + 1) % 4  # the base after the k-mer at offset b, changed
+    reads += [tip] * 2
+    cfg = dbg.GraphConfig(k=k, stranded=False, dbgbf=BloomConfig(18, 2), cbf=CountingConfig(18, 2, dtype="mf8"),
+                          pkbf=BloomConfig(18, 2))
+    graph = dbg.build_step(dbg.make_graph(cfg, device=dev), cfg, torch.from_numpy(np.stack(reads)).to(dev))
+    wcfg = traverse.WalkConfig(max_len=600, check_back_branches=True, tip_probe_depth=8)
+    st = traverse.make_walks(cfg, wcfg, np.stack([seq[P + o : P + o + k] for o in range(P)]), device=dev)
+    min_cov, bound = traverse.lane_args(st, 1.0, 500)
+    return graph, cfg, wcfg, st, min_cov, bound
+
+
+def test_naive_kernel_cycle_after_a_resolve(cuda):
+    from rnabloom_tpu_torch.graph import traverse
+
+    kern = _naive_kernel_and_plain(*_tipped_cycle_walks(cuda))
+    assert int((kern.status == traverse.CYCLE).sum()) > 0
+
+
+@pytest.mark.parametrize("W", [1, 2, 45, 64, 70, 2048, 9000])
+def test_naive_kernel_lane_counts(cuda, W):
+    """One lane to more lanes than the card holds at once (blocks of two
+    lanes: the last ones start as the first finish)."""
+    from rnabloom_tpu_torch.graph import traverse
+
+    cfg, graph, wcfg, st, _, _ = _naive_walks(cuda, "mf8_right")
+    rows = _naive_graphs[("sim", "mf8", False, False, 2)][2]
+    st = traverse.make_walks(cfg, wcfg, rows[np.arange(W) % len(rows)], device=cuda)
+    st = traverse.take_lanes(st, slice(0, W))
+    rng = np.random.default_rng(W)
+    min_cov, bound = traverse.lane_args(st, rng.choice([1.0, 2.0], size=W).astype(np.float32),
+                                        rng.integers(50, 700, size=W).astype(np.int32))
+    kern = _naive_kernel_and_plain(graph, cfg, wcfg, st, min_cov, bound)
+    assert kern.pos.shape[0] == W and int(kern.hops.sum()) > 0
 
 
 def test_naive_walk_refuses_a_ring_and_greedy_back_branches(cuda):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where a pair walk's dependent round goes, on one CUDA card.
+"""Where a pair or naive walk's dependent round goes, on one CUDA card.
 
     python3 tools/pair_profile.py [--pairs N] [--walk-variant NAME=PATH ...]
+    python3 tools/pair_profile.py --naive [--pairs N] [--walk-variant NAME=PATH ...]
 
 Run from the root of a checkout.  Simulates N read pairs (chip_smoke.py's
 simulation, seed 0; default 200,000), runs ``-stage 2`` and stage 2b on
@@ -22,6 +23,17 @@ chip_smoke.py phase 6 does.  Then:
   first 4 MiB and 4 KiB (the card's latency at DRAM, L2 and L1); then
   rounds of 16 to 2560 such reads in flight from one SM (a lane's hop
   and resolve rounds, and a full SM's).
+
+With ``--naive`` (default N: 1,000,000, chip_smoke.py phase 8's pairs):
+``-stage 1`` on the card, then the ``-extend`` walks (right, then left) of
+the first stage-2 batch's fragments, captured as phase 8 does.  For each
+direction: the kernel and each variant equal to the plain loop and timed
+in turns; ``naive_tally``'s rounds of every lane under the one-step
+schedule and the kernel's (sum, quantiles, most); the lanes with the most
+rounds under each walked alone; the kProfile copy's cycles by phase (hop
+reads, the rest of hops, variant-probe and resolve rounds and their count
+waits, the argmax reductions, the out-code loads, advances, hand-offs) for
+the lone lane and the batch; one dependent random read of the cbf.
 
 Prints the card's name and power limit; every time comes from CUDA events
 or the card's clock.
@@ -53,6 +65,11 @@ from rnabloom_tpu_torch.utils import pesim  # noqa: E402
 
 PHASES = ("hop read", "hop rest", "resolve head", "resolve count wait", "resolve round", "resolve tail",
           "advance", "advance's tile.sync", "hand-off to a hop")
+# naive mode's phases, in the order of the kernel's kNv* indices
+NAIVE_PHASES = ("hop read", "hop rest", "variant probe round", "variant probe count wait", "resolve round",
+                "resolve count wait", "picks (argmax, top 2)", "out codes", "advance", "resolve tail", "kids round",
+                "advance with a hand-off", "resolve head", "cycle-ring check", "back-branch check")
+PROF_SLOTS = 16  # g_prof holds cycles, then counts, of up to 16 phases
 
 
 def profiled_library() -> ctypes.CDLL:
@@ -71,7 +88,7 @@ def profiled_library() -> ctypes.CDLL:
 
 
 def read_profile(lib: ctypes.CDLL) -> list:
-    buf = (ctypes.c_ulonglong * (2 * len(PHASES)))()
+    buf = (ctypes.c_ulonglong * (2 * PROF_SLOTS))()
     torch.cuda.synchronize()
     err = lib.walk_profile(ctypes.addressof(buf), 1)
     if err:
@@ -79,17 +96,17 @@ def read_profile(lib: ctypes.CDLL) -> list:
     return list(buf)
 
 
-def report(what: str, prof: list, ms: float, card: str) -> None:
-    n = len(PHASES)
-    cycles, counts = prof[:n], prof[n:]
+def report(what: str, prof: list, ms: float, card: str, phases=PHASES) -> None:
+    cycles, counts = prof[:PROF_SLOTS], prof[PROF_SLOTS:]
     print(f"{what}: {ms:.4f} ms [{card}]")
-    for name, c, k in zip(PHASES, cycles, counts):
-        print(f"  {name:20s} {k:9d} x {c / max(k, 1):9.1f} cycles = {c:14d} cycles")
+    for name, c, k in zip(phases, cycles, counts):
+        print(f"  {name:26s} {k:9d} x {c / max(k, 1):9.1f} cycles = {c:14d} cycles")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--pairs", type=int, default=200_000)
+    ap.add_argument("--pairs", type=int, default=None, help="default 200,000; with --naive 1,000,000")
+    ap.add_argument("--naive", action="store_true", help="the naive kernel on -extend's walks")
     ap.add_argument("--walk-variant", action="append", default=[], metavar="NAME=PATH")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -108,11 +125,16 @@ def main(argv=None) -> int:
         prof_lib, chase = prof.result(), chase_build.result()
         variants = {name: b.result() for name, b in builds.items()}
     print(f"built in {time.time() - t0:.1f} s", flush=True)
+    mode = "naive" if args.naive else "pair"
     for line in cs.ptxas_report(_build.build_logs.get(_build.WALK_SRC, "")):
-        if "pair" in line:
+        if mode in line:
             print(f"  ptxas {line}")
     tmp = tempfile.mkdtemp(prefix="pair_profile_")
     try:
+        if args.naive:
+            args.pairs = args.pairs or cs.PAIRS
+            return naive_profile(args, tmp, dev, card, prof_lib, variants, chase)
+        args.pairs = args.pairs or 200_000
         return profile(args, tmp, dev, card, prof_lib, variants, chase)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -180,6 +202,99 @@ def profile(args, tmp: str, dev, card: str, prof_lib, variants: dict, chase) -> 
         ns = cs.dependent_read_ns(chase, graph.cbf, 0, threads, chains)
         print(f"a round of {threads} x {chains} dependent random reads of the cbf from one SM: {ns:.1f} ns "
               f"[{card}]", flush=True)
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                            capture_output=True, text=True).stdout.strip()
+    print(f"SM clock now, max: {clocks}")
+    return 0
+
+
+def lanes_of(st, idx):
+    """The walk state of the lanes ``idx`` (a tensor of lane indices)."""
+    return traverse.WalkState(*(None if x is None else x[idx].contiguous() for x in st))
+
+
+def naive_profile(args, tmp: str, dev, card: str, prof_lib, variants: dict, chase) -> int:
+    left, right = os.path.join(tmp, "r_1.fq"), os.path.join(tmp, "r_2.fq")
+    pesim.write_pe_fastq(left, right, seed=0, num_transcripts=2000, tx_len=(1000, 4000),
+                         num_pairs=args.pairs, read_len=cs.READ_LEN, frag_range=(250, 400), sub_rate=0.003)
+    out = os.path.join(tmp, "out")
+    t0 = time.time()
+    cs.run_cli(left, right, out, "cuda", "mf8", 1)
+    print(f"-stage 1 on {args.pairs} pairs: {time.time() - t0:.1f} s", flush=True)
+    graph, cfg, captured, n_frags = cs.first_batch_naive_walks(os.path.join(out, "rnabloom.graph"), left, right, dev)
+    builds = {"kernel": None, **variants, "profiled": prof_lib}
+
+    def call(who, s, w, m, b):
+        lib = builds[who]
+        with cs.walk_library(lib) if lib is not None else contextlib.nullcontext():
+            return walk.walk_naive(s, graph, cfg, w, m, b)
+
+    for side, (st, wcfg, mc, bd, _) in zip(("right", "left"), captured):
+        tally = cs.naive_tally(st, graph, cfg, wcfg, mc, bd)
+        plain = tally["state"]
+        for who in builds:
+            got = call(who, st, wcfg, mc, bd)
+            torch.cuda.synchronize()
+            bad = cs._same_state(got, plain)
+            assert not bad, f"{who} != plain ({side}): {bad}"
+        rounds = {name: tally[f"{name}_rounds"] for name in ("old", "new")}
+        print(f"{side} -extend walks of the first stage-2 batch ({n_frags} fragments in {st.pos.shape[0]} lanes, "
+              f"tip_probe_depth {wcfg.tip_probe_depth}): {int(tally['hops'].sum())} hops "
+              f"({int(tally['free_hops'].sum())} free in the kernel's schedule), {int(tally['resolves'].sum())} "
+              f"resolves; cell reads: plain loop {int(tally['reads'].sum())}, needed {int(tally['needed'].sum())}, "
+              f"the kernel's schedule {int(tally['new_reads'].sum())} [{card}]")
+        for name, r in rounds.items():
+            q = torch.quantile(r.double(), torch.tensor([0.5, 0.9, 0.99, 0.999], dtype=torch.float64, device=r.device))
+            print(f"  rounds, {name} schedule: sum {int(r.sum())}, quantiles 0.5/0.9/0.99/0.999 "
+                  f"{'/'.join(f'{x:.0f}' for x in q.tolist())}, most {int(r.max())} (lane {int(torch.argmax(r))}); "
+                  f"lanes over 50 rounds {int((r > 50).sum())}")
+        t = {who: [] for who in builds}
+        order = list(builds)
+        for who in (*order, *order[::-1]):
+            t[who].append(cs._time_ms(lambda: call(who, st, wcfg, mc, bd), reps=5))
+        for who in builds:
+            print(f"  {who}: batch {cs._mean(t[who]):.4f} ms ({', '.join(f'{x:.4f}' for x in t[who])}) [{card}]")
+        # where the batch's time over its longest lane goes: the lanes
+        # sorted longest first (none starts late), and the batch without
+        # its longest lanes (what the short ones cost together)
+        longest_first = torch.argsort(rounds["new"], descending=True, stable=True)
+        for what, idx in (("its lanes sorted by rounds, longest first", longest_first),
+                          ("without its 64 longest lanes", torch.sort(longest_first[64:]).values)):
+            sub = lanes_of(st, idx)
+            sub_mc, sub_bd = mc[idx].contiguous(), bd[idx].contiguous()
+            bad = cs._same_state(call("kernel", sub, wcfg, sub_mc, sub_bd), lanes_of(plain, idx))
+            assert not bad, f"kernel != plain on the batch {what}: {bad}"
+            ts = [cs._time_ms(lambda: call("kernel", sub, wcfg, sub_mc, sub_bd), reps=5) for _ in range(2)]
+            print(f"  kernel: the batch {what} {cs._mean(ts):.4f} ms ({', '.join(f'{x:.4f}' for x in ts)}) "
+                  f"[{card}]", flush=True)
+        for name, r in rounds.items():
+            w = int(torch.argmax(r))
+            one = traverse.take_lanes(st, slice(w, w + 1))
+            one_mc, one_bd = mc[w : w + 1].contiguous(), bd[w : w + 1].contiguous()
+            for who in builds:
+                got = call(who, one, wcfg, one_mc, one_bd)
+                torch.cuda.synchronize()
+                bad = [f for f in cs.WALK_FIELDS if not torch.equal(getattr(got, f), getattr(plain, f)[w : w + 1])]
+                assert not bad, f"{who}: lane {w} alone != plain: {bad}"
+            t1 = {who: [] for who in builds}
+            for who in (*order, *order[::-1]):
+                t1[who].append(cs._time_ms(lambda: call(who, one, wcfg, one_mc, one_bd), reps=5))
+            print(f"  lane {w}, the most rounds of the {name} schedule: {int(tally['hops'][w])} hops "
+                  f"({int(tally['free_hops'][w])} free), {int(tally['resolves'][w])} resolves, rounds old "
+                  f"{int(rounds['old'][w])} / new {int(rounds['new'][w])}")
+            for who in builds:
+                lane = min(t1[who])
+                print(f"    {who} alone: {lane:.4f} ms ({', '.join(f'{x:.4f}' for x in t1[who])}): "
+                      f"{lane * 1e6 / max(int(rounds['old'][w]), 1):.1f} ns a round of the old schedule, "
+                      f"{lane * 1e6 / max(int(rounds['new'][w]), 1):.1f} of the new [{card}]", flush=True)
+            read_profile(prof_lib)
+            ms = cs._time_ms(lambda: call("profiled", one, wcfg, one_mc, one_bd), reps=1)
+            report(f"  profiled lane {w} alone (rank 0's clock64 spans)", read_profile(prof_lib), ms, card, NAIVE_PHASES)
+        read_profile(prof_lib)
+        ms = cs._time_ms(lambda: call("profiled", st, wcfg, mc, bd), reps=1)
+        report(f"  profiled {side} batch, summed over lanes", read_profile(prof_lib), ms, card, NAIVE_PHASES)
+    print(f"one dependent random read of the {graph.cbf.numel()}-cell cbf: {cs.dependent_read_ns(chase, graph.cbf):.1f} "
+          f"ns [{card}]")
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
                             capture_output=True, text=True).stdout.strip()
     print(f"SM clock now, max: {clocks}")
