@@ -142,6 +142,29 @@ Phases (any failure raises and exits nonzero):
    launch count set to 0 before it: ``-stage 2 -extend`` on the first 8
    batches of the 1M pairs (65,536 pairs: a depth cut), its pairs/s and
    its launches (``walk_naive`` among them).
+9. The short-read entry points of the latest slice, each with every
+   launch count set to 0 before it, on slices of the 1M pairs at the
+   default ``-mem 1`` (150 bp reads, k=25; only the depth is cut):
+   single-end ``-stage 3`` (``-sef`` the left and ``-ser`` the right mates
+   of the first 100,000 pairs), ``-pool`` of two samples (pairs 0-24,999
+   and 25,000-49,999) with ``-mergepool``, ``-stage 2 -rescue -bound 20``
+   on the first 16,384 pairs, and ``-k 25,27 -ntcard -stage 1`` on the
+   first 20,000 pairs.  Each prints its rates, launches per kernel (the
+   single-end and pool runs must launch ``add_mf8``, ``set`` and
+   ``walk_pair``, the ``-k`` run ``add``), its peak device memory, and
+   the run's own numbers: the spill and ``num_rescued`` (at least 1), the
+   chosen k and the sketch's estimate.  The ``-k`` run's sketches are held
+   to the CPU's plain inserts on the same reads: each k's distinct and
+   nonsingleton cells, the estimate, and every cell of a zeroed sketch of
+   each size after the run's first batch into it.  The pair walks (right, then left)
+   of the single-end run's first full stage-3 batch (read pairs only, no
+   fpkbf) by the kernel and once by the plain loop, every field equal;
+   the right walks timed in turns, a replay of the plain loop
+   (``pair_tally``) for the bound, one gather of as many random cells and
+   rpkbf lanes.  Then card against CPU on 1,000 reads or pairs a case:
+   single-end ``-stage 3``, mixed ``-stage 2``, ``-pool -mergepool``,
+   ``-stage 2 -rescue`` and ``-k 25,27 -ntcard -stage 1``, every file
+   byte-identical.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -174,7 +197,7 @@ from rnabloom_tpu_torch.bloom import filters
 from rnabloom_tpu_torch.graph import dbg, engine, traverse
 from rnabloom_tpu_torch.io import fastx, native
 from rnabloom_tpu_torch.ops import _build, cell_insert as ci, launch_timer, nthash, walk
-from rnabloom_tpu_torch.utils import checkpoint, pesim, seq as sequtils
+from rnabloom_tpu_torch.utils import checkpoint, kselect, pesim, seq as sequtils
 
 KERNEL_SOURCE = "rnabloom_tpu_torch/csrc/cell_insert.cu"
 TPU_KERNEL = "rnabloom_tpu/ops/histmerge.py:187"
@@ -218,6 +241,15 @@ EXTEND_BATCHES = 8  # stage-2 batches of the -extend main-path run: a depth cut 
 STAGE2_PAIRS = 4096  # the card-vs-CPU -stage 2 runs and their stage 2b: half a stage-2 batch
 MAXCLIP = 8  # -maxclip of phase 7's rerun, which reaches the screen-as-graph probe
 GOLDEN = "tests/golden/pe_golden.json"
+# phase 9's pool depth, half the 2 x 50,000 pairs it first ran (67 s of a
+# 1037 s smoke on one H100 80GB HBM3 at 700 W): margin under the 1200 s
+# limit for a slow host (one took 1155 s before phase 9 existed)
+SE_PAIRS = 100_000  # phase 9: the single-end run reads both mates of these pairs
+POOL_PAIRS = 25_000  # phase 9: pairs of each of the two pool samples
+RESCUE_PAIRS = 16_384  # phase 9: the -rescue run (two stage-2 batches)
+KSELECT_PAIRS = 20_000  # phase 9: the -k 25,27 -ntcard run
+CHECK9 = 1000  # phase 9: reads or pairs of each card-vs-CPU case
+SE_PAIR_NAME = "walk_pair[single-end stage 3, read pairs only]"
 # stage-3 uses of the greedy walk kernel: kind -> the kernels line's name
 GREEDY_USES = {
     "gap_rewalk": "walk_greedy[stage-3 gap re-walks]",
@@ -1991,6 +2023,311 @@ def extend_main_path(left: str, right: str, out: str, card: str) -> dict:
     return r
 
 
+def slice_fastq(src: str, dst: str, first: int, n_records: int) -> None:
+    with open(src) as f, open(dst, "w") as g:
+        g.writelines(itertools.islice(f, 4 * first, 4 * (first + n_records)))
+
+
+@contextlib.contextmanager
+def recorded(module, name: str):
+    """``module.name`` wrapped, for the span of the block, to append
+    (args, result, seconds with the card synchronised) of every call to
+    the list it yields."""
+    fn, calls = getattr(module, name), []
+
+    def wrapped(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        calls.append((args, out, time.time() - t0))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def entry_run(argv: list) -> tuple:
+    """The port's CLI on the card with every launch count set to 0 just
+    before and read just after: (result, launches, peak device bytes,
+    wall s)."""
+    ci.reset_launch_counts()
+    walk.reset_launch_counts()
+    ci._batch_tables.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    result = cli.run(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    return result, {**ci.launch_counts(), **walk.launch_counts()}, torch.cuda.max_memory_allocated(), time.time() - t0
+
+
+def se_main_path(fwd: str, rev: str, out: str, card: str) -> dict:
+    """Single-end -stage 3 on the card: rates, launches, peak memory, the
+    transcript files; keeps stage 3's graph, config and store (the
+    fragment graph without fpkbf) for the pair-walk check."""
+    with recorded(pipeline, "_ingest_se_fragments") as s2, recorded(pipeline, "_run_stage3") as s3:
+        rep, launches, peak, wall = entry_run(["-sef", fwd, "-ser", rev, "-o", out])
+    assert launches["add_mf8"] > 0 and launches["set"] > 0 and launches["walk_pair"] > 0, launches
+    (args3, _, stage3_s), = s3
+    graph, cfg, store = args3[:3]
+    assert graph.fpkbf is None and graph.rpkbf is not None and cfg.read_pair_distance > 0
+    check_transcripts(out, rep, K)
+    st1 = rep.stage1
+    r = {"reads": rep.num_pairs, "fragments": rep.num_fragments, "transcripts": rep.num_transcripts,
+         "short": rep.num_short, "nr": rep.num_nr, "launches": launches, "peak_bytes": peak, "wall_s": wall,
+         "stage1_reads_per_s": st1.num_reads / st1.elapsed_s, "stage2_reads_per_s": rep.num_pairs / s2[0][2],
+         "stage3_fragments_per_s": rep.num_fragments / stage3_s, "stage3_s": stage3_s,
+         "stage2b_s": wall - st1.elapsed_s - s2[0][2] - stage3_s}
+    print(f"-sef/-ser -stage 3 on the mates of the first {SE_PAIRS} pairs: {st1.num_reads} reads into stage 1 at "
+          f"{r['stage1_reads_per_s']:.1f} reads/s; stage 2 {rep.num_pairs} reads kept at {r['stage2_reads_per_s']:.1f}"
+          f" reads/s, {rep.num_fragments} fragments; stage 2b (and the rest) {r['stage2b_s']:.2f} s; stage 3 "
+          f"{r['stage3_fragments_per_s']:.1f} fragments/s ({stage3_s:.2f} s), {rep.num_transcripts} transcripts, "
+          f"{rep.num_short} short, {rep.num_nr} nr; launches {launches}; peak device memory {peak} B "
+          f"({peak / 2**30:.3f} GiB); CLI wall {wall:.1f} s [{card}]", flush=True)
+    return r, graph, cfg, store
+
+
+def se_pair_walks(graph, cfg, store: FragmentStore, card: str, dev) -> dict:
+    """The pair walks of the single-end run's first full stage-3 batch
+    (read pairs only: the graph has no fpkbf, the kernel's null
+    fragment-pair table): right walks, then left walks from the kernel's
+    right walks, by the kernel and once by the plain loop, every field
+    equal; the right walks timed in turns (kernel, kernel; the plain
+    loop's equality run is its turn), replayed by ``pair_tally`` for the
+    reads the plain loop needs (the bound), beside one gather of as many
+    random cbf cells and rpkbf lanes."""
+    params, tparams = pipeline.PipelineParams(), transcripts.TranscriptParams()
+    width = int(min(max(store.max_len, cfg.k), params.max_walk_len))
+    batches = stage3_batches(store, params.stage3_batch, width)
+    key, frags, lens = batches[-1]
+
+    def wcfg(left):
+        return traverse.WalkConfig(max_len=tparams.max_walk_len, pair_ring=tparams.pair_ring, left=left,
+                                   lookahead=tparams.lookahead)
+
+    right = traverse.make_walks(cfg, wcfg(False), frags, lens, device=dev)
+    mc, bd = traverse.lane_args(right, 1.0, tparams.bound)
+    n0 = walk.launch_counts()["walk_pair"]
+    kern_r = walk.walk_pair(right, graph, cfg, wcfg(False), mc, bd)
+    left = traverse.revcomp_reseed(cfg, wcfg(True), kern_r.buf, kern_r.pos)
+    kern_l = walk.walk_pair(left, graph, cfg, wcfg(True), mc, bd)
+    assert walk.launch_counts()["walk_pair"] == n0 + 2
+    plain = {}
+
+    def plain_right():
+        plain["right"] = walk.walk_pair_plain(right, graph, cfg, wcfg(False), mc, bd)
+
+    plain_ms = _time_ms(plain_right, reps=1)
+    plain["left"] = walk.walk_pair_plain(left, graph, cfg, wcfg(True), mc, bd)
+    for what, kern in (("right", kern_r), ("left", kern_l)):
+        torch.cuda.synchronize()
+        bad = [f for f in PAIR_FIELDS if not torch.equal(getattr(kern, f), getattr(plain[what], f))]
+        if bad:
+            raise AssertionError(f"walk_pair != plain on the {what} walks of the single-end stage 3: {bad} differ")
+    t = [_time_ms(lambda: walk.walk_pair(right, graph, cfg, wcfg(False), mc, bd), reps=5) for _ in range(2)]
+    tally = pair_tally(right, graph, cfg, wcfg(False), mc, bd)
+    bad = [f for f in PAIR_FIELDS if not torch.equal(getattr(tally["state"], f), getattr(plain["right"], f))]
+    if bad:
+        raise AssertionError(f"the tallied replay of the plain pair loop differs: {bad}")
+    cells, pk_lanes = int(tally["cells"].sum()), int(tally["lanes"].sum())
+    state_bytes = sum(x.numel() * x.element_size() for x in right if x is not None) * 2 + 8 * mc.numel()
+    bound_ms = ((cells + pk_lanes) * SECTOR + state_bytes) / HBM_BYTES_PER_MS
+    idx_c = torch.randint(0, graph.cbf.numel(), (cells,), device=dev)
+    idx_p = torch.randint(0, graph.rpkbf.numel(), (max(pk_lanes, 1),), device=dev)
+    gather = lambda: (graph.cbf[idx_c], graph.rpkbf[idx_p])  # noqa: E731
+    gather()
+    gather_ms = min(_time_ms(gather, reps=3) for _ in range(3))
+    r = {"lanes": int(right.pos.shape[0]), "batch": len(batches) - 1, "stratum": key, "ms": _mean(t),
+         "plain_ms": plain_ms, "bound_ms": bound_ms, "gather_ms": gather_ms, "cells": cells, "pkbf_lanes": pk_lanes,
+         "hops": int(tally["hops"].sum()), "resolves": int(tally["resolves"].sum()),
+         "max_abs_err": max(_max_abs_diff(kern_r, plain["right"], PAIR_FIELDS),
+                            _max_abs_diff(kern_l, plain["left"], PAIR_FIELDS))}
+    print(f"{SE_PAIR_NAME}: stage 3's batch {r['batch']}, the first full one ({r['lanes']} fragments of stratum {key}"
+          f"): right and left walks equal to the plain loop in every field incl. the ring; right walks: kernel "
+          f"{r['ms']:.4f} ms ({', '.join(f'{x:.4f}' for x in t)}), plain {plain_ms:.2f} ms; the batch needs "
+          f"{r['hops']} hops, {r['resolves']} pair resolves, {cells} cbf cell reads, {pk_lanes} rpkbf lane reads: "
+          f"bound {bound_ms:.4f} ms ({SECTOR} B a cell or lane, state and ring {state_bytes} B, at 3.35 TB/s); one "
+          f"gather of as many random cbf cells and rpkbf lanes {gather_ms:.4f} ms [{card}]", flush=True)
+    return r
+
+
+def pool_main_path(pool_list: str, out: str, card: str) -> dict:
+    """-pool of two samples with -mergepool on the card: each sample's
+    stage 2-3 seconds, launches, peak memory (the shared graph, a sample's
+    fragment graph over the shared rpkbf and the screen at once), its
+    transcript files, and the merged set."""
+    with recorded(pipeline, "_pool_sample") as samples, recorded(pipeline, "merge_pool") as merge:
+        reports, launches, peak, wall = entry_run(["-pool", pool_list, "-mergepool", "-o", out])
+    assert launches["add_mf8"] > 0 and launches["set"] > 0 and launches["walk_pair"] > 0, launches
+    assert sorted(reports) == ["s0", "s1"], reports
+    for name, rep in reports.items():
+        check_transcripts(os.path.join(out, name), rep, K)
+    merged = [s for _, s in fastx.read_fasta(os.path.join(out, "rnabloom.transcripts.merged.fa"))]
+    assert len(merged) == merge[0][1] > 0 and all(re.match(r"^[ACGT]+[acgt]*$", s) for s in merged)
+    st1 = reports["s0"].stage1
+    r = {"samples": {name: {"pairs": rep.num_pairs, "fragments": rep.num_fragments, "transcripts": rep.num_transcripts,
+                            "nr": rep.num_nr, "stage2_3_s": sec} for (name, rep), (_, _, sec)
+                     in zip(sorted(reports.items()), samples)},
+         "merged": len(merged), "merge_s": merge[0][2], "launches": launches, "peak_bytes": peak, "wall_s": wall,
+         "stage1_reads_per_s": st1.num_reads / st1.elapsed_s}
+    print(f"-pool of 2 samples ({POOL_PAIRS} pairs each) -mergepool: shared stage 1 {st1.num_reads} reads at "
+          f"{r['stage1_reads_per_s']:.1f} reads/s; per sample {r['samples']}; {len(merged)} merged transcripts "
+          f"({merge[0][2]:.2f} s); launches {launches}; peak device memory {peak} B ({peak / 2**30:.3f} GiB); CLI "
+          f"wall {wall:.1f} s [{card}]", flush=True)
+    return r
+
+
+def rescue_main_path(left: str, right: str, out: str, card: str) -> dict:
+    with recorded(pipeline, "_rescue_unconnected_pass") as rescue:
+        rep, launches, peak, wall = entry_run(["-left", left, "-right", right, "-o", out, "-stage", "2", "-rescue",
+                                               "-bound", "20"])
+    (args, _, rescue_s), = rescue
+    spill = len(args[2])
+    assert rep.num_rescued >= 1 and launches["walk_greedy"] > 0 and launches["add_mf8"] > 0, (rep, launches)
+    r = {"pairs": rep.num_pairs, "fragments": rep.num_fragments, "spill": spill, "rescued": rep.num_rescued,
+         "rescue_s": rescue_s, "pairs_per_s": rep.num_pairs / rep.stage2_s, "launches": launches, "peak_bytes": peak,
+         "wall_s": wall}
+    print(f"-stage 2 -rescue -bound 20 on {rep.num_pairs} pairs: stage 2 {r['pairs_per_s']:.1f} pairs/s "
+          f"({rep.stage2_s:.2f} s, the rescue pass {rescue_s:.2f} s of it); {spill} pairs spilled, "
+          f"{rep.num_rescued} rescued; {rep.num_fragments} fragments; launches {launches}; peak device memory {peak} "
+          f"B ({peak / 2**30:.3f} GiB; the read graph and the rescue graph) [{card}]", flush=True)
+    shutil.rmtree(out)
+    return r
+
+
+def kselect_main_path(left: str, right: str, out: str, card: str, dev) -> dict:
+    """-k 25,27 -ntcard -stage 1 on the card: the chosen k, the estimate,
+    launches and peak memory.  Then the sketches against the CPU's plain
+    inserts on the same reads: each k's (distinct, nonsingleton) cells and
+    the estimate equal, and the first batch inserted into a sketch of each
+    size (2^22 cells for k selection, 2^26 for -ntcard) leaves every cell
+    of a zeroed sketch equal to the CPU's."""
+    first = {}  # sketch size_log2 -> (ccfg, codes, k) of its first batch in this run
+    insert = kselect._insert
+
+    def keep_first(sketch, ccfg, codes, k):
+        first.setdefault(ccfg.size_log2, (ccfg, codes.copy(), k))
+        return insert(sketch, ccfg, codes, k)
+
+    kselect._insert = keep_first
+    try:
+        with recorded(kselect, "select_k") as sel, recorded(kselect, "count_nonsingletons") as cns, \
+                recorded(kselect, "estimate_num_unique_kmers") as est:
+            rep, launches, peak, wall = entry_run(["-left", left, "-right", right, "-o", out, "-stage", "1",
+                                                   "-k", "25,27", "-ntcard"])
+    finally:
+        kselect._insert = insert
+    assert launches["add"] > 0 and launches["add_mf8"] > 0, launches
+    assert sorted(first) == [22, 26] and len(cns) == 2 and len(est) == 1, (sorted(first), len(cns), len(est))
+    cells = {}
+    for args, card_pair, _ in cns:
+        cpu_pair = kselect.count_nonsingletons(*args, device="cpu")
+        assert cpu_pair == card_pair, (args[1], card_pair, cpu_pair)
+        cells[args[1]] = card_pair
+    est_cpu = kselect.estimate_num_unique_kmers(*est[0][0], device="cpu")
+    assert est_cpu == est[0][1], (est[0][1], est_cpu)
+    batches = {}
+    for log2, (ccfg, codes, k) in sorted(first.items()):
+        sk = {d: filters.make_counting(ccfg, device=d) for d in (dev, torch.device("cpu"))}
+        for t in sk.values():
+            kselect._insert(t, ccfg, codes, k)
+        err = int((sk[dev].cpu().long() - sk[torch.device("cpu")].long()).abs().max())
+        assert err == 0, (log2, err)
+        batches[log2] = {"rows": codes.shape[0], "indices": codes.shape[0] * (codes.shape[1] - k + 1) * ccfg.num_hash,
+                         "max_abs_err": err}
+        del sk
+    r = {"k": sel[0][1], "select_s": sel[0][2], "estimate": est[0][1], "estimate_s": est[0][2],
+         "cells": cells, "sketch_batches": batches, "launches": launches, "peak_bytes": peak, "wall_s": wall,
+         "stage1_reads_per_s": rep.stage1.num_reads / rep.stage1.elapsed_s}
+    print(f"-k 25,27 -ntcard -stage 1 on {KSELECT_PAIRS} pairs: selected k={r['k']} ({r['select_s']:.2f} s), "
+          f"-ntcard estimate {r['estimate']} distinct k-mers ({r['estimate_s']:.2f} s); stage 1 "
+          f"{r['stage1_reads_per_s']:.1f} reads/s; launches {launches}; peak device memory {peak} B "
+          f"({peak / 2**30:.3f} GiB) [{card}]", flush=True)
+    print(f"-k sketches against the CPU's plain inserts on the same reads: (distinct, nonsingleton) cells by k "
+          f"{cells} equal, the estimate {est_cpu} equal; first batch of each sketch size (size_log2: rows, "
+          f"indices, max |err| over every cell) {batches}", flush=True)
+    shutil.rmtree(out)
+    return r
+
+
+def new_paths_card_vs_cpu(tmp: str, left: str, right: str) -> dict:
+    """Single-end -stage 3, mixed -stage 2, -pool -mergepool, -stage 2
+    -rescue and -k 25,27 -ntcard -stage 1 on CHECK9 reads or pairs a case,
+    on the card and on the CPU: every file byte-identical."""
+    half = CHECK9 // 2
+    files = {}
+    for name, first, n in (("a", 0, half), ("b", half, half), ("c", 0, CHECK9), ("d", CHECK9, half)):
+        for mate, src in (("1", left), ("2", right)):
+            slice_fastq(src, os.path.join(tmp, f"c9{name}_{mate}.fq"), first, n)
+    f = lambda name, mate: os.path.join(tmp, f"c9{name}_{mate}.fq")  # noqa: E731
+    with open(os.path.join(tmp, "c9pool.txt"), "w") as g:
+        g.write(f"s0 {f('a', 1)} {f('a', 2)}\ns1 {f('b', 1)} {f('b', 2)}\n")
+    cases = {
+        "single-end -stage 3": ["-sef", f("a", 1), "-ser", f("a", 2)],
+        "mixed -stage 2": ["-left", f("a", 1), "-right", f("a", 2), "-sef", f("d", 1), "-stage", "2"],
+        "-pool -mergepool": ["-pool", os.path.join(tmp, "c9pool.txt"), "-mergepool"],
+        "-stage 2 -rescue": ["-left", f("c", 1), "-right", f("c", 2), "-stage", "2", "-rescue", "-bound", "20",
+                             "-batch", "256", "-sample", "100"],
+        "-k 25,27 -ntcard -stage 1": ["-left", f("c", 1), "-right", f("c", 2), "-k", "25,27", "-ntcard", "-stage",
+                                      "1", "-savebf"],
+    }
+    for case, argv in cases.items():
+        outs = {dev: os.path.join(tmp, f"c9_{dev}") for dev in ("cuda", "cpu")}
+        walk.reset_launch_counts()
+        ci.reset_launch_counts()
+        t0 = time.time()
+        rep = cli.run(argv + ["-o", outs["cuda"], "--device", "cuda"])
+        t_gpu = time.time() - t0
+        n_launch = {**ci.launch_counts(), **walk.launch_counts()}
+        t0 = time.time()
+        cli.run(argv + ["-o", outs["cpu"], "--device", "cpu"])
+        t_cpu = time.time() - t0
+        same = same_tree(outs["cuda"], outs["cpu"])
+        if case == "-stage 2 -rescue":
+            assert rep.num_rescued >= 1, rep
+        files[case] = len(same)
+        print(f"{case} on {CHECK9} reads or pairs: card and CPU outputs byte-identical ({len(same)} files); card "
+              f"launches { {k: v for k, v in n_launch.items() if v} }; CLI wall card {t_gpu:.1f} s, CPU "
+              f"{t_cpu:.1f} s", flush=True)
+        for d in outs.values():
+            shutil.rmtree(d)
+    return files
+
+
+def short_read_paths(tmp: str, left: str, right: str, card: str, dev) -> dict:
+    """Phase 9: the single-end, pool, -rescue and -k entry points on the
+    card, the single-end run's pair walks against the plain loop, and the
+    card-vs-CPU checks."""
+    se = [os.path.join(tmp, f"se_{m}.fq") for m in (1, 2)]
+    pool = [os.path.join(tmp, f"pool{i}_{m}.fq") for i in (0, 1) for m in (1, 2)]
+    for src, dst_se, dst0, dst1 in ((left, se[0], pool[0], pool[2]), (right, se[1], pool[1], pool[3])):
+        slice_fastq(src, dst_se, 0, SE_PAIRS)
+        slice_fastq(src, dst0, 0, POOL_PAIRS)
+        slice_fastq(src, dst1, POOL_PAIRS, POOL_PAIRS)
+    r = {}
+    r["se"], graph, cfg, store = se_main_path(se[0], se[1], os.path.join(tmp, "out_se"), card)
+    r["se_walks"] = se_pair_walks(graph, cfg, store, card, dev)
+    del graph
+    shutil.rmtree(os.path.join(tmp, "out_se"))
+    with open(os.path.join(tmp, "pool.txt"), "w") as g:
+        g.write(f"s0 {pool[0]} {pool[1]}\ns1 {pool[2]} {pool[3]}\n")
+    r["pool"] = pool_main_path(os.path.join(tmp, "pool.txt"), os.path.join(tmp, "out_pool"), card)
+    shutil.rmtree(os.path.join(tmp, "out_pool"))
+    heads = {}
+    for n in (RESCUE_PAIRS, KSELECT_PAIRS):
+        heads[n] = [os.path.join(tmp, f"h9_{n}_{m}.fq") for m in (1, 2)]
+        head_fastq(left, heads[n][0], n)
+        head_fastq(right, heads[n][1], n)
+    r["rescue"] = rescue_main_path(*heads[RESCUE_PAIRS], os.path.join(tmp, "out_rescue"), card)
+    r["kselect"] = kselect_main_path(*heads[KSELECT_PAIRS], os.path.join(tmp, "out_k"), card, dev)
+    r["card_vs_cpu"] = new_paths_card_vs_cpu(tmp, left, right)
+    return r
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--walk-variant", action="append", default=[], metavar="NAME=PATH",
@@ -2166,6 +2503,10 @@ def main(argv=None) -> int:
         naive = naive_vs_plain(os.path.join(out_mf8, "rnabloom.graph"), left, right, card, dev, naive_variants)
         shutil.rmtree(out_mf8)
         extend_run = extend_main_path(*heads[EXTEND_BATCHES * BATCH2], os.path.join(tmp, "out_extend"), card)
+
+        phase("9 single-end -stage 3, -pool -mergepool, -stage 2 -rescue and -k 25,27 -ntcard on slices of the 1M "
+              "pairs, the single-end pair walks vs plain PyTorch, card vs CPU on each, on the card")
+        short = short_read_paths(tmp, left, right, card, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2195,6 +2536,11 @@ def main(argv=None) -> int:
         for op in ("add_mf8", "set", "add_u16", "add")
     ]
     kernels[0]["run_insert_buffer_bytes"] = s2_buffer
+    for row in kernels:  # launches on phase 9's runs, each with its counts set to 0 before it
+        op = row["name"][len("cell_insert["):-1]
+        row["phase9_launches"] = {run: short[run]["launches"][op] for run in ("se", "pool", "rescue", "kselect")}
+    kernels[3]["k_select_run"] = {key: short["kselect"][key]
+                                  for key in ("k", "estimate", "sketch_batches", "launches", "peak_bytes")}
     kernels[1]["stage3_screen_launches"] = s3["stage3_launches"]["set"]
     kernels[1]["stage2b_launches"] = s3["rebuild_launches"]["set"]
     wm, wu = walk_t["mf8"], walk_t["u16"]
@@ -2326,6 +2672,33 @@ def main(argv=None) -> int:
         "extend_run_launches": extend_run["launches"],
         "extend_card_vs_cpu_fragments": extend_cpu["fragments"],
         "extend_card_vs_cpu_launches": extend_cpu["walk_launches"]["walk_naive"],
+    })
+    sw = short["se_walks"]
+    kernels.append({
+        "name": SE_PAIR_NAME,
+        "route": "cuda",
+        "source": WALK_SOURCE,
+        "replaces": WALK_REPLACES,
+        "launches": short["se"]["launches"]["walk_pair"],
+        "run": f"phase 9, -sef/-ser -stage 3 on the mates of the first {SE_PAIRS} pairs; times, bound and plain on "
+               f"the right walks of its stage 3's batch {sw['batch']}, the first full one (stratum {sw['stratum']}), "
+               f"on the fragment graph without fpkbf",
+        "max_abs_err": sw["max_abs_err"],
+        "ms": sw["ms"],
+        "plain_ms": sw["plain_ms"],
+        "bound_ms": sw["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "lanes": sw["lanes"],
+        "hops": sw["hops"],
+        "resolves": sw["resolves"],
+        "cell_reads": sw["cells"],
+        "rpkbf_lane_reads": sw["pkbf_lanes"],
+        "gather_ms": sw["gather_ms"],
+        "pool_run_launches": short["pool"]["launches"]["walk_pair"],
+        "short_read_runs": {run: {key: v for key, v in short[run].items() if key != "launches"}
+                            for run in ("se", "pool", "rescue", "kselect")},
+        "card_vs_cpu_files": short["card_vs_cpu"],
     })
     print(f"\nsmoke wall time {time.time() - t_start:.1f} s")
     print(card_line())

@@ -9,8 +9,10 @@ code it needs from there (``io/{fastx,native,nbits}.py``,
 ``assembly/fragstore.py``) is copied into it under the same module names.
 Its entry points run on the card unless the caller asks for the CPU.
 
-Ported so far: paired-end stage 1, the graph build (``-stage 1``), and
-stage 2, fragment assembly (``-stage 2``).
+Ported so far: every short-read entry point of the JAX CLI, stages 1-3
+with the non-redundant pass: paired-end (with ``-extend``, ``-rescue`` and
+unpaired reads mixed in), single-end, and pooled samples with their merge,
+and the k selection (``-k`` lists, ``-ntcard``).
 """
 
 __version__ = "0.1.0"

@@ -13,6 +13,9 @@ host-side equivalents of the reference's artifact family (GraphUtils):
     filter's seen-k-mer profile.
   * template switches and blunt ends: the seen-profile signatures of
     isTemplateSwitch :8305/:8434 and isBluntEndArtifact :8535-8585.
+  * low-complexity unpaired reads: the 1/2/3-mer frequency test of
+    isLowComplexityShort (SeqUtils.java:499-547), the single-end ingest's
+    gate.
 """
 
 from __future__ import annotations
@@ -257,3 +260,53 @@ def blunt_end_candidate(
             return ("l", int(idx[0]), int(idx[j + 1]), j + 1)
         return None
     return None
+
+
+# Low-complexity detectors: the reference's 1/2/3-mer frequency tests
+# (SeqUtils.java:370-683).  The Java early-returns on a counter crossing its
+# threshold; counters only grow, so testing the FINAL counts is equivalent —
+# which makes every detector a handful of numpy bincounts.
+
+_LC_THR_SHORT = 0.95  # SeqUtils.java:61
+
+
+def _freqs123(codes: np.ndarray):
+    """(nf1, nf2, nf3, pair_ok, triple_ok): base/di/tri counts over valid
+    (non-N) windows plus the validity masks of each pair/triple window."""
+    v = codes < 4
+    nf1 = np.bincount(codes[v], minlength=4)[:4]
+    a, b = codes[:-1].astype(np.int64), codes[1:].astype(np.int64)
+    pair_ok = v[:-1] & v[1:]
+    c = codes[2:].astype(np.int64)
+    triple_ok = pair_ok[:-1] & v[2:]
+    return nf1, (a, b, pair_ok), (a[:-1], b[:-1], c, triple_ok)
+
+
+def _dinuc_bias(nf1: np.ndarray, t1: int) -> bool:
+    """Any two-base content >= t1 (the detectors' shared final check)."""
+    for i in range(4):
+        for j in range(i + 1, 4):
+            if nf1[i] + nf1[j] >= t1:
+                return True
+    return False
+
+
+def is_low_complexity_short(codes: np.ndarray) -> bool:
+    """isLowComplexityShort (SeqUtils.java:499-547): unmasked 1/2/3-mer
+    frequency thresholds at 0.95 plus the dinucleotide-content check."""
+    n = len(codes)
+    if n <= 2:
+        return False
+    t1 = min(32767, round(n * _LC_THR_SHORT))
+    t2 = min(32767, round(n // 2 * _LC_THR_SHORT))
+    t3 = min(32767, round(n // 3 * _LC_THR_SHORT))
+    nf1, (a, b, pok), (x, y, z, tok) = _freqs123(codes)
+    if nf1.max(initial=0) >= t1:
+        return True
+    nf2 = np.bincount((a * 4 + b)[pok], minlength=16)
+    if nf2.max(initial=0) >= t2:
+        return True
+    nf3 = np.bincount((x * 16 + y * 4 + z)[tok], minlength=64)
+    if nf3.max(initial=0) >= t3:
+        return True
+    return _dinuc_bias(nf1, t1)

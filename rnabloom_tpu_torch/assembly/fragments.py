@@ -17,6 +17,9 @@ read pairs (right mate reverse-complemented into fragment orientation):
      that stop at branches and back branches (the walk kernel's naive
      mode on the card).
 
+``rescue_unconnected`` (``-rescue``) retries pairs that stage 2 left
+unconnected, steps 2-5 against the stage-2b fragment graph.
+
 The host code is the JAX package's, line for line; the graph queries and
 walks run on the graph's device.
 """
@@ -533,3 +536,21 @@ def coverage_order_of_magnitude(c: float) -> int:
     if c >= 1e1:
         return 1
     return 0
+
+
+def rescue_unconnected(
+    graph: GraphState,
+    cfg: GraphConfig,
+    left: np.ndarray,
+    left_len: np.ndarray,
+    right: np.ndarray,
+    right_len: np.ndarray,
+    params: FragmentParams,
+) -> List[Optional[Fragment]]:
+    """Retry connecting unconnected read pairs against the rebuilt
+    fragment graph (rescueUnconnectedMultiThreaded, RNABloom.java:
+    2392-2668).  The caller corrects the reads against the read graph, so
+    correction is skipped and only the overlap, graph-bridge and
+    pair-validation steps run against ``graph`` (the stage-2b fragment
+    graph, whose k-mers may bridge gaps the read graph could not)."""
+    return assemble_fragments_batch(graph, cfg, left, left_len, right, right_len, params, error_correct=False)

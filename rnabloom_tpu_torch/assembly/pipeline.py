@@ -1,4 +1,5 @@
-"""Bulk paired-end assembly pipeline.
+"""Short-read assembly pipelines: bulk paired-end, single-end, mixed and
+pooled.
 
 Port of ``rnabloom_tpu/assembly/pipeline.py``: ``assemble_pe`` runs
 
@@ -9,7 +10,10 @@ Port of ``rnabloom_tpu/assembly/pipeline.py``: ``assemble_pe`` runs
   Stage 2  fragment assembly in batches of read pairs into the stratified
            fragment store; fragment-length quartiles of the first sample
            set the fragment pair distance (Q1 - k - minNumKmerPairs) and
-           the walk bound (Q3 + 1.5 IQR) (RNABloom.java:4465-4663)
+           the walk bound (Q3 + 1.5 IQR) (RNABloom.java:4465-4663); then
+           the unpaired reads of a mixed run (``-sef``/``-ser``) as
+           unconnected fragments, and with ``-rescue`` a second attempt
+           at the unconnected pairs against a fragment graph
 
   Stage 2b fragment-graph rebuild (``rebuild_fragment_graph``,
            populateGraphFromFragments, RNABloom.java:1553-1560), with the
@@ -23,8 +27,11 @@ Port of ``rnabloom_tpu/assembly/pipeline.py``: ``assemble_pe`` runs
            emitted transcripts -> {name}.transcripts.nr.fa
 
 A rerun into the same directory with a saved graph and the stage-2 stamp
-resumes at stage 2b.  ``-rescue`` and unpaired reads (``-sef``/``-ser``)
-are not ported yet: asking for them raises before any work is done.
+resumes at stage 2b.  ``assemble_se`` runs the same stages over unpaired
+reads (``-sef``/``-ser``), and ``assemble_pool`` over a pooled READSLIST
+(``-pool``) with one shared stage-1 graph and stages 2-3 per sample;
+``merge_pool`` (``-mergepool``) lays the samples' transcripts out into one
+merged set.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ from ..io.seqstore import SeqStore
 from ..olc import layout as olc_layout, overlap as olc_overlap
 from ..utils import checkpoint as ckpt, polya, seq as sequtils
 from ..utils.timer import Timer, span, span_totals
-from . import correct, fragments as fragmod, stage1, transcripts as txmod
+from . import artifacts, correct, fragments as fragmod, stage1, transcripts as txmod
 from .fragstore import FragmentStore
 
 
@@ -434,6 +441,93 @@ def _store_fragment(store: FragmentStore, f: "fragmod.Fragment", params: Pipelin
     store.add(f.codes, f.min_cov, f.connected, polya=pa)
 
 
+def _ingest_se_fragments(
+    state: dbg.GraphState,
+    cfg: dbg.GraphConfig,
+    sef_paths: Sequence[str],
+    ser_paths: Sequence[str],
+    read_L: int,
+    params: PipelineParams,
+    store: FragmentStore,
+    frag_lengths: List[int],
+    report: PipelineReport,
+) -> None:
+    """Unpaired reads (-sef/-ser) become error-corrected unconnected
+    fragments (SingleEndReadExtractor, RNABloom.java:1935-2036): the -Q
+    average-quality gate, per-base quality segments with the graph re-join
+    of split reads (connect(segments), GraphUtils.java:4836-4897), the
+    low-complexity gate (RNABloom.java:1983), correction, and the real
+    minimum k-mer coverage as the fragment's stratum.
+
+    As in the JAX package (its pipeline.py:457-461, with every caller's
+    ``fparams=None``), the re-join walks with a fresh ``FragmentParams``
+    without ``-extend`` and the run's own bound, and no fragment is held to
+    ``min_fragment_cov``."""
+    k = cfg.k
+    ecp = params.correct_params()
+    fparams = fragmod.FragmentParams(
+        min_overlap=params.min_overlap, bound=params.bound, lookahead=params.lookahead, ec_params=ecp,
+    )
+    for path, rc in [(p, False) for p in sef_paths] + [(p, True) for p in ser_paths]:
+        buf = np.full((params.batch_size, read_L), 4, np.uint8)
+        lens = np.zeros(params.batch_size, np.int32)
+        multi: dict = {}
+        n = 0
+
+        def flush_se(n):
+            if n == 0:
+                return
+            # re-join quality-split segments through the graph before EC
+            if multi:
+                keys = sorted(multi.keys())
+                joined = fragmod.connect_segments_batch(state, cfg, [multi[key] for key in keys], fparams)
+                for key, seqj in zip(keys, joined):
+                    m = min(len(seqj), read_L)
+                    if m > lens[key]:
+                        buf[key, :m] = seqj[:m]
+                        buf[key, m:] = 4
+                        lens[key] = m
+                multi.clear()
+            fixed, flens, _ = correct.correct_batch(state, cfg, buf[:n], lens[:n], ecp)
+            counts, valid = engine.count_step(state, cfg, fixed)
+            counts, valid = counts.cpu().numpy(), valid.cpu().numpy()
+            for i in range(n):
+                nk = int(flens[i]) - k + 1
+                v = valid[i, :nk]
+                if nk <= 0 or not v.any():
+                    continue
+                mc = float(counts[i, :nk][v].min())
+                _store_fragment(
+                    store,
+                    fragmod.Fragment(codes=fixed[i, : flens[i]].copy(), min_cov=mc, length=int(flens[i]),
+                                     connected=False),
+                    params,
+                )
+                frag_lengths.append(int(flens[i]))
+
+        for _, rs, rq in fastx.read_seqs(path):
+            if params.min_avg_qual > 0 and not _avg_qual_ok(rq, params.min_avg_qual):
+                continue
+            segs = _segments_of(rs, rq, params.min_qual, k, read_L, rc)
+            segs = [s for s in segs if len(s) >= k]
+            if not segs:
+                continue
+            best = max(segs, key=len)
+            if artifacts.is_low_complexity_short(best):
+                continue
+            buf[n, : len(best)] = best
+            buf[n, len(best) :] = 4
+            lens[n] = len(best)
+            if len(segs) > 1:
+                multi[n] = segs
+            n += 1
+            report.num_pairs += 1
+            if n == params.batch_size:
+                flush_se(n)
+                n = 0
+        flush_se(n)
+
+
 def _stage2_pair_loop(
     state,
     cfg: dbg.GraphConfig,
@@ -447,8 +541,11 @@ def _stage2_pair_loop(
     store: FragmentStore,
     report: "PipelineReport",
     frag_lengths: List[int],
+    rescue_spill: Optional[list] = None,
 ) -> int:
-    """The stage-2 fragment loop over the pair stream.
+    """The stage-2 fragment loop over the pair stream.  With a
+    ``rescue_spill`` list (``-rescue``), unconnected pairs whose mates both
+    hold a k-mer are kept there, up to ``_RESCUE_SPILL_CAP``.
 
     Returns the learned fragment pair distance (-1 when the sample never
     filled: the caller derives it from all lengths)."""
@@ -462,10 +559,18 @@ def _stage2_pair_loop(
         report.num_pairs += int((ll > 0).sum())
         _connect_multi_segments(state, cfg, lb, ll, rb, rl, multi, fparams)
         outs = fragmod.assemble_fragments_batch(state, cfg, lb, ll, rb, rl, fparams)
-        for f in outs:
+        for i, f in enumerate(outs):
             if f is not None and f.min_cov >= params.min_fragment_cov:
                 _store_fragment(store, f, params)
                 frag_lengths.append(f.length)
+            elif (
+                rescue_spill is not None
+                and f is None
+                and ll[i] >= k
+                and rl[i] >= k
+                and len(rescue_spill) < _RESCUE_SPILL_CAP
+            ):
+                rescue_spill.append((lb[i, : ll[i]].copy(), rb[i, : rl[i]].copy()))
         report.stage2_batches += 1
         if not learned and len(frag_lengths) >= params.sample_size:
             # the fragment pair distance (sample Q1 - k - minNumKmerPairs)
@@ -479,6 +584,63 @@ def _stage2_pair_loop(
     _d1 = engine.dispatch_counts()
     report.stage2_dispatches = {k2: _d1[k2] - _d0[k2] for k2 in _d1}
     return d_frag
+
+
+# -rescue holds unconnected pairs in host memory for the second attempt;
+# the cap bounds it (about 2 * read_L bytes a pair).  Pairs beyond it stay
+# dropped (the JAX package's pipeline.py:1576-1579).
+_RESCUE_SPILL_CAP = 200_000
+
+
+def _rescue_unconnected_pass(
+    state: dbg.GraphState,
+    cfg: dbg.GraphConfig,
+    spill: list,
+    read_L: int,
+    params: PipelineParams,
+    fparams: "fragmod.FragmentParams",
+    store: FragmentStore,
+    frag_lengths: List[int],
+    report: PipelineReport,
+) -> None:
+    """Second connection attempt for unconnected read pairs (-rescue,
+    rescueUnconnectedMultiThreaded, RNABloom.java:2392-2668): a fragment
+    graph over the stored fragments (fresh counters and fpkbf, the read
+    graph's read-pair keys read in place), the spilled pairs corrected once against the
+    *read* graph with shared pair thresholds, then overlap, bridge and pair
+    validation against the fragment graph.  Rescued fragments that reach
+    ``min_fragment_cov`` join the store (and so the final stage-2b
+    rebuild)."""
+    if not spill or store.count == 0:
+        return
+    store.flush()
+    # the JAX package copies the read-pair keys here (its pipeline.py:1607)
+    # against buffer donation; the rebuild never writes them
+    rescue_graph = rebuild_fragment_graph(state, cfg, store, params)
+
+    B = max(64, min(params.batch_size, 1 << (len(spill) - 1).bit_length()))
+    for s0 in range(0, len(spill), B):
+        chunk = spill[s0 : s0 + B]
+        lb = np.full((B, read_L), 4, np.uint8)
+        rb = np.full((B, read_L), 4, np.uint8)
+        ll = np.zeros(B, np.int32)
+        rl = np.zeros(B, np.int32)
+        for i, (lc, rc_) in enumerate(chunk):
+            ll[i] = min(len(lc), read_L)
+            rl[i] = min(len(rc_), read_L)
+            lb[i, : ll[i]] = lc[: ll[i]]
+            rb[i, : rl[i]] = rc_[: rl[i]]
+        both, both_len, _ = correct.correct_batch(
+            state, cfg, np.concatenate([lb, rb]), np.concatenate([ll, rl]), fparams.ec_params,
+            np.concatenate([np.arange(B), np.arange(B)]),
+        )
+        outs = fragmod.rescue_unconnected(rescue_graph, cfg, both[:B], both_len[:B], both[B:], both_len[B:], fparams)
+        for i, f in enumerate(outs):
+            if i < len(chunk) and f is not None and f.min_cov >= params.min_fragment_cov:
+                _store_fragment(store, f, params)
+                frag_lengths.append(f.length)
+                report.num_rescued += 1
+    del rescue_graph
 
 
 def rebuild_fragment_graph(
@@ -641,11 +803,40 @@ def _finish_pe_stage3(
     ckpt.touch_stamp(outdir, ckpt.STAMP_TRANSCRIPTS_NR_DONE)
 
 
-def _refuse_unported(params: PipelineParams, sef_paths, ser_paths) -> None:
-    if params.rescue_unconnected:
-        raise NotImplementedError("-rescue (the stage-2b rescue pass) is ROADMAP queue-1 item 12")
-    if sef_paths or ser_paths:
-        raise NotImplementedError("unpaired reads (-sef/-ser) are ROADMAP queue-1 item 12")
+def _stage1_graph(paths: Sequence[str], flags: Sequence[bool], params: PipelineParams, device,
+                  lengths: Optional[np.ndarray] = None, nk_hint: int = 0, show_plan: bool = False):
+    """(graph, stage-1 stats, cfg, read_L, d_read, max_tip): the stage-1
+    graph over ``paths`` (each read revcomp'd where its path's flag is
+    set), its read-pair keys included.  The read lengths are sampled from
+    ``paths`` unless ``lengths`` is given; they set the read-pair distance,
+    the tip length (unless -tiplength) and the read batch width.  The
+    filters are sized from -nk, else ``nk_hint``."""
+    k = params.k
+    if lengths is None:
+        lengths = stage1.sample_read_lengths(paths, params.sample_size)
+    d_read, max_tip = stage1.read_length_params(lengths, k, params.min_num_kmer_pairs)
+    if params.max_tip_length >= 0:
+        max_tip = params.max_tip_length
+    read_L = int(max(lengths.max(initial=150), k + d_read + 1))
+    cfg = stage1.default_graph_config(
+        k, params.stranded, params.total_mem_bytes, params.num_hash, d_read,
+        expected_num_kmers=params.expected_num_kmers or nk_hint,
+        **params.graph_config_overrides(),
+    )
+    if show_plan:
+        cbf_mb = (cfg.cbf.size * cfg.cbf.cell_bytes) >> 20
+        pk_mb = cfg.pkbf.size >> 20 if cfg.pkbf else 0
+        print(
+            f"Mem plan: cbf {cbf_mb} MB (2^{cfg.cbf.size_log2} x "
+            f"{cfg.cbf.cell_bytes} B {cfg.cbf.dtype}), rpkbf {pk_mb} MB; "
+            f"k={k} d_read={d_read} hash={cfg.cbf.num_hash} device={device}",
+            flush=True,
+        )
+    s1p = stage1.Stage1Params(k=k, stranded=params.stranded, min_qual=params.min_qual, max_seq_len=max(read_L, 2 * k))
+    state, s1_stats, cfg = stage1.build_graph_autosized(
+        list(paths), cfg, s1p, max_fpr=params.max_fpr, device=device, revcomp_flags=list(flags), add_read_pairs=True,
+    )
+    return state, s1_stats, cfg, read_L, d_read, max_tip
 
 
 def assemble_pe(
@@ -669,10 +860,14 @@ def assemble_pe(
     store under {outdir}/fragments; stage 3 writes
     {outdir}/{name}.transcripts.fa, .transcripts.short.fa, (unless
     ``no_reduce``) .transcripts.nr.fa, and .report.json.  ``ref_paths``:
-    reference transcript FASTAs added to the fragment graph (-ref).  A stage-3 run into a directory that holds the
-    stage-2 stamp and a saved graph (and without ``force``) resumes at stage
-    2b and writes no report.json, as the JAX package does."""
-    _refuse_unported(params, sef_paths, ser_paths)
+    reference transcript FASTAs added to the fragment graph (-ref).
+    ``sef_paths``/``ser_paths`` mix unpaired reads in: they join the
+    stage-1 graph and become unconnected fragments after the pairs
+    (-sef/-ser beside -left/-right).  ``params.rescue_unconnected``
+    (-rescue) retries the unconnected pairs against a fragment graph.  A
+    stage-3 run into a directory that holds the stage-2 stamp and a saved
+    graph (and without ``force``) resumes at stage 2b and writes no
+    report.json, as the JAX package does."""
     device = engine.require_device(device)
     t0 = time.time()
     os.makedirs(outdir, exist_ok=True)
@@ -720,35 +915,13 @@ def assemble_pe(
         with open(readstats_path, "w") as fh:
             q = sequtils.quartiles(lengths) if len(lengths) else (0, 0, 0)
             json.dump({"lengths": [int(x) for x in lengths], "quartiles": list(map(int, q))}, fh)
-    d_read, max_tip = stage1.read_length_params(lengths, k, params.min_num_kmer_pairs)
-    if params.max_tip_length >= 0:
-        max_tip = params.max_tip_length
-    read_L = int(max(lengths.max(initial=150), k + d_read + 1))
-
+    # ---- stage 1: graph build (right mates revcomp'd onto forward strand);
     # a rerun sizes filters from the previous run's distinct-k-mer estimate
-    cfg = stage1.default_graph_config(
-        k, params.stranded, params.total_mem_bytes, params.num_hash, d_read,
-        expected_num_kmers=params.expected_num_kmers or nk_hint,
-        **params.graph_config_overrides(),
-    )
-    if params.verbose:
-        cbf_mb = (cfg.cbf.size * cfg.cbf.cell_bytes) >> 20
-        pk_mb = cfg.pkbf.size >> 20 if cfg.pkbf else 0
-        print(
-            f"Mem plan: cbf {cbf_mb} MB (2^{cfg.cbf.size_log2} x "
-            f"{cfg.cbf.cell_bytes} B {cfg.cbf.dtype}), rpkbf {pk_mb} MB; "
-            f"k={k} d_read={d_read} hash={cfg.cbf.num_hash} device={device}",
-            flush=True,
-        )
-
-    # ---- stage 1: graph build (right mates revcomp'd onto forward strand)
     timer.start("stage 1: de Bruijn graph construction")
-    s1p = stage1.Stage1Params(
-        k=k, stranded=params.stranded, min_qual=params.min_qual, max_seq_len=max(read_L, 2 * k),
-    )
-    state, s1_stats, cfg = stage1.build_graph_autosized(
-        [left_path, right_path], cfg, s1p, max_fpr=params.max_fpr, device=device,
-        revcomp_flags=[revcomp_left, revcomp_right], add_read_pairs=True,
+    state, s1_stats, cfg, read_L, d_read, max_tip = _stage1_graph(
+        [left_path, right_path] + list(sef_paths) + list(ser_paths),
+        [revcomp_left, revcomp_right] + [False] * len(sef_paths) + [True] * len(ser_paths),
+        params, device, lengths=lengths, nk_hint=nk_hint, show_plan=params.verbose,
     )
     s1_stats.read_pair_distance = d_read
     s1_stats.max_tip_length = max_tip
@@ -780,9 +953,10 @@ def assemble_pe(
     )
     store = _new_fragment_store(outdir, params)
     frag_lengths: List[int] = []
+    rescue_spill: Optional[list] = [] if params.rescue_unconnected else None
     d_frag = _stage2_pair_loop(
         state, cfg, left_path, right_path, params, revcomp_left,
-        revcomp_right, read_L, fparams, store, report, frag_lengths,
+        revcomp_right, read_L, fparams, store, report, frag_lengths, rescue_spill,
     )
     report.num_fragments = store.count
     if store.count == 0:
@@ -799,6 +973,13 @@ def assemble_pe(
         pkbf=cfg.pkbf, read_pair_distance=cfg.read_pair_distance,
         fragment_pair_distance=d_frag, exact_counts=cfg.exact_counts,
     )
+    # mixed input: unpaired reads become error-corrected unconnected fragments
+    if sef_paths or ser_paths:
+        _ingest_se_fragments(state, cfg, sef_paths, ser_paths, read_L, params, store, frag_lengths, report)
+        report.num_fragments = store.count
+    if rescue_spill:
+        _rescue_unconnected_pass(state, cfg, rescue_spill, read_L, params, fparams, store, frag_lengths, report)
+        report.num_fragments = store.count
     store.close()
     if state.cbf.is_cuda:
         torch.cuda.synchronize(state.cbf.device)
@@ -833,3 +1014,217 @@ def assemble_pe(
             f,
         )
     return report
+
+
+def assemble_se(
+    se_paths: Sequence[str],
+    outdir: str,
+    params: PipelineParams,
+    revcomp_flags: Optional[Sequence[bool]] = None,
+    device="cuda",
+) -> PipelineReport:
+    """Single-end assembly (-sef/-ser) on ``device`` (the card unless the
+    caller asks for the CPU; raises when there is no card): corrected reads
+    become unconnected fragments, and transcripts extend with read-pair
+    support only (SingleEndReadExtractor :1935-2036, extendSE :6454).
+    ``revcomp_flags``: one per path, True for -ser reads.  As in the JAX
+    package, no stamps, read statistics or report.json are written, and
+    there is no resume."""
+    device = engine.require_device(device)
+    t0 = time.time()
+    os.makedirs(outdir, exist_ok=True)
+    report = PipelineReport()
+    if revcomp_flags is None:
+        revcomp_flags = [False] * len(se_paths)
+
+    # the JAX function also works out max_tip here, with the -tiplength
+    # override, and uses neither (its pipeline.py:678-680): stage 3 reads
+    # -tiplength from params
+    state, s1_stats, cfg, read_L, _, _ = _stage1_graph(se_paths, revcomp_flags, params, device)
+    report.stage1 = s1_stats
+    if params.stop_stage <= 1:
+        report.elapsed_s = time.time() - t0
+        return report
+
+    store = _new_fragment_store(outdir, params)
+    frag_lengths: List[int] = []
+    _ingest_se_fragments(
+        state, cfg,
+        [p for p, rc in zip(se_paths, revcomp_flags) if not rc],
+        [p for p, rc in zip(se_paths, revcomp_flags) if rc],
+        read_L, params, store, frag_lengths, report,
+    )
+    store.close()
+    report.num_fragments = store.count
+    if store.count == 0:
+        report.elapsed_s = time.time() - t0
+        return report
+
+    # stage 2b: counters from the corrected reads, read-pair keys kept and
+    # no fpkbf (stage 3's walks and break checks see read pairs only)
+    state = engine.fresh_rebuild_state(state, cfg, with_fpkbf=False)
+    for bi, (codes, _l, _c, _conn) in enumerate(store.iter_batches(1024, width=read_L)):
+        state = engine.build_step(state, cfg, codes, salt=bi)
+
+    _run_stage3(state, cfg, store, outdir, params, report)
+    report.elapsed_s = time.time() - t0
+    return report
+
+
+def parse_pool_list(path: str) -> List[Tuple[str, str, str, Tuple[str, ...], Tuple[str, ...]]]:
+    """Parse a -pool READSLIST (getPooledReadPaths, RNABloom.java:5066-5224).
+
+    Lines are '<name> <left> <right> [sef] [ser]'; a header line starting
+    with '#' may name the columns (any order of left/right/sef/ser after
+    name).  sef/ser cells may hold comma-separated lists or '-' for none.
+    Returns (name, left, right, sef_paths, ser_paths) tuples."""
+    out = []
+    columns = ["name", "left", "right", "sef", "ser"]
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            if line.startswith("#"):
+                # an optional header row names the columns (RNABloom.java:5092)
+                hdr = line.lstrip("#").split()
+                if hdr and all(h in ("name", "left", "right", "sef", "ser") for h in hdr):
+                    columns = hdr
+                continue
+            parts = line.split()
+            if len(parts) < 3:
+                raise ValueError(f"pool list line needs '<name> <left> <right>': {line!r}")
+            row = dict(zip(columns, parts))
+            if not {"name", "left", "right"} <= row.keys():
+                raise ValueError(f"pool list line missing name/left/right: {line!r}")
+
+            def paths(cell: Optional[str]) -> Tuple[str, ...]:
+                if not cell or cell == "-":
+                    return ()
+                return tuple(p for p in cell.split(",") if p)
+
+            out.append((row["name"], row["left"], row["right"], paths(row.get("sef")), paths(row.get("ser"))))
+    return out
+
+
+def _pool_shared_graph(samples: Sequence[tuple], params: PipelineParams, revcomp_left: bool, revcomp_right: bool,
+                       device):
+    """(shared graph, stage-1 stats, cfg, read_L): one stage-1 graph over
+    every sample's left, right, sef and ser reads, in sample order."""
+    paths, flags = [], []
+    for _, left, right, sef, ser in samples:
+        paths += [left, right] + list(sef) + list(ser)
+        flags += [revcomp_left, revcomp_right] + [False] * len(sef) + [True] * len(ser)
+    shared, s1_stats, cfg, read_L, _, _ = _stage1_graph(paths, flags, params, device)
+    return shared, s1_stats, cfg, read_L
+
+
+def _pool_sample(
+    shared: dbg.GraphState, cfg: dbg.GraphConfig, sample: tuple, outdir: str, params: PipelineParams,
+    revcomp_left: bool, revcomp_right: bool, read_L: int,
+) -> PipelineReport:
+    """One pooled sample's stages 2-3 into {outdir}/{name}/ on the shared
+    graph, which it never writes: stage 2 over its pairs then its unpaired
+    reads, its own fragment pair distance, and its fragment graph beside
+    the shared read-pair keys, which it only reads."""
+    name, left, right, sef, ser = sample
+    k = params.k
+    sample_dir = os.path.join(outdir, name)
+    os.makedirs(sample_dir, exist_ok=True)
+    report = PipelineReport()
+    fparams = fragmod.FragmentParams(
+        min_overlap=params.min_overlap, bound=params.bound, lookahead=params.lookahead,
+        extend_fragments=params.extend_fragments, ec_params=params.correct_params(),
+    )
+    store = _new_fragment_store(sample_dir, params)
+    frag_lengths: List[int] = []
+    # the JAX package's pool loop (its pipeline.py:1139-1148), quirks kept:
+    # num_pairs counts every row of a batch, the padded rows of the last
+    # one included; no fragment is held to min_fragment_cov, and the walk
+    # bound is never learned from the fragment sample
+    for lb, ll, rb, rl, multi in _iter_pair_batches(left, right, params, k, revcomp_left, revcomp_right, read_L):
+        report.num_pairs += lb.shape[0]
+        _connect_multi_segments(shared, cfg, lb, ll, rb, rl, multi, fparams)
+        for f in fragmod.assemble_fragments_batch(shared, cfg, lb, ll, rb, rl, fparams):
+            if f is not None:
+                _store_fragment(store, f, params)
+                frag_lengths.append(f.length)
+    if sef or ser:
+        _ingest_se_fragments(shared, cfg, sef, ser, read_L, params, store, frag_lengths, report)
+    store.close()
+    report.num_fragments = store.count
+    if store.count == 0 or params.stop_stage <= 2:
+        return report
+
+    q1, _, _ = sequtils.quartiles(np.asarray(frag_lengths))
+    d_frag = max(1, int(q1) - k - params.min_num_kmer_pairs)
+    report.fragment_pair_distance = d_frag
+    sample_cfg = dbg.GraphConfig(
+        k=cfg.k, stranded=cfg.stranded, dbgbf=cfg.dbgbf, cbf=cfg.cbf,
+        pkbf=cfg.pkbf, read_pair_distance=cfg.read_pair_distance,
+        fragment_pair_distance=d_frag, exact_counts=cfg.exact_counts,
+    )
+    # the JAX package copies the shared read-pair keys (its pipeline.py:1174-1175)
+    # against buffer donation; the rebuild never writes them, so here the
+    # sample's fragment graph reads the shared lanes in place
+    sample_state = rebuild_fragment_graph(shared, sample_cfg, store, params)
+    _run_stage3(sample_state, sample_cfg, store, sample_dir, params, report)
+    return report
+
+
+def assemble_pool(
+    readslist_path: str,
+    outdir: str,
+    params: PipelineParams,
+    revcomp_left: bool = False,
+    revcomp_right: bool = True,
+    device="cuda",
+) -> dict:
+    """Pooled multi-sample assembly (-pool) on ``device`` (the card unless
+    the caller asks for the CPU; raises when there is no card): ONE shared
+    graph built from all samples' reads, then each sample's stages 2-3
+    into {outdir}/{sample}/ (RNABloom.main :7203-7322), in sorted name
+    order, as the reference does.  Returns {sample name: PipelineReport},
+    empty at ``-stage 1``; writes no stamps and no report.json."""
+    device = engine.require_device(device)
+    t0 = time.time()
+    os.makedirs(outdir, exist_ok=True)
+    samples = sorted(parse_pool_list(readslist_path))
+    shared, s1_stats, cfg, read_L = _pool_shared_graph(samples, params, revcomp_left, revcomp_right, device)
+    reports = {}
+    if params.stop_stage <= 1:
+        return reports
+    for sample in samples:
+        report = _pool_sample(shared, cfg, sample, outdir, params, revcomp_left, revcomp_right, read_L)
+        report.stage1 = s1_stats
+        report.elapsed_s = time.time() - t0
+        reports[sample[0]] = report
+    return reports
+
+
+def merge_pool(outdir: str, sample_names: Sequence[str], params: PipelineParams, device="cuda") -> int:
+    """-mergepool: each sample's nr transcripts (its transcripts.fa when
+    it has none) laid out into one non-redundant set,
+    {outdir}/{name}.transcripts.merged.fa (mergePooledAssemblies,
+    RNABloom.java:5473); the minimizer keys are hashed on ``device``.
+    Returns the number of merged sequences."""
+    device = engine.require_device(device)
+    seqs = SeqStore(os.path.join(outdir, f".{params.name}.merge_input.2bit"))
+    for name in sample_names:
+        for fname in (f"{params.name}.transcripts.nr.fa", f"{params.name}.transcripts.fa"):
+            path = os.path.join(outdir, name, fname)
+            if os.path.exists(path):
+                for _, s in fastx.read_fasta(path):
+                    seqs.append(sequtils.encode(s.upper()))
+                break
+    if not len(seqs):
+        seqs.close(delete=True)
+        return 0
+    op = olc_overlap.OverlapParams(min_overlap=max(params.min_transcript_length // 2, 100))
+    merged_seqs, _, _ = olc_layout.layout_unitigs(seqs, params.k, op, device=device)
+    seqs.close(delete=True)
+    merged = os.path.join(outdir, f"{params.name}.transcripts.merged.fa")
+    with fastx.FastaWriter(merged, uracil=params.write_uracil) as w:
+        for j, s in enumerate(merged_seqs):
+            w.write(f"{params.header_prefix}{params.name}.merged.{j}", sequtils.decode(s), f"l={len(s)}")
+    return len(merged_seqs)

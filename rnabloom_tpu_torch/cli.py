@@ -1,14 +1,21 @@
 """Command-line entry point of the PyTorch/CUDA port.
 
-The JAX package's option names (RNABloom.java:5839-6410) for the part of
-the paired-end path that is ported: stage 0, the stage-1 graph build,
-stage-2 fragment assembly (with ``-extend``) and stage 3's transcripts
-with the non-redundant pass (``transcripts.nr.fa``; ``-norr`` skips it),
-with ``-savebf`` to save the graph.  ``-rescue`` and ``-sef``/``-ser`` are
-accepted and refused.  ``--device`` picks the torch device (default
-``cuda``); asking for CUDA where there is none raises.
+The JAX package's option names, defaults and dispatch (its ``cli.py``;
+RNABloom.java:5839-6410) for the short-read paths: paired-end
+(``-left``/``-right``, with ``-sef``/``-ser`` mixed in and ``-rescue``),
+single-end (``-sef``/``-ser`` alone) and pooled (``-pool READSLIST``,
+``-mergepool``), stages 1-3 with the non-redundant pass
+(``transcripts.nr.fa``; ``-norr`` skips it).  ``-k`` takes a list or
+range and picks the k with the most non-singleton k-mers in a read
+sample; ``-hist`` and ``-ntcard`` size the filters when ``-nk`` is 0; an
+input given as ``@FILE`` expands to the paths listed in FILE.  The
+long-read and multi-host flags are accepted and refused, naming their
+ROADMAP item.  ``--device`` picks the torch device (default ``cuda``);
+asking for CUDA where there is none raises.
 
     python -m rnabloom_tpu_torch.cli -left r1.fq -right r2.fq -revcomp-right -o out/
+    python -m rnabloom_tpu_torch.cli -sef se.fq -o out/
+    python -m rnabloom_tpu_torch.cli -pool samples.txt -mergepool -o out/
 """
 
 from __future__ import annotations
@@ -17,25 +24,56 @@ import argparse
 import json
 import sys
 
+from . import __version__
+
+# the JAX CLI's long-read (ROADMAP queue-1 item 13) and multi-host (item
+# 14) flags: (names, dest, values that run, kwargs, item).  The first of
+# the values is the default; any other value is refused before any work
+# is done.  The port is the single-device engine, so -sharded off runs.
+_REFUSED = (
+    (("-long", "--long"), "long_reads", (None,), dict(nargs="*", help="long reads (ONT)"), 13),
+    (("-lrop", "--lrop"), "lrop", (0.0,), dict(type=float, help="min matching-base share of overlaps"), 13),
+    (("-lrpb", "--lrpb"), "lrpb", (False,), dict(action="store_true", help="long reads are PacBio"), 13),
+    (("-lrrd", "--lrrd"), "lrrd", (0,), dict(type=int, help="min read depth for long-read assembly"), 13),
+    (("-lrsub", "--lrsub"), "lrsub", ("",), dict(help="subsample long reads"), 13),
+    (("-rc", "--revcomp-long"), "revcomp_long", (False,), dict(action="store_true", help="revcomp long reads"), 13),
+    (("-m", "--minimizer"), "minimizer", (0,), dict(type=int, help="OLC minimizer size"), 13),
+    (("-mw", "--minimizer-window"), "minimizer_window", (0,), dict(type=int, help="OLC minimizer window"), 13),
+    (("-sop", "--sketch-overlap-proportion"), "sop", (0.0,), dict(type=float, help="min sketch overlap share"), 13),
+    (("-son", "--sketch-overlap-number"), "son", (0,), dict(type=int, help="min sketch overlap minimizers"), 13),
+    (("-hpc", "--hpc"), "hpc", (False,), dict(action="store_true", help="homopolymer-compressed minimizers"), 13),
+    (("-mmopt", "--mmopt"), "mmopt", ("",), dict(help="minimap2 options"), 13),
+    (("-paf", "--paf"), "paf", (False,), dict(action="store_true", help="write the long-read overlaps as PAF"), 13),
+    (("-pafin", "--pafin"), "pafin", ("",), dict(help="external all-vs-all PAF of the long reads"), 13),
+    (("-sharded", "--sharded"), "sharded", ("auto", "off"),
+     dict(choices=("auto", "on", "off"), help="multi-device scale-out"), 14),
+    (("-coordinator", "--coordinator"), "coordinator", ("",), dict(help="multi-host coordinator HOST:PORT"), 14),
+    (("-nprocs", "--nprocs"), "nprocs", (1,), dict(type=int, help="multi-host: number of processes"), 14),
+    (("-procid", "--procid"), "procid", (0,), dict(type=int, help="multi-host: this process's id"), 14),
+    (("-mhlayout", "--mh-layout"), "mh_layout", ("auto",),
+     dict(choices=("auto", "local", "sharded"), help="multi-host graph layout"), 14),
+)
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rnabloom-tpu-torch",
-        description="PyTorch/CUDA port of rnabloom-tpu (paired-end stages 1-3)",
+        description="PyTorch/CUDA port of rnabloom-tpu (short reads: paired-end, single-end, pooled)",
     )
-    p.add_argument("-left", "--left", required=True, help="left read file (FASTQ/FASTA, gz ok)")
-    p.add_argument("-right", "--right", required=True, help="right read file")
+    p.add_argument("-left", "--left", help="left read file (FASTQ/FASTA, gz ok)")
+    p.add_argument("-right", "--right", help="right read file")
     p.add_argument("-revcomp-left", action="store_true", help="reverse-complement left reads")
     p.add_argument(
         "-revcomp-right", action="store_true", default=True,
         help="reverse-complement right reads [true]",
     )
-    p.add_argument("-sef", "--sef", nargs="*", help="single-end forward reads (not ported: refused)")
-    p.add_argument("-ser", "--ser", nargs="*", help="single-end reverse reads (not ported: refused)")
+    p.add_argument("-sef", "--sef", nargs="*", help="single-end forward reads")
+    p.add_argument("-ser", "--ser", nargs="*", help="single-end reverse reads")
+    p.add_argument("-pool", "--pool", help="pooled multi-sample READSLIST file")
     p.add_argument("-ref", "--ref", nargs="*", help="reference transcripts to augment the graph")
     p.add_argument("-o", "--outdir", default="rnabloom_out", help="output directory")
     p.add_argument("-n", "--name", default="rnabloom", help="assembly name (output file prefix) [rnabloom]")
-    p.add_argument("-k", "--kmer", type=int, default=25, help="k-mer size [25]")
+    p.add_argument("-k", "--kmer", default="25", help="k-mer size, list, or range e.g. '25,26,30-50:5' [25]")
     p.add_argument("-q", "--qual", type=int, default=3, help="min base quality [3]")
     p.add_argument("-Q", "--qual-avg", dest="qual_avg", type=int, default=0, help="min average read quality [0]")
     p.add_argument("-stranded", "--stranded", action="store_true", help="strand-specific reads")
@@ -43,6 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-length", "--length", type=int, default=200, help="min transcript length [200]")
     p.add_argument("-overlap", "--overlap", type=int, default=10, help="min read overlap [10]")
     p.add_argument("-bound", "--bound", type=int, default=500, help="max gap walk length [500]")
+    p.add_argument("-pair", "--pair", type=int, default=10, help="min k-mer pairs [10]")
     p.add_argument("-hash", "--hash", type=int, default=2, help="hash functions per filter [2]")
     p.add_argument("-sh", "--sbf-hash", dest="sbf_hash", type=int, default=0,
                    help="hash functions for the screening Bloom filter [=hash]")
@@ -67,6 +106,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-nk", "--nk", type=int, default=0,
                    help="expected number of distinct k-mers (sizes filters at 1%% FPR)")
     p.add_argument("-batch", "--batch", type=int, default=8192, help="stage-2 pair batch size")
+    p.add_argument("-t", "--threads", type=int, default=2, help="(accepted for compat; unused)")
+    p.add_argument("-sensitive", "--sensitive", action="store_true", help="sensitive preset (lower thresholds)")
+    p.add_argument("-mergepool", "--mergepool", action="store_true", help="merge pooled per-sample assemblies")
+    p.add_argument("-hist", "--hist", default="", help="ntCard-format .hist file: sizes filters from its F0")
+    p.add_argument("-ntcard", "--ntcard", action="store_true",
+                   help="estimate distinct k-mers with the internal sketch for exact filter sizing")
     p.add_argument("-c", "--mincov", type=float, default=1,
                    help="minimum k-mer coverage [1]")
     p.add_argument("-e", "--errcorritr", type=int, default=2,
@@ -84,7 +129,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-extend", "--extend", action="store_true",
                    help="extend fragments outward during fragment reconstruction")
     p.add_argument("-rescue", "--rescue", action="store_true",
-                   help="retry unconnected read pairs (not ported: refused)")
+                   help="retry unconnected read pairs against the fragment graph")
     p.add_argument("-nofc", "--nofc", action="store_true",
                    help="turn off assembly consistency with fragment paired k-mers")
     p.add_argument("-artifact", "--artifact", action="store_true",
@@ -112,31 +157,76 @@ def build_parser() -> argparse.ArgumentParser:
                    help="assembly termination stage: 1=graph, 2=fragments, 3=transcripts [3]")
     p.add_argument("-savebf", "--savebf", action="store_true", help="save graph Bloom filters for resume")
     p.add_argument("-f", "--force", action="store_true", help="overwrite (ignore stage stamps)")
+    p.add_argument("-debug", "--debug", action="store_true", help="print debugging information")
+    p.add_argument("-v", "--version", action="version", version=f"rnabloom-tpu-torch {__version__}")
     p.add_argument("--device", default="cuda", help="torch device to run on [cuda]")
+    refused = p.add_argument_group("refused", "long-read and multi-host options of the JAX CLI, not ported yet")
+    for names, dest, runs, kw, _ in _REFUSED:
+        refused.add_argument(*names, dest=dest, default=runs[0], **kw)
     return p
 
 
+def _expand_at(paths):
+    """`@file` list indirection (RNABloom.java:5786-5792): an input given
+    as @list.txt expands to the non-empty lines of list.txt."""
+    if paths is None:
+        return None
+    single = isinstance(paths, str)
+    out = []
+    for p in [paths] if single else paths:
+        if p and p.startswith("@"):
+            with open(p[1:]) as f:
+                out.extend(ln.strip() for ln in f if ln.strip())
+        else:
+            out.append(p)
+    if single:
+        if len(out) != 1:
+            raise SystemExit("@list for a single-file option must contain exactly one path")
+        return out[0]
+    return out
+
+
 def run(argv=None):
-    """Parse ``argv``, run the pipeline and return its PipelineReport."""
+    """Parse ``argv`` and run the entry point it asks for: a
+    PipelineReport, {sample: PipelineReport} for ``-pool``, or None (after
+    an error message) when no reads were given."""
     args = build_parser().parse_args(argv)
+    for names, dest, runs, _, item in _REFUSED:
+        if getattr(args, dest) not in runs:
+            raise NotImplementedError(f"{names[0]} is not ported yet: ROADMAP queue-1 item {item}")
+    for attr in ("left", "right", "sef", "ser"):
+        setattr(args, attr, _expand_at(getattr(args, attr)))
+    if not args.pool and not (args.left and args.right) and not (args.sef or args.ser):
+        print("error: provide -left/-right (PE) or -sef/-ser (SE)", file=sys.stderr)
+        return None
     from .assembly import pipeline
     from .graph import engine
+    from .utils import kselect
 
     device = engine.require_device(args.device)
+    # probe reads of -k LIST and -ntcard: the pairs, else the unpaired reads
+    probe = [p for p in (args.left, args.right) if p] or list(args.sef or []) + list(args.ser or [])
+    k_values = kselect.parse_k_spec(str(args.kmer))
+    if len(k_values) > 1:
+        k = kselect.select_k(probe, k_values, device=device)
+        print(f"selected k={k} from {k_values}")
+    else:
+        k = k_values[0]
 
     params = pipeline.PipelineParams(
-        k=args.kmer,
+        k=k,
         stranded=args.stranded,
         min_qual=args.qual,
         min_avg_qual=args.qual_avg,
         total_mem_bytes=int(args.mem * (1 << 30)),
         num_hash=args.hash,
+        min_num_kmer_pairs=args.pair,
         min_transcript_length=args.length,
         max_edge_clip=args.max_edge_clip,
         template_switch_filter=args.template_switch,
         write_uracil=args.uracil,
         header_prefix=args.prefix,
-        no_reduce=args.norr,
+        no_reduce=args.norr and not args.mergepool,  # -mergepool overrides -norr
         frag_consistency=not args.nofc,
         keep_artifacts=args.artifact,
         keep_chimeras=args.chimera,
@@ -170,23 +260,51 @@ def run(argv=None):
         rescue_unconnected=args.rescue,
         verbose=True,
     )
-    return pipeline.assemble_pe(
-        args.left, args.right, args.outdir, params,
-        revcomp_left=args.revcomp_left, revcomp_right=args.revcomp_right,
-        save_graph=args.savebf, force=args.force, device=device,
-        sef_paths=args.sef or (), ser_paths=args.ser or (), ref_paths=args.ref or (),
-    )
+    if not args.nk and args.hist:
+        params.expected_num_kmers = kselect.NTCardHistogram(args.hist).num_unique
+    elif not args.nk and args.ntcard:
+        # -ntcard: the internal distinct-k-mer sketch in place of the
+        # external counter (RNABloom.java:5745-5767 execs `ntcard`)
+        params.expected_num_kmers = kselect.estimate_num_unique_kmers(probe, k, device=device)
+    if args.sensitive:
+        # -sensitive (RNABloom.java:7033-7038): lower stringency
+        params.min_num_kmer_pairs = max(1, args.pair // 2)
+        params.min_overlap = max(5, args.overlap // 2)
+    if args.pool:
+        # as the JAX CLI, the pool run takes the default mate orientation
+        reports = pipeline.assemble_pool(args.pool, args.outdir, params, device=device)
+        if args.mergepool:
+            pipeline.merge_pool(args.outdir, sorted(reports), params, device=device)
+        return reports
+    if args.left and args.right:
+        return pipeline.assemble_pe(
+            args.left, args.right, args.outdir, params,
+            revcomp_left=args.revcomp_left, revcomp_right=args.revcomp_right,
+            save_graph=args.savebf, force=args.force, device=device,
+            sef_paths=args.sef or (), ser_paths=args.ser or (), ref_paths=args.ref or (),
+        )
+    paths = list(args.sef or []) + list(args.ser or [])
+    flags = [False] * len(args.sef or []) + [True] * len(args.ser or [])
+    return pipeline.assemble_se(paths, args.outdir, params, revcomp_flags=flags, device=device)
 
 
 def main(argv=None) -> int:
-    report = run(argv)
+    result = run(argv)
+    if result is None:
+        return 2
+    if isinstance(result, dict):
+        print(json.dumps({
+            name: {"pairs": r.num_pairs, "fragments": r.num_fragments, "transcripts": r.num_transcripts}
+            for name, r in result.items()
+        }))
+        return 0
     print(json.dumps({
-        "pairs": report.num_pairs,
-        "fragments": report.num_fragments,
-        "transcripts": report.num_transcripts,
-        "short": report.num_short,
-        "nr": report.num_nr,
-        "elapsed_s": round(report.elapsed_s, 2),
+        "pairs": result.num_pairs,
+        "fragments": result.num_fragments,
+        "transcripts": result.num_transcripts,
+        "short": result.num_short,
+        "nr": result.num_nr,
+        "elapsed_s": round(result.elapsed_s, 2),
     }))
     return 0
 

@@ -2,7 +2,8 @@
 and nr-pass tests (``tests/test_torch_stage3.py``,
 ``tests/test_torch_stage3_options.py``, ``tests/test_torch_nr.py``) the
 simulated read sets, a reference FASTA and the comparison of two output
-directories; for the walk tests (``tests/test_torch_traverse.py`` on the
+directories; for the single-end, pool and rescue tests
+(``tests/test_torch_{se,pool,rescue}.py``) their read sets; for the walk tests (``tests/test_torch_traverse.py`` on the
 CPU, ``tests/test_torch_gpu.py`` on the card) the walk graphs' reads and
 seeds and the naive-walk cases.  Imports no JAX."""
 
@@ -83,6 +84,55 @@ def assert_same_outputs(tout, jout, report=True):
         assert got[f] == want[f], f
     assert want["rnabloom.transcripts.fa"]
     return want
+
+
+def write_fastq(path, reads, quals, prefix):
+    """FASTQ records @<prefix><i> of (n, L) codes, with (n, L) quality
+    characters as bytes."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    with open(path, "wb") as f:
+        for i, (r, q) in enumerate(zip(reads, quals)):
+            f.write(b"@%s%d\n%s\n+\n%s\n" % (prefix.encode(), i, bases[r].tobytes(), bytes(q)))
+
+
+def write_se_reads(fwd, rev, seed, num_transcripts=12, num_reads=400):
+    """Unpaired reads of simulated transcripts: the left mates of
+    ``num_reads`` pairs to ``fwd`` (-sef) and the right mates, reverse
+    complemented as sequenced, to ``rev`` (-ser).  Every 8th read of each
+    file has three bases at quality 2 in its middle, which splits it into
+    two segments the graph re-joins; six low-complexity reads (a
+    homopolymer, a dinucleotide and a trinucleotide repeat in each file)
+    must be dropped.  Returns the number of low-complexity reads."""
+    rng = np.random.default_rng(seed)
+    tx = pesim.make_transcripts(rng, num_transcripts, 500, 1200)
+    w = rng.lognormal(0.0, 1.0, size=num_transcripts)
+    left, right = pesim.sample_pairs(rng, tx, w / w.sum(), num_reads, frag_range=(250, 400))
+    junk = np.stack([np.zeros(150, np.uint8), np.tile([0, 1], 75).astype(np.uint8),
+                     np.tile([0, 0, 3], 50).astype(np.uint8)])
+    for path, reads in ((fwd, left), (rev, right)):
+        reads = np.concatenate([reads, junk])
+        quals = np.full(reads.shape, ord("I"), np.uint8)
+        quals[::8, 70:73] = ord("#")
+        write_fastq(path, reads, quals, "se")
+    return 2 * len(junk)
+
+
+def write_gap_pairs(left, right, seed, num_gap=24, num_overlap=600, read_len=100):
+    """Pairs of one 600-base transcript in the shape of the JAX package's
+    rescue test (``tests/test_pipeline_e2e.py``): first ``num_gap`` pairs
+    off 300-base fragments (a 100-base inner gap, which a bridge walk of
+    bound 20 cannot span), then ``num_overlap`` pairs off 150-base
+    fragments whose mates overlap."""
+    rng = np.random.default_rng(seed)
+    t = rng.integers(0, 4, 600, dtype=np.uint8)
+    starts = np.concatenate([rng.integers(0, 301, num_gap), rng.integers(0, 451, num_overlap)])
+    flen = np.concatenate([np.full(num_gap, 300), np.full(num_overlap, 150)])
+    j = np.arange(read_len)
+    lreads = t[starts[:, None] + j]
+    rreads = 3 - t[(starts + flen - 1)[:, None] - j]
+    q = np.full(lreads.shape, ord("I"), np.uint8)
+    write_fastq(left, lreads, q, "p")
+    write_fastq(right, rreads, q, "p")
 
 
 WALK_K = 25

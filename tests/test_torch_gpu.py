@@ -1,5 +1,6 @@
 """CUDA kernels (insert; greedy, pair and naive walks) vs their plain
-PyTorch versions, on the card.
+PyTorch versions, on the card, the pair walks also on a single-end and a
+pooled sample's stage-3 graph.
 
 Imports no JAX (the machine with the card has none), so it runs there with
 
@@ -622,6 +623,77 @@ def test_pair_walk_refuses_a_greedy_ring(cuda):
     graph, cfg, wcfg, st, min_cov, bound = _pair_args(_pair_walks(cuda))
     with pytest.raises(ValueError, match="pair ring"):
         walk.walk_greedy(st, graph, cfg, wcfg, min_cov, bound)
+
+
+def _stage3_graphs(monkeypatch, run) -> list:
+    """(graph, cfg, store, params) of every stage-3 run of ``run()``:
+    ``pipeline._run_stage3`` is replaced by a recorder, so no transcripts
+    are written."""
+    from rnabloom_tpu_torch.assembly import pipeline
+
+    seen = []
+    monkeypatch.setattr(pipeline, "_run_stage3",
+                        lambda state, cfg, store, outdir, params, report: seen.append((state, cfg, store, params)))
+    run()
+    return seen
+
+
+def _first_full_batch_pair_walks(graph, cfg, store, params, dev):
+    """The right pair walks of stage 3's first full batch of fragments
+    (stage 3's own order, seeds and lane arguments)."""
+    from rnabloom_tpu_torch.assembly import pipeline
+    from rnabloom_tpu_torch.graph import traverse
+
+    tparams = pipeline._transcript_params(cfg, params)
+    width = int(min(max(store.max_len, cfg.k), params.max_walk_len))
+    frags, lens = next((c, n) for c, n, _, _ in store.iter_batches(params.stage3_batch, width=width) if (n > 0).all())
+    wcfg = traverse.WalkConfig(max_len=tparams.max_walk_len, pair_ring=tparams.pair_ring, left=False,
+                               lookahead=tparams.lookahead)
+    st = traverse.make_walks(cfg, wcfg, frags, lens, device=dev)
+    return (graph, cfg, wcfg, st, *traverse.lane_args(st, 1.0, tparams.bound))
+
+
+def test_pair_kernel_on_a_single_end_stage3_batch(cuda, tmp_path, monkeypatch):
+    """The single-end stage 3: a graph with read-pair keys and no fpkbf
+    (the kernel's null fragment-pair table), on stage 3's first full batch
+    of unpaired-read fragments."""
+    from rnabloom_tpu_torch.assembly import pipeline
+    from stage3_common import write_se_reads
+
+    fwd, rev = str(tmp_path / "f.fq"), str(tmp_path / "r.fq")
+    write_se_reads(fwd, rev, seed=3, num_reads=1500)
+    params = pipeline.PipelineParams(total_mem_bytes=1 << 22, bound=200, batch_size=1024, sample_size=300,
+                                     stage3_batch=256)
+    [(graph, cfg, store, params)] = _stage3_graphs(monkeypatch, lambda: pipeline.assemble_se(
+        [fwd, rev], str(tmp_path / "se"), params, revcomp_flags=[False, True], device=cuda))
+    assert graph.fpkbf is None and graph.rpkbf is not None and cfg.read_pair_distance > 0
+    kern = _pair_kernel_and_plain(*_first_full_batch_pair_walks(graph, cfg, store, params, cuda))
+    assert int(kern.hops.sum()) > 0
+
+
+def test_pair_kernel_on_a_pool_sample_rebuilt_graph(cuda, tmp_path, monkeypatch):
+    """A pooled sample's fragment graph: fresh counters and fpkbf beside
+    the shared read-pair keys, read in place, on stage 3's first full batch
+    of the second sample, after the first sample's rebuild."""
+    from rnabloom_tpu_torch.assembly import pipeline
+    from rnabloom_tpu_torch.utils import pesim
+
+    lines = []
+    for i, name in enumerate(("sA", "sB")):
+        left, right = str(tmp_path / f"{name}_1.fq"), str(tmp_path / f"{name}_2.fq")
+        pesim.write_pe_fastq(left, right, seed=21 + i, num_transcripts=8, tx_len=(500, 1000), num_pairs=1500)
+        lines.append(f"{name} {left} {right}\n")
+    (tmp_path / "pool.txt").write_text("".join(lines))
+    params = pipeline.PipelineParams(total_mem_bytes=1 << 22, bound=200, batch_size=1024, sample_size=300,
+                                     stage3_batch=256)
+    graphs = _stage3_graphs(monkeypatch, lambda: pipeline.assemble_pool(
+        str(tmp_path / "pool.txt"), str(tmp_path / "pool"), params, device=cuda))
+    assert len(graphs) == 2
+    graph, cfg, store, params = graphs[1]
+    assert graph.fpkbf is not None and graph.fpkbf is not graphs[0][0].fpkbf
+    assert graph.rpkbf is graphs[0][0].rpkbf
+    kern = _pair_kernel_and_plain(*_first_full_batch_pair_walks(graph, cfg, store, params, cuda))
+    assert int(kern.hops.sum()) > 0
 
 
 # ---- stage 3's greedy walks: gap re-walks, depth probes, the screen as a graph ----

@@ -1,5 +1,6 @@
 """The port runs without JAX and without the JAX package, on the card
-unless asked for the CPU, and refuses what it does not do."""
+unless asked for the CPU, and refuses what it does not do: the long-read
+and multi-host flags, naming their ROADMAP item."""
 
 import os
 import re
@@ -12,7 +13,7 @@ import torch
 
 from rnabloom_tpu_torch import cli
 from rnabloom_tpu_torch.assembly import pipeline, stage1
-from rnabloom_tpu_torch.utils import checkpoint, pesim
+from rnabloom_tpu_torch.utils import checkpoint, kselect, pesim
 
 torch.set_num_threads(2)
 
@@ -31,6 +32,14 @@ out = sys.argv[1]
 left, right = out + "/r_1.fq", out + "/r_2.fq"
 pesim.write_pe_fastq(left, right, seed=5, num_transcripts=5, tx_len=(500, 800), num_pairs=300)
 assert cli.main(["-left", left, "-right", right, "-o", out + "/asm", "-savebf", "-extend",
+                 "-mem", "0.00390625", "--device", "cpu"]) == 0
+# single-end, pooled with the merge, and the k selection with -ntcard
+assert cli.main(["-sef", left, "-ser", right, "-o", out + "/se", "-mem", "0.00390625", "--device", "cpu"]) == 0
+with open(out + "/pool.txt", "w") as f:
+    f.write(f"s1 {left} {right}\ns2 {right} {left} {left}\n")
+assert cli.main(["-pool", out + "/pool.txt", "-mergepool", "-o", out + "/pool", "-mem", "0.00390625",
+                 "--device", "cpu"]) == 0
+assert cli.main(["-left", left, "-right", right, "-k", "25,27", "-ntcard", "-stage", "1", "-o", out + "/k",
                  "-mem", "0.00390625", "--device", "cpu"]) == 0
 loaded = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in ("jax", "rnabloom_tpu"))
@@ -54,6 +63,11 @@ def test_cpu_slice_runs_with_jax_blocked(tmp_path):
     assert os.path.getsize(tmp_path / "asm" / "rnabloom.transcripts.fa") > 0
     assert os.path.getsize(tmp_path / "asm" / "rnabloom.transcripts.nr.fa") > 0
     assert os.path.exists(tmp_path / "asm" / "TRANSCRIPTS.DONE")
+    assert os.path.getsize(tmp_path / "se" / "rnabloom.transcripts.nr.fa") > 0
+    assert os.path.getsize(tmp_path / "pool" / "rnabloom.transcripts.merged.fa") > 0
+    assert os.path.getsize(tmp_path / "pool" / "s2" / "rnabloom.transcripts.fa") > 0
+    assert re.search(r"selected k=2[57] from \[25, 27\]", proc.stdout)
+    assert os.path.exists(tmp_path / "k" / "DBG.DONE")
 
 
 _IMPORT_OF_JAX = re.compile(r"^\s*(from|import)\s+(jax|rnabloom_tpu)(?!_torch)\b", re.M)
@@ -75,9 +89,10 @@ def test_no_jax_import_in_package_source():
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
-    # the nr pass's copies are among them
+    # the nr pass's copies and the k selection's are among them
     assert {os.path.join(PKG, "olc", name) for name in ("overlap.py", "graph.py", "layout.py")} <= set(paths)
     assert os.path.join(PKG, "io", "seqstore.py") in paths
+    assert os.path.join(PKG, "utils", "kselect.py") in paths
     for path in paths:
         with open(path) as fh:
             assert not _IMPORT_OF_JAX.search(fh.read()), path
@@ -90,17 +105,47 @@ def test_cuda_device_without_a_card_raises(tmp_path):
         cli.run(["-left", "x", "-right", "y", "-o", str(tmp_path), "-stage", "1", "--device", "cuda"])
 
 
-def test_later_stages_are_refused_before_any_work(tmp_path):
-    """The default -stage 3 runs (the nr pass is ported), but its rescue
-    pass (-rescue, stage 2b) is item 12: refused before any work."""
-    left, right = str(tmp_path / "r_1.fq"), str(tmp_path / "r_2.fq")
-    pesim.write_pe_fastq(left, right, seed=6, num_transcripts=2, tx_len=(500, 600), num_pairs=10)
+# one value of each refused flag that is not among the values that run
+_REFUSED_ARGS = {
+    "-long": ["-long", "lr.fa"], "-lrop": ["-lrop", "0.5"], "-lrpb": ["-lrpb"], "-lrrd": ["-lrrd", "3"],
+    "-lrsub": ["-lrsub", "30,25,5000"], "-rc": ["-rc"], "-m": ["-m", "15"], "-mw": ["-mw", "8"],
+    "-sop": ["-sop", "0.2"], "-son": ["-son", "6"], "-hpc": ["-hpc"], "-mmopt": ["-mmopt", "-x ava-ont"],
+    "-paf": ["-paf"], "-pafin": ["-pafin", "ava.paf"], "-sharded": ["-sharded", "on"],
+    "-coordinator": ["-coordinator", "localhost:9999"], "-nprocs": ["-nprocs", "2"], "-procid": ["-procid", "1"],
+    "-mhlayout": ["-mhlayout", "local"],
+}
+
+
+def test_every_refused_flag_has_a_case():
+    assert sorted(_REFUSED_ARGS) == sorted(names[0] for names, *_ in cli._REFUSED)
+
+
+@pytest.mark.parametrize("flag", sorted(_REFUSED_ARGS))
+def test_long_read_and_multi_host_flags_are_refused_before_any_work(tmp_path, flag):
+    """The JAX CLI's long-read flags (item 13) and multi-host flags (item
+    14) are accepted and refused, naming the item, before any file is
+    read or written."""
+    item = dict((names[0], item) for names, _, _, _, item in cli._REFUSED)[flag]
     out = tmp_path / "asm"
-    with pytest.raises(NotImplementedError, match="ROADMAP queue-1 item 12"):
-        pipeline.assemble_pe(left, right, str(out), pipeline.PipelineParams(stop_stage=3, rescue_unconnected=True),
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue-1 item 12"):
-        cli.run(["-left", left, "-right", right, "-o", str(out), "-rescue", "--device", "cpu"])  # -stage 3: default
+    with pytest.raises(NotImplementedError, match=f"{flag} is not ported yet: ROADMAP queue-1 item {item}$"):
+        cli.run(["-left", "missing_1.fq", "-right", "missing_2.fq", "-o", str(out), "--device", "cpu"]
+                + _REFUSED_ARGS[flag])
+    assert not out.exists()
+
+
+def test_values_that_run_are_not_refused(tmp_path):
+    """-sharded off is the port's own single-device engine; the rest at
+    their defaults run too (the missing reads then fail to open)."""
+    with pytest.raises(FileNotFoundError):
+        cli.run(["-left", str(tmp_path / "missing_1.fq"), "-right", str(tmp_path / "missing_2.fq"), "-o",
+                 str(tmp_path / "asm"), "-sharded", "off", "-nprocs", "1", "-procid", "0", "-mhlayout", "auto",
+                 "--device", "cpu"])
+
+
+def test_no_reads_exits_2_before_any_work(tmp_path, capsys):
+    out = tmp_path / "asm"
+    assert cli.main(["-left", "only_left.fq", "-o", str(out), "--device", "cpu"]) == 2
+    assert "error: provide -left/-right (PE) or -sef/-ser (SE)" in capsys.readouterr().err
     assert not out.exists()
 
 
@@ -176,8 +221,9 @@ def _stage3_devices(entry, monkeypatch, tmp) -> list:
     return seen
 
 
-@pytest.mark.parametrize("entry", ["assemble_pe", "build_graph_autosized", "load_graph", "screen", "screen_walks",
-                                   "nr", "extend_walks"])
+@pytest.mark.parametrize("entry", ["assemble_pe", "assemble_se", "assemble_pool", "merge_pool", "select_k",
+                                   "estimate_num_unique_kmers", "build_graph_autosized", "load_graph", "screen",
+                                   "screen_walks", "nr", "extend_walks"])
 def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
     """Without ``device="cpu"`` the entry points run on the card, and raise
     where there is none, before any work is done.  Stage 3 creates its
@@ -197,20 +243,21 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if entry == "assemble_pe":
             pipeline.assemble_pe(left, right, str(out), pipeline.PipelineParams(stop_stage=2))
+        elif entry == "assemble_se":
+            pipeline.assemble_se([left], str(out), pipeline.PipelineParams(stop_stage=2))
+        elif entry == "assemble_pool":
+            pool = tmp_path / "pool.txt"
+            pool.write_text(f"s1 {left} {right}\n")
+            pipeline.assemble_pool(str(pool), str(out), pipeline.PipelineParams(stop_stage=2))
+        elif entry == "merge_pool":
+            pipeline.merge_pool(str(out), ["s1"], pipeline.PipelineParams())
+        elif entry == "select_k":
+            kselect.select_k([left, right], [25, 27])
+        elif entry == "estimate_num_unique_kmers":
+            kselect.estimate_num_unique_kmers([left, right], 25)
         elif entry == "load_graph":
             checkpoint.load_graph(str(out / "rnabloom.graph"))  # raises before it opens a file
         else:
             cfg = stage1.default_graph_config(25, False, 1 << 20)
             stage1.build_graph_autosized([left, right], cfg, stage1.Stage1Params())
-    assert not out.exists()
-
-
-@pytest.mark.parametrize("flag", ["-rescue", "-sef", "-ser"])
-def test_unported_stage2_options_are_refused_before_any_work(tmp_path, flag):
-    left, right = str(tmp_path / "r_1.fq"), str(tmp_path / "r_2.fq")
-    pesim.write_pe_fastq(left, right, seed=6, num_transcripts=2, tx_len=(500, 600), num_pairs=10)
-    out = tmp_path / "asm"
-    extra = [flag, left] if flag in ("-sef", "-ser") else [flag]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue-1 item"):
-        cli.run(["-left", left, "-right", right, "-o", str(out), "-stage", "2", "--device", "cpu"] + extra)
     assert not out.exists()
