@@ -13,7 +13,8 @@ to the same equality and timed in the same turns.
 ``--insert-variant`` does the same for another ``csrc/cell_insert.cu`` in
 phase 2 (an older source whose mf8 entry point is ``cell_add_mf8``, with
 its int32 scratch as long as the table, gets that scratch).
-Phases (any failure raises and exits nonzero):
+``tools/long_smoke.py`` runs phase 10 alone.  Phases (any failure raises
+and exits nonzero):
 
 1. Environment: card name and power limit (nvidia-smi), torch/CUDA
    versions, the kernels' builds from csrc/ (one nvcc per source, started
@@ -139,8 +140,8 @@ Phases (any failure raises and exits nonzero):
    TB/s; beside it one gather of as many random cells.  The lane with the
    most rounds is walked alone (time a round).  Then the main path of
    this slice, with every
-   launch count set to 0 before it: ``-stage 2 -extend`` on the first 8
-   batches of the 1M pairs (65,536 pairs: a depth cut), its pairs/s and
+   launch count set to 0 before it: ``-stage 2 -extend`` on the first 4
+   batches of the 1M pairs (32,768 pairs: a depth cut), its pairs/s and
    its launches (``walk_naive`` among them).
 9. The short-read entry points of the latest slice, each with every
    launch count set to 0 before it, on slices of the 1M pairs at the
@@ -165,6 +166,31 @@ Phases (any failure raises and exits nonzero):
    single-end ``-stage 3``, mixed ``-stage 2``, ``-pool -mergepool``,
    ``-stage 2 -rescue`` and ``-k 25,27 -ntcard -stage 1``, every file
    byte-identical.
+10. The long-read path, the main path of the latest slice: ONT-like cDNA
+   reads from the port's ``utils/lrsim.py`` (seed 0, LR_TRANSCRIPTS
+   transcripts of 500-4,000 bases at LR_COVERAGE, 7% error; the reads and
+   bases printed) through ``-long`` at ``-mem 1`` four ways on the card,
+   each with every launch count set to 0 before it: (i) the default run,
+   then, each resumed from a copy of (i)'s corrected reads and stamps (the
+   ``LONGREADS.CORRECTED`` resume), (ii) ``-lrsub 5,11,0,50`` (strobemers:
+   ``lr_kmer_keys`` and ``lr_randstrobe_keys`` must launch), (iii)
+   ``-lrsub 5,25,0`` (k-mers: ``lr_kmer_keys``) and (iv) ``-paf``.  Each
+   prints stage 1's and the correction's reads/s (run (i)), the seconds of
+   each OLC step (subsampling, PAF, overlaps, unique reads, unitigs,
+   placement, polish, layout, ``reduce_redundancy``), the transcript and
+   short counts, ``lrsim.evaluate``'s recall and precision against the
+   simulated transcripts, peak device memory and its launches per kernel
+   (run (i) must launch ``add_mf8``, ``walk_greedy`` and ``set``).  Then
+   the kernels against their plain versions on the card, every value
+   equal: ``lr_kmer_keys`` and ``lr_randstrobe_keys`` on every corrected
+   read of run (i), per read (the plain versions pad into the JAX
+   package's buckets); ``consensus_vote`` through ``polish(...,
+   indel_band=0)`` on run (i)'s own unitigs and placements (kernel, plain
+   on the card, plain on the CPU).  Each kernel is timed with CUDA
+   events beside its plain version, with its bound (bytes over 3.35
+   TB/s) and, for the vote, the ``scatter_add_`` + ``argmax`` composite
+   as the library yardstick.  Last, runs (i)-(iv) on the first 400 reads
+   on the card and on the CPU: every file byte-identical.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -196,8 +222,9 @@ from rnabloom_tpu_torch.assembly.fragstore import FragmentStore
 from rnabloom_tpu_torch.bloom import filters
 from rnabloom_tpu_torch.graph import dbg, engine, traverse
 from rnabloom_tpu_torch.io import fastx, native
-from rnabloom_tpu_torch.ops import _build, cell_insert as ci, launch_timer, nthash, walk
-from rnabloom_tpu_torch.utils import checkpoint, kselect, pesim, seq as sequtils
+from rnabloom_tpu_torch.olc import consensus as olc_consensus
+from rnabloom_tpu_torch.ops import _build, cell_insert as ci, consensus_vote, launch_timer, lr_keys, nthash, strobemer, walk
+from rnabloom_tpu_torch.utils import checkpoint, kselect, lrsim, pesim, seq as sequtils
 
 KERNEL_SOURCE = "rnabloom_tpu_torch/csrc/cell_insert.cu"
 TPU_KERNEL = "rnabloom_tpu/ops/histmerge.py:187"
@@ -237,7 +264,10 @@ PAIRS = 1_000_000
 BATCH2 = 8192  # pairs per stage-2 batch
 CBF_LOG2 = {"mf8": 29, "u16": 28}  # default cbf at -mem 1, before any resize
 STAGE3_PAIRS = 2000  # the card-vs-CPU -stage 3 run (with the nr pass)
-EXTEND_BATCHES = 8  # stage-2 batches of the -extend main-path run: a depth cut of the 1M pairs
+# stage-2 batches of the -extend main-path run: a depth cut of the 1M pairs,
+# 8 before phase 10 came (the smoke took 1080.1 s with 8 on one H100 80GB
+# HBM3 at 700 W, over its 1,050 s mark)
+EXTEND_BATCHES = 4
 STAGE2_PAIRS = 4096  # the card-vs-CPU -stage 2 runs and their stage 2b: half a stage-2 batch
 MAXCLIP = 8  # -maxclip of phase 7's rerun, which reaches the screen-as-graph probe
 GOLDEN = "tests/golden/pe_golden.json"
@@ -289,12 +319,12 @@ def ptxas_report(log: str) -> list:
     return out
 
 
-def insert_ptxas(log: str) -> list:
-    """One entry per insert kernel from ``nvcc -Xptxas -v``: registers and
-    spill stores."""
+def insert_ptxas(log: str, kernels: str = "set_u8|add_i32|add_u16_tile|mf8_tile|mf8_apply") -> list:
+    """One entry per kernel (the insert kernels unless ``kernels`` names
+    others) from ``nvcc -Xptxas -v``: registers and spill stores."""
     out, name, spill = [], None, None
     for line in log.splitlines():
-        m = re.search(r"Function properties for \S*?(set_u8|add_i32|add_u16_tile|mf8_tile|mf8_apply)_kernel", line)
+        m = re.search(rf"Function properties for \S*?({kernels})_kernel", line)
         if m:
             name = m.group(1) + "_kernel"
             continue
@@ -2054,15 +2084,14 @@ def entry_run(argv: list) -> tuple:
     """The port's CLI on the card with every launch count set to 0 just
     before and read just after: (result, launches, peak device bytes,
     wall s)."""
-    ci.reset_launch_counts()
-    walk.reset_launch_counts()
+    reset_launch_counters()
     ci._batch_tables.clear()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     result = cli.run(argv + ["--device", "cuda"])
     torch.cuda.synchronize()
-    return result, {**ci.launch_counts(), **walk.launch_counts()}, torch.cuda.max_memory_allocated(), time.time() - t0
+    return result, launch_counters(), torch.cuda.max_memory_allocated(), time.time() - t0
 
 
 def se_main_path(fwd: str, rev: str, out: str, card: str) -> dict:
@@ -2328,6 +2357,263 @@ def short_read_paths(tmp: str, left: str, right: str, card: str, dev) -> dict:
     return r
 
 
+# -------------------------------------------------------------------------
+# phase 10: the long-read path (-long)
+# -------------------------------------------------------------------------
+
+LR_SOURCE = "rnabloom_tpu_torch/csrc/lr_kernels.cu"
+LR_REPLACES = {
+    "lr_kmer_keys": "rnabloom_tpu/assembly/longreads.py:337",  # _base_key_fn via _device_hash_buckets
+    "lr_randstrobe_keys": "rnabloom_tpu/ops/strobemer.py:33",  # strobemer_hashes
+    "consensus_vote": "rnabloom_tpu/olc/consensus.py:88",  # _vote_kernel
+}
+# lrsim transcripts of 500-4,000 bases (seed 0), a depth cut of the 1,000
+# the phase was specified with: 200 at coverage 10 (2,000 reads) took
+# 116.7-119.6 s of phase 10 on one H100 80GB HBM3 at 700 W, the host's
+# correction and banded realignment nearly all of it (so 1,000 would take
+# about 600 s), and the whole smoke 1080.1 s, over its 1,050 s mark.
+# The coverage stays: it decides which k-mers are solid
+LR_TRANSCRIPTS = 150
+LR_COVERAGE = 10
+LR_ERR = 0.07
+LR_CHECK = 400  # reads of the card-vs-CPU runs
+LR_K, LR_N, LR_WMIN, LR_WMAX = 25, 3, 11, 50  # run (ii)'s strobemers: -lrsub 5,11,0,50 at k=25
+# the runs after (i), each resumed from a copy of (i)'s corrected reads and stamps
+LR_RESUMED = {"strobemer": ["-lrsub", "5,11,0,50"], "kmer": ["-lrsub", "5,25,0"], "paf": ["-paf"]}
+LR_SPANS = ("olc_subsample", "olc_paf", "olc_overlaps", "olc_unique", "olc_unitigs", "olc_placement", "olc_polish",
+            "olc_layout", "reduce_redundancy")
+
+
+def launch_counters() -> dict:
+    """Every kernel's launch count."""
+    return {**ci.launch_counts(), **walk.launch_counts(), **lr_keys.launch_counts(), **strobemer.launch_counts(),
+            **consensus_vote.launch_counts()}
+
+
+def reset_launch_counters() -> None:
+    for module in (ci, walk, lr_keys, strobemer, consensus_vote):
+        module.reset_launch_counts()
+
+
+def copy_corrected(src: str, dst: str) -> None:
+    """The stamps and corrected reads of a -long run (what a resume reads)."""
+    os.makedirs(dst)
+    for f in os.listdir(src):
+        if ".longreads." in f or f in ("DBG.DONE", "LONGREADS.CORRECTED"):
+            shutil.copy2(os.path.join(src, f), dst)
+
+
+def long_run(argv: list, out: str, truth: list, card: str, tag: str) -> dict:
+    """One -long run on the card through entry_run: rates, spans, counts,
+    lrsim's scores against the truth, peak memory, launches."""
+    rep, launches, peak, wall = entry_run(argv + ["-o", out, "-mem", "1"])
+    asm = [s for _, s in fastx.read_fasta(os.path.join(out, "rnabloom.transcripts.fa"))]
+    assert rep.num_transcripts == len(asm) > 0, (rep, len(asm))
+    score = lrsim.evaluate(asm, truth)
+    r = {"reads": rep.num_pairs, "corrected": rep.num_fragments, "transcripts": rep.num_transcripts,
+         "short": rep.num_short, "wall_s": wall, "olc_s": rep.stage3_s, "peak_bytes": peak,
+         "launches": {k: v for k, v in launches.items() if v}, "recall": score["lr_recall"],
+         "precision": score["lr_precision"], "spans": {k: rep.stage3_spans.get(k, 0.0) for k in LR_SPANS}}
+    if rep.stage1 is not None:
+        r["stage1_reads_per_s"] = rep.stage1.num_reads / rep.stage1.elapsed_s
+        r["correction_reads_per_s"] = rep.num_pairs / rep.stage2_s
+        r["correction_s"] = rep.stage2_s
+    print(f"-long {tag}: {r['corrected']} corrected reads -> {r['transcripts']} transcripts, {r['short']} short; "
+          + (f"stage 1 {r['stage1_reads_per_s']:.1f} reads/s, correction {r['correction_reads_per_s']:.1f} reads/s "
+             f"({r['correction_s']:.2f} s); " if "correction_s" in r else "")
+          + f"OLC {r['olc_s']:.2f} s: " + ", ".join(f"{k} {v:.2f}" for k, v in r["spans"].items())
+          + f" s; wall {wall:.2f} s; lrsim recall {r['recall']} precision {r['precision']}; launches {r['launches']}; "
+            f"peak device memory {peak} B ({peak / 2**30:.3f} GiB) [{card}]", flush=True)
+    return r
+
+
+def lr_keys_vs_plain(reads: list, card: str, dev) -> dict:
+    """K1 (k-mer keys) and K2 (randstrobes) on every corrected read of run
+    (i): the per-read keys equal the plain versions' on the card (the
+    reads padded into the JAX package's buckets); the kernels timed with
+    CUDA events beside the plain versions (host clock, card
+    synchronised), one bound each."""
+    codes, offsets, lens = lr_keys.pack(reads, dev)
+    total = codes.numel()
+    m = np.where(lens >= lr_keys.strobemer_min_len(LR_K, LR_N, LR_WMIN, LR_WMAX),
+                 strobemer.num_anchors(lens, LR_K, LR_N, LR_WMIN, LR_WMAX), 0)
+    aoff = torch.from_numpy(np.concatenate([[0], np.cumsum(m)]).astype(np.int64)).to(dev)
+    h, v = lr_keys.kmer_hashes(codes, offsets, LR_K, False)
+    out = {}
+    for name, keys, plain in (
+        ("lr_kmer_keys", lambda: lr_keys.kmer_keys(reads, LR_K, False, device=dev),
+         lambda: lr_keys.kmer_keys_plain(reads, LR_K, False, device=dev)),
+        ("lr_randstrobe_keys", lambda: lr_keys.strobemer_keys(reads, LR_K, LR_N, LR_WMIN, LR_WMAX, False, device=dev),
+         lambda: lr_keys.strobemer_keys_plain(reads, LR_K, LR_N, LR_WMIN, LR_WMAX, False, device=dev)),
+    ):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = keys()
+        torch.cuda.synchronize()
+        keys_ms = (time.time() - t0) * 1e3
+        t0 = time.time()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        assert len(got) == len(want) == len(reads)
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if not np.array_equal(g, w)]
+        assert not bad, f"{name}: {len(bad)} reads differ from the plain version, the first {bad[:5]}"
+        n_keys = sum(g.size for g in got)
+        if name == "lr_kmer_keys":
+            ms = _time_ms(lambda: lr_keys.kmer_hashes(codes, offsets, LR_K, False))
+            # the codes and offsets read once, a hash and a flag written a position
+            nbytes = total + offsets.numel() * 8 + total * 9
+            work = f"{len(reads)} reads, {total} positions"
+        else:
+            ms = _time_ms(lambda: strobemer.randstrobe_hashes(h, v, offsets, aoff, LR_K, LR_N, LR_WMIN, LR_WMAX))
+            # the k-mer hashes and flags read once, a hash and a flag written an anchor
+            nbytes = total * 9 + (offsets.numel() + aoff.numel()) * 8 + int(m.sum()) * 9
+            work = f"{len(reads)} reads, {int(m.sum())} anchors"
+        out[name] = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "keys_ms": keys_ms,
+                     "bound_ms": nbytes / HBM_BYTES_PER_MS, "keys": n_keys, "work": work}
+        print(f"{name} vs plain on the card, every corrected read of run (i) ({work}): {n_keys} keys equal; kernel "
+              f"{ms:.4f} ms, bound {out[name]['bound_ms']:.4f} ms (bytes); the keys end to end {keys_ms:.1f} ms, "
+              f"the plain version (padded buckets) {plain_ms:.1f} ms [{card}]", flush=True)
+    return out
+
+
+def vote_vs_plain(captured: dict, card: str, dev) -> dict:
+    """K3 through ``polish(..., indel_band=0)`` on run (i)'s unitigs and
+    placements: the kernel's polished unitigs equal the plain version's on
+    the card and on the CPU; the largest batch timed (kernel, plain, and
+    the scatter_add_ + argmax composite as the library yardstick)."""
+    unitigs, reads, placements = captured["unitigs"], captured["reads"], captured["placements"]
+    calls = []
+    vote = olc_consensus.consensus_vote
+
+    def record(*args):
+        calls.append(args)
+        return vote(*args)
+
+    olc_consensus.consensus_vote = record
+    try:
+        consensus_vote.reset_launch_counts()
+        got = olc_consensus.polish(unitigs, reads, placements, indel_band=0, device=dev)
+        launches = consensus_vote.launch_counts()["consensus_vote"]
+    finally:
+        olc_consensus.consensus_vote = vote
+    olc_consensus.consensus_vote = consensus_vote.consensus_vote_plain
+    try:
+        plain = olc_consensus.polish(unitigs, reads, placements, indel_band=0, device=dev)
+    finally:
+        olc_consensus.consensus_vote = vote
+    cpu = olc_consensus.polish(unitigs, reads, placements, indel_band=0, device="cpu")
+    for a, b, c in zip(got, plain, cpu):
+        assert np.array_equal(a, b) and np.array_equal(a, c), "consensus_vote differs from the plain version"
+    changed = sum(not np.array_equal(a, u) for a, u in zip(got, unitigs))
+    assert launches == len(calls) >= 1 and changed > 0, (launches, len(calls), changed)
+    u_t, r_t, tgt, start, min_depth = calls[0]
+    U, L = u_t.shape
+    R, Lr = r_t.shape
+    ms = _time_ms(lambda: consensus_vote.consensus_vote(u_t, r_t, tgt, start, min_depth))
+    plain_ms = _time_ms(lambda: consensus_vote.consensus_vote_plain(u_t, r_t, tgt, start, min_depth))
+    pos = start.long()[:, None] + torch.arange(Lr, device=dev)[None, :]
+    ok = (r_t < 4) & (pos >= 0) & (pos < L)
+    flat = ((tgt.long()[:, None] * L + pos.clamp(0, L - 1)) * 4 + torch.where(ok, r_t, 0).long()).reshape(-1)
+    val = ok.reshape(-1).to(torch.int32)
+
+    def library():
+        votes = torch.zeros(U * L * 4, dtype=torch.int32, device=dev).scatter_add_(0, flat, val).view(U, L, 4)
+        return torch.where((votes.sum(-1) >= min_depth) & (u_t < 4), votes.argmax(-1).to(torch.uint8), u_t)
+
+    assert torch.equal(library(), consensus_vote.consensus_vote(u_t, r_t, tgt, start, min_depth)[0])
+    library_ms = _time_ms(library)
+    # unitigs, reads, tgt and start read once; polished and depth written
+    nbytes = U * L + R * Lr + 8 * R + U * L * 5
+    r = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+         "bound_ms": nbytes / HBM_BYTES_PER_MS, "check_launches": launches, "unitigs": U, "unitig_len": L,
+         "batch_reads": R, "read_len": Lr, "placements": len(placements), "changed_unitigs": changed}
+    print(f"consensus_vote vs plain through polish(indel_band=0) on run (i)'s {U} unitigs and {len(placements)} "
+          f"placements ({launches} batches): polished unitigs equal on the card (kernel, plain) and the CPU, "
+          f"{changed} changed; first batch ({R} reads of up to {Lr} bases on {U} x {L}): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, scatter_add_ + argmax {library_ms:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes) "
+          f"[{card}]", flush=True)
+    return r
+
+
+def long_card_vs_cpu(fasta: str, tmp: str) -> dict:
+    """Runs (i)-(iv) on the first LR_CHECK reads on the card and on the
+    CPU, (ii)-(iv) resumed from each device's own (i): every file
+    byte-identical."""
+    files = {}
+    outs = {dev: os.path.join(tmp, f"lrc_{dev}") for dev in ("cuda", "cpu")}
+    for dev, out in outs.items():
+        cli.run(["-long", fasta, "-o", out, "-mem", "1", "--device", dev])
+    files["default"] = len(same_tree(outs["cuda"], outs["cpu"]))
+    for tag, extra in LR_RESUMED.items():
+        res = {dev: os.path.join(tmp, f"lrc_{tag}_{dev}") for dev in outs}
+        for dev, out in res.items():
+            copy_corrected(outs[dev], out)
+            cli.run(["-long", fasta, "-o", out, "-mem", "1", "--device", dev] + extra)
+        files[tag] = len(same_tree(res["cuda"], res["cpu"]))
+        for out in res.values():
+            shutil.rmtree(out)
+    for out in outs.values():
+        shutil.rmtree(out)
+    print(f"-long on the first {LR_CHECK} reads, card against CPU: every file byte-identical (files per run "
+          f"{files})", flush=True)
+    return files
+
+
+def long_read_path(tmp: str, card: str, dev, transcripts: int = LR_TRANSCRIPTS, coverage: int = LR_COVERAGE) -> dict:
+    """Phase 10: -long four ways on the card (each with every launch count
+    set to 0 before it), the three long-read kernels against their plain
+    versions on the runs' own data, card against CPU."""
+    t0 = time.time()
+    rng = np.random.default_rng(0)
+    truth = lrsim.simulate_transcriptome(rng, transcripts, (500, 4000))
+    reads = lrsim.simulate_reads(rng, truth, coverage=coverage, err=LR_ERR)
+    fasta, head = os.path.join(tmp, "long.fa"), os.path.join(tmp, "long_head.fa")
+    with open(fasta, "w") as f, open(head, "w") as g:
+        for i, r in enumerate(reads):
+            f.write(f">r{i}\n{r}\n")
+            if i < LR_CHECK:
+                g.write(f">r{i}\n{r}\n")
+    n_bases = sum(len(r) for r in reads)
+    print(f"simulated {len(reads)} ONT-like cDNA reads, {n_bases} bases ({transcripts} transcripts of 500-4,000 "
+          f"bases, coverage {coverage}, {LR_ERR:.0%} error, seed 0) in {time.time() - t0:.1f} s", flush=True)
+
+    captured = {}
+    polish = olc_consensus.polish
+
+    def keep(unitigs, reads_, placements, **kw):
+        captured.update(unitigs=list(unitigs), placements=list(placements),
+                        reads=[np.array(reads_[i]) for i in range(len(reads_))])
+        return polish(unitigs, reads_, placements, **kw)
+
+    out_a = os.path.join(tmp, "long_a")
+    olc_consensus.polish = keep
+    try:
+        runs = {"default": long_run(["-long", fasta], out_a, truth, card, "(i) default")}
+    finally:
+        olc_consensus.polish = polish
+    launches = runs["default"]["launches"]
+    assert launches.get("add_mf8", 0) > 0 and launches.get("walk_greedy", 0) > 0 and launches.get("set", 0) > 0, \
+        launches
+    for tag, extra in LR_RESUMED.items():
+        out = os.path.join(tmp, f"long_{tag}")
+        copy_corrected(out_a, out)
+        runs[tag] = long_run(["-long", fasta] + extra, out, truth, card, f"{' '.join(extra)} (resumed from (i))")
+        if tag == "paf":
+            assert os.path.getsize(os.path.join(out, "rnabloom.ava.paf")) > 0
+        shutil.rmtree(out)
+    assert runs["strobemer"]["launches"].get("lr_kmer_keys", 0) > 0, runs["strobemer"]["launches"]
+    assert runs["strobemer"]["launches"].get("lr_randstrobe_keys", 0) > 0, runs["strobemer"]["launches"]
+    assert runs["kmer"]["launches"].get("lr_kmer_keys", 0) > 0, runs["kmer"]["launches"]
+    corrected = [sequtils.encode(s) for _, s in fastx.read_fasta(
+        os.path.join(out_a, "rnabloom.longreads.corrected.long.fa"))]
+    shutil.rmtree(out_a)
+    r = {"reads": len(reads), "bases": n_bases, "transcripts_simulated": transcripts, "coverage": coverage,
+         "runs": runs, "keys": lr_keys_vs_plain(corrected, card, dev), "vote": vote_vs_plain(captured, card, dev),
+         "card_vs_cpu": long_card_vs_cpu(head, tmp)}
+    return r
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--walk-variant", action="append", default=[], metavar="NAME=PATH",
@@ -2376,6 +2662,10 @@ def main(argv=None) -> int:
     log = _build.build_logs.get(_build.KERNEL_SRC)
     if log is not None:
         print("nvcc -Xptxas -v, insert kernels: " + "; ".join(insert_ptxas(log)))
+    log = _build.build_logs.get(_build.LR_SRC)
+    if log is not None:
+        print("nvcc -Xptxas -v, long-read kernels: "
+              + "; ".join(insert_ptxas(log, "kmer_keys|randstrobe|vote_scatter|vote_resolve")))
     print(f"native FASTX reader in use: {native.available()}", flush=True)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2507,6 +2797,10 @@ def main(argv=None) -> int:
         phase("9 single-end -stage 3, -pool -mergepool, -stage 2 -rescue and -k 25,27 -ntcard on slices of the 1M "
               "pairs, the single-end pair walks vs plain PyTorch, card vs CPU on each, on the card")
         short = short_read_paths(tmp, left, right, card, dev)
+
+        phase("10 -long (default, -lrsub strobemers, -lrsub k-mers, -paf) on simulated ONT cDNA reads, the long-read "
+              "kernels vs plain PyTorch on the runs' own data, card vs CPU, on the card")
+        lr = long_read_path(tmp, card, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2699,6 +2993,33 @@ def main(argv=None) -> int:
         "short_read_runs": {run: {key: v for key, v in short[run].items() if key != "launches"}
                             for run in ("se", "pool", "rescue", "kselect")},
         "card_vs_cpu_files": short["card_vs_cpu"],
+    })
+    lr_runs = {tag: {key: v for key, v in run.items() if key != "launches"} for tag, run in lr["runs"].items()}
+    for name, row, tag in (("lr_kmer_keys", lr["keys"]["lr_kmer_keys"], "kmer"),
+                           ("lr_randstrobe_keys", lr["keys"]["lr_randstrobe_keys"], "strobemer")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": LR_SOURCE, "replaces": LR_REPLACES[name],
+            "launches": lr["runs"][tag]["launches"][name],
+            "run": f"phase 10, -long {' '.join(LR_RESUMED[tag])} on {lr['reads']} reads (resumed from run (i)); "
+                   f"times, bound and plain on every corrected read of run (i) ({row['work']})",
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": "bytes", "library_ms": None, "keys": row["keys"],
+            "keys_end_to_end_ms": row["keys_ms"],
+            "launches_by_run": {t: run["launches"].get(name, 0) for t, run in lr["runs"].items()},
+        })
+    vote = lr["vote"]
+    kernels.append({
+        "name": "consensus_vote", "route": "cuda", "source": LR_SOURCE, "replaces": LR_REPLACES["consensus_vote"],
+        "launches": lr["runs"]["default"]["launches"].get("consensus_vote", 0),
+        "run": f"phase 10: no -long run reaches it (polish realigns with indel_band 16 by default); checked through "
+               f"polish(indel_band=0) on run (i)'s {vote['unitigs']} unitigs and {vote['placements']} placements "
+               f"({vote['check_launches']} launches), timed on its first batch",
+        "max_abs_err": vote["max_abs_err"], "ms": vote["ms"], "plain_ms": vote["plain_ms"],
+        "bound_ms": vote["bound_ms"], "bound_by": "bytes", "library_ms": vote["library_ms"],
+        "check_launches": vote["check_launches"],
+        **{key: vote[key] for key in ("unitigs", "unitig_len", "batch_reads", "read_len", "changed_unitigs")},
+        "long_read_runs": lr_runs, "long_reads": lr["reads"], "long_bases": lr["bases"],
+        "card_vs_cpu_files": lr["card_vs_cpu"],
     })
     print(f"\nsmoke wall time {time.time() - t_start:.1f} s")
     print(card_line())

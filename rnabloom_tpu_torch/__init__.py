@@ -12,7 +12,9 @@ Its entry points run on the card unless the caller asks for the CPU.
 Ported so far: every short-read entry point of the JAX CLI, stages 1-3
 with the non-redundant pass: paired-end (with ``-extend``, ``-rescue`` and
 unpaired reads mixed in), single-end, and pooled samples with their merge,
-and the k selection (``-k`` lists, ``-ntcard``).
+and the k selection (``-k`` lists, ``-ntcard``); and the long-read path
+(``-long``: correction, ``-lrsub`` subsampling, the internal uniqueOLC,
+redundancy reduction, ``-paf``/``-pafin``).
 """
 
 __version__ = "0.1.0"

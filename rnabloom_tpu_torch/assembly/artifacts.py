@@ -15,12 +15,13 @@ host-side equivalents of the reference's artifact family (GraphUtils):
     isTemplateSwitch :8305/:8434 and isBluntEndArtifact :8535-8585.
   * low-complexity unpaired reads: the 1/2/3-mer frequency test of
     isLowComplexityShort (SeqUtils.java:499-547), the single-end ingest's
-    gate.
+    gate; and low-complexity regions of long reads, split out of each read
+    before its correction (trimLowComplexityRegions, SeqUtils.java:773-961).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -268,6 +269,7 @@ def blunt_end_candidate(
 # which makes every detector a handful of numpy bincounts.
 
 _LC_THR_SHORT = 0.95  # SeqUtils.java:61
+_LC_THR_LONG = 0.89  # SeqUtils.java:62
 
 
 def _freqs123(codes: np.ndarray):
@@ -310,3 +312,90 @@ def is_low_complexity_short(codes: np.ndarray) -> bool:
     if nf3.max(initial=0) >= t3:
         return True
     return _dinuc_bias(nf1, t1)
+
+
+def is_low_complexity2(codes: np.ndarray) -> bool:
+    """isLowComplexity2 (SeqUtils.java:370-415): transition-masked di/tri
+    counts (uniform windows excluded) at thresholds 0.95 / 0.95/2 / 0.95/3."""
+    n = len(codes)
+    if n <= 2:
+        return False
+    t1 = min(127, round(n * _LC_THR_SHORT))
+    t2 = min(127, round(n * _LC_THR_SHORT / 2))
+    t3 = min(127, round(n * _LC_THR_SHORT / 3))
+    nf1, (a, b, pok), (x, y, z, tok) = _freqs123(codes)
+    if nf1.max(initial=0) >= t1:
+        return True
+    nf2 = np.bincount((a * 4 + b)[pok & (a != b)], minlength=16)
+    if nf2.max(initial=0) >= t2:
+        return True
+    nonuni = ~((x == y) & (y == z))
+    nf3 = np.bincount((x * 16 + y * 4 + z)[tok & nonuni], minlength=64)
+    if nf3.max(initial=0) >= t3:
+        return True
+    return _dinuc_bias(nf1, t1)
+
+
+def is_low_complexity_long(codes: np.ndarray) -> bool:
+    """isLowComplexityLong (SeqUtils.java:585-660): 0.89 thresholds;
+    di/tri windows counted only inside non-uniform triples; ends with the
+    dinucleotide-content check AND the reference's pairwise nf2-sum scan."""
+    n = len(codes)
+    if n <= 6:
+        return False
+    t1 = round(n * _LC_THR_LONG)
+    t2 = round(n * _LC_THR_LONG / 2.0)
+    t3 = round(n * _LC_THR_LONG / 3.0)
+    nf1, (a, b, pok), (x, y, z, tok) = _freqs123(codes)
+    if nf1.max(initial=0) >= t1:
+        return True
+    # pair (p, p+1) is gated by the uniformity of its covering triple
+    # (p-1, p, p+1); the leading pair (0, 1) by triple (0, 1, 2)
+    tri_nonuni = ~((x == y) & (y == z))  # per triple start index
+    pair_gate = np.empty(len(a), bool)
+    pair_gate[0] = tri_nonuni[0] if len(tri_nonuni) else True
+    pair_gate[1:] = tri_nonuni
+    nf2 = np.bincount((a * 4 + b)[pok & pair_gate], minlength=16).reshape(4, 4)
+    if nf2.max(initial=0) >= t2:
+        return True
+    nf3 = np.bincount((x * 16 + y * 4 + z)[tok & tri_nonuni], minlength=64)
+    if nf3.max(initial=0) >= t3:
+        return True
+    if _dinuc_bias(nf1, t1):
+        return True
+    # pairwise nf2 bias with the reference's (k >= i, l >= j) scan order
+    for i in range(4):
+        for j in range(4):
+            count = nf2[i, j]
+            for kk in range(i, 4):
+                for ll in range(j, 4):
+                    if (i != kk or j != ll) and count + nf2[kk, ll] >= t2:
+                        return True
+    return False
+
+
+def extract_non_low_complexity_segments(codes: np.ndarray, window: int = 50, min_len: int = 1) -> List[Tuple[int, int]]:
+    """Base ranges whose local 50 bp windows are not low-complexity
+    (trimLowComplexityRegions, SeqUtils.java:773-961: windowed
+    isLowComplexityLong with kept-region merging)."""
+    n = len(codes)
+    if n == 0:
+        return []
+    bad = np.zeros(n, bool)
+    for s in range(0, n, window // 2):
+        w = codes[s : s + window]
+        if len(w) >= window // 2 and is_low_complexity_long(w):
+            bad[s : s + window] = True
+    segs = []
+    start = None
+    for i in range(n):
+        if not bad[i]:
+            if start is None:
+                start = i
+        else:
+            if start is not None and i - start >= min_len:
+                segs.append((start, i))
+            start = None
+    if start is not None and n - start >= min_len:
+        segs.append((start, n))
+    return segs

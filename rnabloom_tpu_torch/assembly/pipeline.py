@@ -1,5 +1,5 @@
-"""Short-read assembly pipelines: bulk paired-end, single-end, mixed and
-pooled.
+"""Assembly pipelines: bulk paired-end, single-end, mixed, pooled and
+long-read.
 
 Port of ``rnabloom_tpu/assembly/pipeline.py``: ``assemble_pe`` runs
 
@@ -31,7 +31,9 @@ resumes at stage 2b.  ``assemble_se`` runs the same stages over unpaired
 reads (``-sef``/``-ser``), and ``assemble_pool`` over a pooled READSLIST
 (``-pool``) with one shared stage-1 graph and stages 2-3 per sample;
 ``merge_pool`` (``-mergepool``) lays the samples' transcripts out into one
-merged set.
+merged set.  ``assemble_long`` (``-long``) builds the graph over long
+reads, corrects them, optionally subsamples them (``-lrsub``) and lays
+them out with the internal uniqueOLC, then reduces redundancy.
 """
 
 from __future__ import annotations
@@ -48,12 +50,12 @@ import torch
 from ..bloom import filters
 from ..bloom.filters import BloomConfig
 from ..graph import dbg, engine
-from ..io import fastx, native
+from ..io import fastx, native, paf as pafmod
 from ..io.seqstore import SeqStore
 from ..olc import layout as olc_layout, overlap as olc_overlap
 from ..utils import checkpoint as ckpt, polya, seq as sequtils
 from ..utils.timer import Timer, span, span_totals
-from . import artifacts, correct, fragments as fragmod, stage1, transcripts as txmod
+from . import artifacts, correct, fragments as fragmod, longreads as lrmod, stage1, transcripts as txmod
 from .fragstore import FragmentStore
 
 
@@ -1228,3 +1230,227 @@ def merge_pool(outdir: str, sample_names: Sequence[str], params: PipelineParams,
         for j, s in enumerate(merged_seqs):
             w.write(f"{params.header_prefix}{params.name}.merged.{j}", sequtils.decode(s), f"l={len(s)}")
     return len(merged_seqs)
+
+
+def _subsample(cfg: dbg.GraphConfig, corrected: SeqStore, spec: str, device) -> Optional[List[int]]:
+    """The -lrsub seed reads (RNABloom.java:6335-6339): "depth,s,size,window"
+    selects strobemer-novelty subsampling, "depth,k,size" k-mer novelty.
+    None: no subsampling."""
+    if not spec:
+        return None
+    parts = [int(x) for x in spec.split(",")]
+    if len(parts) == 4:
+        depth, s, _size, window = parts
+        return lrmod.subsample_strobemer_based(
+            cfg, corrected, max_multiplicity=depth, w_min=s, w_max=window, device=device
+        )
+    if len(parts) == 3:
+        return lrmod.subsample_kmer_based(cfg, corrected, parts[0], device=device)
+    raise ValueError(f"bad -lrsub spec: {spec!r}")
+
+
+def assemble_long(
+    long_paths: Sequence[str],
+    outdir: str,
+    params: PipelineParams,
+    subsample_spec: str = "",
+    force: bool = False,
+    device="cuda",
+) -> PipelineReport:
+    """Long-read (ONT/PacBio cDNA) assembly (-long) on ``device`` (the card
+    unless the caller asks for the CPU; raises when there is no card).
+
+    Stages mirror RNABloom.main :7323-7470: graph build over the long reads
+    (segments of at most 512 bases), windowed correction
+    (LongReadCorrectionWorker) in chunks of 4096 reads into
+    {name}.longreads.corrected.{long,short,repeats}.fa, .polya.txt and
+    .long.lengths.txt, optional subsampling (``subsample_spec``, -lrsub),
+    then the internal uniqueOLC (olc/OverlapLayoutConsensus.java:1129-1228)
+    and redundancy reduction into {name}.transcripts.fa and
+    {name}.transcripts.short.fa.  As in the JAX package, no report.json is
+    written.
+
+    Resume protocol (RNABloom.java:5818-5825, :6451-6500): a rerun with the
+    LONGREADS.CORRECTED stamp present reloads the corrected reads and jumps
+    straight to the OLC stage; LONGREADS.ASSEMBLED marks completion.
+    """
+    device = engine.require_device(device)
+    t0 = time.time()
+    os.makedirs(outdir, exist_ok=True)
+    if force:
+        ckpt.clear_stamps(outdir)
+    report = PipelineReport()
+    k = params.k
+    lr_min_cov = 2.0  # solid k-mer coverage of the correction, and the OLC depth floor
+    # corrected-read file layout mirrors the reference (RNABloom.java:
+    # 7324-7329): .long feeds the OLC stage; .short/.repeats are preserved
+    # outputs; polyA read names and sampled long-read lengths ride along
+    corrected_prefix = os.path.join(outdir, f"{params.name}.longreads.corrected")
+    corrected_path = corrected_prefix + ".long.fa"
+    short_path_lr = corrected_prefix + ".short.fa"
+    repeats_path = corrected_prefix + ".repeats.fa"
+    polya_names_path = corrected_prefix + ".polya.txt"
+    sample_lengths_path = corrected_prefix + ".long.lengths.txt"
+
+    # disk-backed corrected-read store: host RAM stays bounded however many
+    # reads are corrected (the reference streams through a writer worker,
+    # RNABloom.java:3490-3635)
+    corrected = SeqStore(corrected_prefix + ".2bit")
+    polya_flags: List[bool] = []
+    resumed = (
+        not force
+        and ckpt.has_stamp(outdir, ckpt.STAMP_LONGREADS_CORRECTED)
+        and os.path.exists(corrected_path)
+    )
+    cfg = stage1.default_graph_config(
+        k, params.stranded, params.total_mem_bytes, params.num_hash, -1,
+        with_pkbf=True, expected_num_kmers=params.expected_num_kmers,
+        **params.graph_config_overrides(),
+    )
+    if resumed:
+        # crash after correction: skip graph build + correction entirely;
+        # the FASTA streams straight into the disk-backed store
+        for header, seq in fastx.read_fasta(corrected_path, full_header=True):
+            corrected.append(sequtils.encode(seq.upper()))
+            polya_flags.append("polya" in header)
+        report.num_fragments = len(corrected)
+        if not corrected or params.stop_stage <= 2:
+            report.elapsed_s = time.time() - t0
+            return report
+    else:
+        s1p = stage1.Stage1Params(k=k, stranded=params.stranded, min_qual=params.min_qual, max_seq_len=512)
+        state, s1_stats, cfg = stage1.build_graph_autosized(
+            list(long_paths), cfg, s1p, max_fpr=params.max_fpr, device=device
+        )
+        report.stage1 = s1_stats
+        ckpt.touch_stamp(outdir, ckpt.STAMP_DBG_DONE)
+        if params.stop_stage <= 1:
+            report.elapsed_s = time.time() - t0
+            return report
+
+        # stage 2: correction — raw reads stream from disk in bounded chunks
+        # and corrected reads stream straight to the stratified output
+        # FASTAs (the reference's reader -> workers -> writer queue,
+        # RNABloom.java:3948-4046, CorrectedLongReadsWriterWorker2); length
+        # threshold = min(minOverlap, minTranscriptLength) (RNABloom.java:7344)
+        t_s2 = time.time()
+        lrp = lrmod.LongReadParams(min_kmer_cov=lr_min_cov, min_seq_len=min(200, params.min_transcript_length))
+        chunk: List[np.ndarray] = []
+        n_short = n_rep = 0
+        with fastx.FastaWriter(corrected_path) as w, fastx.FastaWriter(short_path_lr) as wsh, \
+                fastx.FastaWriter(repeats_path) as wrep, open(polya_names_path, "w") as wpa:
+
+            def flush_chunk():
+                nonlocal n_short, n_rep
+                res = lrmod.correct_long_reads(state, cfg, chunk, lrp)
+                for c, fl in zip(res.long, res.polya):
+                    name = f"lr.{len(corrected)}"
+                    w.write(name, sequtils.decode(c), f"l={len(c)}{' polya' if fl else ''}")
+                    if fl:
+                        wpa.write(name + "\n")
+                    corrected.append(c)
+                    polya_flags.append(fl)
+                for c, fl in zip(res.short, res.short_polya):
+                    name = f"lr.s{n_short}"
+                    wsh.write(name, sequtils.decode(c), f"l={len(c)}")
+                    if fl:
+                        wpa.write(name + "\n")
+                    n_short += 1
+                for c in res.repeats:
+                    wrep.write(f"lr.r{n_rep}", sequtils.decode(c), f"l={len(c)}")
+                    n_rep += 1
+                chunk.clear()
+
+            for path in long_paths:
+                for _, s, _ in fastx.read_seqs(path):
+                    codes = sequtils.encode(s)
+                    if params.revcomp_long:  # -rc (RNABloom.java optRevCompLong)
+                        codes = sequtils.revcomp_codes(codes)
+                    if len(codes) >= k:
+                        chunk.append(codes)
+                        report.num_pairs += 1
+                    if len(chunk) >= 4096:
+                        flush_chunk()
+            if chunk:
+                flush_chunk()
+        report.num_fragments = len(corrected)
+        with open(sample_lengths_path, "w") as f:
+            f.write("\n".join(str(n) for n in corrected.lengths))
+        ckpt.touch_stamp(outdir, ckpt.STAMP_LONGREADS_CORRECTED)
+        report.stage2_s = time.time() - t_s2
+        if not len(corrected) or params.stop_stage <= 2:
+            report.elapsed_s = time.time() - t0
+            return report
+
+    t_s3 = time.time()
+    _s0 = span_totals()
+    with span("olc_subsample"):
+        seed_indices = _subsample(cfg, corrected, subsample_spec, device)
+
+    # stage 3: internal uniqueOLC (unique reads -> unitigs -> pileup
+    # polish -> binomial-filtered greedy layout)
+    op = olc_overlap.OverlapParams(min_match_prop=params.lr_overlap_prop, min_shared_frac=params.sketch_overlap_prop)
+    if params.minimizer_window > 0:
+        op.w = params.minimizer_window
+    if params.sketch_overlap_num > 0:
+        op.min_shared = params.sketch_overlap_num
+    mk = params.minimizer_size or k  # -m: OLC minimizer size
+    if params.write_paf and corrected:
+        # -paf: the reference's OLC stage leaves `*.ava.paf.gz` behind
+        # (olc/OverlapLayoutConsensus.java:78-106); emit the internal
+        # engine's all-vs-all overlaps in the same format for interop
+        with span("olc_paf"):
+            mins = olc_overlap.extract_minimizers_reads(corrected, mk, op.w, device=device)
+            ov = olc_overlap.find_overlaps(mins, op)
+            pafmod.write_paf(os.path.join(outdir, f"{params.name}.ava.paf"), pafmod.overlaps_to_paf(ov, mins.lengths, mk))
+
+    ext_ov = None
+    if params.paf_in:
+        # -pafin: an external all-vs-all PAF over the corrected reads (named
+        # lr.<i>, the names this pipeline writes) replaces the internal
+        # minimizer engine for unique extraction, with the same span and
+        # support screens
+        ext_ov = pafmod.paf_to_overlaps(
+            params.paf_in, {f"lr.{i}": i for i in range(len(corrected))}, mk,
+            min_identity=params.lr_overlap_prop, params=op,
+        )
+    res = olc_layout.unique_olc(
+        corrected, mk, op,
+        polya_flags=polya_flags,
+        sample_lengths=corrected.lengths.astype(np.int64),
+        min_seq_depth=params.lr_min_depth or max(int(lr_min_cov), 1),
+        polya_finder=lambda codes: polya.find_polya_tail(codes) is not None,
+        seed_indices=seed_indices,
+        external_overlaps=ext_ov,
+        device=device,
+    )
+    assembled = res.transcripts
+
+    # redundancy reduction + length split
+    scfg = BloomConfig(cfg.pkbf.size_log2, cfg.pkbf.num_hash)
+    with span("reduce_redundancy"):
+        keep = txmod.reduce_redundancy(
+            cfg, scfg, assembled, txmod.TranscriptParams(min_transcript_length=params.min_transcript_length),
+            device=device,
+        )
+    tx_path = os.path.join(outdir, f"{params.name}.transcripts.fa")
+    short_path = os.path.join(outdir, f"{params.name}.transcripts.short.fa")
+    with fastx.FastaWriter(tx_path, uracil=params.write_uracil) as wtx, \
+            fastx.FastaWriter(short_path, uracil=params.write_uracil) as wsh:
+        for i in keep:
+            seq = sequtils.decode(assembled[i])
+            if len(seq) >= params.min_transcript_length:
+                wtx.write(f"{params.header_prefix}{params.name}.{report.num_transcripts}", seq,
+                          f"l={len(seq)} c={res.counts[i]:.2f}")
+                report.num_transcripts += 1
+            else:
+                wsh.write(f"{params.header_prefix}{params.name}.s{report.num_short}", seq)
+                report.num_short += 1
+
+    ckpt.touch_stamp(outdir, ckpt.STAMP_LONGREADS_ASSEMBLED)
+    corrected.close(delete=True)  # 2-bit cache of the corrected FASTA
+    report.stage3_s = time.time() - t_s3
+    report.stage3_spans = {key: v - _s0.get(key, 0.0) for key, v in span_totals().items()
+                           if v != _s0.get(key, 0.0)}
+    report.elapsed_s = time.time() - t0
+    return report

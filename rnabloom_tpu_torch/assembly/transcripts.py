@@ -1,9 +1,8 @@
 """Stage 3 — transcript extension, screening, and output.
 
-Port of ``rnabloom_tpu/assembly/transcripts.py`` (all of it but
-``reduce_redundancy``, which only the single-end and long-read paths
-call), the equivalent of TranscriptAssemblyWorker / TranscriptWriter
-(RNABloom.java:1789-1933, :1614-1780) over the fragment graph:
+Port of ``rnabloom_tpu/assembly/transcripts.py``, the equivalent of
+TranscriptAssemblyWorker / TranscriptWriter (RNABloom.java:1789-1933,
+:1614-1780) over the fragment graph:
 
   per batch of fragments (largest coverage stratum first, as the reference
   iterates E5..E0 then singletons):
@@ -28,7 +27,9 @@ Artifact screens: chimera (isChimera :7674), blunt-end (isBluntEndArtifact
 :8535, opt-in via max_edge_clip), template-switch (isTemplateSwitch
 :8305/:8434, opt-in) and reverse-complement-fold trimming
 (trimReverseComplementArtifact :7762).  Poly-A annotation happens in the
-pipeline's writer (``pipeline._run_stage3``).  Each part's wall time goes
+pipeline's writer (``pipeline._run_stage3``).  ``reduce_redundancy`` is
+the long-read path's redundancy reduction: the same screen and dedup over
+the assembled transcripts, longest first.  Each part's wall time goes
 to a ``utils/timer`` span: ``extend``, ``screen`` (``screen_rewalk`` is
 pass 1b inside it), ``break`` and ``dedup``.
 """
@@ -493,6 +494,36 @@ def sequential_dedup(
             if seen is not None:
                 seen.update(uniq[row_ids[v]].tolist())
     return rep, seen
+
+
+def reduce_redundancy(
+    cfg: GraphConfig, scfg: BloomConfig, seqs: List[np.ndarray], params: TranscriptParams, batch: int = 256, *, device,
+) -> List[int]:
+    """Length-sorted redundancy reduction (GraphUtils.reduceRedundancy
+    :652-699): longest-first re-screen against a fresh screening filter on
+    ``device``.  Returns indices of ``seqs`` that survive (the nr set)."""
+    order = sorted(range(len(seqs)), key=lambda i: -len(seqs[i]))
+    screen = filters.make_bloom(scfg, device=device)
+    keep: List[int] = []
+    L = max((len(s) for s in seqs), default=0)
+    Lp = 1 << max(8, (max(L, cfg.k) - 1).bit_length())
+    for s0 in range(0, len(order), batch):
+        idx = order[s0 : s0 + batch]
+        codes = np.full((len(idx), Lp), 4, np.uint8)
+        lens = np.zeros(len(idx), np.int32)
+        for j, i in enumerate(idx):
+            codes[j, : len(seqs[i])] = seqs[i]
+            lens[j] = len(seqs[i])
+        rep = screen_represented(screen, scfg, cfg, codes, lens, params)
+        # within-batch serialization (cross-batch handled by the screen)
+        seq_lens = np.where(rep, 0, lens)
+        rep2, _ = sequential_dedup(cfg, codes, seq_lens, params, device=screen.device)
+        rep = rep | rep2
+        commit = np.where(~rep[:, None], codes, np.uint8(4))
+        engine._tick("build")
+        screen = screen_add(screen, scfg, cfg, commit)
+        keep.extend(i for j, i in enumerate(idx) if not rep[j])
+    return sorted(keep)
 
 
 # ---------------------------------------------------------------------------

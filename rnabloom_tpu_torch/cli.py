@@ -1,21 +1,25 @@
 """Command-line entry point of the PyTorch/CUDA port.
 
 The JAX package's option names, defaults and dispatch (its ``cli.py``;
-RNABloom.java:5839-6410) for the short-read paths: paired-end
-(``-left``/``-right``, with ``-sef``/``-ser`` mixed in and ``-rescue``),
-single-end (``-sef``/``-ser`` alone) and pooled (``-pool READSLIST``,
-``-mergepool``), stages 1-3 with the non-redundant pass
-(``transcripts.nr.fa``; ``-norr`` skips it).  ``-k`` takes a list or
-range and picks the k with the most non-singleton k-mers in a read
-sample; ``-hist`` and ``-ntcard`` size the filters when ``-nk`` is 0; an
-input given as ``@FILE`` expands to the paths listed in FILE.  The
-long-read and multi-host flags are accepted and refused, naming their
-ROADMAP item.  ``--device`` picks the torch device (default ``cuda``);
-asking for CUDA where there is none raises.
+RNABloom.java:5839-6410): paired-end (``-left``/``-right``, with
+``-sef``/``-ser`` mixed in and ``-rescue``), single-end (``-sef``/``-ser``
+alone) and pooled (``-pool READSLIST``, ``-mergepool``), stages 1-3 with
+the non-redundant pass (``transcripts.nr.fa``; ``-norr`` skips it), and
+long reads (``-long`` with ``-lrsub``, ``-rc``, ``-lrpb`` (k=35 unless
+``-k`` is given), ``-lrop``, ``-lrrd``, ``-m``, ``-mw``, ``-sop``,
+``-son``, ``-paf`` and ``-pafin``; ``-hpc`` only sets its parameter, which
+no path reads, and ``-mmopt`` is ignored with a note).  ``-k`` takes a
+list or range and picks the k with the most non-singleton k-mers in a
+read sample; ``-hist`` and ``-ntcard`` size the filters when ``-nk`` is 0;
+an input given as ``@FILE`` expands to the paths listed in FILE.  The
+multi-host flags are accepted and refused, naming their ROADMAP item.
+``--device`` picks the torch device (default ``cuda``); asking for CUDA
+where there is none raises.
 
     python -m rnabloom_tpu_torch.cli -left r1.fq -right r2.fq -revcomp-right -o out/
     python -m rnabloom_tpu_torch.cli -sef se.fq -o out/
     python -m rnabloom_tpu_torch.cli -pool samples.txt -mergepool -o out/
+    python -m rnabloom_tpu_torch.cli -long ont.fa -o out/
 """
 
 from __future__ import annotations
@@ -26,39 +30,25 @@ import sys
 
 from . import __version__
 
-# the JAX CLI's long-read (ROADMAP queue-1 item 13) and multi-host (item
-# 14) flags: (names, dest, values that run, kwargs, item).  The first of
-# the values is the default; any other value is refused before any work
-# is done.  The port is the single-device engine, so -sharded off runs.
+# the JAX CLI's multi-host flags (ROADMAP queue-1 item 14): (names, dest,
+# values that run, kwargs).  The first of the values is the default; any
+# other value is refused before any work is done.  The port is the
+# single-device engine, so -sharded off runs.
 _REFUSED = (
-    (("-long", "--long"), "long_reads", (None,), dict(nargs="*", help="long reads (ONT)"), 13),
-    (("-lrop", "--lrop"), "lrop", (0.0,), dict(type=float, help="min matching-base share of overlaps"), 13),
-    (("-lrpb", "--lrpb"), "lrpb", (False,), dict(action="store_true", help="long reads are PacBio"), 13),
-    (("-lrrd", "--lrrd"), "lrrd", (0,), dict(type=int, help="min read depth for long-read assembly"), 13),
-    (("-lrsub", "--lrsub"), "lrsub", ("",), dict(help="subsample long reads"), 13),
-    (("-rc", "--revcomp-long"), "revcomp_long", (False,), dict(action="store_true", help="revcomp long reads"), 13),
-    (("-m", "--minimizer"), "minimizer", (0,), dict(type=int, help="OLC minimizer size"), 13),
-    (("-mw", "--minimizer-window"), "minimizer_window", (0,), dict(type=int, help="OLC minimizer window"), 13),
-    (("-sop", "--sketch-overlap-proportion"), "sop", (0.0,), dict(type=float, help="min sketch overlap share"), 13),
-    (("-son", "--sketch-overlap-number"), "son", (0,), dict(type=int, help="min sketch overlap minimizers"), 13),
-    (("-hpc", "--hpc"), "hpc", (False,), dict(action="store_true", help="homopolymer-compressed minimizers"), 13),
-    (("-mmopt", "--mmopt"), "mmopt", ("",), dict(help="minimap2 options"), 13),
-    (("-paf", "--paf"), "paf", (False,), dict(action="store_true", help="write the long-read overlaps as PAF"), 13),
-    (("-pafin", "--pafin"), "pafin", ("",), dict(help="external all-vs-all PAF of the long reads"), 13),
     (("-sharded", "--sharded"), "sharded", ("auto", "off"),
-     dict(choices=("auto", "on", "off"), help="multi-device scale-out"), 14),
-    (("-coordinator", "--coordinator"), "coordinator", ("",), dict(help="multi-host coordinator HOST:PORT"), 14),
-    (("-nprocs", "--nprocs"), "nprocs", (1,), dict(type=int, help="multi-host: number of processes"), 14),
-    (("-procid", "--procid"), "procid", (0,), dict(type=int, help="multi-host: this process's id"), 14),
+     dict(choices=("auto", "on", "off"), help="multi-device scale-out")),
+    (("-coordinator", "--coordinator"), "coordinator", ("",), dict(help="multi-host coordinator HOST:PORT")),
+    (("-nprocs", "--nprocs"), "nprocs", (1,), dict(type=int, help="multi-host: number of processes")),
+    (("-procid", "--procid"), "procid", (0,), dict(type=int, help="multi-host: this process's id")),
     (("-mhlayout", "--mh-layout"), "mh_layout", ("auto",),
-     dict(choices=("auto", "local", "sharded"), help="multi-host graph layout"), 14),
+     dict(choices=("auto", "local", "sharded"), help="multi-host graph layout")),
 )
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rnabloom-tpu-torch",
-        description="PyTorch/CUDA port of rnabloom-tpu (short reads: paired-end, single-end, pooled)",
+        description="PyTorch/CUDA port of rnabloom-tpu (paired-end, single-end, pooled and long reads)",
     )
     p.add_argument("-left", "--left", help="left read file (FASTQ/FASTA, gz ok)")
     p.add_argument("-right", "--right", help="right read file")
@@ -160,8 +150,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-debug", "--debug", action="store_true", help="print debugging information")
     p.add_argument("-v", "--version", action="version", version=f"rnabloom-tpu-torch {__version__}")
     p.add_argument("--device", default="cuda", help="torch device to run on [cuda]")
-    refused = p.add_argument_group("refused", "long-read and multi-host options of the JAX CLI, not ported yet")
-    for names, dest, runs, kw, _ in _REFUSED:
+    p.add_argument("-long", "--long", dest="long_reads", nargs="*", help="long reads (ONT)")
+    p.add_argument("-lrop", "--lrop", type=float, default=0.0,
+                   help="min matching-base proportion in long-read overlaps (identity proxy) [off]")
+    p.add_argument("-lrpb", "--lrpb", action="store_true", help="long reads are PacBio (preset k=35)")
+    p.add_argument("-lrrd", "--lrrd", type=int, default=0, help="min read depth for long-read assembly [auto]")
+    p.add_argument("-lrsub", "--lrsub", default="",
+                   help="subsample long reads: 'depth,s,size,window' (strobemers) or 'depth,k,size' (k-mers)")
+    p.add_argument("-rc", "--revcomp-long", dest="revcomp_long", action="store_true",
+                   help="reverse-complement long reads")
+    p.add_argument("-m", "--minimizer", dest="minimizer", type=int, default=0, help="OLC minimizer size [=k]")
+    p.add_argument("-mw", "--minimizer-window", dest="minimizer_window", type=int, default=0,
+                   help="OLC minimizer window size [10]")
+    p.add_argument("-sop", "--sketch-overlap-proportion", dest="sop", type=float, default=0.0,
+                   help="min proportion of sketch overlap minimizers [off]")
+    p.add_argument("-son", "--sketch-overlap-number", dest="son", type=int, default=0,
+                   help="min number of sketch overlap minimizers [4]")
+    p.add_argument("-hpc", "--hpc", action="store_true",
+                   help="homopolymer-compressed minimizers in long-read clustering")
+    p.add_argument("-mmopt", "--mmopt", default="",
+                   help="(accepted for compat; the internal overlapper replaces minimap2)")
+    p.add_argument("-paf", "--paf", action="store_true", help="long reads: also write the all-vs-all overlaps as PAF")
+    p.add_argument("-pafin", "--pafin", default="",
+                   help="long reads: use this external all-vs-all PAF (reads named lr.<i>) instead of the "
+                        "internal overlapper")
+    refused = p.add_argument_group("refused", "multi-host options of the JAX CLI, not ported yet")
+    for names, dest, runs, kw in _REFUSED:
         refused.add_argument(*names, dest=dest, default=runs[0], **kw)
     return p
 
@@ -191,12 +205,12 @@ def run(argv=None):
     PipelineReport, {sample: PipelineReport} for ``-pool``, or None (after
     an error message) when no reads were given."""
     args = build_parser().parse_args(argv)
-    for names, dest, runs, _, item in _REFUSED:
+    for names, dest, runs, _ in _REFUSED:
         if getattr(args, dest) not in runs:
-            raise NotImplementedError(f"{names[0]} is not ported yet: ROADMAP queue-1 item {item}")
-    for attr in ("left", "right", "sef", "ser"):
+            raise NotImplementedError(f"{names[0]} is not ported yet: ROADMAP queue-1 item 14")
+    for attr in ("left", "right", "sef", "ser", "long_reads"):
         setattr(args, attr, _expand_at(getattr(args, attr)))
-    if not args.pool and not (args.left and args.right) and not (args.sef or args.ser):
+    if not (args.pool or args.long_reads or (args.left and args.right) or args.sef or args.ser):
         print("error: provide -left/-right (PE) or -sef/-ser (SE)", file=sys.stderr)
         return None
     from .assembly import pipeline
@@ -204,14 +218,18 @@ def run(argv=None):
     from .utils import kselect
 
     device = engine.require_device(args.device)
-    # probe reads of -k LIST and -ntcard: the pairs, else the unpaired reads
-    probe = [p for p in (args.left, args.right) if p] or list(args.sef or []) + list(args.ser or [])
+    # probe reads of -k LIST and -ntcard: the long reads, else the pairs,
+    # else the unpaired reads
+    probe = (list(args.long_reads or []) or [p for p in (args.left, args.right) if p]
+             or list(args.sef or []) + list(args.ser or []))
     k_values = kselect.parse_k_spec(str(args.kmer))
     if len(k_values) > 1:
         k = kselect.select_k(probe, k_values, device=device)
         print(f"selected k={k} from {k_values}")
     else:
         k = k_values[0]
+    if args.long_reads and args.lrpb and str(args.kmer) == "25":
+        k = 35  # PacBio preset (RNABloom.java:6317-6332)
 
     params = pipeline.PipelineParams(
         k=k,
@@ -258,8 +276,20 @@ def run(argv=None):
         max_tip_length=args.tiplength,
         extend_fragments=args.extend,
         rescue_unconnected=args.rescue,
+        revcomp_long=args.revcomp_long,
+        lr_min_depth=args.lrrd,
+        lr_overlap_prop=args.lrop,
+        minimizer_size=args.minimizer,
+        minimizer_window=args.minimizer_window,
+        sketch_overlap_prop=args.sop,
+        sketch_overlap_num=args.son,
+        hpc=args.hpc,
+        write_paf=args.paf,
+        paf_in=args.pafin,
         verbose=True,
     )
+    if args.mmopt:
+        print("note: -mmopt ignored (internal overlapper replaces minimap2)", file=sys.stderr)
     if not args.nk and args.hist:
         params.expected_num_kmers = kselect.NTCardHistogram(args.hist).num_unique
     elif not args.nk and args.ntcard:
@@ -276,6 +306,10 @@ def run(argv=None):
         if args.mergepool:
             pipeline.merge_pool(args.outdir, sorted(reports), params, device=device)
         return reports
+    if args.long_reads:
+        return pipeline.assemble_long(
+            args.long_reads, args.outdir, params, subsample_spec=args.lrsub, force=args.force, device=device,
+        )
     if args.left and args.right:
         return pipeline.assemble_pe(
             args.left, args.right, args.outdir, params,

@@ -1,10 +1,10 @@
-"""Minimizer-based all-vs-all overlap detection (the nr pass's part).
+"""Minimizer-based overlap detection: all-vs-all and read-to-unitig.
 
-The port's copy of what ``rnabloom_tpu/olc/overlap.py`` gives
-``layout_unitigs``: window minimizers over the canonical ntHash stream
-(hash/MinimizerHashIterator.java), an inverted-index hash join, and
-diagonal-binned chaining that estimates overlap coordinates, returning
-PAF-like records.  The reference shells out to minimap2 for this
+The port's copy of ``rnabloom_tpu/olc/overlap.py``, for the nr pass's
+``layout_unitigs`` and the long-read OLC: window minimizers over the
+canonical ntHash stream (hash/MinimizerHashIterator.java), an
+inverted-index hash join, and diagonal-binned chaining that estimates
+overlap coordinates, returning PAF-like records.  The reference shells out to minimap2 for this
 (olc/OverlapLayoutConsensus.java:78-106).
 
 Strand-aware: a minimizer key is canonical (the signed min of the forward
@@ -229,11 +229,14 @@ def _drop_frequent(m: Minimizers, max_occ: int) -> Minimizers:
     return Minimizers(m.key[sel], m.pos[sel], m.strand[sel], m.read[sel], m.lengths, m.k)
 
 
-def _match_pairs(mins: Minimizers, max_occ: int) -> Tuple[np.ndarray, ...]:
-    """All minimizer matches (q_read, t_read, q_pos, t_pos, rel_strand) of
-    the set against itself, each unordered read pair once (q < t)."""
-    mq = mt = _drop_frequent(mins, max_occ)
-    if mq.key.size == 0:
+def _match_pairs(mq: Minimizers, mt: Minimizers, ava: bool, max_occ: int) -> Tuple[np.ndarray, ...]:
+    """All minimizer matches (q_read, t_read, q_pos, t_pos, rel_strand).
+
+    ``ava``: mq is mt; emit each unordered read pair once (q < t).
+    Otherwise mq (queries) and mt (targets) are separate namespaces."""
+    mq = _drop_frequent(mq, max_occ)
+    mt = mq if ava else _drop_frequent(mt, max_occ)
+    if mq.key.size == 0 or mt.key.size == 0:
         z = np.empty(0, np.int64)
         return z, z, z, z, z
 
@@ -250,7 +253,7 @@ def _match_pairs(mins: Minimizers, max_occ: int) -> Tuple[np.ndarray, ...]:
 
     qr = mq.read[q_idx].astype(np.int64)
     tr = mt.read[t_idx].astype(np.int64)
-    sel = qr < tr
+    sel = qr < tr if ava else np.ones(qr.shape[0], bool)
     qr, tr = qr[sel], tr[sel]
     qp = mq.pos[q_idx[sel]].astype(np.int64)
     tp = mt.pos[t_idx[sel]].astype(np.int64)
@@ -317,8 +320,14 @@ def _chain(qr, tr, qp, tp, rel, k: int, params: OverlapParams) -> Overlaps:
 
 def find_overlaps(mins: Minimizers, params: OverlapParams) -> Overlaps:
     """All-vs-all overlap candidates via minimizer hash join + diagonal bins."""
-    qr, tr, qp, tp, rel = _match_pairs(mins, params.max_occ)
+    qr, tr, qp, tp, rel = _match_pairs(mins, mins, ava=True, max_occ=params.max_occ)
     return _chain(qr, tr, qp, tp, rel, mins.k, params)
+
+
+def map_to_targets(query_mins: Minimizers, target_mins: Minimizers, params: OverlapParams) -> Overlaps:
+    """Map queries (reads) onto targets (unitigs); q/t in separate id spaces."""
+    qr, tr, qp, tp, rel = _match_pairs(query_mins, target_mins, ava=False, max_occ=params.max_occ)
+    return _chain(qr, tr, qp, tp, rel, query_mins.k, params)
 
 
 def oriented_t_coords(rec: OverlapRecord, t_len: int) -> Tuple[int, int]:
@@ -352,3 +361,14 @@ def classify_batch(ov: Overlaps, lengths: np.ndarray, params: OverlapParams) -> 
     q_cont = (q_l <= h) & (q_r <= h)
     out[q_cont] = KIND_Q_CONTAINED
     return out
+
+
+_KIND_NAMES = ("q_contained", "t_contained", "dovetail", "internal")
+
+
+def classify(rec: OverlapRecord, q_len: int, t_len: int, params: OverlapParams) -> str:
+    """'q_contained' | 't_contained' | 'dovetail' | 'internal' of one record:
+    ``classify_batch`` on a one-record set."""
+    one = Overlaps(*(np.array([v], np.int64) for v in (
+        0, 1, rec.strand, rec.q_start, rec.q_end, rec.t_start, rec.t_end, rec.shared)))
+    return _KIND_NAMES[int(classify_batch(one, np.array([q_len, t_len], np.int64), params)[0])]

@@ -1,7 +1,8 @@
 """Build and load the port's native code at first use.
 
-* ``kernels()`` and ``walk_kernels()`` compile ``csrc/cell_insert.cu`` and
-  ``csrc/walk_greedy.cu`` with ``nvcc`` for sm_90a, each into its own
+* ``kernels()``, ``walk_kernels()`` and ``lr_kernels()`` compile
+  ``csrc/cell_insert.cu``, ``csrc/walk_greedy.cu`` and
+  ``csrc/lr_kernels.cu`` with ``nvcc`` for sm_90a, each into its own
   library under ``build/kernels/`` at the repository root (rebuilt when its
   source is newer), and bind their plain C entry points with ctypes.  They
   need the CUDA toolkit; there is no fallback.  ``build_all()`` starts
@@ -35,6 +36,8 @@ KERNEL_SRC = os.path.join(_PKG, "csrc", "cell_insert.cu")
 KERNEL_LIB = os.path.join(BUILD_DIR, "kernels", "libcell_insert.so")
 WALK_SRC = os.path.join(_PKG, "csrc", "walk_greedy.cu")
 WALK_LIB = os.path.join(BUILD_DIR, "kernels", "libwalk_greedy.so")
+LR_SRC = os.path.join(_PKG, "csrc", "lr_kernels.cu")
+LR_LIB = os.path.join(BUILD_DIR, "kernels", "liblr_kernels.so")
 READER_SRC = os.path.join(_PKG, "native", "fastxio.cpp")
 READER_LIB = os.path.join(BUILD_DIR, "native", "_fastxio.so")
 
@@ -116,6 +119,14 @@ _SIGNATURES = {
         # walk_greedy's, then tip_probe_depth back, stream
         "walk_naive": [_P] * 10 + [_INT] * 3 + [_P, _INT, _INT, _INT, _P, _U64] + [_INT] * 8 + [_P],
     }),
+    LR_LIB: (LR_SRC, {
+        # codes offsets, n_reads total, k stranded, hash valid, stream
+        "lr_kmer_keys": [_P, _P, _I64, _I64, _INT, _INT, _P, _P, _P],
+        # hash valid offsets aoff, n_reads n_anchors, k n w_min w_max, out ok, stream
+        "lr_randstrobe_keys": [_P] * 4 + [_I64, _I64] + [_INT] * 4 + [_P, _P, _P],
+        # unitigs U L, reads R Lr, tgt start, min_depth, votes polished depth, stream
+        "consensus_vote": [_P, _I64, _I64, _P, _I64, _I64, _P, _P, _INT, _P, _P, _P, _P],
+    }),
 }
 
 
@@ -143,6 +154,12 @@ def kernels() -> ctypes.CDLL:
 def walk_kernels() -> ctypes.CDLL:
     """The walk kernel library (greedy, pair and naive modes), built on first call."""
     return _load(WALK_LIB)
+
+
+def lr_kernels() -> ctypes.CDLL:
+    """The long-read kernel library (k-mer keys, randstrobes, consensus
+    vote), built on first call."""
+    return _load(LR_LIB)
 
 
 def build_all() -> Dict[str, float]:

@@ -7,7 +7,9 @@ right-to-left with a running seed-length identity (findPolyASeed
 (findPolyATail :317-337).  Operates on 2-bit code arrays (A=0 C=1 G=2
 T=3).  Stage 2 uses it to file poly-A-tailed fragments first when
 ``-a`` asks for it; stage 3's writer flips poly-T-headed transcripts
-(``find_polyt_head``) and annotates PAS motifs (``find_pas_positions``).
+(``find_polyt_head``) and annotates PAS motifs (``find_pas_positions``);
+the long-read correction orients each read onto its sense strand
+(``orient_long_read``).
 """
 
 from __future__ import annotations
@@ -147,3 +149,15 @@ def find_pas_positions(
             out.append(lo + idx)
             idx = region.find(motif, idx + 1)
     return sorted(set(out))
+
+
+def orient_long_read(codes: np.ndarray, profile: PolyAProfile = ONT):
+    """(oriented_codes, had_tail, flipped): flip poly-T-headed reads onto the
+    sense strand; trim nothing (trimming is the caller's policy).  As in the
+    JAX package the flip is ``3 - codes[::-1]`` in the codes' own dtype, so
+    an N (4) becomes 255, which later stages see as an invalid base."""
+    tail = find_polya_tail(codes, profile)
+    head = find_polyt_head(codes, profile)
+    if head is not None and (tail is None or (head[1] - head[0]) > (tail[1] - tail[0])):
+        return (3 - codes[::-1]).astype(codes.dtype), True, True
+    return codes, tail is not None, False

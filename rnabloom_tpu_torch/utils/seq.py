@@ -39,6 +39,10 @@ def revcomp_codes(codes: np.ndarray) -> np.ndarray:
     return _COMP_LUT[codes[::-1]]
 
 
+def revcomp(seq: str) -> str:
+    return decode(revcomp_codes(encode(seq)))
+
+
 def segment_read(
     codes: np.ndarray,
     quals: Optional[np.ndarray],

@@ -1,6 +1,7 @@
-"""CUDA kernels (insert; greedy, pair and naive walks) vs their plain
-PyTorch versions, on the card, the pair walks also on a single-end and a
-pooled sample's stage-3 graph.
+"""CUDA kernels (insert; greedy, pair and naive walks; the long-read
+k-mer keys, randstrobes and consensus vote) vs their plain PyTorch
+versions, on the card, the pair walks also on a single-end and a pooled
+sample's stage-3 graph, and -long on the card against the CPU.
 
 Imports no JAX (the machine with the card has none), so it runs there with
 
@@ -1088,3 +1089,91 @@ def test_stage3_card_equals_cpu(cuda, tmp_path):
                 x, y = json.loads(x), json.loads(y)
                 x.pop("elapsed_s"), y.pop("elapsed_s")
             assert x == y, a
+
+
+def _lr_reads(seed=0, n_tx=6, cov=6):
+    from rnabloom_tpu_torch.utils import lrsim, seq as sequtils
+
+    rng = np.random.default_rng(seed)
+    tx = lrsim.simulate_transcriptome(rng, n_tx, (400, 1500))
+    reads = [sequtils.encode(r) for r in lrsim.simulate_reads(rng, tx, coverage=cov, err=0.07)]
+    for i in range(0, len(reads), 5):  # N and the 255 of a flipped N
+        reads[i][rng.choice(len(reads[i]), 3, replace=False)] = 4 if i % 2 else 255
+    return reads + [reads[0][:n].copy() for n in (10, 25, 63, 64, 65, 86, 87, 88, 255, 256, 257)]
+
+
+@pytest.mark.parametrize("k,stranded", [(25, False), (35, False), (21, True), (11, False)])
+def test_lr_kmer_keys_kernel_matches_plain(cuda, k, stranded):
+    from rnabloom_tpu_torch.ops import lr_keys
+
+    reads = _lr_reads()
+    n0 = lr_keys.LAUNCHES["lr_kmer_keys"]
+    got = lr_keys.kmer_keys(reads, k, stranded, device=cuda)
+    assert lr_keys.LAUNCHES["lr_kmer_keys"] == n0 + 1
+    want = lr_keys.kmer_keys_plain(reads, k, stranded, device=cuda)
+    assert len(got) == len(want) and sum(w.size for w in want) > 1000
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("k,n,w_min,w_max,stranded", [(25, 3, 11, 50, False), (15, 2, 5, 9, False),
+                                                      (25, 3, 11, 50, True), (11, 4, 3, 8, False)])
+def test_lr_randstrobe_kernel_matches_plain(cuda, k, n, w_min, w_max, stranded):
+    from rnabloom_tpu_torch.ops import lr_keys, strobemer
+
+    reads = _lr_reads(1)
+    n0 = strobemer.LAUNCHES["lr_randstrobe_keys"]
+    got = lr_keys.strobemer_keys(reads, k, n, w_min, w_max, stranded, device=cuda)
+    assert strobemer.LAUNCHES["lr_randstrobe_keys"] == n0 + 1
+    want = lr_keys.strobemer_keys_plain(reads, k, n, w_min, w_max, stranded, device=cuda)
+    assert len(got) == len(want) and sum(w.size for w in want) > 1000
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("U,L,R,Lr,min_depth", [(5, 90, 40, 50, 2), (64, 3000, 2048, 4000, 2), (1, 7, 3, 5, 1)])
+def test_consensus_vote_kernel_matches_plain(cuda, U, L, R, Lr, min_depth):
+    from rnabloom_tpu_torch.ops import consensus_vote as cv
+
+    rng = np.random.default_rng(U)
+    unitigs = rng.integers(0, 4, (U, L), dtype=np.uint8)
+    unitigs[0, L // 2:] = 4
+    reads = rng.integers(0, 5, (R, Lr), dtype=np.uint8)
+    tgt = rng.integers(0, U, R).astype(np.int32)
+    start = rng.integers(-Lr // 2, L, R).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in (unitigs, reads, tgt, start)]
+    n0 = cv.LAUNCHES["consensus_vote"]
+    kp, kd = cv.consensus_vote(*args, min_depth)
+    assert cv.LAUNCHES["consensus_vote"] == n0 + 1
+    pp, pd = cv.consensus_vote_plain(*args, min_depth)
+    assert torch.equal(kp, pp) and torch.equal(kd, pd)
+
+
+def test_long_card_equals_cpu(cuda, tmp_path):
+    """-long and -long -lrsub (strobemers, then k-mers) on the card and on
+    the CPU: every output file byte-identical; the card run launches the
+    long-read kernels."""
+    import os
+
+    from rnabloom_tpu_torch import cli
+    from rnabloom_tpu_torch.ops import lr_keys, strobemer
+    from rnabloom_tpu_torch.utils import seq as sequtils
+
+    path = str(tmp_path / "lr.fa")
+    with open(path, "w") as f:
+        for i, r in enumerate(_lr_reads(2, 8, 8)):
+            f.write(f">r{i}\n{sequtils.decode(r)}\n")
+    for extra in ([], ["-lrsub", "5,11,0,50"], ["-lrsub", "5,25,0"]):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            outs[dev] = str(tmp_path / f"{dev}{len(extra)}{extra[-1][-1] if extra else ''}")
+            n0 = (lr_keys.LAUNCHES["lr_kmer_keys"], strobemer.LAUNCHES["lr_randstrobe_keys"])
+            cli.run(["-long", path, "-o", outs[dev], "-mem", "0.00390625", "--device", dev] + extra)
+            if dev == "cuda" and extra:
+                assert lr_keys.LAUNCHES["lr_kmer_keys"] > n0[0]
+                assert (strobemer.LAUNCHES["lr_randstrobe_keys"] > n0[1]) == (len(extra[1].split(",")) == 4)
+        names = sorted(os.listdir(outs["cpu"]))
+        assert names == sorted(os.listdir(outs["cuda"])) and "rnabloom.transcripts.fa" in names
+        for name in names:
+            with open(os.path.join(outs["cpu"], name), "rb") as a, open(os.path.join(outs["cuda"], name), "rb") as b:
+                assert a.read() == b.read(), name

@@ -1,7 +1,9 @@
 """The port runs without JAX and without the JAX package, on the card
-unless asked for the CPU, and refuses what it does not do: the long-read
-and multi-host flags, naming their ROADMAP item."""
+unless asked for the CPU, maps the long-read flags as the JAX CLI does, and
+refuses what it does not do: the multi-host flags, naming their ROADMAP
+item."""
 
+import dataclasses
 import os
 import re
 import subprocess
@@ -41,6 +43,15 @@ assert cli.main(["-pool", out + "/pool.txt", "-mergepool", "-o", out + "/pool", 
                  "--device", "cpu"]) == 0
 assert cli.main(["-left", left, "-right", right, "-k", "25,27", "-ntcard", "-stage", "1", "-o", out + "/k",
                  "-mem", "0.00390625", "--device", "cpu"]) == 0
+# the long-read path, with strobemer subsampling
+from rnabloom_tpu_torch.utils import lrsim
+import numpy as np
+rng = np.random.default_rng(2)
+with open(out + "/lr.fa", "w") as f:
+    for i, r in enumerate(lrsim.simulate_reads(rng, lrsim.simulate_transcriptome(rng, 4, (500, 900)), 8, 0.05)):
+        f.write(f">r{i}\n{r}\n")
+assert cli.main(["-long", out + "/lr.fa", "-lrsub", "5,11,0,50", "-o", out + "/long", "-mem", "0.00390625",
+                 "--device", "cpu"]) == 0
 loaded = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in ("jax", "rnabloom_tpu"))
 assert not loaded, loaded
@@ -68,6 +79,8 @@ def test_cpu_slice_runs_with_jax_blocked(tmp_path):
     assert os.path.getsize(tmp_path / "pool" / "s2" / "rnabloom.transcripts.fa") > 0
     assert re.search(r"selected k=2[57] from \[25, 27\]", proc.stdout)
     assert os.path.exists(tmp_path / "k" / "DBG.DONE")
+    assert os.path.getsize(tmp_path / "long" / "rnabloom.transcripts.fa") > 0
+    assert os.path.exists(tmp_path / "long" / "LONGREADS.ASSEMBLED")
 
 
 _IMPORT_OF_JAX = re.compile(r"^\s*(from|import)\s+(jax|rnabloom_tpu)(?!_torch)\b", re.M)
@@ -89,8 +102,9 @@ def test_no_jax_import_in_package_source():
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
-    # the nr pass's copies and the k selection's are among them
-    assert {os.path.join(PKG, "olc", name) for name in ("overlap.py", "graph.py", "layout.py")} <= set(paths)
+    # the nr pass's copies, the k selection's and the long-read path's are among them
+    assert {os.path.join(PKG, "olc", name) for name in ("overlap.py", "graph.py", "layout.py", "consensus.py",
+                                                        "realign.py")} <= set(paths)
     assert os.path.join(PKG, "io", "seqstore.py") in paths
     assert os.path.join(PKG, "utils", "kselect.py") in paths
     for path in paths:
@@ -107,12 +121,8 @@ def test_cuda_device_without_a_card_raises(tmp_path):
 
 # one value of each refused flag that is not among the values that run
 _REFUSED_ARGS = {
-    "-long": ["-long", "lr.fa"], "-lrop": ["-lrop", "0.5"], "-lrpb": ["-lrpb"], "-lrrd": ["-lrrd", "3"],
-    "-lrsub": ["-lrsub", "30,25,5000"], "-rc": ["-rc"], "-m": ["-m", "15"], "-mw": ["-mw", "8"],
-    "-sop": ["-sop", "0.2"], "-son": ["-son", "6"], "-hpc": ["-hpc"], "-mmopt": ["-mmopt", "-x ava-ont"],
-    "-paf": ["-paf"], "-pafin": ["-pafin", "ava.paf"], "-sharded": ["-sharded", "on"],
-    "-coordinator": ["-coordinator", "localhost:9999"], "-nprocs": ["-nprocs", "2"], "-procid": ["-procid", "1"],
-    "-mhlayout": ["-mhlayout", "local"],
+    "-sharded": ["-sharded", "on"], "-coordinator": ["-coordinator", "localhost:9999"], "-nprocs": ["-nprocs", "2"],
+    "-procid": ["-procid", "1"], "-mhlayout": ["-mhlayout", "local"],
 }
 
 
@@ -122,15 +132,93 @@ def test_every_refused_flag_has_a_case():
 
 @pytest.mark.parametrize("flag", sorted(_REFUSED_ARGS))
 def test_long_read_and_multi_host_flags_are_refused_before_any_work(tmp_path, flag):
-    """The JAX CLI's long-read flags (item 13) and multi-host flags (item
-    14) are accepted and refused, naming the item, before any file is
-    read or written."""
-    item = dict((names[0], item) for names, _, _, _, item in cli._REFUSED)[flag]
-    out = tmp_path / "asm"
-    with pytest.raises(NotImplementedError, match=f"{flag} is not ported yet: ROADMAP queue-1 item {item}$"):
-        cli.run(["-left", "missing_1.fq", "-right", "missing_2.fq", "-o", str(out), "--device", "cpu"]
-                + _REFUSED_ARGS[flag])
-    assert not out.exists()
+    """The JAX CLI's multi-host flags (item 14) are accepted and refused,
+    naming the item, before any file is read or written, with short reads
+    and with -long."""
+    for reads in (["-left", "missing_1.fq", "-right", "missing_2.fq"], ["-long", "missing.fa"]):
+        out = tmp_path / "asm"
+        with pytest.raises(NotImplementedError, match=f"{flag} is not ported yet: ROADMAP queue-1 item 14$"):
+            cli.run(reads + ["-o", str(out), "--device", "cpu"] + _REFUSED_ARGS[flag])
+        assert not out.exists()
+
+
+# each long-read flag with a value other than its default
+_LONG_READ_ARGS = {
+    "-long": [], "-lrop": ["-lrop", "0.5"], "-lrpb": ["-lrpb"], "-lrrd": ["-lrrd", "3"],
+    "-lrsub": ["-lrsub", "30,25,5000"], "-rc": ["-rc"], "-m": ["-m", "15"], "-mw": ["-mw", "8"],
+    "-sop": ["-sop", "0.2"], "-son": ["-son", "6"], "-hpc": ["-hpc"], "-mmopt": ["-mmopt", "-x ava-ont"],
+    "-paf": ["-paf"], "-pafin": ["-pafin", "ava.paf"],
+}
+
+
+def _long_call(module, monkeypatch):
+    """Replace ``module.assemble_long`` by a recorder of its arguments."""
+    calls = []
+
+    def record(paths, outdir, params, **kw):
+        calls.append((list(paths), outdir, params, {key: kw[key] for key in ("subsample_spec", "force")}))
+        return module.PipelineReport()
+
+    monkeypatch.setattr(module, "assemble_long", record)
+    return calls
+
+
+@pytest.mark.parametrize("flag", sorted(_LONG_READ_ARGS))
+def test_long_read_flag_maps_like_the_jax_cli(tmp_path, monkeypatch, capsys, flag):
+    """Each long-read flag of the JAX CLI sets the same PipelineParams
+    field to the same value in the port's CLI (``-lrpb``: k=35 at the
+    default -k; ``-mmopt``: the same note), and -long reaches assemble_long
+    with the same paths and arguments."""
+    from rnabloom_tpu import cli as jcli
+    from rnabloom_tpu.assembly import pipeline as jpipeline
+
+    monkeypatch.setattr(jcli, "_enable_compilation_cache", lambda: None)
+    tcalls, jcalls = _long_call(pipeline, monkeypatch), _long_call(jpipeline, monkeypatch)
+    argv = ["-long", "a.fa", "b.fa", "-o", str(tmp_path / "asm")] + _LONG_READ_ARGS[flag]
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    t_err = capsys.readouterr().err
+    assert jcli.main(argv + ["-sharded", "off"]) == 0
+    j_err = capsys.readouterr().err
+    (tpaths, tout, tparams, tkw), = tcalls
+    (jpaths, jout, jparams, jkw), = jcalls
+    assert (tpaths, tout, tkw) == (jpaths, jout, jkw) == (["a.fa", "b.fa"], str(tmp_path / "asm"), jkw)
+    tfields = {f.name: getattr(tparams, f.name) for f in dataclasses.fields(tparams)}
+    jfields = {f.name: getattr(jparams, f.name) for f in dataclasses.fields(jparams)}
+    shared = sorted((set(tfields) & set(jfields)) - {"sharded"})  # -sharded off runs the port's own engine
+    assert len(shared) > 50
+    assert {name: tfields[name] for name in shared} == {name: jfields[name] for name in shared}
+    default = {f.name: f.default for f in dataclasses.fields(pipeline.PipelineParams)}
+    changed = {name for name in shared if tfields[name] != default[name]} - {"verbose"}
+    expected = {
+        "-long": set(), "-lrop": {"lr_overlap_prop"}, "-lrpb": {"k"}, "-lrrd": {"lr_min_depth"}, "-lrsub": set(),
+        "-rc": {"revcomp_long"}, "-m": {"minimizer_size"}, "-mw": {"minimizer_window"}, "-sop": {"sketch_overlap_prop"},
+        "-son": {"sketch_overlap_num"}, "-hpc": {"hpc"}, "-mmopt": set(), "-paf": {"write_paf"}, "-pafin": {"paf_in"},
+    }[flag]
+    assert changed == expected
+    if flag == "-lrpb":
+        assert tparams.k == 35
+    if flag == "-lrsub":
+        assert tkw["subsample_spec"] == "30,25,5000"
+    note = "note: -mmopt ignored (internal overlapper replaces minimap2)"
+    assert (note in t_err) == (note in j_err) == (flag == "-mmopt")
+
+
+_LR_MODULES = ("ops.lr_keys", "ops.strobemer", "ops.consensus_vote", "olc.overlap", "olc.graph", "olc.layout",
+               "olc.consensus", "olc.realign", "io.paf", "assembly.longreads", "utils.lrsim")
+
+
+def test_long_read_modules_import_no_jax():
+    """The long-read path's modules import neither jax nor the JAX package."""
+    script = ("import sys\nsys.modules['jax'] = None\nsys.modules['rnabloom_tpu'] = None\nimport importlib\n"
+              f"for m in {_LR_MODULES!r}:\n    importlib.import_module('rnabloom_tpu_torch.' + m)\n"
+              "bad = sorted(m for m, v in sys.modules.items() if v is not None and m.split('.')[0] in "
+              "('jax', 'rnabloom_tpu'))\nassert not bad, bad\nprint('LR_NO_JAX_OK')\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LR_NO_JAX_OK" in proc.stdout
 
 
 def test_values_that_run_are_not_refused(tmp_path):
@@ -221,7 +309,7 @@ def _stage3_devices(entry, monkeypatch, tmp) -> list:
     return seen
 
 
-@pytest.mark.parametrize("entry", ["assemble_pe", "assemble_se", "assemble_pool", "merge_pool", "select_k",
+@pytest.mark.parametrize("entry", ["assemble_pe", "assemble_se", "assemble_pool", "merge_pool", "assemble_long", "select_k",
                                    "estimate_num_unique_kmers", "build_graph_autosized", "load_graph", "screen",
                                    "screen_walks", "nr", "extend_walks"])
 def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
@@ -251,6 +339,8 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
             pipeline.assemble_pool(str(pool), str(out), pipeline.PipelineParams(stop_stage=2))
         elif entry == "merge_pool":
             pipeline.merge_pool(str(out), ["s1"], pipeline.PipelineParams())
+        elif entry == "assemble_long":
+            pipeline.assemble_long([left], str(out), pipeline.PipelineParams(stop_stage=2))
         elif entry == "select_k":
             kselect.select_k([left, right], [25, 27])
         elif entry == "estimate_num_unique_kmers":
