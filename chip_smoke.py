@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (rnabloom_tpu_torch) on one GPU.
 
     python3 chip_smoke.py [--walk-variant NAME=PATH ...] [--insert-variant NAME=PATH ...]
+                          [--lr-variant NAME=PATH ...]
 
 Run from the root of a checkout on a machine with a CUDA card.  It imports
 no JAX.  ``--walk-variant`` adds another walk kernel source with the same C
@@ -12,7 +13,10 @@ walks, where it has ``walk_naive``), built beside the port's kernels, held
 to the same equality and timed in the same turns.
 ``--insert-variant`` does the same for another ``csrc/cell_insert.cu`` in
 phase 2 (an older source whose mf8 entry point is ``cell_add_mf8``, with
-its int32 scratch as long as the table, gets that scratch).
+its int32 scratch as long as the table, gets that scratch), and
+``--lr-variant`` for another ``csrc/lr_kernels.cu`` in phase 10 (K1 and
+K2: every output value equal to the port's kernels', times in the same
+turns on both of the phase's kernel cells).
 ``tools/long_smoke.py`` runs phase 10 alone.  Phases (any failure raises
 and exits nonzero):
 
@@ -186,11 +190,20 @@ and exits nonzero):
    read of run (i), per read (the plain versions pad into the JAX
    package's buckets); ``consensus_vote`` through ``polish(...,
    indel_band=0)`` on run (i)'s own unitigs and placements (kernel, plain
-   on the card, plain on the CPU).  Each kernel is timed with CUDA
-   events beside its plain version, with its bound (bytes over 3.35
-   TB/s) and, for the vote, the ``scatter_add_`` + ``argmax`` composite
-   as the library yardstick.  Last, runs (i)-(iv) on the first 400 reads
-   on the card and on the CPU: every file byte-identical.
+   on the card, plain on the CPU).  K1 and K2 also at the size the phase
+   was specified with: its 1,500 raw reads 7 times (10,500 reads, about
+   16.3 M positions), one launch each, the keys of every 7th read (each
+   raw read once) equal to the plain versions' on those reads alone.  Each
+   kernel is timed with CUDA events beside its plain version (K1 and K2 on
+   both cells, in turns with each ``--lr-variant``, through the C entry
+   points; their key path end to end, wrapper and C entry also on the
+   host's clock, 5 calls each), with its bound (the larger of bytes over
+   3.35 TB/s and, for K1 and K2, 32-bit integer instructions by pipe, 64
+   lanes an SM on the ALU or FMA pipe and 128 issued, over 132 SMs at the
+   highest SM clock nvidia-smi gives) and, for the vote, the
+   ``scatter_add_`` + ``argmax`` composite as the library yardstick.
+   Last, runs (i)-(iv) on the first 400 reads on the card and on the CPU:
+   every file byte-identical.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -207,6 +220,7 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -321,7 +335,8 @@ def ptxas_report(log: str) -> list:
 
 def insert_ptxas(log: str, kernels: str = "set_u8|add_i32|add_u16_tile|mf8_tile|mf8_apply") -> list:
     """One entry per kernel (the insert kernels unless ``kernels`` names
-    others) from ``nvcc -Xptxas -v``: registers and spill stores."""
+    others) from ``nvcc -Xptxas -v``: registers, static shared memory and
+    spill stores."""
     out, name, spill = [], None, None
     for line in log.splitlines():
         m = re.search(rf"Function properties for \S*?({kernels})_kernel", line)
@@ -332,15 +347,16 @@ def insert_ptxas(log: str, kernels: str = "set_u8|add_i32|add_u16_tile|mf8_tile|
         if m and name:
             spill = m.group(1)
             continue
-        m = re.search(r"Used (\d+) registers", line)
+        m = re.search(r"Used (\d+) registers(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?", line)
         if m and name:
-            out.append(f"{name} {m.group(1)} registers, {spill} B spill stores")
+            out.append(f"{name} {m.group(1)} registers, {m.group(2) or 0} B static shared memory, {spill} B spill "
+                       f"stores")
             name = None
     return out
 
 
 def build_variant(kind: str, i: int, src: str) -> ctypes.CDLL:
-    """Another ``kind`` ("walk" or "insert") kernel source, built with the
+    """Another ``kind`` ("walk", "insert" or "lr") kernel source, built with the
     port's nvcc flags into ``build/{kind}_variants/``, its entry points
     bound as the port's are.  A walk source may lack ``walk_pair`` (then
     phase 6 skips it); an insert source may have, in place of
@@ -352,9 +368,12 @@ def build_variant(kind: str, i: int, src: str) -> ctypes.CDLL:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
     so = ctypes.CDLL(lib)
-    signatures = dict(_build._SIGNATURES[_build.WALK_LIB if kind == "walk" else _build.KERNEL_LIB][1])
+    lib_of = {"walk": _build.WALK_LIB, "insert": _build.KERNEL_LIB, "lr": _build.LR_LIB}
+    signatures = dict(_build._SIGNATURES[lib_of[kind]][1])
     if kind == "walk" and not hasattr(so, "walk_pair"):  # an older source: greedy mode only
         del signatures["walk_pair"]
+    if kind == "lr" and not hasattr(so, "lr_randstrobe_smem"):  # an older source: only the kernels are timed
+        del signatures["lr_randstrobe_smem"]
     if kind == "insert" and not hasattr(so, "cell_add_mf8_batch"):
         del signatures["cell_add_mf8_batch"]
         signatures["cell_add_mf8"] = SCRATCH_MF8_ARGS
@@ -2380,6 +2399,26 @@ LR_CHECK = 400  # reads of the card-vs-CPU runs
 LR_K, LR_N, LR_WMIN, LR_WMAX = 25, 3, 11, 50  # run (ii)'s strobemers: -lrsub 5,11,0,50 at k=25
 # the runs after (i), each resumed from a copy of (i)'s corrected reads and stamps
 LR_RESUMED = {"strobemer": ["-lrsub", "5,11,0,50"], "kmer": ["-lrsub", "5,25,0"], "paf": ["-paf"]}
+# phase 10's kernel cell at the size the phase was specified with: its
+# 1,500 raw lrsim reads, 7 times (10,500 reads and 16.3 M positions), keys
+# held to the plain version on every 7th read: 7 is prime to the 1,500
+# reads of a repeat, so every raw read is checked once, each repeat at
+# other tile alignments
+LR_REPEATS = 7
+LR_CHECK_EVERY = 7
+LR_HOST_REPS = 5  # host-timed calls of the key path, for its spread
+# The least 32-bit integer instructions of the work, by the pipe that runs
+# them.  K1 a position: the forward and reverse roll, each a 64-bit rotate
+# by 1 (2 funnel shifts) and a 3-way xor (2 LOP3), and the signed min
+# (compare 2, select 2), all on the ALU pipe.  K2 a valid candidate in a
+# window it must scan, with T_b and C_a hoisted: the xor (2 LOP3), the
+# unsigned compare (2 ISETP) and the select (2 SEL) on the ALU pipe, the
+# 64-bit add T_b + C_a (2), which can run as IMAD.WIDE.U32 and IMAD on the
+# FMA pipe.  An H100 SXM SM runs 64 lanes a clock on either pipe and issues
+# 128 instructions a clock in all; the busiest of the three binds.
+K1_OPS = {"alu": 12, "fma": 0}
+K2_OPS = {"alu": 6, "fma": 2}
+SMS, PIPE_LANES, DISPATCH_LANES = 132, 64, 128
 LR_SPANS = ("olc_subsample", "olc_paf", "olc_overlaps", "olc_unique", "olc_unitigs", "olc_placement", "olc_polish",
             "olc_layout", "reduce_redundancy")
 
@@ -2427,30 +2466,191 @@ def long_run(argv: list, out: str, truth: list, card: str, tag: str) -> dict:
     return r
 
 
-def lr_keys_vs_plain(reads: list, card: str, dev) -> dict:
-    """K1 (k-mer keys) and K2 (randstrobes) on every corrected read of run
-    (i): the per-read keys equal the plain versions' on the card (the
-    reads padded into the JAX package's buckets); the kernels timed with
-    CUDA events beside the plain versions (host clock, card
-    synchronised), one bound each."""
+def lr_layout(reads: list, dev) -> dict:
+    """The ragged layout of K1 and K2 at run (ii)'s parameters: codes,
+    offsets and anchor offsets on ``dev``, and their counts."""
     codes, offsets, lens = lr_keys.pack(reads, dev)
-    total = codes.numel()
     m = np.where(lens >= lr_keys.strobemer_min_len(LR_K, LR_N, LR_WMIN, LR_WMAX),
                  strobemer.num_anchors(lens, LR_K, LR_N, LR_WMIN, LR_WMAX), 0)
     aoff = torch.from_numpy(np.concatenate([[0], np.cumsum(m)]).astype(np.int64)).to(dev)
-    h, v = lr_keys.kmer_hashes(codes, offsets, LR_K, False)
+    return {"codes": codes, "offsets": offsets, "aoff": aoff, "reads": len(reads),
+            "positions": codes.numel(), "anchors": int(m.sum())}
+
+
+def lr_calls(lib: ctypes.CDLL, lay: dict, kmers: dict = None) -> tuple:
+    """K1 and K2 of ``lib`` (the port's or an ``--lr-variant`` build) on
+    ``lay`` through their C entry points, into buffers of their own: (k1,
+    k2, outputs).  K2 reads ``kmers``' k-mer hashes where given, else its
+    own K1's.  Launches made to time and compare a kernel, outside the
+    launch counts."""
+    dev = lay["codes"].device
+    total, n_reads, n_anchors = lay["positions"], lay["reads"], lay["anchors"]
+    out = {"h": torch.empty(total, dtype=torch.int64, device=dev), "v": torch.empty(total, dtype=torch.uint8, device=dev),
+           "sh": torch.empty(n_anchors, dtype=torch.int64, device=dev),
+           "ok": torch.empty(n_anchors, dtype=torch.uint8, device=dev)}
+    src = kmers or out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def k1():
+        err = lib.lr_kmer_keys(lay["codes"].data_ptr(), lay["offsets"].data_ptr(), n_reads, total, LR_K, 0,
+                               out["h"].data_ptr(), out["v"].data_ptr(), stream)
+        assert err == 0, f"lr_kmer_keys: cudaError_t {err}"
+
+    def k2():
+        err = lib.lr_randstrobe_keys(src["h"].data_ptr(), src["v"].data_ptr(), lay["offsets"].data_ptr(),
+                                     lay["aoff"].data_ptr(), n_reads, n_anchors, LR_K, LR_N, LR_WMIN, LR_WMAX,
+                                     out["sh"].data_ptr(), out["ok"].data_ptr(), stream)
+        assert err == 0, f"lr_randstrobe_keys: cudaError_t {err}"
+
+    return k1, k2, out
+
+
+def sm_clocks_mhz(fn, reps: int) -> tuple:
+    """The SM clock and the card's highest SM clock (nvidia-smi), read while
+    the card runs ``fn`` ``reps`` times."""
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    torch.cuda.synchronize()
+    now, top = (float(v) for v in out.split(","))
+    return now, top
+
+
+def ops_bound_ms(ops: dict, units: int, mhz: float) -> float:
+    """The least ms of ``units`` times ``ops`` 32-bit integer instructions
+    (by pipe) on SMS SMs at ``mhz``: the busier pipe, or the issue."""
+    clocks = max(ops["alu"] / PIPE_LANES, ops["fma"] / PIPE_LANES, (ops["alu"] + ops["fma"]) / DISPATCH_LANES)
+    return clocks * units / (SMS * mhz * 1e3)
+
+
+def strobe_candidates(lay: dict, v: torch.Tensor) -> int:
+    """The window candidates K2 must combine on this data: the valid ones
+    of every strobe window an anchor reaches (its k-mer valid, and every
+    earlier window holding a valid candidate), below its read's last
+    k-mer."""
+    dev = v.device
+    offsets, aoff = lay["offsets"], lay["aoff"]
+    m = aoff.diff()
+    read = torch.repeat_interleave(torch.arange(m.numel(), device=dev), m)
+    x = offsets[read] + torch.arange(lay["anchors"], device=dev) - aoff[read]
+    lim = offsets[read + 1] - LR_K + 1
+    cum = torch.nn.functional.pad(torch.cumsum(v.long(), 0), (1, 0))
+    reached = v[x] != 0
+    work = 0
+    for s in range(LR_N - 1):
+        lo = x + s * LR_WMAX + LR_WMIN
+        hi = torch.minimum(x + s * LR_WMAX + LR_WMAX, lim)
+        cnt = torch.where(hi > lo, cum[hi.clamp(max=v.numel())] - cum[lo.clamp(max=v.numel())], 0)
+        work += int(cnt[reached].sum())
+        reached &= cnt > 0
+    return work
+
+
+def lr_bounds(lay: dict, v: torch.Tensor, mhz: float) -> dict:
+    """K1's and K2's bounds on ``lay``, by bytes (each input read once, each
+    output written once, over 3.35 TB/s) and by 32-bit integer
+    instructions (``ops_bound_ms`` at ``mhz``); the larger binds."""
+    total, reads, anchors = lay["positions"], lay["reads"], lay["anchors"]
+    cand = strobe_candidates(lay, v)
     out = {}
-    for name, keys, plain in (
-        ("lr_kmer_keys", lambda: lr_keys.kmer_keys(reads, LR_K, False, device=dev),
-         lambda: lr_keys.kmer_keys_plain(reads, LR_K, False, device=dev)),
-        ("lr_randstrobe_keys", lambda: lr_keys.strobemer_keys(reads, LR_K, LR_N, LR_WMIN, LR_WMAX, False, device=dev),
-         lambda: lr_keys.strobemer_keys_plain(reads, LR_K, LR_N, LR_WMIN, LR_WMAX, False, device=dev)),
+    for name, nbytes, ops, units in (
+        # codes and offsets read, a hash and a flag written a position
+        ("lr_kmer_keys", total + (reads + 1) * 8 + total * 9, K1_OPS, total),
+        # k-mer hashes and flags read, offsets and anchor offsets, a hash and a flag written an anchor
+        ("lr_randstrobe_keys", total * 9 + (reads + 1) * 16 + anchors * 9, K2_OPS, cand),
     ):
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_MS, ops_bound_ms(ops, units, mhz)
+        out[name] = {"bytes_bound_ms": b_ms, "ops_bound_ms": o_ms, "bound_ms": max(b_ms, o_ms),
+                     "bound_by": "bytes" if b_ms >= o_ms else "operations", "bytes": nbytes,
+                     "alu_ops": ops["alu"] * units, "fma_ops": ops["fma"] * units}
+    out["lr_randstrobe_keys"]["candidates"] = cand
+    return out
+
+
+def lr_turns(lay: dict, variants: dict, what: str, card: str, clocks: tuple = None) -> dict:
+    """K1 and K2 of the port and of each ``--lr-variant`` on ``lay``, timed
+    with CUDA events in turns (kernel, variants, variants, kernel); every
+    variant's outputs equal the port's in every value (every K2 on the
+    port's k-mer hashes).  ``clocks``: the SM clock and the highest SM clock
+    (``sm_clocks_mhz``), read during a run of K2 when not given; the bounds
+    are at the highest, which the published peak rates assume."""
+    k1, k2, port = lr_calls(_build.lr_kernels(), lay)
+    k1()
+    calls = {who: lr_calls(lib, lay, port) for who, lib in variants.items()}
+    calls["kernel"] = (k1, k2, port)
+    for c1, c2, _ in calls.values():  # warm
+        c1()
+        c2()
+    order = ["kernel", *variants, *reversed(variants), "kernel"]
+    t = {}
+    for who in order:
+        c1, c2, _ = calls[who]
+        t.setdefault((who, 1), []).append(_time_ms(c1))
+        t.setdefault((who, 2), []).append(_time_ms(c2))
+    torch.cuda.synchronize()
+    for who in variants:
+        got = calls[who][2]
+        for key in ("h", "v", "sh", "ok"):
+            assert torch.equal(got[key], port[key]), f"lr variant {who} differs from the kernel in {key} ({what})"
+    if clocks is None:  # about 0.4 s of K2 on the card while nvidia-smi reads the clocks
+        clocks = sm_clocks_mhz(k2, min(1000, max(50, int(400 / _mean(t["kernel", 2])))))
+    now, mhz = clocks
+    bounds = lr_bounds(lay, port["v"], mhz)
+    r = {"sm_clocks_mhz": clocks, "sm_clock_mhz": now, "sm_clock_max_mhz": mhz,
+         "work": f"{lay['reads']} reads, {lay['positions']} positions, {lay['anchors']} anchors"}
+    for i, name in ((1, "lr_kmer_keys"), (2, "lr_randstrobe_keys")):
+        b = bounds[name]
+        r[name] = {"ms": _mean(t["kernel", i]), "turns_ms": t["kernel", i],
+                   "variant_ms": {who: _mean(t[who, i]) for who in variants}, **b}
+        print(f"{name} ({what}: {r['work']}): kernel {r[name]['ms']:.4f} ms (turns {t['kernel', i]}), "
+              + "".join(f"variant {who} {ms:.4f} ms, " for who, ms in r[name]["variant_ms"].items())
+              + f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (bytes {b['bytes_bound_ms']:.4f} ms for {b['bytes']} "
+              f"B, integer instructions {b['ops_bound_ms']:.4f} ms for {b['alu_ops']} on the ALU pipe and "
+              f"{b['fma_ops']} on the FMA pipe at the highest SM clock, {mhz:.0f} MHz; {now:.0f} MHz read under K2"
+              + (f", {b['candidates']} valid candidates" if "candidates" in b else "")
+              + f"), {b['bound_ms'] / r[name]['ms']:.1%} of it [{card}]", flush=True)
+    for who in variants:
+        print(f"lr variant {who} ({what}): K1 and K2 outputs equal the kernel's in every value", flush=True)
+    return r
+
+
+def host_ms(fn, reps: int) -> list:
+    """Host-clock ms of each of ``reps`` calls of ``fn``, the card
+    synchronised before and after each."""
+    out = []
+    for _ in range(reps):
         torch.cuda.synchronize()
-        t0 = time.time()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def lr_keys_vs_plain(reads: list, card: str, dev, variants: dict, clocks: tuple) -> dict:
+    """K1 (k-mer keys) and K2 (randstrobes) on every corrected read of run
+    (i): the per-read keys through the wrappers equal the plain versions'
+    on the card (the reads padded into the JAX package's buckets).  On the
+    host's clock (card synchronised), LR_HOST_REPS calls each of the key
+    path end to end (packing and the split included), of the wrapper alone
+    and of its bare C entry point, and the plain version once.  The
+    kernels, and each ``--lr-variant``, timed in turns (``lr_turns``) at
+    the full-size cell's SM ``clocks``."""
+    lay = lr_layout(reads, dev)
+    k1, k2, _ = lr_calls(_build.lr_kernels(), lay)
+    kh = lr_keys.kmer_hashes(lay["codes"], lay["offsets"], LR_K, False)
+    out = {}
+    for name, keys, plain, wrapper, entry in (
+        ("lr_kmer_keys", lambda: lr_keys.kmer_keys(reads, LR_K, False, device=dev),
+         lambda: lr_keys.kmer_keys_plain(reads, LR_K, False, device=dev),
+         lambda: lr_keys.kmer_hashes(lay["codes"], lay["offsets"], LR_K, False), k1),
+        ("lr_randstrobe_keys", lambda: lr_keys.strobemer_keys(reads, LR_K, LR_N, LR_WMIN, LR_WMAX, False, device=dev),
+         lambda: lr_keys.strobemer_keys_plain(reads, LR_K, LR_N, LR_WMIN, LR_WMAX, False, device=dev),
+         lambda: strobemer.randstrobe_hashes(*kh, lay["offsets"], lay["aoff"], LR_K, LR_N, LR_WMIN, LR_WMAX), k2),
+    ):
         got = keys()
-        torch.cuda.synchronize()
-        keys_ms = (time.time() - t0) * 1e3
         t0 = time.time()
         want = plain()
         torch.cuda.synchronize()
@@ -2458,23 +2658,50 @@ def lr_keys_vs_plain(reads: list, card: str, dev) -> dict:
         assert len(got) == len(want) == len(reads)
         bad = [i for i, (g, w) in enumerate(zip(got, want)) if not np.array_equal(g, w)]
         assert not bad, f"{name}: {len(bad)} reads differ from the plain version, the first {bad[:5]}"
-        n_keys = sum(g.size for g in got)
-        if name == "lr_kmer_keys":
-            ms = _time_ms(lambda: lr_keys.kmer_hashes(codes, offsets, LR_K, False))
-            # the codes and offsets read once, a hash and a flag written a position
-            nbytes = total + offsets.numel() * 8 + total * 9
-            work = f"{len(reads)} reads, {total} positions"
-        else:
-            ms = _time_ms(lambda: strobemer.randstrobe_hashes(h, v, offsets, aoff, LR_K, LR_N, LR_WMIN, LR_WMAX))
-            # the k-mer hashes and flags read once, a hash and a flag written an anchor
-            nbytes = total * 9 + (offsets.numel() + aoff.numel()) * 8 + int(m.sum()) * 9
-            work = f"{len(reads)} reads, {int(m.sum())} anchors"
-        out[name] = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "keys_ms": keys_ms,
-                     "bound_ms": nbytes / HBM_BYTES_PER_MS, "keys": n_keys, "work": work}
-        print(f"{name} vs plain on the card, every corrected read of run (i) ({work}): {n_keys} keys equal; kernel "
-              f"{ms:.4f} ms, bound {out[name]['bound_ms']:.4f} ms (bytes); the keys end to end {keys_ms:.1f} ms, "
-              f"the plain version (padded buckets) {plain_ms:.1f} ms [{card}]", flush=True)
+        wrapper()
+        host = {"keys_ms": host_ms(keys, LR_HOST_REPS), "wrapper_ms": host_ms(wrapper, LR_HOST_REPS),
+                "entry_ms": host_ms(entry, LR_HOST_REPS)}
+        out[name] = {"max_abs_err": 0, "plain_ms": plain_ms, "keys": sum(g.size for g in got), **host}
+        print(f"{name} vs plain on the card, every corrected read of run (i) ({len(reads)} reads): "
+              f"{out[name]['keys']} keys equal; the plain version (padded buckets) {plain_ms:.1f} ms; on the host's "
+              f"clock, {LR_HOST_REPS} calls each (min / median / max ms): "
+              + ", ".join(f"{what} {min(v):.3f} / {statistics.median(v):.3f} / {max(v):.3f}"
+                          for what, v in (("the keys end to end", host["keys_ms"]), ("the wrapper", host["wrapper_ms"]),
+                                          ("its C entry", host["entry_ms"])))
+              + f" [{card}]", flush=True)
+    turns = lr_turns(lay, variants, "every corrected read of run (i)", card, clocks)
+    for name in out:
+        out[name].update(turns[name], work=turns["work"], sm_clock_mhz=turns["sm_clock_mhz"],
+                         sm_clock_max_mhz=turns["sm_clock_max_mhz"])
     return out
+
+
+def lr_keys_full_size(raw: list, card: str, dev, variants: dict) -> dict:
+    """K1 and K2 at the size phase 10 was specified with: its raw reads
+    LR_REPEATS times, in one launch each.  A read's keys do not depend on
+    the other reads of a launch, so every LR_CHECK_EVERY-th read's keys
+    equal the plain versions' run on those reads alone; the kernels and
+    each ``--lr-variant`` timed in turns (``lr_turns``)."""
+    reads = [sequtils.encode(r) for r in raw] * LR_REPEATS
+    lay = lr_layout(reads, dev)
+    k1, _, kmers = lr_calls(_build.lr_kernels(), lay)
+    k1()
+    _, k2, strobes = lr_calls(_build.lr_kernels(), lay, kmers)
+    k2()
+    picks = range(0, len(reads), LR_CHECK_EVERY)
+    sub = [reads[i] for i in picks]
+    got = lr_keys._split(kmers["h"], kmers["v"], lay["offsets"].cpu().numpy())
+    want = lr_keys.kmer_keys_plain(sub, LR_K, False, device=dev)
+    assert all(np.array_equal(got[i], w) for i, w in zip(picks, want)), "lr_kmer_keys differs at the full size"
+    got = lr_keys._split(strobes["sh"], strobes["ok"], lay["aoff"].cpu().numpy())
+    want = lr_keys.strobemer_keys_plain(sub, LR_K, LR_N, LR_WMIN, LR_WMAX, False, device=dev)
+    assert all(np.array_equal(got[i], w) for i, w in zip(picks, want)), "lr_randstrobe_keys differs at the full size"
+    print(f"K1 and K2 at the full size ({len(reads)} reads, {lay['positions']} positions, {lay['anchors']} "
+          f"anchors): the keys of every {LR_CHECK_EVERY}th read ({len(sub)}) equal the plain versions' on those "
+          f"reads alone [{card}]", flush=True)
+    r = lr_turns(lay, variants, f"phase 10's {len(raw)} raw reads x {LR_REPEATS}", card)
+    r.update(reads=len(reads), positions=lay["positions"], anchors=lay["anchors"], checked_reads=len(sub))
+    return r
 
 
 def vote_vs_plain(captured: dict, card: str, dev) -> dict:
@@ -2560,10 +2787,13 @@ def long_card_vs_cpu(fasta: str, tmp: str) -> dict:
     return files
 
 
-def long_read_path(tmp: str, card: str, dev, transcripts: int = LR_TRANSCRIPTS, coverage: int = LR_COVERAGE) -> dict:
+def long_read_path(tmp: str, card: str, dev, transcripts: int = LR_TRANSCRIPTS, coverage: int = LR_COVERAGE,
+                   variants: dict = None) -> dict:
     """Phase 10: -long four ways on the card (each with every launch count
     set to 0 before it), the three long-read kernels against their plain
-    versions on the runs' own data, card against CPU."""
+    versions on the runs' own data, K1 and K2 (and each ``--lr-variant``)
+    also at the phase's specified size, card against CPU."""
+    variants = variants or {}
     t0 = time.time()
     rng = np.random.default_rng(0)
     truth = lrsim.simulate_transcriptome(rng, transcripts, (500, 4000))
@@ -2608,9 +2838,10 @@ def long_read_path(tmp: str, card: str, dev, transcripts: int = LR_TRANSCRIPTS, 
     corrected = [sequtils.encode(s) for _, s in fastx.read_fasta(
         os.path.join(out_a, "rnabloom.longreads.corrected.long.fa"))]
     shutil.rmtree(out_a)
+    full = lr_keys_full_size(reads, card, dev, variants)
     r = {"reads": len(reads), "bases": n_bases, "transcripts_simulated": transcripts, "coverage": coverage,
-         "runs": runs, "keys": lr_keys_vs_plain(corrected, card, dev), "vote": vote_vs_plain(captured, card, dev),
-         "card_vs_cpu": long_card_vs_cpu(head, tmp)}
+         "runs": runs, "keys": lr_keys_vs_plain(corrected, card, dev, variants, full["sm_clocks_mhz"]),
+         "full_size": full, "vote": vote_vs_plain(captured, card, dev), "card_vs_cpu": long_card_vs_cpu(head, tmp)}
     return r
 
 
@@ -2620,9 +2851,12 @@ def main(argv=None) -> int:
                     help="another walk kernel source (same C entry points) to check and time in phases 4, 6, 7 and 8")
     ap.add_argument("--insert-variant", action="append", default=[], metavar="NAME=PATH",
                     help="another insert kernel source (same C entry points) to check and time in phase 2")
+    ap.add_argument("--lr-variant", action="append", default=[], metavar="NAME=PATH",
+                    help="another long-read kernel source (same C entry points) to check and time in phase 10")
     args = ap.parse_args(argv)
     variant_srcs = dict(v.split("=", 1) for v in args.walk_variant)
     insert_srcs = dict(v.split("=", 1) for v in args.insert_variant)
+    lr_srcs = dict(v.split("=", 1) for v in args.lr_variant)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card",
               file=sys.stderr)
@@ -2636,22 +2870,25 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")
     t0 = time.time()
-    with ThreadPoolExecutor(2 + len(variant_srcs) + len(insert_srcs)) as pool:
+    with ThreadPoolExecutor(2 + len(variant_srcs) + len(insert_srcs) + len(lr_srcs)) as pool:
         port_build = pool.submit(_build.build_all)
         chase_build = pool.submit(build_chase)
         variant_builds = {name: pool.submit(build_variant, "walk", i, src)
                           for i, (name, src) in enumerate(variant_srcs.items())}
         insert_builds = {name: pool.submit(build_variant, "insert", i, src)
                          for i, (name, src) in enumerate(insert_srcs.items())}
+        lr_builds = {name: pool.submit(build_variant, "lr", i, src) for i, (name, src) in enumerate(lr_srcs.items())}
         built = port_build.result()
         chase = chase_build.result()
         variants = {name: f.result() for name, f in variant_builds.items()}
         insert_variants = {name: f.result() for name, f in insert_builds.items()}
+        lr_variants = {name: f.result() for name, f in lr_builds.items()}
     print(f"kernels built in parallel in {time.time() - t0:.2f} s: "
           + (", ".join(f"{os.path.relpath(src, os.path.dirname(os.path.abspath(__file__)))} "
                        f"{sec:.2f} s" for src, sec in built.items()) or "all up to date")
           + "".join(f"; walk variant {name} from {src}" for name, src in variant_srcs.items())
-          + "".join(f"; insert variant {name} from {src}" for name, src in insert_srcs.items()))
+          + "".join(f"; insert variant {name} from {src}" for name, src in insert_srcs.items())
+          + "".join(f"; long-read variant {name} from {src}" for name, src in lr_srcs.items()))
     log = _build.build_logs.get(_build.WALK_SRC)
     if log is None:
         print("walk kernel not rebuilt in this run (up to date): no ptxas report")
@@ -2665,7 +2902,9 @@ def main(argv=None) -> int:
     log = _build.build_logs.get(_build.LR_SRC)
     if log is not None:
         print("nvcc -Xptxas -v, long-read kernels: "
-              + "; ".join(insert_ptxas(log, "kmer_keys|randstrobe|vote_scatter|vote_resolve")))
+              + "; ".join(insert_ptxas(log, "kmer_keys|randstrobe|vote_scatter|vote_resolve"))
+              + "; randstrobe_kernel's dynamic shared memory at -lrsub 5,11,0,50: "
+                f"{_build.lr_kernels().lr_randstrobe_smem(LR_N, LR_WMAX)} B")
     print(f"native FASTX reader in use: {native.available()}", flush=True)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2800,7 +3039,7 @@ def main(argv=None) -> int:
 
         phase("10 -long (default, -lrsub strobemers, -lrsub k-mers, -paf) on simulated ONT cDNA reads, the long-read "
               "kernels vs plain PyTorch on the runs' own data, card vs CPU, on the card")
-        lr = long_read_path(tmp, card, dev)
+        lr = long_read_path(tmp, card, dev, variants=lr_variants)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2997,14 +3236,21 @@ def main(argv=None) -> int:
     lr_runs = {tag: {key: v for key, v in run.items() if key != "launches"} for tag, run in lr["runs"].items()}
     for name, row, tag in (("lr_kmer_keys", lr["keys"]["lr_kmer_keys"], "kmer"),
                            ("lr_randstrobe_keys", lr["keys"]["lr_randstrobe_keys"], "strobemer")):
+        full = lr["full_size"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": LR_SOURCE, "replaces": LR_REPLACES[name],
             "launches": lr["runs"][tag]["launches"][name],
             "run": f"phase 10, -long {' '.join(LR_RESUMED[tag])} on {lr['reads']} reads (resumed from run (i)); "
-                   f"times, bound and plain on every corrected read of run (i) ({row['work']})",
+                   f"times, bounds and plain on every corrected read of run (i) ({row['work']}); full_size: "
+                   f"phase 10's raw reads x {LR_REPEATS} ({lr['full_size']['work']})",
             "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
-            "bound_ms": row["bound_ms"], "bound_by": "bytes", "library_ms": None, "keys": row["keys"],
-            "keys_end_to_end_ms": row["keys_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+            "bytes_bound_ms": row["bytes_bound_ms"], "ops_bound_ms": row["ops_bound_ms"],
+            "variant_ms": row["variant_ms"], "sm_clock_mhz": row["sm_clock_mhz"],
+            "sm_clock_max_mhz": row["sm_clock_max_mhz"], "keys": row["keys"],
+            "keys_end_to_end_ms": row["keys_ms"], "wrapper_ms": row["wrapper_ms"], "entry_ms": row["entry_ms"],
+            "full_size": {key: full[key] for key in ("ms", "bound_ms", "bound_by", "bytes_bound_ms", "ops_bound_ms",
+                                                     "variant_ms")},
             "launches_by_run": {t: run["launches"].get(name, 0) for t, run in lr["runs"].items()},
         })
     vote = lr["vote"]

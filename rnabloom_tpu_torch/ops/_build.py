@@ -124,6 +124,8 @@ _SIGNATURES = {
         "lr_kmer_keys": [_P, _P, _I64, _I64, _INT, _INT, _P, _P, _P],
         # hash valid offsets aoff, n_reads n_anchors, k n w_min w_max, out ok, stream
         "lr_randstrobe_keys": [_P] * 4 + [_I64, _I64] + [_INT] * 4 + [_P, _P, _P],
+        # n w_max: the bytes of dynamic shared memory lr_randstrobe_keys takes
+        "lr_randstrobe_smem": [_INT, _INT],
         # unitigs U L, reads R Lr, tgt start, min_depth, votes polished depth, stream
         "consensus_vote": [_P, _I64, _I64, _P, _I64, _I64, _P, _P, _INT, _P, _P, _P, _P],
     }),

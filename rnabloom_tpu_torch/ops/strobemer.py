@@ -91,8 +91,10 @@ def randstrobe_hashes(
     ``hash_``/``valid``: the k-mer hashes (int64) and validity (uint8) at
     every base position of the reads (``lr_keys.kmer_hashes``); ``offsets``
     (int64, R + 1) the reads' base offsets; ``aoff`` (int64, R + 1) their
-    anchor offsets.  Launches the kernel on the current stream, or raises;
-    the anchors past a read's last k-mer are invalid."""
+    anchor offsets.  offsets[0] = aoff[0] = 0, offsets[-1] = the number of
+    positions, and read i has at most max(len_i - k + 1, 0) anchors (checked
+    here, with the host's one read of the anchor count).  Launches the kernel
+    on the current stream, or raises."""
     dev = hash_.device
     if dev.type != "cuda":
         raise ValueError(f"randstrobe_hashes: the kernel runs on a CUDA device, not {dev}")
@@ -101,11 +103,19 @@ def randstrobe_hashes(
     for t, dt in ((hash_, torch.int64), (valid, torch.uint8), (offsets, torch.int64), (aoff, torch.int64)):
         if t.device != dev or t.dtype != dt or t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"randstrobe_hashes: want a contiguous 1-D {dt} tensor on {dev}")
+    if valid.numel() != hash_.numel() or aoff.numel() != offsets.numel():
+        raise ValueError("randstrobe_hashes: hash/valid or offsets/aoff differ in length")
     from ._build import lr_kernels
 
     lib = lr_kernels()
     n_reads = offsets.numel() - 1
-    n_anchors = int(aoff[-1])
+    lens, m = offsets.diff(), aoff.diff()
+    bad = ((lens < 0) | (m < 0) | (m > (lens - k + 1).clamp(min=0))).any()
+    n_anchors, first, a_first, last, n_bad = torch.stack(
+        [aoff[-1], offsets[0], aoff[0], offsets[-1], bad.long()]).tolist()
+    if first != 0 or a_first != 0 or last != hash_.numel() or n_bad:
+        raise ValueError("randstrobe_hashes: offsets and aoff must start at 0, offsets end at the positions, and a "
+                         "read have at most len - k + 1 anchors")
     out = torch.empty(n_anchors, dtype=torch.int64, device=dev)
     ok = torch.empty(n_anchors, dtype=torch.uint8, device=dev)
     start = launch_timer.begin(dev)

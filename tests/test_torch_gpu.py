@@ -1,6 +1,6 @@
 """CUDA kernels (insert; greedy, pair and naive walks; the long-read
-k-mer keys, randstrobes and consensus vote) vs their plain PyTorch
-versions, on the card, the pair walks also on a single-end and a pooled
+k-mer keys, randstrobes and consensus vote, these also where their tiles
+bite) vs their plain PyTorch versions, on the card, the pair walks also on a single-end and a pooled
 sample's stage-3 graph, and -long on the card against the CPU.
 
 Imports no JAX (the machine with the card has none), so it runs there with
@@ -18,6 +18,7 @@ import torch
 from rnabloom_tpu_torch.graph import dbg
 from rnabloom_tpu_torch.bloom.filters import BloomConfig, CountingConfig
 from rnabloom_tpu_torch.ops import cell_insert as ci
+import lr_common
 
 torch.set_num_threads(2)
 
@@ -1129,6 +1130,96 @@ def test_lr_randstrobe_kernel_matches_plain(cuda, k, n, w_min, w_max, stranded):
     assert len(got) == len(want) and sum(w.size for w in want) > 1000
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
+
+
+def _tile_edge_reads(k, min_len, seed=11):
+    """Reads where the long-read kernels' tiles bite: one of 20,000 bases
+    (several tiles of both kernels), empty reads, a run of reads shorter
+    than k filling more than a k-mer tile, one of reads of k to min_len - 1
+    bases filling more than a randstrobe tile, reads of every length from
+    k - 1 to min_len + 1, lrsim reads; then codes 4 and 255 on every tile
+    edge of both kernels (the last position of a tile, the first of the
+    next) and inside the halo past it."""
+    from rnabloom_tpu_torch.ops import lr_keys
+
+    rng = np.random.default_rng(seed)
+    reads = [rng.integers(0, 4, 20_000).astype(np.uint8), np.empty(0, np.uint8)]
+    reads += _lr_reads(seed, 3, 3)[:12]
+    c = lr_common.kernel_constants()
+    kmer_tile, strobe_tile = c["kKmerTile"], c["kStrobeTile"]
+    reads += [rng.integers(0, 4, rng.integers(1, k)).astype(np.uint8) for _ in range(2 * kmer_tile // max(k // 2, 1))]
+    reads += [np.empty(0, np.uint8)] * 2
+    reads += [rng.integers(0, 4, rng.integers(k, min_len)).astype(np.uint8)
+              for _ in range(2 * strobe_tile // ((k + min_len) // 2))]
+    reads += [rng.integers(0, 4, n).astype(np.uint8) for n in range(k - 1, min_len + 2)]
+    bounds = np.concatenate([[0], np.cumsum([len(r) for r in reads])])
+    total = int(bounds[-1])
+    marks = [g for t, halo in ((kmer_tile, k // 2), (strobe_tile, 40)) for edge in range(t, total, t)
+             for g in (edge - 1, edge, edge + halo) if g < total]
+    for j, g in enumerate(marks):
+        i = int(np.searchsorted(bounds, g, side="right")) - 1
+        reads[i][g - bounds[i]] = (4, 255)[j % 2]
+    assert lr_keys.strobemer_min_len(k, 3, 11, 50) > 0
+    return reads
+
+
+@pytest.mark.parametrize("k,stranded", [(64, False), (64, True), (11, False), (25, True)])
+def test_lr_kmer_keys_kernel_tile_edges(cuda, k, stranded):
+    """The k-mer kernel's full 64-bit hashes and flags equal the plain
+    hash's at every position of reads where its tiles bite, and its keys the
+    plain keys."""
+    from rnabloom_tpu_torch.ops import lr_keys
+
+    reads = _tile_edge_reads(k, lr_keys.strobemer_min_len(k, 3, 11, 50))
+    codes, offsets, _ = lr_keys.pack(reads, cuda)
+    assert codes.numel() > 8 * lr_common.kernel_constants()["kKmerTile"]
+    h, v = lr_keys.kmer_hashes(codes, offsets, k, stranded)
+    want_h, want_v = lr_common.ragged_plain(reads, k, stranded, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(v, want_v) and torch.equal(h, want_h)
+    assert 0 < int(v.sum()) < v.numel() - 1000
+    got = lr_keys.kmer_keys(reads, k, stranded, device=cuda)
+    for g, w in zip(got, lr_keys.kmer_keys_plain(reads, k, stranded, device=cuda)):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("k,n,w_min,w_max,stranded", [
+    (25, 3, 11, 50, False), (25, 3, 11, 50, True), (11, 4, 3, 8, False), (11, 4, 3, 8, True),
+    (25, 2, 5, 3600, False),  # windows past the kernel's staged positions
+])
+def test_lr_randstrobe_kernel_tile_edges(cuda, k, n, w_min, w_max, stranded):
+    """The randstrobe kernel's full 64-bit hashes and flags equal the plain
+    version's at every anchor of reads where its tiles bite."""
+    from rnabloom_tpu_torch.ops import lr_keys, strobemer
+
+    min_len = lr_keys.strobemer_min_len(k, n, w_min, w_max)
+    reads = _tile_edge_reads(k, min_len)
+    codes, offsets, lens = lr_keys.pack(reads, cuda)
+    m = np.where(lens >= min_len, strobemer.num_anchors(lens, k, n, w_min, w_max), 0)
+    aoff = torch.from_numpy(np.concatenate([[0], np.cumsum(m)]).astype(np.int64)).to(cuda)
+    h, v = lr_keys.kmer_hashes(codes, offsets, k, stranded)
+    n0 = strobemer.LAUNCHES["lr_randstrobe_keys"]
+    sh, ok = strobemer.randstrobe_hashes(h, v, offsets, aoff, k, n, w_min, w_max)
+    assert strobemer.LAUNCHES["lr_randstrobe_keys"] == n0 + 1
+    want_h, want_ok = lr_common.ragged_plain(reads, k, stranded, cuda, (n, w_min, w_max))
+    torch.cuda.synchronize()
+    assert torch.equal(ok, want_ok) and torch.equal(sh, want_h)
+    assert 1000 < int(ok.sum()) < ok.numel()
+
+
+def test_lr_randstrobe_refuses_bad_layouts(cuda):
+    """The randstrobe wrapper raises on offsets or anchor counts the kernel
+    does not take (offsets not from 0, more anchors than k-mers)."""
+    from rnabloom_tpu_torch.ops import lr_keys, strobemer
+
+    codes, offsets, _ = lr_keys.pack(_lr_reads()[:3], cuda)
+    h, v = lr_keys.kmer_hashes(codes, offsets, 25, False)
+    lens = offsets.diff()
+    good = torch.cat([offsets[:1], (lens - 24).clamp(min=0).cumsum(0)])
+    strobemer.randstrobe_hashes(h, v, offsets, good, 25, 3, 11, 50)
+    for bad_offsets, bad_aoff in ((offsets + 1, good), (offsets, good + torch.arange(4, device=cuda))):
+        with pytest.raises(ValueError, match="anchors"):
+            strobemer.randstrobe_hashes(h, v, bad_offsets, bad_aoff, 25, 3, 11, 50)
 
 
 @pytest.mark.parametrize("U,L,R,Lr,min_depth", [(5, 90, 40, 50, 2), (64, 3000, 2048, 4000, 2), (1, 7, 3, 5, 1)])
