@@ -14,9 +14,9 @@ to the same equality and timed in the same turns.
 ``--insert-variant`` does the same for another ``csrc/cell_insert.cu`` in
 phase 2 (an older source whose mf8 entry point is ``cell_add_mf8``, with
 its int32 scratch as long as the table, gets that scratch), and
-``--lr-variant`` for another ``csrc/lr_kernels.cu`` in phase 10 (K1 and
-K2: every output value equal to the port's kernels', times in the same
-turns on both of the phase's kernel cells).
+``--lr-variant`` for another ``csrc/lr_kernels.cu`` in phase 10 (K1, K2
+and K3: every output value equal to the port's kernels', times in the
+same turns on both of the phase's kernel cells).
 ``tools/long_smoke.py`` runs phase 10 alone.  Phases (any failure raises
 and exits nonzero):
 
@@ -193,11 +193,19 @@ and exits nonzero):
    on the card, plain on the CPU).  K1 and K2 also at the size the phase
    was specified with: its 1,500 raw reads 7 times (10,500 reads, about
    16.3 M positions), one launch each, the keys of every 7th read (each
-   raw read once) equal to the plain versions' on those reads alone.  Each
-   kernel is timed with CUDA events beside its plain version (K1 and K2 on
-   both cells, in turns with each ``--lr-variant``, through the C entry
-   points; their key path end to end, wrapper and C entry also on the
-   host's clock, 5 calls each), with its bound (the larger of bytes over
+   raw read once) equal to the plain versions' on those reads alone; K3
+   too: run (i)'s unitigs and placements 7 times over (copy c on unitigs
+   c U ..) through ``polish(..., indel_band=0)``, every batch's polished
+   codes and depths equal to the plain version's on that batch, a call's
+   peak device memory under 6 B a cell above its inputs; K3's turns also
+   time it with no read (the scans and writes alone) and with the batch's
+   reads spread evenly over the unitigs (no skew).  Each kernel is
+   timed with CUDA events beside its plain version (all three on both
+   cells, in turns with each ``--lr-variant``, K1 and K2 through the C
+   entry points, K3 through its wrapper and a variant through its C entry
+   with a zeroed vote table allocated in each call; K1's and K2's key path
+   end to end, wrapper and C entry also on the host's clock, 5 calls
+   each), with its bound (the larger of bytes over
    3.35 TB/s and, for K1 and K2, 32-bit integer instructions by pipe, 64
    lanes an SM on the ALU or FMA pipe and 128 issued, over 132 SMs at the
    highest SM clock nvidia-smi gives) and, for the vote, the
@@ -214,6 +222,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import filecmp
 import itertools
 import json
@@ -368,6 +377,7 @@ def build_variant(kind: str, i: int, src: str) -> ctypes.CDLL:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
     so = ctypes.CDLL(lib)
+    so.source = src
     lib_of = {"walk": _build.WALK_LIB, "insert": _build.KERNEL_LIB, "lr": _build.LR_LIB}
     signatures = dict(_build._SIGNATURES[lib_of[kind]][1])
     if kind == "walk" and not hasattr(so, "walk_pair"):  # an older source: greedy mode only
@@ -2399,12 +2409,14 @@ LR_CHECK = 400  # reads of the card-vs-CPU runs
 LR_K, LR_N, LR_WMIN, LR_WMAX = 25, 3, 11, 50  # run (ii)'s strobemers: -lrsub 5,11,0,50 at k=25
 # the runs after (i), each resumed from a copy of (i)'s corrected reads and stamps
 LR_RESUMED = {"strobemer": ["-lrsub", "5,11,0,50"], "kmer": ["-lrsub", "5,25,0"], "paf": ["-paf"]}
-# phase 10's kernel cell at the size the phase was specified with: its
-# 1,500 raw lrsim reads, 7 times (10,500 reads and 16.3 M positions), keys
-# held to the plain version on every 7th read: 7 is prime to the 1,500
-# reads of a repeat, so every raw read is checked once, each repeat at
-# other tile alignments
+# phase 10's kernel cells at the size the phase was specified with.  K1
+# and K2: its 1,500 raw lrsim reads, 7 times (10,500 reads and 16.3 M
+# positions), keys held to the plain version on every 7th read: 7 is prime
+# to the 1,500 reads of a repeat, so every raw read is checked once, each
+# repeat at other tile alignments.  K3: run (i)'s unitigs and placements 7
+# times over (about what the specified 1,000 transcripts would give)
 LR_REPEATS = 7
+LR_VOTE_BATCH = 2048  # polish's reads a batch (its default), so a full batch of the vote
 LR_CHECK_EVERY = 7
 LR_HOST_REPS = 5  # host-timed calls of the key path, for its spread
 # The least 32-bit integer instructions of the work, by the pipe that runs
@@ -2704,11 +2716,105 @@ def lr_keys_full_size(raw: list, card: str, dev, variants: dict) -> dict:
     return r
 
 
-def vote_vs_plain(captured: dict, card: str, dev) -> dict:
+def vote_entry(lib: ctypes.CDLL, args: tuple):
+    """A call of ``lib``'s C entry ``consensus_vote`` (an ``--lr-variant``
+    build) on a batch's ``args``, into outputs of its own: (polished,
+    depth).  Where ``lib``'s source scatters into a vote table (an older
+    source, which defines ``vote_scatter_kernel``), a zeroed U * L * 4
+    int32 table is allocated inside the call, as that source's wrapper
+    allocated it; a one-pass source gets null, as the port's wrapper
+    passes."""
+    u_t, r_t, tgt, start, min_depth = args
+    (U, L), (R, Lr) = u_t.shape, r_t.shape
+    dev = u_t.device
+    with open(lib.source) as f:
+        table = "vote_scatter_kernel" in f.read()
+
+    def call():
+        votes = torch.zeros(U * L * 4, dtype=torch.int32, device=dev) if table else None
+        polished = torch.empty_like(u_t)
+        depth = torch.empty((U, L), dtype=torch.int32, device=dev)
+        err = lib.consensus_vote(u_t.data_ptr(), U, L, r_t.data_ptr(), R, Lr, tgt.data_ptr(), start.data_ptr(),
+                                 int(min_depth), None if votes is None else votes.data_ptr(), polished.data_ptr(),
+                                 depth.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        assert err == 0, f"consensus_vote: cudaError_t {err}"
+        return polished, depth
+
+    return call
+
+
+def vote_turns(args: tuple, variants: dict, what: str, card: str) -> dict:
+    """K3 on one batch's ``args``: the kernel (through its wrapper) and each
+    ``--lr-variant`` (``vote_entry``) timed with CUDA events in turns
+    (kernel, variants, variants, kernel), every variant's polished codes and
+    depths equal to the kernel's; the plain version, the scatter_add_ +
+    argmax composite (the library yardstick, equal to the kernel's polished
+    codes) and the byte bound."""
+    u_t, r_t, tgt, start, min_depth = args
+    (U, L), (R, Lr) = u_t.shape, r_t.shape
+    dev = u_t.device
+    calls = {"kernel": lambda: consensus_vote.consensus_vote(*args),
+             **{who: vote_entry(lib, args) for who, lib in variants.items()}}
+    want = calls["kernel"]()
+    # the wrapper allocates its outputs in every call: one call, timed alone,
+    # with the allocator's cache emptied first (it waits on cudaMalloc), so
+    # that every call after it finds their blocks cached
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cold_ms = _time_ms(calls["kernel"], reps=1)
+    for who in variants:
+        got = calls[who]()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            f"lr variant {who}'s consensus_vote differs from the kernel ({what})"
+    t = {}
+    for who in ["kernel", *variants, *reversed(variants), "kernel"]:
+        t.setdefault(who, []).append(_time_ms(calls[who]))
+    plain_ms = _time_ms(lambda: consensus_vote.consensus_vote_plain(*args))
+    # what holds the kernel: the same call with no read (the scans and the
+    # writes alone), and with the reads spread evenly over the unitigs
+    no_reads = (u_t, r_t[:0], tgt[:0], start[:0], min_depth)
+    spread = (u_t, r_t, torch.arange(R, device=dev, dtype=torch.int32) % U, start, min_depth)
+    empty_ms = _time_ms(lambda: consensus_vote.consensus_vote(*no_reads))
+    spread_ms = _time_ms(lambda: consensus_vote.consensus_vote(*spread))
+    most = int(torch.bincount(tgt.long(), minlength=U).max())
+    pos = start.long()[:, None] + torch.arange(Lr, device=dev)[None, :]
+    ok = (r_t < 4) & (pos >= 0) & (pos < L)
+    flat = ((tgt.long()[:, None] * L + pos.clamp(0, L - 1)) * 4 + torch.where(ok, r_t, 0).long()).reshape(-1)
+    val = ok.reshape(-1).to(torch.int32)
+    del pos, ok
+
+    def library():
+        votes = torch.zeros(U * L * 4, dtype=torch.int32, device=dev).scatter_add_(0, flat, val).view(U, L, 4)
+        return torch.where((votes.sum(-1) >= min_depth) & (u_t < 4), votes.argmax(-1).to(torch.uint8), u_t)
+
+    assert torch.equal(library(), want[0])
+    library_ms = _time_ms(library)
+    # unitigs, tgt and start read once, of each read the bases that fall on
+    # its unitig's columns (its row's bytes past either end of the unitig
+    # the function never needs); polished and depth written
+    first = start.long()
+    read_bytes = int((torch.clamp(first + Lr, max=L) - torch.clamp(first, min=0)).clamp(min=0).sum())
+    nbytes = U * L + read_bytes + 8 * R + U * L * 5
+    r = {"max_abs_err": 0, "ms": _mean(t["kernel"]), "turns_ms": t["kernel"],
+         "variant_ms": {who: _mean(t[who]) for who in variants}, "plain_ms": plain_ms, "library_ms": library_ms,
+         "bound_ms": nbytes / HBM_BYTES_PER_MS, "bytes": nbytes, "read_bytes": read_bytes, "padded_read_bytes": R * Lr,
+         "unitigs": U, "unitig_len": L, "batch_reads": R, "read_len": Lr, "cold_ms": cold_ms, "no_reads_ms": empty_ms,
+         "spread_ms": spread_ms, "most_reads_on_a_unitig": most}
+    print(f"consensus_vote ({what}: {R} reads of up to {Lr} bases on {U} x {L}, at most {most} on one unitig): "
+          f"kernel {r['ms']:.4f} ms (turns {t['kernel']}; one call after the allocator's cache was emptied "
+          f"{cold_ms:.4f} ms), "
+          + "".join(f"variant {who} {ms:.4f} ms, " for who, ms in r["variant_ms"].items())
+          + f"plain {plain_ms:.4f} ms, scatter_add_ + argmax {library_ms:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+          f"bytes ({nbytes} B, {read_bytes} of the {R * Lr} B of padded reads), {r['bound_ms'] / r['ms']:.1%} of "
+          f"it; the kernel with no read {empty_ms:.4f} ms, "
+          f"with the reads spread evenly over the unitigs {spread_ms:.4f} ms [{card}]", flush=True)
+    return r
+
+
+def vote_vs_plain(captured: dict, card: str, dev, variants: dict) -> dict:
     """K3 through ``polish(..., indel_band=0)`` on run (i)'s unitigs and
     placements: the kernel's polished unitigs equal the plain version's on
-    the card and on the CPU; the largest batch timed (kernel, plain, and
-    the scatter_add_ + argmax composite as the library yardstick)."""
+    the card and on the CPU; the first batch timed (``vote_turns``)."""
     unitigs, reads, placements = captured["unitigs"], captured["reads"], captured["placements"]
     calls = []
     vote = olc_consensus.consensus_vote
@@ -2734,32 +2840,60 @@ def vote_vs_plain(captured: dict, card: str, dev) -> dict:
         assert np.array_equal(a, b) and np.array_equal(a, c), "consensus_vote differs from the plain version"
     changed = sum(not np.array_equal(a, u) for a, u in zip(got, unitigs))
     assert launches == len(calls) >= 1 and changed > 0, (launches, len(calls), changed)
-    u_t, r_t, tgt, start, min_depth = calls[0]
-    U, L = u_t.shape
-    R, Lr = r_t.shape
-    ms = _time_ms(lambda: consensus_vote.consensus_vote(u_t, r_t, tgt, start, min_depth))
-    plain_ms = _time_ms(lambda: consensus_vote.consensus_vote_plain(u_t, r_t, tgt, start, min_depth))
-    pos = start.long()[:, None] + torch.arange(Lr, device=dev)[None, :]
-    ok = (r_t < 4) & (pos >= 0) & (pos < L)
-    flat = ((tgt.long()[:, None] * L + pos.clamp(0, L - 1)) * 4 + torch.where(ok, r_t, 0).long()).reshape(-1)
-    val = ok.reshape(-1).to(torch.int32)
+    print(f"consensus_vote vs plain through polish(indel_band=0) on run (i)'s {len(unitigs)} unitigs and "
+          f"{len(placements)} placements ({launches} batches): polished unitigs equal on the card (kernel, plain) "
+          f"and the CPU, {changed} changed [{card}]", flush=True)
+    r = vote_turns(calls[0], variants, "run (i)'s first batch", card)
+    r.update(check_launches=launches, placements=len(placements), changed_unitigs=changed)
+    return r
 
-    def library():
-        votes = torch.zeros(U * L * 4, dtype=torch.int32, device=dev).scatter_add_(0, flat, val).view(U, L, 4)
-        return torch.where((votes.sum(-1) >= min_depth) & (u_t < 4), votes.argmax(-1).to(torch.uint8), u_t)
 
-    assert torch.equal(library(), consensus_vote.consensus_vote(u_t, r_t, tgt, start, min_depth)[0])
-    library_ms = _time_ms(library)
-    # unitigs, reads, tgt and start read once; polished and depth written
-    nbytes = U * L + R * Lr + 8 * R + U * L * 5
-    r = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-         "bound_ms": nbytes / HBM_BYTES_PER_MS, "check_launches": launches, "unitigs": U, "unitig_len": L,
-         "batch_reads": R, "read_len": Lr, "placements": len(placements), "changed_unitigs": changed}
-    print(f"consensus_vote vs plain through polish(indel_band=0) on run (i)'s {U} unitigs and {len(placements)} "
-          f"placements ({launches} batches): polished unitigs equal on the card (kernel, plain) and the CPU, "
-          f"{changed} changed; first batch ({R} reads of up to {Lr} bases on {U} x {L}): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, scatter_add_ + argmax {library_ms:.4f} ms, bound {r['bound_ms']:.4f} ms (bytes) "
-          f"[{card}]", flush=True)
+def vote_full_size(captured: dict, card: str, dev, variants: dict) -> dict:
+    """K3 at the size phase 10 was specified with: run (i)'s unitigs and
+    placements LR_REPEATS times over (copy c places its reads on unitigs
+    c U .. c U + U - 1), through ``polish(..., indel_band=0)`` on the card.
+    Every batch's polished codes and depths equal the plain version's on
+    that batch's inputs; one call's peak device memory above its inputs
+    stays under 6 B a cell (its outputs take 5: no vote table); the first
+    batch, a full one, timed (``vote_turns``)."""
+    unitigs, reads, placements = captured["unitigs"], captured["reads"], captured["placements"]
+    U = len(unitigs)
+    placed = [dataclasses.replace(p, target=p.target + c * U) for c in range(LR_REPEATS) for p in placements]
+    calls = []
+    vote = olc_consensus.consensus_vote
+
+    def checked(*args):
+        got = vote(*args)
+        want = consensus_vote.consensus_vote_plain(*args)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            f"consensus_vote differs from the plain version in batch {len(calls)} at the full size"
+        calls.append(args if not calls else None)  # keep the first batch's inputs
+        return got
+
+    olc_consensus.consensus_vote = checked
+    try:
+        consensus_vote.reset_launch_counts()
+        olc_consensus.polish(unitigs * LR_REPEATS, reads, placed, indel_band=0, device=dev)
+        launches = consensus_vote.launch_counts()["consensus_vote"]
+    finally:
+        olc_consensus.consensus_vote = vote
+    args = calls[0]
+    (UU, L), R = args[0].shape, args[1].shape[0]
+    assert launches == len(calls) > 1 and R == LR_VOTE_BATCH, (launches, len(calls), R)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    consensus_vote.consensus_vote(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert peak < UU * L * 6, f"consensus_vote took {peak} B above its inputs on {UU} x {L}"
+    print(f"consensus_vote at the full size (run (i)'s {U} unitigs and {len(placements)} placements x "
+          f"{LR_REPEATS}: {UU} x {L}, {len(placed)} placements, {launches} batches): every batch's polished codes "
+          f"and depths equal the plain version's; a call's peak device memory above its inputs {peak} B "
+          f"({peak / (UU * L):.2f} B a cell) [{card}]", flush=True)
+    r = vote_turns(args, variants, "the full size's first batch", card)
+    r.update(check_launches=launches, placements=len(placed), call_peak_bytes=peak)
     return r
 
 
@@ -2787,6 +2921,26 @@ def long_card_vs_cpu(fasta: str, tmp: str) -> dict:
     return files
 
 
+def captured_run(fasta: str, out: str, truth: list, card: str) -> tuple:
+    """Run (i), ``-long`` on the card (``long_run``), keeping what its
+    polish step was given: (the run's results, {unitigs, reads,
+    placements})."""
+    captured = {}
+    polish = olc_consensus.polish
+
+    def keep(unitigs, reads, placements, **kw):
+        captured.update(unitigs=list(unitigs), placements=list(placements),
+                        reads=[np.array(reads[i]) for i in range(len(reads))])
+        return polish(unitigs, reads, placements, **kw)
+
+    olc_consensus.polish = keep
+    try:
+        run = long_run(["-long", fasta], out, truth, card, "(i) default")
+    finally:
+        olc_consensus.polish = polish
+    return run, captured
+
+
 def long_read_path(tmp: str, card: str, dev, transcripts: int = LR_TRANSCRIPTS, coverage: int = LR_COVERAGE,
                    variants: dict = None) -> dict:
     """Phase 10: -long four ways on the card (each with every launch count
@@ -2808,20 +2962,9 @@ def long_read_path(tmp: str, card: str, dev, transcripts: int = LR_TRANSCRIPTS, 
     print(f"simulated {len(reads)} ONT-like cDNA reads, {n_bases} bases ({transcripts} transcripts of 500-4,000 "
           f"bases, coverage {coverage}, {LR_ERR:.0%} error, seed 0) in {time.time() - t0:.1f} s", flush=True)
 
-    captured = {}
-    polish = olc_consensus.polish
-
-    def keep(unitigs, reads_, placements, **kw):
-        captured.update(unitigs=list(unitigs), placements=list(placements),
-                        reads=[np.array(reads_[i]) for i in range(len(reads_))])
-        return polish(unitigs, reads_, placements, **kw)
-
     out_a = os.path.join(tmp, "long_a")
-    olc_consensus.polish = keep
-    try:
-        runs = {"default": long_run(["-long", fasta], out_a, truth, card, "(i) default")}
-    finally:
-        olc_consensus.polish = polish
+    run, captured = captured_run(fasta, out_a, truth, card)
+    runs = {"default": run}
     launches = runs["default"]["launches"]
     assert launches.get("add_mf8", 0) > 0 and launches.get("walk_greedy", 0) > 0 and launches.get("set", 0) > 0, \
         launches
@@ -2841,7 +2984,8 @@ def long_read_path(tmp: str, card: str, dev, transcripts: int = LR_TRANSCRIPTS, 
     full = lr_keys_full_size(reads, card, dev, variants)
     r = {"reads": len(reads), "bases": n_bases, "transcripts_simulated": transcripts, "coverage": coverage,
          "runs": runs, "keys": lr_keys_vs_plain(corrected, card, dev, variants, full["sm_clocks_mhz"]),
-         "full_size": full, "vote": vote_vs_plain(captured, card, dev), "card_vs_cpu": long_card_vs_cpu(head, tmp)}
+         "full_size": full, "vote": vote_vs_plain(captured, card, dev, variants),
+         "vote_full_size": vote_full_size(captured, card, dev, variants), "card_vs_cpu": long_card_vs_cpu(head, tmp)}
     return r
 
 
@@ -2902,7 +3046,7 @@ def main(argv=None) -> int:
     log = _build.build_logs.get(_build.LR_SRC)
     if log is not None:
         print("nvcc -Xptxas -v, long-read kernels: "
-              + "; ".join(insert_ptxas(log, "kmer_keys|randstrobe|vote_scatter|vote_resolve"))
+              + "; ".join(insert_ptxas(log, "kmer_keys|randstrobe|vote"))
               + "; randstrobe_kernel's dynamic shared memory at -lrsub 5,11,0,50: "
                 f"{_build.lr_kernels().lr_randstrobe_smem(LR_N, LR_WMAX)} B")
     print(f"native FASTX reader in use: {native.available()}", flush=True)
@@ -3253,17 +3397,24 @@ def main(argv=None) -> int:
                                                      "variant_ms")},
             "launches_by_run": {t: run["launches"].get(name, 0) for t, run in lr["runs"].items()},
         })
-    vote = lr["vote"]
+    vote, vote_full = lr["vote"], lr["vote_full_size"]
     kernels.append({
         "name": "consensus_vote", "route": "cuda", "source": LR_SOURCE, "replaces": LR_REPLACES["consensus_vote"],
         "launches": lr["runs"]["default"]["launches"].get("consensus_vote", 0),
         "run": f"phase 10: no -long run reaches it (polish realigns with indel_band 16 by default); checked through "
                f"polish(indel_band=0) on run (i)'s {vote['unitigs']} unitigs and {vote['placements']} placements "
-               f"({vote['check_launches']} launches), timed on its first batch",
+               f"({vote['check_launches']} launches), timed on its first batch (the cut cell); full_size: run (i)'s "
+               f"unitigs and placements x {LR_REPEATS} ({vote_full['unitigs']} x {vote_full['unitig_len']}, "
+               f"{vote_full['placements']} placements, {vote_full['check_launches']} launches, each batch held to "
+               f"the plain version), timed on its first batch",
         "max_abs_err": vote["max_abs_err"], "ms": vote["ms"], "plain_ms": vote["plain_ms"],
         "bound_ms": vote["bound_ms"], "bound_by": "bytes", "library_ms": vote["library_ms"],
-        "check_launches": vote["check_launches"],
+        "variant_ms": vote["variant_ms"], "check_launches": vote["check_launches"],
         **{key: vote[key] for key in ("unitigs", "unitig_len", "batch_reads", "read_len", "changed_unitigs")},
+        "full_size": {key: vote_full[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "variant_ms",
+                                                      "max_abs_err", "unitigs", "unitig_len", "batch_reads",
+                                                      "read_len", "placements", "check_launches",
+                                                      "call_peak_bytes")},
         "long_read_runs": lr_runs, "long_reads": lr["reads"], "long_bases": lr["bases"],
         "card_vs_cpu_files": lr["card_vs_cpu"],
     })

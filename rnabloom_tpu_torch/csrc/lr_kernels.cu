@@ -73,10 +73,35 @@
 // tiles to SMs as blocks end (blocks that keep a fixed share of tiles
 // end far apart).
 //
-// consensus_vote (unchanged since it was written): one vote a read base
-// with a fire-and-forget atomic (RED) into an int32 table that stays in L2
-// at the smoke's size, then 16 bytes read and 5 written per unitig
-// position.  Bound: bytes.
+// consensus_vote.  Bound: bytes (a unitig code read, a polished code and
+// an int32 depth written a cell, each read base read once, 8 bytes a read:
+// 6 B a cell plus the batch's reads).  The vote table of the JAX function
+// (16 B a cell, zeroed, scattered into and read back: about three times the
+// bytes the function needs, and past the 50 MB L2 at phase 10's specified
+// size) never reaches device memory.  One launch: a block takes unitig u
+// and one or more tiles of kVoteTile columns (more blocks a unitig, each
+// fewer tiles, when U alone would not fill the card).  It finds u's reads
+// itself: the threads scan tgt in windows of kVoteList entries (8 KB for a
+// 2,048-read batch, served from L2), and warp ballots append the matches'
+// (read, start) to a list in shared memory (kept for the block's next tile
+// when one window holds the whole batch).  A warp owns kVoteSpan
+// consecutive columns, a lane every 32nd of them, and keeps their four
+// base counts in registers; for each listed read that overlaps its columns
+// the warp reads the read's bases there, neighbouring lanes neighbouring
+// bytes, so every base is read once and no vote is an atomic.  Then each
+// lane resolves its columns (depth, the first base of most votes, the
+// depth floor) and writes them, coalesced, for every cell, touched or not.
+// What holds it (chip_smoke.py times it with no read and with the reads
+// spread evenly): at phase 10's specified size the unitig loads and the
+// writes, each warp's stores waiting on its loads, take most of its time;
+// at the cut cell a warp's reads, one load round after another, take about
+// half.  Staging the writes in shared memory for aligned 16-byte stores did
+// not help.  Both scheduling steps were timed against this kernel without
+// them on one H100 80GB HBM3 at 700 W (tools/long_smoke.py --kernels-only,
+// each as an --lr-variant): one block a unitig took 0.0229 ms against
+// 0.0187 on 489 unitigs x 3,938 (the split gives each block one tile), and
+// a list refilled every tile 0.0522 ms against 0.0479 on 3,423 x 3,938
+// (there every block takes two tiles and keeps its list).
 //
 // The first versions of lr_kmer_keys and lr_randstrobe_keys (commit
 // 514a70d: one thread a position or anchor, each with a binary search of
@@ -89,8 +114,13 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132LL * 16;  // a grid-stride loop over 132 SMs
+constexpr int kVoteThreads = 256;
+constexpr int kVotePer = 8;                                 // columns a lane
+constexpr int kVoteSpan = 32 * kVotePer;                    // consecutive columns a warp
+constexpr int kVoteTile = kVoteThreads / 32 * kVoteSpan;    // columns a block takes at a time: 2,048
+constexpr int kVoteScan = 8;                                // tgt entries a thread loads at once
+constexpr int kVoteList = 2 * kVoteThreads * kVoteScan;     // tgt entries a window: 4,096 (a 32 KB list)
+constexpr int kVoteBlocks = 132 * 8;                        // blocks a launch aims at: 2 waves of 4 an SM
 
 constexpr int kMaxK = 64;
 constexpr int kKmerThreads = 128;
@@ -111,11 +141,6 @@ __constant__ uint64_t kSeeds[4] = {0x3C8BFBB395C60474ULL, 0x3193C18562A02B4CULL,
 __device__ __forceinline__ uint64_t rotl(uint64_t v, int s) {
   s &= 63;
   return s == 0 ? v : (v << s) | (v >> (64 - s));
-}
-
-long long grid_for(long long n) {
-  long long b = (n + kThreads - 1) / kThreads;
-  return b < kMaxBlocks ? b : kMaxBlocks;
 }
 
 // The first i in [0, n] with a[i] > x (n + 1 if none), a sorted: one warp,
@@ -399,37 +424,107 @@ randstrobe_kernel(const long long* __restrict__ hash, const uint8_t* __restrict_
   }
 }
 
-// One thread per (read, position) of the batch: a vote for the base where
-// it is one and its unitig position lies in [0, L).
-__global__ void vote_scatter_kernel(const uint8_t* __restrict__ reads, long long R, long long Lr,
-                                    const int* __restrict__ tgt, const int* __restrict__ start, long long L,
-                                    int* __restrict__ votes) {
-  long long total = R * Lr;
-  for (long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x; g < total;
-       g += (long long)gridDim.x * blockDim.x) {
-    int c = reads[g];
-    long long r = g / Lr;
-    long long pos = (long long)start[r] + (g - r * Lr);
-    if (c < 4 && pos >= 0 && pos < L) atomicAdd(&votes[((long long)tgt[r] * L + pos) * 4 + c], 1);
+// The reads of unitig u among tgt[p, end), at most kVoteList of them: their
+// (read, start) pairs into list, in no order (the votes add up in any
+// order), and their number, which every thread of the block gets.  A
+// thread loads kVoteScan entries of tgt at once, then the starts of its
+// hits: two rounds of loads a kVoteThreads * kVoteScan entries.
+__device__ int vote_fill(const int* __restrict__ tgt, const int* __restrict__ start, long long p, long long end,
+                         int u, int2* list, int* count) {
+  const int lane = threadIdx.x & 31;
+  __syncthreads();  // every warp is done with the previous list
+  if (threadIdx.x == 0) *count = 0;
+  __syncthreads();
+  for (long long b = p; b < end; b += (long long)kVoteThreads * kVoteScan) {
+    bool hit[kVoteScan];
+    int st[kVoteScan];
+#pragma unroll
+    for (int m = 0; m < kVoteScan; ++m) {
+      const long long i = b + m * kVoteThreads + threadIdx.x;
+      hit[m] = i < end && tgt[i] == u;
+    }
+#pragma unroll
+    for (int m = 0; m < kVoteScan; ++m) st[m] = hit[m] ? start[b + m * kVoteThreads + threadIdx.x] : 0;
+#pragma unroll
+    for (int m = 0; m < kVoteScan; ++m) {
+      const unsigned mask = __ballot_sync(0xffffffffu, hit[m]);
+      if (mask == 0) continue;
+      int at = 0;
+      if (lane == 0) at = atomicAdd(count, __popc(mask));
+      at = __shfl_sync(0xffffffffu, at, 0) + __popc(mask & ((1u << lane) - 1));
+      if (hit[m]) list[at] = make_int2((int)(b + m * kVoteThreads + threadIdx.x), st[m]);
+    }
   }
+  __syncthreads();
+  return *count;
 }
 
-// One thread per (unitig, position): depth, the first base of most votes,
-// and the polished code where the depth reaches min_depth on a base.
-__global__ void vote_resolve_kernel(const uint8_t* __restrict__ unitigs, long long cells,
-                                    const int4* __restrict__ votes, int min_depth,
-                                    uint8_t* __restrict__ polished, int* __restrict__ depth) {
-  for (long long g = blockIdx.x * (long long)blockDim.x + threadIdx.x; g < cells;
-       g += (long long)gridDim.x * blockDim.x) {
-    int4 v = votes[g];
-    int d = v.x + v.y + v.z + v.w;
-    int w = 0, m = v.x;
-    if (v.y > m) { w = 1; m = v.y; }
-    if (v.z > m) { w = 2; m = v.z; }
-    if (v.w > m) { w = 3; }
-    uint8_t u = unitigs[g];
-    polished[g] = (d >= min_depth && u < 4) ? (uint8_t)w : u;
-    depth[g] = d;
+// Block (u, s) takes unitig u's tiles s, s + gridDim.y, ...: the votes of
+// every read on u over the tile's columns, then per column the depth, the
+// first base of most votes and the polished code (that base where the depth
+// reaches min_depth on a base, else the unitig's own code).  A lane's
+// columns are seg + lane + 32 k, k < kVotePer, seg its warp's first.
+__global__ void __launch_bounds__(kVoteThreads, 4)
+    vote_kernel(const uint8_t* __restrict__ unitigs, long long L, const uint8_t* __restrict__ reads, long long R,
+                long long Lr, const int* __restrict__ tgt, const int* __restrict__ start, int min_depth,
+                long long tiles, uint8_t* __restrict__ polished, int* __restrict__ depth) {
+  __shared__ int2 list[kVoteList];
+  __shared__ int count;
+  const int u = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const long long warp_col = (threadIdx.x >> 5) * kVoteSpan;
+  const uint8_t* own = unitigs + (long long)u * L;
+  int n = 0;
+  bool whole = false;  // the list holds every read on u: the block's later tiles keep it
+  for (long long tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const long long seg = tile * kVoteTile + warp_col;
+    const int width = (int)max(0LL, min((long long)kVoteSpan, L - seg));  // the warp's columns below L
+    int va[kVotePer], vc[kVotePer], vg[kVotePer], vt[kVotePer];
+#pragma unroll
+    for (int k = 0; k < kVotePer; ++k) va[k] = vc[k] = vg[k] = vt[k] = 0;
+    long long p = 0;
+    do {
+      if (!whole) {
+        const long long end = min(R, p + kVoteList);
+        n = vote_fill(tgt, start, p, end, u, list, &count);
+        whole = p == 0 && end == R;
+      }
+      for (int j = 0; j < n; ++j) {
+        const int2 e = list[j];
+        // the read covers columns e.y .. e.y + Lr - 1: offsets lo .. hi - 1 of the warp's
+        const long long lo = max(0LL, (long long)e.y - seg);
+        const long long hi = min((long long)width, (long long)e.y + Lr - seg);
+        if (lo >= hi) continue;
+        const long long base = (long long)e.x * Lr + seg - e.y;  // reads[base + o]: the base at column seg + o
+        const int first = (int)lo, last = (int)hi;
+#pragma unroll
+        for (int k = 0; k < kVotePer; ++k) {
+          const int o = lane + 32 * k;
+          if (o >= first && o < last) {
+            const int b = reads[base + o];
+            va[k] += b == 0;
+            vc[k] += b == 1;
+            vg[k] += b == 2;
+            vt[k] += b == 3;
+          }
+        }
+      }
+      p += kVoteList;
+    } while (p < R);
+#pragma unroll
+    for (int k = 0; k < kVotePer; ++k) {
+      const int o = lane + 32 * k;
+      if (o < width) {
+        const int d = va[k] + vc[k] + vg[k] + vt[k];
+        int w = 0, m = va[k];
+        if (vc[k] > m) { w = 1; m = vc[k]; }
+        if (vg[k] > m) { w = 2; m = vg[k]; }
+        if (vt[k] > m) w = 3;
+        const int c = own[seg + o];
+        polished[(long long)u * L + seg + o] = (d >= min_depth && c < 4) ? (uint8_t)w : (uint8_t)c;
+        depth[(long long)u * L + seg + o] = d;
+      }
+    }
   }
 }
 
@@ -487,21 +582,25 @@ int lr_randstrobe_keys(const void* hash, const void* valid, const void* offsets,
   return (int)cudaGetLastError();
 }
 
-// votes: a zeroed int32 table of U * L * 4 entries, 16-byte aligned.
+// votes: not read (null from the port's wrapper).  It stays in the argument
+// list so that an older source, whose kernel scatters into a zeroed int32
+// table of U * L * 4 entries there, builds and is timed beside this one.
 int consensus_vote(const void* unitigs, long long U, long long L, const void* reads, long long R, long long Lr,
                    const void* tgt, const void* start, int min_depth, void* votes, void* polished, void* depth,
                    void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (R * Lr > 0) {
-    vote_scatter_kernel<<<(unsigned int)grid_for(R * Lr), kThreads, 0, s>>>(
-        (const uint8_t*)reads, R, Lr, (const int*)tgt, (const int*)start, L, (int*)votes);
-    int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
-  if (U * L > 0) {
-    vote_resolve_kernel<<<(unsigned int)grid_for(U * L), kThreads, 0, s>>>(
-        (const uint8_t*)unitigs, U * L, (const int4*)votes, min_depth, (uint8_t*)polished, (int*)depth);
-  }
+  (void)votes;
+  if (U <= 0 || L <= 0) return (int)cudaGetLastError();
+  if (U > INT_MAX || R > INT_MAX || R < 0 || Lr < 0) return (int)cudaErrorInvalidValue;
+  // blocks a unitig, so that a small U still fills the card, each taking
+  // the same number of its tiles
+  const long long tiles = (L + kVoteTile - 1) / kVoteTile;
+  long long splits = (kVoteBlocks + U - 1) / U;
+  if (splits > 65535) splits = 65535;
+  const long long per = (tiles + splits - 1) / splits;
+  splits = (tiles + per - 1) / per;
+  vote_kernel<<<dim3((unsigned int)U, (unsigned int)splits), kVoteThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)unitigs, L, (const uint8_t*)reads, R, Lr, (const int*)tgt, (const int*)start, min_depth, tiles,
+      (uint8_t*)polished, (int*)depth);
   return (int)cudaGetLastError();
 }
 

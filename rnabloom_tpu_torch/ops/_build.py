@@ -126,7 +126,8 @@ _SIGNATURES = {
         "lr_randstrobe_keys": [_P] * 4 + [_I64, _I64] + [_INT] * 4 + [_P, _P, _P],
         # n w_max: the bytes of dynamic shared memory lr_randstrobe_keys takes
         "lr_randstrobe_smem": [_INT, _INT],
-        # unitigs U L, reads R Lr, tgt start, min_depth, votes polished depth, stream
+        # unitigs U L, reads R Lr, tgt start, min_depth, votes (null: an older source's table) polished depth,
+        # stream
         "consensus_vote": [_P, _I64, _I64, _P, _I64, _I64, _P, _P, _INT, _P, _P, _P, _P],
     }),
 }

@@ -11,10 +11,11 @@ unitig's own code.  ``olc/consensus.py::polish`` calls it once per batch of
 reads with a fresh table, on the previous batch's polished codes.
 
 ``consensus_vote`` launches the hand-written CUDA kernel
-(``csrc/lr_kernels.cu``: an atomic vote a read base, then one thread a
-unitig position) for tensors on the card, and runs
-``consensus_vote_plain`` for tensors on the CPU.  ``LAUNCHES`` counts
-kernel launches; ``launch_timer.recording()`` times them.
+(``csrc/lr_kernels.cu``: one pass, a block a unitig's tiles of columns,
+the counts in registers, no vote table in device memory) for tensors on
+the card, and runs ``consensus_vote_plain`` for tensors on the CPU.
+``LAUNCHES`` counts kernel launches; ``launch_timer.recording()`` times
+them.
 """
 
 from __future__ import annotations
@@ -86,13 +87,12 @@ def consensus_vote(
     lib = lr_kernels()
     U, L = unitigs.shape
     R, Lr = reads.shape
-    votes = torch.zeros(U * L * 4, dtype=torch.int32, device=dev)  # fresh each batch
     polished = torch.empty_like(unitigs)
     depth = torch.empty((U, L), dtype=torch.int32, device=dev)
     begin = launch_timer.begin(dev)
     err = lib.consensus_vote(
         unitigs.data_ptr(), U, L, reads.data_ptr(), R, Lr, tgt.data_ptr(), start.data_ptr(), int(min_depth),
-        votes.data_ptr(), polished.data_ptr(), depth.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        None, polished.data_ptr(), depth.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     launch_timer.end(begin, dev, "consensus_vote", R * Lr)
     if err != 0:

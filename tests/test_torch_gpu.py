@@ -1222,22 +1222,56 @@ def test_lr_randstrobe_refuses_bad_layouts(cuda):
             strobemer.randstrobe_hashes(h, v, bad_offsets, bad_aoff, 25, 3, 11, 50)
 
 
-@pytest.mark.parametrize("U,L,R,Lr,min_depth", [(5, 90, 40, 50, 2), (64, 3000, 2048, 4000, 2), (1, 7, 3, 5, 1)])
-def test_consensus_vote_kernel_matches_plain(cuda, U, L, R, Lr, min_depth):
+VOTE_FULL = (3423, 3938, 2048, 3938)  # phase 10's run (i) 7 times over: its unitigs and first batch
+
+
+@pytest.mark.parametrize("shape,case,min_depth", [
+    ((5, 90, 40, 50), "overhang", 2), ((64, 3000, 2048, 4000), "overhang", 2), ((1, 7, 3, 5), "overhang", 1),
+] + [
+    ((6, 300, 80, 120), case, d) for case in lr_common.VOTE_CASES for d in (0, 1, 3)  # L under one tile
+] + [
+    ((8, 5000, 600, 2500), case, 2) for case in lr_common.VOTE_CASES  # L not a multiple of the tile
+] + [
+    ((2, 2100, 5000, 300), "one_unitig", 2),  # 5,000 reads on one unitig: two windows of the read list
+    ((2200, 4200, 5000, 300), "one_unitig", 1),  # a block a unitig over three tiles, each refilling its list
+    ((2200, 4200, 2000, 300), "untouched", 0),  # a block a unitig, its list kept over its tiles
+    ((600, 4200, 2000, 300), "overhang", 2),  # two blocks a unitig, over two tiles and one
+    (VOTE_FULL, "overhang", 2),
+    ((1, 7, 0, 5), "overhang", 0),  # no read: every cell on a base becomes A
+])
+def test_consensus_vote_kernel_matches_plain(cuda, shape, case, min_depth):
+    """The vote kernel's polished codes and depths equal the plain
+    version's in every cell, on ``lr_common.vote_case``'s edge cases at
+    shapes where its tiles and read lists bite."""
     from rnabloom_tpu_torch.ops import consensus_vote as cv
 
-    rng = np.random.default_rng(U)
-    unitigs = rng.integers(0, 4, (U, L), dtype=np.uint8)
-    unitigs[0, L // 2:] = 4
-    reads = rng.integers(0, 5, (R, Lr), dtype=np.uint8)
-    tgt = rng.integers(0, U, R).astype(np.int32)
-    start = rng.integers(-Lr // 2, L, R).astype(np.int32)
-    args = [torch.from_numpy(a).to(cuda) for a in (unitigs, reads, tgt, start)]
+    U, L, R, Lr = shape
+    args = [torch.from_numpy(a).to(cuda) for a in lr_common.vote_case(case, U, L, R, Lr, seed=U + R)]
     n0 = cv.LAUNCHES["consensus_vote"]
     kp, kd = cv.consensus_vote(*args, min_depth)
     assert cv.LAUNCHES["consensus_vote"] == n0 + 1
     pp, pd = cv.consensus_vote_plain(*args, min_depth)
+    torch.cuda.synchronize()
     assert torch.equal(kp, pp) and torch.equal(kd, pd)
+
+
+def test_consensus_vote_allocates_no_vote_table(cuda):
+    """At the full-size shape a call allocates its outputs (5 B a cell) and
+    no U * L * 4 int32 vote table: the peak stays under 6 B a cell above
+    the inputs."""
+    from rnabloom_tpu_torch.ops import consensus_vote as cv
+
+    U, L, R, Lr = VOTE_FULL
+    args = [torch.from_numpy(a).to(cuda) for a in lr_common.vote_case("overhang", U, L, R, Lr)]
+    cv.consensus_vote(*args, 2)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    polished, depth = cv.consensus_vote(*args, 2)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < U * L * 6
+    assert int(depth.sum()) > 0
 
 
 def test_long_card_equals_cpu(cuda, tmp_path):

@@ -33,6 +33,7 @@ from rnabloom_tpu_torch.olc import consensus as tcns, graph as tgraph, layout as
 from rnabloom_tpu_torch.olc import realign as tre
 from rnabloom_tpu_torch.ops import consensus_vote as cv
 from rnabloom_tpu_torch.utils import polya
+from lr_common import VOTE_CASES, vote_case
 
 torch.set_num_threads(2)
 
@@ -146,6 +147,39 @@ def test_consensus_vote_plain_equals_jax_vote_kernel():
     assert (td.numpy() >= 2).sum() > 100 and not np.array_equal(tp.numpy(), unitigs)
     with pytest.raises(ValueError, match="int32"):
         cv.consensus_vote_plain(*(torch.from_numpy(a) for a in (unitigs, reads, tgt.astype(np.int64), start)), 2)
+
+
+@pytest.mark.parametrize("min_depth", [0, 1, 3])
+@pytest.mark.parametrize("case", VOTE_CASES)
+def test_consensus_vote_edge_cases_equal_jax_vote_kernel(case, min_depth):
+    """The plain vote (what the card kernel is held to) equals the JAX
+    function bit for bit where a kernel is likely to go wrong
+    (``lr_common.vote_case``): reads over both ends of a unitig, an
+    untouched unitig (with min_depth 0 a cell on a base becomes A), ties of
+    two and of four bases (the first maximum wins), every read on one
+    unitig, codes 4 and above inside reads, a unitig of pad 4 past its
+    length."""
+    unitigs, reads, tgt, start = vote_case(case)
+    U, L = unitigs.shape
+    Lr = reads.shape[1]
+    jp, jd = jcns._vote_kernel(*(jnp.asarray(a) for a in (unitigs, reads, tgt, start)), min_depth, U, L)
+    tp, td = cv.consensus_vote(*(torch.from_numpy(a) for a in (unitigs, reads, tgt, start)), min_depth)
+    assert tp.dtype == torch.uint8 and td.dtype == torch.int32
+    assert np.array_equal(tp.numpy(), np.asarray(jp)) and np.array_equal(td.numpy(), np.asarray(jd))
+    tp, td = tp.numpy(), td.numpy()
+    assert (unitigs[1, 2 * L // 3:] == 4).all() and (tp[1, 2 * L // 3:] == 4).all()
+    if case == "untouched":
+        assert (td[2] == 0).all()
+        assert np.array_equal(tp[2], np.where(unitigs[2] < 4, 0, unitigs[2]) if min_depth <= 0 else unitigs[2])
+    if case == "ties":
+        two = slice(Lr, Lr + Lr // 2)  # G and T once each
+        assert (td[0, : Lr // 2] == 4).all() and (td[0, Lr // 2 : Lr] == 6).all() and (td[0, two] == 2).all()
+        assert (tp[0, : Lr // 2] == 0).all() and (tp[0, Lr // 2 : Lr] == 2).all()
+        assert np.array_equal(tp[0, two], np.full(Lr // 2, 2) if min_depth <= 2 else unitigs[0, two])
+    if case == "one_unitig":
+        assert (td[:-1] == 0).all() and td[-1].sum() > 0
+    if case == "pads":
+        assert td.sum() < ((reads < 4).sum())
 
 
 def test_realign_functions_equal_jax(mapped):

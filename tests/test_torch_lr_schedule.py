@@ -1,7 +1,7 @@
-"""A numpy model of the long-read key kernels' schedules
-(``rnabloom_tpu_torch/csrc/lr_kernels.cu``: ``kmer_keys_kernel`` and
-``randstrobe_kernel``) against the plain versions and, through
-``tests/test_torch_lr_keys.py``'s helpers, against the JAX package.
+"""A numpy model of the long-read kernels' schedules
+(``rnabloom_tpu_torch/csrc/lr_kernels.cu``: ``kmer_keys_kernel``,
+``randstrobe_kernel`` and ``vote_kernel``) against the plain versions and,
+through ``tests/test_torch_lr_keys.py``'s helpers, against the JAX package.
 
 The model follows the kernels step for step, with their tile sizes read
 from the source: the 32-way warp search of the offsets; for the k-mer
@@ -17,7 +17,12 @@ path past the staged positions.  Reads of every edge
 length (k - 1 up to the strobemer minimum + 1), runs and windows that
 cross a read's end, reads longer than several tiles, tiles of reads too
 short for any key, empty reads, and codes 4 and 255 on tile edges and in
-halos.
+halos.  For the consensus vote: the blocks a unitig and their tiles, the
+read list filled window by window (and kept across tiles when one window
+holds the batch), each warp's columns and the reads that overlap them,
+and every cell written once, on ``lr_common.vote_case``'s edge cases,
+unitigs of several tiles, more reads on one unitig than a window holds,
+and an empty batch.
 """
 
 import numpy as np
@@ -27,7 +32,8 @@ import torch
 from rnabloom_tpu.assembly import longreads as jlr, stage1 as js1
 from rnabloom_tpu_torch.ops import lr_keys, nthash, strobemer as tstrobe
 from rnabloom_tpu_torch.utils import lrsim, seq as sequtils
-from lr_common import kernel_constants, ragged_plain
+from lr_common import VOTE_CASES, kernel_constants, ragged_plain, vote_case
+from rnabloom_tpu_torch.ops import consensus_vote as cv
 from test_torch_lr_keys import _assert_same_keys, _emulated_kmer_hashes, _emulated_randstrobe, _jax_strobemer_fn
 
 torch.set_num_threads(2)
@@ -214,6 +220,64 @@ def model_randstrobe(hash_: np.ndarray, valid: np.ndarray, offsets: np.ndarray, 
     return out, out_ok
 
 
+def vote_grid(U: int, L: int) -> tuple:
+    """The vote kernel's tiles a unitig and blocks a unitig (each taking as
+    many of its tiles as the others, the last fewer)."""
+    tiles = -(-L // C["kVoteTile"])
+    per = -(-tiles // min(-(-C["kVoteBlocks"] // U), 65535))
+    return tiles, -(-tiles // per)
+
+
+def model_vote(unitigs: np.ndarray, reads: np.ndarray, tgt: np.ndarray, start: np.ndarray, min_depth: int):
+    """``vote_kernel`` as its blocks, warps and lanes run it: (polished,
+    depth, the most reads a list held, the list fills)."""
+    U, L = unitigs.shape
+    R, Lr = reads.shape
+    span, tile_w, window = C["kVoteSpan"], C["kVoteTile"], C["kVoteList"]
+    warps = C["kVoteThreads"] // 32
+    tiles, splits = vote_grid(U, L)
+    flat = reads.reshape(-1)
+    polished = np.zeros((U, L), np.uint8)
+    depth = np.zeros((U, L), np.int32)
+    written = np.zeros((U, L), np.int32)
+    most, fills = 0, 0
+    lanes = np.arange(span)  # a warp's offsets lane + 32 k
+    for u in range(U):
+        for s in range(splits):  # block (u, s)
+            listed, whole = [], False
+            for tile in range(s, tiles, splits):
+                votes = np.zeros((warps, span, 4), np.int32)  # a lane's registers
+                seg = tile * tile_w + np.arange(warps) * span
+                width = np.clip(L - seg, 0, span)
+                p = 0
+                while True:
+                    if not whole:
+                        end = min(R, p + window)
+                        listed = [(int(i), int(start[i])) for i in p + np.flatnonzero(tgt[p:end] == u)]
+                        most, fills = max(most, len(listed)), fills + 1
+                        whole = p == 0 and end == R
+                    for i, st in listed:
+                        lo = np.maximum(0, st - seg)[:, None]  # every warp at once
+                        hi = np.minimum(width, st + Lr - seg)[:, None]
+                        on = (lanes >= lo) & (lanes < hi)
+                        b = np.full((warps, span), 4)
+                        b[on] = flat[((i * Lr + seg - st)[:, None] + lanes)[on]]
+                        votes += b[..., None] == np.arange(4)
+                    p += window
+                    if p >= R:
+                        break
+                for w in range(warps):
+                    cols = seg[w] + np.arange(width[w])
+                    v = votes[w, : width[w]]
+                    d = v.sum(-1)
+                    c = unitigs[u, cols]
+                    polished[u, cols] = np.where((d >= min_depth) & (c < 4), v.argmax(-1), c)
+                    depth[u, cols] = d
+                    written[u, cols] += 1
+    assert (written == 1).all()
+    return polished, depth, most, fills
+
+
 def _reads(k: int, min_len: int, seed: int = 7) -> list:
     """Every edge length, lrsim reads with N and 255, a read longer than
     two k-mer tiles, empty reads, a run of reads shorter than k longer than
@@ -265,6 +329,35 @@ def test_kernel_constants():
     assert C["kKmerRun"] % 2 == 1 and C["kKmerStage"] >= C["kKmerTile"] + C["kMaxK"] - 1
     assert C["kStrobeTile"] % C["kStrobeThreads"] == 0 and C["kStrobePer"] * C["kStrobeThreads"] == C["kStrobeTile"]
     assert C["kStrobeStageMax"] >= C["kStrobeTile"] + 32 and C["kStrobeStageMax"] % 32 == 0
+    assert C["kVoteSpan"] == 32 * C["kVotePer"] and C["kVoteTile"] == C["kVoteThreads"] // 32 * C["kVoteSpan"]
+    assert C["kVoteList"] % (C["kVoteThreads"] * C["kVoteScan"]) == 0
+    assert vote_grid(2200, 4200) == (3, 1) and vote_grid(600, 4200) == (3, 2) and vote_grid(3, 5000) == (3, 3)
+
+
+@pytest.mark.parametrize("shape,case,min_depth", [
+    ((6, 300, 80, 120), case, d) for case in VOTE_CASES for d in (0, 2)
+] + [
+    ((3, 5000, 700, 2300), "overhang", 1),  # unitigs of several tiles, the last partial, a block a tile
+    ((2, 2100, 5000, 300), "one_unitig", 2),  # two windows of reads on one unitig
+    ((2200, 4200, 5000, 300), "one_unitig", 1),  # a block a unitig over three tiles, each refilling two windows
+    ((2200, 4200, 2000, 300), "untouched", 0),  # a block a unitig, one window's list kept over its three tiles
+    ((600, 4200, 2000, 300), "overhang", 2),  # two blocks a unitig, over two tiles and one
+    ((1, 4096, 0, 50), "overhang", 0),  # no read: every cell on a base becomes A
+])
+def test_vote_model_equals_plain(shape, case, min_depth):
+    """The vote kernel's schedule gives the plain version's polished codes
+    and depths, every cell written once."""
+    U, L, R, Lr = shape
+    args = vote_case(case, U, L, R, Lr, seed=U + R)
+    got_p, got_d, most, fills = model_vote(*args, min_depth)
+    want_p, want_d = cv.consensus_vote_plain(*(torch.from_numpy(a) for a in args), min_depth)
+    assert np.array_equal(got_p, want_p.numpy()) and np.array_equal(got_d, want_d.numpy())
+    assert most <= C["kVoteList"]
+    tiles, splits = vote_grid(U, L)
+    windows = -(-R // C["kVoteList"])
+    assert fills == (U * splits if windows <= 1 else U * tiles * windows)
+    if case == "one_unitig":
+        assert most == min(R, C["kVoteList"])
 
 
 @pytest.mark.parametrize("n", [0, 1, 2, 31, 32, 33, 1500, 10_500])

@@ -11,11 +11,14 @@ Builds the kernels (and each ``--lr-variant``, another
 5,11,0,50``, ``-lrsub 5,25,0`` and ``-paf`` on the card, the long-read
 kernels against their plain versions on the runs' own data and K1 and K2
 at 7 times the raw reads (the variants in the same turns), and card
-against CPU on the first 400 reads.  ``--kernels-only`` runs the last of
-these alone (``chip_smoke.lr_keys_full_size``: no pipeline run), the
-quickest loop for K1 and K2; ``--sass PATH`` writes the port's long-read
-kernel library as ``cuobjdump -sass`` shows it to PATH.  The last line is
-the results as JSON.
+against CPU on the first 400 reads.  ``--kernels-only`` runs the kernel
+cells alone: K1 and K2 at 7 times the raw reads
+(``chip_smoke.lr_keys_full_size``), then run (i) alone for its polish
+inputs and K3 on them (``chip_smoke.vote_vs_plain``) and on them 7 times
+over (``chip_smoke.vote_full_size``), the quickest loop for the three
+kernels; ``--sass PATH`` writes the port's long-read kernel library as
+``cuobjdump -sass`` shows it to PATH.  The last line is the results as
+JSON.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ def main(argv=None) -> int:
     ap.add_argument("--transcripts", type=int, default=chip_smoke.LR_TRANSCRIPTS)
     ap.add_argument("--coverage", type=int, default=chip_smoke.LR_COVERAGE)
     ap.add_argument("--lr-variant", action="append", default=[], metavar="NAME=PATH")
-    ap.add_argument("--kernels-only", action="store_true", help="K1 and K2 at the full-size cell alone")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="the kernel cells alone: K1 and K2 at the full size, K3 at run (i)'s and the full size")
     ap.add_argument("--sass", metavar="PATH", help="write the long-read kernel library's SASS here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -52,11 +56,7 @@ def main(argv=None) -> int:
         return 1
     card = chip_smoke.card_line()
     t0 = time.time()
-    if args.kernels_only:
-        _build.lr_kernels()
-        built = "the long-read library"
-    else:
-        built = _build.build_all()
+    built = _build.build_all()
     variants = {name: chip_smoke.build_variant("lr", i, src)
                 for i, (name, src) in enumerate(v.split("=", 1) for v in args.lr_variant)}
     print(f"card: {card}; kernels built in {time.time() - t0:.1f} s: {built}; long-read variants {args.lr_variant}",
@@ -64,7 +64,7 @@ def main(argv=None) -> int:
     log = _build.build_logs.get(_build.LR_SRC)
     if log is not None:
         print("nvcc -Xptxas -v, long-read kernels: "
-              + "; ".join(chip_smoke.insert_ptxas(log, "kmer_keys|randstrobe|vote_scatter|vote_resolve"))
+              + "; ".join(chip_smoke.insert_ptxas(log, "kmer_keys|randstrobe|vote"))
               + "; randstrobe_kernel's dynamic shared memory at -lrsub 5,11,0,50: "
                 f"{_build.lr_kernels().lr_randstrobe_smem(chip_smoke.LR_N, chip_smoke.LR_WMAX)} B")
     if args.sass:
@@ -73,18 +73,25 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.sass)), exist_ok=True)
         with open(args.sass, "w") as f:
             f.write(sass)
-    if args.kernels_only:
-        rng = np.random.default_rng(0)
-        truth = lrsim.simulate_transcriptome(rng, args.transcripts, (500, 4000))
-        raw = lrsim.simulate_reads(rng, truth, coverage=args.coverage, err=chip_smoke.LR_ERR)
-        r = chip_smoke.lr_keys_full_size(raw, card, torch.device("cuda"), variants)
-        print(json.dumps(r, default=float))
-        return 0
+    dev = torch.device("cuda")
     tmp = tempfile.mkdtemp(prefix="long_smoke_")
     try:
         t0 = time.time()
-        r = chip_smoke.long_read_path(tmp, card, torch.device("cuda"), args.transcripts, args.coverage, variants)
-        print(f"phase 10 took {time.time() - t0:.1f} s")
+        if args.kernels_only:
+            rng = np.random.default_rng(0)
+            truth = lrsim.simulate_transcriptome(rng, args.transcripts, (500, 4000))
+            raw = lrsim.simulate_reads(rng, truth, coverage=args.coverage, err=chip_smoke.LR_ERR)
+            r = {"full_size": chip_smoke.lr_keys_full_size(raw, card, dev, variants)}
+            fasta = os.path.join(tmp, "long.fa")
+            with open(fasta, "w") as f:
+                f.writelines(f">r{i}\n{s}\n" for i, s in enumerate(raw))
+            _, captured = chip_smoke.captured_run(fasta, os.path.join(tmp, "long_a"), truth, card)
+            r["vote"] = chip_smoke.vote_vs_plain(captured, card, dev, variants)
+            r["vote_full_size"] = chip_smoke.vote_full_size(captured, card, dev, variants)
+            print(f"the kernel cells took {time.time() - t0:.1f} s")
+        else:
+            r = chip_smoke.long_read_path(tmp, card, dev, args.transcripts, args.coverage, variants)
+            print(f"phase 10 took {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps(r, default=float))
