@@ -10,7 +10,9 @@ entry points (a copy of ``csrc/walk_greedy.cu`` with another constant, or
 an older commit's kernel from ``git show``) to phases 4 and 7 (greedy
 walks), 6 (pair walks, where the source has ``walk_pair``) and 8 (naive
 walks, where it has ``walk_naive``), built beside the port's kernels, held
-to the same equality and timed in the same turns.
+to the same equality and timed in the same turns (a source from before
+the exact-count gate and terminators is called through
+``GatelessWalks``, which drops their arguments).
 ``--insert-variant`` does the same for another ``csrc/cell_insert.cu`` in
 phase 2 (an older source whose mf8 entry point is ``cell_add_mf8``, with
 its int32 scratch as long as the table, gets that scratch), and
@@ -21,13 +23,16 @@ same turns on both of the phase's kernel cells).
 and exits nonzero):
 
 1. Environment: card name and power limit (nvidia-smi), torch/CUDA
-   versions, the kernels' builds from csrc/ (one nvcc per source, started
-   together) and their build times, and what ``nvcc -Xptxas -v`` reports
+   versions, the kernels' builds from csrc/ (one nvcc per library, started
+   together: the walk kernel's source gives four, the count-min layouts'
+   greedy mode, their pair and naive modes, the exact-count layouts, the
+   count-min layouts with terminators) and
+   their build times, and what ``nvcc -Xptxas -v`` reports
    for each instantiation of the walk kernel (registers, stack, spills)
    and for each insert kernel (registers, spills) when this run built
    them; ``tools/dependent_read.cu`` (phase 6's latency probe) is built
-   beside them.  Then 1,000,000 simulated 150 bp pairs are written (seed
-   0).
+   beside them.  While they build, 1,000,000 simulated 150 bp pairs are
+   written (seed 0).
 2. Insert kernel vs its plain PyTorch version on the card, per op, at the
    stage-1 shapes of ``-mem 1`` (2^29-cell mf8 cbf, 2^28-cell u16 cbf,
    2^27-cell blocked int32 cbf, 2^27-lane rpkbf), on two kinds of batch:
@@ -151,8 +156,8 @@ and exits nonzero):
    launch count set to 0 before it, on slices of the 1M pairs at the
    default ``-mem 1`` (150 bp reads, k=25; only the depth is cut):
    single-end ``-stage 3`` (``-sef`` the left and ``-ser`` the right mates
-   of the first 100,000 pairs), ``-pool`` of two samples (pairs 0-24,999
-   and 25,000-49,999) with ``-mergepool``, ``-stage 2 -rescue -bound 20``
+   of the first 25,000 pairs), ``-pool`` of two samples (pairs 0-12,499
+   and 12,500-24,999) with ``-mergepool``, ``-stage 2 -rescue -bound 20``
    on the first 16,384 pairs, and ``-k 25,27 -ntcard -stage 1`` on the
    first 20,000 pairs.  Each prints its rates, launches per kernel (the
    single-end and pool runs must launch ``add_mf8``, ``set`` and
@@ -212,6 +217,30 @@ and exits nonzero):
    ``scatter_add_`` + ``argmax`` composite as the library yardstick.
    Last, runs (i)-(iv) on the first 400 reads on the card and on the CPU:
    every file byte-identical.
+11. The decision oracle, exact counts and terminators, the main path of
+   the latest slice, each with every launch count set to 0 before it:
+   ``oracle.divergence.measure_all`` on the card (its twin graphs built by
+   the insert kernels, the screen's gap re-walks by the walk kernel), equal
+   to the CPU's dict and to ``tests/golden/oracle_divergence.json``, with
+   its launches by op; the exact-count stage-1 build at ``-mem 1`` (k=25,
+   2 hashes, the flat layout: -cnt int32, a 2^27-lane dbgbf, 2^27 int32
+   cells and a 2^27-lane rpkbf; -cnt mf8, 2^29 cells) over both mates of
+   the first EXACT_PAIRS pairs (a depth cut) in batches of 4096 reads, once
+   with the kernels (``set``, ``add`` for the multiplicity scratch, ``max``)
+   and once with the plain inserts on the card: every table byte-identical,
+   peak device memory.  The ``max`` insert against its plain version and
+   ``scatter_reduce_`` (amax) on the int32 build's first batch (1,032,192
+   indices) and on a synthetic 2^20-index batch, each call on a fresh copy
+   of its table, with its bound (indices and values once, a 32 B sector a
+   distinct cell, over 3.35 TB/s).  Walks over the exact int32 graph
+   against the plain loop in every field, timed in turns with the
+   count-min int32 graph of the same reads: greedy on phase 4's bridge
+   seeds (16,384 lanes), naive on phase 8's right walks (8,192 lanes);
+   their reads replayed for the bound (each key's dbgbf lanes too).  Then
+   terminators (a 2^27-lane, 2-hash filter holding the k-mers of every
+   other simulated transcript, by ``screen_add``) on the greedy lanes over
+   the count-min graph, against the plain loop, timed in turns with the
+   same walks without them; some lanes, not all, end TERM.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -260,7 +289,10 @@ PAIR_FIELDS = WALK_FIELDS + ("ring_fh", "ring_rh")
 REBUILT_FILES = ("rebuilt.graph.json", "rebuilt.cbf.npy", "rebuilt.rpkbf.npy", "rebuilt.fpkbf.npy")
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM, 3.35 TB/s (NVIDIA's data sheet)
 SECTOR = 32  # bytes of one random DRAM access
-WALK_LAYOUTS = ("mf8", "u16", "int32", "int32 blocked")
+# the walk kernel's layout template argument (csrc/walk_greedy.cu: the
+# count-min layouts, + 4 the exact-count ones, + 8 with terminators)
+WALK_LAYOUTS = {0: "mf8", 1: "u16", 2: "int32", 3: "int32 blocked", 4: "mf8 exact", 5: "u16 exact", 6: "int32 exact",
+                8: "mf8 terminators", 9: "u16 terminators", 10: "int32 terminators", 11: "int32 blocked terminators"}
 # cell_add_mf8(table, int32 scratch, numel, idx, n, salt, stream): the
 # two-pass mf8 entry point of earlier insert sources
 SCRATCH_MF8_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
@@ -297,8 +329,8 @@ GOLDEN = "tests/golden/pe_golden.json"
 # phase 9's pool depth, half the 2 x 50,000 pairs it first ran (67 s of a
 # 1037 s smoke on one H100 80GB HBM3 at 700 W): margin under the 1200 s
 # limit for a slow host (one took 1155 s before phase 9 existed)
-SE_PAIRS = 100_000  # phase 9: the single-end run reads both mates of these pairs
-POOL_PAIRS = 25_000  # phase 9: pairs of each of the two pool samples
+SE_PAIRS = 25_000  # phase 9: the single-end run reads both mates of these pairs (cut from 100,000 for the smoke's time)
+POOL_PAIRS = 12_500  # phase 9: pairs of each of the two pool samples (cut from 25,000 for the smoke's time)
 RESCUE_PAIRS = 16_384  # phase 9: the -rescue run (two stage-2 batches)
 KSELECT_PAIRS = 20_000  # phase 9: the -k 25,27 -ntcard run
 CHECK9 = 1000  # phase 9: reads or pairs of each card-vs-CPU case
@@ -342,7 +374,7 @@ def ptxas_report(log: str) -> list:
     return out
 
 
-def insert_ptxas(log: str, kernels: str = "set_u8|add_i32|add_u16_tile|mf8_tile|mf8_apply") -> list:
+def insert_ptxas(log: str, kernels: str = "set_u8|add_i32|add_u16_tile|mf8_tile|mf8_apply|max_i32|max_u16|max_u8") -> list:
     """One entry per kernel (the insert kernels unless ``kernels`` names
     others) from ``nvcc -Xptxas -v``: registers, static shared memory and
     spill stores."""
@@ -364,11 +396,50 @@ def insert_ptxas(log: str, kernels: str = "set_u8|add_i32|add_u16_tile|mf8_tile|
     return out
 
 
+# the walk entries' gate arguments (dbgbf, its size_log2 and num_hash, the
+# terminators, their size_log2 and num_hash), after max_supersteps
+WALK_GATE_ARGS = slice(25, 31)
+assert _build._WALK_ENTRIES["walk_greedy"][WALK_GATE_ARGS] == _build._WALK_GATES
+
+
+def _without_gates(args: list) -> list:
+    return args[:WALK_GATE_ARGS.start] + args[WALK_GATE_ARGS.stop:]
+
+
+# the walk entries of a source from before the exact-count gate and
+# terminators
+WALK_SIGNATURES_BEFORE_GATES = {name: _without_gates(args) for name, args in _build._WALK_ENTRIES.items()}
+
+
+class GatelessWalks:
+    """A walk library built from a source from before the exact-count gate
+    and terminators, called with the port's argument list: the gate
+    arguments are dropped, and must be null (count-min, no terminators)."""
+
+    def __init__(self, so: ctypes.CDLL):
+        self.so = so
+        self.source = so.source
+
+    def __getattr__(self, name: str):
+        fn = getattr(self.so, name)  # AttributeError where the source lacks it
+        if name not in WALK_SIGNATURES_BEFORE_GATES:
+            return fn
+
+        def call(*args):
+            gates = args[WALK_GATE_ARGS]
+            if gates[0] is not None or gates[3] is not None:
+                raise ValueError(f"{self.source}: this walk kernel has no exact-count gate or terminators")
+            return fn(*_without_gates(list(args)))
+
+        return call
+
+
 def build_variant(kind: str, i: int, src: str) -> ctypes.CDLL:
     """Another ``kind`` ("walk", "insert" or "lr") kernel source, built with the
     port's nvcc flags into ``build/{kind}_variants/``, its entry points
     bound as the port's are.  A walk source may lack ``walk_pair`` (then
-    phase 6 skips it); an insert source may have, in place of
+    phase 6 skips it), or predate the gates (then it is wrapped in
+    ``GatelessWalks``); an insert source may have, in place of
     ``cell_add_mf8_batch``, the older ``cell_add_mf8`` (an int32 scratch as
     long as the table)."""
     lib = os.path.join(_build.BUILD_DIR, f"{kind}_variants", f"lib{i}.so")
@@ -380,8 +451,15 @@ def build_variant(kind: str, i: int, src: str) -> ctypes.CDLL:
     so.source = src
     lib_of = {"walk": _build.WALK_LIB, "insert": _build.KERNEL_LIB, "lr": _build.LR_LIB}
     signatures = dict(_build._SIGNATURES[lib_of[kind]][1])
+    with open(src) as f:
+        gateless = kind == "walk" and "term_num_hash" not in f.read()  # before the exact gate and terminators
+    if gateless:
+        signatures = dict(WALK_SIGNATURES_BEFORE_GATES)
     if kind == "walk" and not hasattr(so, "walk_pair"):  # an older source: greedy mode only
         del signatures["walk_pair"]
+    if kind == "insert" and not hasattr(so, "cell_max_i32"):  # before the max op
+        for name in ("cell_max_i32", "cell_max_u16", "cell_max_u8"):
+            del signatures[name]
     if kind == "lr" and not hasattr(so, "lr_randstrobe_smem"):  # an older source: only the kernels are timed
         del signatures["lr_randstrobe_smem"]
     if kind == "insert" and not hasattr(so, "cell_add_mf8_batch"):
@@ -391,18 +469,19 @@ def build_variant(kind: str, i: int, src: str) -> ctypes.CDLL:
         fn = getattr(so, name)  # raises where the source lacks an entry point
         fn.argtypes = args
         fn.restype = ctypes.c_int
-    return so
+    return GatelessWalks(so) if gateless else so
 
 
 @contextlib.contextmanager
 def walk_library(lib: ctypes.CDLL):
-    """Route the walk wrappers to ``lib`` (a ``--walk-variant`` build)."""
-    saved = _build.walk_kernels()
-    _build._libs[_build.WALK_LIB] = lib
+    """Route the walk wrappers' count-min calls to ``lib`` (a
+    ``--walk-variant`` build, every mode in one library)."""
+    saved = {path: _build._load(path) for path in _build.WALK_COUNT_MIN_LIBS}
+    _build._libs.update({path: lib for path in saved})
     try:
         yield
     finally:
-        _build._libs[_build.WALK_LIB] = saved
+        _build._libs.update(saved)
 
 
 def build_chase() -> ctypes.CDLL:
@@ -1003,7 +1082,8 @@ def _same_state(a, b) -> list:
     return [f for f in WALK_FIELDS if not torch.equal(getattr(a, f), getattr(b, f))]
 
 
-def walk_tally(st, graph, cfg, wcfg, mc, bd, superstep_hops: int = 64, max_supersteps: int = 64) -> dict:
+def walk_tally(st, graph, cfg, wcfg, mc, bd, superstep_hops: int = 64, max_supersteps: int = 64,
+               terminators=None) -> dict:
     """The plain lockstep loop (``extend_walks_plain``), replayed one hop
     at a time with the plain version's own steps, counting per lane what
     the kernel's schedule needs: hops tried, resolves, and cell reads (a
@@ -1012,13 +1092,15 @@ def walk_tally(st, graph, cfg, wcfg, mc, bd, superstep_hops: int = 64, max_super
     hop's 4 and reads, for each viable candidate, 4 k-mers at depth 1, 16
     at depth 2 and 64 per level past it; num_hash cells a k-mer).
     Dependent read rounds: one a hop that reads, lookahead - 1 a resolve.
-    Returns the tallies and the final state."""
+    With ``terminators``, also the hops that reach the terminator check (an
+    advance, or a TERM or FULL stop).  Returns the tallies and the final
+    state."""
     from rnabloom_tpu_torch.graph import dbg
 
     state = traverse.clone_state(st)
     W, la, h = st.pos.shape[0], wcfg.lookahead, cfg.cbf.num_hash
     hops = torch.zeros(W, dtype=torch.int64, device=st.pos.device)
-    resolves, reads, hop_rounds = hops.clone(), hops.clone(), hops.clone()
+    resolves, reads, hop_rounds, term_checks = hops.clone(), hops.clone(), hops.clone(), hops.clone()
     reused = torch.zeros(W, dtype=torch.bool, device=st.pos.device)
     per_viable = (4 if la >= 2 else 0) + (16 if la >= 3 else 0) + 64 * max(la - 3, 0)
     floor = torch.clamp(mc, min=1.0)[:, None]
@@ -1034,7 +1116,10 @@ def walk_tally(st, graph, cfg, wcfg, mc, bd, superstep_hops: int = 64, max_super
             reads += reading * 4 * h
             hop_rounds += reading
             reused &= ~active
-            state = traverse.walk_superstep(state, graph, cfg, wcfg, mc, bd, 1)
+            pos0 = state.pos
+            state = traverse.walk_superstep(state, graph, cfg, wcfg, mc, bd, 1, terminators)
+            term_checks += active & ((state.pos > pos0) | (state.status == traverse.TERM)
+                                     | (state.status == traverse.FULL))
         branch = state.status == traverse.BRANCH
         if bool(branch.any()):
             out = traverse._gather_out_codes(state.buf, state.pos, cfg.k)
@@ -1050,7 +1135,8 @@ def walk_tally(st, graph, cfg, wcfg, mc, bd, superstep_hops: int = 64, max_super
             advanced = branch & (state.pos > pos0)
             reused |= advanced & chosen_viable & (la > 1) & (cfg.k > 1)
     rounds = hop_rounds + resolves * (la - 1)
-    return {"state": state, "hops": hops, "resolves": resolves, "reads": reads, "rounds": rounds}
+    return {"state": state, "hops": hops, "resolves": resolves, "reads": reads, "rounds": rounds,
+            "term_checks": term_checks}
 
 
 def walk_bound_ms(st, mc, bd, reads: int) -> float:
@@ -1122,7 +1208,7 @@ def walk_vs_plain(graph_prefix: str, left: str, right: str, what: str, card: str
     del idx
     r = {
         "max_abs_err": _max_abs_diff(kern, plain), "ms": sum(t["kernel"]) / 2, "plain_ms": sum(t["plain"]) / 2,
-        "lanes": int(st.pos.shape[0]), "seeds": int(seeds.shape[0]),
+        "lanes": int(st.pos.shape[0]), "seeds": int(seeds.shape[0]), "seed_rows": seeds,
         "hops": int(kern.hops.sum()), "max_hops": int(kern.hops.max()),
         "hops_tried": int(tally["hops"].sum()), "resolves": int(tally["resolves"].sum()),
         "cell_reads": reads, "bound_ms": walk_bound_ms(st, mc, bd, reads), "gather_ms": gather_ms,
@@ -1966,7 +2052,7 @@ def naive_vs_plain(graph_prefix: str, left: str, right: str, card: str, dev, var
     (``naive_tally``); the lane with the most rounds walked alone; one
     random gather beside."""
     graph, cfg, captured, n_frags = first_batch_naive_walks(graph_prefix, left, right, dev)
-    r = {"fragments": n_frags, "walks": {}}
+    r = {"fragments": n_frags, "walks": {}, "right_start": captured[0][:4]}
     builds = ["kernel", *variants]
 
     def call(who, st, wcfg, mc, bd):
@@ -2989,6 +3075,326 @@ def long_read_path(tmp: str, card: str, dev, transcripts: int = LR_TRANSCRIPTS, 
     return r
 
 
+# ---- phase 11: the decision oracle, exact counts and terminators ----
+
+EXACT_PAIRS = 250_000  # phase 11: the exact-count build's depth cut of the 1M pairs
+EXACT_BATCH = 4096  # reads a build batch, as stage 1 takes them
+MAX_REPLACES = "rnabloom_tpu/bloom/filters.py:378"  # counting_increment's .at[].max (XLA, no Pallas kernel)
+GOLDEN_ORACLE = "tests/golden/oracle_divergence.json"
+TERM_CFG = filters.BloomConfig(27, 2)  # phase 11's terminator filter
+EXACT_NAME = "exact-count graph"
+
+
+def head_codes(path: str, n: int) -> np.ndarray:
+    """(n, READ_LEN) codes of the first ``n`` reads of a FASTQ file."""
+    rows = []
+    for _, seq, _ in fastx.read_seqs(path):
+        rows.append(sequtils.encode(seq))
+        if len(rows) == n:
+            break
+    codes, _ = sequtils.pack_batch(rows, len(rows), READ_LEN)
+    return codes
+
+
+@contextlib.contextmanager
+def plain_inserts():
+    """Route the filters' inserts to the plain versions (on the card too)."""
+    saved = filters.cell_insert
+    filters.cell_insert = lambda t, i, op, salt=0, values=None: ci.cell_insert_plain(t, i, op, salt, values)
+    try:
+        yield
+    finally:
+        filters.cell_insert = saved
+
+
+@contextlib.contextmanager
+def first_max_call(store: dict):
+    """Record the first ``max`` insert the filters make: its table as it
+    was before, its indices and its values (copies)."""
+    saved = filters.cell_insert
+
+    def recording(t, i, op, salt=0, values=None):
+        if op == "max" and "table" not in store:
+            store.update(table=t.clone(), idx=i.clone(), values=values.clone())
+        return saved(t, i, op, salt, values)
+
+    filters.cell_insert = recording
+    try:
+        yield
+    finally:
+        filters.cell_insert = saved
+
+
+def oracle_on_card(card: str) -> dict:
+    """``oracle.divergence.measure_all`` on the card (every launch count set
+    to 0 before it) against the CPU's and the golden dict."""
+    from rnabloom_tpu_torch.oracle import divergence
+
+    reset_launch_counters()
+    t0 = time.time()
+    got = divergence.measure_all(device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {op: n for op, n in launch_counters().items() if n}
+    cpu = divergence.measure_all(device="cpu")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), GOLDEN_ORACLE)) as f:
+        golden = json.load(f)
+    got, cpu = json.loads(json.dumps(got)), json.loads(json.dumps(cpu))
+    if got != cpu or got != golden:
+        diff = sorted(key for key in golden if got.get(key) != golden[key] or cpu.get(key) != golden[key])
+        raise AssertionError(f"the oracle's dict on the card or the CPU differs from the golden in {diff}")
+    assert all(launches.get(op, 0) > 0 for op in ("set", "add", "max", "walk_greedy")), launches
+    print(f"oracle.divergence.measure_all on the card: equal to the CPU's and to {GOLDEN_ORACLE} ({len(got)} keys; "
+          f"greedy_agreement {got['greedy_agreement']}, tip_probe_agreement {got['tip_probe_agreement']}, "
+          f"ec_output_agreement {got['ec_output_agreement']}, mf8_count_rel_err {got['mf8_count_rel_err']}); "
+          f"{seconds:.2f} s; launches by op {launches} [{card}]", flush=True)
+    return {"seconds": seconds, "launches": launches}
+
+
+def exact_config(counter: str, exact: bool = True) -> dbg.GraphConfig:
+    """``default_graph_config`` at -mem 1, k=25, in the conservative
+    update's flat layout, with exact counts (or count-min)."""
+    from rnabloom_tpu_torch.assembly import stage1
+
+    d_read, _ = stage1.read_length_params(np.full(16, READ_LEN), K, pipeline.PipelineParams().min_num_kmer_pairs)
+    cfg = stage1.default_graph_config(K, False, 1 << 30, read_pair_distance=d_read, counter=counter)
+    return dataclasses.replace(cfg, cbf=dataclasses.replace(cfg.cbf, blocked=False), exact_counts=exact)
+
+
+def exact_build(cfg: dbg.GraphConfig, batches: list, dev):
+    """Stage 1's build steps over ``batches`` into a fresh graph on the
+    card (read pairs included): (graph, seconds)."""
+    graph = engine.make_graph(cfg, with_rpkbf=True, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for salt, codes in enumerate(batches):
+        engine.build_step(graph, cfg, codes, add_read_pairs=True, salt=salt)
+    torch.cuda.synchronize()
+    return graph, time.time() - t0
+
+
+def exact_builds(left: str, right: str, card: str, dev) -> dict:
+    """The exact-count stage-1 build at -mem 1 (int32: 2^27 dbgbf lanes,
+    2^27 int32 cells, 2^27 rpkbf lanes; mf8: 2^29 cells) over the first
+    EXACT_PAIRS pairs, in batches of EXACT_BATCH reads, once with the
+    kernels (every launch count set to 0 before) and once with the plain
+    inserts on the card: every table byte-identical.  Also the count-min
+    int32 graph of the same reads (flat layout), phase 11's walks'
+    yardstick."""
+    codes = np.concatenate([head_codes(left, EXACT_PAIRS), head_codes(right, EXACT_PAIRS)])
+    batches = [codes[i : i + EXACT_BATCH] for i in range(0, len(codes), EXACT_BATCH)]
+    out = {"reads": int(len(codes)), "batches": len(batches)}
+    for counter in ("int32", "mf8"):
+        cfg = exact_config(counter)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counters()
+        first = {}
+        with first_max_call(first) if counter == "int32" else contextlib.nullcontext():
+            kern, t_kern = exact_build(cfg, batches, dev)
+        launches = {op: n for op, n in launch_counters().items() if n}
+        peak = torch.cuda.max_memory_allocated()
+        with plain_inserts():
+            plain, t_plain = exact_build(cfg, batches, dev)
+        for name in ("dbgbf", "cbf", "rpkbf"):
+            if not torch.equal(getattr(kern, name), getattr(plain, name)):
+                raise AssertionError(f"exact -cnt {counter} build: {name} differs between the kernels and the plain "
+                                     f"inserts")
+        assert launches.get("max", 0) == len(batches) and launches.get("add", 0) == len(batches), launches
+        member = float((kern.dbgbf[: cfg.dbgbf.size] != 0).double().mean())
+        out[counter] = {"launches": launches, "seconds": t_kern, "plain_seconds": t_plain, "peak_bytes": peak,
+                        "dbgbf_log2": cfg.dbgbf.size_log2, "cbf_log2": cfg.cbf.size_log2,
+                        "rpkbf_log2": cfg.pkbf.size_log2, "dbgbf_set_share": member, "fprs": engine.fprs(kern, cfg)}
+        print(f"exact-count build -cnt {counter} (dbgbf 2^{cfg.dbgbf.size_log2} lanes, cbf 2^{cfg.cbf.size_log2} "
+              f"{counter} cells, rpkbf 2^{cfg.pkbf.size_log2}; {out['reads']} reads of the first {EXACT_PAIRS} "
+              f"pairs in {len(batches)} batches): dbgbf, cbf and rpkbf byte-identical between the kernels and the "
+              f"plain inserts; kernels {t_kern:.3f} s, plain {t_plain:.3f} s; launches {launches}; peak device "
+              f"memory {peak} B ({peak / 2**30:.3f} GiB); dbgbf lanes set {member:.4f}, FPRs {out[counter]['fprs']} "
+              f"[{card}]", flush=True)
+        del plain
+        if counter == "int32":
+            out["graph"], out["cfg"], out["first_max"] = kern, cfg, first
+        del kern
+    cm_cfg = exact_config("int32", exact=False)
+    out["cm_graph"], _ = exact_build(cm_cfg, batches, dev)
+    out["cm_cfg"] = cm_cfg
+    return out
+
+
+def _per_launch_ms(fn, reset, reps: int = 10) -> list:
+    """Card time of ``fn`` per call, each call after ``reset()`` (outside
+    its events; the reset's copy keeps the card busy while the host
+    enqueues the call)."""
+    events = []
+    for _ in range(reps):
+        reset()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        events.append((start, stop))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events]
+
+
+def max_bound_ms(idx: torch.Tensor, values: torch.Tensor, numel: int) -> float:
+    """Least time of a max launch: its indices and values read once, one
+    32 B sector a distinct in-range cell, over the card's memory rate."""
+    distinct = torch.unique(idx[(idx >= 0) & (idx < numel)]).numel()
+    return (idx.numel() * idx.element_size() + values.numel() * values.element_size() + distinct * SECTOR) \
+        / HBM_BYTES_PER_MS
+
+
+def max_cell(table0: torch.Tensor, idx: torch.Tensor, values: torch.Tensor, what: str, card: str) -> dict:
+    """The max kernel against its plain version and ``scatter_reduce_``
+    (amax) on one batch: equal tables; per-launch times in turns (plain,
+    library, kernel, kernel, library, plain), every call on a fresh copy of
+    ``table0``."""
+    work = torch.empty_like(table0)
+    keep = (idx >= 0) & (idx < table0.numel())
+    idx_in, values_in = idx[keep], values[keep]
+    fns = {
+        "kernel": lambda: ci.cell_insert(work, idx, "max", values=values),
+        "plain": lambda: ci.cell_insert_plain(work, idx, "max", values=values),
+        "library": lambda: work.scatter_reduce_(0, idx_in, values_in, "amax"),
+    }
+    outs = {}
+    for who, fn in fns.items():
+        work.copy_(table0)
+        fn()
+        outs[who] = work.clone()
+    torch.cuda.synchronize()
+    for who in ("plain", "library"):
+        if not torch.equal(outs["kernel"], outs[who]):
+            raise AssertionError(f"cell_insert[max] != {who} on {what}: "
+                                 f"{int((outs['kernel'] != outs[who]).sum())} cells differ")
+    raised = int((outs["kernel"] != table0).sum())
+    del outs
+    t = {who: [] for who in fns}
+    for who in ("plain", "library", "kernel", "kernel", "library", "plain"):
+        t[who] += _per_launch_ms(fns[who], lambda: work.copy_(table0), reps=5)
+    r = {"ms": _mean(t["kernel"]), "plain_ms": _mean(t["plain"]), "library_ms": _mean(t["library"]),
+         "bound_ms": max_bound_ms(idx, values, table0.numel()), "indices": int(idx.numel()), "raised_cells": raised,
+         "max_abs_err": 0.0}
+    print(f"cell_insert[max] ({what}, {idx.numel()} indices into {table0.numel()} {table0.dtype} cells, {raised} "
+          f"cells raised): equal to the plain version and to scatter_reduce_(amax); per launch kernel "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+          f"{r['bound_ms']:.4f} ms by bytes at 3.35 TB/s [{card}]", flush=True)
+    return r
+
+
+def max_cells(first: dict, card: str, dev) -> dict:
+    """The max row: the exact build's first batch (its int32 cbf before,
+    indices and values) and a synthetic 2^20-index batch (a prefilled
+    2^27-cell table, a 10^5-fold cell, the trash cell, dropped indices)."""
+    real = max_cell(first["table"], first["idx"], first["values"], "the exact -cnt int32 build's first batch", card)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    numel = (1 << 27) + 1
+    table0 = torch.randint(0, 1 << 20, (numel,), generator=gen, device=dev, dtype=torch.int32)
+    idx = _batch(numel, gen, dev)
+    values = torch.randint(0, 1 << 20, (idx.numel(),), generator=gen, device=dev, dtype=torch.int32)
+    synth = max_cell(table0, idx, values, "synthetic", card)
+    return {"real": real, "synthetic": synth}
+
+
+def gated_tally(st, graph, cfg, wcfg, mc, bd, terminators=None, **kw) -> dict:
+    """``walk_tally`` of a walk batch over an exact-count graph or with
+    terminators: each key read also reads its dbgbf lanes, and each hop
+    that reaches the terminator check (an advance, a TERM or a FULL stop
+    with one viable candidate) reads the terminator lanes."""
+    t = walk_tally(st, graph, cfg, wcfg, mc, bd, terminators=terminators, **kw)
+    per_key = cfg.cbf.num_hash + (cfg.dbgbf.num_hash if cfg.exact_counts else 0)
+    cells = t["reads"] * per_key // cfg.cbf.num_hash + t["term_checks"] * (TERM_CFG.num_hash if terminators is not
+                                                                          None else 0)
+    return {**t, "reads": cells}
+
+
+def gated_walk_cell(what: str, run, plain_run, tally, yardstick, card: str, st, mc, bd) -> dict:
+    """A walk cell of phase 11: the kernel against the plain loop in every
+    field, the replay's bound, and the kernel's time in turns with
+    ``yardstick`` (the same seeds with the count-min graph, or without
+    terminators): kernel, yardstick, yardstick, kernel.  The two take
+    different paths, so each time is also given per hop."""
+    kern = run()
+    yard = yardstick()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    plain = plain_run()
+    torch.cuda.synchronize()
+    plain_ms = (time.time() - t0) * 1e3
+    fields = WALK_FIELDS
+    bad = [f for f in fields if not torch.equal(getattr(kern, f), getattr(plain, f))]
+    if bad:
+        raise AssertionError(f"{what}: the kernel differs from the plain loop in {bad}")
+    bad = [f for f in fields if not torch.equal(getattr(tally["state"], f), getattr(plain, f))]
+    if bad:
+        raise AssertionError(f"{what}: the tallied replay differs from the plain loop in {bad}")
+    t = {"kernel": [], "yardstick": []}
+    for who in ("kernel", "yardstick", "yardstick", "kernel"):
+        t[who].append(_time_ms(run if who == "kernel" else yardstick, reps=5))
+    status = torch.bincount(kern.status.long(), minlength=7).tolist()
+    r = {"ms": _mean(t["kernel"]), "yardstick_ms": _mean(t["yardstick"]), "plain_ms": plain_ms,
+         "bound_ms": walk_bound_ms(st, mc, bd, int(tally["reads"].sum())), "cell_reads": int(tally["reads"].sum()),
+         "lanes": int(st.pos.shape[0]), "hops": int(kern.hops.sum()), "statuses": status,
+         "yardstick_hops": int(yard.hops.sum()),
+         "yardstick_statuses": torch.bincount(yard.status.long(), minlength=7).tolist(),
+         "max_abs_err": _max_abs_diff(kern, plain)}
+    r["ns_per_hop"] = r["ms"] * 1e6 / max(r["hops"], 1)
+    r["yardstick_ns_per_hop"] = r["yardstick_ms"] * 1e6 / max(r["yardstick_hops"], 1)
+    print(f"{what}: {r['lanes']} lanes, every WalkState field equal to the plain loop; {r['hops']} hops, statuses "
+          f"{status}; kernel {r['ms']:.4f} ms ({', '.join(f'{x:.4f}' for x in t['kernel'])}), yardstick "
+          f"{r['yardstick_ms']:.4f} ms ({', '.join(f'{x:.4f}' for x in t['yardstick'])}; {r['yardstick_hops']} hops, "
+          f"statuses {r['yardstick_statuses']}); per hop {r['ns_per_hop']:.3f} ns against {r['yardstick_ns_per_hop']:.3f} "
+          f"ns; plain {plain_ms:.1f} ms; {r['cell_reads']} reads needed: bound {r['bound_ms']:.4f} ms by bytes at "
+          f"3.35 TB/s [{card}]", flush=True)
+    return r
+
+
+def exact_walks(built: dict, seeds: np.ndarray, naive_start: tuple, truth, card: str, dev) -> dict:
+    """Phase 11's walk cells on the exact int32 graph, each against the
+    plain loop and timed in turns with the count-min int32 graph of the
+    same reads: greedy on phase 4's bridge seeds, naive on phase 8's right
+    walks; then terminators (the k-mers of every other simulated
+    transcript, by ``screen_add``) on the greedy lanes over the count-min
+    graph, timed in turns with the same walks without them."""
+    ex, ecfg, cm, ccfg = built["graph"], built["cfg"], built["cm_graph"], built["cm_cfg"]
+    wcfg, _ = fragments.bridge_walk_configs(ecfg, fragments.FragmentParams())
+    st = traverse.make_walks(ecfg, wcfg, seeds, device=dev)
+    mc, bd = traverse.lane_args(st, 1.0, fragments.FragmentParams().bound)
+    greedy = gated_walk_cell(
+        f"walk_greedy over the {EXACT_NAME} (phase 4's bridge seeds)",
+        lambda: walk.walk_greedy(st, ex, ecfg, wcfg, mc, bd), lambda: walk.walk_greedy_plain(st, ex, ecfg, wcfg, mc, bd),
+        gated_tally(st, ex, ecfg, wcfg, mc, bd), lambda: walk.walk_greedy(st, cm, ccfg, wcfg, mc, bd), card, st, mc, bd)
+    nst, nwcfg, nmc, nbd = naive_start
+    tally = naive_tally(nst, ex, ecfg, nwcfg, nmc, nbd)
+    per_key = ecfg.cbf.num_hash + ecfg.dbgbf.num_hash
+    naive = gated_walk_cell(
+        f"walk_naive over the {EXACT_NAME} (phase 8's right -extend walks)",
+        lambda: walk.walk_naive(nst, ex, ecfg, nwcfg, nmc, nbd),
+        lambda: walk.walk_naive_plain(nst, ex, ecfg, nwcfg, nmc, nbd),
+        {"state": tally["state"], "reads": tally["needed"] * per_key // ecfg.cbf.num_hash},
+        lambda: walk.walk_naive(nst, cm, ccfg, nwcfg, nmc, nbd), card, nst, nmc, nbd)
+    bases, offsets, lengths = truth
+    rows = [bases[offsets[i] : offsets[i] + lengths[i]] for i in range(0, len(lengths), 2)]
+    tx_codes, _ = sequtils.pack_batch(rows, len(rows), int(lengths.max()))
+    lanes = filters.make_bloom(TERM_CFG, device=dev)
+    transcripts.screen_add(lanes, TERM_CFG, ccfg, tx_codes)
+    twcfg = dataclasses.replace(wcfg, use_terminators=True, term_cfg=TERM_CFG)
+    term = gated_walk_cell(
+        "walk_greedy with terminators over the count-min int32 graph (phase 4's bridge seeds; the k-mers of "
+        f"{len(rows)} of the {len(lengths)} simulated transcripts)",
+        lambda: walk.walk_greedy(st, cm, ccfg, twcfg, mc, bd, terminators=lanes),
+        lambda: walk.walk_greedy_plain(st, cm, ccfg, twcfg, mc, bd, terminators=lanes),
+        gated_tally(st, cm, ccfg, twcfg, mc, bd, terminators=lanes),
+        lambda: walk.walk_greedy(st, cm, ccfg, wcfg, mc, bd), card, st, mc, bd)
+    n_term = term["statuses"][traverse.TERM]
+    live = int((st.status == traverse.ACTIVE).sum())
+    assert 0 < n_term < live, (n_term, live)
+    print(f"terminators: {n_term} of the {live} live lanes ended TERM [{card}]", flush=True)
+    return {"greedy": greedy, "naive": naive, "term": {**term, "term_lanes": n_term, "live_lanes": live}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--walk-variant", action="append", default=[], metavar="NAME=PATH",
@@ -3013,37 +3419,53 @@ def main(argv=None) -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    left, right = os.path.join(tmp, "reads_1.fq"), os.path.join(tmp, "reads_2.fq")
     t0 = time.time()
-    with ThreadPoolExecutor(2 + len(variant_srcs) + len(insert_srcs) + len(lr_srcs)) as pool:
-        port_build = pool.submit(_build.build_all)
-        chase_build = pool.submit(build_chase)
-        variant_builds = {name: pool.submit(build_variant, "walk", i, src)
-                          for i, (name, src) in enumerate(variant_srcs.items())}
-        insert_builds = {name: pool.submit(build_variant, "insert", i, src)
-                         for i, (name, src) in enumerate(insert_srcs.items())}
-        lr_builds = {name: pool.submit(build_variant, "lr", i, src) for i, (name, src) in enumerate(lr_srcs.items())}
-        built = port_build.result()
-        chase = chase_build.result()
-        variants = {name: f.result() for name, f in variant_builds.items()}
-        insert_variants = {name: f.result() for name, f in insert_builds.items()}
-        lr_variants = {name: f.result() for name, f in lr_builds.items()}
+    try:
+        with ThreadPoolExecutor(2 + len(variant_srcs) + len(insert_srcs) + len(lr_srcs)) as pool:
+            port_build = pool.submit(_build.build_all)
+            chase_build = pool.submit(build_chase)
+            variant_builds = {name: pool.submit(build_variant, "walk", i, src)
+                              for i, (name, src) in enumerate(variant_srcs.items())}
+            insert_builds = {name: pool.submit(build_variant, "insert", i, src)
+                             for i, (name, src) in enumerate(insert_srcs.items())}
+            lr_builds = {name: pool.submit(build_variant, "lr", i, src)
+                         for i, (name, src) in enumerate(lr_srcs.items())}
+            # the reads are simulated while nvcc compiles
+            t_sim = time.time()
+            truth = pesim.write_pe_fastq(
+                left, right, seed=0, num_transcripts=2000, tx_len=(1000, 4000),
+                num_pairs=PAIRS, read_len=READ_LEN, frag_range=(250, 400), sub_rate=0.003,
+            )
+            sim_s = time.time() - t_sim
+            built = port_build.result()
+            chase = chase_build.result()
+            variants = {name: f.result() for name, f in variant_builds.items()}
+            insert_variants = {name: f.result() for name, f in insert_builds.items()}
+            lr_variants = {name: f.result() for name, f in lr_builds.items()}
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
     print(f"kernels built in parallel in {time.time() - t0:.2f} s: "
           + (", ".join(f"{os.path.relpath(src, os.path.dirname(os.path.abspath(__file__)))} "
                        f"{sec:.2f} s" for src, sec in built.items()) or "all up to date")
           + "".join(f"; walk variant {name} from {src}" for name, src in variant_srcs.items())
           + "".join(f"; insert variant {name} from {src}" for name, src in insert_srcs.items())
           + "".join(f"; long-read variant {name} from {src}" for name, src in lr_srcs.items()))
-    log = _build.build_logs.get(_build.WALK_SRC)
-    if log is None:
-        print("walk kernel not rebuilt in this run (up to date): no ptxas report")
+    logs = [_build.build_logs.get(lib)
+            for lib in (*_build.WALK_COUNT_MIN_LIBS, _build.WALK_EXACT_LIB, _build.WALK_TERM_LIB)]
+    if None in logs:
+        print("walk kernel libraries not rebuilt in this run (up to date): no ptxas report")
     else:
-        print("nvcc -Xptxas -v, walk kernel instantiations <layout, num_hash (0: any), past depth 3, mode>:")
-        for line in ptxas_report(log):
+        print("nvcc -Xptxas -v, walk kernel instantiations <layout, num_hash (0: any), past depth 3, mode> (the "
+              "count-min greedy, count-min pair and naive, exact-count, and terminator libraries):")
+        for line in ptxas_report("\n".join(logs)):
             print("  " + line)
-    log = _build.build_logs.get(_build.KERNEL_SRC)
+    log = _build.build_logs.get(_build.KERNEL_LIB)
     if log is not None:
         print("nvcc -Xptxas -v, insert kernels: " + "; ".join(insert_ptxas(log)))
-    log = _build.build_logs.get(_build.LR_SRC)
+    log = _build.build_logs.get(_build.LR_LIB)
     if log is not None:
         print("nvcc -Xptxas -v, long-read kernels: "
               + "; ".join(insert_ptxas(log, "kmer_keys|randstrobe|vote"))
@@ -3051,15 +3473,9 @@ def main(argv=None) -> int:
                 f"{_build.lr_kernels().lr_randstrobe_smem(LR_N, LR_WMAX)} B")
     print(f"native FASTX reader in use: {native.available()}", flush=True)
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        left, right = os.path.join(tmp, "reads_1.fq"), os.path.join(tmp, "reads_2.fq")
-        t0 = time.time()
-        pesim.write_pe_fastq(
-            left, right, seed=0, num_transcripts=2000, tx_len=(1000, 4000),
-            num_pairs=PAIRS, read_len=READ_LEN, frag_range=(250, 400), sub_rate=0.003,
-        )
-        print(f"simulated 1,000,000 pairs (2000 transcripts, seed 0) in {time.time() - t0:.1f} s", flush=True)
+        print(f"simulated 1,000,000 pairs (2000 transcripts, seed 0) in {sim_s:.1f} s while the kernels built",
+              flush=True)
         heads = {}
         for n in (STAGE2_PAIRS, 20_000, STAGE3_PAIRS, EXTEND_BATCHES * BATCH2):
             heads[n] = (os.path.join(tmp, f"head{n}_1.fq"), os.path.join(tmp, f"head{n}_2.fq"))
@@ -3184,6 +3600,18 @@ def main(argv=None) -> int:
         phase("10 -long (default, -lrsub strobemers, -lrsub k-mers, -paf) on simulated ONT cDNA reads, the long-read "
               "kernels vs plain PyTorch on the runs' own data, card vs CPU, on the card")
         lr = long_read_path(tmp, card, dev, variants=lr_variants)
+
+        phase("11 the decision oracle on the card; the exact-count stage-1 build at -mem 1 on the first "
+              f"{EXACT_PAIRS} pairs, kernels vs plain inserts; the max insert; walks over the exact-count graph "
+              "and with terminators, vs plain PyTorch, on the card")
+        oracle = oracle_on_card(card)
+        built = exact_builds(left, right, card, dev)
+        max_launches = oracle["launches"]["max"] + sum(built[c]["launches"]["max"] for c in ("int32", "mf8"))
+        maxc = max_cells(built.pop("first_max"), card, dev)
+        gated = exact_walks(built, walk_t["mf8"]["seed_rows"], naive["right_start"], truth, card, dev)
+        exact_runs = {c: built[c] for c in ("int32", "mf8")}
+        del built
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3418,6 +3846,38 @@ def main(argv=None) -> int:
         "long_read_runs": lr_runs, "long_reads": lr["reads"], "long_bases": lr["bases"],
         "card_vs_cpu_files": lr["card_vs_cpu"],
     })
+    kernels.append({
+        "name": "cell_insert[max]",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": MAX_REPLACES,
+        "launches": max_launches,
+        "run": f"phase 11: the decision oracle on the card ({oracle['launches']['max']} launches) and the exact-count "
+               f"stage-1 builds at -mem 1 (-cnt int32 and mf8, flat layout) of the first {EXACT_PAIRS} pairs; times "
+               f"on a synthetic 2^20-index batch and on the int32 build's first batch",
+        "max_abs_err": max(maxc[c]["max_abs_err"] for c in ("real", "synthetic")),
+        "ms": maxc["synthetic"]["ms"],
+        "plain_ms": maxc["synthetic"]["plain_ms"],
+        "bound_ms": maxc["synthetic"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": maxc["synthetic"]["library_ms"],
+        "real_batch_indices": maxc["real"]["indices"],
+        "real_ms": maxc["real"]["ms"],
+        "real_plain_ms": maxc["real"]["plain_ms"],
+        "real_bound_ms": maxc["real"]["bound_ms"],
+        "real_library_ms": maxc["real"]["library_ms"],
+        "real_raised_cells": maxc["real"]["raised_cells"],
+        "exact_builds": exact_runs,
+        "oracle": oracle,
+    })
+    cell_keys = ("ms", "yardstick_ms", "plain_ms", "bound_ms", "cell_reads", "lanes", "hops", "statuses",
+                 "yardstick_hops", "yardstick_statuses", "ns_per_hop", "yardstick_ns_per_hop", "max_abs_err")
+    for row in kernels:
+        if row["name"] == "walk_greedy":
+            row["exact_graph"] = {key: gated["greedy"][key] for key in cell_keys}
+            row["terminators"] = {key: gated["term"][key] for key in (*cell_keys, "term_lanes", "live_lanes")}
+        elif row["name"] == "walk_naive":
+            row["exact_graph"] = {key: gated["naive"][key] for key in cell_keys}
     print(f"\nsmoke wall time {time.time() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))

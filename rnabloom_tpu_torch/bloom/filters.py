@@ -1,4 +1,5 @@
-"""Bloom bit-lane filters and count-min counters on torch tensors.
+"""Bloom bit-lane filters and counters (count-min, and the conservative
+update of exact counts) on torch tensors.
 
 Port of ``rnabloom_tpu/bloom/filters.py`` with its scatter semantics
 (``merge=False``, the layout the JAX package uses off the TPU): every
@@ -104,6 +105,18 @@ def bloom_lookup(bits: torch.Tensor, cfg: BloomConfig, hashes: torch.Tensor) -> 
     return torch.all(bits[idx] != 0, dim=-1)
 
 
+def bloom_lookup_then_add(
+    bits: torch.Tensor, cfg: BloomConfig, hashes: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched lookupThenAdd in place: (bits, was_present), with
+    ``was_present`` read from the pre-batch snapshot (the JAX package's
+    semantics; the caller's multiplicity logic accounts for repeats within
+    the batch)."""
+    found = bloom_lookup(bits, cfg, hashes)
+    return bloom_add(bits, cfg, hashes, valid), found
+
+
 def _integer_pow(x, y: int):
     """x ** y by the same multiplications as JAX's integer_pow lowering
     (binary exponentiation), so float32 results agree bit for bit."""
@@ -137,7 +150,7 @@ def bloom_fpr(bits: torch.Tensor, cfg: BloomConfig) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Counting filter (count-min)
+# Counting filter
 # ---------------------------------------------------------------------------
 
 SCRATCH_LOG2_DEFAULT = 22
@@ -194,6 +207,18 @@ def decode_counts(cells: torch.Tensor, dtype: str) -> torch.Tensor:
     return cells.to(torch.int32)
 
 
+def encode_counts(values: torch.Tensor, dtype: str, u01: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Count values -> counter cells (monotonic, saturating); mf8 rounds
+    stochastically with ``u01``, else to the nearest code.  u16 cells come
+    out as int16 bit patterns."""
+    if dtype == "mf8":
+        return minifloat.encode(values) if u01 is None else minifloat.encode_stochastic(values, u01)
+    if dtype == "u16":
+        v = torch.clamp(values.to(torch.int32), 0, 65535)
+        return torch.where(v >= 32768, v - 65536, v).to(torch.int16)
+    return values.to(torch.int32)
+
+
 def apply_cell_increments(
     cells: torch.Tensor, inc: torch.Tensor, dtype: str, salt: int = 0,
     cell_index: Optional[torch.Tensor] = None,
@@ -244,6 +269,42 @@ def counting_count(counts: torch.Tensor, cfg: CountingConfig, hashes: torch.Tens
     # cells as unsigned
     cells = counts[bloom_indices(hashes, cfg.size_log2)]
     return torch.amin(decode_counts(cells, cfg.dtype), dim=-1)
+
+
+def counting_increment(
+    counts: torch.Tensor, cfg: CountingConfig, hashes: torch.Tensor,
+    valid: Optional[torch.Tensor] = None, dec_first: Optional[torch.Tensor] = None,
+    salt: int = 0,
+) -> torch.Tensor:
+    """Conservative-update increment of a batch with multiplicity, in place
+    (the exact-count path; flat layout only).
+
+    Every occurrence sees the pre-batch cells.  The multiplicity m of a key
+    within the batch is the min over its cells of a fresh int32 scratch
+    sketch of ``2^scratch_log2 + 1`` cells (the ``add`` insert of the
+    batch); ``dec_first`` takes 1 off it (the first insert of a key new to
+    the graph goes to the dbgbf only).  All h cells are then raised to
+    max(cell, min_cell + max(m, 0)) by the ``max`` insert of the encoded
+    values; mf8 rounds stochastically keyed by hash 0's low 32 bits and
+    ``salt``."""
+    assert not cfg.blocked, "the conservative path keeps the reference layout"
+    valid = _bcast_valid(valid, hashes)
+    idx = bloom_indices(hashes, cfg.size_log2, valid)
+    sidx = bloom_indices(hashes, cfg.scratch_log2, valid)
+    scratch = torch.zeros((1 << cfg.scratch_log2) + 1, dtype=torch.int32, device=counts.device)
+    cell_insert(scratch, sidx.reshape(-1), "add")
+    mult = torch.amin(scratch[sidx], dim=-1)
+    if dec_first is not None:
+        mult = mult - dec_first.to(torch.int32)
+    # decoding is monotonic in the cell code: min-then-decode (the JAX
+    # package's order) equals decode-then-min, which reads u16 unsigned
+    cur_min = torch.amin(decode_counts(counts[idx], cfg.dtype), dim=-1)
+    new_val = cur_min + torch.clamp(mult, min=0).to(cur_min.dtype)
+    if valid is not None:
+        new_val = torch.where(valid[..., 0], new_val, torch.zeros_like(new_val))
+    u01 = minifloat.mix_u01(hashes[..., 0], salt) if cfg.dtype == "mf8" else None
+    upd = encode_counts(new_val, cfg.dtype, u01)[..., None].expand(idx.shape)
+    return cell_insert(counts, idx.reshape(-1), "max", values=upd.reshape(-1))
 
 
 def counting_increment_cm(

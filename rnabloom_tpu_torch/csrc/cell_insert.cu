@@ -16,6 +16,11 @@
 //            mix_u01(i, salt)), applied ONCE per touched cell with the
 //            batch total n_i (the stochastic rounding is not additive, so
 //            the per-cell total must be known before the code is written)
+//   max      int32, uint16 or uint8 (MiniFloat) cells, a value per index:
+//            table[i] = max(table[i], every value of i) (unsigned for uint16
+//            and uint8), the scatter-max of the conservative update
+//            (filters.py::counting_increment, XLA's .at[].max in the JAX
+//            package; no Pallas kernel)
 //
 // What bounds them: random accesses to HBM.  Stage 1 at -mem 1 inserts
 // about 1M indices per filter per 4096-read batch (4096 reads x 126 k-mers
@@ -101,6 +106,20 @@
 // whole total, so the table is deterministic.  What is left is one random
 // byte read (and, where the code changes, one write) per distinct cell, as
 // for add_u16.
+//
+// max, a simple first version: one thread per index, grid-stride.  A max
+// commutes, so the table comes out the same in any order.  Each thread
+// reads its cell from L2 first and writes only where its value is larger:
+// on the exact-count build most keys recur across batches with a value
+// that their cells already hold, and such a cell costs one read.  int32
+// cells then take one atomicMax; uint16 cells a 16-bit atomicCAS loop (as
+// add_u16, so the trash cell's word never reaches past the tensor); uint8
+// cells an atomicCAS loop on their aligned 32-bit word, which for the last
+// cells of a table reaches up to 3 bytes past it: the wrapper takes only
+// tables that start their storage, whose block the caching allocator
+// rounds to 512 bytes, and a CAS writes the other bytes of the word back
+// unchanged.  Fusing the conservative update's gather, min, encode and max
+// into one pass is later work.
 //
 // Keys are uint32, as the JAX package's indices are; 0xFFFFFFFF marks an
 // empty slot, so the wrapper refuses add_u16 and add_mf8 tables of 2^32
@@ -387,6 +406,51 @@ __global__ void mf8_apply_kernel(uint8_t* __restrict__ table, unsigned long long
   }
 }
 
+// max: read the cell (L2), raise it only where the value is larger
+__global__ void max_i32_kernel(int* __restrict__ table, unsigned long long numel, const long long* __restrict__ idx,
+                               const int* __restrict__ vals, long long n) {
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < n; t += (long long)gridDim.x * blockDim.x) {
+    const unsigned long long i = (unsigned long long)idx[t];  // negative: huge, dropped
+    if (i >= numel) continue;
+    const int v = vals[t];
+    if (__ldcg(table + i) < v) atomicMax(table + i, v);
+  }
+}
+
+__global__ void max_u16_kernel(unsigned short* __restrict__ table, unsigned long long numel,
+                               const long long* __restrict__ idx, const unsigned short* __restrict__ vals,
+                               long long n) {
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < n; t += (long long)gridDim.x * blockDim.x) {
+    const unsigned long long i = (unsigned long long)idx[t];
+    if (i >= numel) continue;
+    const unsigned short v = vals[t];
+    unsigned short old = __ldcg(table + i);
+    while (old < v) {
+      const unsigned short seen = atomicCAS(table + i, old, v);
+      if (seen == old) break;
+      old = seen;
+    }
+  }
+}
+
+__global__ void max_u8_kernel(uint8_t* __restrict__ table, unsigned long long numel,
+                              const long long* __restrict__ idx, const uint8_t* __restrict__ vals, long long n) {
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < n; t += (long long)gridDim.x * blockDim.x) {
+    const unsigned long long i = (unsigned long long)idx[t];
+    if (i >= numel) continue;
+    const uint32_t v = vals[t];
+    const uintptr_t addr = (uintptr_t)(table + i);
+    unsigned int* word = (unsigned int*)(addr & ~(uintptr_t)3);
+    const int shift = (int)(addr & 3) * 8;
+    unsigned int old = __ldcg(word);
+    while (((old >> shift) & 0xFFu) < v) {
+      const unsigned int seen = atomicCAS(word, old, (old & ~(0xFFu << shift)) | (v << shift));
+      if (seen == old) break;
+      old = seen;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -436,6 +500,32 @@ int cell_add_mf8_batch(void* table, void* batch, long long slots, long long nume
     if (err) return err;
     mf8_apply_kernel<<<blocks_for(slots), kThreads, 0, s>>>(
         (uint8_t*)table, (unsigned long long*)batch, slots, (uint32_t)salt);
+  }
+  return (int)cudaGetLastError();
+}
+
+// max: table[idx[t]] = max(table[idx[t]], vals[t]); vals has the table's
+// element type
+int cell_max_i32(void* table, long long numel, const void* idx, const void* vals, long long n, void* stream) {
+  if (n > 0) {
+    max_i32_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        (int*)table, (unsigned long long)numel, (const long long*)idx, (const int*)vals, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+int cell_max_u16(void* table, long long numel, const void* idx, const void* vals, long long n, void* stream) {
+  if (n > 0) {
+    max_u16_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        (unsigned short*)table, (unsigned long long)numel, (const long long*)idx, (const unsigned short*)vals, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+int cell_max_u8(void* table, long long numel, const void* idx, const void* vals, long long n, void* stream) {
+  if (n > 0) {
+    max_u8_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        (uint8_t*)table, (unsigned long long)numel, (const long long*)idx, (const uint8_t*)vals, n);
   }
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,7 @@
 //
 // Replaces the XLA while-loop of rnabloom_tpu/graph/traverse.py::
 // _extend_walks_fused (mode="greedy", "pair" or "naive", back-branch checks
-// in naive mode, no terminators, spec_hops = 1): supersteps of
+// in naive mode, terminators in every mode, spec_hops = 1): supersteps of
 // walk_superstep alternating with resolve_branches, until no lane is ACTIVE
 // or BRANCH or max_supersteps ran.  The walk state that comes out equals the lockstep
 // loop's, field for field, the pair ring included
@@ -21,9 +21,9 @@
 // (ntHash slide) and their query hashes (signed min of the strands, or the
 // forward strand when stranded: rh for left walks); count-min lookup of
 // each over num_hash cells; the first candidate with count >= max(min_cov,
-// 1) is the move when it is the only one; cycle-ring scan; full check (pos
-// >= max_len-1 or hops >= bound); status by the reference precedence DEAD,
-// BRANCH, CYCLE, FULL; append.  A resolve scores each viable candidate by
+// 1) is the move when it is the only one; cycle-ring scan; terminator
+// lookup; full check (pos >= max_len-1 or hops >= bound); status by the
+// reference precedence DEAD, BRANCH, CYCLE, TERM, FULL; append.  A resolve scores each viable candidate by
 // the greedy lookahead tree (the max over paths of the path's min count;
 // depth 3 exhaustive, deeper levels a max-count descent from each depth-3
 // leaf) and takes the best score, then the higher count, then the smaller
@@ -33,6 +33,24 @@
 // wrapper from the port's own minifloat.decode, copied to shared memory),
 // u16 (read unsigned), int32, and int32 blocked (all of a key's cells in one
 // 128-cell row, as bloom/filters.py::blocked_cells places them).
+//
+// Exact-count graphs (GraphConfig.exact_counts, the decision oracle's) are
+// three more layouts, the flat ones with a gate: a key counts
+// (all its dbgbf lanes set) ? min(cells) + 1 : 0 (graph/dbg.py::
+// get_counts).  count_many reads a key's first kGateLanes dbgbf lanes in
+// the same round as its cells (lanes past those one at a time after, for a
+// dbgbf of more hashes), so the gate adds no round on the main shapes.
+// They are instantiated for num_hash 2 (the default) and the generic read
+// only, in a library of their own (WALK_PART, below), which keeps the
+// build's time.  Terminators (a screening filter as walk stops, every
+// mode): a hop whose single viable candidate is not in the cycle ring looks
+// the candidate up in the terminator lanes (thread r reads lanes r mod the
+// tile, a tile vote joins them), a round of its own only on lanes that take
+// terminators; a hit stops the lane TERM without an advance.  Resolves read
+// no terminators, as in the JAX package.  The check is compiled into the
+// exact layouts and into four more, the count-min layouts with terminators
+// (kTermLayout + layout, num_hash 2 and the generic read, a library of
+// their own), so the count-min layouts' code has no terminator branch.
 //
 // What bounds it on this card: the rate of random reads, and their
 // latency.  A stage-2 batch (16,384 lanes on a 512 MiB table) needs about
@@ -213,6 +231,7 @@ constexpr int kActive = 0;
 constexpr int kBranch = 1;
 constexpr int kDead = 2;
 constexpr int kCycle = 3;
+constexpr int kTerm = 4;
 constexpr int kFull = 5;
 constexpr int kStoppedBranch = 6;
 
@@ -234,6 +253,22 @@ constexpr int kMf8 = 0;
 constexpr int kU16 = 1;
 constexpr int kI32 = 2;
 constexpr int kI32Blocked = 3;
+// the flat layouts with the exact-count gate: kExactLayout + flat layout
+constexpr int kExactLayout = 4;
+constexpr int kMf8Exact = kExactLayout + kMf8;
+constexpr int kU16Exact = kExactLayout + kU16;
+constexpr int kI32Exact = kExactLayout + kI32;
+constexpr int kGateLanes = 2;  // dbgbf lanes read with a key's first cells
+// the count-min layouts with the terminator stop: kTermLayout + layout
+constexpr int kTermLayout = 8;
+
+template <int L>
+constexpr bool kIsExact = L >= kExactLayout && L < kTermLayout;
+// the terminator check is compiled in (it runs where p.term is set)
+template <int L>
+constexpr bool kTakesTerm = L >= kExactLayout;
+template <int L>  // the counter layout
+constexpr int kCells = L >= kTermLayout ? L - kTermLayout : (kIsExact<L> ? L - kExactLayout : L);
 
 // published ntHash 64-bit seeds of A, C, G, T (N has seed 0)
 constexpr uint64_t kSeed0 = 0x3C8BFBB395C60474ull;
@@ -272,6 +307,14 @@ struct Walk {
   int T;     // tip_probe_depth
   int back;  // back-branch checks on
   uint64_t rot_k[4];  // rotl(seed[c], k), from the host
+  // the exact-count gate (exact layouts)
+  const uint8_t* dbg;  // dbgbf lanes
+  uint64_t dmask;      // dbgbf lanes - 1
+  int dnh;             // dbgbf num_hash
+  // terminators (null: off)
+  const uint8_t* term;
+  uint64_t tmask;
+  int tnh;
 };
 
 constexpr int kGreedy = 0;
@@ -332,7 +375,8 @@ __device__ __forceinline__ uint64_t multi(const Walk& p, uint64_t base, int i) {
 // raw cell i of key q (bit pattern in 32 bits)
 template <int L>
 __device__ __forceinline__ uint32_t load_cell(const Walk& p, uint64_t q, int i) {
-  if (L == kI32Blocked) {
+  constexpr int C = kCells<L>;
+  if (C == kI32Blocked) {
     const int32_t* row = (const int32_t*)p.cbf + ((q >> 1) & p.rmask) * 128;
     const uint32_t lane0 = (uint32_t)(q >> 40) & 127u;
     uint32_t lane = lane0;
@@ -343,27 +387,37 @@ __device__ __forceinline__ uint32_t load_cell(const Walk& p, uint64_t q, int i) 
     return (uint32_t)__ldg(row + lane);
   }
   const uint64_t idx = (multi(p, q, i) >> 1) & p.mask;
-  if (L == kMf8) return __ldg((const unsigned char*)p.cbf + idx);
-  if (L == kU16) return __ldg((const unsigned short*)p.cbf + idx);
+  if (C == kMf8) return __ldg((const unsigned char*)p.cbf + idx);
+  if (C == kU16) return __ldg((const unsigned short*)p.cbf + idx);
   return (uint32_t)__ldg((const int32_t*)p.cbf + idx);
 }
 
 template <int L>
 __device__ __forceinline__ float cell_count(const float* dec, uint32_t raw) {
-  if (L == kMf8) return dec[raw];
-  if (L == kU16) return __int2float_rn((int)raw);
+  constexpr int C = kCells<L>;
+  if (C == kMf8) return dec[raw];
+  if (C == kU16) return __int2float_rn((int)raw);
   return __int2float_rn((int32_t)raw);
 }
 
-// count-min estimates of M keys, as float32.  Every read of a hash group
-// (all num_hash cells when H > 0) is issued before any is consumed, and
-// `meanwhile()` runs while the first group is in flight; keys with on[m]
-// false are not read and count +inf.
+// lane i of key q in a bit-lane filter of `mask` + 1 lanes
+__device__ __forceinline__ uint32_t filter_lane(const Walk& p, const uint8_t* lanes, uint64_t mask, uint64_t q,
+                                                int i) {
+  return __ldg(lanes + ((multi(p, q, i) >> 1) & mask));
+}
+
+// counts of M keys, as float32: count-min estimates, or on an exact layout
+// (dbgbf member) ? estimate + 1 : 0.  Every read of a hash group (all
+// num_hash cells when H > 0, with the first kGateLanes dbgbf lanes) is
+// issued before any is consumed, and `meanwhile()` runs while the first
+// group is in flight; keys with on[m] false are not read and count +inf.
 template <int L, int H, int M, typename F>
 __device__ __forceinline__ void count_many(const Walk& p, const float* dec, const uint64_t (&q)[M],
                                            const bool (&on)[M], float (&out)[M], F&& meanwhile) {
   constexpr int HU = H > 0 ? H : 1;
+  constexpr int DU = kIsExact<L> ? kGateLanes : 1;
   const int nh = H > 0 ? H : p.num_hash;
+  uint32_t gate[M][DU];
 #pragma unroll
   for (int m = 0; m < M; ++m) out[m] = INFINITY;
   for (int i0 = 0; i0 < nh; i0 += HU) {
@@ -373,12 +427,31 @@ __device__ __forceinline__ void count_many(const Walk& p, const float* dec, cons
 #pragma unroll
       for (int j = 0; j < HU; ++j) raw[m][j] = on[m] ? load_cell<L>(p, q[m], i0 + j) : 0u;
     }
+    if constexpr (kIsExact<L>) {
+      if (i0 == 0) {
+#pragma unroll
+        for (int m = 0; m < M; ++m) {
+#pragma unroll
+          for (int j = 0; j < DU; ++j) gate[m][j] = on[m] && j < p.dnh ? filter_lane(p, p.dbg, p.dmask, q[m], j) : 1u;
+        }
+      }
+    }
     if (i0 == 0) meanwhile();
 #pragma unroll
     for (int m = 0; m < M; ++m) {
 #pragma unroll
       for (int j = 0; j < HU; ++j)
         if (on[m]) out[m] = fminf(out[m], cell_count<L>(dec, raw[m][j]));
+    }
+  }
+  if constexpr (kIsExact<L>) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      bool member = true;
+#pragma unroll
+      for (int j = 0; j < DU; ++j) member &= gate[m][j] != 0u;
+      for (int j = DU; j < p.dnh && on[m] && member; ++j) member = filter_lane(p, p.dbg, p.dmask, q[m], j) != 0u;
+      if (on[m]) out[m] = member ? out[m] + 1.0f : 0.0f;
     }
   }
 }
@@ -526,6 +599,14 @@ struct Lane {
     seen = tile_or<GT>(tile, hit);
   }
 
+  // is key q in the terminator filter (all its lanes set)?  Thread r reads
+  // lanes r mod the tile; a tile vote joins them.
+  __device__ bool terminated(uint64_t q) const {
+    bool hit = true;
+    for (int j = rank; j < p.tnh; j += GT) hit &= filter_lane(p, p.term, p.tmask, q, j) != 0u;
+    return tile.all(hit);
+  }
+
   // level 0: thread c < 4 reads candidate c; the ring is scanned while the
   // reads are in flight
   __device__ void read_candidates() {
@@ -621,6 +702,8 @@ struct Lane {
       status = kBranch;  // the candidates stay cached for the resolve
     } else if ((seen >> code) & 1u) {
       status = kCycle;
+    } else if (kTakesTerm<L> && p.term && terminated(pick4(q4, code))) {
+      status = kTerm;
     } else if (pos >= p.max_len - 1 || hops >= bound) {
       status = kFull;
     } else if constexpr (kPair) {
@@ -664,12 +747,17 @@ struct Lane {
     return query(p, vf, vr);
   }
 
+  // the query hash of candidate c
+  __device__ uint64_t cand_query(int c) const {
+    uint64_t f, r;
+    cand(c, f, r);
+    return query(p, f, r);
+  }
+
   // is candidate c in the cycle ring?  Thread r scans its slots.
   __device__ bool in_ring(int c) const {
     const long long t0 = prof_now();
-    uint64_t f, r;
-    cand(c, f, r);
-    const uint64_t q = query(p, f, r);
+    const uint64_t q = cand_query(c);
     bool hit = false;
     for (int j = rank; j < p.cycle_window; j += GT) hit |= (uint64_t)ring[j] == q;
     hit = tile.any(hit);
@@ -853,6 +941,8 @@ struct Lane {
       status = kBranch;  // the candidates (and kids) stay known for the resolve
     } else if (in_ring(code)) {
       status = kCycle;
+    } else if (kTakesTerm<L> && p.term && terminated(cand_query(code))) {
+      status = kTerm;
     } else if (pos >= p.max_len - 1 || hops >= bound) {
       status = kFull;
     } else {
@@ -1417,7 +1507,7 @@ __global__ void __launch_bounds__(kMode == kNaive ? kNaiveThreads : kThreads,
     walk_greedy_kernel(Walk p) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* dec = (float*)smem;
-  if (L == kMf8) {
+  if (kCells<L> == kMf8) {
     for (int i = threadIdx.x; i < 256; i += blockDim.x) dec[i] = p.decode[i];
     __syncthreads();
   }
@@ -1516,26 +1606,58 @@ int launch(const Walk& p, cudaStream_t stream) {
 
 template <int L, bool kDeep, int kMode>
 int launch_hash(const Walk& p, cudaStream_t stream) {
-  switch (p.num_hash) {
-    case 1:
-      return launch<L, 1, kDeep, kMode>(p, stream);
-    case 2:
-      return launch<L, 2, kDeep, kMode>(p, stream);
-    case 3:
-      return launch<L, 3, kDeep, kMode>(p, stream);
-    default:
-      return launch<L, 0, kDeep, kMode>(p, stream);
+  if constexpr (kTakesTerm<L>) {  // exact graphs and terminators: num_hash 2 or the generic read
+    return p.num_hash == 2 ? launch<L, 2, kDeep, kMode>(p, stream) : launch<L, 0, kDeep, kMode>(p, stream);
+  } else {
+    switch (p.num_hash) {
+      case 1:
+        return launch<L, 1, kDeep, kMode>(p, stream);
+      case 2:
+        return launch<L, 2, kDeep, kMode>(p, stream);
+      case 3:
+        return launch<L, 3, kDeep, kMode>(p, stream);
+      default:
+        return launch<L, 0, kDeep, kMode>(p, stream);
+    }
   }
+}
+
+#ifndef WALK_PART
+#define WALK_PART 0
+#endif
+
+// Which instantiations a library of this source holds (WALK_PART): 0, the
+// default, the count-min layouts in every mode.  The port builds four
+// libraries in four nvcc at once: 1 the count-min layouts' greedy mode, 2
+// their pair and naive modes, 3 the exact-count layouts in every mode, 4
+// the count-min layouts with terminators in every mode.  A library refuses
+// the calls of the others.
+template <int L, int kMode>
+constexpr bool built() {
+  if (L >= kTermLayout) return WALK_PART == 4;
+  if (kIsExact<L>) return WALK_PART == 3;
+  if (WALK_PART == 0) return true;
+  if (WALK_PART == 1) return kMode == kGreedy;
+  return WALK_PART == 2 && kMode != kGreedy;
 }
 
 template <int L>
 int launch_layout(const Walk& p, int mode, cudaStream_t stream) {
-  if (mode == kPairMode) return launch_hash<L, false, kPairMode>(p, stream);
-  if (mode == kNaive) return launch_hash<L, false, kNaive>(p, stream);
-  return p.lookahead > 3 ? launch_hash<L, true, kGreedy>(p, stream) : launch_hash<L, false, kGreedy>(p, stream);
+  if (mode == kPairMode) {
+    if constexpr (built<L, kPairMode>()) return launch_hash<L, false, kPairMode>(p, stream);
+  } else if (mode == kNaive) {
+    if constexpr (built<L, kNaive>()) return launch_hash<L, false, kNaive>(p, stream);
+  } else {
+    if constexpr (built<L, kGreedy>()) {
+      return p.lookahead > 3 ? launch_hash<L, true, kGreedy>(p, stream) : launch_hash<L, false, kGreedy>(p, stream);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int launch_walk(const Walk& p, int layout, int mode, cudaStream_t s) {
+  // count-min walks with terminators take the layouts that check them
+  if (p.term && layout < kExactLayout) layout += kTermLayout;
   switch (layout) {
     case kMf8:
       return launch_layout<kMf8>(p, mode, s);
@@ -1545,9 +1667,39 @@ int launch_walk(const Walk& p, int layout, int mode, cudaStream_t s) {
       return launch_layout<kI32>(p, mode, s);
     case kI32Blocked:
       return launch_layout<kI32Blocked>(p, mode, s);
+    case kMf8Exact:
+      return launch_layout<kMf8Exact>(p, mode, s);
+    case kU16Exact:
+      return launch_layout<kU16Exact>(p, mode, s);
+    case kI32Exact:
+      return launch_layout<kI32Exact>(p, mode, s);
+    case kTermLayout + kMf8:
+      return launch_layout<kTermLayout + kMf8>(p, mode, s);
+    case kTermLayout + kU16:
+      return launch_layout<kTermLayout + kU16>(p, mode, s);
+    case kTermLayout + kI32:
+      return launch_layout<kTermLayout + kI32>(p, mode, s);
+    case kTermLayout + kI32Blocked:
+      return launch_layout<kTermLayout + kI32Blocked>(p, mode, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// the gates' arguments into p: the dbgbf (exactly on the exact layouts)
+// and the terminators (null: none); false when they do not fit
+bool set_gates(Walk& p, int layout, const void* dbg, int dbg_size_log2, int dbg_num_hash, const void* term,
+               int term_size_log2, int term_num_hash) {
+  if ((dbg != nullptr) != (layout >= kExactLayout)) return false;
+  if (dbg && (dbg_num_hash < 1 || dbg_size_log2 < 0 || dbg_size_log2 > 32)) return false;
+  if (term && (term_num_hash < 1 || term_size_log2 < 0 || term_size_log2 > 32)) return false;
+  p.dbg = (const uint8_t*)dbg;
+  p.dmask = dbg ? (1ull << dbg_size_log2) - 1 : 0;
+  p.dnh = dbg ? dbg_num_hash : 0;
+  p.term = (const uint8_t*)term;
+  p.tmask = term ? (1ull << term_size_log2) - 1 : 0;
+  p.tnh = term ? term_num_hash : 0;
+  return true;
 }
 
 Walk make_walk(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* hist, int32_t* status,
@@ -1573,16 +1725,19 @@ int walk_greedy(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* h
                 const int32_t* bound, int W, int max_len, int cycle_window, const void* cbf,
                 int layout, int size_log2, int num_hash, const float* decode,
                 unsigned long long kms, int k, int stranded, int left, int lookahead,
-                int superstep_hops, int max_supersteps, void* stream) {
+                int superstep_hops, int max_supersteps, const void* dbg, int dbg_size_log2, int dbg_num_hash,
+                const void* term, int term_size_log2, int term_num_hash, void* stream) {
   if (W <= 0) return 0;
   if (num_hash < 1 || lookahead < 1 || cycle_window < 1) return (int)cudaErrorInvalidValue;
-  const Walk p = make_walk(buf, pos, fh, rh, hist, status, hops, path_min, min_cov, bound, W, max_len,
-                           cycle_window, cbf, size_log2, num_hash, decode, kms, k, stranded, left, lookahead,
-                           superstep_hops, max_supersteps);
+  Walk p = make_walk(buf, pos, fh, rh, hist, status, hops, path_min, min_cov, bound, W, max_len,
+                     cycle_window, cbf, size_log2, num_hash, decode, kms, k, stranded, left, lookahead,
+                     superstep_hops, max_supersteps);
+  if (!set_gates(p, layout, dbg, dbg_size_log2, dbg_num_hash, term, term_size_log2, term_num_hash))
+    return (int)cudaErrorInvalidValue;
   return launch_walk(p, layout, kGreedy, (cudaStream_t)stream);
 }
 
-// walk_greedy's arguments, then the pair ring (W, R) of each hash, R, the
+// walk_greedy's arguments (the gates included), then the pair ring (W, R) of each hash, R, the
 // probe depth D (1 <= D < k), the rpkbf and fpkbf lanes (null where the
 // class is off), the pair-key filter's size_log2 and num_hash, and the read
 // and fragment pair distances (0 where the class is off)
@@ -1591,7 +1746,8 @@ int walk_pair(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* his
               const int32_t* bound, int W, int max_len, int cycle_window, const void* cbf,
               int layout, int size_log2, int num_hash, const float* decode,
               unsigned long long kms, int k, int stranded, int left, int lookahead,
-              int superstep_hops, int max_supersteps, int64_t* ring_fh, int64_t* ring_rh, int R, int D,
+              int superstep_hops, int max_supersteps, const void* dbg, int dbg_size_log2, int dbg_num_hash,
+              const void* term, int term_size_log2, int term_num_hash, int64_t* ring_fh, int64_t* ring_rh, int R, int D,
               const void* rpkbf, const void* fpkbf, int pk_size_log2, int pk_num_hash, int read_dist,
               int frag_dist, void* stream) {
   if (W <= 0) return 0;
@@ -1611,6 +1767,8 @@ int walk_pair(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* his
   p.dist[1] = frag_dist > 0 && fpkbf ? frag_dist : 0;
   p.pmask = pk_size_log2 >= 32 ? 0xFFFFFFFFull : (1ull << pk_size_log2) - 1;
   p.pnh = pk_num_hash;
+  if (!set_gates(p, layout, dbg, dbg_size_log2, dbg_num_hash, term, term_size_log2, term_num_hash))
+    return (int)cudaErrorInvalidValue;
   return launch_walk(p, layout, kPairMode, (cudaStream_t)stream);
 }
 
@@ -1626,14 +1784,16 @@ int walk_profile(unsigned long long* out, int reset) {
   return (int)err;
 }
 
-// walk_greedy's arguments, then tip_probe_depth and whether hops check
-// back branches (0 or 1)
+// walk_greedy's arguments (the gates included), then tip_probe_depth and
+// whether hops check back branches (0 or 1)
 int walk_naive(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* hist,
                int32_t* status, int32_t* hops, float* path_min, const float* min_cov,
                const int32_t* bound, int W, int max_len, int cycle_window, const void* cbf,
                int layout, int size_log2, int num_hash, const float* decode,
                unsigned long long kms, int k, int stranded, int left, int lookahead,
-               int superstep_hops, int max_supersteps, int tip_probe_depth, int back, void* stream) {
+               int superstep_hops, int max_supersteps, const void* dbg, int dbg_size_log2, int dbg_num_hash,
+               const void* term, int term_size_log2, int term_num_hash, int tip_probe_depth, int back,
+               void* stream) {
   if (W <= 0) return 0;
   if (num_hash < 1 || cycle_window < 1) return (int)cudaErrorInvalidValue;
   Walk p = make_walk(buf, pos, fh, rh, hist, status, hops, path_min, min_cov, bound, W, max_len,
@@ -1642,6 +1802,8 @@ int walk_naive(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* hi
   p.T = tip_probe_depth;
   p.back = back;
   for (int c = 0; c < 4; ++c) p.rot_k[c] = rotl(seed_of(c), k);
+  if (!set_gates(p, layout, dbg, dbg_size_log2, dbg_num_hash, term, term_size_log2, term_num_hash))
+    return (int)cudaErrorInvalidValue;
   return launch_walk(p, layout, kNaive, (cudaStream_t)stream);
 }
 

@@ -1,10 +1,20 @@
 """Implicit de Bruijn graph over Bloom structures — tensors on one device.
 
-Port of ``rnabloom_tpu/graph/dbg.py`` for the count-min mode
-(``exact_counts=False``, the default): the graph is a bundle of filter
-arrays (cbf counters, read/fragment pair-key bit lanes) plus static hash
-config, and every insert or query is a batched hash -> index pipeline.
-Membership is count > 0; there is no dbgbf array.
+Port of ``rnabloom_tpu/graph/dbg.py``: the graph is a bundle of filter
+arrays (cbf counters, read/fragment pair-key bit lanes and, for exact
+counts, dbgbf bit lanes) plus static hash config, and every insert or
+query is a batched hash -> index pipeline.  Two counting schemes:
+
+  * count-min (``exact_counts=False``, the default): membership is
+    count > 0, an insert adds 1 at every cell; there is no dbgbf array;
+  * exact counts (``exact_counts=True``, the reference's accounting,
+    BloomFilterDeBruijnGraph.java:405-412, :552-570): the first occurrence
+    of a k-mer goes to the dbgbf only, repeats raise the cbf by the
+    conservative update, and a count is ``in dbgbf ? cbf + 1 : 0``.
+    "First" is resolved per batch (the pre-batch dbgbf snapshot and the
+    multiplicity within the batch), which equals the sequential
+    accounting for exact counters.  The JAX package runs this mode in
+    stage 1 only: its stage-2b rebuild state has no dbgbf.
 
 Inserts update the state's tensors in place (the JAX package donates them
 to the jitted step instead).
@@ -20,12 +30,6 @@ import torch
 from ..bloom import filters
 from ..bloom.filters import BloomConfig, CountingConfig
 from ..ops import nthash
-
-_EXACT = (
-    "exact_counts=True (dbgbf + conservative-update counters) is not ported; "
-    "the count-min default is"
-)
-
 
 @dataclass(frozen=True)
 class GraphConfig:
@@ -44,7 +48,7 @@ class GraphConfig:
 class GraphState(NamedTuple):
     """Filter arrays of the implicit graph."""
 
-    dbgbf: Optional[torch.Tensor]  # always None (count-min mode)
+    dbgbf: Optional[torch.Tensor]  # uint8 lanes (exact_counts mode only)
     cbf: torch.Tensor
     rpkbf: Optional[torch.Tensor] = None
     fpkbf: Optional[torch.Tensor] = None
@@ -53,10 +57,8 @@ class GraphState(NamedTuple):
 def make_graph(
     cfg: GraphConfig, with_rpkbf: bool = False, with_fpkbf: bool = False, *, device
 ) -> GraphState:
-    if cfg.exact_counts:
-        raise NotImplementedError(_EXACT)
     return GraphState(
-        dbgbf=None,
+        dbgbf=filters.make_bloom(cfg.dbgbf, device=device) if cfg.exact_counts else None,
         cbf=filters.make_counting(cfg.cbf, device=device),
         rpkbf=filters.make_bloom(cfg.pkbf, device=device) if with_rpkbf else None,
         fpkbf=filters.make_bloom(cfg.pkbf, device=device) if with_fpkbf else None,
@@ -87,12 +89,17 @@ def pair_base_hashes(
 
 
 def add_kmers(state: GraphState, cfg: GraphConfig, base, valid, salt: int = 0) -> GraphState:
-    """Count k-mer occurrences into the cbf; ``salt`` (the batch counter)
-    keys the mf8 stochastic rounding."""
-    if cfg.exact_counts:
-        raise NotImplementedError(_EXACT)
+    """Count k-mer occurrences into the cbf (and the dbgbf in exact_counts
+    mode); ``salt`` (the batch counter) keys the mf8 stochastic rounding."""
     h_cbf = _multi(cfg, base, cfg.cbf.num_hash)
-    filters.counting_increment_cm(state.cbf, cfg.cbf, h_cbf, valid=valid, salt=salt)
+    if not cfg.exact_counts:
+        filters.counting_increment_cm(state.cbf, cfg.cbf, h_cbf, valid=valid, salt=salt)
+        return state
+    h_dbg = _multi(cfg, base, cfg.dbgbf.num_hash)
+    _, present = filters.bloom_lookup_then_add(state.dbgbf, cfg.dbgbf, h_dbg, valid)
+    # the first occurrence of a k-mer new to the graph goes to the dbgbf only
+    dec_first = valid & ~present
+    filters.counting_increment(state.cbf, cfg.cbf, h_cbf, valid=valid, dec_first=dec_first, salt=salt)
     return state
 
 
@@ -145,17 +152,20 @@ def rebuild_step(
 
 
 def get_counts(state: GraphState, cfg: GraphConfig, base: torch.Tensor) -> torch.Tensor:
-    """Float32 count per k-mer (count-min estimate)."""
-    if cfg.exact_counts:
-        raise NotImplementedError(_EXACT)
-    est = filters.counting_count(state.cbf, cfg.cbf, _multi(cfg, base, cfg.cbf.num_hash))
-    return est.to(torch.float32)
+    """Float32 count per k-mer: the count-min estimate, or in exact_counts
+    mode ``in dbgbf ? estimate + 1 : 0``."""
+    est = filters.counting_count(state.cbf, cfg.cbf, _multi(cfg, base, cfg.cbf.num_hash)).to(torch.float32)
+    if not cfg.exact_counts:
+        return est
+    member = filters.bloom_lookup(state.dbgbf, cfg.dbgbf, _multi(cfg, base, cfg.dbgbf.num_hash))
+    return torch.where(member, est + 1.0, 0.0)
 
 
 def contains(state: GraphState, cfg: GraphConfig, base: torch.Tensor) -> torch.Tensor:
-    """Membership per k-mer: count-min estimate > 0."""
+    """Membership per k-mer: count-min estimate > 0, or in exact_counts
+    mode the dbgbf lookup."""
     if cfg.exact_counts:
-        raise NotImplementedError(_EXACT)
+        return filters.bloom_lookup(state.dbgbf, cfg.dbgbf, _multi(cfg, base, cfg.dbgbf.num_hash))
     return filters.counting_count(state.cbf, cfg.cbf, _multi(cfg, base, cfg.cbf.num_hash)) > 0
 
 
@@ -183,6 +193,8 @@ def count_step(
 
 def fprs(state: GraphState, cfg: GraphConfig) -> dict:
     out = {"cbf": filters.counting_fpr(state.cbf, cfg.cbf)}
+    if state.dbgbf is not None:
+        out["dbgbf"] = filters.bloom_fpr(state.dbgbf, cfg.dbgbf)
     if state.rpkbf is not None:
         out["rpkbf"] = filters.bloom_fpr(state.rpkbf, cfg.pkbf)
     if state.fpkbf is not None:

@@ -2,15 +2,16 @@
 
 Port of ``rnabloom_tpu/graph/traverse.py`` for ``mode="greedy"``,
 ``mode="pair"`` (with the pair ring) and ``mode="naive"``, with the
-back-branch check, without terminators or speculative hops; asking for
-terminators raises ``NotImplementedError`` naming its ROADMAP item.  W
-walks advance as lanes of one batch:
+back-branch check and terminators, without speculative hops (a
+multi-device option).  W walks advance as lanes of one batch:
 
   * a superstep advances every ACTIVE lane while it has exactly one viable
     successor, for up to ``superstep_hops`` hops; a lane freezes at a dead
-    end (DEAD), a branch (BRANCH), a recent k-mer (CYCLE) or its buffer or
-    hop bound (FULL), and with ``check_back_branches`` where a left variant
-    of its k-mer is deep (an incoming branch merges: STOPPED_BRANCH);
+    end (DEAD), a branch (BRANCH), a recent k-mer (CYCLE), a k-mer in the
+    terminator filter (TERM, with ``use_terminators`` and a filter given)
+    or its buffer or hop bound (FULL), and with ``check_back_branches``
+    where a left variant of its k-mer is deep (an incoming branch merges:
+    STOPPED_BRANCH);
   * BRANCH lanes are then resolved, by greedy lookahead scoring, (pair
     mode) by read- and fragment-pair support of naive probes against the
     walk's ring of recent k-mer hashes, or (naive mode) by a depth probe of
@@ -40,6 +41,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..bloom import filters
+from ..bloom.filters import BloomConfig
 from ..ops import nthash
 from . import dbg
 from .dbg import GraphConfig, GraphState
@@ -53,14 +56,11 @@ TERM = 4  # hit a terminator (screening BF)
 FULL = 5  # reached max buffer length / bound
 STOPPED_BRANCH = 6  # naive mode: not one deep branch, or a deep back branch; pair mode: no viable one
 
-_TERM = "terminators (the screening filter as walk stops) are ROADMAP queue-1 item 14, with the oracle that uses them"
-
 
 @dataclass(frozen=True)
 class WalkConfig:
     """Static traversal parameters (the JAX package's fields that the
-    ported modes read, and ``use_terminators``, which selects an unported
-    one)."""
+    ported modes read)."""
 
     max_len: int  # output buffer length (incl. seed)
     lookahead: int = 3
@@ -71,13 +71,12 @@ class WalkConfig:
     # branch (naiveExtendRight's back-branch check, GraphUtils.java:
     # 6846-6851), depth-qualified by a probe of tip_probe_depth steps
     check_back_branches: bool = False
+    # stop a hop whose single viable successor is in the terminator filter
+    # (a screening filter of shape term_cfg), when extend_walks is given one
     use_terminators: bool = False
+    term_cfg: Optional[BloomConfig] = None
     pair_ring: int = 0  # > 0: a ring of the last k-mer hashes for pair lookups
     pair_probe_depth: int = 24  # naive probe length per candidate (< k)
-
-    def __post_init__(self):
-        if self.use_terminators:
-            raise NotImplementedError(_TERM)
 
 
 class WalkState(NamedTuple):
@@ -258,9 +257,12 @@ def walk_superstep(
     min_cov: torch.Tensor,  # (W,) float32 per-lane coverage floor
     bound: torch.Tensor,  # (W,) int32 max hops per lane
     max_hops: int,
+    terminators: Optional[torch.Tensor] = None,  # screening filter lanes
 ) -> WalkState:
     """Advance every ACTIVE lane while it has exactly one viable successor,
-    for up to ``max_hops`` hops."""
+    for up to ``max_hops`` hops.  With ``wcfg.use_terminators`` and
+    ``terminators``, a lane whose single viable successor is in the
+    filter (all ``term_cfg.num_hash`` lanes set) stops TERM."""
     floor = torch.clamp(min_cov, min=1.0)[:, None]
     for _ in range(max_hops):
         active = state.status == ACTIVE
@@ -272,8 +274,16 @@ def walk_superstep(
         viable = counts >= floor
         nviable = viable.sum(dim=1)
         code = _first_true(viable)  # the single viable candidate when nviable == 1
-        cyc = _in_hist(state.hist, _pick(q4, code))
+        qn = _pick(q4, code)
+        cyc = _in_hist(state.hist, qn)
         full = (state.pos >= wcfg.max_len - 1) | (state.hops >= bound)
+        stop = cyc  # CYCLE, or TERM where the terminator filter holds qn
+        after_cyc = torch.where(full, FULL, ACTIVE)
+        if wcfg.use_terminators and terminators is not None:
+            tcfg = wcfg.term_cfg
+            term = filters.bloom_lookup(terminators, tcfg, nthash.multi_hash(qn, cfg.k, tcfg.num_hash))
+            stop = cyc | term
+            after_cyc = torch.where(term, TERM, after_cyc)
         back = torch.zeros_like(cyc)
         if wcfg.check_back_branches:
             # an incoming branch merges here when a left variant of the
@@ -284,12 +294,11 @@ def walk_superstep(
             viable_v = (cv >= floor) & ~is_self & active[:, None]  # other lanes' depths are not read
             depth_v = _variant_depth_probe(graph, cfg, wcfg, state.buf, state.pos, flv, rlv, viable_v, min_cov)
             back = (depth_v >= wcfg.tip_probe_depth).any(dim=1)
-        advance = active & (nviable == 1) & ~cyc & ~full & ~back
+        advance = active & (nviable == 1) & ~stop & ~full & ~back
         status = torch.where(
             back, STOPPED_BRANCH,
             torch.where(nviable == 0, DEAD,
-                        torch.where(nviable > 1, BRANCH,
-                                    torch.where(cyc, CYCLE, torch.where(full, FULL, ACTIVE)))),
+                        torch.where(nviable > 1, BRANCH, torch.where(cyc, CYCLE, after_cyc))),
         )
         new_status = torch.where(active, status, state.status).to(torch.int32)
         state = _apply_advance(state, wcfg, advance, code, fh4, rh4, q4, counts)
@@ -572,6 +581,7 @@ def extend_walks_plain(
     superstep_hops: int = 64,
     max_supersteps: int = 64,
     mode: str = "greedy",
+    terminators: Optional[torch.Tensor] = None,
 ) -> WalkState:
     """The JAX package's lockstep loop (``_extend_walks_fused``) on whole
     lanes, on any device; ``state`` is left unchanged."""
@@ -579,7 +589,7 @@ def extend_walks_plain(
     for _ in range(max_supersteps):
         if not bool(((state.status == ACTIVE) | (state.status == BRANCH)).any()):
             break
-        state = walk_superstep(state, graph, cfg, wcfg, min_cov, bound, superstep_hops)
+        state = walk_superstep(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, terminators)
         if bool((state.status == BRANCH).any()):
             state = resolve_branches(state, graph, cfg, wcfg, min_cov, mode)
     return state
@@ -600,9 +610,14 @@ def extend_walks(
     """Extend every walk lane to completion; returns a new state.  Pair
     mode needs the pair ring (``wcfg.pair_ring > 0``); back-branch checks
     are taken in naive mode, the only mode that the JAX package runs them
-    in (``-extend``)."""
-    if terminators is not None:
-        raise NotImplementedError(_TERM)
+    in (``-extend``).  ``terminators`` (uint8 lanes of shape
+    ``wcfg.term_cfg``, on the walks' device) stop hops when
+    ``wcfg.use_terminators``, and are ignored otherwise, as in the JAX
+    package."""
+    if not wcfg.use_terminators:
+        terminators = None
+    elif terminators is not None and wcfg.term_cfg is None:
+        raise ValueError("terminators need their filter's shape (WalkConfig.term_cfg)")
     if mode not in ("greedy", "pair", "naive"):
         raise ValueError(f"unknown walk mode {mode!r}")
     if mode == "pair" and wcfg.pair_ring <= 0:
@@ -613,7 +628,7 @@ def extend_walks(
 
     min_cov, bound = lane_args(state, min_cov, bound)
     run = {"greedy": walk.walk_greedy, "pair": walk.walk_pair, "naive": walk.walk_naive}[mode]
-    return run(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps)
+    return run(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps, terminators)
 
 
 def harvest(state: WalkState) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -4,9 +4,12 @@
   ``csrc/cell_insert.cu``, ``csrc/walk_greedy.cu`` and
   ``csrc/lr_kernels.cu`` with ``nvcc`` for sm_90a, each into its own
   library under ``build/kernels/`` at the repository root (rebuilt when its
-  source is newer), and bind their plain C entry points with ctypes.  They
-  need the CUDA toolkit; there is no fallback.  ``build_all()`` starts
-  every ``nvcc`` at once.
+  source is newer), and bind their plain C entry points with ctypes.  The
+  walk kernel's source gives four libraries (``-DWALK_PART``): the
+  count-min layouts' greedy mode, their pair and naive modes, the
+  exact-count layouts, and the count-min layouts with terminators, so that
+  its instantiations compile in four ``nvcc`` at once.  They need the CUDA toolkit; there is no fallback.
+  ``build_all()`` starts every ``nvcc`` at once.
 * ``build_reader()`` compiles the port's FASTX reader
   (``native/fastxio.cpp``) with ``g++`` into ``build/native/`` for the host
   it runs on; ``io/native.py`` loads it.  Without a C++ toolchain (or zlib)
@@ -36,6 +39,10 @@ KERNEL_SRC = os.path.join(_PKG, "csrc", "cell_insert.cu")
 KERNEL_LIB = os.path.join(BUILD_DIR, "kernels", "libcell_insert.so")
 WALK_SRC = os.path.join(_PKG, "csrc", "walk_greedy.cu")
 WALK_LIB = os.path.join(BUILD_DIR, "kernels", "libwalk_greedy.so")
+WALK_PN_LIB = os.path.join(BUILD_DIR, "kernels", "libwalk_pair_naive.so")
+WALK_EXACT_LIB = os.path.join(BUILD_DIR, "kernels", "libwalk_exact.so")
+WALK_TERM_LIB = os.path.join(BUILD_DIR, "kernels", "libwalk_terminators.so")
+WALK_COUNT_MIN_LIBS = (WALK_LIB, WALK_PN_LIB)
 LR_SRC = os.path.join(_PKG, "csrc", "lr_kernels.cu")
 LR_LIB = os.path.join(BUILD_DIR, "kernels", "liblr_kernels.so")
 READER_SRC = os.path.join(_PKG, "native", "fastxio.cpp")
@@ -48,8 +55,11 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-build_seconds: Dict[str, float] = {}  # source -> nvcc wall time in this process
-build_logs: Dict[str, str] = {}  # source -> nvcc's ptxas report (registers, spills) of a build in this process
+build_seconds: Dict[str, float] = {}  # library -> nvcc wall time in this process
+build_logs: Dict[str, str] = {}  # library -> nvcc's ptxas report (registers, spills) of a build in this process
+# library -> its nvcc flags beyond NVCC_FLAGS
+_DEFINES = {WALK_LIB: ["-DWALK_PART=1"], WALK_PN_LIB: ["-DWALK_PART=2"], WALK_EXACT_LIB: ["-DWALK_PART=3"],
+            WALK_TERM_LIB: ["-DWALK_PART=4"]}
 
 
 def _stale(lib: str, src: str) -> bool:
@@ -88,16 +98,35 @@ def _nvcc_build(src: str, lib: str) -> None:
     if not _stale(lib, src):
         return
     t0 = time.time()
-    proc = _compile([_nvcc(), *NVCC_FLAGS, src], lib)
+    proc = _compile([_nvcc(), *NVCC_FLAGS, *_DEFINES.get(lib, []), src], lib)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-    build_seconds[src] = time.time() - t0
-    build_logs[src] = proc.stderr
+    build_seconds[lib] = time.time() - t0
+    build_logs[lib] = proc.stderr
 
 
 _P, _I64, _U32, _INT, _U64 = (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int, ctypes.c_ulonglong,
 )
+
+_WALK_COMMON = [_P] * 10 + [_INT] * 3 + [_P, _INT, _INT, _INT, _P, _U64] + [_INT] * 6
+_WALK_GATES = [_P, _INT, _INT, _P, _INT, _INT]
+_WALK_PAIR = [_P, _P, _INT, _INT, _P, _P] + [_INT] * 4
+
+# the walk libraries' entry points with their argument types
+_WALK_ENTRIES = {
+    # buf pos fh rh hist status hops path_min min_cov bound, W max_len
+    # cycle_window, cbf layout size_log2 num_hash decode kms, k stranded
+    # left lookahead superstep_hops max_supersteps, then the gates: dbgbf
+    # dbgbf_size_log2 dbgbf_num_hash (null: count-min), terminators
+    # term_size_log2 term_num_hash (null: none), stream
+    "walk_greedy": _WALK_COMMON + _WALK_GATES + [_P],
+    # walk_greedy's, then ring_fh ring_rh, R probe_depth, rpkbf fpkbf,
+    # pkbf_size_log2 pkbf_num_hash read_dist frag_dist, stream
+    "walk_pair": _WALK_COMMON + _WALK_GATES + _WALK_PAIR + [_P],
+    # walk_greedy's, then tip_probe_depth back, stream
+    "walk_naive": _WALK_COMMON + _WALK_GATES + [_INT] * 2 + [_P],
+}
 
 # library -> (source, entry points with their argument types)
 _SIGNATURES = {
@@ -106,19 +135,15 @@ _SIGNATURES = {
         "cell_add_i32": [_P, _I64, _P, _I64, _P],
         "cell_add_u16": [_P, _I64, _P, _I64, _P],
         "cell_add_mf8_batch": [_P, _P, _I64, _I64, _P, _I64, _U32, _P],
+        # table numel idx vals n stream
+        "cell_max_i32": [_P, _I64, _P, _P, _I64, _P],
+        "cell_max_u16": [_P, _I64, _P, _P, _I64, _P],
+        "cell_max_u8": [_P, _I64, _P, _P, _I64, _P],
     }),
-    WALK_LIB: (WALK_SRC, {
-        # buf pos fh rh hist status hops path_min min_cov bound, W max_len
-        # cycle_window, cbf layout size_log2 num_hash decode kms, k stranded
-        # left lookahead superstep_hops max_supersteps, stream
-        "walk_greedy": [_P] * 10 + [_INT] * 3 + [_P, _INT, _INT, _INT, _P, _U64] + [_INT] * 6 + [_P],
-        # walk_greedy's, then ring_fh ring_rh, R probe_depth, rpkbf fpkbf,
-        # pkbf_size_log2 pkbf_num_hash read_dist frag_dist, stream
-        "walk_pair": [_P] * 10 + [_INT] * 3 + [_P, _INT, _INT, _INT, _P, _U64] + [_INT] * 6
-        + [_P, _P, _INT, _INT, _P, _P] + [_INT] * 4 + [_P],
-        # walk_greedy's, then tip_probe_depth back, stream
-        "walk_naive": [_P] * 10 + [_INT] * 3 + [_P, _INT, _INT, _INT, _P, _U64] + [_INT] * 8 + [_P],
-    }),
+    WALK_LIB: (WALK_SRC, _WALK_ENTRIES),
+    WALK_PN_LIB: (WALK_SRC, _WALK_ENTRIES),
+    WALK_EXACT_LIB: (WALK_SRC, _WALK_ENTRIES),
+    WALK_TERM_LIB: (WALK_SRC, _WALK_ENTRIES),
     LR_LIB: (LR_SRC, {
         # codes offsets, n_reads total, k stranded, hash valid, stream
         "lr_kmer_keys": [_P, _P, _I64, _I64, _INT, _INT, _P, _P, _P],
@@ -154,9 +179,16 @@ def kernels() -> ctypes.CDLL:
     return _load(KERNEL_LIB)
 
 
-def walk_kernels() -> ctypes.CDLL:
-    """The walk kernel library (greedy, pair and naive modes), built on first call."""
-    return _load(WALK_LIB)
+def walk_kernels(exact: bool = False, greedy: bool = True, terminators: bool = False) -> ctypes.CDLL:
+    """The walk kernel library that holds a mode (``greedy``, else pair and
+    naive) of the count-min layouts, with ``exact`` every mode of the
+    exact-count ones, or with ``terminators`` every mode of the count-min
+    layouts with terminators; built on first call."""
+    if exact:
+        return _load(WALK_EXACT_LIB)
+    if terminators:
+        return _load(WALK_TERM_LIB)
+    return _load(WALK_LIB if greedy else WALK_PN_LIB)
 
 
 def lr_kernels() -> ctypes.CDLL:
@@ -166,8 +198,8 @@ def lr_kernels() -> ctypes.CDLL:
 
 
 def build_all() -> Dict[str, float]:
-    """Build every stale kernel library at once, one ``nvcc`` per source
-    started together, and load them; returns source -> build seconds."""
+    """Build every stale kernel library at once, one ``nvcc`` per library
+    started together, and load them; returns library -> build seconds."""
     with ThreadPoolExecutor(len(_SIGNATURES)) as pool:
         builds = [pool.submit(_nvcc_build, src, lib) for lib, (src, _) in _SIGNATURES.items()]
         for b in builds:

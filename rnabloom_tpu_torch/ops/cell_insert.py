@@ -10,8 +10,13 @@ SCATTER semantics of ``filters.bloom_add`` / ``counting_increment_cm``:
                               table[i] = min(table[i] + n_i, 65535)
   add_mf8  uint8 MiniFloat    table[i] = increment_codes(table[i], n_i,
                                             mix_u01(i, salt))   (n_i > 0)
+  max      int32, int16 (uint16 bit patterns, compared unsigned) or
+           uint8 (MiniFloat codes) tables, with a value per index
+                              table[i] = max(table[i], values of i)
 
-where n_i is the number of occurrences of cell i in the batch.  Indices
+where n_i is the number of occurrences of cell i in the batch.  ``max`` is
+the scatter-max of the conservative update
+(``filters.counting_increment``; XLA's ``.at[].max`` in the JAX package).  Indices
 >= numel are dropped; every other index, the trash cell included, is
 applied.  Tables are updated in place.
 
@@ -24,13 +29,14 @@ launches per op, ``INDICES`` the indices those launches were given;
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from . import launch_timer
 
-OPS = {"set": torch.uint8, "add": torch.int32, "add_u16": torch.int16, "add_mf8": torch.uint8}
+OPS = {"set": torch.uint8, "add": torch.int32, "add_u16": torch.int16, "add_mf8": torch.uint8, "max": None}
+MAX_DTYPES = (torch.int32, torch.int16, torch.uint8)  # the max op's tables
 
 LAUNCHES: Dict[str, int] = {op: 0 for op in OPS}
 INDICES: Dict[str, int] = {op: 0 for op in OPS}
@@ -56,10 +62,19 @@ def index_counts() -> Dict[str, int]:
     return dict(INDICES)
 
 
-def _check(table: torch.Tensor, idx: torch.Tensor, op: str) -> None:
+def _check(table: torch.Tensor, idx: torch.Tensor, op: str, values: Optional[torch.Tensor] = None) -> None:
     if op not in OPS:
         raise ValueError(f"unknown insert op {op!r}; expected one of {sorted(OPS)}")
-    if table.dtype != OPS[op]:
+    if op == "max":
+        if table.dtype not in MAX_DTYPES:
+            raise TypeError(f"max needs an int32, int16 or uint8 table, got {table.dtype}")
+        if values is None or values.dtype != table.dtype or values.shape != idx.shape:
+            raise TypeError(f"max needs {table.dtype} values shaped as idx {tuple(idx.shape)}")
+        if values.device != table.device:
+            raise ValueError(f"values on {values.device}, table on {table.device}")
+    elif values is not None:
+        raise TypeError(f"{op} takes no values")
+    elif table.dtype != OPS[op]:
         raise TypeError(f"{op} needs a {OPS[op]} table, got {table.dtype}")
     if table.dim() != 1 or not table.is_contiguous():
         raise ValueError("table must be a contiguous 1-D tensor")
@@ -69,11 +84,23 @@ def _check(table: torch.Tensor, idx: torch.Tensor, op: str) -> None:
         raise ValueError(f"idx on {idx.device}, table on {table.device}")
 
 
-def cell_insert_plain(table: torch.Tensor, idx: torch.Tensor, op: str, salt: int = 0) -> torch.Tensor:
+def cell_insert_plain(
+    table: torch.Tensor, idx: torch.Tensor, op: str, salt: int = 0, values: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """Plain PyTorch version of the insert kernel (any device)."""
-    _check(table, idx, op)
-    sel = idx[(idx >= 0) & (idx < table.numel())]
-    if op == "set":
+    _check(table, idx, op, values)
+    keep = (idx >= 0) & (idx < table.numel())
+    sel = idx[keep]
+    if op == "max":
+        vals = values[keep]
+        if table.dtype == torch.int16:  # uint16 bit patterns: compare unsigned
+            cells, inv = torch.unique(sel, return_inverse=True)
+            cur = table[cells].to(torch.int32) & 0xFFFF
+            cur.scatter_reduce_(0, inv, vals.to(torch.int32) & 0xFFFF, "amax")
+            table[cells] = torch.where(cur >= 32768, cur - 65536, cur).to(torch.int16)
+        else:
+            table.scatter_reduce_(0, sel, vals, "amax")
+    elif op == "set":
         table[sel] = 1
     elif op == "add":
         table.index_add_(0, sel, torch.ones_like(sel, dtype=torch.int32))
@@ -113,16 +140,19 @@ def _batch_table_for(device: torch.device, n: int) -> torch.Tensor:
     return t
 
 
-def cell_insert(table: torch.Tensor, idx: torch.Tensor, op: str, salt: int = 0) -> torch.Tensor:
-    """Apply ``idx`` to ``table`` in place (see the module docstring).
+def cell_insert(
+    table: torch.Tensor, idx: torch.Tensor, op: str, salt: int = 0, values: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Apply ``idx`` (and, for ``max``, ``values``) to ``table`` in place
+    (see the module docstring).
 
     A CPU table takes the plain version; a CUDA table launches the kernel
     on the current stream, or raises."""
     if table.device.type == "cpu":
-        return cell_insert_plain(table, idx, op, salt)
+        return cell_insert_plain(table, idx, op, salt, values)
     if table.device.type != "cuda":
         raise ValueError(f"cell_insert: unsupported device {table.device}")
-    _check(table, idx, op)
+    _check(table, idx, op, values)
     idx = idx.contiguous()
     from ._build import kernels
 
@@ -135,8 +165,18 @@ def cell_insert(table: torch.Tensor, idx: torch.Tensor, op: str, salt: int = 0) 
         if n >= 1 << 31:
             raise ValueError(f"add_mf8 totals a cell in int32; a batch of {n} indices is too long")
         batch = _batch_table_for(table.device, n)
+    if op == "max":
+        # a uint8 cell is raised by a CAS on its aligned 32-bit word, which
+        # for the last cells reaches up to 3 bytes past the tensor: inside
+        # its storage's block, which the caching allocator rounds to 512 B
+        if table.dtype == torch.uint8 and table.storage_offset() != 0:
+            raise ValueError("max on a uint8 table: the table must start its storage")
+        values = values.contiguous()
+        entry = {torch.int32: lib.cell_max_i32, torch.int16: lib.cell_max_u16, torch.uint8: lib.cell_max_u8}
     start = launch_timer.begin(table.device)
-    if op == "set":
+    if op == "max":
+        err = entry[table.dtype](table.data_ptr(), numel, idx.data_ptr(), values.data_ptr(), n, stream)
+    elif op == "set":
         err = lib.cell_set_u8(table.data_ptr(), numel, idx.data_ptr(), n, stream)
     elif op == "add":
         err = lib.cell_add_i32(table.data_ptr(), numel, idx.data_ptr(), n, stream)

@@ -8,8 +8,10 @@ lane, which states its design) for walks on a CUDA device, and run
 ``walk_greedy_plain`` / ``walk_pair_plain`` / ``walk_naive_plain`` for walks
 on the CPU.  The plain versions are ``graph/traverse.py::
 extend_walks_plain``, the JAX package's lockstep loop
-(``traverse._extend_walks_fused``) op for op.  ``LAUNCHES`` counts kernel
-launches per mode; ``launch_timer.recording()`` times them on the card.
+(``traverse._extend_walks_fused``) op for op.  Every mode reads exact-count
+graphs (a count is ``in dbgbf ? cbf estimate + 1 : 0``) and takes
+terminators.  ``LAUNCHES`` counts kernel launches per mode;
+``launch_timer.recording()`` times them on the card.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ LAUNCHES: Dict[str, int] = {"walk_greedy": 0, "walk_pair": 0, "walk_naive": 0}
 
 _LAYOUTS = {"mf8": 0, "u16": 1, "int32": 2}
 _I32_BLOCKED = 3
+_EXACT = 4  # added to a flat layout: the exact-count gate reads the dbgbf
 
 # mf8 decode table per device: minifloat.decode of every byte
 _decode: Dict[torch.device, torch.Tensor] = {}
@@ -38,28 +41,35 @@ def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
 
 
-def walk_greedy_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops=64, max_supersteps=64):
+def walk_greedy_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops=64, max_supersteps=64,
+                      terminators=None):
     """Plain PyTorch version of the kernel (any device)."""
     from ..graph import traverse
 
-    return traverse.extend_walks_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps)
+    return traverse.extend_walks_plain(
+        state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps, terminators=terminators
+    )
 
 
-def walk_pair_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops=64, max_supersteps=64):
+def walk_pair_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops=64, max_supersteps=64,
+                    terminators=None):
     """Plain PyTorch version of the kernel in pair mode (any device)."""
     from ..graph import traverse
 
     return traverse.extend_walks_plain(
-        state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps, mode="pair"
+        state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps, mode="pair",
+        terminators=terminators,
     )
 
 
-def walk_naive_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops=64, max_supersteps=64):
+def walk_naive_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops=64, max_supersteps=64,
+                     terminators=None):
     """Plain PyTorch version of the kernel in naive mode (any device)."""
     from ..graph import traverse
 
     return traverse.extend_walks_plain(
-        state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps, mode="naive"
+        state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps, mode="naive",
+        terminators=terminators,
     )
 
 
@@ -68,6 +78,33 @@ def _decode_table(device: torch.device) -> torch.Tensor:
     if t is None:
         t = _decode[device] = minifloat.decode(torch.arange(256, dtype=torch.uint8, device=device)).contiguous()
     return t
+
+
+def _check_lanes(t, cfg, what: str, dev) -> None:
+    if t.device != dev or t.dtype != torch.uint8 or not t.is_contiguous() or t.dim() != 1:
+        raise ValueError(f"{what}: want a contiguous 1-D uint8 tensor on {dev}")
+    if t.numel() < cfg.size + 1 or cfg.size_log2 > 32:
+        raise ValueError(f"{what}: want 2^{cfg.size_log2} + 1 lanes (size_log2 <= 32), got {t.numel()}")
+
+
+def _gate_args(graph, cfg, wcfg, terminators) -> list:
+    """The kernel's exact-gate and terminator arguments: the dbgbf lanes,
+    their size_log2 and num_hash (null: count-min), then the terminator
+    lanes, their size_log2 and num_hash (null: no terminators; as in the
+    plain loop, terminators stop hops only with ``wcfg.use_terminators``)."""
+    dev = graph.cbf.device
+    args = [None, 0, 0]
+    if cfg.exact_counts:
+        if cfg.cbf.blocked:
+            raise ValueError("exact counts keep the flat counter layout")
+        _check_lanes(graph.dbgbf, cfg.dbgbf, "dbgbf", dev)
+        args = [graph.dbgbf.data_ptr(), cfg.dbgbf.size_log2, cfg.dbgbf.num_hash]
+    if terminators is None or not wcfg.use_terminators:
+        return args + [None, 0, 0]
+    if wcfg.term_cfg is None:
+        raise ValueError("terminators need their filter's shape (WalkConfig.term_cfg)")
+    _check_lanes(terminators, wcfg.term_cfg, "terminators", dev)
+    return args + [terminators.data_ptr(), wcfg.term_cfg.size_log2, wcfg.term_cfg.num_hash]
 
 
 def _check(state, graph, min_cov, bound, wcfg, mode: str) -> None:
@@ -120,19 +157,20 @@ def _pair_args(graph, cfg, wcfg, out) -> list:
     ]
 
 
-def _launch(name: str, state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps):
+def _launch(name: str, state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps, terminators):
     pair = name == "walk_pair"
     dev = graph.cbf.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     _check(state, graph, min_cov, bound, wcfg, name)
+    gates = _gate_args(graph, cfg, wcfg, terminators)
     from ..graph.traverse import clone_state
     from ._build import walk_kernels
 
-    lib = walk_kernels()
+    lib = walk_kernels(exact=cfg.exact_counts, greedy=name == "walk_greedy", terminators=gates[3] is not None)
     out = clone_state(state)
     c = cfg.cbf
-    layout = _I32_BLOCKED if c.blocked else _LAYOUTS[c.dtype]
+    layout = _I32_BLOCKED if c.blocked else _LAYOUTS[c.dtype] + (_EXACT if cfg.exact_counts else 0)
     kms = (cfg.k * nthash.MULTI_SEED) & nthash.M64
     args = [
         out.buf.data_ptr(), out.pos.data_ptr(), out.fh.data_ptr(), out.rh.data_ptr(),
@@ -140,7 +178,7 @@ def _launch(name: str, state, graph, cfg, wcfg, min_cov, bound, superstep_hops, 
         min_cov.data_ptr(), bound.data_ptr(),
         out.pos.shape[0], wcfg.max_len, wcfg.cycle_window,
         graph.cbf.data_ptr(), layout, c.size_log2, c.num_hash, _decode_table(dev).data_ptr(), kms,
-        cfg.k, int(cfg.stranded), int(wcfg.left), wcfg.lookahead, superstep_hops, max_supersteps,
+        cfg.k, int(cfg.stranded), int(wcfg.left), wcfg.lookahead, superstep_hops, max_supersteps, *gates,
     ]
     if pair:
         args += _pair_args(graph, cfg, wcfg, out)
@@ -155,30 +193,31 @@ def _launch(name: str, state, graph, cfg, wcfg, min_cov, bound, superstep_hops, 
     return out
 
 
-def walk_greedy(state, graph, cfg, wcfg, min_cov, bound, superstep_hops=64, max_supersteps=64):
+def walk_greedy(state, graph, cfg, wcfg, min_cov, bound, superstep_hops=64, max_supersteps=64, terminators=None):
     """Extend every lane of ``state`` greedily; returns a new WalkState.
 
     ``min_cov`` (float32) and ``bound`` (int32) are per-lane tensors on the
-    walks' device.  Walks on the CPU take the plain version; walks on a
+    walks' device; ``terminators`` (uint8 lanes of shape ``wcfg.term_cfg``,
+    or None) stop a hop whose single viable successor they hold.  Walks on the CPU take the plain version; walks on a
     CUDA device launch the kernel on the current stream, or raise."""
     if graph.cbf.device.type == "cpu":
-        return walk_greedy_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps)
-    return _launch("walk_greedy", state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps)
+        return walk_greedy_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps, terminators)
+    return _launch("walk_greedy", state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps, terminators)
 
 
-def walk_pair(state, graph, cfg, wcfg, min_cov, bound, superstep_hops=64, max_supersteps=64):
+def walk_pair(state, graph, cfg, wcfg, min_cov, bound, superstep_hops=64, max_supersteps=64, terminators=None):
     """Extend every lane of ``state`` with pair-scored branch resolution
     (the state carries the pair ring); returns a new WalkState.  Same
     device rule as ``walk_greedy``."""
     if graph.cbf.device.type == "cpu":
-        return walk_pair_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps)
-    return _launch("walk_pair", state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps)
+        return walk_pair_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps, terminators)
+    return _launch("walk_pair", state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps, terminators)
 
 
-def walk_naive(state, graph, cfg, wcfg, min_cov, bound, superstep_hops=64, max_supersteps=64):
+def walk_naive(state, graph, cfg, wcfg, min_cov, bound, superstep_hops=64, max_supersteps=64, terminators=None):
     """Extend every lane of ``state`` with naive (depth-probed) branch
     resolution, and back-branch stops when ``wcfg.check_back_branches``;
     returns a new WalkState.  Same device rule as ``walk_greedy``."""
     if graph.cbf.device.type == "cpu":
-        return walk_naive_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps)
-    return _launch("walk_naive", state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps)
+        return walk_naive_plain(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps, terminators)
+    return _launch("walk_naive", state, graph, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps, terminators)

@@ -212,6 +212,25 @@ def naive_walk_rows(data, reads, seeds, stranded=False, left=False):
     return rows
 
 
+def pair_walk_rows(data, reads, seeds, left=False):
+    """Fragment-like seeds of pair walks: read rows of 100 bases (76
+    k-mers: longer than a 64-slot ring), reverse-complemented for left
+    walks, some cut short, one empty, one shorter than k, one with an N;
+    for the tests/test_traverse.py graphs their k-mer seeds.  Returns
+    (rows, lens), lens None for the k-mer seeds."""
+    if data == "traverse":
+        return seeds, None
+    K = WALK_K
+    kmers = np.concatenate([seeds[:8], np.full((8, 100 - K), 4, np.uint8)], axis=1)
+    frags = reads[::37][:56, :100]
+    rows = np.concatenate([3 - frags[:, ::-1] if left else frags, kmers])
+    lens = np.full(len(rows), 100)
+    lens[-8:] = K
+    lens[3], lens[4], lens[5] = 60, 0, K - 1
+    rows[6, 50] = 4
+    return rows, lens
+
+
 def naive_lane_args(case, W):
     """(min_cov, bound) of a naive case: scalars, or per-lane values."""
     if not NAIVE_CASES[case][9]:

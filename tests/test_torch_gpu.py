@@ -1,7 +1,10 @@
-"""CUDA kernels (insert; greedy, pair and naive walks; the long-read
-k-mer keys, randstrobes and consensus vote, these also where their tiles
-bite) vs their plain PyTorch versions, on the card, the pair walks also on a single-end and a pooled
-sample's stage-3 graph, and -long on the card against the CPU.
+"""CUDA kernels (insert, the max op of exact counts among them; greedy,
+pair and naive walks, also over exact-count graphs and with terminators;
+the long-read k-mer keys, randstrobes and consensus vote, these also where
+their tiles bite) vs their plain PyTorch versions, on the card, the pair
+walks also on a single-end and a pooled sample's stage-3 graph, -long on
+the card against the CPU, and the decision oracle on the card against its
+golden dict.
 
 Imports no JAX (the machine with the card has none), so it runs there with
 
@@ -44,7 +47,7 @@ def _table(op, numel, rng):
     return torch.from_numpy(vals)
 
 
-@pytest.mark.parametrize("op", sorted(ci.OPS))
+@pytest.mark.parametrize("op", sorted(op for op in ci.OPS if op != "max"))
 def test_kernel_matches_plain_over_batches(cuda, op):
     """Three salted batches with a heavy cell, the trash cell and dropped
     indices; equal tables after each (for add_mf8 this also proves that
@@ -1302,3 +1305,210 @@ def test_long_card_equals_cpu(cuda, tmp_path):
         for name in names:
             with open(os.path.join(outs["cpu"], name), "rb") as a, open(os.path.join(outs["cuda"], name), "rb") as b:
                 assert a.read() == b.read(), name
+
+
+# ---- exact counts: the max op, the exact-count build, gated walks, the oracle ----
+
+MAX_DTYPES = {"int32": (torch.int32, np.int32, 1 << 20), "u16": (torch.int16, np.int16, 1 << 16),
+              "mf8": (torch.uint8, np.uint8, 128)}
+
+
+def _max_batch(case, dtype, rng):
+    """(table, idx, values) of one max edge case on the CPU."""
+    tdt, ndt, hi = MAX_DTYPES[dtype]
+    size = 1 << 20
+    numel = size + 1 if case != "ragged_end" else size + 3
+    table = rng.integers(0, hi, numel).astype(np.int64).astype(ndt)
+    if case == "fresh":
+        table[:] = 0
+    n = {"empty": 0, "one_index": 1}.get(case, 300_000)
+    idx = rng.integers(0, size, n)
+    vals = rng.integers(0, hi, n).astype(np.int64)
+    if case == "mixed":
+        idx[:100_000] = 4242  # one cell, many values
+        idx[100_000:101_000] = size  # the trash cell
+        idx[101_000:102_000] = numel + 17  # dropped
+        idx[102_000:102_100] = -5  # dropped
+    elif case == "already_larger":
+        table[idx[:1000]] = np.array(hi - 1).astype(ndt)
+    elif case == "high_u16":
+        vals[::2] = 40000
+        vals[1::2] = 30000
+        idx[: n // 2] = idx[n // 2 : 2 * (n // 2)]
+    elif case == "ragged_end":  # the last cells, whose 32-bit word reaches past a uint8 table
+        idx[:3000] = numel - 1 - np.arange(3000) % 4
+    return torch.from_numpy(table), torch.from_numpy(idx.astype(np.int64)), torch.from_numpy(vals.astype(ndt))
+
+
+@pytest.mark.parametrize("case", ["mixed", "fresh", "already_larger", "high_u16", "ragged_end", "empty", "one_index"])
+@pytest.mark.parametrize("dtype", sorted(MAX_DTYPES))
+def test_max_kernel_matches_plain(cuda, dtype, case):
+    """Duplicates, a 10^5-value cell, the trash cell, dropped indices,
+    unsigned u16 values >= 32,768 against smaller ones on the same cells,
+    cells already larger, the last cells of a table; tables byte-identical
+    to the plain version's, one launch a call."""
+    table, idx, vals = _max_batch(case, dtype, np.random.default_rng(len(case)))
+    kern, plain = table.to(cuda), table.clone()
+    before = ci.launch_counts()["max"]
+    ci.cell_insert(kern, idx.to(cuda), "max", values=vals.to(cuda))
+    ci.cell_insert_plain(plain, idx, "max", values=vals)
+    torch.cuda.synchronize()
+    assert ci.launch_counts()["max"] == before + 1
+    assert torch.equal(kern.cpu(), plain)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "u16", "mf8"])
+def test_exact_build_card_equals_cpu(cuda, dtype):
+    """build_step of an exact-count graph with the kernels (set for the
+    dbgbf, add for the multiplicity scratch, max for the counters) equals
+    the plain CPU build in every table, over salted batches."""
+    from rnabloom_tpu_torch.graph import engine
+
+    cfg = dbg.GraphConfig(k=25, stranded=False, dbgbf=BloomConfig(16, 2),
+                          cbf=CountingConfig(15, 2, scratch_log2=12, dtype=dtype), pkbf=BloomConfig(16, 2),
+                          read_pair_distance=40, exact_counts=True)
+    rng = np.random.default_rng(4)
+    base = rng.integers(0, 4, size=(256, 100), dtype=np.uint8)
+    card = engine.make_graph(cfg, with_rpkbf=True, device=cuda)
+    host = engine.make_graph(cfg, with_rpkbf=True, device="cpu")
+    before = ci.launch_counts()
+    for salt in range(4):
+        codes = base[rng.integers(0, 256, size=512)].copy()
+        codes[rng.random(codes.shape) < 0.01] = 4
+        engine.build_step(card, cfg, codes, add_read_pairs=True, salt=salt)
+        engine.build_step(host, cfg, codes, add_read_pairs=True, salt=salt)
+    after = ci.launch_counts()
+    assert after["max"] == before["max"] + 4 and after["add"] == before["add"] + 4
+    for name in ("dbgbf", "cbf", "rpkbf"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(host, name)), name
+
+
+_gate_graphs = {}
+GATE_FIELDS = {"greedy": WALK_FIELDS, "pair": PAIR_FIELDS, "naive": WALK_FIELDS}
+
+
+def _gate_graph(dtype, exact, dev, num_hash=2, dbg_hash=2, stranded=False, blocked=False):
+    """A graph of the walk tests' simulated reads (``stage3_common.WALK_DATA``)
+    with both pair-key filters, exact-count or count-min, with its seeds,
+    fragment rows and terminators (the k-mers of every 61st read); cached."""
+    from rnabloom_tpu_torch.bloom import filters
+    from rnabloom_tpu_torch.ops import nthash
+    from stage3_common import WALK_DATA
+
+    key = (dtype, exact, num_hash, dbg_hash, stranded, blocked, str(dev))
+    if key not in _gate_graphs:
+        reads, seeds = WALK_DATA["sim"]()
+        cfg = dbg.GraphConfig(k=25, stranded=stranded, dbgbf=BloomConfig(18, dbg_hash),
+                              cbf=CountingConfig(18, num_hash, dtype=dtype, blocked=blocked), pkbf=BloomConfig(18, 2),
+                              read_pair_distance=40, fragment_pair_distance=60, exact_counts=exact)
+        r = torch.from_numpy(reads).to(dev)
+        graph = dbg.build_step(dbg.make_graph(cfg, with_rpkbf=True, with_fpkbf=True, device=dev), cfg, r,
+                               add_read_pairs=True)
+        fh, rh, _, valid = dbg.seq_hashes(cfg, r)
+        dbg.add_fragment_pair_kmers(graph, cfg, fh, rh, valid)
+        tcfg = BloomConfig(16, 2)
+        term = filters.make_bloom(tcfg, device=dev)
+        fh, rh, valid = nthash.rolling_hash(r[::61], 25, stranded)
+        q = fh if stranded else nthash.canonical(fh, rh)
+        filters.bloom_add(term, tcfg, nthash.multi_hash(q, 25, 2), valid)
+        frags = reads[::37][:56, :100].copy()
+        _gate_graphs[key] = (cfg, graph, seeds, reads, frags, tcfg, term)
+    return _gate_graphs[key]
+
+
+def _gate_walks(cuda, mode, graph_key, term, lookahead=3):
+    from rnabloom_tpu_torch.graph import traverse
+    from stage3_common import naive_walk_rows
+
+    cfg, graph, seeds, reads, frags, tcfg, lanes = _gate_graph(*graph_key[:2], cuda, *graph_key[2:])
+    kw = dict(max_len=25 + 700, lookahead=lookahead, use_terminators=term, term_cfg=tcfg if term else None)
+    lens = None
+    if mode == "pair":
+        rows, lens = frags, np.full(len(frags), 100)
+        kw.update(max_len=25 + 400, pair_ring=64)
+    elif mode == "naive":
+        rows = naive_walk_rows("sim", reads, seeds, cfg.stranded)
+        kw.update(check_back_branches=True, tip_probe_depth=8)
+    else:
+        rows = seeds
+    wcfg = traverse.WalkConfig(**kw)
+    st = traverse.make_walks(cfg, wcfg, rows, lens, device=cuda)
+    rng = np.random.default_rng(8)
+    W = st.pos.shape[0]
+    min_cov, bound = traverse.lane_args(st, rng.choice([1.0, 2.0, 3.5], size=W).astype(np.float32),
+                                        rng.integers(100, 700, size=W).astype(np.int32))
+    return cfg, graph, wcfg, st, min_cov, bound, lanes if term else None
+
+
+def _gated_kernel_and_plain(cuda, mode, graph_key, term, lookahead=3):
+    from rnabloom_tpu_torch.graph import traverse
+    from rnabloom_tpu_torch.ops import walk
+
+    cfg, graph, wcfg, st, min_cov, bound, lanes = _gate_walks(cuda, mode, graph_key, term, lookahead)
+    name = f"walk_{mode}"
+    n0 = walk.LAUNCHES[name]
+    kern = getattr(walk, name)(st, graph, cfg, wcfg, min_cov, bound, terminators=lanes)
+    plain = getattr(walk, f"{name}_plain")(st, graph, cfg, wcfg, min_cov, bound, terminators=lanes)
+    torch.cuda.synchronize()
+    assert walk.LAUNCHES[name] == n0 + 1
+    for f in GATE_FIELDS[mode]:
+        assert torch.equal(getattr(kern, f), getattr(plain, f)), f
+    assert int(kern.hops.sum()) > 0
+    if term:
+        live = st.status == traverse.ACTIVE
+        stops = kern.status == traverse.TERM
+        assert bool(stops.any()) and bool((live & ~stops).any())
+    return kern
+
+
+GATE_GRAPHS = [("int32", True), ("u16", True), ("mf8", True), ("mf8", False)]
+
+
+# (graph, terminators): count-min walks without terminators are the tests above
+GATE_CASES = [(g, term) for g in GATE_GRAPHS for term in (False, True) if g[1] or term]
+
+
+@pytest.mark.parametrize("graph_key,term", GATE_CASES,
+                         ids=[f"{g[0]}_{'exact' if g[1] else 'cm'}-{'term' if t else 'noterm'}" for g, t in GATE_CASES])
+@pytest.mark.parametrize("mode", ["greedy", "pair", "naive"])
+def test_gated_walk_kernel_matches_plain(cuda, mode, graph_key, term):
+    """The exact-count gate (a count is in dbgbf ? cbf + 1 : 0) over int32,
+    u16 and mf8 graphs, and terminators, in each mode of the walk kernel:
+    every field equal to the plain loop's; some lanes stop TERM, some not."""
+    _gated_kernel_and_plain(cuda, mode, graph_key, term)
+
+
+@pytest.mark.parametrize("mode", ["greedy", "pair", "naive"])
+@pytest.mark.parametrize("graph_key", [("mf8", True, 3, 3), ("int32", True, 2, 5), ("u16", True, 2, 2, True),
+                                       ("u16", False, 3, 2), ("int32", False, 2, 2, False, True)],
+                         ids=["hash3_generic", "dbgbf_hash5", "u16_stranded", "cm_hash3_generic", "cm_int32_blocked"])
+def test_gated_walk_kernel_options_match_plain(cuda, mode, graph_key):
+    """Exact graphs off the specialised read: cbf num_hash 3 (the generic
+    read), a dbgbf of 5 hashes (lanes past the first round), stranded; and
+    the count-min layouts with terminators off the mf8 graph: num_hash 3
+    (the generic read) and the blocked int32 layout."""
+    _gated_kernel_and_plain(cuda, mode, graph_key, True)
+
+
+@pytest.mark.parametrize("lookahead", [1, 5])
+def test_gated_greedy_lookaheads_match_plain(cuda, lookahead):
+    """Lookahead 1 and 5 (the descents) over an exact int32 graph."""
+    _gated_kernel_and_plain(cuda, "greedy", ("int32", True), True, lookahead)
+
+
+def test_oracle_on_the_card_equals_the_golden(cuda):
+    """``measure_all(device="cuda")``: the twin graphs on the card, built by
+    the insert kernels, the screen's gap re-walks by the walk kernel; the
+    dict equals the JAX package's golden."""
+    import json
+    import os
+
+    from rnabloom_tpu_torch.oracle import divergence
+    from rnabloom_tpu_torch.ops import walk
+
+    n0, w0 = ci.launch_counts(), walk.launch_counts()
+    got = divergence.measure_all(device=cuda)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "oracle_divergence.json")) as f:
+        assert json.loads(json.dumps(got)) == json.load(f)
+    n1, w1 = ci.launch_counts(), walk.launch_counts()
+    assert all(n1[op] > n0[op] for op in ("set", "add", "max")) and w1["walk_greedy"] > w0["walk_greedy"]

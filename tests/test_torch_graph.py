@@ -60,14 +60,6 @@ def test_build_and_count_steps_match_jax(dtype, blocked, stranded):
     assert jdbg.fprs(sj, cj) == tdbg.fprs(st, ct)
 
 
-def test_exact_counts_is_not_ported():
-    _, ct = _cfgs("mf8", False)
-    from dataclasses import replace
-
-    with pytest.raises(NotImplementedError):
-        tdbg.make_graph(replace(ct, exact_counts=True), device="cpu")
-
-
 @pytest.mark.parametrize("dtype,blocked", COUNTERS)
 def test_stage2_queries_match_jax(dtype, blocked):
     """contains, the fragment/read pair-support planes and counts + read

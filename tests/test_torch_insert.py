@@ -134,7 +134,9 @@ def test_cpu_wrapper_takes_plain_path_and_checks_arguments():
     with pytest.raises(TypeError):
         ci.cell_insert(table, idx, "add")  # int32 op on a uint8 table
     with pytest.raises(ValueError):
-        ci.cell_insert(table, idx, "max")
+        ci.cell_insert(table, idx, "min")  # no such op
+    with pytest.raises(TypeError):
+        ci.cell_insert(table, idx, "max")  # max takes a value per index
     with pytest.raises(TypeError):
         ci.cell_insert(table, idx.to(torch.int32), "set")
 

@@ -3,7 +3,9 @@
 and each lane's dependent rounds under the one-step schedule and the
 walk kernel's naive schedule (kids read with the candidates, hand-offs,
 two probe steps a round).  On the CPU, on the naive cases' graphs of
-``tests/stage3_common.py`` and on small graphs counted by hand.
+``tests/stage3_common.py`` and on small graphs counted by hand.  Also the
+smoke's loader of walk sources from before the exact-count gate and
+terminators (``chip_smoke.GatelessWalks``).
 """
 
 import os
@@ -126,3 +128,37 @@ def test_naive_tally_counts_a_branch_by_hand():
     assert (t["old_rounds"], t["new_rounds"]) == (36 + 3, 18 + 1 + 1)
     plain = 36 * 7 + 3 * 2 * 4
     assert (t["reads"], t["needed"], t["new_reads"]) == (2 * plain, 2 * plain, 2 * (18 * 35 + 28 + 2 * 20))
+
+
+def test_gateless_walk_library_drops_the_gate_arguments():
+    """A walk source from before the exact-count gate and terminators is
+    called with the port's argument list: its old signatures are the port's
+    without the six gate arguments, the gates are dropped when null, and a
+    call that sets one (an exact graph, terminators) is refused."""
+    import ctypes
+
+    from rnabloom_tpu_torch.ops import _build
+
+    old = chip_smoke.WALK_SIGNATURES_BEFORE_GATES
+    common = _build._WALK_COMMON
+    assert len(common) == 25 and chip_smoke.WALK_GATE_ARGS == slice(len(common), len(common) + 6)
+    assert old["walk_greedy"] == common + [ctypes.c_void_p]
+    assert old["walk_pair"] == common + _build._WALK_PAIR + [ctypes.c_void_p]
+    assert old["walk_naive"] == common + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    calls = []
+
+    class Old:  # a greedy-only source
+        source = "old_walk_greedy.cu"
+
+        def walk_greedy(self, *args):
+            calls.append(args)
+            return 0
+
+    shim = chip_smoke.GatelessWalks(Old())
+    head, stream = list(range(25)), "stream"
+    assert shim.walk_greedy(*head, None, 0, 0, None, 0, 0, stream) == 0
+    assert calls == [(*head, stream)]
+    for gates in ((1234, 18, 2, None, 0, 0), (None, 0, 0, 1234, 16, 2)):
+        with pytest.raises(ValueError, match="no exact-count gate or terminators"):
+            shim.walk_greedy(*head, *gates, stream)
+    assert len(calls) == 1 and not hasattr(shim, "walk_pair") and shim.source == "old_walk_greedy.cu"

@@ -15,6 +15,7 @@ import torch
 
 from rnabloom_tpu_torch import cli
 from rnabloom_tpu_torch.assembly import pipeline, stage1
+from rnabloom_tpu_torch.oracle import divergence
 from rnabloom_tpu_torch.utils import checkpoint, kselect, pesim
 
 torch.set_num_threads(2)
@@ -107,6 +108,7 @@ def test_no_jax_import_in_package_source():
                                                         "realign.py")} <= set(paths)
     assert os.path.join(PKG, "io", "seqstore.py") in paths
     assert os.path.join(PKG, "utils", "kselect.py") in paths
+    assert {os.path.join(PKG, "oracle", name) for name in ("divergence.py", "refsim.py")} <= set(paths)
     for path in paths:
         with open(path) as fh:
             assert not _IMPORT_OF_JAX.search(fh.read()), path
@@ -221,6 +223,23 @@ def test_long_read_modules_import_no_jax():
     assert "LR_NO_JAX_OK" in proc.stdout
 
 
+def test_oracle_imports_no_jax_and_needs_a_card():
+    """``python -m rnabloom_tpu_torch.oracle.divergence`` with jax and the
+    JAX package blocked: it imports neither, and without a card it raises
+    and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    script = ("import sys\nsys.modules['jax'] = None\nsys.modules['rnabloom_tpu'] = None\nimport runpy\n"
+              "sys.argv = ['divergence']\n"
+              "runpy.run_module('rnabloom_tpu_torch.oracle.divergence', run_name='__main__')\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("XLA_")}
+    env["PYTHONPATH"] = ROOT
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr, proc.stderr[-3000:]
+    assert proc.stdout == ""
+
+
 def test_values_that_run_are_not_refused(tmp_path):
     """-sharded off is the port's own single-device engine; the rest at
     their defaults run too (the missing reads then fail to open)."""
@@ -311,14 +330,15 @@ def _stage3_devices(entry, monkeypatch, tmp) -> list:
 
 @pytest.mark.parametrize("entry", ["assemble_pe", "assemble_se", "assemble_pool", "merge_pool", "assemble_long", "select_k",
                                    "estimate_num_unique_kmers", "build_graph_autosized", "load_graph", "screen",
-                                   "screen_walks", "nr", "extend_walks"])
+                                   "screen_walks", "nr", "extend_walks", "measure_all", "build_twin_graphs"])
 def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
     """Without ``device="cpu"`` the entry points run on the card, and raise
     where there is none, before any work is done.  Stage 3 creates its
     screen and the walks of its screen (gap re-walks, depth probes, the
     screen viewed as a graph) on the graph's device, and hashes the nr
     pass's minimizers there (``layout_unitigs``); -extend makes its naive
-    walks (``walk_naive``) there."""
+    walks (``walk_naive``) there.  The decision oracle builds its twin
+    graphs on the card."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     if entry in ("screen", "screen_walks", "nr", "extend_walks"):
@@ -345,6 +365,10 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
             kselect.select_k([left, right], [25, 27])
         elif entry == "estimate_num_unique_kmers":
             kselect.estimate_num_unique_kmers([left, right], 25)
+        elif entry == "measure_all":
+            divergence.measure_all()
+        elif entry == "build_twin_graphs":
+            divergence.build_twin_graphs(["ACGT" * 10], 17)
         elif entry == "load_graph":
             checkpoint.load_graph(str(out / "rnabloom.graph"))  # raises before it opens a file
         else:

@@ -28,7 +28,7 @@ from rnabloom_tpu.ops import nthash_ref
 from rnabloom_tpu_torch.bloom import filters as tf
 from rnabloom_tpu_torch.graph import dbg as tdbg, traverse as ttr
 from rnabloom_tpu_torch.ops import minifloat, nthash
-from stage3_common import NAIVE_CASES, WALK_DATA, naive_lane_args, naive_walk_rows
+from stage3_common import NAIVE_CASES, WALK_DATA, naive_lane_args, naive_walk_rows, pair_walk_rows
 
 torch.set_num_threads(2)
 
@@ -423,15 +423,11 @@ def test_kernel_emulation_equals_jax(graphs, jax_walks, case):
                 f"G={G} lane {w}: path_min"
 
 
-@pytest.mark.parametrize("what", ["back_branches", "terminators"])
+@pytest.mark.parametrize("what", ["back_branches"])
 def test_unported_walk_modes_raise(graphs, what):
-    """Terminators wait for the oracle (item 14); back-branch checks are
-    ported in naive mode only, the one mode the JAX package runs them in."""
+    """Back-branch checks are ported in naive mode only, the one mode the
+    JAX package runs them in."""
     _, _, ct, gt, seeds = graphs("traverse")
-    if what == "terminators":
-        with pytest.raises(NotImplementedError, match="ROADMAP queue-1 item 14"):
-            ttr.WalkConfig(max_len=200, use_terminators=True)
-        return
     for mode, ring in (("greedy", 0), ("pair", 64)):
         wcfg = ttr.WalkConfig(max_len=200, check_back_branches=True, pair_ring=ring)
         st = ttr.make_walks(ct, wcfg, seeds, device="cpu")
@@ -532,23 +528,6 @@ def pair_graphs():
     return get
 
 
-def _pair_seeds(data, reads, seeds, left=False):
-    """Fragment-like seeds: read rows of 100 bases (76 k-mers: longer than
-    a 64-slot ring), reverse-complemented for left walks, some cut short,
-    one empty, one shorter than k, one with an N; for the
-    tests/test_traverse.py graphs their k-mer seeds."""
-    if data == "traverse":
-        return seeds, None
-    kmers = np.concatenate([seeds[:8], np.full((8, 100 - K), 4, np.uint8)], axis=1)
-    frags = reads[::37][:56, :100]
-    rows = np.concatenate([3 - frags[:, ::-1] if left else frags, kmers])
-    lens = np.full(len(rows), 100)
-    lens[-8:] = K
-    lens[3], lens[4], lens[5] = 60, 0, K - 1
-    rows[6, 50] = 4
-    return rows, lens
-
-
 # case -> (data, dtype, blocked, stranded, left, pkbf hashes, fpkbf, ring, max_len, per-lane args)
 PAIR_CASES = {
     "right": ("sim", "mf8", False, False, False, 2, True, 64, K + 400, False),
@@ -576,7 +555,7 @@ def _pair_args(case, W):
 def test_pair_walk_equals_jax(pair_graphs, case):
     data, dtype, blocked, stranded, left, pkh, frag, ring, max_len, _ = PAIR_CASES[case]
     cj, gj, ct, gt, reads, seeds = pair_graphs(data, dtype, blocked, stranded, pkh, frag)
-    rows, lens = _pair_seeds(data, reads, seeds, left)
+    rows, lens = pair_walk_rows(data, reads, seeds, left)
     wj = jtr.WalkConfig(max_len=max_len, pair_ring=ring, left=left)
     wt = ttr.WalkConfig(max_len=max_len, pair_ring=ring, left=left)
     j0 = jtr.make_walks(cj, wj, rows, lens)
@@ -597,7 +576,7 @@ def test_pair_walk_revcomp_reseed_equals_jax(pair_graphs, stranded):
     max_len bases: far more k-mers than the ring holds), then left pair
     walks."""
     cj, gj, ct, gt, reads, seeds = pair_graphs("sim", stranded=stranded)
-    rows, lens = _pair_seeds("sim", reads, seeds)
+    rows, lens = pair_walk_rows("sim", reads, seeds)
     wj, wt = jtr.WalkConfig(max_len=K + 400, pair_ring=64), ttr.WalkConfig(max_len=K + 400, pair_ring=64)
     wjl = jtr.WalkConfig(max_len=K + 400, pair_ring=64, left=True)
     wtl = ttr.WalkConfig(max_len=K + 400, pair_ring=64, left=True)

@@ -61,7 +61,7 @@ def main(argv=None) -> int:
                 for i, (name, src) in enumerate(v.split("=", 1) for v in args.lr_variant)}
     print(f"card: {card}; kernels built in {time.time() - t0:.1f} s: {built}; long-read variants {args.lr_variant}",
           flush=True)
-    log = _build.build_logs.get(_build.LR_SRC)
+    log = _build.build_logs.get(_build.LR_LIB)
     if log is not None:
         print("nvcc -Xptxas -v, long-read kernels: "
               + "; ".join(chip_smoke.insert_ptxas(log, "kmer_keys|randstrobe|vote"))

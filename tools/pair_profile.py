@@ -126,7 +126,7 @@ def main(argv=None) -> int:
         variants = {name: b.result() for name, b in builds.items()}
     print(f"built in {time.time() - t0:.1f} s", flush=True)
     mode = "naive" if args.naive else "pair"
-    for line in cs.ptxas_report(_build.build_logs.get(_build.WALK_SRC, "")):
+    for line in cs.ptxas_report(_build.build_logs.get(_build.WALK_PN_LIB, "")):
         if mode in line:
             print(f"  ptxas {line}")
     tmp = tempfile.mkdtemp(prefix="pair_profile_")
