@@ -15,7 +15,9 @@ the exact-count gate and terminators is called through
 ``GatelessWalks``, which drops their arguments).
 ``--insert-variant`` does the same for another ``csrc/cell_insert.cu`` in
 phase 2 (an older source whose mf8 entry point is ``cell_add_mf8``, with
-its int32 scratch as long as the table, gets that scratch), and
+its int32 scratch as long as the table, gets that scratch; one whose
+``cell_add_mf8_batch`` has no ``base`` argument is called through
+``BaselessInserts``), and
 ``--lr-variant`` for another ``csrc/lr_kernels.cu`` in phase 10 (K1, K2
 and K3: every output value equal to the port's kernels', times in the
 same turns on both of the phase's kernel cells).
@@ -196,10 +198,10 @@ and exits nonzero):
    package's buckets); ``consensus_vote`` through ``polish(...,
    indel_band=0)`` on run (i)'s own unitigs and placements (kernel, plain
    on the card, plain on the CPU).  K1 and K2 also at the size the phase
-   was specified with: its 1,500 raw reads 7 times (10,500 reads, about
-   16.3 M positions), one launch each, the keys of every 7th read (each
-   raw read once) equal to the plain versions' on those reads alone; K3
-   too: run (i)'s unitigs and placements 7 times over (copy c on unitigs
+   was specified with: its 750 raw reads 14 times (10,500 reads), one
+   launch each, the keys of every 7th read (each raw read twice) equal to
+   the plain versions' on those reads alone; K3 too: run (i)'s unitigs
+   and placements 14 times over (copy c on unitigs
    c U ..) through ``polish(..., indel_band=0)``, every batch's polished
    codes and depths equal to the plain version's on that batch, a call's
    peak device memory under 6 B a cell above its inputs; K3's turns also
@@ -235,12 +237,36 @@ and exits nonzero):
    distinct cell, over 3.35 TB/s).  Walks over the exact int32 graph
    against the plain loop in every field, timed in turns with the
    count-min int32 graph of the same reads: greedy on phase 4's bridge
-   seeds (16,384 lanes), naive on phase 8's right walks (8,192 lanes);
-   their reads replayed for the bound (each key's dbgbf lanes too).  Then
+   seeds (16,384 lanes), naive on phase 8's right walks (8,192 lanes;
+   their bounds are in PERF.md: the replays that counted their reads
+   were cut for the smoke's time).  Then
    terminators (a 2^27-lane, 2-hash filter holding the k-mers of every
    other simulated transcript, by ``screen_add``) on the greedy lanes over
    the count-min graph, against the plain loop, timed in turns with the
    same walks without them; some lanes, not all, end TERM.
+12. The sharded graph engine (``-sharded on``; ``parallel/sharded.py``,
+   collectives as device copies in one process), the main path of the
+   latest slice: the stage-1 build at ``-mem 1`` (mf8: 2^29 cells, 2^27
+   rpkbf lanes) over both mates of the first MESH_PAIRS pairs in batches
+   of 4096 reads, on one device and on meshes of 2 and 8 shards on the
+   card (and one shard a card where several cards are visible; the phase
+   prints how many are), each with every launch count set to 0 before
+   it: every lane outside the trash cells equal to the single-device
+   kernel build, counts of 2,000 reads equal from the replica and routed
+   to the shards, one ``add_mf8`` launch a shard and step; one batch each
+   of ``-cnt u16``, the blocked int32 cbf (8 shards) and the exact int32
+   path (``max``) held the same way.  Each build step timed with CUDA
+   events beside the single-device step, with its routed calls' share,
+   its all-to-all bytes a shard (``comm_accounting``), the routed calls
+   that took a second round, and peak device memory.  Then ``-stage 3
+   -savebf`` (the nr pass included) through ``pipeline.assemble_pe`` on
+   MESH_STAGE3_PAIRS pairs with ``make_mesh_if_multi`` giving the 8-shard
+   mesh, every launch count set to 0 before it: every file equal to the
+   single-device run's but for what the JAX package's mesh run differs in
+   (the checkpoint's trash cells; the read statistics' distinct-k-mer
+   estimate, each run's equal to its engine's own arithmetic), report.json
+   but elapsed_s; and the mesh run on the first 2000 pairs on the card
+   and on 8 CPU shards, byte-identical.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -255,6 +281,7 @@ import dataclasses
 import filecmp
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -269,13 +296,14 @@ import numpy as np
 import torch
 
 from rnabloom_tpu_torch import cli
-from rnabloom_tpu_torch.assembly import correct, fragments, pipeline, transcripts
+from rnabloom_tpu_torch.assembly import correct, fragments, pipeline, stage1, transcripts
 from rnabloom_tpu_torch.assembly.fragstore import FragmentStore
 from rnabloom_tpu_torch.bloom import filters
 from rnabloom_tpu_torch.graph import dbg, engine, traverse
 from rnabloom_tpu_torch.io import fastx, native
 from rnabloom_tpu_torch.olc import consensus as olc_consensus
 from rnabloom_tpu_torch.ops import _build, cell_insert as ci, consensus_vote, launch_timer, lr_keys, nthash, strobemer, walk
+from rnabloom_tpu_torch.parallel import sharded
 from rnabloom_tpu_torch.utils import checkpoint, kselect, lrsim, pesim, seq as sequtils
 
 KERNEL_SOURCE = "rnabloom_tpu_torch/csrc/cell_insert.cu"
@@ -434,6 +462,35 @@ class GatelessWalks:
         return call
 
 
+# cell_add_mf8_batch's base argument (after the salt), which insert sources
+# from before the sharded engine lack
+MF8_BASE_ARG = 7
+MF8_BATCH_BEFORE_BASE = [a for i, a in enumerate(_build._SIGNATURES[_build.KERNEL_LIB][1]["cell_add_mf8_batch"])
+                         if i != MF8_BASE_ARG]
+
+
+class BaselessInserts:
+    """An insert library built from a source whose ``cell_add_mf8_batch``
+    has no ``base`` argument, called with the port's argument list: the
+    base is dropped, and must be 0 (a whole table)."""
+
+    def __init__(self, so: ctypes.CDLL):
+        self.so = so
+        self.source = so.source
+
+    def __getattr__(self, name: str):
+        fn = getattr(self.so, name)  # AttributeError where the source lacks it
+        if name != "cell_add_mf8_batch":
+            return fn
+
+        def call(*args):
+            if args[MF8_BASE_ARG] != 0:
+                raise ValueError(f"{self.source}: this mf8 insert keys cells by their table index only (base 0)")
+            return fn(*args[:MF8_BASE_ARG], *args[MF8_BASE_ARG + 1:])
+
+        return call
+
+
 def build_variant(kind: str, i: int, src: str) -> ctypes.CDLL:
     """Another ``kind`` ("walk", "insert" or "lr") kernel source, built with the
     port's nvcc flags into ``build/{kind}_variants/``, its entry points
@@ -441,7 +498,8 @@ def build_variant(kind: str, i: int, src: str) -> ctypes.CDLL:
     phase 6 skips it), or predate the gates (then it is wrapped in
     ``GatelessWalks``); an insert source may have, in place of
     ``cell_add_mf8_batch``, the older ``cell_add_mf8`` (an int32 scratch as
-    long as the table)."""
+    long as the table), or a ``cell_add_mf8_batch`` without the ``base``
+    argument (then it is wrapped in ``BaselessInserts``)."""
     lib = os.path.join(_build.BUILD_DIR, f"{kind}_variants", f"lib{i}.so")
     os.makedirs(os.path.dirname(lib), exist_ok=True)
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, src, "-o", lib], capture_output=True, text=True)
@@ -452,7 +510,10 @@ def build_variant(kind: str, i: int, src: str) -> ctypes.CDLL:
     lib_of = {"walk": _build.WALK_LIB, "insert": _build.KERNEL_LIB, "lr": _build.LR_LIB}
     signatures = dict(_build._SIGNATURES[lib_of[kind]][1])
     with open(src) as f:
-        gateless = kind == "walk" and "term_num_hash" not in f.read()  # before the exact gate and terminators
+        text = f.read()
+    gateless = kind == "walk" and "term_num_hash" not in text  # before the exact gate and terminators
+    # an mf8 batch entry from before its base argument
+    baseless = kind == "insert" and re.search(r"int cell_add_mf8_batch\([^)]*\bbase\b", text) is None
     if gateless:
         signatures = dict(WALK_SIGNATURES_BEFORE_GATES)
     if kind == "walk" and not hasattr(so, "walk_pair"):  # an older source: greedy mode only
@@ -465,10 +526,15 @@ def build_variant(kind: str, i: int, src: str) -> ctypes.CDLL:
     if kind == "insert" and not hasattr(so, "cell_add_mf8_batch"):
         del signatures["cell_add_mf8_batch"]
         signatures["cell_add_mf8"] = SCRATCH_MF8_ARGS
+        baseless = False
+    elif baseless:
+        signatures["cell_add_mf8_batch"] = MF8_BATCH_BEFORE_BASE
     for name, args in signatures.items():
         fn = getattr(so, name)  # raises where the source lacks an entry point
         fn.argtypes = args
         fn.restype = ctypes.c_int
+    if baseless:
+        return BaselessInserts(so)
     return GatelessWalks(so) if gateless else so
 
 
@@ -1082,8 +1148,7 @@ def _same_state(a, b) -> list:
     return [f for f in WALK_FIELDS if not torch.equal(getattr(a, f), getattr(b, f))]
 
 
-def walk_tally(st, graph, cfg, wcfg, mc, bd, superstep_hops: int = 64, max_supersteps: int = 64,
-               terminators=None) -> dict:
+def walk_tally(st, graph, cfg, wcfg, mc, bd, superstep_hops: int = 64, max_supersteps: int = 64) -> dict:
     """The plain lockstep loop (``extend_walks_plain``), replayed one hop
     at a time with the plain version's own steps, counting per lane what
     the kernel's schedule needs: hops tried, resolves, and cell reads (a
@@ -1092,15 +1157,13 @@ def walk_tally(st, graph, cfg, wcfg, mc, bd, superstep_hops: int = 64, max_super
     hop's 4 and reads, for each viable candidate, 4 k-mers at depth 1, 16
     at depth 2 and 64 per level past it; num_hash cells a k-mer).
     Dependent read rounds: one a hop that reads, lookahead - 1 a resolve.
-    With ``terminators``, also the hops that reach the terminator check (an
-    advance, or a TERM or FULL stop).  Returns the tallies and the final
-    state."""
+    Returns the tallies and the final state."""
     from rnabloom_tpu_torch.graph import dbg
 
     state = traverse.clone_state(st)
     W, la, h = st.pos.shape[0], wcfg.lookahead, cfg.cbf.num_hash
     hops = torch.zeros(W, dtype=torch.int64, device=st.pos.device)
-    resolves, reads, hop_rounds, term_checks = hops.clone(), hops.clone(), hops.clone(), hops.clone()
+    resolves, reads, hop_rounds = hops.clone(), hops.clone(), hops.clone()
     reused = torch.zeros(W, dtype=torch.bool, device=st.pos.device)
     per_viable = (4 if la >= 2 else 0) + (16 if la >= 3 else 0) + 64 * max(la - 3, 0)
     floor = torch.clamp(mc, min=1.0)[:, None]
@@ -1116,10 +1179,7 @@ def walk_tally(st, graph, cfg, wcfg, mc, bd, superstep_hops: int = 64, max_super
             reads += reading * 4 * h
             hop_rounds += reading
             reused &= ~active
-            pos0 = state.pos
-            state = traverse.walk_superstep(state, graph, cfg, wcfg, mc, bd, 1, terminators)
-            term_checks += active & ((state.pos > pos0) | (state.status == traverse.TERM)
-                                     | (state.status == traverse.FULL))
+            state = traverse.walk_superstep(state, graph, cfg, wcfg, mc, bd, 1)
         branch = state.status == traverse.BRANCH
         if bool(branch.any()):
             out = traverse._gather_out_codes(state.buf, state.pos, cfg.k)
@@ -1135,8 +1195,7 @@ def walk_tally(st, graph, cfg, wcfg, mc, bd, superstep_hops: int = 64, max_super
             advanced = branch & (state.pos > pos0)
             reused |= advanced & chosen_viable & (la > 1) & (cfg.k > 1)
     rounds = hop_rounds + resolves * (la - 1)
-    return {"state": state, "hops": hops, "resolves": resolves, "reads": reads, "rounds": rounds,
-            "term_checks": term_checks}
+    return {"state": state, "hops": hops, "resolves": resolves, "reads": reads, "rounds": rounds}
 
 
 def walk_bound_ms(st, mc, bd, reads: int) -> float:
@@ -2486,9 +2545,10 @@ LR_REPLACES = {
 # the phase was specified with: 200 at coverage 10 (2,000 reads) took
 # 116.7-119.6 s of phase 10 on one H100 80GB HBM3 at 700 W, the host's
 # correction and banded realignment nearly all of it (so 1,000 would take
-# about 600 s), and the whole smoke 1080.1 s, over its 1,050 s mark.
+# about 600 s), and the whole smoke 1080.1 s, over its 1,050 s mark; 150
+# took 86-108 s of a 965-1148 s smoke with phase 12, and were halved.
 # The coverage stays: it decides which k-mers are solid
-LR_TRANSCRIPTS = 150
+LR_TRANSCRIPTS = 75
 LR_COVERAGE = 10
 LR_ERR = 0.07
 LR_CHECK = 400  # reads of the card-vs-CPU runs
@@ -2496,12 +2556,13 @@ LR_K, LR_N, LR_WMIN, LR_WMAX = 25, 3, 11, 50  # run (ii)'s strobemers: -lrsub 5,
 # the runs after (i), each resumed from a copy of (i)'s corrected reads and stamps
 LR_RESUMED = {"strobemer": ["-lrsub", "5,11,0,50"], "kmer": ["-lrsub", "5,25,0"], "paf": ["-paf"]}
 # phase 10's kernel cells at the size the phase was specified with.  K1
-# and K2: its 1,500 raw lrsim reads, 7 times (10,500 reads and 16.3 M
-# positions), keys held to the plain version on every 7th read: 7 is prime
-# to the 1,500 reads of a repeat, so every raw read is checked once, each
-# repeat at other tile alignments.  K3: run (i)'s unitigs and placements 7
-# times over (about what the specified 1,000 transcripts would give)
-LR_REPEATS = 7
+# and K2: its 750 raw lrsim reads, 14 times (10,500 reads; with 150
+# transcripts, 1,500 reads 7 times: 16.3 M positions), keys held to the
+# plain version on every 7th read: 7 is prime to the 750 reads of a
+# repeat, so every raw read is checked twice, at other tile alignments.
+# K3: run (i)'s unitigs and placements 14 times over (about what the
+# specified 1,000 transcripts would give)
+LR_REPEATS = 14
 LR_VOTE_BATCH = 2048  # polish's reads a batch (its default), so a full batch of the vote
 LR_CHECK_EVERY = 7
 LR_HOST_REPS = 5  # host-timed calls of the key path, for its spread
@@ -3154,8 +3215,6 @@ def oracle_on_card(card: str) -> dict:
 def exact_config(counter: str, exact: bool = True) -> dbg.GraphConfig:
     """``default_graph_config`` at -mem 1, k=25, in the conservative
     update's flat layout, with exact counts (or count-min)."""
-    from rnabloom_tpu_torch.assembly import stage1
-
     d_read, _ = stage1.read_length_params(np.full(16, READ_LEN), K, pipeline.PipelineParams().min_num_kmer_pairs)
     cfg = stage1.default_graph_config(K, False, 1 << 30, read_pair_distance=d_read, counter=counter)
     return dataclasses.replace(cfg, cbf=dataclasses.replace(cfg.cbf, blocked=False), exact_counts=exact)
@@ -3298,24 +3357,13 @@ def max_cells(first: dict, card: str, dev) -> dict:
     return {"real": real, "synthetic": synth}
 
 
-def gated_tally(st, graph, cfg, wcfg, mc, bd, terminators=None, **kw) -> dict:
-    """``walk_tally`` of a walk batch over an exact-count graph or with
-    terminators: each key read also reads its dbgbf lanes, and each hop
-    that reaches the terminator check (an advance, a TERM or a FULL stop
-    with one viable candidate) reads the terminator lanes."""
-    t = walk_tally(st, graph, cfg, wcfg, mc, bd, terminators=terminators, **kw)
-    per_key = cfg.cbf.num_hash + (cfg.dbgbf.num_hash if cfg.exact_counts else 0)
-    cells = t["reads"] * per_key // cfg.cbf.num_hash + t["term_checks"] * (TERM_CFG.num_hash if terminators is not
-                                                                          None else 0)
-    return {**t, "reads": cells}
-
-
-def gated_walk_cell(what: str, run, plain_run, tally, yardstick, card: str, st, mc, bd) -> dict:
+def gated_walk_cell(what: str, run, plain_run, yardstick, card: str, st) -> dict:
     """A walk cell of phase 11: the kernel against the plain loop in every
-    field, the replay's bound, and the kernel's time in turns with
-    ``yardstick`` (the same seeds with the count-min graph, or without
-    terminators): kernel, yardstick, yardstick, kernel.  The two take
-    different paths, so each time is also given per hop."""
+    field, and the kernel's time in turns with ``yardstick`` (the same
+    seeds with the count-min graph, or without terminators): kernel,
+    yardstick, yardstick, kernel.  The two take different paths, so each
+    time is also given per hop.  (The replays that counted the cells for
+    a bound were cut for the smoke's time: PERF.md keeps the bounds.)"""
     kern = run()
     yard = yardstick()
     torch.cuda.synchronize()
@@ -3327,15 +3375,11 @@ def gated_walk_cell(what: str, run, plain_run, tally, yardstick, card: str, st, 
     bad = [f for f in fields if not torch.equal(getattr(kern, f), getattr(plain, f))]
     if bad:
         raise AssertionError(f"{what}: the kernel differs from the plain loop in {bad}")
-    bad = [f for f in fields if not torch.equal(getattr(tally["state"], f), getattr(plain, f))]
-    if bad:
-        raise AssertionError(f"{what}: the tallied replay differs from the plain loop in {bad}")
     t = {"kernel": [], "yardstick": []}
     for who in ("kernel", "yardstick", "yardstick", "kernel"):
         t[who].append(_time_ms(run if who == "kernel" else yardstick, reps=5))
     status = torch.bincount(kern.status.long(), minlength=7).tolist()
     r = {"ms": _mean(t["kernel"]), "yardstick_ms": _mean(t["yardstick"]), "plain_ms": plain_ms,
-         "bound_ms": walk_bound_ms(st, mc, bd, int(tally["reads"].sum())), "cell_reads": int(tally["reads"].sum()),
          "lanes": int(st.pos.shape[0]), "hops": int(kern.hops.sum()), "statuses": status,
          "yardstick_hops": int(yard.hops.sum()),
          "yardstick_statuses": torch.bincount(yard.status.long(), minlength=7).tolist(),
@@ -3346,8 +3390,7 @@ def gated_walk_cell(what: str, run, plain_run, tally, yardstick, card: str, st, 
           f"{status}; kernel {r['ms']:.4f} ms ({', '.join(f'{x:.4f}' for x in t['kernel'])}), yardstick "
           f"{r['yardstick_ms']:.4f} ms ({', '.join(f'{x:.4f}' for x in t['yardstick'])}; {r['yardstick_hops']} hops, "
           f"statuses {r['yardstick_statuses']}); per hop {r['ns_per_hop']:.3f} ns against {r['yardstick_ns_per_hop']:.3f} "
-          f"ns; plain {plain_ms:.1f} ms; {r['cell_reads']} reads needed: bound {r['bound_ms']:.4f} ms by bytes at "
-          f"3.35 TB/s [{card}]", flush=True)
+          f"ns; plain {plain_ms:.1f} ms [{card}]", flush=True)
     return r
 
 
@@ -3365,16 +3408,13 @@ def exact_walks(built: dict, seeds: np.ndarray, naive_start: tuple, truth, card:
     greedy = gated_walk_cell(
         f"walk_greedy over the {EXACT_NAME} (phase 4's bridge seeds)",
         lambda: walk.walk_greedy(st, ex, ecfg, wcfg, mc, bd), lambda: walk.walk_greedy_plain(st, ex, ecfg, wcfg, mc, bd),
-        gated_tally(st, ex, ecfg, wcfg, mc, bd), lambda: walk.walk_greedy(st, cm, ccfg, wcfg, mc, bd), card, st, mc, bd)
+        lambda: walk.walk_greedy(st, cm, ccfg, wcfg, mc, bd), card, st)
     nst, nwcfg, nmc, nbd = naive_start
-    tally = naive_tally(nst, ex, ecfg, nwcfg, nmc, nbd)
-    per_key = ecfg.cbf.num_hash + ecfg.dbgbf.num_hash
     naive = gated_walk_cell(
         f"walk_naive over the {EXACT_NAME} (phase 8's right -extend walks)",
         lambda: walk.walk_naive(nst, ex, ecfg, nwcfg, nmc, nbd),
         lambda: walk.walk_naive_plain(nst, ex, ecfg, nwcfg, nmc, nbd),
-        {"state": tally["state"], "reads": tally["needed"] * per_key // ecfg.cbf.num_hash},
-        lambda: walk.walk_naive(nst, cm, ccfg, nwcfg, nmc, nbd), card, nst, nmc, nbd)
+        lambda: walk.walk_naive(nst, cm, ccfg, nwcfg, nmc, nbd), card, nst)
     bases, offsets, lengths = truth
     rows = [bases[offsets[i] : offsets[i] + lengths[i]] for i in range(0, len(lengths), 2)]
     tx_codes, _ = sequtils.pack_batch(rows, len(rows), int(lengths.max()))
@@ -3386,13 +3426,328 @@ def exact_walks(built: dict, seeds: np.ndarray, naive_start: tuple, truth, card:
         f"{len(rows)} of the {len(lengths)} simulated transcripts)",
         lambda: walk.walk_greedy(st, cm, ccfg, twcfg, mc, bd, terminators=lanes),
         lambda: walk.walk_greedy_plain(st, cm, ccfg, twcfg, mc, bd, terminators=lanes),
-        gated_tally(st, cm, ccfg, twcfg, mc, bd, terminators=lanes),
-        lambda: walk.walk_greedy(st, cm, ccfg, wcfg, mc, bd), card, st, mc, bd)
+        lambda: walk.walk_greedy(st, cm, ccfg, wcfg, mc, bd), card, st)
     n_term = term["statuses"][traverse.TERM]
     live = int((st.status == traverse.ACTIVE).sum())
     assert 0 < n_term < live, (n_term, live)
     print(f"terminators: {n_term} of the {live} live lanes ended TERM [{card}]", flush=True)
     return {"greedy": greedy, "naive": naive, "term": {**term, "term_lanes": n_term, "live_lanes": live}}
+
+
+# ---- phase 12: the sharded graph engine (-sharded on) ----
+
+MESH_PAIRS = 100_000  # phase 12: both mates of these pairs (49 batches of 4096 reads) into each mesh build
+MESH_SHARDS = (2, 8)  # phase 12's meshes on one card
+MESH_STAGE3_PAIRS = 20_000  # phase 12's -stage 3 run on the 8-shard mesh and on one device
+MESH_FILES = ("rnabloom.graph.cbf.npy", "rnabloom.graph.rpkbf.npy")  # checkpoints: the mesh zeroes the trash cells
+
+
+@contextlib.contextmanager
+def routing_events(dev, store: list):
+    """Record a pair of CUDA events on ``dev``'s stream around every routed
+    call of the sharded engine (``sharded._routed_rounds``)."""
+    saved = sharded._routed_rounds
+
+    def timed(*args, **kw):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(torch.cuda.current_stream(dev))
+        out = saved(*args, **kw)
+        stop.record(torch.cuda.current_stream(dev))
+        store.append((start, stop))
+        return out
+
+    sharded._routed_rounds = timed
+    try:
+        yield
+    finally:
+        sharded._routed_rounds = saved
+
+
+@contextlib.contextmanager
+def mesh_env(walk_env: str):
+    """RNB_MESH_WALK set to ``walk_env`` inside the block."""
+    saved = os.environ.get("RNB_MESH_WALK")
+    os.environ["RNB_MESH_WALK"] = walk_env
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["RNB_MESH_WALK"]
+        else:
+            os.environ["RNB_MESH_WALK"] = saved
+
+
+@contextlib.contextmanager
+def mesh_as_visible(mesh):
+    """``engine.make_mesh_if_multi`` gives ``mesh``: the pipeline's
+    -sharded on runs on it."""
+    saved = engine.make_mesh_if_multi
+    engine.make_mesh_if_multi = lambda device="cuda", min_devices=2: mesh
+    try:
+        yield
+    finally:
+        engine.make_mesh_if_multi = saved
+
+
+def _devices_of(mesh, dev) -> tuple:
+    return mesh.distinct if mesh is not None else (sharded.make_mesh([dev]).devices[0],)
+
+
+def mesh_build(cfg: dbg.GraphConfig, batches: list, dev, mesh=None):
+    """Stage 1's build steps over ``batches`` (read pairs included) into a
+    fresh graph on ``dev`` or sharded over ``mesh``: (graph, stats), each
+    step timed by CUDA events on ``dev``'s stream, and on a mesh its routed
+    calls too; the collectives and bytes from ``comm_accounting``, the
+    routed calls that took a second round, peak device memory above what
+    was allocated before (the graph included) and launches (every launch
+    count set to 0 before)."""
+    ci._batch_tables.clear()
+    torch.cuda.empty_cache()
+    devices = _devices_of(mesh, dev)
+    held = {}
+    for d in devices:
+        torch.cuda.reset_peak_memory_stats(d)
+        held[d] = torch.cuda.memory_allocated(d)
+    graph = engine.make_graph(cfg, with_rpkbf=True, device=dev, mesh=mesh)
+    sharded.reset_routing_counts()
+    reset_launch_counters()
+    steps, routes = [], []
+    for d in devices:
+        torch.cuda.synchronize(d)
+    t0 = time.time()
+    with sharded.comm_accounting() as comm, routing_events(dev, routes):
+        for salt, codes in enumerate(batches):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record(torch.cuda.current_stream(dev))
+            engine.build_step(graph, cfg, codes, add_read_pairs=True, salt=salt)
+            stop.record(torch.cuda.current_stream(dev))
+            steps.append((start, stop))
+    for d in devices:
+        torch.cuda.synchronize(d)
+    wall = time.time() - t0
+    step_ms = [a.elapsed_time(b) for a, b in steps]
+    return graph, {
+        "steps": len(steps), "step_ms": statistics.median(step_ms), "steps_ms": sum(step_ms),
+        "routing_ms": sum(a.elapsed_time(b) for a, b in routes), "wall_s": wall,
+        "a2a_per_step": comm["all_to_all"] / len(steps), "psum_per_step": comm["psum"] / len(steps),
+        "a2a_bytes_per_shard_per_step": comm["a2a_bytes_per_shard"] / len(steps),
+        "routed_calls": sharded.ROUTING["calls"], "second_rounds": sharded.ROUTING["second_rounds"],
+        "peak_bytes": {str(d): torch.cuda.max_memory_allocated(d) - held[d] for d in devices},
+        "launches": {op: n for op, n in launch_counters().items() if n},
+    }
+
+
+def mesh_equals_single(mg, single, cfg: dbg.GraphConfig, what: str) -> None:
+    """Every lane of every shard outside its trash equals the single-device
+    table's, compared on the card."""
+    for name in ("dbgbf", "cbf", "rpkbf"):
+        table, shards = getattr(single, name), getattr(mg.state, name)
+        assert (table is None) == (shards is None), (what, name)
+        if table is None:
+            continue
+        local = table.numel() - (cfg.cbf.trash if name == "cbf" else 1)
+        local //= len(shards)
+        for s, shard in enumerate(shards):
+            if not torch.equal(shard[:local], table[s * local : (s + 1) * local].to(shard.device)):
+                raise AssertionError(f"{what}: {name} shard {s} differs from the single-device build")
+
+
+def mesh_counts_equal(mg, single, cfg: dbg.GraphConfig, codes: np.ndarray, what: str) -> None:
+    """Counts of ``codes`` on the mesh, from the replica and routed to the
+    shards, equal the single-device counts."""
+    want = engine.count_step(single, cfg, codes)
+    for walk_env in ("replicated", "routed"):
+        with mesh_env(walk_env):
+            got = engine.count_step(mg, cfg, codes)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"{what}: {walk_env} counts differ from the single-device counts")
+
+
+def _mesh_line(what: str, st: dict, one: dict, cfg: dbg.GraphConfig, card: str) -> str:
+    return (f"{what}: every lane outside the trash equal to the single-device kernel build (cbf 2^{cfg.cbf.size_log2} "
+            f"{cfg.cbf.dtype}{' blocked' if cfg.cbf.blocked else ''}{', exact' if cfg.exact_counts else ''}, rpkbf "
+            f"2^{cfg.pkbf.size_log2}; {st['steps']} steps); a step {st['step_ms']:.3f} ms median, {st['steps_ms']:.1f} "
+            f"ms in all (single device {one['step_ms']:.3f} / {one['steps_ms']:.1f}); routing "
+            f"{st['routing_ms']:.1f} ms, {st['routing_ms'] / st['steps_ms']:.1%} of the steps' card time; "
+            f"{st['a2a_per_step']:.2f} all-to-alls and {st['psum_per_step']:.2f} all-reduces a step, "
+            f"{st['a2a_bytes_per_shard_per_step']:.0f} all-to-all B a shard a step; {st['second_rounds']} of "
+            f"{st['routed_calls']} routed calls took a second round; peak device memory {st['peak_bytes']} B "
+            f"(single device {one['peak_bytes']}); launches {st['launches']}; host wall {st['wall_s']:.2f} s [{card}]")
+
+
+def mesh_builds(left: str, right: str, card: str, dev) -> dict:
+    """The stage-1 build at -mem 1 (mf8: 2^29 cells, 2^27 rpkbf lanes) over
+    both mates of the first MESH_PAIRS pairs on meshes of 2 and 8 shards on
+    one card, and over the distinct cards where more than one is visible,
+    each against the single-device kernel build; then one batch each of
+    -cnt u16, the blocked int32 cbf and the exact int32 path (max) on 8
+    shards (and 2, where the layout allows it)."""
+    codes = np.concatenate([head_codes(left, MESH_PAIRS), head_codes(right, MESH_PAIRS)])
+    batches = [codes[i : i + EXACT_BATCH] for i in range(0, len(codes), EXACT_BATCH)]
+    cards = torch.cuda.device_count()
+    print(f"visible cards: {cards}; {len(codes)} reads in {len(batches)} batches of {EXACT_BATCH}", flush=True)
+    cfg = exact_config("mf8", exact=False)
+    single, one = mesh_build(cfg, batches, dev)
+    out = {"reads": int(len(codes)), "batches": len(batches), "cards": cards, "single": one, "meshes": {}}
+    meshes = {f"{n} shards on one card": sharded.make_mesh([dev] * n) for n in MESH_SHARDS}
+    multi = engine.make_mesh_if_multi(dev)
+    if multi is not None:
+        meshes[f"{multi.size} shards, one a card"] = multi
+    for what, mesh in meshes.items():
+        mg, st = mesh_build(cfg, batches, dev, mesh)
+        mesh_equals_single(mg, single, cfg, what)
+        mesh_counts_equal(mg, single, cfg, codes[:2000], what)
+        assert st["launches"].get("add_mf8", 0) == mesh.size * len(batches), st["launches"]
+        out["meshes"][what] = st
+        print(_mesh_line(f"stage-1 build, {what}", st, one, cfg, card), flush=True)
+        del mg
+    del single
+    d_read = cfg.read_pair_distance
+    for name, ccfg, sizes in (
+        ("-cnt u16", exact_config("u16", exact=False), MESH_SHARDS),
+        ("-cnt int32 (blocked)", stage1.default_graph_config(K, False, 1 << 30, read_pair_distance=d_read,
+                                                             counter="int32"), (8,)),
+        ("-cnt int32, exact counts (max)", exact_config("int32"), MESH_SHARDS),
+    ):
+        single, one = mesh_build(ccfg, batches[:1], dev)
+        for n in sizes:
+            mg, st = mesh_build(ccfg, batches[:1], dev, sharded.make_mesh([dev] * n))
+            mesh_equals_single(mg, single, ccfg, f"{name} on {n} shards")
+            op = "max" if ccfg.exact_counts else ("add_u16" if ccfg.cbf.dtype == "u16" else "add")
+            assert st["launches"].get(op, 0) == n, st["launches"]
+            out["meshes"][f"{name}, {n} shards, one batch"] = st
+            print(_mesh_line(f"{name}, the first batch, {n} shards on one card", st, one, ccfg, card), flush=True)
+            del mg
+        del single
+    return out
+
+
+def _distinct_kmers(cbf: np.ndarray, size: int, num_hash: int, sharded_arith: bool) -> int:
+    """Stage 1's distinct-k-mer estimate (``stage1.build_graph``) from a
+    saved cbf, its FPR by the mesh's arithmetic (float64 power) or one
+    device's (float32)."""
+    nonzero = int(np.count_nonzero(cbf[:size]))
+    if sharded_arith:
+        fpr = float(torch.tensor(float(nonzero), dtype=torch.float32) / size) ** num_hash
+    else:
+        fpr = filters._fpr(nonzero, size, num_hash)
+    fill = min(fpr ** (1.0 / num_hash), 0.999999)
+    return int(-size / num_hash * math.log1p(-fill)) if fill > 0 else 0
+
+
+def mesh_vs_single_tree(mesh_out: str, single_out: str) -> dict:
+    """Every file of the mesh run equals the single-device run's but for
+    what the JAX package's mesh run differs in (``tests/test_torch_mesh.py``):
+    the checkpoint's trash cells, which the mesh zeroes, report.json's
+    elapsed_s, and the read statistics' distinct-k-mer estimate, which a
+    mesh takes from its FPRs in float64 (each run's must equal its own
+    engine's estimate from its saved cbf)."""
+    rel = sorted(os.path.relpath(os.path.join(d, f), mesh_out) for d, _, fs in os.walk(mesh_out) for f in fs)
+    rel_b = sorted(os.path.relpath(os.path.join(d, f), single_out) for d, _, fs in os.walk(single_out) for f in fs)
+    if rel != rel_b:
+        raise AssertionError(f"file sets differ: {sorted(set(rel) ^ set(rel_b))}")
+    with open(os.path.join(mesh_out, "rnabloom.graph.graph.json")) as f:
+        desc = json.load(f)
+    notes = {}
+    for f in rel:
+        a, b = os.path.join(mesh_out, f), os.path.join(single_out, f)
+        if filecmp.cmp(a, b, shallow=False):
+            continue
+        if f in MESH_FILES:
+            x, y = np.load(a), np.load(b)
+            trash = 128 if "cbf" in f and desc["cbf"].get("blocked") else 1
+            if not (np.array_equal(x[:-trash], y[:-trash]) and not x[-trash:].any()):
+                raise AssertionError(f"{f}: the mesh run's checkpoint differs outside the trash cells")
+            notes[f] = "trash cells"
+        elif f == "rnabloom.report.json":
+            with open(a) as g, open(b) as h:
+                x, y = json.load(g), json.load(h)
+            x.pop("elapsed_s"), y.pop("elapsed_s")
+            if x != y:
+                raise AssertionError(f"report.json differs: {x} != {y}")
+        elif f == "rnabloom.readstats":
+            with open(a) as g, open(b) as h:
+                x, y = json.load(g), json.load(h)
+            cbf = np.load(os.path.join(single_out, "rnabloom.graph.cbf.npy"))
+            size, h_ = 1 << desc["cbf"]["size_log2"], desc["cbf"]["num_hash"]
+            if ({k: v for k, v in x.items() if k != "distinct_kmers"} != {k: v for k, v in y.items()
+                                                                           if k != "distinct_kmers"}
+                    or x["distinct_kmers"] != _distinct_kmers(cbf, size, h_, True)
+                    or y["distinct_kmers"] != _distinct_kmers(cbf, size, h_, False)):
+                raise AssertionError("readstats differ beyond the FPR arithmetic")
+            notes[f] = f"distinct_kmers {x['distinct_kmers']} / {y['distinct_kmers']}"
+        else:
+            raise AssertionError(f"{f} differs between the mesh run and the single-device run")
+    return {"files": len(rel), "allowed": notes}
+
+
+def mesh_pipeline(left: str, right: str, small: tuple, tmp: str, card: str, dev) -> dict:
+    """-stage 3 (the nr pass included, -savebf) through pipeline.assemble_pe
+    at -mem 1 on MESH_STAGE3_PAIRS pairs with -sharded on over 8 shards on
+    the card (every launch count set to 0 before it), against the
+    single-device run of the same pairs; then the mesh run on the first
+    STAGE3_PAIRS pairs on the card and on 8 CPU shards, byte-identical."""
+    mesh = sharded.make_mesh([dev] * 8)
+    runs = {}
+    for tag, sharding in (("mesh", "on"), ("single", "off")):
+        out = os.path.join(tmp, f"mesh_{tag}")
+        ci._batch_tables.clear()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_launch_counters()
+        sharded.reset_routing_counts()
+        t0 = time.time()
+        with mesh_as_visible(mesh):
+            rep = pipeline.assemble_pe(left, right, out, pipeline.PipelineParams(sharded=sharding), save_graph=True,
+                                       device="cuda")
+        torch.cuda.synchronize()
+        runs[tag] = {"wall_s": time.time() - t0, "stage1_s": rep.stage1.elapsed_s, "stage2_s": rep.stage2_s,
+                     "stage3_s": rep.stage3_s, "transcripts": rep.num_transcripts, "nr": rep.num_nr,
+                     "fragments": rep.num_fragments, "peak_bytes": torch.cuda.max_memory_allocated() - held,
+                     "launches": {op: n for op, n in launch_counters().items() if n},
+                     "routed_calls": sharded.ROUTING["calls"]}
+        check_transcripts(out, rep, K)
+    launches = runs["mesh"]["launches"]
+    assert all(launches.get(op, 0) > 0 for op in ("add_mf8", "set", "walk_greedy", "walk_pair")), launches
+    assert runs["mesh"]["routed_calls"] > 0 and runs["single"]["routed_calls"] == 0
+    same = mesh_vs_single_tree(os.path.join(tmp, "mesh_mesh"), os.path.join(tmp, "mesh_single"))
+    for tag in runs:
+        shutil.rmtree(os.path.join(tmp, f"mesh_{tag}"))
+    m, s1 = runs["mesh"], runs["single"]
+    print(f"-stage 3 -savebf on {MESH_STAGE3_PAIRS} pairs, -sharded on over 8 shards on the card against one device: "
+          f"{same['files']} files, equal but for {same['allowed'] or 'nothing'} (and report.json's elapsed_s); "
+          f"{m['transcripts']} transcripts, {m['nr']} nr, {m['fragments']} fragments; wall mesh {m['wall_s']:.1f} s "
+          f"(stage 1 {m['stage1_s']:.2f}, stage 2 {m['stage2_s']:.2f}, 2b and 3 {m['stage3_s']:.2f}), one device "
+          f"{s1['wall_s']:.1f} s ({s1['stage1_s']:.2f}, {s1['stage2_s']:.2f}, {s1['stage3_s']:.2f}); peak device "
+          f"memory {m['peak_bytes']} / {s1['peak_bytes']} B; mesh launches {launches}, {m['routed_calls']} routed "
+          f"calls [{card}]", flush=True)
+
+    # the same mesh run on the card and on 8 CPU shards
+    outs = {}
+    for device, mesh_ in (("cuda", mesh), ("cpu", sharded.make_mesh(["cpu"] * 8))):
+        outs[device] = os.path.join(tmp, f"mesh_small_{device}")
+        t0 = time.time()
+        with mesh_as_visible(mesh_):
+            rep = pipeline.assemble_pe(*small, outs[device], pipeline.PipelineParams(sharded="on"), save_graph=True,
+                                       device=device)
+        runs[f"small_{device}_s"] = time.time() - t0
+    report_json = "rnabloom.report.json"
+    with open(os.path.join(outs["cuda"], report_json)) as f, open(os.path.join(outs["cpu"], report_json)) as g:
+        a, b = json.load(f), json.load(g)
+    a.pop("elapsed_s"), b.pop("elapsed_s")
+    if a != b:
+        raise AssertionError(f"mesh -stage 3 report.json differs between card and CPU: {a} != {b}")
+    for out in outs.values():
+        os.remove(os.path.join(out, report_json))
+    files = same_tree(outs["cuda"], outs["cpu"])
+    print(f"-stage 3 -savebf -sharded on over 8 shards on the first {rep.num_pairs} pairs: card and CPU outputs "
+          f"byte-identical ({len(files)} files, report.json equal but elapsed_s); {rep.num_transcripts} transcripts; "
+          f"wall card {runs['small_cuda_s']:.1f} s, CPU {runs['small_cpu_s']:.1f} s", flush=True)
+    for out in outs.values():
+        shutil.rmtree(out)
+    runs["card_vs_cpu_files"] = len(files)
+    return runs
 
 
 def main(argv=None) -> int:
@@ -3612,6 +3967,13 @@ def main(argv=None) -> int:
         exact_runs = {c: built[c] for c in ("int32", "mf8")}
         del built
         torch.cuda.empty_cache()
+
+        phase("12 the sharded graph engine (-sharded on): the stage-1 build at -mem 1 on meshes of 2 and 8 shards on "
+              f"the card (and one shard a card where several are visible) against one device, on both mates of the "
+              f"first {MESH_PAIRS} pairs; -stage 3 on the 8-shard mesh against one device on {MESH_STAGE3_PAIRS} pairs "
+              f"and against the CPU on {STAGE3_PAIRS}")
+        mesh = mesh_builds(left, right, card, dev)
+        mesh_runs = mesh_pipeline(*heads[MESH_STAGE3_PAIRS], heads[STAGE3_PAIRS], tmp, card, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3870,7 +4232,25 @@ def main(argv=None) -> int:
         "exact_builds": exact_runs,
         "oracle": oracle,
     })
-    cell_keys = ("ms", "yardstick_ms", "plain_ms", "bound_ms", "cell_reads", "lanes", "hops", "statuses",
+    # phase 12: launches on the -sharded on -stage 3 run (every count set to 0
+    # before it) and on the 8-shard mesh build of the 1M pairs' head
+    mesh8 = mesh["meshes"]["8 shards on one card"]
+    for row in kernels:
+        op = row["name"][len("cell_insert["):-1] if row["name"].startswith("cell_insert[") else row["name"]
+        if op in mesh_runs["mesh"]["launches"] or op in ("add_mf8", "set", "walk_greedy", "walk_pair"):
+            row["phase12_launches"] = {"sharded_stage3": mesh_runs["mesh"]["launches"].get(op, 0),
+                                       "sharded_build_8": mesh8["launches"].get(op, 0)}
+    kernels[0]["phase12"] = {
+        "reads": mesh["reads"], "cards": mesh["cards"], "single_step_ms": mesh["single"]["step_ms"],
+        "single_peak_bytes": mesh["single"]["peak_bytes"],
+        "meshes": {what: {key: st[key] for key in ("step_ms", "steps_ms", "routing_ms", "a2a_bytes_per_shard_per_step",
+                                                   "second_rounds", "routed_calls", "peak_bytes")}
+                   for what, st in mesh["meshes"].items()},
+        "stage3": {tag: {key: v for key, v in mesh_runs[tag].items() if key != "launches"}
+                   for tag in ("mesh", "single")},
+        "card_vs_cpu_files": mesh_runs["card_vs_cpu_files"],
+    }
+    cell_keys = ("ms", "yardstick_ms", "plain_ms", "lanes", "hops", "statuses",
                  "yardstick_hops", "yardstick_statuses", "ns_per_hop", "yardstick_ns_per_hop", "max_abs_err")
     for row in kernels:
         if row["name"] == "walk_greedy":

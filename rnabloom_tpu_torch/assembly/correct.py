@@ -139,18 +139,32 @@ def _scores_from_counts(counts: torch.Tensor, valid: torch.Tensor) -> Tuple[torc
     return mn, torch.where(nv > 0, med, 0.0)
 
 
-def _window_scores(graph: GraphState, cfg: GraphConfig, windows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """(min_cov, median_cov) over each window row's valid k-mers."""
-    counts, valid = dbg.count_step(graph, cfg, engine._on_device(windows, graph))
+def _window_scores(graph, cfg: GraphConfig, windows: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(min_cov, median_cov) over each window row's valid k-mers; a mesh
+    graph counts through the engine (one more query dispatch, as in the
+    JAX package)."""
+    if engine.is_sharded(graph):
+        counts, valid = engine.count_step(graph, cfg, windows)
+    else:
+        counts, valid = dbg.count_step(graph, cfg, engine._on_device(windows, graph))
     mn, med = _scores_from_counts(counts, valid)
     return mn.cpu().numpy(), med.cpu().numpy()
 
 
-def _ec_stats(graph: GraphState, cfg: GraphConfig, codes: np.ndarray, grad: float, cov_fpr: float):
-    """(counts, valid, threshold, found) as numpy, from one counting pass."""
-    counts, valid = dbg.count_step(graph, cfg, engine._on_device(codes, graph))
-    nvalid = valid.sum(dim=1).to(torch.float32)
-    fp_allowed = torch.round(nvalid * torch.tensor(cov_fpr, dtype=torch.float32)).to(torch.int32)
+def _ec_stats(graph, cfg: GraphConfig, codes: np.ndarray, grad: float, cov_fpr: float):
+    """(counts, valid, threshold, found) as numpy, from one counting pass.
+
+    On a mesh the JAX package takes the false-positive allowance on the
+    host, ``np.round(nvalid * cov_fpr)`` in float64, where one device
+    computes it in float32; the port copies each."""
+    if engine.is_sharded(graph):
+        counts, valid = engine.count_step(graph, cfg, codes)
+        nvalid = valid.cpu().numpy().sum(axis=1).astype(np.int32)
+        fp_allowed = torch.from_numpy(np.round(nvalid * cov_fpr).astype(np.int32)).to(counts.device)
+    else:
+        counts, valid = dbg.count_step(graph, cfg, engine._on_device(codes, graph))
+        nvalid = valid.sum(dim=1).to(torch.float32)
+        fp_allowed = torch.round(nvalid * torch.tensor(cov_fpr, dtype=torch.float32)).to(torch.int32)
     thr, found = coverage_thresholds(counts, valid, fp_allowed, grad)
     return counts.cpu().numpy(), valid.cpu().numpy(), thr.cpu().numpy(), found.cpu().numpy()
 

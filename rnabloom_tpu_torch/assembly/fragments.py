@@ -291,7 +291,7 @@ def _naive_extend_fragments(
         f = results[b]
         seeds[i, : f.length] = f.codes
         lens[i] = f.length
-    st = traverse.make_walks(cfg, wcfg, seeds, lens, device=graph.cbf.device)
+    st = traverse.make_walks(cfg, wcfg, seeds, lens, device=engine.device_of(graph))
     st = engine.extend_walks(st, graph, cfg, wcfg, 1.0, params.bound, mode="naive")
     # the left extension re-seeds on the device
     st = traverse.revcomp_reseed(cfg, wcfg_l, st.buf, st.pos)
@@ -346,7 +346,7 @@ def bridge_pairs(
         return bridges
     seeds_r, seeds_l = bridge_seeds(cfg, left, left_len, right, rows)
     wcfg, wcfg_l = bridge_walk_configs(cfg, params)
-    dev = graph.cbf.device
+    dev = engine.device_of(graph)
     nr = len(rows)
     if not cfg.stranded:
         # canonical hashing is strand-symmetric, so the left walks are more

@@ -117,7 +117,7 @@ def correct_batch(
             rs = per_read_runs[b][jr][0]
             anchors.append(reads[b][rs : rs + k])
         wcfg = traverse.WalkConfig(max_len=k + params.max_gap + k)
-        st = traverse.make_walks(cfg, wcfg, seeds, device=graph.cbf.device)
+        st = traverse.make_walks(cfg, wcfg, seeds, device=engine.device_of(graph))
         st = engine.extend_walks(
             st, graph, cfg, wcfg, params.min_kmer_cov, params.max_gap + k, mode="greedy"
         )
@@ -146,7 +146,7 @@ def correct_batch(
         ebounds = np.zeros((1 << max(6, (len(edge_jobs) - 1).bit_length()),), np.int32)
         ebounds[: len(edge_jobs)] = [j[2] for j in edge_jobs]
         ewcfg = traverse.WalkConfig(max_len=k + params.max_gap + 8)
-        est = traverse.make_walks(cfg, ewcfg, eseeds, device=graph.cbf.device)
+        est = traverse.make_walks(cfg, ewcfg, eseeds, device=engine.device_of(graph))
         est = engine.extend_walks(est, graph, cfg, ewcfg, params.min_kmer_cov, ebounds, mode="greedy")
         ebuf, epos, _ = traverse.harvest(est)
         for i, (b, side, _bound) in enumerate(edge_jobs):

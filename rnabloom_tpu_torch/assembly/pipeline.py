@@ -45,7 +45,6 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from ..bloom import filters
 from ..bloom.filters import BloomConfig
@@ -143,6 +142,24 @@ class PipelineParams:
             max_indel=self.max_indel,
             percent_identity=self.percent_identity,
         )
+
+
+def _mesh_for(params: PipelineParams, device):
+    """The mesh of this run (``params.sharded``): one shard a visible card
+    when more than one is visible ("auto"), required ("on": raises where
+    fewer than two are visible or ``device`` is the CPU), or none ("off").
+    The routed and grouped mesh walks (``RNB_MESH_WALK``) are refused here,
+    before any work is done."""
+    if params.sharded == "off":
+        return None
+    mesh = engine.make_mesh_if_multi(device)
+    if mesh is None and params.sharded == "on":
+        raise RuntimeError("-sharded on requires >1 CUDA device")
+    walk_env = os.environ.get("RNB_MESH_WALK", "replicated")
+    if mesh is not None and walk_env != "replicated":
+        raise NotImplementedError(f"RNB_MESH_WALK={walk_env}: the routed and grouped mesh walks are not ported yet: "
+                                  f"{engine.ITEM_14D}")
+    return mesh
 
 
 @dataclass
@@ -742,7 +759,7 @@ def _run_stage3(
         else cfg.pkbf.size_log2
     )
     scfg = BloomConfig(sbf_log2, params.sbf_hash or cfg.pkbf.num_hash)
-    screen = filters.make_bloom(scfg, device=state.cbf.device)
+    screen = filters.make_bloom(scfg, device=engine.device_of(state))
     tparams = _transcript_params(cfg, params)
     _d0, _s0 = engine.dispatch_counts(), span_totals()
     frag_L = int(min(max(store.max_len, cfg.k), params.max_walk_len))
@@ -775,7 +792,7 @@ def _run_stage3(
     if len(emitted) and not params.no_reduce:
         with span("nr"):
             op = olc_overlap.OverlapParams(min_overlap=max(params.min_transcript_length // 2, 100))
-            nr_seqs, _, _ = olc_layout.layout_unitigs(emitted, cfg.k, op, device=state.cbf.device)
+            nr_seqs, _, _ = olc_layout.layout_unitigs(emitted, cfg.k, op, device=engine.device_of(state))
             nr_path = os.path.join(outdir, f"{params.name}.transcripts.nr.fa")
             with fastx.FastaWriter(nr_path, uracil=params.write_uracil) as wnr:
                 for j, s in enumerate(nr_seqs):
@@ -805,14 +822,15 @@ def _finish_pe_stage3(
     ckpt.touch_stamp(outdir, ckpt.STAMP_TRANSCRIPTS_NR_DONE)
 
 
-def _stage1_graph(paths: Sequence[str], flags: Sequence[bool], params: PipelineParams, device,
+def _stage1_graph(paths: Sequence[str], flags: Sequence[bool], params: PipelineParams, device, mesh=None,
                   lengths: Optional[np.ndarray] = None, nk_hint: int = 0, show_plan: bool = False):
     """(graph, stage-1 stats, cfg, read_L, d_read, max_tip): the stage-1
     graph over ``paths`` (each read revcomp'd where its path's flag is
     set), its read-pair keys included.  The read lengths are sampled from
     ``paths`` unless ``lengths`` is given; they set the read-pair distance,
     the tip length (unless -tiplength) and the read batch width.  The
-    filters are sized from -nk, else ``nk_hint``."""
+    filters are sized from -nk, else ``nk_hint``, and sharded over
+    ``mesh`` when it is not None (``_mesh_for``)."""
     k = params.k
     if lengths is None:
         lengths = stage1.sample_read_lengths(paths, params.sample_size)
@@ -836,7 +854,8 @@ def _stage1_graph(paths: Sequence[str], flags: Sequence[bool], params: PipelineP
         )
     s1p = stage1.Stage1Params(k=k, stranded=params.stranded, min_qual=params.min_qual, max_seq_len=max(read_L, 2 * k))
     state, s1_stats, cfg = stage1.build_graph_autosized(
-        list(paths), cfg, s1p, max_fpr=params.max_fpr, device=device, revcomp_flags=list(flags), add_read_pairs=True,
+        list(paths), cfg, s1p, max_fpr=params.max_fpr, device=device, mesh=mesh, revcomp_flags=list(flags),
+        add_read_pairs=True,
     )
     return state, s1_stats, cfg, read_L, d_read, max_tip
 
@@ -869,8 +888,10 @@ def assemble_pe(
     (-rescue) retries the unconnected pairs against a fragment graph.  A
     stage-3 run into a directory that holds the stage-2 stamp and a saved
     graph (and without ``force``) resumes at stage 2b and writes no
-    report.json, as the JAX package does."""
+    report.json, as the JAX package does.  ``params.sharded`` picks the
+    engine (``_mesh_for``)."""
     device = engine.require_device(device)
+    mesh = _mesh_for(params, device)
     t0 = time.time()
     os.makedirs(outdir, exist_ok=True)
     if force:
@@ -892,7 +913,8 @@ def assemble_pe(
     ):
         store = FragmentStore.open(outdir)
         if store is not None and store.count > 0:
-            state, cfg = ckpt.load_graph(graph_prefix, device=device)
+            state, cfg = ckpt.load_graph(graph_prefix, device="cpu" if mesh is not None else device)
+            state = engine.from_host_state(state, cfg, mesh) if mesh is not None else state
             report.num_fragments = store.count
             report.fragment_pair_distance = cfg.fragment_pair_distance
             _finish_pe_stage3(state, cfg, store, outdir, params, report)
@@ -923,7 +945,7 @@ def assemble_pe(
     state, s1_stats, cfg, read_L, d_read, max_tip = _stage1_graph(
         [left_path, right_path] + list(sef_paths) + list(ser_paths),
         [revcomp_left, revcomp_right] + [False] * len(sef_paths) + [True] * len(ser_paths),
-        params, device, lengths=lengths, nk_hint=nk_hint, show_plan=params.verbose,
+        params, device, mesh, lengths=lengths, nk_hint=nk_hint, show_plan=params.verbose,
     )
     s1_stats.read_pair_distance = d_read
     s1_stats.max_tip_length = max_tip
@@ -983,8 +1005,7 @@ def assemble_pe(
         _rescue_unconnected_pass(state, cfg, rescue_spill, read_L, params, fparams, store, frag_lengths, report)
         report.num_fragments = store.count
     store.close()
-    if state.cbf.is_cuda:
-        torch.cuda.synchronize(state.cbf.device)
+    engine.synchronize(state)
     report.stage2_s = time.time() - t_s2
     timer.done("fragments assembled", f"{store.count}/{report.num_pairs} pairs connected")
     if save_graph:
@@ -998,8 +1019,7 @@ def assemble_pe(
     timer.start("stage 3: transcript assembly")
     t_s3 = time.time()
     _finish_pe_stage3(state, cfg, store, outdir, params, report, ref_paths=ref_paths)
-    if state.cbf.is_cuda:
-        torch.cuda.synchronize(state.cbf.device)
+    engine.synchronize(state)
     report.stage3_s = time.time() - t_s3
     timer.done("transcripts assembled", f"{report.num_transcripts} transcripts, {report.num_nr} nr")
     report.elapsed_s = time.time() - t0
@@ -1033,6 +1053,7 @@ def assemble_se(
     package, no stamps, read statistics or report.json are written, and
     there is no resume."""
     device = engine.require_device(device)
+    mesh = _mesh_for(params, device)
     t0 = time.time()
     os.makedirs(outdir, exist_ok=True)
     report = PipelineReport()
@@ -1042,7 +1063,7 @@ def assemble_se(
     # the JAX function also works out max_tip here, with the -tiplength
     # override, and uses neither (its pipeline.py:678-680): stage 3 reads
     # -tiplength from params
-    state, s1_stats, cfg, read_L, _, _ = _stage1_graph(se_paths, revcomp_flags, params, device)
+    state, s1_stats, cfg, read_L, _, _ = _stage1_graph(se_paths, revcomp_flags, params, device, mesh)
     report.stage1 = s1_stats
     if params.stop_stage <= 1:
         report.elapsed_s = time.time() - t0
@@ -1110,14 +1131,15 @@ def parse_pool_list(path: str) -> List[Tuple[str, str, str, Tuple[str, ...], Tup
 
 
 def _pool_shared_graph(samples: Sequence[tuple], params: PipelineParams, revcomp_left: bool, revcomp_right: bool,
-                       device):
+                       device, mesh=None):
     """(shared graph, stage-1 stats, cfg, read_L): one stage-1 graph over
-    every sample's left, right, sef and ser reads, in sample order."""
+    every sample's left, right, sef and ser reads, in sample order, on
+    ``device`` or sharded over ``mesh``."""
     paths, flags = [], []
     for _, left, right, sef, ser in samples:
         paths += [left, right] + list(sef) + list(ser)
         flags += [revcomp_left, revcomp_right] + [False] * len(sef) + [True] * len(ser)
-    shared, s1_stats, cfg, read_L, _, _ = _stage1_graph(paths, flags, params, device)
+    shared, s1_stats, cfg, read_L, _, _ = _stage1_graph(paths, flags, params, device, mesh)
     return shared, s1_stats, cfg, read_L
 
 
@@ -1189,10 +1211,11 @@ def assemble_pool(
     order, as the reference does.  Returns {sample name: PipelineReport},
     empty at ``-stage 1``; writes no stamps and no report.json."""
     device = engine.require_device(device)
+    mesh = _mesh_for(params, device)
     t0 = time.time()
     os.makedirs(outdir, exist_ok=True)
     samples = sorted(parse_pool_list(readslist_path))
-    shared, s1_stats, cfg, read_L = _pool_shared_graph(samples, params, revcomp_left, revcomp_right, device)
+    shared, s1_stats, cfg, read_L = _pool_shared_graph(samples, params, revcomp_left, revcomp_right, device, mesh)
     reports = {}
     if params.stop_stage <= 1:
         return reports
@@ -1275,6 +1298,7 @@ def assemble_long(
     straight to the OLC stage; LONGREADS.ASSEMBLED marks completion.
     """
     device = engine.require_device(device)
+    mesh = _mesh_for(params, device)
     t0 = time.time()
     os.makedirs(outdir, exist_ok=True)
     if force:
@@ -1320,7 +1344,7 @@ def assemble_long(
     else:
         s1p = stage1.Stage1Params(k=k, stranded=params.stranded, min_qual=params.min_qual, max_seq_len=512)
         state, s1_stats, cfg = stage1.build_graph_autosized(
-            list(long_paths), cfg, s1p, max_fpr=params.max_fpr, device=device
+            list(long_paths), cfg, s1p, max_fpr=params.max_fpr, device=device, mesh=mesh
         )
         report.stage1 = s1_stats
         ckpt.touch_stamp(outdir, ckpt.STAMP_DBG_DONE)

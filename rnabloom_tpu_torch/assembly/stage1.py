@@ -19,7 +19,6 @@ from dataclasses import dataclass, field, replace
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
 from ..bloom.filters import BloomConfig, CountingConfig, pow2_size
 from ..graph import dbg, engine
@@ -108,7 +107,9 @@ def build_graph(
     revcomp_flags: Optional[Sequence[bool]] = None,
     add_read_pairs: bool = False,
 ) -> Tuple[dbg.GraphState, Stage1Stats]:
-    """Populate the graph filters from read files.  Returns (state, stats)."""
+    """Populate the graph filters from read files.  Returns (state, stats).
+    ``state`` may be a single-device GraphState or an ``engine.MeshGraph``:
+    the build step dispatches accordingly."""
     t0 = time.time()
     stats = Stage1Stats()
     k = params.k
@@ -156,8 +157,7 @@ def build_graph(
     if pending:
         state = flush(state)
 
-    if state.cbf.is_cuda:
-        torch.cuda.synchronize(state.cbf.device)
+    engine.synchronize(state)
     stats.elapsed_s = time.time() - t0
     stats.fprs = engine.fprs(state, cfg)
     # fill -> inserted-key estimate: n = -m/h * ln(1 - fill)
@@ -174,13 +174,16 @@ def build_graph_autosized(
     max_fpr: float = 0.01,
     max_retries: int = 2,
     device="cuda",
+    mesh=None,
     **kwargs,
 ) -> Tuple[dbg.GraphState, Stage1Stats, dbg.GraphConfig]:
     """Stage-1 build with the FPR check / resize / repopulate loop
     (RNABloom.java:7142-7180): a filter breaching ``max_fpr`` is resized to
     the size its measured fill calls for and the graph rebuilt.  Runs on
     ``device``: the card unless the caller asks for the CPU; raises when
-    there is no card.
+    there is no card.  With a ``mesh`` (``parallel.sharded.make_mesh``) the
+    filters are sharded over it and the graph is an ``engine.MeshGraph``,
+    its FPRs computed as the JAX package's mesh computes them.
 
     With fill ``p = fpr**(1/h)``, the inserted-key estimate is
     ``n = -m/h ln(1-p)`` and the size needed is ``m' = -h n / ln(1-p_t)``."""
@@ -196,7 +199,7 @@ def build_graph_autosized(
 
     device = engine.require_device(device)
     for attempt in range(max_retries + 1):
-        state = engine.make_graph(cfg, with_rpkbf=kwargs.get("add_read_pairs", False), device=device)
+        state = engine.make_graph(cfg, with_rpkbf=kwargs.get("add_read_pairs", False), device=device, mesh=mesh)
         state, stats = build_graph(paths, cfg, state, params, **kwargs)
         worst = max(stats.fprs.values()) if stats.fprs else 0.0
         if worst <= max_fpr or attempt == max_retries:

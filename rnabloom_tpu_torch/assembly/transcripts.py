@@ -196,7 +196,7 @@ def _gap_rewalk(
     edge_clip = params.screen_max_edge_clip
     if edge_clip < 0:
         edge_clip = max(k, cfg.read_pair_distance)
-    dev = graph.cbf.device
+    dev = engine.device_of(graph)
 
     # vectorized row prefilter: only rows with unseen runs AND a seen anchor
     Bq, Pq = seen.shape
@@ -548,7 +548,7 @@ def extend_fragments_pair(
     its extended sequence.  Walks are bounded by ``params.bound`` hops a
     direction (the pipeline's stage 3 leaves it at its default, 1000)."""
     B = frags.shape[0]
-    dev = graph.cbf.device
+    dev = engine.device_of(graph)
 
     def wcfg(left: bool) -> traverse.WalkConfig:
         return traverse.WalkConfig(
@@ -669,7 +669,7 @@ def _depth_probe(graph: GraphState, cfg: GraphConfig, seeds, bound: int, lookahe
         arr[i] = s
     max_len = 1 << max(6, (cfg.k + bound).bit_length())
     wcfg = traverse.WalkConfig(max_len=max_len, lookahead=lookahead)
-    st = traverse.make_walks(cfg, wcfg, arr, device=graph.cbf.device)
+    st = traverse.make_walks(cfg, wcfg, arr, device=engine.device_of(graph))
     st = engine.extend_walks(st, graph, cfg, wcfg, 1.0, bound, mode="greedy")
     _, pos, _ = traverse.harvest(st)
     return np.asarray(pos)[:B] - cfg.k

@@ -11,8 +11,10 @@ long reads (``-long`` with ``-lrsub``, ``-rc``, ``-lrpb`` (k=35 unless
 no path reads, and ``-mmopt`` is ignored with a note).  ``-k`` takes a
 list or range and picks the k with the most non-singleton k-mers in a
 read sample; ``-hist`` and ``-ntcard`` size the filters when ``-nk`` is 0;
-an input given as ``@FILE`` expands to the paths listed in FILE.  The
-multi-host flags are accepted and refused, naming their ROADMAP item.
+an input given as ``@FILE`` expands to the paths listed in FILE.
+``-sharded`` (auto, on, off) shards the filters over the visible cards
+when there are several; the multi-host flags are accepted and refused,
+naming their ROADMAP item.
 ``--device`` picks the torch device (default ``cuda``); asking for CUDA
 where there is none raises.
 
@@ -30,13 +32,11 @@ import sys
 
 from . import __version__
 
-# the JAX CLI's multi-host flags (ROADMAP queue-1 item 14): (names, dest,
+# the JAX CLI's multi-host flags (ROADMAP queue-1 item 14c): (names, dest,
 # values that run, kwargs).  The first of the values is the default; any
-# other value is refused before any work is done.  The port is the
-# single-device engine, so -sharded off runs.
+# other value is refused before any work is done.
+MULTI_HOST_ITEM = "ROADMAP queue-1 item 14c"
 _REFUSED = (
-    (("-sharded", "--sharded"), "sharded", ("auto", "off"),
-     dict(choices=("auto", "on", "off"), help="multi-device scale-out")),
     (("-coordinator", "--coordinator"), "coordinator", ("",), dict(help="multi-host coordinator HOST:PORT")),
     (("-nprocs", "--nprocs"), "nprocs", (1,), dict(type=int, help="multi-host: number of processes")),
     (("-procid", "--procid"), "procid", (0,), dict(type=int, help="multi-host: this process's id")),
@@ -174,6 +174,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-pafin", "--pafin", default="",
                    help="long reads: use this external all-vs-all PAF (reads named lr.<i>) instead of the "
                         "internal overlapper")
+    p.add_argument("-sharded", "--sharded", choices=("auto", "on", "off"), default="auto",
+                   help="multi-device scale-out: shard the filters by hash range over every visible card "
+                        "(auto = when more than one is visible)")
     refused = p.add_argument_group("refused", "multi-host options of the JAX CLI, not ported yet")
     for names, dest, runs, kw in _REFUSED:
         refused.add_argument(*names, dest=dest, default=runs[0], **kw)
@@ -207,7 +210,7 @@ def run(argv=None):
     args = build_parser().parse_args(argv)
     for names, dest, runs, _ in _REFUSED:
         if getattr(args, dest) not in runs:
-            raise NotImplementedError(f"{names[0]} is not ported yet: ROADMAP queue-1 item 14")
+            raise NotImplementedError(f"{names[0]} is not ported yet: {MULTI_HOST_ITEM}")
     for attr in ("left", "right", "sef", "ser", "long_reads"):
         setattr(args, attr, _expand_at(getattr(args, attr)))
     if not (args.pool or args.long_reads or (args.left and args.right) or args.sef or args.ser):
@@ -218,6 +221,9 @@ def run(argv=None):
     from .utils import kselect
 
     device = engine.require_device(args.device)
+    # -sharded and RNB_MESH_WALK are checked before any work (the k
+    # selection reads reads); each entry point makes its mesh again
+    pipeline._mesh_for(pipeline.PipelineParams(sharded=args.sharded), device)
     # probe reads of -k LIST and -ntcard: the long reads, else the pairs,
     # else the unpaired reads
     probe = (list(args.long_reads or []) or [p for p in (args.left, args.right) if p]
@@ -263,6 +269,7 @@ def run(argv=None):
         cbf_mem_bytes=int(args.cbf_mem * (1 << 30)),
         pkbf_mem_bytes=int(args.pkbf_mem * (1 << 30)),
         counter=args.counter,
+        sharded=args.sharded,
         batch_size=args.batch,
         min_overlap=args.overlap,
         bound=args.bound,

@@ -13,7 +13,7 @@
 //   add      int32 counters: table[i] += 1 per occurrence
 //   add_u16  uint16 counters: table[i] = min(table[i] + n_i, 65535)
 //   add_mf8  uint8 MiniFloat: table[i] = increment_codes(table[i], n_i,
-//            mix_u01(i, salt)), applied ONCE per touched cell with the
+//            mix_u01(base + i, salt)), applied ONCE per touched cell with the
 //            batch total n_i (the stochastic rounding is not additive, so
 //            the per-cell total must be known before the code is written)
 //   max      int32, uint16 or uint8 (MiniFloat) cells, a value per index:
@@ -97,7 +97,7 @@
 //          costs one L2 atomic per tile it occurs in.
 //   pass 2 (mf8_apply_kernel): one thread per slot, coalesced over the
 //          slots; an occupied slot reads its cell, writes
-//          increment_code(cell, count, mix_u01(cell, salt)) only where the
+//          increment_code(cell, count, mix_u01(base + cell, salt)) where the
 //          code changes (a saturated code, or an increment that draws no
 //          bump, leaves the sector clean), and frees the slot.
 // Every launch leaves the batch table as it found it, all free, so no
@@ -393,14 +393,14 @@ mf8_tile_kernel(unsigned long long* __restrict__ batch, uint32_t mask, unsigned 
 }
 
 __global__ void mf8_apply_kernel(uint8_t* __restrict__ table, unsigned long long* __restrict__ batch,
-                                 long long slots, uint32_t salt) {
+                                 long long slots, uint32_t salt, uint32_t base) {
   for (long long s = blockIdx.x * (long long)blockDim.x + threadIdx.x; s < slots;
        s += (long long)gridDim.x * blockDim.x) {
     unsigned long long w = batch[s];
     if (w == kFreeSlot) continue;
     uint32_t cell = (uint32_t)(w >> 32);
     uint8_t old = table[cell];
-    uint8_t code = increment_code(old, (int)(uint32_t)w, mix_u01(cell, salt));
+    uint8_t code = increment_code(old, (int)(uint32_t)w, mix_u01(base + cell, salt));
     if (code != old) table[cell] = code;
     batch[s] = kFreeSlot;
   }
@@ -485,9 +485,11 @@ int cell_add_u16(void* table, long long numel, const void* idx, long long n, voi
 }
 
 // batch: `slots` free words (a power of two >= 2n, at most 2^32), which the
-// launch leaves free
+// launch leaves free.  base: added (mod 2^32) to a cell's index where it
+// keys the rounding, so that a shard of a table sharded by index range
+// rounds as the whole table would (0 for a whole table)
 int cell_add_mf8_batch(void* table, void* batch, long long slots, long long numel, const void* idx,
-                       long long n, unsigned int salt, void* stream) {
+                       long long n, unsigned int salt, unsigned int base, void* stream) {
   if (n > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     int err = (int)cudaFuncSetAttribute(mf8_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -499,7 +501,7 @@ int cell_add_mf8_batch(void* table, void* batch, long long slots, long long nume
     err = (int)cudaGetLastError();
     if (err) return err;
     mf8_apply_kernel<<<blocks_for(slots), kThreads, 0, s>>>(
-        (uint8_t*)table, (unsigned long long*)batch, slots, (uint32_t)salt);
+        (uint8_t*)table, (unsigned long long*)batch, slots, (uint32_t)salt, (uint32_t)base);
   }
   return (int)cudaGetLastError();
 }

@@ -134,7 +134,8 @@ _SIGNATURES = {
         "cell_set_u8": [_P, _I64, _P, _I64, _P],
         "cell_add_i32": [_P, _I64, _P, _I64, _P],
         "cell_add_u16": [_P, _I64, _P, _I64, _P],
-        "cell_add_mf8_batch": [_P, _P, _I64, _I64, _P, _I64, _U32, _P],
+        # table batch slots numel idx n salt base stream
+        "cell_add_mf8_batch": [_P, _P, _I64, _I64, _P, _I64, _U32, _U32, _P],
         # table numel idx vals n stream
         "cell_max_i32": [_P, _I64, _P, _P, _I64, _P],
         "cell_max_u16": [_P, _I64, _P, _P, _I64, _P],

@@ -9,12 +9,15 @@ SCATTER semantics of ``filters.bloom_add`` / ``counting_increment_cm``:
   add_u16  int16 tables holding uint16 bit patterns
                               table[i] = min(table[i] + n_i, 65535)
   add_mf8  uint8 MiniFloat    table[i] = increment_codes(table[i], n_i,
-                                            mix_u01(i, salt))   (n_i > 0)
+                                            mix_u01(base + i, salt))   (n_i > 0)
   max      int32, int16 (uint16 bit patterns, compared unsigned) or
            uint8 (MiniFloat codes) tables, with a value per index
                               table[i] = max(table[i], values of i)
 
-where n_i is the number of occurrences of cell i in the batch.  ``max`` is
+where n_i is the number of occurrences of cell i in the batch, and
+``base`` (uint32, 0 for a whole table) is the table's first cell in the
+whole filter when the table is one shard of a filter sharded by index
+range: the rounding is then keyed as on the whole filter.  ``max`` is
 the scatter-max of the conservative update
 (``filters.counting_increment``; XLA's ``.at[].max`` in the JAX package).  Indices
 >= numel are dropped; every other index, the trash cell included, is
@@ -85,7 +88,8 @@ def _check(table: torch.Tensor, idx: torch.Tensor, op: str, values: Optional[tor
 
 
 def cell_insert_plain(
-    table: torch.Tensor, idx: torch.Tensor, op: str, salt: int = 0, values: Optional[torch.Tensor] = None
+    table: torch.Tensor, idx: torch.Tensor, op: str, salt: int = 0, values: Optional[torch.Tensor] = None,
+    base: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of the insert kernel (any device)."""
     _check(table, idx, op, values)
@@ -111,7 +115,7 @@ def cell_insert_plain(
         cells, n = torch.unique(sel, return_counts=True)
         table[cells] = apply_cell_increments(
             table[cells], n.to(torch.int32), "u16" if op == "add_u16" else "mf8",
-            salt=salt, cell_index=cells,
+            salt=salt, cell_index=cells + base,
         )
     return table
 
@@ -141,15 +145,18 @@ def _batch_table_for(device: torch.device, n: int) -> torch.Tensor:
 
 
 def cell_insert(
-    table: torch.Tensor, idx: torch.Tensor, op: str, salt: int = 0, values: Optional[torch.Tensor] = None
+    table: torch.Tensor, idx: torch.Tensor, op: str, salt: int = 0, values: Optional[torch.Tensor] = None,
+    base: int = 0,
 ) -> torch.Tensor:
     """Apply ``idx`` (and, for ``max``, ``values``) to ``table`` in place
     (see the module docstring).
 
     A CPU table takes the plain version; a CUDA table launches the kernel
-    on the current stream, or raises."""
+    on the table's device's current stream, or raises."""
+    if not 0 <= base < 1 << 32:
+        raise ValueError(f"base {base} is not a uint32")
     if table.device.type == "cpu":
-        return cell_insert_plain(table, idx, op, salt, values)
+        return cell_insert_plain(table, idx, op, salt, values, base)
     if table.device.type != "cuda":
         raise ValueError(f"cell_insert: unsupported device {table.device}")
     _check(table, idx, op, values)
@@ -173,21 +180,23 @@ def cell_insert(
             raise ValueError("max on a uint8 table: the table must start its storage")
         values = values.contiguous()
         entry = {torch.int32: lib.cell_max_i32, torch.int16: lib.cell_max_u16, torch.uint8: lib.cell_max_u8}
-    start = launch_timer.begin(table.device)
-    if op == "max":
-        err = entry[table.dtype](table.data_ptr(), numel, idx.data_ptr(), values.data_ptr(), n, stream)
-    elif op == "set":
-        err = lib.cell_set_u8(table.data_ptr(), numel, idx.data_ptr(), n, stream)
-    elif op == "add":
-        err = lib.cell_add_i32(table.data_ptr(), numel, idx.data_ptr(), n, stream)
-    elif op == "add_u16":
-        err = lib.cell_add_u16(table.data_ptr(), numel, idx.data_ptr(), n, stream)
-    else:
-        err = lib.cell_add_mf8_batch(
-            table.data_ptr(), batch.data_ptr(), batch_slots(n), numel, idx.data_ptr(), n,
-            int(salt) & 0xFFFFFFFF, stream,
-        )
-    launch_timer.end(start, table.device, op, n)
+    # the launch goes to the table's device, whichever device is current
+    with torch.cuda.device(table.device):
+        start = launch_timer.begin(table.device)
+        if op == "max":
+            err = entry[table.dtype](table.data_ptr(), numel, idx.data_ptr(), values.data_ptr(), n, stream)
+        elif op == "set":
+            err = lib.cell_set_u8(table.data_ptr(), numel, idx.data_ptr(), n, stream)
+        elif op == "add":
+            err = lib.cell_add_i32(table.data_ptr(), numel, idx.data_ptr(), n, stream)
+        elif op == "add_u16":
+            err = lib.cell_add_u16(table.data_ptr(), numel, idx.data_ptr(), n, stream)
+        else:
+            err = lib.cell_add_mf8_batch(
+                table.data_ptr(), batch.data_ptr(), batch_slots(n), numel, idx.data_ptr(), n,
+                int(salt) & 0xFFFFFFFF, base, stream,
+            )
+        launch_timer.end(start, table.device, op, n)
     if err != 0:
         raise RuntimeError(f"cell_insert[{op}] launch failed: cudaError_t {err}")
     LAUNCHES[op] += 1

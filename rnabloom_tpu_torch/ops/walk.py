@@ -184,9 +184,10 @@ def _launch(name: str, state, graph, cfg, wcfg, min_cov, bound, superstep_hops, 
         args += _pair_args(graph, cfg, wcfg, out)
     elif name == "walk_naive":
         args += [wcfg.tip_probe_depth, int(wcfg.check_back_branches)]
-    start = launch_timer.begin(dev)
-    err = getattr(lib, name)(*args, torch.cuda.current_stream(dev).cuda_stream)
-    launch_timer.end(start, dev, name, out.pos.shape[0])
+    with torch.cuda.device(dev):  # the launch goes to the graph's device, whichever is current
+        start = launch_timer.begin(dev)
+        err = getattr(lib, name)(*args, torch.cuda.current_stream(dev).cuda_stream)
+        launch_timer.end(start, dev, name, out.pos.shape[0])
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
     LAUNCHES[name] += 1

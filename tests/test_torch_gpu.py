@@ -1512,3 +1512,113 @@ def test_oracle_on_the_card_equals_the_golden(cuda):
         assert json.loads(json.dumps(got)) == json.load(f)
     n1, w1 = ci.launch_counts(), walk.launch_counts()
     assert all(n1[op] > n0[op] for op in ("set", "add", "max")) and w1["walk_greedy"] > w0["walk_greedy"]
+
+
+@pytest.mark.parametrize("salt", [0, 977])
+@pytest.mark.parametrize("base", [1 << 20, (1 << 31) + 5, (1 << 32) - 100])
+def test_add_mf8_with_base_matches_plain(cuda, base, salt):
+    """add_mf8 keyed by base + index (a shard of a sharded table): the
+    kernel equals its plain version, and base 0 is the whole-table insert."""
+    rng = np.random.default_rng(11)
+    table, idx = _mf8_batch("hot_cell_every_tile", (1 << 20) + 1, rng)
+    kern, plain, idx = table.to(cuda), table.to(cuda), idx.to(cuda)
+    ci.cell_insert(kern, idx, "add_mf8", salt, base=base)
+    ci.cell_insert_plain(plain, idx, "add_mf8", salt, base=base)
+    zero = table.to(cuda)
+    ci.cell_insert(zero, idx, "add_mf8", salt, base=0)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, plain)
+    assert not torch.equal(kern, zero)  # the key moved with the base
+
+
+def _mesh_cases():
+    return {
+        "mf8": CountingConfig(20, 2, dtype="mf8"),
+        "u16": CountingConfig(20, 2, dtype="u16"),
+        "int32_blocked": CountingConfig(20, 2, blocked=True),
+        "exact_int32": CountingConfig(20, 2, scratch_log2=16),
+    }
+
+
+def _mesh_build(cfg, graph, batches):
+    from rnabloom_tpu_torch.graph import engine
+
+    for salt, codes in enumerate(batches):
+        engine.build_step(graph, cfg, codes, add_read_pairs=True, salt=salt)
+    return graph
+
+
+def _mesh_batches():
+    """A random batch, a poly-A-heavy one (its buckets overflow into a
+    second round at 8 shards) and a random one with N codes."""
+    rng = np.random.default_rng(12)
+    a = rng.integers(0, 4, size=(4096, 100), dtype=np.uint8)
+    b = rng.integers(0, 4, size=(4096, 100), dtype=np.uint8)
+    b[:3000] = 0
+    c = rng.integers(0, 4, size=(4000, 100), dtype=np.uint8)  # padded to a multiple of 8 rows
+    c[rng.random(c.shape) < 0.01] = 4
+    return [a, b, c]
+
+
+def _assert_mesh_equals_single(mesh_graph, single, cfg):
+    from rnabloom_tpu_torch.graph import engine
+
+    host = engine.to_host_state(mesh_graph, cfg)
+    for name in ("dbgbf", "cbf", "rpkbf"):
+        a, b = getattr(single, name), getattr(host, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            trash = cfg.cbf.trash if name == "cbf" else 1
+            assert torch.equal(a.cpu()[:-trash], b[:-trash]), name
+
+
+@pytest.mark.parametrize("case", sorted(_mesh_cases()))
+def test_mesh_build_on_one_card_equals_single_device(cuda, case):
+    """Build steps on a mesh of 8 shards on one card (the insert kernels on
+    every shard, mf8 keyed by the global cell) equal the single-device
+    kernel build in every lane outside the trash, and its counts."""
+    from rnabloom_tpu_torch.graph import engine
+    from rnabloom_tpu_torch.parallel import sharded
+
+    ccfg = _mesh_cases()[case]
+    cfg = dbg.GraphConfig(k=25, stranded=False, dbgbf=BloomConfig(20, 2), cbf=ccfg, pkbf=BloomConfig(20, 2),
+                          read_pair_distance=40, exact_counts=case.startswith("exact"))
+    batches = _mesh_batches()
+    mesh = sharded.make_mesh([cuda] * 8)
+    before = ci.launch_counts()
+    mg = _mesh_build(cfg, engine.make_graph(cfg, with_rpkbf=True, mesh=mesh), batches)
+    after = ci.launch_counts()
+    single = _mesh_build(cfg, engine.make_graph(cfg, with_rpkbf=True, device=cuda), batches)
+    torch.cuda.synchronize()
+    op = "max" if cfg.exact_counts else {"mf8": "add_mf8", "u16": "add_u16", "int32": "add"}[ccfg.dtype]
+    assert after[op] - before[op] == 8 * len(batches)  # one launch a shard and step
+    _assert_mesh_equals_single(mg, single, cfg)
+    probes = batches[1][-300:]
+    c8, v8 = engine.count_step(mg, cfg, probes)
+    c1, v1 = engine.count_step(single, cfg, probes)
+    assert torch.equal(c8, c1) and torch.equal(v8, v1)
+
+
+def test_mesh_build_across_cards_equals_single_device(cuda):
+    """One shard a card, over every visible card (a power of two of them,
+    at least 2): the routing moves buckets between cards, and the build
+    equals the single-device build; the mesh's walks split their lanes over
+    the cards and equal the one-card walks."""
+    from rnabloom_tpu_torch.graph import engine, traverse
+
+    mesh = engine.make_mesh_if_multi(cuda)
+    if mesh is None:
+        pytest.skip("needs at least 2 CUDA devices")
+    cfg = dbg.GraphConfig(k=25, stranded=False, dbgbf=BloomConfig(20, 2), cbf=CountingConfig(20, 2, dtype="mf8"),
+                          pkbf=BloomConfig(20, 2), read_pair_distance=40)
+    batches = _mesh_batches()
+    mg = _mesh_build(cfg, engine.make_graph(cfg, with_rpkbf=True, mesh=mesh), batches)
+    single = _mesh_build(cfg, engine.make_graph(cfg, with_rpkbf=True, device=cuda), batches)
+    _assert_mesh_equals_single(mg, single, cfg)
+    assert {s.device for s in mg.state.cbf} == set(mesh.devices) and len(mesh.distinct) >= 2
+    wcfg = traverse.WalkConfig(max_len=300)
+    seeds = batches[0][:1000, :25]
+    got = engine.extend_walks(traverse.make_walks(cfg, wcfg, seeds, device=cuda), mg, cfg, wcfg, 1.0, 200)
+    want = engine.extend_walks(traverse.make_walks(cfg, wcfg, seeds, device=cuda), single, cfg, wcfg, 1.0, 200)
+    for f in WALK_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f

@@ -1,7 +1,7 @@
 """The port runs without JAX and without the JAX package, on the card
 unless asked for the CPU, maps the long-read flags as the JAX CLI does, and
 refuses what it does not do: the multi-host flags, naming their ROADMAP
-item."""
+item, and ``-sharded on`` where fewer than two cards are visible."""
 
 import dataclasses
 import os
@@ -121,7 +121,8 @@ def test_cuda_device_without_a_card_raises(tmp_path):
         cli.run(["-left", "x", "-right", "y", "-o", str(tmp_path), "-stage", "1", "--device", "cuda"])
 
 
-# one value of each refused flag that is not among the values that run
+# one value of each refused flag that is not among the values that run, and
+# -sharded on, which needs more than one card
 _REFUSED_ARGS = {
     "-sharded": ["-sharded", "on"], "-coordinator": ["-coordinator", "localhost:9999"], "-nprocs": ["-nprocs", "2"],
     "-procid": ["-procid", "1"], "-mhlayout": ["-mhlayout", "local"],
@@ -129,17 +130,20 @@ _REFUSED_ARGS = {
 
 
 def test_every_refused_flag_has_a_case():
-    assert sorted(_REFUSED_ARGS) == sorted(names[0] for names, *_ in cli._REFUSED)
+    assert sorted(_REFUSED_ARGS) == sorted(["-sharded"] + [names[0] for names, *_ in cli._REFUSED])
 
 
 @pytest.mark.parametrize("flag", sorted(_REFUSED_ARGS))
 def test_long_read_and_multi_host_flags_are_refused_before_any_work(tmp_path, flag):
-    """The JAX CLI's multi-host flags (item 14) are accepted and refused,
+    """The JAX CLI's multi-host flags (item 14c) are accepted and refused,
     naming the item, before any file is read or written, with short reads
-    and with -long."""
+    and with -long; so is -sharded on without two cards, with the JAX
+    package's error."""
+    error, match = ((RuntimeError, "-sharded on requires >1 CUDA device$") if flag == "-sharded"
+                    else (NotImplementedError, f"{flag} is not ported yet: ROADMAP queue-1 item 14c$"))
     for reads in (["-left", "missing_1.fq", "-right", "missing_2.fq"], ["-long", "missing.fa"]):
         out = tmp_path / "asm"
-        with pytest.raises(NotImplementedError, match=f"{flag} is not ported yet: ROADMAP queue-1 item 14$"):
+        with pytest.raises(error, match=match):
             cli.run(reads + ["-o", str(out), "--device", "cpu"] + _REFUSED_ARGS[flag])
         assert not out.exists()
 
@@ -241,8 +245,8 @@ def test_oracle_imports_no_jax_and_needs_a_card():
 
 
 def test_values_that_run_are_not_refused(tmp_path):
-    """-sharded off is the port's own single-device engine; the rest at
-    their defaults run too (the missing reads then fail to open)."""
+    """-sharded off and auto (one device) run the single-device engine; the
+    rest at their defaults run too (the missing reads then fail to open)."""
     with pytest.raises(FileNotFoundError):
         cli.run(["-left", str(tmp_path / "missing_1.fq"), "-right", str(tmp_path / "missing_2.fq"), "-o",
                  str(tmp_path / "asm"), "-sharded", "off", "-nprocs", "1", "-procid", "0", "-mhlayout", "auto",
@@ -283,6 +287,12 @@ def _stage3_devices(entry, monkeypatch, tmp) -> list:
             raise _Stop
         monkeypatch.setattr(fn[0], fn[1], wrapped)
 
+    if entry == "mesh_screen":  # a graph sharded over a mesh: its first device
+        from rnabloom_tpu_torch.graph import engine
+        from rnabloom_tpu_torch.parallel import sharded
+
+        graph = engine.make_graph(cfg, with_rpkbf=True, with_fpkbf=True, mesh=sharded.make_mesh(["meta"] * 2))
+        entry = "screen"
     if entry == "screen":
         spy((filters, "make_bloom"))
         with pytest.raises(_Stop):
@@ -330,7 +340,8 @@ def _stage3_devices(entry, monkeypatch, tmp) -> list:
 
 @pytest.mark.parametrize("entry", ["assemble_pe", "assemble_se", "assemble_pool", "merge_pool", "assemble_long", "select_k",
                                    "estimate_num_unique_kmers", "build_graph_autosized", "load_graph", "screen",
-                                   "screen_walks", "nr", "extend_walks", "measure_all", "build_twin_graphs"])
+                                   "screen_walks", "nr", "extend_walks", "measure_all", "build_twin_graphs",
+                                   "make_mesh_if_multi", "mesh_screen"])
 def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
     """Without ``device="cpu"`` the entry points run on the card, and raise
     where there is none, before any work is done.  Stage 3 creates its
@@ -338,10 +349,11 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
     screen viewed as a graph) on the graph's device, and hashes the nr
     pass's minimizers there (``layout_unitigs``); -extend makes its naive
     walks (``walk_naive``) there.  The decision oracle builds its twin
-    graphs on the card."""
+    graphs on the card.  ``make_mesh_if_multi`` looks for cards; a graph
+    sharded over a mesh has its screen made on the mesh's first device."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    if entry in ("screen", "screen_walks", "nr", "extend_walks"):
+    if entry in ("screen", "screen_walks", "nr", "extend_walks", "mesh_screen"):
         devices = _stage3_devices(entry, monkeypatch, tmp_path)
         assert devices == [torch.device("meta")] * (3 if entry == "screen_walks" else 1)
         return
@@ -369,6 +381,10 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch, entry):
             divergence.measure_all()
         elif entry == "build_twin_graphs":
             divergence.build_twin_graphs(["ACGT" * 10], 17)
+        elif entry == "make_mesh_if_multi":
+            from rnabloom_tpu_torch.graph import engine
+
+            engine.make_mesh_if_multi()
         elif entry == "load_graph":
             checkpoint.load_graph(str(out / "rnabloom.graph"))  # raises before it opens a file
         else:
