@@ -33,7 +33,7 @@ and exits nonzero):
    for each instantiation of the walk kernel (registers, stack, spills)
    and for each insert kernel (registers, spills) when this run built
    them; ``tools/dependent_read.cu`` (phase 6's latency probe) is built
-   beside them.  While they build, 1,000,000 simulated 150 bp pairs are
+   beside them.  While they build, 150,000 simulated 150 bp pairs are
    written (seed 0).
 2. Insert kernel vs its plain PyTorch version on the card, per op, at the
    stage-1 shapes of ``-mem 1`` (2^29-cell mf8 cbf, 2^28-cell u16 cbf,
@@ -53,7 +53,7 @@ and exits nonzero):
    cell, read and written (written only, for ``set``), over 3.35 TB/s.
 3. The main path: ``cli -stage 3 -savebf --device cuda`` (the nr pass
    included) with ``-cnt mf8`` (the default) and ``-stage 1 -savebf -cnt
-   u16``, both on the 1,000,000 pairs at the default ``-mem 1``, stage 3
+   u16``, both on the 150,000 pairs at the default ``-mem 1``, stage 3
    over all of its batches of 2048.  The launch counters must show the
    insert kernels and the walk kernel ran, and in stage 3 both walk modes
    and ``set`` (the screen); every valid k-mer of 10,000 sampled input
@@ -83,9 +83,9 @@ and exits nonzero):
    latency floor of the design.  Beside them, one torch gather of as many
    uniformly random cells of the same table as the batch reads: the card's
    random-read rate.
-5. Card against CPU: ``-stage 1`` on a 20,000-pair subset for ``-cnt
+5. Card against CPU: ``-stage 1`` on a 5,000-pair subset for ``-cnt
    mf8``, ``u16`` and ``int32`` (byte-identical checkpoints), and
-   ``-stage 2 -savebf`` on the first 4096 pairs (half a stage-2 batch) for
+   ``-stage 2 -savebf`` on the first 2048 pairs (a quarter of a batch) for
    ``-cnt mf8`` and ``u16``: every file under the output directory (the
    fragment store, the checkpoint with its fragment distance, the read
    statistics, the stamps) must be byte-identical.  Stage 2b
@@ -100,7 +100,7 @@ and exits nonzero):
    ``tests/test_golden.py``) through ``assemble_pe`` on the card: the
    strand-normalised sha1 set must equal ``tests/golden/pe_golden.json``.
 6. Stage 2b and the stage-3 extension, the main path of the latest slice,
-   with every launch count set to 0 before it: the 1M-pair ``-cnt mf8``
+   with every launch count set to 0 before it: the 150k-pair ``-cnt mf8``
    output of phase 3 loaded on the card and rebuilt (fragments/s, batches,
    launches, the batch table, peak device memory and what holds it; every
    valid k-mer of 10,000 sampled fragments must count >= 1 on the rebuilt
@@ -136,7 +136,7 @@ and exits nonzero):
    its reads and bound, beside one gather of as many random cells of its
    table.
 8. The naive walk kernel (``-extend``) vs its plain version: the first
-   stage-2 batch of the 1M pairs joined into fragments on phase 3's mf8
+   stage-2 batch of the 150k pairs joined into fragments on phase 3's mf8
    graph as stage 2 does, then extended; its two naive walks (right, then
    left; back-branch checks, tip_probe_depth 8, buffers padded to a power
    of two) run again by the kernel, by each ``--walk-variant`` with
@@ -151,15 +151,15 @@ and exits nonzero):
    TB/s; beside it one gather of as many random cells.  The lane with the
    most rounds is walked alone (time a round).  Then the main path of
    this slice, with every
-   launch count set to 0 before it: ``-stage 2 -extend`` on the first 4
-   batches of the 1M pairs (32,768 pairs: a depth cut), its pairs/s and
+   launch count set to 0 before it: ``-stage 2 -extend`` on the first 2
+   batches of the 150k pairs (16,384 pairs: a depth cut), its pairs/s and
    its launches (``walk_naive`` among them).
 9. The short-read entry points of the latest slice, each with every
-   launch count set to 0 before it, on slices of the 1M pairs at the
+   launch count set to 0 before it, on slices of the 150k pairs at the
    default ``-mem 1`` (150 bp reads, k=25; only the depth is cut):
    single-end ``-stage 3`` (``-sef`` the left and ``-ser`` the right mates
-   of the first 25,000 pairs), ``-pool`` of two samples (pairs 0-12,499
-   and 12,500-24,999) with ``-mergepool``, ``-stage 2 -rescue -bound 20``
+   of the first 10,000 pairs), ``-pool`` of two samples (pairs 0-4,999
+   and 5,000-9,999) with ``-mergepool``, ``-stage 2 -rescue -bound 20``
    on the first 16,384 pairs, and ``-k 25,27 -ntcard -stage 1`` on the
    first 20,000 pairs.  Each prints its rates, launches per kernel (the
    single-end and pool runs must launch ``add_mf8``, ``set`` and
@@ -217,7 +217,7 @@ and exits nonzero):
    lanes an SM on the ALU or FMA pipe and 128 issued, over 132 SMs at the
    highest SM clock nvidia-smi gives) and, for the vote, the
    ``scatter_add_`` + ``argmax`` composite as the library yardstick.
-   Last, runs (i)-(iv) on the first 400 reads on the card and on the CPU:
+   Last, runs (i)-(iv) on the first 200 reads on the card and on the CPU:
    every file byte-identical.
 11. The decision oracle, exact counts and terminators, the main path of
    the latest slice, each with every launch count set to 0 before it:
@@ -266,7 +266,20 @@ and exits nonzero):
    (the checkpoint's trash cells; the read statistics' distinct-k-mer
    estimate, each run's equal to its engine's own arithmetic), report.json
    but elapsed_s; and the mesh run on the first 2000 pairs on the card
-   and on 8 CPU shards, byte-identical.
+   and on 8 CPU shards, byte-identical.  The routed and grouped mesh walks
+   (the latest slice's path): on the 2- and 8-shard mesh builds, the
+   sharded walk kernel in each mode (greedy on phase 4's bridge lanes of
+   the first stage-2 batch, naive on phase 8's right -extend lanes, pair on
+   the first 2,048 reads as fragments, read pairs only) against the
+   single-device kernel on the replica at the full lane count and against
+   the plain routed loop on the card on the first MESH_WALK_HEAD lanes,
+   every field equal, both kernels timed in turns; then the -stage 3 run
+   again under ``RNB_MESH_WALK=routed`` and ``grouped`` (R = 2), every file
+   byte-identical to the replicated run's, with wall time by stage, peak
+   device memory and the replicas the engine gathered (none when routed);
+   and ``-stage 2 -extend`` on the first 2000 pairs routed against
+   replicated, byte-identical, each run with every launch count set to 0
+   before it (the sharded kernels launched, the single-device walks not).
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -343,22 +356,34 @@ PAD_CYCLES = 2_000_000  # about 1 ms of the card's clock, ahead of each timed sp
 SALTS = (0, 1, 977, (1 << 31) + 7)
 K, NUM_HASH, READ_LEN = 25, 2, 150
 REAL_READS = 4096  # one stage-1 batch
-PAIRS = 1_000_000
+# the simulated pairs: the main path of phase 3 and what it feeds (phases
+# 4, 6-8); 1,000,000 before phase 12 took the routed and grouped walks,
+# then cut for the smoke's time (it took 1126.8 s with 1,000,000 on one
+# H100 80GB HBM3 at 700 W, over its 1,050 s mark); 700,000 until phase
+# 12's plain routed loops went back to routing one shard at a time (W6's
+# 940.9 s grew by about 55 s); 500,000 until a slower host than the
+# builders' took over 1200 s on the tree that took 845.3 s on one H100
+# 80GB HBM3 at 700 W; 200,000 took 727.8 s on another such card (the
+# smoke aims at half its limit)
+PAIRS = 150_000
+PAIRS_K = f"{PAIRS // 1000}k"  # the label of the pairs in the phases' lines
 BATCH2 = 8192  # pairs per stage-2 batch
 CBF_LOG2 = {"mf8": 29, "u16": 28}  # default cbf at -mem 1, before any resize
 STAGE3_PAIRS = 2000  # the card-vs-CPU -stage 3 run (with the nr pass)
-# stage-2 batches of the -extend main-path run: a depth cut of the 1M pairs,
+# stage-2 batches of the -extend main-path run: a depth cut of the pairs,
 # 8 before phase 10 came (the smoke took 1080.1 s with 8 on one H100 80GB
-# HBM3 at 700 W, over its 1,050 s mark)
-EXTEND_BATCHES = 4
-STAGE2_PAIRS = 4096  # the card-vs-CPU -stage 2 runs and their stage 2b: half a stage-2 batch
+# HBM3 at 700 W, over its 1,050 s mark), 4 until the smoke aimed at half
+# its limit
+EXTEND_BATCHES = 2
+STAGE2_PAIRS = 2048  # the card-vs-CPU -stage 2 runs and their stage 2b: a quarter of a stage-2 batch (was 4096)
+STAGE1_PAIRS = 5_000  # the card-vs-CPU -stage 1 runs (cut from 20,000 for the smoke's time)
 MAXCLIP = 8  # -maxclip of phase 7's rerun, which reaches the screen-as-graph probe
 GOLDEN = "tests/golden/pe_golden.json"
 # phase 9's pool depth, half the 2 x 50,000 pairs it first ran (67 s of a
 # 1037 s smoke on one H100 80GB HBM3 at 700 W): margin under the 1200 s
 # limit for a slow host (one took 1155 s before phase 9 existed)
-SE_PAIRS = 25_000  # phase 9: the single-end run reads both mates of these pairs (cut from 100,000 for the smoke's time)
-POOL_PAIRS = 12_500  # phase 9: pairs of each of the two pool samples (cut from 25,000 for the smoke's time)
+SE_PAIRS = 10_000  # phase 9: the single-end run reads both mates of these pairs (cut from 100,000, then 25,000)
+POOL_PAIRS = 5_000  # phase 9: pairs of each of the two pool samples (cut from 25,000, then 12,500)
 RESCUE_PAIRS = 16_384  # phase 9: the -rescue run (two stage-2 batches)
 KSELECT_PAIRS = 20_000  # phase 9: the -k 25,27 -ntcard run
 CHECK9 = 1000  # phase 9: reads or pairs of each card-vs-CPU case
@@ -1329,7 +1354,7 @@ def sample_fragments(store: FragmentStore, n: int, width: int, seed: int) -> np.
 
 
 def rebuild_main_path(out: str, card: str, dev):
-    """Stage 2b on the 1M-pair -stage 2 output, on the card: rate, batches,
+    """Stage 2b on phase 3's -stage 2 output, on the card: rate, batches,
     launches, insert buffer and peak device memory of that run alone, and
     the count-min check on the rebuilt cbf."""
     state, cfg = checkpoint.load_graph(os.path.join(out, "rnabloom.graph"), device=dev)
@@ -1740,7 +1765,7 @@ def greedy_vs_plain(walks: list, what: str, card: str, dev, variants: dict) -> d
 
 
 def stage3_walks_vs_plain(graph, cfg, store: FragmentStore, card: str, dev, variants: dict) -> dict:
-    """Stage 3's greedy walks on the rebuilt 1M-pair graph: stage 3's
+    """Stage 3's greedy walks on the rebuilt phase-3 graph: stage 3's
     batches in its own order on a fresh screen (as the main path ran them),
     up to the first batch that issues gap re-walks; that batch's gap
     re-walks (and tip probes) by the kernel and the plain loop.  Then that
@@ -2069,12 +2094,16 @@ def naive_tally(st, graph, cfg, wcfg, mc, bd, superstep_hops: int = 64, max_supe
             "rounds": old_rounds}
 
 
-def first_batch_naive_walks(graph_prefix: str, left: str, right: str, dev):
+def first_batch_naive_walks(graph_prefix, left: str, right: str, dev):
     """The -extend walks (right, then left) of the first stage-2 batch's
-    fragments on a saved graph, as stage 2 runs that batch: its pairs
-    joined into fragments (EC, overlaps, bridges, validation), then the
-    extension, whose two naive walks are captured (inputs and outputs)."""
-    graph, cfg = checkpoint.load_graph(graph_prefix, device=dev)
+    fragments on a saved graph (or a (graph, cfg) pair), as stage 2 runs
+    that batch: its pairs joined into fragments (EC, overlaps, bridges,
+    validation), then the extension, whose two naive walks are captured
+    (inputs and outputs)."""
+    if isinstance(graph_prefix, tuple):
+        graph, cfg = graph_prefix
+    else:
+        graph, cfg = checkpoint.load_graph(graph_prefix, device=dev)
     params = pipeline.PipelineParams(extend_fragments=True)
     fparams = fragments.FragmentParams(min_overlap=params.min_overlap, bound=params.bound,
                                        lookahead=params.lookahead, extend_fragments=True,
@@ -2220,7 +2249,7 @@ def extend_main_path(left: str, right: str, out: str, card: str) -> dict:
     r = {"pairs": rep.num_pairs, "pairs_per_s": rep.num_pairs / rep.stage2_s, "stage2_s": rep.stage2_s,
          "fragments": rep.num_fragments, "launches": launches, "peak_bytes": peak, "wall_s": wall}
     print(f"-cnt mf8 -stage 2 -extend on the first {EXTEND_BATCHES} batches ({rep.num_pairs} pairs, a depth cut of "
-          f"the 1M): stage 2 {r['pairs_per_s']:.1f} pairs/s ({rep.stage2_s:.2f} s), {rep.num_fragments} fragments; "
+          f"the {PAIRS_K}): stage 2 {r['pairs_per_s']:.1f} pairs/s ({rep.stage2_s:.2f} s), {rep.num_fragments} fragments; "
           f"launches {launches}; peak device memory {peak} B ({peak / 2**30:.3f} GiB); CLI wall {wall:.1f} s "
           f"[{card}]", flush=True)
     shutil.rmtree(out)
@@ -2551,7 +2580,7 @@ LR_REPLACES = {
 LR_TRANSCRIPTS = 75
 LR_COVERAGE = 10
 LR_ERR = 0.07
-LR_CHECK = 400  # reads of the card-vs-CPU runs
+LR_CHECK = 200  # reads of the card-vs-CPU runs (cut from 400 for the smoke's time)
 LR_K, LR_N, LR_WMIN, LR_WMAX = 25, 3, 11, 50  # run (ii)'s strobemers: -lrsub 5,11,0,50 at k=25
 # the runs after (i), each resumed from a copy of (i)'s corrected reads and stamps
 LR_RESUMED = {"strobemer": ["-lrsub", "5,11,0,50"], "kmer": ["-lrsub", "5,25,0"], "paf": ["-paf"]}
@@ -3138,7 +3167,7 @@ def long_read_path(tmp: str, card: str, dev, transcripts: int = LR_TRANSCRIPTS, 
 
 # ---- phase 11: the decision oracle, exact counts and terminators ----
 
-EXACT_PAIRS = 250_000  # phase 11: the exact-count build's depth cut of the 1M pairs
+EXACT_PAIRS = PAIRS  # phase 11: the exact-count build's pairs (250,000 of 500,000 before the pairs were cut)
 EXACT_BATCH = 4096  # reads a build batch, as stage 1 takes them
 MAX_REPLACES = "rnabloom_tpu/bloom/filters.py:378"  # counting_increment's .at[].max (XLA, no Pallas kernel)
 GOLDEN_ORACLE = "tests/golden/oracle_divergence.json"
@@ -3575,6 +3604,101 @@ def _mesh_line(what: str, st: dict, one: dict, cfg: dbg.GraphConfig, card: str) 
             f"(single device {one['peak_bytes']}); launches {st['launches']}; host wall {st['wall_s']:.2f} s [{card}]")
 
 
+MESH_WALK_HEAD = 256  # lanes of each mesh walk cell that the plain routed loop walks on the card
+MESH_WALK_REPLACES = "rnabloom_tpu/parallel/sharded.py:815"  # sharded_extend_walks (grouped: :914)
+MESH_PAIR_LANES = 2048  # the pair cell's lanes: the first reads as fragments (read pairs only: no fpkbf)
+
+
+def mesh_walk_lanes(left: str, right: str, single, cfg: dbg.GraphConfig, dev) -> dict:
+    """Phase 12's walk cells' lanes, from the single-device build of its
+    reads: mode -> (walks, WalkConfig at the mesh walks' speculative depth,
+    min_cov, bound).  Greedy: the first stage-2 batch's bridge seeds (as
+    phase 4 derives them); naive: its right -extend walks (as phase 8);
+    pair: the first MESH_PAIR_LANES reads as stage-3 fragments."""
+    seeds = stage2_walk_seeds(left, right, single, cfg)
+    gw, _ = fragments.bridge_walk_configs(cfg, fragments.FragmentParams())
+    g = traverse.make_walks(cfg, gw, seeds, device=dev)
+    _, _, captured, _ = first_batch_naive_walks((single, cfg), left, right, dev)
+    nst, nw, nmc, nbd, _ = captured[0]
+    tparams = transcripts.TranscriptParams()
+    pw = traverse.WalkConfig(max_len=tparams.max_walk_len, pair_ring=tparams.pair_ring, lookahead=tparams.lookahead)
+    rows = head_codes(left, MESH_PAIR_LANES)
+    p = traverse.make_walks(cfg, pw, rows, np.full(len(rows), READ_LEN), device=dev)
+    return {
+        "greedy": (g, sharded._with_spec_default(gw), *traverse.lane_args(g, 1.0, fragments.FragmentParams().bound)),
+        "naive": (nst, sharded._with_spec_default(nw), nmc, nbd),
+        "pair": (p, sharded._with_spec_default(pw), *traverse.lane_args(p, 1.0, tparams.bound)),
+    }
+
+
+def mesh_walk_cells(mg, mesh, cfg: dbg.GraphConfig, lanes: dict, what: str, card: str) -> dict:
+    """The sharded walk kernel on ``mesh`` in each mode, on the lanes of
+    ``mesh_walk_lanes``: every field equal to the single-device kernel on
+    the mesh's replica at the full lane count, and on the first
+    MESH_WALK_HEAD lanes to the plain routed loop on the card (routed
+    reads, the lanes split over the shards); both kernels timed in turns
+    (sharded, single, single, sharded).  The bound: the state read and
+    written once and the 4 candidates' cells of every hop taken, a sector
+    each (a hop reads at least those)."""
+    rep = engine._replicated_graph(mg, cfg)
+    out = {}
+    for mode, (st, wcfg, mc, bd) in lanes.items():
+        name = f"walk_{mode}_sharded"
+        fields = PAIR_FIELDS if mode == "pair" else WALK_FIELDS
+        n0 = walk.launch_counts()[name]
+        devices = mesh.distinct
+        for d in devices:
+            torch.cuda.synchronize(d)
+            torch.cuda.reset_peak_memory_stats(d)
+        held = {d: torch.cuda.memory_allocated(d) for d in devices}
+        kern = walk.walk_mesh(mode, st, mg.state, mesh, cfg, wcfg, mc, bd)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        walk_peak = max(torch.cuda.max_memory_allocated(d) - held[d] for d in devices)
+        assert walk.launch_counts()[name] == n0 + len(mesh.distinct)
+        one_device = getattr(walk, f"walk_{mode}")
+        one = one_device(st, rep, cfg, wcfg, mc, bd)
+        torch.cuda.synchronize()
+        bad = [f for f in fields if not torch.equal(getattr(kern, f), getattr(one, f))]
+        if bad:
+            raise AssertionError(f"{name} on {what}: differs from the single-device kernel on the replica in {bad}")
+        h = MESH_WALK_HEAD
+        head = traverse.take_lanes(st, slice(0, h))
+        t0 = time.time()
+        plain = walk.walk_mesh_plain(mode, head, mg.state, mesh, cfg, wcfg, mc[:h].contiguous(), bd[:h].contiguous())
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t0) * 1e3
+        bad = [f for f in fields if not torch.equal(getattr(plain, f), getattr(kern, f)[:h])]
+        if bad:
+            raise AssertionError(f"{name} on {what}: differs from the plain routed loop on its first {h} lanes in {bad}")
+        t = {"sharded": [], "single": []}
+        for who in ("sharded", "single", "single", "sharded"):
+            run = ((lambda: walk.walk_mesh(mode, st, mg.state, mesh, cfg, wcfg, mc, bd)) if who == "sharded"
+                   else (lambda: one_device(st, rep, cfg, wcfg, mc, bd)))
+            t[who].append(_time_ms(run, reps=3))
+        hops = int(kern.hops.sum())
+        reads = hops * 4 * cfg.cbf.num_hash * (2 if cfg.exact_counts else 1)
+        status = torch.bincount(kern.status.long(), minlength=7).tolist()
+        state_bytes = sum(x.numel() * x.element_size() for x in st if x is not None)
+        r = out[mode] = {
+            "peak_bytes": walk_peak, "state_bytes": state_bytes,
+            "lanes": int(st.pos.shape[0]), "max_len": wcfg.max_len, "spec_hops": wcfg.spec_hops, "ms": _mean(t["sharded"]),
+            "single_ms": _mean(t["single"]), "turns_ms": t, "plain_ms": plain_ms, "plain_lanes": h, "hops": hops,
+            "max_hops": int(kern.hops.max()), "statuses": status, "bound_ms": walk_bound_ms(st, mc, bd, reads),
+            "max_abs_err": max(_max_abs_diff(kern, one, fields), _max_abs_diff(traverse.take_lanes(kern, slice(0, h)),
+                                                                              plain, fields)),
+        }
+        print(f"{name}, {what}: {r['lanes']} lanes (max_len {r['max_len']}, spec_hops {r['spec_hops']}), every field "
+              f"equal to the single-device kernel on the replica, and on the first {h} to the plain routed loop; "
+              f"{hops} hops (most {r['max_hops']}), statuses {status}; sharded kernel {r['ms']:.4f} ms a launch "
+              f"({', '.join(f'{x:.4f}' for x in t['sharded'])}), single-device kernel {r['single_ms']:.4f} ms "
+              f"({', '.join(f'{x:.4f}' for x in t['single'])}); bound {r['bound_ms']:.4f} ms ({reads} cells at "
+              f"least); plain routed loop {plain_ms:.1f} ms on {h} lanes; the sharded call's peak device memory "
+              f"{walk_peak} B above its inputs (the walk state {state_bytes} B) [{card}]", flush=True)
+        del kern, one, plain
+    return out
+
+
 def mesh_builds(left: str, right: str, card: str, dev) -> dict:
     """The stage-1 build at -mem 1 (mf8: 2^29 cells, 2^27 rpkbf lanes) over
     both mates of the first MESH_PAIRS pairs on meshes of 2 and 8 shards on
@@ -3588,7 +3712,9 @@ def mesh_builds(left: str, right: str, card: str, dev) -> dict:
     print(f"visible cards: {cards}; {len(codes)} reads in {len(batches)} batches of {EXACT_BATCH}", flush=True)
     cfg = exact_config("mf8", exact=False)
     single, one = mesh_build(cfg, batches, dev)
-    out = {"reads": int(len(codes)), "batches": len(batches), "cards": cards, "single": one, "meshes": {}}
+    out = {"reads": int(len(codes)), "batches": len(batches), "cards": cards, "single": one, "meshes": {},
+           "walks": {}}
+    lanes = mesh_walk_lanes(left, right, single, cfg, dev)
     meshes = {f"{n} shards on one card": sharded.make_mesh([dev] * n) for n in MESH_SHARDS}
     multi = engine.make_mesh_if_multi(dev)
     if multi is not None:
@@ -3600,8 +3726,10 @@ def mesh_builds(left: str, right: str, card: str, dev) -> dict:
         assert st["launches"].get("add_mf8", 0) == mesh.size * len(batches), st["launches"]
         out["meshes"][what] = st
         print(_mesh_line(f"stage-1 build, {what}", st, one, cfg, card), flush=True)
+        out["walks"][what] = mesh_walk_cells(mg, mesh, cfg, lanes, what, card)
         del mg
-    del single
+    del single, lanes
+    torch.cuda.empty_cache()
     d_read = cfg.read_pair_distance
     for name, ccfg, sizes in (
         ("-cnt u16", exact_config("u16", exact=False), MESH_SHARDS),
@@ -3681,6 +3809,76 @@ def mesh_vs_single_tree(mesh_out: str, single_out: str) -> dict:
     return {"files": len(rel), "allowed": notes}
 
 
+ENGINE_CALLS = ("build_step", "rebuild_step", "count_step", "pair_support_both", "counts_and_read_support",
+                "variant_exists", "extend_walks")
+
+
+@contextlib.contextmanager
+def peak_by_call(store: dict):
+    """The largest device-memory peak above its start of each engine call
+    (``ENGINE_CALLS``) inside the block, in ``store``; ``store["run"]``
+    keeps the peak over the block, which the calls' own resets would hide."""
+    saved = {name: getattr(engine, name) for name in ENGINE_CALLS}
+
+    def wrapped(name, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            store["run"] = max(store.get("run", 0), torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            store[name] = max(store.get(name, 0), peak - held)
+            store["run"] = max(store["run"], peak)
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(engine, name, wrapped(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(engine, name, fn)
+        store["run"] = max(store.get("run", 0), torch.cuda.max_memory_allocated())
+
+
+@contextlib.contextmanager
+def counted_replicas(store: list):
+    """Append the device of every replica of a mesh graph that the engine
+    gathers for its queries and walks inside the block."""
+    saved = engine._replicated_graph
+
+    def counted(graph, cfg, device=None):
+        store.append(device)
+        return saved(graph, cfg, device)
+
+    engine._replicated_graph = counted
+    try:
+        yield
+    finally:
+        engine._replicated_graph = saved
+
+
+def same_mesh_run(a: str, b: str, tag: str) -> list:
+    """Every file of two mesh runs byte-identical, report.json but its
+    elapsed_s; returns the files compared."""
+    with open(os.path.join(a, "rnabloom.report.json")) as f, open(os.path.join(b, "rnabloom.report.json")) as g:
+        x, y = json.load(f), json.load(g)
+    x.pop("elapsed_s"), y.pop("elapsed_s")
+    if x != y:
+        raise AssertionError(f"{tag} mesh -stage 3 report.json differs from the replicated run's: {x} != {y}")
+    rel = sorted(os.path.relpath(os.path.join(d, f), a) for d, _, fs in os.walk(a) for f in fs)
+    rel_b = sorted(os.path.relpath(os.path.join(d, f), b) for d, _, fs in os.walk(b) for f in fs)
+    if rel != rel_b:
+        raise AssertionError(f"{tag}: file sets differ: {sorted(set(rel) ^ set(rel_b))}")
+    for f in rel:
+        if f != "rnabloom.report.json" and not filecmp.cmp(os.path.join(a, f), os.path.join(b, f), shallow=False):
+            raise AssertionError(f"{tag}: {f} differs from the replicated mesh run's")
+    return rel
+
+
 def mesh_pipeline(left: str, right: str, small: tuple, tmp: str, card: str, dev) -> dict:
     """-stage 3 (the nr pass included, -savebf) through pipeline.assemble_pe
     at -mem 1 on MESH_STAGE3_PAIRS pairs with -sharded on over 8 shards on
@@ -3689,7 +3887,8 @@ def mesh_pipeline(left: str, right: str, small: tuple, tmp: str, card: str, dev)
     STAGE3_PAIRS pairs on the card and on 8 CPU shards, byte-identical."""
     mesh = sharded.make_mesh([dev] * 8)
     runs = {}
-    for tag, sharding in (("mesh", "on"), ("single", "off")):
+    for tag, sharding, walk_env in (("mesh", "on", "replicated"), ("single", "off", "replicated"),
+                                    ("routed", "on", "routed"), ("grouped", "on", "grouped")):
         out = os.path.join(tmp, f"mesh_{tag}")
         ci._batch_tables.clear()
         torch.cuda.empty_cache()
@@ -3697,21 +3896,31 @@ def mesh_pipeline(left: str, right: str, small: tuple, tmp: str, card: str, dev)
         held = torch.cuda.memory_allocated()
         reset_launch_counters()
         sharded.reset_routing_counts()
+        replicas, calls = [], {}
         t0 = time.time()
-        with mesh_as_visible(mesh):
+        with mesh_as_visible(mesh), mesh_env(walk_env), counted_replicas(replicas), \
+                (peak_by_call(calls) if tag == "routed" else contextlib.nullcontext()):
             rep = pipeline.assemble_pe(left, right, out, pipeline.PipelineParams(sharded=sharding), save_graph=True,
                                        device="cuda")
         torch.cuda.synchronize()
+        peak = max(torch.cuda.max_memory_allocated(), calls.pop("run", 0))
         runs[tag] = {"wall_s": time.time() - t0, "stage1_s": rep.stage1.elapsed_s, "stage2_s": rep.stage2_s,
                      "stage3_s": rep.stage3_s, "transcripts": rep.num_transcripts, "nr": rep.num_nr,
-                     "fragments": rep.num_fragments, "peak_bytes": torch.cuda.max_memory_allocated() - held,
+                     "fragments": rep.num_fragments, "peak_bytes": peak - held, "call_peak_bytes": calls,
                      "launches": {op: n for op, n in launch_counters().items() if n},
-                     "routed_calls": sharded.ROUTING["calls"]}
+                     "routed_calls": sharded.ROUTING["calls"], "replicas": len(replicas)}
         check_transcripts(out, rep, K)
     launches = runs["mesh"]["launches"]
     assert all(launches.get(op, 0) > 0 for op in ("add_mf8", "set", "walk_greedy", "walk_pair")), launches
     assert runs["mesh"]["routed_calls"] > 0 and runs["single"]["routed_calls"] == 0
     same = mesh_vs_single_tree(os.path.join(tmp, "mesh_mesh"), os.path.join(tmp, "mesh_single"))
+    # the routed and grouped runs: every file byte-identical to the replicated run's (report.json but elapsed_s)
+    for tag in ("routed", "grouped"):
+        got = runs[tag]["launches"]
+        assert all(got.get(op, 0) > 0 for op in ("add_mf8", "set", "walk_greedy_sharded", "walk_pair_sharded")), got
+        assert got.get("walk_greedy", 0) == 0 and got.get("walk_pair", 0) == 0, got
+        runs[tag]["files"] = len(same_mesh_run(os.path.join(tmp, f"mesh_{tag}"), os.path.join(tmp, "mesh_mesh"), tag))
+    assert runs["routed"]["replicas"] == 0 and runs["routed"]["routed_calls"] > 0
     for tag in runs:
         shutil.rmtree(os.path.join(tmp, f"mesh_{tag}"))
     m, s1 = runs["mesh"], runs["single"]
@@ -3722,6 +3931,39 @@ def mesh_pipeline(left: str, right: str, small: tuple, tmp: str, card: str, dev)
           f"{s1['wall_s']:.1f} s ({s1['stage1_s']:.2f}, {s1['stage2_s']:.2f}, {s1['stage3_s']:.2f}); peak device "
           f"memory {m['peak_bytes']} / {s1['peak_bytes']} B; mesh launches {launches}, {m['routed_calls']} routed "
           f"calls [{card}]", flush=True)
+    for tag in ("routed", "grouped"):
+        x = runs[tag]
+        print(f"-stage 3 -savebf -sharded on over 8 shards, RNB_MESH_WALK={tag}{' (R = 2)' if tag == 'grouped' else ''}"
+              f": {x['files']} files byte-identical to the replicated run's (report.json but elapsed_s); wall "
+              f"{x['wall_s']:.1f} s (stage 1 {x['stage1_s']:.2f}, stage 2 {x['stage2_s']:.2f}, 2b and 3 "
+              f"{x['stage3_s']:.2f}); peak device memory {x['peak_bytes']} B, {x['peak_bytes'] / s1['peak_bytes']:.3f} "
+              f"times one device's, {x['peak_bytes'] / m['peak_bytes']:.3f} times the replicated run's; "
+              f"{x['replicas']} replicas of the graph; launches {x['launches']}, {x['routed_calls']} routed calls"
+              + (f"; the largest peak above its start by engine call, B: {x['call_peak_bytes']}"
+                 if x["call_peak_bytes"] else "") + f" [{card}]", flush=True)
+
+    # -stage 2 -extend on the first STAGE3_PAIRS pairs, routed against replicated: the naive sharded kernel's path
+    for tag, walk_env in (("extend_replicated", "replicated"), ("extend_routed", "routed")):
+        out = os.path.join(tmp, f"mesh_{tag}")
+        reset_launch_counters()
+        t0 = time.time()
+        with mesh_as_visible(mesh), mesh_env(walk_env):
+            pipeline.assemble_pe(*small, out, pipeline.PipelineParams(sharded="on", stop_stage=2,
+                                                                      extend_fragments=True),
+                                 save_graph=True, device="cuda")
+        torch.cuda.synchronize()
+        runs[tag] = {"wall_s": time.time() - t0, "launches": {op: n for op, n in launch_counters().items() if n}}
+    got = runs["extend_routed"]["launches"]
+    assert got.get("walk_naive_sharded", 0) > 0 and got.get("walk_greedy_sharded", 0) > 0, got
+    assert got.get("walk_naive", 0) == 0, got
+    runs["extend_routed"]["files"] = len(same_tree(os.path.join(tmp, "mesh_extend_routed"),
+                                                   os.path.join(tmp, "mesh_extend_replicated")))
+    print(f"-stage 2 -extend -sharded on over 8 shards on the first {STAGE3_PAIRS} pairs, RNB_MESH_WALK=routed: "
+          f"{runs['extend_routed']['files']} files byte-identical to the replicated run's; wall "
+          f"{runs['extend_routed']['wall_s']:.1f} s (replicated {runs['extend_replicated']['wall_s']:.1f}); launches "
+          f"{got} [{card}]", flush=True)
+    for tag in ("extend_replicated", "extend_routed"):
+        shutil.rmtree(os.path.join(tmp, f"mesh_{tag}"))
 
     # the same mesh run on the card and on 8 CPU shards
     outs = {}
@@ -3829,10 +4071,10 @@ def main(argv=None) -> int:
     print(f"native FASTX reader in use: {native.available()}", flush=True)
 
     try:
-        print(f"simulated 1,000,000 pairs (2000 transcripts, seed 0) in {sim_s:.1f} s while the kernels built",
+        print(f"simulated {PAIRS:,} pairs (2000 transcripts, seed 0) in {sim_s:.1f} s while the kernels built",
               flush=True)
         heads = {}
-        for n in (STAGE2_PAIRS, 20_000, STAGE3_PAIRS, EXTEND_BATCHES * BATCH2):
+        for n in (STAGE2_PAIRS, STAGE1_PAIRS, MESH_STAGE3_PAIRS, STAGE3_PAIRS, EXTEND_BATCHES * BATCH2):
             heads[n] = (os.path.join(tmp, f"head{n}_1.fq"), os.path.join(tmp, f"head{n}_2.fq"))
             head_fastq(left, heads[n][0], n)
             head_fastq(right, heads[n][1], n)
@@ -3844,7 +4086,7 @@ def main(argv=None) -> int:
         del real
 
         phase("3 main path: -stage 3 -savebf -cnt mf8 (the nr pass included) and -stage 1 -savebf -cnt u16 on "
-              "1,000,000 pairs, --device cuda, -mem 1")
+              f"{PAIRS:,} pairs, --device cuda, -mem 1")
         rng = np.random.default_rng(1)
         picks = set(rng.choice(PAIRS, 5_000, replace=False).tolist())
         codes = np.concatenate([sample_reads(p, picks, READ_LEN) for p in (left, right)])
@@ -3861,36 +4103,36 @@ def main(argv=None) -> int:
         phase("4 walk kernel vs plain PyTorch on the card (bridge seeds of the first stage-2 batch)")
         walk_t = {
             "mf8": walk_vs_plain(os.path.join(out_mf8, "rnabloom.graph"), left, right,
-                                 "1M-pair graph, -cnt mf8, 2^29 cells", card, dev, variants),
+                                 f"{PAIRS_K}-pair graph, -cnt mf8, 2^29 cells", card, dev, variants),
             "u16": walk_vs_plain(os.path.join(out_u16, "rnabloom.graph"), left, right,
-                                 "1M-pair graph, -cnt u16, resized to 2^29 cells", card, dev, variants),
+                                 f"{PAIRS_K}-pair graph, -cnt u16, 2^28 cells", card, dev, variants),
         }
         shutil.rmtree(out_u16)
 
-        phase("5 card vs CPU: -stage 1 on 20,000 pairs, -stage 2 on 4096 pairs, -stage 3 and -stage 2 -extend on 2000 "
-              "pairs, byte-identical outputs; the golden dataset on the card")
+        phase(f"5 card vs CPU: -stage 1 on {STAGE1_PAIRS:,} pairs, -stage 2 on {STAGE2_PAIRS} pairs, -stage 3 and "
+              f"-stage 2 -extend on {STAGE3_PAIRS} pairs, byte-identical outputs; the golden dataset on the card")
         run_launches = {"add_mf8": launches["add_mf8"], "set": launches["set"],
                         "add_u16": u16_launches["add_u16"]}
-        mf8_run = "main path, -cnt mf8 -stage 3, 1M pairs"
-        run_of = {"add_mf8": mf8_run, "set": mf8_run, "add_u16": "main path, -cnt u16 -stage 1, 1M pairs"}
+        mf8_run = f"main path, -cnt mf8 -stage 3, {PAIRS:,} pairs"
+        run_of = {"add_mf8": mf8_run, "set": mf8_run, "add_u16": f"main path, -cnt u16 -stage 1, {PAIRS:,} pairs"}
         for counter, op in (("mf8", "add_mf8"), ("u16", "add_u16"), ("int32", "add")):
             ci.reset_launch_counts()
             ci._batch_tables.clear()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             gpu_out, cpu_out = os.path.join(tmp, f"gpu_{counter}"), os.path.join(tmp, f"cpu_{counter}")
-            run_cli(*heads[20_000], gpu_out, "cuda", counter)
+            run_cli(*heads[STAGE1_PAIRS], gpu_out, "cuda", counter)
             torch.cuda.synchronize()
             n_launch = ci.launch_counts()
             peak = torch.cuda.max_memory_allocated()
-            run_cli(*heads[20_000], cpu_out, "cpu", counter)
+            run_cli(*heads[STAGE1_PAIRS], cpu_out, "cpu", counter)
             for f in CKPT_FILES:
                 if not filecmp.cmp(os.path.join(gpu_out, f), os.path.join(cpu_out, f), shallow=False):
                     raise AssertionError(f"-cnt {counter}: {f} differs between card and CPU")
             assert n_launch[op] > 0, n_launch
             if op not in run_launches:
                 run_launches[op] = n_launch[op]
-                run_of[op] = f"main path, -cnt {counter}, 20k pairs"
+                run_of[op] = f"main path, -cnt {counter}, {STAGE1_PAIRS // 1000}k pairs"
             print(f"-cnt {counter} -stage 1: card and CPU checkpoints byte-identical ({', '.join(CKPT_FILES)}); "
                   f"card launches {n_launch}; card peak device memory {peak} B ({peak / 2**30:.3f} GiB, the "
                   f"-mem 1 filters) [{card}]", flush=True)
@@ -3921,7 +4163,7 @@ def main(argv=None) -> int:
         extend_cpu = extend_card_vs_cpu(*heads[STAGE3_PAIRS], tmp)
         golden_on_card(tmp, card)
 
-        phase("6 stage 2b and the stage-3 extension walks on the 1M-pair -cnt mf8 -stage 2 output, on the card")
+        phase(f"6 stage 2b and the stage-3 extension walks on the {PAIRS_K}-pair -cnt mf8 -stage 2 output, on the card")
         # the main path of this slice: the rebuild, then the extension of
         # stage 3's first batches, with every launch count set to 0 before
         ci.reset_launch_counts()
@@ -3936,19 +4178,19 @@ def main(argv=None) -> int:
               flush=True)
 
         phase("7 stage 3's greedy walks (gap re-walks, tip and depth probes, the screen as a graph) vs plain PyTorch "
-              "on the rebuilt 1M-pair graph")
+              f"on the rebuilt {PAIRS_K}-pair graph")
         greedy3 = stage3_walks_vs_plain(rebuilt, cfg6, store6, card, dev, variants)
         del rebuilt
         torch.cuda.empty_cache()
 
-        phase("8 naive walk kernel vs plain PyTorch (-extend walks of the first stage-2 batch on the 1M-pair mf8 "
+        phase(f"8 naive walk kernel vs plain PyTorch (-extend walks of the first stage-2 batch on the {PAIRS_K}-pair mf8 "
               f"graph), then -stage 2 -extend on the first {EXTEND_BATCHES} batches, on the card")
         naive_variants = {name: lib for name, lib in variants.items() if hasattr(lib, "walk_naive")}
         naive = naive_vs_plain(os.path.join(out_mf8, "rnabloom.graph"), left, right, card, dev, naive_variants)
         shutil.rmtree(out_mf8)
         extend_run = extend_main_path(*heads[EXTEND_BATCHES * BATCH2], os.path.join(tmp, "out_extend"), card)
 
-        phase("9 single-end -stage 3, -pool -mergepool, -stage 2 -rescue and -k 25,27 -ntcard on slices of the 1M "
+        phase(f"9 single-end -stage 3, -pool -mergepool, -stage 2 -rescue and -k 25,27 -ntcard on slices of the {PAIRS_K} "
               "pairs, the single-end pair walks vs plain PyTorch, card vs CPU on each, on the card")
         short = short_read_paths(tmp, left, right, card, dev)
 
@@ -3968,10 +4210,12 @@ def main(argv=None) -> int:
         del built
         torch.cuda.empty_cache()
 
-        phase("12 the sharded graph engine (-sharded on): the stage-1 build at -mem 1 on meshes of 2 and 8 shards on "
+        phase("12 the sharded graph engine (-sharded on) and its routed and grouped walks: the stage-1 build at -mem 1 "
+              "on meshes of 2 and 8 shards on "
               f"the card (and one shard a card where several are visible) against one device, on both mates of the "
               f"first {MESH_PAIRS} pairs; -stage 3 on the 8-shard mesh against one device on {MESH_STAGE3_PAIRS} pairs "
-              f"and against the CPU on {STAGE3_PAIRS}")
+              f"and against the CPU on {STAGE3_PAIRS}; the sharded walk kernel on both meshes; -stage 3 under "
+              f"RNB_MESH_WALK=routed and grouped, -stage 2 -extend routed")
         mesh = mesh_builds(left, right, card, dev)
         mesh_runs = mesh_pipeline(*heads[MESH_STAGE3_PAIRS], heads[STAGE3_PAIRS], tmp, card, dev)
     finally:
@@ -4050,7 +4294,7 @@ def main(argv=None) -> int:
         "replaces": WALK_REPLACES,
         "launches": launches["walk_pair"],
         "run": f"{mf8_run}; times, bound and plain on phase 6's walks (extend_fragments_pair on stage 3's first "
-               f"{pair['batches']} batches of the rebuilt 1M-pair graph, {pair['launches']} launches; batch "
+               f"{pair['batches']} batches of the rebuilt {PAIRS_K}-pair graph, {pair['launches']} launches; batch "
                f"{pair['batch']}, the first full one, stratum {pair['stratum']})",
         "max_abs_err": pair["max_abs_err"],
         "ms": pair["ms"],
@@ -4116,7 +4360,7 @@ def main(argv=None) -> int:
         "launches": extend_run["launches"]["walk_naive"],
         "run": f"main path of phase 8, -cnt mf8 -stage 2 -extend on the first {EXTEND_BATCHES} batches "
                f"({extend_run['pairs']} pairs); times, bound and plain on the right -extend walks of the first "
-               f"stage-2 batch's {naive['fragments']} fragments on phase 3's 1M-pair graph",
+               f"stage-2 batch's {naive['fragments']} fragments on phase 3's {PAIRS_K}-pair graph",
         "max_abs_err": max(nr["max_abs_err"], nl["max_abs_err"]),
         "ms": nr["ms"],
         "plain_ms": nr["plain_ms"],
@@ -4233,7 +4477,7 @@ def main(argv=None) -> int:
         "oracle": oracle,
     })
     # phase 12: launches on the -sharded on -stage 3 run (every count set to 0
-    # before it) and on the 8-shard mesh build of the 1M pairs' head
+    # before it) and on the 8-shard mesh build of the pairs' head
     mesh8 = mesh["meshes"]["8 shards on one card"]
     for row in kernels:
         op = row["name"][len("cell_insert["):-1] if row["name"].startswith("cell_insert[") else row["name"]
@@ -4247,9 +4491,39 @@ def main(argv=None) -> int:
                                                    "second_rounds", "routed_calls", "peak_bytes")}
                    for what, st in mesh["meshes"].items()},
         "stage3": {tag: {key: v for key, v in mesh_runs[tag].items() if key != "launches"}
-                   for tag in ("mesh", "single")},
+                   for tag in ("mesh", "single", "routed", "grouped", "extend_routed", "extend_replicated")},
         "card_vs_cpu_files": mesh_runs["card_vs_cpu_files"],
     }
+    # the sharded walk layouts: launches on the routed -stage 3 run (greedy,
+    # pair) and the routed -stage 2 -extend run (naive), each with every
+    # count set to 0 before it; times on phase 12's walk cells, 8 shards
+    walks8, walks2 = mesh["walks"]["8 shards on one card"], mesh["walks"]["2 shards on one card"]
+    for mode in ("greedy", "pair", "naive"):
+        name = f"walk_{mode}_sharded"
+        run = mesh_runs["extend_routed" if mode == "naive" else "routed"]
+        w8, w2 = walks8[mode], walks2[mode]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": WALK_SOURCE,
+            "replaces": MESH_WALK_REPLACES,
+            "launches": run["launches"].get(name, 0),
+            "run": (f"phase 12, RNB_MESH_WALK=routed -sharded on over 8 shards of the card, "
+                    + (f"-stage 2 -extend on {STAGE3_PAIRS} pairs" if mode == "naive"
+                       else f"-stage 3 on {MESH_STAGE3_PAIRS} pairs")
+                    + f"; times and bound on phase 12's {w8['lanes']} {mode} lanes over its 8-shard mf8 graph of "
+                    f"{MESH_PAIRS} pairs, plain (the routed lockstep loop on the card) on the first {w8['plain_lanes']}"),
+            "max_abs_err": max(w8["max_abs_err"], w2["max_abs_err"]),
+            "ms": w8["ms"],
+            "plain_ms": w8["plain_ms"],
+            "bound_ms": w8["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "lanes": w8["lanes"],
+            "single_device_ms": w8["single_ms"],
+            "two_shards": {key: w2[key] for key in ("ms", "single_ms", "plain_ms", "bound_ms", "max_abs_err")},
+            **{key: w8[key] for key in ("plain_lanes", "hops", "max_hops", "statuses", "spec_hops", "turns_ms")},
+        })
     cell_keys = ("ms", "yardstick_ms", "plain_ms", "lanes", "hops", "statuses",
                  "yardstick_hops", "yardstick_statuses", "ns_per_hop", "yardstick_ns_per_hop", "max_abs_err")
     for row in kernels:

@@ -147,18 +147,12 @@ class PipelineParams:
 def _mesh_for(params: PipelineParams, device):
     """The mesh of this run (``params.sharded``): one shard a visible card
     when more than one is visible ("auto"), required ("on": raises where
-    fewer than two are visible or ``device`` is the CPU), or none ("off").
-    The routed and grouped mesh walks (``RNB_MESH_WALK``) are refused here,
-    before any work is done."""
+    fewer than two are visible or ``device`` is the CPU), or none ("off")."""
     if params.sharded == "off":
         return None
     mesh = engine.make_mesh_if_multi(device)
     if mesh is None and params.sharded == "on":
         raise RuntimeError("-sharded on requires >1 CUDA device")
-    walk_env = os.environ.get("RNB_MESH_WALK", "replicated")
-    if mesh is not None and walk_env != "replicated":
-        raise NotImplementedError(f"RNB_MESH_WALK={walk_env}: the routed and grouped mesh walks are not ported yet: "
-                                  f"{engine.ITEM_14D}")
     return mesh
 
 

@@ -221,8 +221,8 @@ def run(argv=None):
     from .utils import kselect
 
     device = engine.require_device(args.device)
-    # -sharded and RNB_MESH_WALK are checked before any work (the k
-    # selection reads reads); each entry point makes its mesh again
+    # -sharded is checked before any work (the k selection reads reads);
+    # each entry point makes its mesh again
     pipeline._mesh_for(pipeline.PipelineParams(sharded=args.sharded), device)
     # probe reads of -k LIST and -ntcard: the long reads, else the pairs,
     # else the unpaired reads

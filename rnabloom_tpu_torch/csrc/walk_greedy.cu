@@ -262,13 +262,34 @@ constexpr int kGateLanes = 2;  // dbgbf lanes read with a key's first cells
 // the count-min layouts with the terminator stop: kTermLayout + layout
 constexpr int kTermLayout = 8;
 
+// the layouts over a mesh's shards: kShardLayout + a count-min or exact
+// layout (0-6).  Each filter is split by hash range into 2^shards_log2
+// shards, each its own allocation (possibly on another card of the host,
+// read through peer access): element g lies in shard g >> shift at g &
+// (2^shift - 1), shift = log2(elements a shard); the blocked cbf's row
+// picks the shard.  The shards' base pointers come in a table in device
+// memory, staged in shared memory at block start (a kernel-parameter array
+// indexed by the shard would sit in the constant bank, where lanes reading
+// different shards serialize).  No terminators (the mesh walks take none).
+constexpr int kShardLayout = 16;
+constexpr int kMaxShards = 32;
+constexpr int kShardTables = 4;  // cbf, dbgbf, rpkbf, fpkbf
+constexpr int kShardBytes = kShardTables * kMaxShards * (int)sizeof(void*);
+enum { kTabCbf = 0, kTabDbg = 1, kTabPk = 2 };  // kTabPk + pair class
 template <int L>
-constexpr bool kIsExact = L >= kExactLayout && L < kTermLayout;
+constexpr bool kSharded = L >= kShardLayout;
+template <int L>  // the layout on one device
+constexpr int kOneDevice = kSharded<L> ? L - kShardLayout : L;
+template <int L>
+constexpr bool kIsExact = kOneDevice<L> >= kExactLayout && kOneDevice<L> < kTermLayout;
 // the terminator check is compiled in (it runs where p.term is set)
 template <int L>
-constexpr bool kTakesTerm = L >= kExactLayout;
+constexpr bool kTakesTerm = L >= kExactLayout && !kSharded<L>;
 template <int L>  // the counter layout
-constexpr int kCells = L >= kTermLayout ? L - kTermLayout : (kIsExact<L> ? L - kExactLayout : L);
+constexpr int kCells = kOneDevice<L> >= kTermLayout ? kOneDevice<L> - kTermLayout
+                                                    : (kIsExact<L> ? kOneDevice<L> - kExactLayout : kOneDevice<L>);
+template <int L>  // shared memory before the cycle rings: the shard tables
+constexpr int kTableBytes = kSharded<L> ? kShardBytes : 0;
 
 // published ntHash 64-bit seeds of A, C, G, T (N has seed 0)
 constexpr uint64_t kSeed0 = 0x3C8BFBB395C60474ull;
@@ -315,6 +336,11 @@ struct Walk {
   const uint8_t* term;
   uint64_t tmask;
   int tnh;
+  // sharded layouts: the shard tables (kShardTables x kMaxShards base
+  // pointers in device memory) and log2 of the elements a shard holds of
+  // the cbf (cells; rows in the blocked layout), the dbgbf and the pkbf
+  const unsigned char* const* shards;
+  int cshift, dshift, pshift;
 };
 
 constexpr int kGreedy = 0;
@@ -372,12 +398,30 @@ __device__ __forceinline__ uint64_t multi(const Walk& p, uint64_t base, int i) {
   return t ^ (t >> 27);
 }
 
+// the base of shard `s` of shard table `t`, from shared memory
+__device__ __forceinline__ const unsigned char* shard_base(int t, uint64_t s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  return ((const unsigned char* const*)(smem + kDecodeBytes))[t * kMaxShards + s];
+}
+
+// element g of a sharded filter of shard table `t`, shards of 2^shift elements of T
+template <typename T>
+__device__ __forceinline__ const T* shard_elem(int t, int shift, uint64_t g) {
+  return (const T*)shard_base(t, g >> shift) + (g & ((1ull << shift) - 1));
+}
+
 // raw cell i of key q (bit pattern in 32 bits)
 template <int L>
 __device__ __forceinline__ uint32_t load_cell(const Walk& p, uint64_t q, int i) {
   constexpr int C = kCells<L>;
   if (C == kI32Blocked) {
-    const int32_t* row = (const int32_t*)p.cbf + ((q >> 1) & p.rmask) * 128;
+    const int32_t* row;
+    if constexpr (kSharded<L>) {
+      const uint64_t r = (q >> 1) & p.rmask;  // the row picks the shard
+      row = (const int32_t*)shard_base(kTabCbf, r >> p.cshift) + (r & ((1ull << p.cshift) - 1)) * 128;
+    } else {
+      row = (const int32_t*)p.cbf + ((q >> 1) & p.rmask) * 128;
+    }
     const uint32_t lane0 = (uint32_t)(q >> 40) & 127u;
     uint32_t lane = lane0;
     if (i > 0) {
@@ -387,6 +431,11 @@ __device__ __forceinline__ uint32_t load_cell(const Walk& p, uint64_t q, int i) 
     return (uint32_t)__ldg(row + lane);
   }
   const uint64_t idx = (multi(p, q, i) >> 1) & p.mask;
+  if constexpr (kSharded<L>) {
+    if (C == kMf8) return __ldg(shard_elem<unsigned char>(kTabCbf, p.cshift, idx));
+    if (C == kU16) return __ldg(shard_elem<unsigned short>(kTabCbf, p.cshift, idx));
+    return (uint32_t)__ldg(shard_elem<int32_t>(kTabCbf, p.cshift, idx));
+  }
   if (C == kMf8) return __ldg((const unsigned char*)p.cbf + idx);
   if (C == kU16) return __ldg((const unsigned short*)p.cbf + idx);
   return (uint32_t)__ldg((const int32_t*)p.cbf + idx);
@@ -404,6 +453,16 @@ __device__ __forceinline__ float cell_count(const float* dec, uint32_t raw) {
 __device__ __forceinline__ uint32_t filter_lane(const Walk& p, const uint8_t* lanes, uint64_t mask, uint64_t q,
                                                 int i) {
   return __ldg(lanes + ((multi(p, q, i) >> 1) & mask));
+}
+
+// lane i of key q in the dbgbf (the exact-count gate)
+template <int L>
+__device__ __forceinline__ uint32_t gate_lane(const Walk& p, uint64_t q, int i) {
+  if constexpr (kSharded<L>) {
+    return __ldg(shard_elem<uint8_t>(kTabDbg, p.dshift, (multi(p, q, i) >> 1) & p.dmask));
+  } else {
+    return filter_lane(p, p.dbg, p.dmask, q, i);
+  }
 }
 
 // counts of M keys, as float32: count-min estimates, or on an exact layout
@@ -432,7 +491,7 @@ __device__ __forceinline__ void count_many(const Walk& p, const float* dec, cons
 #pragma unroll
         for (int m = 0; m < M; ++m) {
 #pragma unroll
-          for (int j = 0; j < DU; ++j) gate[m][j] = on[m] && j < p.dnh ? filter_lane(p, p.dbg, p.dmask, q[m], j) : 1u;
+          for (int j = 0; j < DU; ++j) gate[m][j] = on[m] && j < p.dnh ? gate_lane<L>(p, q[m], j) : 1u;
         }
       }
     }
@@ -450,7 +509,7 @@ __device__ __forceinline__ void count_many(const Walk& p, const float* dec, cons
       bool member = true;
 #pragma unroll
       for (int j = 0; j < DU; ++j) member &= gate[m][j] != 0u;
-      for (int j = DU; j < p.dnh && on[m] && member; ++j) member = filter_lane(p, p.dbg, p.dmask, q[m], j) != 0u;
+      for (int j = DU; j < p.dnh && on[m] && member; ++j) member = gate_lane<L>(p, q[m], j) != 0u;
       if (on[m]) out[m] = member ? out[m] + 1.0f : 0.0f;
     }
   }
@@ -1281,10 +1340,18 @@ struct Lane {
       reach_any |= on;
       if (!on) return;
       const uint64_t key = pair_key(ds ? pf1 : pf0, ds ? pr1 : pr0, qf, qr);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pb[i] = i < p.pnh ? __ldg(lanes + ((multi(p, key, i) >> 1) & p.pmask)) : 1;
       bool all = true;
-      for (int i = 4; i < p.pnh; ++i) all &= __ldg(lanes + ((multi(p, key, i) >> 1) & p.pmask)) != 0;
+      if constexpr (kSharded<L>) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pb[i] = i < p.pnh ? __ldg(shard_elem<uint8_t>(kTabPk + cls, p.pshift, (multi(p, key, i) >> 1) & p.pmask)) : 1;
+        for (int i = 4; i < p.pnh; ++i)
+          all &= __ldg(shard_elem<uint8_t>(kTabPk + cls, p.pshift, (multi(p, key, i) >> 1) & p.pmask)) != 0;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pb[i] = i < p.pnh ? __ldg(lanes + ((multi(p, key, i) >> 1) & p.pmask)) : 1;
+        for (int i = 4; i < p.pnh; ++i) all &= __ldg(lanes + ((multi(p, key, i) >> 1) & p.pmask)) != 0;
+      }
       pend = all;
       pend_d = da + ds;
     };
@@ -1511,13 +1578,18 @@ __global__ void __launch_bounds__(kMode == kNaive ? kNaiveThreads : kThreads,
     for (int i = threadIdx.x; i < 256; i += blockDim.x) dec[i] = p.decode[i];
     __syncthreads();
   }
+  if constexpr (kSharded<L>) {
+    const unsigned char** tables = (const unsigned char**)(smem + kDecodeBytes);
+    for (int i = threadIdx.x; i < kShardTables * kMaxShards; i += blockDim.x) tables[i] = p.shards[i];
+    __syncthreads();
+  }
   constexpr int GT = Lane<L, H, kDeep, kMode>::GT;
   TileOf<GT> tile = cg::tiled_partition<GT>(cg::this_thread_block());
   const int tile_in_block = threadIdx.x / GT;
   const int w = blockIdx.x * (blockDim.x / GT) + tile_in_block;
   if (w >= p.W) return;  // the whole tile leaves together
   const int rank = tile.thread_rank();
-  int64_t* rings = (int64_t*)(smem + kDecodeBytes);
+  int64_t* rings = (int64_t*)(smem + kDecodeBytes + kTableBytes<L>);
   int64_t* ring = rings + (size_t)tile_in_block * p.ring_stride;
   const int64_t* hist = p.hist + (size_t)w * p.cycle_window;
   for (int j = rank; j < p.cycle_window; j += GT) ring[j] = hist[j];
@@ -1569,11 +1641,13 @@ __global__ void __launch_bounds__(kMode == kNaive ? kNaiveThreads : kThreads,
   }
 }
 
-// a block's shared memory: the mf8 decode table, each tile's cycle ring
-// and, in pair mode, each tile's probe counts
-size_t smem_bytes(const Walk& p, int threads, int gt, bool pair) {
+// a block's shared memory: the mf8 decode table, the shard tables
+// (sharded layouts), each tile's cycle ring and, in pair mode, each tile's
+// probe counts
+size_t smem_bytes(const Walk& p, int threads, int gt, bool pair, int table_bytes) {
   const size_t tiles = threads / gt;
-  return kDecodeBytes + tiles * p.ring_stride * sizeof(int64_t) + (pair ? tiles * 4 * p.D * sizeof(float) : 0);
+  return kDecodeBytes + table_bytes + tiles * p.ring_stride * sizeof(int64_t) +
+         (pair ? tiles * 4 * p.D * sizeof(float) : 0);
 }
 
 template <int L, int H, bool kDeep, int kMode>
@@ -1582,7 +1656,7 @@ int launch(const Walk& p, cudaStream_t stream) {
   constexpr int GT = Lane<L, H, kDeep, kMode>::GT;
   // fewer lanes a block when their shared memory would pass the default 48 KB
   int threads = kMode == kNaive ? kNaiveThreads : kThreads;
-  while (threads > GT && smem_bytes(p, threads, GT, pair) > 48 * 1024) threads /= 2;
+  while (threads > GT && smem_bytes(p, threads, GT, pair, kTableBytes<L>) > 48 * 1024) threads /= 2;
   if (pair) {
     // pair walks are few (64-2048 lanes) and latency-bound: spread them
     // over every SM before any SM takes a second block
@@ -1593,7 +1667,7 @@ int launch(const Walk& p, cudaStream_t stream) {
     const int per_sm = sms > 0 ? (p.W + sms - 1) / sms : 1;
     if (per_sm * GT < threads) threads = per_sm * GT;
   }
-  const size_t smem = smem_bytes(p, threads, GT, pair);
+  const size_t smem = smem_bytes(p, threads, GT, pair, kTableBytes<L>);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(walk_greedy_kernel<L, H, kDeep, kMode>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1606,7 +1680,7 @@ int launch(const Walk& p, cudaStream_t stream) {
 
 template <int L, bool kDeep, int kMode>
 int launch_hash(const Walk& p, cudaStream_t stream) {
-  if constexpr (kTakesTerm<L>) {  // exact graphs and terminators: num_hash 2 or the generic read
+  if constexpr (kTakesTerm<L> || kSharded<L>) {  // exact graphs, terminators, shards: num_hash 2 or the generic read
     return p.num_hash == 2 ? launch<L, 2, kDeep, kMode>(p, stream) : launch<L, 0, kDeep, kMode>(p, stream);
   } else {
     switch (p.num_hash) {
@@ -1627,13 +1701,15 @@ int launch_hash(const Walk& p, cudaStream_t stream) {
 #endif
 
 // Which instantiations a library of this source holds (WALK_PART): 0, the
-// default, the count-min layouts in every mode.  The port builds four
-// libraries in four nvcc at once: 1 the count-min layouts' greedy mode, 2
+// default, the count-min layouts in every mode.  The port builds six
+// libraries in six nvcc at once: 1 the count-min layouts' greedy mode, 2
 // their pair and naive modes, 3 the exact-count layouts in every mode, 4
-// the count-min layouts with terminators in every mode.  A library refuses
-// the calls of the others.
+// the count-min layouts with terminators in every mode, 5 the sharded
+// count-min layouts and 6 the sharded exact-count layouts, in every mode.
+// A library refuses the calls of the others.
 template <int L, int kMode>
 constexpr bool built() {
+  if (kSharded<L>) return WALK_PART == (kIsExact<L> ? 6 : 5);
   if (L >= kTermLayout) return WALK_PART == 4;
   if (kIsExact<L>) return WALK_PART == 3;
   if (WALK_PART == 0) return true;
@@ -1656,8 +1732,13 @@ int launch_layout(const Walk& p, int mode, cudaStream_t stream) {
 }
 
 int launch_walk(const Walk& p, int layout, int mode, cudaStream_t s) {
-  // count-min walks with terminators take the layouts that check them
-  if (p.term && layout < kExactLayout) layout += kTermLayout;
+  // count-min walks with terminators take the layouts that check them;
+  // sharded walks (which take none) the sharded layouts
+  if (p.shards) {
+    layout += kShardLayout;
+  } else if (p.term && layout < kExactLayout) {
+    layout += kTermLayout;
+  }
   switch (layout) {
     case kMf8:
       return launch_layout<kMf8>(p, mode, s);
@@ -1681,6 +1762,20 @@ int launch_walk(const Walk& p, int layout, int mode, cudaStream_t s) {
       return launch_layout<kTermLayout + kI32>(p, mode, s);
     case kTermLayout + kI32Blocked:
       return launch_layout<kTermLayout + kI32Blocked>(p, mode, s);
+    case kShardLayout + kMf8:
+      return launch_layout<kShardLayout + kMf8>(p, mode, s);
+    case kShardLayout + kU16:
+      return launch_layout<kShardLayout + kU16>(p, mode, s);
+    case kShardLayout + kI32:
+      return launch_layout<kShardLayout + kI32>(p, mode, s);
+    case kShardLayout + kI32Blocked:
+      return launch_layout<kShardLayout + kI32Blocked>(p, mode, s);
+    case kShardLayout + kMf8Exact:
+      return launch_layout<kShardLayout + kMf8Exact>(p, mode, s);
+    case kShardLayout + kU16Exact:
+      return launch_layout<kShardLayout + kU16Exact>(p, mode, s);
+    case kShardLayout + kI32Exact:
+      return launch_layout<kShardLayout + kI32Exact>(p, mode, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1716,47 +1811,39 @@ Walk make_walk(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* hi
   return p;
 }
 
-}  // namespace
+// the shard tables into p (a sharded launch; null `shards`: one device):
+// false when they do not fit.  shards: kShardTables x kMaxShards base
+// pointers in device memory (cbf, dbgbf, rpkbf, fpkbf), 2^shards_log2 of
+// each filter's; pk_size_log2 < 0 where the walk reads no pkbf
+bool set_shards(Walk& p, int layout, const void* shards, int shards_log2, int size_log2, int dbg_size_log2,
+                int pk_size_log2) {
+  if (!shards) return true;
+  if (shards_log2 < 0 || (1 << shards_log2) > kMaxShards || p.term || layout < 0 || layout >= kTermLayout) return false;
+  p.shards = (const unsigned char* const*)shards;
+  p.cshift = (layout == kI32Blocked ? size_log2 - 7 : size_log2) - shards_log2;
+  p.dshift = dbg_size_log2 - shards_log2;
+  p.pshift = pk_size_log2 - shards_log2;
+  return p.cshift >= 0 && (layout < kExactLayout || p.dshift >= 0) && (pk_size_log2 < 0 || p.pshift >= 0);
+}
 
-extern "C" {
-
-int walk_greedy(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* hist,
-                int32_t* status, int32_t* hops, float* path_min, const float* min_cov,
-                const int32_t* bound, int W, int max_len, int cycle_window, const void* cbf,
-                int layout, int size_log2, int num_hash, const float* decode,
-                unsigned long long kms, int k, int stranded, int left, int lookahead,
-                int superstep_hops, int max_supersteps, const void* dbg, int dbg_size_log2, int dbg_num_hash,
-                const void* term, int term_size_log2, int term_num_hash, void* stream) {
-  if (W <= 0) return 0;
-  if (num_hash < 1 || lookahead < 1 || cycle_window < 1) return (int)cudaErrorInvalidValue;
-  Walk p = make_walk(buf, pos, fh, rh, hist, status, hops, path_min, min_cov, bound, W, max_len,
-                     cycle_window, cbf, size_log2, num_hash, decode, kms, k, stranded, left, lookahead,
-                     superstep_hops, max_supersteps);
-  if (!set_gates(p, layout, dbg, dbg_size_log2, dbg_num_hash, term, term_size_log2, term_num_hash))
+int greedy_entry(const Walk& p0, int layout, const void* dbg, int dbg_size_log2, int dbg_num_hash, const void* term,
+                 int term_size_log2, int term_num_hash, const void* shards, int shards_log2, int size_log2,
+                 void* stream) {
+  Walk p = p0;
+  if (!set_gates(p, layout, dbg, dbg_size_log2, dbg_num_hash, term, term_size_log2, term_num_hash) ||
+      !set_shards(p, layout, shards, shards_log2, size_log2, dbg_size_log2, -1))
     return (int)cudaErrorInvalidValue;
   return launch_walk(p, layout, kGreedy, (cudaStream_t)stream);
 }
 
-// walk_greedy's arguments (the gates included), then the pair ring (W, R) of each hash, R, the
-// probe depth D (1 <= D < k), the rpkbf and fpkbf lanes (null where the
-// class is off), the pair-key filter's size_log2 and num_hash, and the read
-// and fragment pair distances (0 where the class is off)
-int walk_pair(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* hist,
-              int32_t* status, int32_t* hops, float* path_min, const float* min_cov,
-              const int32_t* bound, int W, int max_len, int cycle_window, const void* cbf,
-              int layout, int size_log2, int num_hash, const float* decode,
-              unsigned long long kms, int k, int stranded, int left, int lookahead,
-              int superstep_hops, int max_supersteps, const void* dbg, int dbg_size_log2, int dbg_num_hash,
-              const void* term, int term_size_log2, int term_num_hash, int64_t* ring_fh, int64_t* ring_rh, int R, int D,
-              const void* rpkbf, const void* fpkbf, int pk_size_log2, int pk_num_hash, int read_dist,
-              int frag_dist, void* stream) {
-  if (W <= 0) return 0;
-  if (num_hash < 1 || cycle_window < 1 || R < 1 || D < 1 || D > k - 1) return (int)cudaErrorInvalidValue;
+int pair_entry(const Walk& p0, int layout, const void* dbg, int dbg_size_log2, int dbg_num_hash, const void* term,
+               int term_size_log2, int term_num_hash, int64_t* ring_fh, int64_t* ring_rh, int R, int D,
+               const void* rpkbf, const void* fpkbf, int pk_size_log2, int pk_num_hash, int read_dist, int frag_dist,
+               const void* shards, int shards_log2, int size_log2, void* stream) {
+  if (R < 1 || D < 1 || D > p0.k - 1) return (int)cudaErrorInvalidValue;
   if ((read_dist > 0 || frag_dist > 0) && (pk_num_hash < 1 || pk_size_log2 < 0 || pk_size_log2 > 32))
     return (int)cudaErrorInvalidValue;
-  Walk p = make_walk(buf, pos, fh, rh, hist, status, hops, path_min, min_cov, bound, W, max_len,
-                     cycle_window, cbf, size_log2, num_hash, decode, kms, k, stranded, left, lookahead,
-                     superstep_hops, max_supersteps);
+  Walk p = p0;
   p.ring_fh = ring_fh;
   p.ring_rh = ring_rh;
   p.R = R;
@@ -1767,9 +1854,64 @@ int walk_pair(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* his
   p.dist[1] = frag_dist > 0 && fpkbf ? frag_dist : 0;
   p.pmask = pk_size_log2 >= 32 ? 0xFFFFFFFFull : (1ull << pk_size_log2) - 1;
   p.pnh = pk_num_hash;
-  if (!set_gates(p, layout, dbg, dbg_size_log2, dbg_num_hash, term, term_size_log2, term_num_hash))
+  if (!set_gates(p, layout, dbg, dbg_size_log2, dbg_num_hash, term, term_size_log2, term_num_hash) ||
+      !set_shards(p, layout, shards, shards_log2, size_log2, dbg_size_log2,
+                  p.dist[0] > 0 || p.dist[1] > 0 ? pk_size_log2 : -1))
     return (int)cudaErrorInvalidValue;
   return launch_walk(p, layout, kPairMode, (cudaStream_t)stream);
+}
+
+int naive_entry(const Walk& p0, int layout, const void* dbg, int dbg_size_log2, int dbg_num_hash, const void* term,
+                int term_size_log2, int term_num_hash, int tip_probe_depth, int back, const void* shards,
+                int shards_log2, int size_log2, void* stream) {
+  Walk p = p0;
+  p.T = tip_probe_depth;
+  p.back = back;
+  for (int c = 0; c < 4; ++c) p.rot_k[c] = rotl(seed_of(c), p.k);
+  if (!set_gates(p, layout, dbg, dbg_size_log2, dbg_num_hash, term, term_size_log2, term_num_hash) ||
+      !set_shards(p, layout, shards, shards_log2, size_log2, dbg_size_log2, -1))
+    return (int)cudaErrorInvalidValue;
+  return launch_walk(p, layout, kNaive, (cudaStream_t)stream);
+}
+
+}  // namespace
+
+// the arguments every walk entry takes first: the walk state, the counter
+// table and its layout, the walk parameters, then the gates: dbgbf
+// dbgbf_size_log2 dbgbf_num_hash (null: count-min), terminators
+// term_size_log2 term_num_hash (null: none)
+#define WALK_PARAMS                                                                                               \
+  uint8_t *buf, int32_t *pos, int64_t *fh, int64_t *rh, int64_t *hist, int32_t *status, int32_t *hops,           \
+      float *path_min, const float *min_cov, const int32_t *bound, int W, int max_len, int cycle_window,          \
+      const void *cbf, int layout, int size_log2, int num_hash, const float *decode, unsigned long long kms, int k, \
+      int stranded, int left, int lookahead, int superstep_hops, int max_supersteps, const void *dbg,             \
+      int dbg_size_log2, int dbg_num_hash, const void *term, int term_size_log2, int term_num_hash
+#define WALK_STATE                                                                                           \
+  make_walk(buf, pos, fh, rh, hist, status, hops, path_min, min_cov, bound, W, max_len, cycle_window, cbf, \
+            size_log2, num_hash, decode, kms, k, stranded, left, lookahead, superstep_hops, max_supersteps)
+#define WALK_GATES layout, dbg, dbg_size_log2, dbg_num_hash, term, term_size_log2, term_num_hash
+// pair mode's arguments after the gates: the pair ring (W, R) of each hash,
+// R, the probe depth D (1 <= D < k), the rpkbf and fpkbf lanes (null where
+// the class is off), the pair-key filter's size_log2 and num_hash, and the
+// read and fragment pair distances (0 where the class is off)
+#define PAIR_PARAMS                                                                                      \
+  int64_t *ring_fh, int64_t *ring_rh, int R, int D, const void *rpkbf, const void *fpkbf, int pk_size_log2, \
+      int pk_num_hash, int read_dist, int frag_dist
+#define PAIR_ARGS ring_fh, ring_rh, R, D, rpkbf, fpkbf, pk_size_log2, pk_num_hash, read_dist, frag_dist
+
+extern "C" {
+
+int walk_greedy(WALK_PARAMS, void* stream) {
+  if (W <= 0) return 0;
+  if (num_hash < 1 || lookahead < 1 || cycle_window < 1) return (int)cudaErrorInvalidValue;
+  return greedy_entry(WALK_STATE, WALK_GATES, nullptr, 0, size_log2, stream);
+}
+
+// walk_greedy's arguments (the gates included), then PAIR_PARAMS
+int walk_pair(WALK_PARAMS, PAIR_PARAMS, void* stream) {
+  if (W <= 0) return 0;
+  if (num_hash < 1 || cycle_window < 1) return (int)cudaErrorInvalidValue;
+  return pair_entry(WALK_STATE, WALK_GATES, PAIR_ARGS, nullptr, 0, size_log2, stream);
 }
 
 // the timing of a kProfile build: the 2 * kProfSlots counters of g_prof
@@ -1786,25 +1928,56 @@ int walk_profile(unsigned long long* out, int reset) {
 
 // walk_greedy's arguments (the gates included), then tip_probe_depth and
 // whether hops check back branches (0 or 1)
-int walk_naive(uint8_t* buf, int32_t* pos, int64_t* fh, int64_t* rh, int64_t* hist,
-               int32_t* status, int32_t* hops, float* path_min, const float* min_cov,
-               const int32_t* bound, int W, int max_len, int cycle_window, const void* cbf,
-               int layout, int size_log2, int num_hash, const float* decode,
-               unsigned long long kms, int k, int stranded, int left, int lookahead,
-               int superstep_hops, int max_supersteps, const void* dbg, int dbg_size_log2, int dbg_num_hash,
-               const void* term, int term_size_log2, int term_num_hash, int tip_probe_depth, int back,
-               void* stream) {
+int walk_naive(WALK_PARAMS, int tip_probe_depth, int back, void* stream) {
   if (W <= 0) return 0;
   if (num_hash < 1 || cycle_window < 1) return (int)cudaErrorInvalidValue;
-  Walk p = make_walk(buf, pos, fh, rh, hist, status, hops, path_min, min_cov, bound, W, max_len,
-                     cycle_window, cbf, size_log2, num_hash, decode, kms, k, stranded, left, lookahead,
-                     superstep_hops, max_supersteps);
-  p.T = tip_probe_depth;
-  p.back = back;
-  for (int c = 0; c < 4; ++c) p.rot_k[c] = rotl(seed_of(c), k);
-  if (!set_gates(p, layout, dbg, dbg_size_log2, dbg_num_hash, term, term_size_log2, term_num_hash))
-    return (int)cudaErrorInvalidValue;
-  return launch_walk(p, layout, kNaive, (cudaStream_t)stream);
+  return naive_entry(WALK_STATE, WALK_GATES, tip_probe_depth, back, nullptr, 0, size_log2, stream);
+}
+
+// The sharded walks: each mode's arguments, then the shard tables
+// (kShardTables x kMaxShards base pointers in device memory: the cbf, the
+// dbgbf, the rpkbf and the fpkbf, shard by shard) and log2 of the shard
+// count.  `cbf`, `dbg`, `rpkbf` and `fpkbf` are shard 0's (null where
+// absent): the kernel reads every filter through the tables.  `layout` is a
+// count-min or exact layout (0-6); no terminators.
+int walk_greedy_sharded(WALK_PARAMS, const void* shards, int shards_log2, void* stream) {
+  if (W <= 0) return 0;
+  if (!shards || num_hash < 1 || lookahead < 1 || cycle_window < 1) return (int)cudaErrorInvalidValue;
+  return greedy_entry(WALK_STATE, WALK_GATES, shards, shards_log2, size_log2, stream);
+}
+
+int walk_pair_sharded(WALK_PARAMS, PAIR_PARAMS, const void* shards, int shards_log2, void* stream) {
+  if (W <= 0) return 0;
+  if (!shards || num_hash < 1 || cycle_window < 1) return (int)cudaErrorInvalidValue;
+  return pair_entry(WALK_STATE, WALK_GATES, PAIR_ARGS, shards, shards_log2, size_log2, stream);
+}
+
+int walk_naive_sharded(WALK_PARAMS, int tip_probe_depth, int back, const void* shards, int shards_log2,
+                       void* stream) {
+  if (W <= 0) return 0;
+  if (!shards || num_hash < 1 || cycle_window < 1) return (int)cudaErrorInvalidValue;
+  return naive_entry(WALK_STATE, WALK_GATES, tip_probe_depth, back, shards, shards_log2, size_log2, stream);
+}
+
+// peer access from `device` to `peer`'s memory (a sharded walk on `device`
+// reads shards on `peer`); already enabled counts as done
+int walk_peer_access(int device, int peer) {
+  int can = 0, prev = 0;
+  cudaError_t err = cudaDeviceCanAccessPeer(&can, device, peer);
+  if (err != cudaSuccess) return (int)err;
+  if (!can) return (int)cudaErrorPeerAccessUnsupported;
+  err = cudaGetDevice(&prev);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    if (err == cudaErrorPeerAccessAlreadyEnabled) {
+      cudaGetLastError();
+      err = cudaSuccess;
+    }
+    const cudaError_t back = cudaSetDevice(prev);
+    if (err == cudaSuccess) err = back;
+  }
+  return (int)err;
 }
 
 }  // extern "C"

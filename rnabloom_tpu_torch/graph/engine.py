@@ -8,10 +8,15 @@ single-device code (``graph/dbg.py``, ``graph/traverse.py``); a
 ``parallel/sharded.py``: the build and rebuild steps route every insert to
 its owner shard, and queries and walks read a replica of the graph
 gathered once a graph version, one a distinct device, with the walk lanes
-split over the devices (``RNB_MESH_WALK=routed`` routes the queries'
-reads to the shards instead; the routed and grouped walks are not ported).
-Queries return numpy, as the JAX package's do.  Both engines give the same
-filters outside the trash cells, the same counts and the same walks.
+split over the devices.  ``RNB_MESH_WALK`` picks another engine, as in the
+JAX package: ``grouped`` walks over the filters regrouped
+``RNB_MESH_GROUP`` (default 2) ways, each group's copy replicated over the
+groups; any other value but ``replicated`` walks routed, every read
+answered by the shard that owns it.  On the card the walk kernel reads
+those shards in place, and the queries of both route their reads to the
+graph's shards.  Queries return numpy, as the JAX
+package's do.  Both engines give the same filters outside the trash cells,
+the same counts and the same walks.
 """
 
 from __future__ import annotations
@@ -29,8 +34,6 @@ from . import dbg, traverse
 from .dbg import GraphConfig, GraphState
 
 DISPATCHES = {"build": 0, "query": 0, "walk": 0}
-
-ITEM_14D = "ROADMAP queue-1 item 14d"
 
 
 def _tick(kind: str) -> None:
@@ -53,11 +56,13 @@ def require_device(device) -> torch.device:
 @dataclass
 class MeshGraph:
     """A sharded graph state over a mesh, with the replicas its queries
-    and walks read."""
+    and walks read and the group states of its grouped walks (both cached
+    until a build or rebuild step rebinds ``state``)."""
 
     mesh: object  # parallel.comm.Mesh
     state: object  # parallel.sharded.ShardedGraphState
     _replicas: dict = field(default_factory=dict)
+    _groups: dict = field(default_factory=dict)  # r -> (state, group states)
 
     @property
     def rpkbf(self):
@@ -340,19 +345,56 @@ def _take(state: traverse.WalkState, lanes: slice, device) -> traverse.WalkState
     return traverse.WalkState(*(None if t is None else t[lanes].to(device) for t in state))
 
 
+def _group_states(graph: MeshGraph, cfg: GraphConfig, gmesh) -> tuple:
+    """The filters regrouped ``gmesh.r`` ways (``sharded.group_state``),
+    cached until a build or rebuild step rebinds ``graph.state``."""
+    from ..parallel import sharded
+
+    cached = graph._groups.get(gmesh.r)
+    if cached is not None and cached[0] is graph.state:
+        return cached[1]
+    graph._groups.clear()  # one graph version's group states at a time
+    states = sharded.group_state(gmesh, graph.state, cfg)
+    graph._groups[gmesh.r] = (graph.state, states)
+    return states
+
+
+def _pad_lanes(state: traverse.WalkState, pad: int) -> traverse.WalkState:
+    """``pad`` copies of lane 0 after the lanes (the JAX package's)."""
+    return traverse.WalkState(*(None if t is None else torch.cat([t, t[:1].expand(pad, *t.shape[1:])])
+                                for t in state))
+
+
 def extend_walks(wstate, graph, cfg: GraphConfig, wcfg, min_cov, bound, mode: str = "greedy"):
     """Extend every walk lane to completion (``traverse.extend_walks``).
 
-    On a mesh the walks read replicas of the graph, one a distinct
-    device, the lanes split into one contiguous run a device; every lane
-    walks as it would on one device."""
+    On a mesh, as ``RNB_MESH_WALK`` says: ``replicated`` (the default)
+    reads replicas of the graph, one a distinct device, the lanes split
+    into one contiguous run a device; ``grouped`` reads the filters
+    regrouped ``RNB_MESH_GROUP`` ways (the lanes padded with copies of
+    lane 0 to a multiple of the shard count, as in the JAX package);
+    any other value walks routed (``sharded.sharded_extend_walks``; the
+    lanes must split evenly over the shards).  Every lane walks as it
+    would on one device."""
     _tick("walk")
     if not is_sharded(graph):
         return traverse.extend_walks(wstate, graph, cfg, wcfg, min_cov, bound, mode=mode)
+    from ..parallel import sharded
+
     walk_env = os.environ.get("RNB_MESH_WALK", "replicated")
+    if walk_env == "grouped":
+        gmesh = sharded.make_group_mesh(int(os.environ.get("RNB_MESH_GROUP", "2")), graph.mesh)
+        states = _group_states(graph, cfg, gmesh)
+        W = wstate.pos.shape[0]
+        pad = (-W) % graph.mesh.size
+        min_cov, bound = traverse.lane_args(wstate, min_cov, bound)
+        if pad:
+            wstate = _pad_lanes(wstate, pad)
+            min_cov, bound = torch.cat([min_cov, min_cov[:1].expand(pad)]), torch.cat([bound, bound[:1].expand(pad)])
+        out = sharded.grouped_extend_walks(gmesh, cfg, wcfg, mode)(wstate, states, min_cov, bound)
+        return traverse.take_lanes(out, slice(0, W)) if pad else out
     if walk_env != "replicated":
-        raise NotImplementedError(f"RNB_MESH_WALK={walk_env}: the routed and grouped mesh walks are not ported "
-                                  f"yet: {ITEM_14D}")
+        return sharded.sharded_extend_walks(graph.mesh, cfg, wcfg, mode)(wstate, graph.state, min_cov, bound)
     devices = graph.mesh.distinct
     if len(devices) == 1:
         return traverse.extend_walks(wstate, _replicated_graph(graph, cfg, devices[0]), cfg, wcfg, min_cov, bound,

@@ -2,8 +2,8 @@
 
 Port of ``rnabloom_tpu/graph/traverse.py`` for ``mode="greedy"``,
 ``mode="pair"`` (with the pair ring) and ``mode="naive"``, with the
-back-branch check and terminators, without speculative hops (a
-multi-device option).  W walks advance as lanes of one batch:
+back-branch check, terminators and speculative hops.  W walks advance as
+lanes of one batch:
 
   * a superstep advances every ACTIVE lane while it has exactly one viable
     successor, for up to ``superstep_hops`` hops; a lane freezes at a dead
@@ -19,6 +19,13 @@ multi-device option).  W walks advance as lanes of one batch:
     resume;
   * supersteps repeat while any lane is ACTIVE or BRANCH, at most
     ``max_supersteps`` times.
+
+Every filter read of the loop goes through a backend: ``DeviceBackend``
+reads one device's filters; ``parallel.sharded.ShardedBackend`` routes the
+reads to the shards of a mesh, where the routed and grouped mesh walks
+(``sharded.sharded_extend_walks``) default to speculative supersteps
+(``WalkConfig.spec_hops`` = 2: each round reads the depth-2 successor tree
+at once, then takes its hops one by one).
 
 ``extend_walks`` goes through ``ops.walk.walk_greedy``, ``walk_pair`` or
 ``walk_naive``: the CUDA kernel ``csrc/walk_greedy.cu`` (a tile of threads
@@ -77,6 +84,11 @@ class WalkConfig:
     term_cfg: Optional[BloomConfig] = None
     pair_ring: int = 0  # > 0: a ring of the last k-mer hashes for pair lookups
     pair_probe_depth: int = 24  # naive probe length per candidate (< k)
+    # hops a superstep round reads ahead: > 1 reads the depth-D successor
+    # tree in one batched count read, then advances up to D hops by the
+    # per-hop rules, ceil(max_hops / D) rounds a superstep; < k, ignored
+    # with check_back_branches (its variant probes read hop by hop)
+    spec_hops: int = 1
 
 
 class WalkState(NamedTuple):
@@ -178,6 +190,23 @@ def revcomp_reseed(cfg: GraphConfig, wcfg: WalkConfig, buf: torch.Tensor, pos: t
     return _make(cfg, wcfg, rc, pos.long())
 
 
+class DeviceBackend:
+    """The walk loop's filter reads on one device (the default).
+    ``parallel.sharded.ShardedBackend`` reads a mesh's shards instead."""
+
+    def counts(self, graph: GraphState, cfg: GraphConfig, base: torch.Tensor) -> torch.Tensor:
+        return dbg.get_counts(graph, cfg, base)
+
+    def bloom_lookup(self, lanes: torch.Tensor, bcfg: BloomConfig, hashes: torch.Tensor) -> torch.Tensor:
+        return filters.bloom_lookup(lanes, bcfg, hashes)
+
+    def any_global(self, x: torch.Tensor) -> bool:
+        return bool(x.any())
+
+
+DEVICE_BACKEND = DeviceBackend()
+
+
 def _query_hash(cfg: GraphConfig, wcfg: WalkConfig, fh: torch.Tensor, rh: torch.Tensor) -> torch.Tensor:
     """Filter-query hash of a walk k-mer: the signed min of both strands,
     or in stranded mode the forward strand's hash (``rh`` for left walks)."""
@@ -249,28 +278,106 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
     return torch.argmax(mask.to(torch.uint8), dim=-1)
 
 
+def _superstep_round_spec(
+    st: WalkState,
+    graph,
+    cfg: GraphConfig,
+    wcfg: WalkConfig,
+    min_cov: torch.Tensor,
+    bound: torch.Tensor,
+    terminators: Optional[torch.Tensor],
+    backend: DeviceBackend,
+    D: int,
+) -> WalkState:
+    """One speculative round: the depth-D successor tree of every lane's
+    k-mer, its counts in one batched read (and its terminator lookups in
+    another), then up to D hops by the per-hop rules of ``walk_superstep``.
+    The base leaving the window at hop d + 1 is buf[pos - k + d], the same
+    for every level-d node, so the tree needs no buffer of its own."""
+    W, k = st.pos.shape[0], cfg.k
+    fh_lv, rh_lv, q_lv = [], [], []
+    fh_cur, rh_cur = st.fh, st.rh
+    width = 1
+    for d in range(D):
+        out = _buf_at(st.buf, torch.clamp(st.pos - k + d, min=0))
+        outb = out if width == 1 else out[:, None].expand(W, width)
+        f4, r4 = nthash.successor_hashes(fh_cur, outb, k, rh=rh_cur)
+        width *= 4
+        fh_cur, rh_cur = f4.reshape(W, width), r4.reshape(W, width)
+        fh_lv.append(fh_cur)
+        rh_lv.append(rh_cur)
+        q_lv.append(_query_hash(cfg, wcfg, fh_cur, rh_cur))
+    qcat = torch.cat(q_lv, dim=1)
+    counts_all = backend.counts(graph, cfg, qcat)  # one read for the whole tree
+    term_all = None
+    if wcfg.use_terminators and terminators is not None:
+        tcfg = wcfg.term_cfg
+        term_all = backend.bloom_lookup(terminators, tcfg, nthash.multi_hash(qcat, k, tcfg.num_hash))
+
+    offs = np.concatenate([[0], np.cumsum([4 ** (d + 1) for d in range(D)])])
+    path = torch.zeros(W, dtype=torch.int64, device=st.pos.device)  # base-4 index of the walked tree path
+    arange4 = torch.arange(4, device=st.pos.device)[None, :]
+    floor = torch.clamp(min_cov, min=1.0)[:, None]
+    for d in range(D):
+        active = st.status == ACTIVE
+        sel = path[:, None] * 4 + arange4  # (W, 4) level-local indices
+        c4 = counts_all[:, offs[d] : offs[d + 1]].gather(1, sel)
+        fh4, rh4, q4 = fh_lv[d].gather(1, sel), rh_lv[d].gather(1, sel), q_lv[d].gather(1, sel)
+        viable = c4 >= floor
+        nviable = viable.sum(dim=1)
+        code = _first_true(viable)
+        cyc = _in_hist(st.hist, _pick(q4, code))
+        term = torch.zeros_like(cyc)
+        if term_all is not None:
+            term = term_all[:, offs[d] : offs[d + 1]].gather(1, (path * 4 + code)[:, None])[:, 0]
+        full = (st.pos >= wcfg.max_len - 1) | (st.hops >= bound)
+        advance = active & (nviable == 1) & ~cyc & ~term & ~full
+        status = torch.where(
+            nviable == 0, DEAD,
+            torch.where(nviable > 1, BRANCH,
+                        torch.where(cyc, CYCLE, torch.where(term, TERM, torch.where(full, FULL, ACTIVE)))),
+        )
+        new_status = torch.where(active, status, st.status).to(torch.int32)
+        st = _apply_advance(st, wcfg, advance, code, fh4, rh4, q4, c4)
+        st = st._replace(status=new_status)
+        path = torch.where(advance, path * 4 + code, path)
+    return st
+
+
 def walk_superstep(
     state: WalkState,
-    graph: GraphState,
+    graph,
     cfg: GraphConfig,
     wcfg: WalkConfig,
     min_cov: torch.Tensor,  # (W,) float32 per-lane coverage floor
     bound: torch.Tensor,  # (W,) int32 max hops per lane
     max_hops: int,
     terminators: Optional[torch.Tensor] = None,  # screening filter lanes
+    backend: DeviceBackend = DEVICE_BACKEND,
 ) -> WalkState:
     """Advance every ACTIVE lane while it has exactly one viable successor,
     for up to ``max_hops`` hops.  With ``wcfg.use_terminators`` and
     ``terminators``, a lane whose single viable successor is in the
-    filter (all ``term_cfg.num_hash`` lanes set) stops TERM."""
+    filter (all ``term_cfg.num_hash`` lanes set) stops TERM.  With
+    ``wcfg.spec_hops`` = D > 1 (and no back-branch checks) it runs
+    ceil(max_hops / D) speculative rounds of D hops: the same walks as D
+    times as many one-hop rounds."""
+    D = wcfg.spec_hops
+    if D > 1 and not wcfg.check_back_branches:
+        assert D < cfg.k, "speculative depth must stay within the k-mer window"
+        for _ in range(-(-max_hops // D)):
+            if not backend.any_global(state.status == ACTIVE):
+                break
+            state = _superstep_round_spec(state, graph, cfg, wcfg, min_cov, bound, terminators, backend, D)
+        return state
     floor = torch.clamp(min_cov, min=1.0)[:, None]
     for _ in range(max_hops):
         active = state.status == ACTIVE
-        if not bool(active.any()):
+        if not backend.any_global(active):
             break
         out_codes = _gather_out_codes(state.buf, state.pos, cfg.k)
         fh4, rh4, q4 = _successors(cfg, wcfg, state.fh, state.rh, out_codes)
-        counts = dbg.get_counts(graph, cfg, q4)  # (W, 4)
+        counts = backend.counts(graph, cfg, q4)  # (W, 4)
         viable = counts >= floor
         nviable = viable.sum(dim=1)
         code = _first_true(viable)  # the single viable candidate when nviable == 1
@@ -281,7 +388,7 @@ def walk_superstep(
         after_cyc = torch.where(full, FULL, ACTIVE)
         if wcfg.use_terminators and terminators is not None:
             tcfg = wcfg.term_cfg
-            term = filters.bloom_lookup(terminators, tcfg, nthash.multi_hash(qn, cfg.k, tcfg.num_hash))
+            term = backend.bloom_lookup(terminators, tcfg, nthash.multi_hash(qn, cfg.k, tcfg.num_hash))
             stop = cyc | term
             after_cyc = torch.where(term, TERM, after_cyc)
         back = torch.zeros_like(cyc)
@@ -289,10 +396,11 @@ def walk_superstep(
             # an incoming branch merges here when a left variant of the
             # k-mer (not the k-mer itself) is viable and deep
             flv, rlv = nthash.variant_hashes_left(state.fh, out_codes, cfg.k, state.rh)
-            cv = dbg.get_counts(graph, cfg, _query_hash(cfg, wcfg, flv, rlv))
+            cv = backend.counts(graph, cfg, _query_hash(cfg, wcfg, flv, rlv))
             is_self = torch.arange(4, device=out_codes.device)[None, :] == out_codes[:, None]
             viable_v = (cv >= floor) & ~is_self & active[:, None]  # other lanes' depths are not read
-            depth_v = _variant_depth_probe(graph, cfg, wcfg, state.buf, state.pos, flv, rlv, viable_v, min_cov)
+            depth_v = _variant_depth_probe(graph, cfg, wcfg, state.buf, state.pos, flv, rlv, viable_v, min_cov,
+                                           backend)
             back = (depth_v >= wcfg.tip_probe_depth).any(dim=1)
         advance = active & (nviable == 1) & ~stop & ~full & ~back
         status = torch.where(
@@ -307,25 +415,30 @@ def walk_superstep(
 
 
 def _expand_scores(
-    graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, buf, pos, fh4, rh4, q4
+    graph, cfg: GraphConfig, wcfg: WalkConfig, buf, pos, fh4, rh4, q4, backend: DeviceBackend = DEVICE_BACKEND,
 ) -> torch.Tensor:
     """Greedy lookahead scores per candidate (W, 4): the max over
     depth-(lookahead-1) expansions of the minimum coverage along the path;
-    lookahead 1 scores count(c).  Past depth 3 each of the 64 depth-3
+    lookahead 1 scores count(c).  The tree's first levels (4 + 16 + 64
+    k-mers at lookahead 3) are one batched read, as in the JAX package
+    (one routed round on a mesh).  Past depth 3 each of the 64 depth-3
     leaves continues by a greedy max-count descent."""
     W, k = pos.shape[0], cfg.k
-    cand = dbg.get_counts(graph, cfg, q4)
     if wcfg.lookahead == 1:
-        return cand
+        return backend.counts(graph, cfg, q4)
     out1 = _buf_at(buf, pos - k + 1)[:, None].expand(W, 4)
     fh_l1, rh_l1 = nthash.successor_hashes(fh4, out1, k, rh=rh4)  # (W, 4, 4)
-    c_l1 = dbg.get_counts(graph, cfg, _query_hash(cfg, wcfg, fh_l1, rh_l1))
+    q_l1 = _query_hash(cfg, wcfg, fh_l1, rh_l1).reshape(W, 16)
     if wcfg.lookahead == 2:
+        ccat = backend.counts(graph, cfg, torch.cat([q4, q_l1], dim=1))
+        cand, c_l1 = ccat[:, :4], ccat[:, 4:20].reshape(W, 4, 4)
         return torch.minimum(cand[:, :, None], c_l1).amax(dim=-1)
 
     out2 = _buf_at(buf, pos - k + 2)[:, None, None].expand(W, 4, 4)
     fh_l2, rh_l2 = nthash.successor_hashes(fh_l1, out2, k, rh=rh_l1)  # (W, 4, 4, 4)
-    c_l2 = dbg.get_counts(graph, cfg, _query_hash(cfg, wcfg, fh_l2, rh_l2))
+    q_l2 = _query_hash(cfg, wcfg, fh_l2, rh_l2).reshape(W, 64)
+    ccat = backend.counts(graph, cfg, torch.cat([q4, q_l1, q_l2], dim=1))
+    cand, c_l1, c_l2 = ccat[:, :4], ccat[:, 4:20].reshape(W, 4, 4), ccat[:, 20:84].reshape(W, 4, 4, 4)
     path_min = torch.minimum(torch.minimum(cand[:, :, None, None], c_l1[:, :, :, None]), c_l2)
     if wcfg.lookahead == 3:
         return path_min.amax(dim=(-2, -1))
@@ -335,14 +448,15 @@ def _expand_scores(
     for i in range(wcfg.lookahead - 3):
         outc = _buf_at(buf, pos - k + 3 + i)[:, None].expand(W, 64).reshape(leaves)
         f4, r4 = nthash.successor_hashes(fh_c, outc, k, rh=rh_c)
-        cc = dbg.get_counts(graph, cfg, _query_hash(cfg, wcfg, f4, r4))  # (leaves, 4)
+        cc = backend.counts(graph, cfg, _query_hash(cfg, wcfg, f4, r4))  # (leaves, 4)
         best = torch.argmax(cc, dim=1)  # first maximum, as jnp.argmax
         fh_c, rh_c = _pick(f4, best), _pick(r4, best)
         pmin = torch.minimum(pmin, _pick(cc, best))
     return pmin.reshape(W, 4, 16).amax(dim=-1)
 
 
-def _variant_depth_probe(graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, buf, pos, flv, rlv, viable0, min_cov):
+def _variant_depth_probe(graph, cfg: GraphConfig, wcfg: WalkConfig, buf, pos, flv, rlv, viable0, min_cov,
+                         backend: DeviceBackend = DEVICE_BACKEND):
     """Greedy forward depth (W, 4) of each left variant of the current
     k-mer (the variant itself is depth 1 when viable0): ``tip_probe_depth
     - 1`` steps, each to the first max-count successor that reaches the
@@ -359,7 +473,7 @@ def _variant_depth_probe(graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, 
             break  # nothing moves any more
         outc = var_base if i == 0 else _buf_at(buf, pos - k + i)[:, None].expand(W, 4).reshape(W * 4)
         f4, r4 = nthash.successor_hashes(fh_c, outc, k, rh=rh_c)
-        cc = dbg.get_counts(graph, cfg, _query_hash(cfg, wcfg, f4, r4))  # (W*4, 4)
+        cc = backend.counts(graph, cfg, _query_hash(cfg, wcfg, f4, r4))  # (W*4, 4)
         ok = cc >= mc
         best = torch.argmax(torch.where(ok, cc, -1.0), dim=1)  # first maximum
         alive = alive & ok.any(dim=1)
@@ -369,7 +483,8 @@ def _variant_depth_probe(graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, 
     return depth
 
 
-def _tip_probe(graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, buf, pos, fh4, rh4, viable0, min_cov):
+def _tip_probe(graph, cfg: GraphConfig, wcfg: WalkConfig, buf, pos, fh4, rh4, viable0, min_cov,
+               backend: DeviceBackend = DEVICE_BACKEND):
     """Beam-2 depth probe per candidate (W, 4) (the candidate is depth 1
     when viable0): ``tip_probe_depth - 1`` steps following the two best
     viable successor paths.  Slot 1 of a candidate's beam starts dead;
@@ -391,7 +506,7 @@ def _tip_probe(graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, buf, pos, 
             break  # nothing moves any more
         outc = _buf_at(buf, pos - k + 1 + i)[:, None].expand(W, 8).reshape(W * 8)
         f4, r4 = nthash.successor_hashes(fh_c, outc, k, rh=rh_c)  # (W*8, 4)
-        cc = dbg.get_counts(graph, cfg, _query_hash(cfg, wcfg, f4, r4))
+        cc = backend.counts(graph, cfg, _query_hash(cfg, wcfg, f4, r4))
         ok = (cc >= mc) & alive[:, None]
         score = torch.where(ok, cc, -1.0).reshape(W * 4, 8)
         top1 = torch.argmax(score, dim=1)
@@ -405,7 +520,8 @@ def _tip_probe(graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, buf, pos, 
     return depth
 
 
-def _probe_with_hashes(graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, buf, pos, fh4, rh4, q4, min_cov):
+def _probe_with_hashes(graph, cfg: GraphConfig, wcfg: WalkConfig, buf, pos, fh4, rh4, q4, min_cov,
+                       backend: DeviceBackend = DEVICE_BACKEND):
     """Greedy naive descent of ``pair_probe_depth`` k-mers per candidate
     (probe 0 is the candidate), each step to the max-count successor that
     reaches the coverage floor.  Returns (fh_p, rh_p, counts_p, alive_p),
@@ -414,7 +530,7 @@ def _probe_with_hashes(graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, bu
     W, k, D = pos.shape[0], cfg.k, wcfg.pair_probe_depth
     assert D <= k - 1, "pair_probe_depth must stay below k"
     floor = torch.clamp(min_cov, min=1.0)[:, None]
-    counts0 = dbg.get_counts(graph, cfg, q4)
+    counts0 = backend.counts(graph, cfg, q4)
     alive = (counts0 >= floor).reshape(W * 4)
     fh_c, rh_c = fh4.reshape(W * 4), rh4.reshape(W * 4)
     mc = floor.expand(W, 4).reshape(W * 4, 1)
@@ -422,7 +538,7 @@ def _probe_with_hashes(graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, bu
     for j in range(1, D):
         outc = _buf_at(buf, pos - k + j)[:, None].expand(W, 4).reshape(W * 4)
         f4, r4 = nthash.successor_hashes(fh_c, outc, k, rh=rh_c)
-        cc = dbg.get_counts(graph, cfg, _query_hash(cfg, wcfg, f4, r4))  # (W*4, 4)
+        cc = backend.counts(graph, cfg, _query_hash(cfg, wcfg, f4, r4))  # (W*4, 4)
         ok = cc >= mc
         best = torch.argmax(torch.where(ok, cc, -1.0), dim=1)  # first maximum
         alive = alive & ok.any(dim=1)
@@ -435,8 +551,8 @@ def _probe_with_hashes(graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, bu
     return tuple(torch.stack(x, dim=-1).reshape(W, 4, D) for x in (fhs, rhs, cs, als))
 
 
-def _pair_scores(state: WalkState, graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, fh_p, rh_p, counts_p,
-                 alive_p):
+def _pair_scores(state: WalkState, graph, cfg: GraphConfig, wcfg: WalkConfig, fh_p, rh_p, counts_p, alive_p,
+                 backend: DeviceBackend = DEVICE_BACKEND):
     """extendRightPE scores per candidate (W, 4), its median probe coverage
     and whether it is viable:
 
@@ -467,7 +583,8 @@ def _pair_scores(state: WalkState, graph: GraphState, cfg: GraphConfig, wcfg: Wa
             ph = nthash.combine_canonical(rh_p, fh_p, pr, pf)
         else:
             ph = nthash.combine_canonical(pf, pr, fh_p, rh_p)
-        sup = dbg.lookup_pair(lanes, cfg, ph) & reachable & alive_p
+        hp = nthash.multi_hash(ph, k, cfg.pkbf.num_hash)
+        sup = backend.bloom_lookup(lanes, cfg.pkbf, hp) & reachable & alive_p
         return sup, (reachable & alive_p).any(dim=-1)
 
     none = (torch.zeros_like(alive_p), torch.zeros_like(alive_p[..., 0]))
@@ -495,8 +612,8 @@ def _pair_scores(state: WalkState, graph: GraphState, cfg: GraphConfig, wcfg: Wa
 
 
 def resolve_branches(
-    state: WalkState, graph: GraphState, cfg: GraphConfig, wcfg: WalkConfig, min_cov: torch.Tensor,
-    mode: str = "greedy",
+    state: WalkState, graph, cfg: GraphConfig, wcfg: WalkConfig, min_cov: torch.Tensor, mode: str = "greedy",
+    backend: DeviceBackend = DEVICE_BACKEND,
 ) -> WalkState:
     """Resolve BRANCH lanes.
 
@@ -516,11 +633,11 @@ def resolve_branches(
     at_branch = state.status == BRANCH
     out_codes = _gather_out_codes(state.buf, state.pos, cfg.k)
     fh4, rh4, q4 = _successors(cfg, wcfg, state.fh, state.rh, out_codes)
-    counts = dbg.get_counts(graph, cfg, q4)
+    counts = backend.counts(graph, cfg, q4)
     viable = counts >= torch.clamp(min_cov, min=1.0)[:, None]
     if mode == "pair":
-        probes = _probe_with_hashes(graph, cfg, wcfg, state.buf, state.pos, fh4, rh4, q4, min_cov)
-        scores, med, _ = _pair_scores(state, graph, cfg, wcfg, *probes)
+        probes = _probe_with_hashes(graph, cfg, wcfg, state.buf, state.pos, fh4, rh4, q4, min_cov, backend)
+        scores, med, _ = _pair_scores(state, graph, cfg, wcfg, *probes, backend=backend)
         scores = torch.where(viable, scores, -1.0)
         any_ok = (scores >= 0.0).any(dim=1)
         is_best = scores >= scores.amax(dim=1, keepdim=True)
@@ -528,14 +645,15 @@ def resolve_branches(
         advance = at_branch & any_ok
         resumed = torch.where(any_ok, ACTIVE, STOPPED_BRANCH)
     elif mode == "naive":
-        depth = _tip_probe(graph, cfg, wcfg, state.buf, state.pos, fh4, rh4, viable & at_branch[:, None], min_cov)
+        depth = _tip_probe(graph, cfg, wcfg, state.buf, state.pos, fh4, rh4, viable & at_branch[:, None], min_cov,
+                           backend)
         deep = depth >= wcfg.tip_probe_depth
         ndeep = deep.sum(dim=1)
         best = torch.argmax(torch.where(deep, counts, -1.0), dim=1)
         advance = at_branch & (ndeep == 1)
         resumed = torch.where(ndeep == 1, ACTIVE, STOPPED_BRANCH)
     else:
-        scores = _expand_scores(graph, cfg, wcfg, state.buf, state.pos, fh4, rh4, q4)
+        scores = _expand_scores(graph, cfg, wcfg, state.buf, state.pos, fh4, rh4, q4, backend)
         scores = torch.where(viable, scores, -1.0)
         is_best = scores >= scores.amax(dim=1, keepdim=True)
         best = torch.argmax(torch.where(is_best & viable, counts, -1.0), dim=1)
@@ -573,7 +691,7 @@ def take_lanes(state: WalkState, lanes: slice) -> WalkState:
 
 def extend_walks_plain(
     state: WalkState,
-    graph: GraphState,
+    graph,
     cfg: GraphConfig,
     wcfg: WalkConfig,
     min_cov: torch.Tensor,
@@ -582,17 +700,32 @@ def extend_walks_plain(
     max_supersteps: int = 64,
     mode: str = "greedy",
     terminators: Optional[torch.Tensor] = None,
+    backend: DeviceBackend = DEVICE_BACKEND,
 ) -> WalkState:
     """The JAX package's lockstep loop (``_extend_walks_fused``) on whole
-    lanes, on any device; ``state`` is left unchanged."""
+    lanes, on any device, its filter reads through ``backend`` (``graph``
+    is what the backend reads: a GraphState, or a mesh's sharded state);
+    ``state`` is left unchanged.  A superstep runs while the superstep cap
+    allows and a lane is ACTIVE or BRANCH, then resolves where a lane is
+    BRANCH: one global decision each."""
     state = clone_state(state)
     for _ in range(max_supersteps):
-        if not bool(((state.status == ACTIVE) | (state.status == BRANCH)).any()):
+        if not backend.any_global((state.status == ACTIVE) | (state.status == BRANCH)):
             break
-        state = walk_superstep(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, terminators)
-        if bool((state.status == BRANCH).any()):
-            state = resolve_branches(state, graph, cfg, wcfg, min_cov, mode)
+        state = walk_superstep(state, graph, cfg, wcfg, min_cov, bound, superstep_hops, terminators, backend)
+        if backend.any_global(state.status == BRANCH):
+            state = resolve_branches(state, graph, cfg, wcfg, min_cov, mode, backend)
     return state
+
+
+def check_mode(wcfg: WalkConfig, mode: str) -> None:
+    """Raises where ``mode`` and ``wcfg`` do not go together."""
+    if mode not in ("greedy", "pair", "naive"):
+        raise ValueError(f"unknown walk mode {mode!r}")
+    if mode == "pair" and wcfg.pair_ring <= 0:
+        raise ValueError("pair walks need a pair ring (WalkConfig.pair_ring > 0)")
+    if mode != "naive" and wcfg.check_back_branches:
+        raise ValueError(f"back-branch checks in {mode} walks: only naive walks take them")
 
 
 def extend_walks(
@@ -618,12 +751,7 @@ def extend_walks(
         terminators = None
     elif terminators is not None and wcfg.term_cfg is None:
         raise ValueError("terminators need their filter's shape (WalkConfig.term_cfg)")
-    if mode not in ("greedy", "pair", "naive"):
-        raise ValueError(f"unknown walk mode {mode!r}")
-    if mode == "pair" and wcfg.pair_ring <= 0:
-        raise ValueError("pair walks need a pair ring (WalkConfig.pair_ring > 0)")
-    if mode != "naive" and wcfg.check_back_branches:
-        raise ValueError(f"back-branch checks in {mode} walks: only naive walks take them")
+    check_mode(wcfg, mode)
     from ..ops import walk
 
     min_cov, bound = lane_args(state, min_cov, bound)

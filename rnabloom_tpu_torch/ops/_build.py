@@ -5,10 +5,11 @@
   ``csrc/lr_kernels.cu`` with ``nvcc`` for sm_90a, each into its own
   library under ``build/kernels/`` at the repository root (rebuilt when its
   source is newer), and bind their plain C entry points with ctypes.  The
-  walk kernel's source gives four libraries (``-DWALK_PART``): the
+  walk kernel's source gives six libraries (``-DWALK_PART``): the
   count-min layouts' greedy mode, their pair and naive modes, the
-  exact-count layouts, and the count-min layouts with terminators, so that
-  its instantiations compile in four ``nvcc`` at once.  They need the CUDA toolkit; there is no fallback.
+  exact-count layouts, the count-min layouts with terminators, and the
+  sharded count-min and exact-count layouts (a mesh's shards read in
+  place), so that its instantiations compile in six ``nvcc`` at once.  They need the CUDA toolkit; there is no fallback.
   ``build_all()`` starts every ``nvcc`` at once.
 * ``build_reader()`` compiles the port's FASTX reader
   (``native/fastxio.cpp``) with ``g++`` into ``build/native/`` for the host
@@ -42,6 +43,8 @@ WALK_LIB = os.path.join(BUILD_DIR, "kernels", "libwalk_greedy.so")
 WALK_PN_LIB = os.path.join(BUILD_DIR, "kernels", "libwalk_pair_naive.so")
 WALK_EXACT_LIB = os.path.join(BUILD_DIR, "kernels", "libwalk_exact.so")
 WALK_TERM_LIB = os.path.join(BUILD_DIR, "kernels", "libwalk_terminators.so")
+WALK_SHARDED_LIB = os.path.join(BUILD_DIR, "kernels", "libwalk_sharded.so")
+WALK_SHARDED_EXACT_LIB = os.path.join(BUILD_DIR, "kernels", "libwalk_sharded_exact.so")
 WALK_COUNT_MIN_LIBS = (WALK_LIB, WALK_PN_LIB)
 LR_SRC = os.path.join(_PKG, "csrc", "lr_kernels.cu")
 LR_LIB = os.path.join(BUILD_DIR, "kernels", "liblr_kernels.so")
@@ -59,7 +62,8 @@ build_seconds: Dict[str, float] = {}  # library -> nvcc wall time in this proces
 build_logs: Dict[str, str] = {}  # library -> nvcc's ptxas report (registers, spills) of a build in this process
 # library -> its nvcc flags beyond NVCC_FLAGS
 _DEFINES = {WALK_LIB: ["-DWALK_PART=1"], WALK_PN_LIB: ["-DWALK_PART=2"], WALK_EXACT_LIB: ["-DWALK_PART=3"],
-            WALK_TERM_LIB: ["-DWALK_PART=4"]}
+            WALK_TERM_LIB: ["-DWALK_PART=4"], WALK_SHARDED_LIB: ["-DWALK_PART=5"],
+            WALK_SHARDED_EXACT_LIB: ["-DWALK_PART=6"]}
 
 
 def _stale(lib: str, src: str) -> bool:
@@ -127,6 +131,15 @@ _WALK_ENTRIES = {
     # walk_greedy's, then tip_probe_depth back, stream
     "walk_naive": _WALK_COMMON + _WALK_GATES + [_INT] * 2 + [_P],
 }
+# the sharded libraries' entry points: each mode's arguments, then the
+# shard tables (device pointer) and log2 of the shard count, stream; and
+# peer access (device, peer)
+_WALK_SHARDED_ENTRIES = {
+    "walk_greedy_sharded": _WALK_COMMON + _WALK_GATES + [_P, _INT, _P],
+    "walk_pair_sharded": _WALK_COMMON + _WALK_GATES + _WALK_PAIR + [_P, _INT, _P],
+    "walk_naive_sharded": _WALK_COMMON + _WALK_GATES + [_INT] * 2 + [_P, _INT, _P],
+    "walk_peer_access": [_INT, _INT],
+}
 
 # library -> (source, entry points with their argument types)
 _SIGNATURES = {
@@ -145,6 +158,8 @@ _SIGNATURES = {
     WALK_PN_LIB: (WALK_SRC, _WALK_ENTRIES),
     WALK_EXACT_LIB: (WALK_SRC, _WALK_ENTRIES),
     WALK_TERM_LIB: (WALK_SRC, _WALK_ENTRIES),
+    WALK_SHARDED_LIB: (WALK_SRC, _WALK_SHARDED_ENTRIES),
+    WALK_SHARDED_EXACT_LIB: (WALK_SRC, _WALK_SHARDED_ENTRIES),
     LR_LIB: (LR_SRC, {
         # codes offsets, n_reads total, k stranded, hash valid, stream
         "lr_kmer_keys": [_P, _P, _I64, _I64, _INT, _INT, _P, _P, _P],
@@ -180,11 +195,15 @@ def kernels() -> ctypes.CDLL:
     return _load(KERNEL_LIB)
 
 
-def walk_kernels(exact: bool = False, greedy: bool = True, terminators: bool = False) -> ctypes.CDLL:
+def walk_kernels(exact: bool = False, greedy: bool = True, terminators: bool = False,
+                 sharded: bool = False) -> ctypes.CDLL:
     """The walk kernel library that holds a mode (``greedy``, else pair and
     naive) of the count-min layouts, with ``exact`` every mode of the
     exact-count ones, or with ``terminators`` every mode of the count-min
-    layouts with terminators; built on first call."""
+    layouts with terminators; with ``sharded`` every mode of the sharded
+    count-min (or ``exact``: exact-count) layouts; built on first call."""
+    if sharded:
+        return _load(WALK_SHARDED_EXACT_LIB if exact else WALK_SHARDED_LIB)
     if exact:
         return _load(WALK_EXACT_LIB)
     if terminators:

@@ -1,7 +1,7 @@
 """Multi-device graph build: filters sharded by hash range over a mesh.
 
-Port of ``rnabloom_tpu/parallel/sharded.py`` (its routed and grouped walks
-aside), in one process that drives every shard:
+Port of ``rnabloom_tpu/parallel/sharded.py``, in one process that drives
+every shard:
 
   * **DP over reads**: shard s hashes rows [s*B/n, (s+1)*B/n) of a batch
     of B rows on its own device.
@@ -24,11 +24,21 @@ aside), in one process that drives every shard:
 
 The bucket capacity, the row split and the sentinel slots are the JAX
 package's, so ``comm_accounting`` counts what its trace counts.
+
+Walks over the shards (``sharded_extend_walks``, the routed engine, and
+``grouped_extend_walks``, filters regrouped R ways and replicated N/R
+ways): on the CPU the JAX package's lockstep loop reads the shards through
+``ShardedBackend`` (routed reads, the walk lanes split over the shards as
+``P(axis)`` splits them); on the card the walk kernel reads every shard in
+place (``ops.walk.walk_mesh``), one launch a device that holds lanes.
+Both give every lane its single-device walk.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from dataclasses import dataclass
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -36,7 +46,7 @@ import torch
 
 from ..bloom import filters
 from ..bloom.filters import CountingConfig
-from ..graph import dbg
+from ..graph import dbg, traverse
 from ..graph.dbg import GraphConfig
 from ..ops import minifloat, nthash
 from ..ops.cell_insert import cell_insert
@@ -402,6 +412,63 @@ def _sharded_counts(mesh: Mesh, state: ShardedGraphState, cfg: GraphConfig, base
     return [torch.where(m_, e.to(torch.float32) + 1.0, 0.0) for m_, e in zip(member, est)]
 
 
+class ShardedBackend(traverse.DeviceBackend):
+    """The walk loop's filter reads over a mesh's shards (the JAX package's
+    ShardedBackend in its ``shard_map``).  The loop holds every lane; a
+    read hashes its keys and finds their cells on the lanes' device, then
+    splits its rows over the shards in contiguous runs, as ``P(axis)``
+    splits the lanes (row s * m / n onward on shard s), routes each run's
+    cells to their owners and joins the answers on the lanes' device.  A
+    loop decision is an all-reduce over the shards, as the JAX package's
+    psum, so ``comm_accounting`` counts the JAX schedule."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    def _split(self, x: torch.Tensor) -> List[torch.Tensor]:
+        n = self.mesh.size
+        if x.shape[0] % n:
+            raise ValueError(f"{x.shape[0]} rows do not split over {n} shards")
+        per = x.shape[0] // n
+        return [x[s * per : (s + 1) * per].to(dev) for s, dev in enumerate(self.mesh.devices)]
+
+    def _gather(self, flats: Shards, lidx: torch.Tensor, t: torch.Tensor, sentinel: int) -> torch.Tensor:
+        """flats[t][lidx] of every cell, each run of rows from its shard."""
+        outs = _routed_gather(self.mesh, flats, self._split(lidx), self._split(t), sentinel)
+        return torch.cat([x.to(lidx.device) for x in outs])
+
+    def _count(self, cells: Shards, ccfg: CountingConfig, h: torch.Tensor) -> torch.Tensor:
+        """``_sharded_counting_count`` of the multi-hashes ``h``."""
+        n_log2 = _shards_log2(self.mesh)
+        if ccfg.blocked:
+            lidx, t = _blocked_cell_indices(ccfg, h, None, 0, n_log2)
+            sentinel = 128 << (ccfg.size_log2 - 7 - n_log2)
+        else:
+            lidx, t = _global_indices(h, ccfg.size_log2, None, 0, ccfg.size_log2 - n_log2)
+            sentinel = 1 << (ccfg.size_log2 - n_log2)
+        mine = self._gather(cells, lidx, t, sentinel)
+        return torch.amin(filters.decode_counts(mine.reshape(h.shape), ccfg.dtype), dim=-1)
+
+    def counts(self, graph: ShardedGraphState, cfg: GraphConfig, base: torch.Tensor) -> torch.Tensor:
+        """``_sharded_counts``: float32 count per key."""
+        est = self._count(graph.cbf, cfg.cbf, nthash.multi_hash(base, cfg.k, cfg.cbf.num_hash))
+        if not cfg.exact_counts:
+            return est.to(torch.float32)
+        member = self.bloom_lookup(graph.dbgbf, cfg.dbgbf, nthash.multi_hash(base, cfg.k, cfg.dbgbf.num_hash))
+        return torch.where(member, est.to(torch.float32) + 1.0, 0.0)
+
+    def bloom_lookup(self, lanes: Shards, bcfg, hashes: torch.Tensor) -> torch.Tensor:
+        """``_sharded_bloom_query``: AND over each key's hash lanes."""
+        local_log2 = bcfg.size_log2 - _shards_log2(self.mesh)
+        lidx, t = _global_indices(hashes, bcfg.size_log2, None, 0, local_log2)
+        mine = self._gather(lanes, lidx, t, 1 << local_log2)
+        return torch.all(mine.reshape(hashes.shape) != 0, dim=-1)
+
+    def any_global(self, x: torch.Tensor) -> bool:
+        total = comm.all_reduce(self.mesh, [p.any().to(torch.int32) for p in self._split(x)])
+        return int(total[0]) > 0
+
+
 # ---------------------------------------------------------------------------
 # The programs
 # ---------------------------------------------------------------------------
@@ -553,6 +620,138 @@ def sharded_variant_counts(mesh: Mesh, cfg: GraphConfig):
                 torch.cat([x[3].to(home) for x in hashed]))
 
     return query
+
+
+# ---------------------------------------------------------------------------
+# Walks over the shards
+# ---------------------------------------------------------------------------
+
+
+def _with_spec_default(wcfg: traverse.WalkConfig) -> traverse.WalkConfig:
+    """The mesh walks default to depth-2 speculative supersteps (each round
+    one batched read of the 20-node successor tree, then up to 2 hops),
+    unless back-branch checks are on or the caller set ``spec_hops``."""
+    if wcfg.spec_hops == 1 and not wcfg.check_back_branches:
+        return dataclasses.replace(wcfg, spec_hops=2)
+    return wcfg
+
+
+def _walk_args(wstate, mesh: Mesh, wcfg, mode: str, min_cov, bound):
+    """The per-lane min_cov and bound, after the checks that the JAX
+    package's ``shard_map`` makes before any work: the lanes split evenly
+    over the mesh's shards."""
+    traverse.check_mode(wcfg, mode)
+    W = wstate.pos.shape[0]
+    if W % mesh.size:
+        raise ValueError(f"mesh walks: {W} walk lanes are not evenly divisible by the mesh's {mesh.size} shards")
+    return traverse.lane_args(wstate, min_cov, bound)
+
+
+def sharded_extend_walks(mesh: Mesh, cfg: GraphConfig, wcfg, mode: str, superstep_hops: int = 64,
+                         max_supersteps: int = 64):
+    """(wstate, state, min_cov, bound) -> WalkState: the routed mesh walk.
+    The lanes split over the shards (W a multiple of their count, as the
+    JAX package's ``P(axis)`` requires; it raises otherwise), each read
+    answered by the shard that owns its cell, under depth-2 speculative
+    supersteps by default.  Every lane walks as on one device."""
+    from ..ops import walk
+
+    wcfg = _with_spec_default(wcfg)
+
+    def run(wstate, state: ShardedGraphState, min_cov, bound):
+        min_cov, bound = _walk_args(wstate, mesh, wcfg, mode, min_cov, bound)
+        return walk.walk_mesh(mode, wstate, state, mesh, cfg, wcfg, min_cov, bound, superstep_hops, max_supersteps)
+
+    return run
+
+
+@dataclass(frozen=True)
+class GroupMesh:
+    """A (rep, shard) mesh: the shards of ``mesh`` in N / r groups of r
+    consecutive ones, group g on shards [g r, (g + 1) r) (the rows of the
+    JAX package's ``make_group_mesh``)."""
+
+    mesh: Mesh
+    r: int
+
+    @property
+    def groups(self) -> Tuple[Mesh, ...]:
+        d, r = self.mesh.devices, self.r
+        return tuple(Mesh(d[g * r : (g + 1) * r]) for g in range(len(d) // r))
+
+
+def make_group_mesh(r: int, mesh: Mesh) -> GroupMesh:
+    """Filters sharded r ways within each group and replicated over the N /
+    r groups: the middle point between the replica (r = 1) and the routed
+    engine (r = N)."""
+    n = mesh.size
+    assert n % r == 0, f"group size {r} must divide device count {n}"
+    return GroupMesh(mesh, r)
+
+
+def group_state(gmesh: GroupMesh, state: ShardedGraphState, cfg: GraphConfig) -> Tuple[ShardedGraphState, ...]:
+    """The N-way shards regrouped r ways, one state a group (the JAX
+    package's ``regroup``): r-way shard j is N-way shards [j N / r, (j + 1)
+    N / r) joined without their trash, then a zeroed trash, copied onto the
+    group's j-th device.  Groups on the same devices (several on one card)
+    share one copy."""
+    n, r = gmesh.mesh.size, gmesh.r
+    per = n // r
+    src = gmesh.mesh.devices
+    cbf_trash = 128 if cfg.cbf.blocked else 1
+    made = {}
+
+    def regroup(lanes: Optional[Shards], trash: int, devices) -> Optional[Shards]:
+        if lanes is None:
+            return None
+        return tuple(comm.gather(Mesh(src[j * per : (j + 1) * per]),
+                                 [x[: x.numel() - trash] for x in lanes[j * per : (j + 1) * per]], dev, pad=trash)
+                     for j, dev in enumerate(devices))
+
+    out = []
+    for group in gmesh.groups:
+        if group.devices not in made:
+            made[group.devices] = ShardedGraphState(
+                dbgbf=regroup(state.dbgbf, 1, group.devices),
+                cbf=regroup(state.cbf, cbf_trash, group.devices),
+                rpkbf=regroup(state.rpkbf, 1, group.devices),
+                fpkbf=regroup(state.fpkbf, 1, group.devices),
+            )
+        out.append(made[group.devices])
+    return tuple(out)
+
+
+def grouped_extend_walks(gmesh: GroupMesh, cfg: GraphConfig, wcfg, mode: str, superstep_hops: int = 64,
+                         max_supersteps: int = 64):
+    """(wstate, group states, min_cov, bound) -> WalkState: the grouped
+    mesh walk.  The lanes split over all N shards (W a multiple of N);
+    group g walks its r runs of them over its own r-way shards, reads
+    routed within the group, under depth-2 speculative supersteps by
+    default.  Groups that read one copy of the shards (several groups on
+    the same devices, as on one card) walk together, their lanes split
+    over that copy's shards: on the card one launch a device that holds
+    lanes."""
+    from ..ops import walk
+
+    wcfg = _with_spec_default(wcfg)
+    groups = gmesh.groups
+
+    def run(wstate, states: Sequence[ShardedGraphState], min_cov, bound):
+        min_cov, bound = _walk_args(wstate, gmesh.mesh, wcfg, mode, min_cov, bound)
+        per = wstate.pos.shape[0] // len(groups)
+        runs: List[list] = []  # [group mesh, its state, first lane, end]
+        for g, (group, st) in enumerate(zip(groups, states)):
+            if runs and runs[-1][1] is st and runs[-1][0] == group:
+                runs[-1][3] += per
+            else:
+                runs.append([group, st, g * per, (g + 1) * per])
+        parts = [walk.walk_mesh(mode, traverse.take_lanes(wstate, slice(a, b)), st, group, cfg, wcfg, min_cov[a:b],
+                                bound[a:b], superstep_hops, max_supersteps) for group, st, a, b in runs]
+        if len(parts) == 1:
+            return parts[0]
+        return traverse.WalkState(*(None if f[0] is None else torch.cat(f) for f in zip(*parts)))
+
+    return run
 
 
 def _merge(mesh: Mesh, lanes: Optional[Shards], trash: int, out_trash: int, device) -> Optional[torch.Tensor]:

@@ -1,5 +1,6 @@
 """CUDA kernels (insert, the max op of exact counts among them; greedy,
-pair and naive walks, also over exact-count graphs and with terminators;
+pair and naive walks, also over exact-count graphs, with terminators and
+over a mesh's shards read in place, on one card and across cards;
 the long-read k-mer keys, randstrobes and consensus vote, these also where
 their tiles bite) vs their plain PyTorch versions, on the card, the pair
 walks also on a single-end and a pooled sample's stage-3 graph, -long on
@@ -1622,3 +1623,149 @@ def test_mesh_build_across_cards_equals_single_device(cuda):
     want = engine.extend_walks(traverse.make_walks(cfg, wcfg, seeds, device=cuda), single, cfg, wcfg, 1.0, 200)
     for f in WALK_FIELDS:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+# ---- walks over a mesh's shards: the kernel's sharded layouts ----
+
+# (dtype, exact[, num_hash, dbgbf num_hash, stranded, blocked]) of _gate_graph
+SHARDED_GRAPHS = {
+    "mf8": ("mf8", False), "u16": ("u16", False), "int32": ("int32", False),
+    "int32_blocked": ("int32", False, 2, 2, False, True), "mf8_hash3_generic": ("mf8", False, 3),
+    "exact_int32": ("int32", True), "exact_mf8": ("mf8", True), "exact_u16_dbgbf_hash5": ("u16", True, 2, 5),
+}
+SHARDED_CASES = [(g, 8) for g in SHARDED_GRAPHS] + [(g, 2) for g in ("mf8", "int32_blocked", "exact_int32")]
+
+
+def _sharded_walk_case(cuda, mode, graph_key, mesh):
+    """The gate tests' walks of ``mode`` on a graph, and the graph split
+    over ``mesh``; the mesh walks' default speculative depth."""
+    from rnabloom_tpu_torch.graph import engine
+    from rnabloom_tpu_torch.parallel import sharded
+
+    cfg, graph, wcfg, st, min_cov, bound, _ = _gate_walks(cuda, mode, graph_key, False)
+    mg = engine.from_host_state(engine.to_host_state(graph, cfg), cfg, mesh)
+    return cfg, graph, sharded._with_spec_default(wcfg), st, min_cov, bound, mg
+
+
+def _sharded_kernel_plain_and_one(cuda, mode, graph_key, mesh):
+    """The sharded kernel (one launch a card of the mesh) against the plain
+    routed loop and the single-device kernel: every field equal."""
+    from rnabloom_tpu_torch.ops import walk
+
+    cfg, graph, wcfg, st, min_cov, bound, mg = _sharded_walk_case(cuda, mode, graph_key, mesh)
+    name = f"walk_{mode}_sharded"
+    n0 = walk.LAUNCHES[name]
+    kern = walk.walk_mesh(mode, st, mg.state, mesh, cfg, wcfg, min_cov, bound)
+    torch.cuda.synchronize()
+    assert walk.LAUNCHES[name] == n0 + len(mesh.distinct)
+    plain = walk.walk_mesh_plain(mode, st, mg.state, mesh, cfg, wcfg, min_cov, bound)
+    one = getattr(walk, f"walk_{mode}")(st, graph, cfg, wcfg, min_cov, bound)
+    for f in GATE_FIELDS[mode]:
+        assert torch.equal(getattr(kern, f), getattr(plain, f)), f
+        assert torch.equal(getattr(kern, f), getattr(one, f)), f
+    assert int(kern.hops.sum()) > 0
+    return kern
+
+
+@pytest.mark.parametrize("graph,shards", SHARDED_CASES, ids=[f"{g}-{n}shards" for g, n in SHARDED_CASES])
+@pytest.mark.parametrize("mode", ["greedy", "pair", "naive"])
+def test_sharded_walk_kernel_matches_plain_routed_loop(cuda, mode, graph, shards):
+    """Each sharded layout (count-min mf8, u16, int32, blocked int32, the
+    generic read; exact int32, mf8, u16 with a dbgbf of 5 hashes) in each
+    mode, on 8 (and 2) shards of the card: the kernel reading the shards in
+    place equals the plain routed loop and the single-device kernel."""
+    from rnabloom_tpu_torch.parallel import sharded
+
+    _sharded_kernel_plain_and_one(cuda, mode, SHARDED_GRAPHS[graph], sharded.make_mesh([cuda] * shards))
+
+
+@pytest.mark.parametrize("walk_env,group", [("routed", None), ("grouped", "2"), ("grouped", "4"),
+                                            ("grouped", "8")])
+def test_mesh_walk_engines_on_one_card_equal_single_device(cuda, monkeypatch, walk_env, group):
+    """engine.extend_walks on 8 shards of the card under RNB_MESH_WALK=routed
+    and grouped (R = 2, 4, 8), each mode: one launch (every group reads one
+    copy of the regrouped shards), the single-device walks; an uneven lane
+    count pads (grouped) or raises before any launch (routed)."""
+    from rnabloom_tpu_torch.graph import engine, traverse
+    from rnabloom_tpu_torch.ops import walk
+    from rnabloom_tpu_torch.parallel import sharded
+
+    monkeypatch.setenv("RNB_MESH_WALK", walk_env)
+    if group:
+        monkeypatch.setenv("RNB_MESH_GROUP", group)
+    mesh = sharded.make_mesh([cuda] * 8)
+    for mode in ("greedy", "pair", "naive"):
+        cfg, graph, wcfg, st, min_cov, bound, _ = _gate_walks(cuda, mode, ("mf8", False), False)
+        mg = engine.from_host_state(engine.to_host_state(graph, cfg), cfg, mesh)
+        n0 = walk.launch_counts()
+        got = engine.extend_walks(st, mg, cfg, wcfg, min_cov, bound, mode=mode)
+        want = getattr(walk, f"walk_{mode}")(st, graph, cfg, wcfg, min_cov, bound)
+        assert walk.launch_counts()[f"walk_{mode}_sharded"] == n0[f"walk_{mode}_sharded"] + 1
+        for f in GATE_FIELDS[mode]:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (mode, f)
+    odd = traverse.take_lanes(st, slice(0, 60))
+    n0 = walk.launch_counts()
+    if walk_env == "routed":
+        with pytest.raises(ValueError, match="not evenly divisible"):
+            engine.extend_walks(odd, mg, cfg, wcfg, 1.0, 300, mode="naive")
+        assert walk.launch_counts() == n0
+    else:
+        got = engine.extend_walks(odd, mg, cfg, wcfg, 1.0, 300, mode="naive")
+        want = walk.walk_naive(odd, graph, cfg, wcfg, *traverse.lane_args(odd, 1.0, 300))
+        for f in WALK_FIELDS:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+def test_routed_walk_allocates_no_filter(cuda):
+    """A routed walk over 8 shards of a 2^26-cell graph allocates nothing
+    the size of a filter: its peak above the graph is the walk state's."""
+    from rnabloom_tpu_torch.graph import engine, traverse
+    from rnabloom_tpu_torch.parallel import sharded
+
+    cfg = dbg.GraphConfig(k=25, stranded=False, dbgbf=BloomConfig(26, 2), cbf=CountingConfig(26, 2, dtype="int32"),
+                          pkbf=BloomConfig(26, 2), read_pair_distance=40)
+    mesh = sharded.make_mesh([cuda] * 8)
+    mg = _mesh_build(cfg, engine.make_graph(cfg, with_rpkbf=True, mesh=mesh), _mesh_batches()[:1])
+    wcfg = traverse.WalkConfig(max_len=300)
+    st = traverse.make_walks(cfg, wcfg, _mesh_batches()[0][:1024, :25], device=cuda)
+    fn = sharded.sharded_extend_walks(mesh, cfg, wcfg, "greedy")
+    fn(st, mg.state, 1.0, 200)  # the shard table and decode table, once
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    held = torch.cuda.memory_allocated(cuda)
+    out = fn(st, mg.state, 1.0, 200)
+    torch.cuda.synchronize()
+    state_bytes = sum(t.numel() * t.element_size() for t in out if t is not None)
+    assert torch.cuda.max_memory_allocated(cuda) - held <= 2 * state_bytes + (1 << 20)
+    assert (1 << 26) * 4 // 8 > 4 * state_bytes  # a shard is larger than what the walk allocates
+
+
+def test_sharded_walks_across_cards_match_plain_and_one_card(cuda, monkeypatch):
+    """One shard a card over every visible card (at least 2): the routed and
+    grouped (R = 2) walks in each mode, one launch a card, read the other
+    cards' shards through peer access and equal the plain routed loop and
+    the one-card kernel; without peer access between two cards they raise
+    before any launch."""
+    from rnabloom_tpu_torch.graph import engine
+    from rnabloom_tpu_torch.ops import walk
+    from rnabloom_tpu_torch.parallel import sharded
+
+    mesh = engine.make_mesh_if_multi(cuda)
+    if mesh is None:
+        pytest.skip("needs at least 2 CUDA devices")
+    for mode in ("greedy", "pair", "naive"):
+        _sharded_kernel_plain_and_one(cuda, mode, ("mf8", False), mesh)
+        _sharded_kernel_plain_and_one(cuda, mode, ("int32", True), mesh)
+        cfg, graph, wcfg, st, min_cov, bound, mg = _sharded_walk_case(cuda, mode, ("mf8", False), mesh)
+        want = getattr(walk, f"walk_{mode}")(st, graph, cfg, wcfg, min_cov, bound)
+        monkeypatch.setenv("RNB_MESH_WALK", "grouped")
+        monkeypatch.setenv("RNB_MESH_GROUP", "2")
+        got = engine.extend_walks(st, mg, cfg, wcfg, min_cov, bound, mode=mode)
+        for f in GATE_FIELDS[mode]:
+            assert torch.equal(getattr(got, f), getattr(want, f)), (mode, f)
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer", lambda a, b: False)
+    monkeypatch.setattr(walk, "_peers", set())
+    n0 = walk.launch_counts()
+    with pytest.raises(RuntimeError, match="no peer access"):
+        walk.walk_mesh("naive", st, mg.state, mesh, cfg, wcfg, min_cov, bound)
+    assert walk.launch_counts() == n0

@@ -474,16 +474,6 @@ def test_jax_mesh_walks_equal_its_single_device_walks():
         assert json.load(f) == golden
 
 
-def test_mesh_walks_refuse_routed_and_grouped(walk_graphs, monkeypatch):
-    g = walk_graphs
-    wt = ttr.WalkConfig(max_len=K + 100)
-    st = ttr.make_walks(g["ct"], wt, g["seeds"], device="cpu")
-    for env in ("routed", "grouped"):
-        monkeypatch.setenv("RNB_MESH_WALK", env)
-        with pytest.raises(NotImplementedError, match="item 14d$"):
-            teng.extend_walks(st, g["mt"], g["ct"], wt, 1.0, 50)
-
-
 # ---------------------------------------------------------------------------
 # the CLI and the pipeline on a mesh
 # ---------------------------------------------------------------------------
@@ -509,20 +499,6 @@ def test_cli_refusals_before_any_work(tmp_path, argv, error, match):
     with pytest.raises(error, match=match):
         cli.run(["-left", str(tmp_path / "missing_1.fq"), "-right", str(tmp_path / "missing_2.fq"), "-o", str(out),
                  "--device", "cpu"] + argv)
-    assert not out.exists()
-
-
-@pytest.mark.parametrize("env", ["routed", "grouped"])
-def test_pipeline_refuses_routed_and_grouped_walks_before_any_work(tmp_path, monkeypatch, env):
-    mesh = _mesh()
-    monkeypatch.setattr(teng, "make_mesh_if_multi", lambda device="cuda", min_devices=2: mesh)
-    monkeypatch.setenv("RNB_MESH_WALK", env)
-    out = tmp_path / "asm"
-    with pytest.raises(NotImplementedError, match="item 14d$"):
-        cli.run(["-left", "missing_1.fq", "-right", "missing_2.fq", "-o", str(out), "--device", "cpu",
-                 "-sharded", "on"])
-    with pytest.raises(NotImplementedError, match="item 14d$"):
-        pipeline.assemble_long(["missing.fa"], str(out), pipeline.PipelineParams(), device="cpu")
     assert not out.exists()
 
 

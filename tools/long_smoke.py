@@ -11,7 +11,7 @@ Builds the kernels (and each ``--lr-variant``, another
 5,11,0,50``, ``-lrsub 5,25,0`` and ``-paf`` on the card, the long-read
 kernels against their plain versions on the runs' own data and K1 and K2
 at 14 times the raw reads (the variants in the same turns), and card
-against CPU on the first 400 reads.  ``--kernels-only`` runs the kernel
+against CPU on the first 200 reads.  ``--kernels-only`` runs the kernel
 cells alone: K1 and K2 at 14 times the raw reads
 (``chip_smoke.lr_keys_full_size``), then run (i) alone for its polish
 inputs and K3 on them (``chip_smoke.vote_vs_plain``) and on them 14 times

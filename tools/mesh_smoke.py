@@ -8,12 +8,16 @@ the smoke's simulation parameters, seed 0), then runs
 ``chip_smoke.mesh_builds`` (the stage-1 build at ``-mem 1`` over both
 mates of the pairs on meshes of 2 and 8 shards on the card, and one shard
 a card where several are visible, each against the single-device kernel
-build; one batch each of u16, the blocked int32 cbf and the exact int32
-path) and ``chip_smoke.mesh_pipeline`` (``-stage 3`` on the 8-shard mesh
-against one device on the first ``MESH_STAGE3_PAIRS`` pairs, and against
-8 CPU shards on the first 2000; ``--builds-only`` skips these runs).  The
-quickest loop for the sharded engine.  The last line is the results as
-JSON.
+build; on the 2- and 8-shard meshes the sharded walk kernel in each mode
+against the single-device kernel on the replica and the plain routed loop,
+``chip_smoke.mesh_walk_cells``; one batch each of u16, the blocked int32
+cbf and the exact int32 path) and ``chip_smoke.mesh_pipeline``
+(``-stage 3`` on the 8-shard mesh against one device on the first
+``MESH_STAGE3_PAIRS`` pairs, then under ``RNB_MESH_WALK=routed`` and
+``grouped`` against the replicated run, and against 8 CPU shards on the
+first 2000, where ``-stage 2 -extend`` runs routed against replicated;
+``--builds-only`` skips these runs).  The quickest loop for the sharded
+engine and its walks.  The last line is the results as JSON.
 """
 
 from __future__ import annotations

@@ -24,7 +24,7 @@ chip_smoke.py phase 6 does.  Then:
   rounds of 16 to 2560 such reads in flight from one SM (a lane's hop
   and resolve rounds, and a full SM's).
 
-With ``--naive`` (default N: 1,000,000, chip_smoke.py phase 8's pairs):
+With ``--naive`` (default N: ``chip_smoke.PAIRS``, phase 8's pairs):
 ``-stage 1`` on the card, then the ``-extend`` walks (right, then left) of
 the first stage-2 batch's fragments, captured as phase 8 does.  For each
 direction: the kernel and each variant equal to the plain loop and timed
@@ -105,7 +105,7 @@ def report(what: str, prof: list, ms: float, card: str, phases=PHASES) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--pairs", type=int, default=None, help="default 200,000; with --naive 1,000,000")
+    ap.add_argument("--pairs", type=int, default=None, help="default 200,000; with --naive chip_smoke.PAIRS")
     ap.add_argument("--naive", action="store_true", help="the naive kernel on -extend's walks")
     ap.add_argument("--walk-variant", action="append", default=[], metavar="NAME=PATH")
     args = ap.parse_args(argv)
