@@ -227,14 +227,23 @@ and exits nonzero):
    its launches by op; the exact-count stage-1 build at ``-mem 1`` (k=25,
    2 hashes, the flat layout: -cnt int32, a 2^27-lane dbgbf, 2^27 int32
    cells and a 2^27-lane rpkbf; -cnt mf8, 2^29 cells) over both mates of
-   the first EXACT_PAIRS pairs (a depth cut) in batches of 4096 reads, once
-   with the kernels (``set``, ``add`` for the multiplicity scratch, ``max``)
-   and once with the plain inserts on the card: every table byte-identical,
-   peak device memory.  The ``max`` insert against its plain version and
-   ``scatter_reduce_`` (amax) on the int32 build's first batch (1,032,192
-   indices) and on a synthetic 2^20-index batch, each call on a fresh copy
-   of its table, with its bound (indices and values once, a 32 B sector a
-   distinct cell, over 3.35 TB/s).  Walks over the exact int32 graph
+   the first EXACT_PAIRS pairs (a depth cut) in batches of 4096 reads, with
+   the kernels (``set``, ``add`` for the multiplicity scratch, the fused
+   conservative update), with the update composed of plain-torch gathers
+   and the ``max`` kernel (the port's and each ``--insert-variant``'s) and
+   with the plain inserts on the card: every table byte-identical, the ms
+   of a build step in turns, peak device memory; the -cnt u16 build's
+   first batch, fused against plain.  The ``max`` insert against its plain
+   version, ``scatter_reduce_`` (amax; none for u16 cells) and each
+   variant, for int32, u16 and mf8 cells, on the builds' first batches
+   (the composed update's indices and values: 1,032,192 a batch) and on
+   synthetic 2^20-index batches, each call on a fresh copy of its table,
+   with its bound (indices and values once, a 32 B sector read a distinct
+   cell's sector and written a raised one's, over 3.35 TB/s).  The fused
+   update against its plain version and the compositions on the same
+   first batches (timed; its bound: the keys once, a sector a distinct
+   scratch and count cell, a sector a raised cell written) and on a
+   2^10-cell table where keys collide heavily.  Walks over the exact int32 graph
    against the plain loop in every field, timed in turns with the
    count-min int32 graph of the same reads: greedy on phase 4's bridge
    seeds (16,384 lanes), naive on phase 8's right walks (8,192 lanes;
@@ -427,15 +436,16 @@ def ptxas_report(log: str) -> list:
     return out
 
 
-def insert_ptxas(log: str, kernels: str = "set_u8|add_i32|add_u16_tile|mf8_tile|mf8_apply|max_i32|max_u16|max_u8") -> list:
+def insert_ptxas(log: str, kernels: str = "set_u8|add_i32|add_u16_tile|mf8_tile|mf8_apply|max|conservative_values") -> list:
     """One entry per kernel (the insert kernels unless ``kernels`` names
     others) from ``nvcc -Xptxas -v``: registers, static shared memory and
     spill stores."""
     out, name, spill = [], None, None
     for line in log.splitlines():
-        m = re.search(rf"Function properties for \S*?({kernels})_kernel", line)
+        m = re.search(rf"Function properties for \S*?({kernels})_kernel(\S*)", line)
         if m:
-            name = m.group(1) + "_kernel"
+            # a template's instantiations keep their mangled arguments apart
+            name = m.group(1) + "_kernel" + (m.group(2) if m.group(2).startswith("I") else "")
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
@@ -545,6 +555,9 @@ def build_variant(kind: str, i: int, src: str) -> ctypes.CDLL:
         del signatures["walk_pair"]
     if kind == "insert" and not hasattr(so, "cell_max_i32"):  # before the max op
         for name in ("cell_max_i32", "cell_max_u16", "cell_max_u8"):
+            del signatures[name]
+    if kind == "insert" and not hasattr(so, "cell_conservative_values_i32"):  # before the conservative update
+        for name in [n for n in signatures if n.startswith("cell_conservative_")]:
             del signatures[name]
     if kind == "lr" and not hasattr(so, "lr_randstrobe_smem"):  # an older source: only the kernels are timed
         del signatures["lr_randstrobe_smem"]
@@ -3170,6 +3183,7 @@ def long_read_path(tmp: str, card: str, dev, transcripts: int = LR_TRANSCRIPTS, 
 EXACT_PAIRS = PAIRS  # phase 11: the exact-count build's pairs (250,000 of 500,000 before the pairs were cut)
 EXACT_BATCH = 4096  # reads a build batch, as stage 1 takes them
 MAX_REPLACES = "rnabloom_tpu/bloom/filters.py:378"  # counting_increment's .at[].max (XLA, no Pallas kernel)
+CONSERVATIVE_REPLACES = "rnabloom_tpu/bloom/filters.py:322"  # counting_increment (XLA, no Pallas kernel)
 GOLDEN_ORACLE = "tests/golden/oracle_divergence.json"
 TERM_CFG = filters.BloomConfig(27, 2)  # phase 11's terminator filter
 EXACT_NAME = "exact-count graph"
@@ -3188,31 +3202,57 @@ def head_codes(path: str, n: int) -> np.ndarray:
 
 @contextlib.contextmanager
 def plain_inserts():
-    """Route the filters' inserts to the plain versions (on the card too)."""
-    saved = filters.cell_insert
+    """Route the filters' inserts and conservative update to the plain
+    versions (on the card too)."""
+    saved = filters.cell_insert, filters.conservative_update
     filters.cell_insert = lambda t, i, op, salt=0, values=None: ci.cell_insert_plain(t, i, op, salt, values)
+    filters.conservative_update = ci.conservative_update_plain
     try:
         yield
     finally:
-        filters.cell_insert = saved
+        filters.cell_insert, filters.conservative_update = saved
+
+
+def composed_update(lib=None):
+    """The conservative update composed of plain-torch gathers, min and
+    encode (``ci.conservative_values``) and the ``max`` insert: the port's
+    kernel, or ``lib``'s (an ``--insert-variant`` build)."""
+    def update(counts, scratch, hashes, size_log2, scratch_log2, valid=None, dec_first=None, salt=0):
+        idx, upd = ci.conservative_values(counts, scratch, hashes, size_log2, scratch_log2, valid, dec_first, salt)
+        with insert_library(lib) if lib is not None else contextlib.nullcontext():
+            return ci.cell_insert(counts, idx, "max", values=upd)
+    return update
 
 
 @contextlib.contextmanager
-def first_max_call(store: dict):
-    """Record the first ``max`` insert the filters make: its table as it
-    was before, its indices and its values (copies)."""
-    saved = filters.cell_insert
-
-    def recording(t, i, op, salt=0, values=None):
-        if op == "max" and "table" not in store:
-            store.update(table=t.clone(), idx=i.clone(), values=values.clone())
-        return saved(t, i, op, salt, values)
-
-    filters.cell_insert = recording
+def conservative_as(update):
+    """Route the filters' conservative update to ``update``."""
+    saved = filters.conservative_update
+    filters.conservative_update = update
     try:
         yield
     finally:
-        filters.cell_insert = saved
+        filters.conservative_update = saved
+
+
+@contextlib.contextmanager
+def first_conservative_call(store: dict):
+    """Record the first conservative update the filters make: its table as
+    it was before and its arguments (copies)."""
+    saved = filters.conservative_update
+
+    def recording(counts, scratch, hashes, size_log2, scratch_log2, valid=None, dec_first=None, salt=0):
+        if "table" not in store:
+            store.update(table=counts.clone(), args=(scratch.clone(), hashes.clone(), size_log2, scratch_log2,
+                                                     None if valid is None else valid.clone(),
+                                                     None if dec_first is None else dec_first.clone(), salt))
+        return saved(counts, scratch, hashes, size_log2, scratch_log2, valid, dec_first, salt)
+
+    filters.conservative_update = recording
+    try:
+        yield
+    finally:
+        filters.conservative_update = saved
 
 
 def oracle_on_card(card: str) -> dict:
@@ -3233,7 +3273,7 @@ def oracle_on_card(card: str) -> dict:
     if got != cpu or got != golden:
         diff = sorted(key for key in golden if got.get(key) != golden[key] or cpu.get(key) != golden[key])
         raise AssertionError(f"the oracle's dict on the card or the CPU differs from the golden in {diff}")
-    assert all(launches.get(op, 0) > 0 for op in ("set", "add", "max", "walk_greedy")), launches
+    assert all(launches.get(op, 0) > 0 for op in ("set", "add", *ci.CONSERVATIVE_OPS, "walk_greedy")), launches
     print(f"oracle.divergence.measure_all on the card: equal to the CPU's and to {GOLDEN_ORACLE} ({len(got)} keys; "
           f"greedy_agreement {got['greedy_agreement']}, tip_probe_agreement {got['tip_probe_agreement']}, "
           f"ec_output_agreement {got['ec_output_agreement']}, mf8_count_rel_err {got['mf8_count_rel_err']}); "
@@ -3261,48 +3301,89 @@ def exact_build(cfg: dbg.GraphConfig, batches: list, dev):
     return graph, time.time() - t0
 
 
-def exact_builds(left: str, right: str, card: str, dev) -> dict:
+def _same_graphs(a, b, what: str) -> None:
+    for name in ("dbgbf", "cbf", "rpkbf"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"{what}: {name} differs from the fused kernel's build")
+
+
+def exact_builds(left: str, right: str, card: str, dev, variants: dict) -> dict:
     """The exact-count stage-1 build at -mem 1 (int32: 2^27 dbgbf lanes,
     2^27 int32 cells, 2^27 rpkbf lanes; mf8: 2^29 cells) over the first
-    EXACT_PAIRS pairs, in batches of EXACT_BATCH reads, once with the
-    kernels (every launch count set to 0 before) and once with the plain
-    inserts on the card: every table byte-identical.  Also the count-min
-    int32 graph of the same reads (flat layout), phase 11's walks'
-    yardstick."""
+    EXACT_PAIRS pairs, in batches of EXACT_BATCH reads: with the kernels
+    (the fused conservative update; every launch count set to 0 before),
+    with the update composed of plain-torch gathers and the ``max`` kernel
+    (the port's, and each ``--insert-variant``'s), and with the plain
+    inserts, on the card: every table byte-identical; each build again in
+    reverse order for the times in turns.  Then the first batch of the
+    -cnt u16 build, fused against plain.  Also the count-min int32 graph of
+    the same reads (flat layout), phase 11's walks' yardstick."""
     codes = np.concatenate([head_codes(left, EXACT_PAIRS), head_codes(right, EXACT_PAIRS)])
     batches = [codes[i : i + EXACT_BATCH] for i in range(0, len(codes), EXACT_BATCH)]
-    out = {"reads": int(len(codes)), "batches": len(batches)}
+    out = {"reads": int(len(codes)), "batches": len(batches), "first": {}}
+    ways = {"composition": composed_update()}
+    ways.update({f"composition[{name}]": composed_update(lib) for name, lib in variants.items()
+                 if hasattr(lib, "cell_max_i32")})
     for counter in ("int32", "mf8"):
         cfg = exact_config(counter)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counters()
         first = {}
-        with first_max_call(first) if counter == "int32" else contextlib.nullcontext():
+        with first_conservative_call(first):
             kern, t_kern = exact_build(cfg, batches, dev)
         launches = {op: n for op, n in launch_counters().items() if n}
         peak = torch.cuda.max_memory_allocated()
-        with plain_inserts():
-            plain, t_plain = exact_build(cfg, batches, dev)
-        for name in ("dbgbf", "cbf", "rpkbf"):
-            if not torch.equal(getattr(kern, name), getattr(plain, name)):
-                raise AssertionError(f"exact -cnt {counter} build: {name} differs between the kernels and the plain "
-                                     f"inserts")
-        assert launches.get("max", 0) == len(batches) and launches.get("add", 0) == len(batches), launches
+        assert all(launches.get(op, 0) == len(batches) for op in ("add", *ci.CONSERVATIVE_OPS)), launches
+        assert "max" not in launches, launches
+        # each way once to check it, then the timed turns: fused, the
+        # compositions, plain, then in reverse (the first build of a
+        # process also loads the kernels)
+        seconds = {}
+        turns = ["fused", *ways, "plain"]
+        for i, who in enumerate(turns[1:] + turns + turns[::-1]):
+            ctx = plain_inserts() if who == "plain" else (
+                contextlib.nullcontext() if who == "fused" else conservative_as(ways[who]))
+            with ctx:
+                other, t = exact_build(cfg, batches, dev)
+            _same_graphs(other, kern, f"exact -cnt {counter} build, {who}")
+            if i >= len(turns) - 1:
+                seconds.setdefault(who, []).append(t)
+            del other
+        step_ms = {who: _mean(t) * 1e3 / len(batches) for who, t in seconds.items()}
         member = float((kern.dbgbf[: cfg.dbgbf.size] != 0).double().mean())
-        out[counter] = {"launches": launches, "seconds": t_kern, "plain_seconds": t_plain, "peak_bytes": peak,
-                        "dbgbf_log2": cfg.dbgbf.size_log2, "cbf_log2": cfg.cbf.size_log2,
-                        "rpkbf_log2": cfg.pkbf.size_log2, "dbgbf_set_share": member, "fprs": engine.fprs(kern, cfg)}
+        out[counter] = {"launches": launches, "seconds": t_kern, "plain_seconds": _mean(seconds["plain"]),
+                        "step_ms": step_ms, "peak_bytes": peak, "dbgbf_log2": cfg.dbgbf.size_log2,
+                        "cbf_log2": cfg.cbf.size_log2, "rpkbf_log2": cfg.pkbf.size_log2,
+                        "dbgbf_set_share": member, "fprs": engine.fprs(kern, cfg)}
         print(f"exact-count build -cnt {counter} (dbgbf 2^{cfg.dbgbf.size_log2} lanes, cbf 2^{cfg.cbf.size_log2} "
               f"{counter} cells, rpkbf 2^{cfg.pkbf.size_log2}; {out['reads']} reads of the first {EXACT_PAIRS} "
-              f"pairs in {len(batches)} batches): dbgbf, cbf and rpkbf byte-identical between the kernels and the "
-              f"plain inserts; kernels {t_kern:.3f} s, plain {t_plain:.3f} s; launches {launches}; peak device "
+              f"pairs in {len(batches)} batches): dbgbf, cbf and rpkbf byte-identical between the fused kernel, "
+              f"{', '.join(ways)} and the plain inserts; ms a build step (turns "
+              f"{', '.join(f'{who} ' + '/'.join(f'{x * 1e3 / len(batches):.4f}' for x in t) for who, t in seconds.items())}"
+              f"): {', '.join(f'{who} {ms:.4f}' for who, ms in step_ms.items())}; launches {launches}; peak device "
               f"memory {peak} B ({peak / 2**30:.3f} GiB); dbgbf lanes set {member:.4f}, FPRs {out[counter]['fprs']} "
               f"[{card}]", flush=True)
-        del plain
+        out["first"][counter] = first
         if counter == "int32":
-            out["graph"], out["cfg"], out["first_max"] = kern, cfg, first
+            out["graph"], out["cfg"] = kern, cfg
         del kern
+    # -cnt u16: the first batch, fused against the plain inserts
+    cfg = exact_config("u16")
+    reset_launch_counters()
+    first = {}
+    with first_conservative_call(first):
+        kern, _ = exact_build(cfg, batches[:1], dev)
+    launches = {op: n for op, n in launch_counters().items() if n}
+    with plain_inserts():
+        plain, _ = exact_build(cfg, batches[:1], dev)
+    _same_graphs(plain, kern, "exact -cnt u16 build's first batch, plain inserts")
+    assert all(launches.get(op, 0) == 1 for op in ci.CONSERVATIVE_OPS), launches
+    out["u16"] = {"launches": launches, "cbf_log2": cfg.cbf.size_log2}
+    out["first"]["u16"] = first
+    print(f"exact-count build -cnt u16, the first batch (cbf 2^{cfg.cbf.size_log2} u16 cells): byte-identical to the "
+          f"plain inserts; launches {launches} [{card}]", flush=True)
+    del kern, plain
     cm_cfg = exact_config("int32", exact=False)
     out["cm_graph"], _ = exact_build(cm_cfg, batches, dev)
     out["cm_cfg"] = cm_cfg
@@ -3311,11 +3392,12 @@ def exact_builds(left: str, right: str, card: str, dev) -> dict:
 
 def _per_launch_ms(fn, reset, reps: int = 10) -> list:
     """Card time of ``fn`` per call, each call after ``reset()`` (outside
-    its events; the reset's copy keeps the card busy while the host
-    enqueues the call)."""
+    its events; the reset and a sleep of the card keep it busy while the
+    host enqueues the call)."""
     events = []
     for _ in range(reps):
         reset()
+        torch.cuda._sleep(PAD_CYCLES)
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -3325,65 +3407,303 @@ def _per_launch_ms(fn, reset, reps: int = 10) -> list:
     return [a.elapsed_time(b) for a, b in events]
 
 
-def max_bound_ms(idx: torch.Tensor, values: torch.Tensor, numel: int) -> float:
-    """Least time of a max launch: its indices and values read once, one
-    32 B sector a distinct in-range cell, over the card's memory rate."""
-    distinct = torch.unique(idx[(idx >= 0) & (idx < numel)]).numel()
-    return (idx.numel() * idx.element_size() + values.numel() * values.element_size() + distinct * SECTOR) \
-        / HBM_BYTES_PER_MS
+def _sectors(cells: torch.Tensor, table: torch.Tensor) -> int:
+    """Distinct 32 B sectors that ``cells`` (in range) of ``table`` lie in."""
+    return torch.unique(cells * table.element_size() // SECTOR).numel()
 
 
-def max_cell(table0: torch.Tensor, idx: torch.Tensor, values: torch.Tensor, what: str, card: str) -> dict:
-    """The max kernel against its plain version and ``scatter_reduce_``
-    (amax) on one batch: equal tables; per-launch times in turns (plain,
-    library, kernel, kernel, library, plain), every call on a fresh copy of
-    ``table0``."""
+def _raised_sectors(before: torch.Tensor, after: torch.Tensor) -> int:
+    return _sectors(torch.nonzero(before != after).reshape(-1), before)
+
+
+def max_bound_ms(idx: torch.Tensor, values: torch.Tensor, before: torch.Tensor, after: torch.Tensor) -> tuple:
+    """Least time of a max launch, by bytes over the card's memory rate: its
+    indices and values read once, a 32 B sector read a distinct in-range
+    cell's sector and written a raised one's; and the bound without the
+    writes, one sector a distinct cell (the row's earlier formula)."""
+    cells = idx[(idx >= 0) & (idx < before.numel())]
+    inputs = idx.numel() * idx.element_size() + values.numel() * values.element_size()
+    reads = _sectors(cells, before) * SECTOR
+    return ((inputs + reads + _raised_sectors(before, after) * SECTOR) / HBM_BYTES_PER_MS,
+            (inputs + torch.unique(cells).numel() * SECTOR) / HBM_BYTES_PER_MS)
+
+
+def _turns(fns: dict, reset, order: list) -> dict:
+    """Per-launch times of each function in ``fns``, in the turns of
+    ``order`` then its reverse, 5 calls a turn, each after ``reset()``."""
+    t = {who: [] for who in fns}
+    for who in order + order[::-1]:
+        t[who] += _per_launch_ms(fns[who], reset, reps=5)
+    return {who: _mean(v) for who, v in t.items()}
+
+
+def max_cell(table0: torch.Tensor, idx: torch.Tensor, values: torch.Tensor, what: str, card: str,
+             variants: dict) -> dict:
+    """The max kernel against its plain version, ``scatter_reduce_`` (amax;
+    none for uint16 cells, which torch would compare signed) and each
+    ``--insert-variant`` on one batch: equal tables; per-launch times in
+    turns (plain, library, variants, kernel, then in reverse), every call on
+    a fresh copy of ``table0``."""
     work = torch.empty_like(table0)
     keep = (idx >= 0) & (idx < table0.numel())
     idx_in, values_in = idx[keep], values[keep]
     fns = {
         "kernel": lambda: ci.cell_insert(work, idx, "max", values=values),
         "plain": lambda: ci.cell_insert_plain(work, idx, "max", values=values),
-        "library": lambda: work.scatter_reduce_(0, idx_in, values_in, "amax"),
     }
+    if table0.dtype != torch.int16:
+        fns["library"] = lambda: work.scatter_reduce_(0, idx_in, values_in, "amax")
+
+    def variant(lib):
+        def call():
+            with insert_library(lib):
+                ci.cell_insert(work, idx, "max", values=values)
+        return call
+
+    fns.update({name: variant(lib) for name, lib in variants.items() if hasattr(lib, "cell_max_i32")})
     outs = {}
     for who, fn in fns.items():
         work.copy_(table0)
         fn()
         outs[who] = work.clone()
     torch.cuda.synchronize()
-    for who in ("plain", "library"):
+    for who in fns:
         if not torch.equal(outs["kernel"], outs[who]):
             raise AssertionError(f"cell_insert[max] != {who} on {what}: "
                                  f"{int((outs['kernel'] != outs[who]).sum())} cells differ")
-    raised = int((outs["kernel"] != table0).sum())
+    after = outs["kernel"]
     del outs
-    t = {who: [] for who in fns}
-    for who in ("plain", "library", "kernel", "kernel", "library", "plain"):
-        t[who] += _per_launch_ms(fns[who], lambda: work.copy_(table0), reps=5)
-    r = {"ms": _mean(t["kernel"]), "plain_ms": _mean(t["plain"]), "library_ms": _mean(t["library"]),
-         "bound_ms": max_bound_ms(idx, values, table0.numel()), "indices": int(idx.numel()), "raised_cells": raised,
+    raised = int((after != table0).sum())
+    bound, read_bound = max_bound_ms(idx, values, table0, after)
+    del after
+    order = ["plain", *(["library"] if "library" in fns else []), *[w for w in fns if w not in ("kernel", "plain",
+                                                                                                 "library")], "kernel"]
+    t = _turns(fns, lambda: work.copy_(table0), order)
+    r = {"ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t.get("library"),
+         "variant_ms": {w: t[w] for w in fns if w not in ("kernel", "plain", "library")},
+         "bound_ms": bound, "read_bound_ms": read_bound, "indices": int(idx.numel()), "raised_cells": raised,
          "max_abs_err": 0.0}
+    library = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
     print(f"cell_insert[max] ({what}, {idx.numel()} indices into {table0.numel()} {table0.dtype} cells, {raised} "
-          f"cells raised): equal to the plain version and to scatter_reduce_(amax); per launch kernel "
-          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
-          f"{r['bound_ms']:.4f} ms by bytes at 3.35 TB/s [{card}]", flush=True)
+          f"cells raised): equal to {', '.join(w for w in fns if w != 'kernel')}; per launch kernel "
+          f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {library}"
+          + "".join(f", {w} {ms:.4f} ms" for w, ms in r["variant_ms"].items())
+          + f"; bound {bound:.4f} ms by bytes at 3.35 TB/s ({read_bound:.4f} without the writes) [{card}]",
+          flush=True)
     return r
 
 
-def max_cells(first: dict, card: str, dev) -> dict:
-    """The max row: the exact build's first batch (its int32 cbf before,
-    indices and values) and a synthetic 2^20-index batch (a prefilled
+MAX_DTYPE_OF = {"int32": torch.int32, "u16": torch.int16, "mf8": torch.uint8}
+MAX_HIGH = {"int32": 1 << 20, "u16": 1 << 16, "mf8": 128}  # the synthetic batch's values and cells
+MAX_SYNTH_CELLS = (1 << 27) + 1  # the synthetic batch's table
+
+
+def max_cells(first: dict, card: str, dev, variants: dict) -> dict:
+    """The max rows, for int32, u16 and mf8 cells: the exact builds' first
+    batch (the table before it, the indices and values the composed update
+    gives its max) and a synthetic 2^20-index batch (a prefilled
     2^27-cell table, a 10^5-fold cell, the trash cell, dropped indices)."""
-    real = max_cell(first["table"], first["idx"], first["values"], "the exact -cnt int32 build's first batch", card)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(11)
-    numel = (1 << 27) + 1
-    table0 = torch.randint(0, 1 << 20, (numel,), generator=gen, device=dev, dtype=torch.int32)
-    idx = _batch(numel, gen, dev)
-    values = torch.randint(0, 1 << 20, (idx.numel(),), generator=gen, device=dev, dtype=torch.int32)
-    synth = max_cell(table0, idx, values, "synthetic", card)
-    return {"real": real, "synthetic": synth}
+    out = {}
+    for counter in ("int32", "u16", "mf8"):
+        f = first[counter]
+        idx, values = ci.conservative_values(f["table"], *f["args"])
+        real = max_cell(f["table"], idx, values, f"the exact -cnt {counter} build's first batch", card, variants)
+        del idx, values
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(11)
+        numel = MAX_SYNTH_CELLS
+        hi = MAX_HIGH[counter]
+        table0 = torch.randint(0, hi, (numel,), generator=gen, device=dev).to(torch.int32)
+        table0 = torch.where(table0 >= 32768, table0 - 65536, table0) if counter == "u16" else table0
+        table0 = table0.to(MAX_DTYPE_OF[counter])
+        idx = _batch(numel, gen, dev)
+        values = torch.randint(0, hi, (idx.numel(),), generator=gen, device=dev).to(torch.int32)
+        values = (torch.where(values >= 32768, values - 65536, values) if counter == "u16" else values).to(
+            MAX_DTYPE_OF[counter])
+        synth = max_cell(table0, idx, values, f"synthetic, {counter} cells", card, variants)
+        del table0, idx, values
+        out[counter] = {"real": real, "synthetic": synth}
+    return out
+
+
+def conservative_bounds_ms(before: torch.Tensor, after: torch.Tensor, args: tuple, words: torch.Tensor) -> dict:
+    """Least times by bytes over the card's memory rate, a 32 B sector a
+    distinct cell read or a raised cell written: ``update`` (the keys read
+    once: hashes, valid, dec_first; the distinct scratch and count cells
+    read; the raised cells written), its first launch ``values`` (the keys
+    and the cells read, an 8 B word a key written) and its second ``raise``
+    (the words and the masked lanes' hashes and valid bytes read, the
+    distinct masked cells read, the raised cells written)."""
+    scratch, hashes, size_log2, scratch_log2, valid, dec_first, _ = args
+    keys = sum(t.numel() * t.element_size() for t in (hashes, valid, dec_first) if t is not None)
+    lanes = filters._bcast_valid(valid, hashes)
+    cells = filters.bloom_indices(hashes, size_log2, lanes).reshape(-1, hashes.shape[-1])
+    scratch_cells = filters.bloom_indices(hashes, scratch_log2, lanes).reshape(-1)
+    reads = (_sectors(cells.reshape(-1), before) + _sectors(scratch_cells, scratch)) * SECTOR
+    writes = _raised_sectors(before, after) * SECTOR
+    mask = _word_masks(words, hashes.shape[-1])
+    lane_bytes = hashes.element_size() + (0 if valid is None else 1)  # a masked lane's hash and valid byte
+    raise_reads = (words.numel() * words.element_size() + int(mask.sum()) * lane_bytes
+                   + _sectors(cells[mask], before) * SECTOR)
+    return {"update": (keys + reads + writes) / HBM_BYTES_PER_MS,
+            "values": (keys + reads + words.numel() * words.element_size()) / HBM_BYTES_PER_MS,
+            "raise": (raise_reads + writes) / HBM_BYTES_PER_MS}
+
+
+def _word_masks(words: torch.Tensor, h: int) -> torch.Tensor:
+    """The lanes (n, h) that the first launch's words send to the raise."""
+    return ((words[:, None] >> (32 + torch.arange(h, device=words.device))) & 1).bool()
+
+
+def words_plain(table0: torch.Tensor, args: tuple) -> torch.Tensor:
+    """The first launch's words by plain PyTorch: a key's encoded value
+    (low 32 bits) and the lanes whose pre-batch cell is below it, compared
+    as the cells are ordered (uint16 unsigned)."""
+    scratch, hashes, size_log2, scratch_log2, valid, dec_first, salt = args
+    idx, upd = ci.conservative_values(table0, *args)
+    h = hashes.shape[-1]
+    idx, upd = idx.reshape(-1, h), upd.reshape(-1, h)[:, 0]
+    bits = {torch.int32: 0xFFFFFFFF, torch.int16: 0xFFFF, torch.uint8: 0xFF}[table0.dtype]
+    low = upd.to(torch.int64) & bits  # the value's bits as the kernel writes them
+    if table0.dtype == torch.int32:  # int32 cells compare signed, the others unsigned
+        value, cells = upd.to(torch.int64), table0[idx].to(torch.int64)
+    else:
+        value, cells = low, table0[idx].to(torch.int64) & bits
+    below = (cells < value[:, None]).to(torch.int64) << (32 + torch.arange(h, device=table0.device))
+    return below.sum(dim=1) | low
+
+
+def conservative_cell(table0: torch.Tensor, args: tuple, what: str, card: str, variants: dict,
+                      timed: bool = True) -> dict:
+    """The conservative update (its two launches) against its plain
+    version and the composed update (plain-torch gathers and the port's
+    max kernel, and each ``--insert-variant``'s), and each
+    ``--insert-variant``'s own update, on one batch: equal tables, the
+    first launch's words equal to their plain version's.  Per-call times
+    in turns (plain, compositions, variants, each launch alone, the
+    update, then in reverse), every call on a fresh copy of ``table0``:
+    the first launch alone against the plain gathers and encode
+    (``ci.conservative_values``); the second alone, from the pre-batch
+    words, against the plain max and ``scatter_reduce_`` (amax; none for
+    uint16 cells) on its masked lanes."""
+    scratch, hashes, size_log2, scratch_log2, valid, dec_first, salt = args
+    h = hashes.shape[-1]
+    work = torch.empty_like(table0)
+    words = ci.conservative_words(table0, *args)
+    expect = words_plain(table0, args)
+    if not torch.equal(words, expect):
+        raise AssertionError(f"conservative update's words != plain on {what}: "
+                             f"{int((words != expect).sum())} keys differ")
+    del expect
+    mask = _word_masks(words, h)
+    cells = filters.bloom_indices(hashes, size_log2, filters._bcast_valid(valid, hashes)).reshape(-1, h)[mask]
+    value = (words[:, None].expand(-1, h)[mask] & 0xFFFFFFFF)
+    value = (torch.where(value >= 1 << 31, value - (1 << 32), value) if table0.dtype == torch.int32 else
+             torch.where(value >= 32768, value - 65536, value) if table0.dtype == torch.int16 else value).to(table0.dtype)
+
+    def variant(lib, fn):
+        def call():
+            with insert_library(lib):
+                fn()
+        return call
+
+    fns = {
+        "kernel": lambda: ci.conservative_update(work, *args),
+        "plain": lambda: ci.conservative_update_plain(work, *args),
+        "composition": lambda: composed_update()(work, *args),
+        "values": lambda: ci.conservative_words(work, *args),
+        "values_plain": lambda: ci.conservative_values(work, *args),
+        "raise": lambda: ci.conservative_raise(work, words, hashes, size_log2, valid),
+        "raise_plain": lambda: ci.cell_insert_plain(work, cells, "max", values=value),
+    }
+    if table0.dtype != torch.int16:
+        fns["raise_library"] = lambda: work.scatter_reduce_(0, cells, value, "amax")
+    for name, lib in variants.items():
+        if hasattr(lib, "cell_max_i32"):
+            fns[f"composition[{name}]"] = (lambda lib: lambda: composed_update(lib)(work, *args))(lib)
+        if hasattr(lib, "cell_conservative_values_i32"):
+            fns[f"kernel[{name}]"] = variant(lib, fns["kernel"])
+            fns[f"values[{name}]"] = variant(lib, fns["values"])
+    tables = [w for w in fns if not w.startswith("values")]
+    outs = {}
+    for who in tables:
+        work.copy_(table0)
+        fns[who]()
+        outs[who] = work.clone()
+    torch.cuda.synchronize()
+    for who in tables:
+        if not torch.equal(outs["kernel"], outs[who]):
+            raise AssertionError(f"conservative update != {who} on {what}: "
+                                 f"{int((outs['kernel'] != outs[who]).sum())} cells differ")
+    after = outs["kernel"]
+    del outs
+    raised = int((after != table0).sum())
+    bounds = conservative_bounds_ms(table0, after, args, words)
+    r = {"keys": int(hashes.numel() // h), "hashes": int(h), "raised_cells": raised, "raise_lanes": int(mask.sum()),
+         "bound_ms": bounds["update"], "values_bound_ms": bounds["values"], "raise_bound_ms": bounds["raise"],
+         "max_abs_err": 0.0}
+    del after
+    if timed:
+        order = ["plain", "values_plain", "raise_plain", *(["raise_library"] if "raise_library" in fns else []),
+                 *[w for w in fns if w.startswith("composition")], *[w for w in fns if "[" in w and
+                                                                    not w.startswith("composition")],
+                 "values", "raise", "kernel"]
+        t = _turns(fns, lambda: work.copy_(table0), order)
+        r.update(ms=t["kernel"], plain_ms=t["plain"], composition_ms=t["composition"],
+                 values_ms=t["values"], values_plain_ms=t["values_plain"], raise_ms=t["raise"],
+                 raise_plain_ms=t["raise_plain"], raise_library_ms=t.get("raise_library"),
+                 variant_ms={w: t[w] for w in fns if "[" in w})
+    library = "none" if r.get("raise_library_ms") is None else f"{r['raise_library_ms']:.4f} ms"
+    print(f"conservative update ({what}, {r['keys']} keys of {h} hashes into {table0.numel()} {table0.dtype} "
+          f"cells, {r['raise_lanes']} lanes raised in launch 2, {raised} cells raised): equal to "
+          f"{', '.join(w for w in tables if w != 'kernel')}, launch 1's words equal to plain"
+          + (f"; per call the update {r['ms']:.4f} ms (launch 1 alone {r['values_ms']:.4f} ms, launch 2 alone "
+             f"{r['raise_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, composition {r['composition_ms']:.4f} ms, "
+             f"launch 1's plain gathers and encode {r['values_plain_ms']:.4f} ms, launch 2's plain max "
+             f"{r['raise_plain_ms']:.4f} ms and library {library}"
+             + "".join(f", {w} {ms:.4f} ms" for w, ms in r["variant_ms"].items())
+             + f"; bounds by bytes at 3.35 TB/s: update {r['bound_ms']:.4f} ms, launch 1 {r['values_bound_ms']:.4f}"
+             f" ms, launch 2 {r['raise_bound_ms']:.4f} ms" if timed else "")
+          + f" [{card}]", flush=True)
+    return r
+
+
+def collision_args(counter: str, dev) -> tuple:
+    """A prefilled 2^10-cell table and a batch whose keys collide heavily
+    on it (200,000 keys of 3 hashes: one key 40,000 times, 1,000 keys 60
+    times each, invalid keys and dec_first), after its scratch sketch."""
+    rng = np.random.default_rng(17)
+    size_log2, scratch_log2, h, n = 10, 10, 3, 200_000
+    table = rng.integers(0, MAX_HIGH[counter], (1 << size_log2) + 1).astype(np.int64)
+    if counter == "u16":
+        table = np.where(table >= 32768, table - 65536, table)
+    vals = rng.integers(-(2**63), 2**63 - 1, size=(n, h), dtype=np.int64)
+    vals[: n // 5] = vals[0]
+    vals[n // 5 : n // 2] = vals[n // 5 : n // 5 + 1000][rng.integers(0, 1000, n // 2 - n // 5)]
+    rng.shuffle(vals)
+    hashes = torch.from_numpy(vals).to(dev)
+    valid = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    dec = torch.from_numpy(rng.random(n) < 0.3).to(dev) & valid
+    scratch = torch.zeros((1 << scratch_log2) + 1, dtype=torch.int32, device=dev)
+    ci.cell_insert_plain(scratch, filters.bloom_indices(hashes, scratch_log2, filters._bcast_valid(valid, hashes))
+                         .reshape(-1), "add")
+    table = torch.from_numpy(table).to(MAX_DTYPE_OF[counter]).to(dev)
+    return table, (scratch, hashes, size_log2, scratch_log2, valid, dec, 977)
+
+
+def conservative_cells(first: dict, card: str, dev, variants: dict) -> dict:
+    """The fused update's rows: on each exact build's first batch (timed)
+    and on the collision table, for int32, u16 and mf8 cells."""
+    out = {}
+    for counter in ("int32", "u16", "mf8"):
+        f = first[counter]
+        real = conservative_cell(f["table"], f["args"], f"the exact -cnt {counter} build's first batch", card,
+                                 variants)
+        table, args = collision_args(counter, dev)
+        collide = conservative_cell(table, args, f"a 2^10-cell {counter} table where keys collide", card, variants,
+                                    timed=False)
+        out[counter] = {"real": real, "collision": collide}
+    return out
 
 
 def gated_walk_cell(what: str, run, plain_run, yardstick, card: str, st) -> dict:
@@ -4199,14 +4519,19 @@ def main(argv=None) -> int:
         lr = long_read_path(tmp, card, dev, variants=lr_variants)
 
         phase("11 the decision oracle on the card; the exact-count stage-1 build at -mem 1 on the first "
-              f"{EXACT_PAIRS} pairs, kernels vs plain inserts; the max insert; walks over the exact-count graph "
+              f"{EXACT_PAIRS} pairs, the fused conservative update vs the composed update and the plain inserts; "
+              "the max insert and the fused update on the builds' first batches; walks over the exact-count graph "
               "and with terminators, vs plain PyTorch, on the card")
         oracle = oracle_on_card(card)
-        built = exact_builds(left, right, card, dev)
-        max_launches = oracle["launches"]["max"] + sum(built[c]["launches"]["max"] for c in ("int32", "mf8"))
-        maxc = max_cells(built.pop("first_max"), card, dev)
+        built = exact_builds(left, right, card, dev, insert_variants)
+        cons_launches = {op: oracle["launches"][op] + sum(built[c]["launches"][op] for c in ("int32", "mf8", "u16"))
+                         for op in ci.CONSERVATIVE_OPS}
+        first = built.pop("first")
+        maxc = max_cells(first, card, dev, insert_variants)
+        consc = conservative_cells(first, card, dev, insert_variants)
+        del first
         gated = exact_walks(built, walk_t["mf8"]["seed_rows"], naive["right_start"], truth, card, dev)
-        exact_runs = {c: built[c] for c in ("int32", "mf8")}
+        exact_runs = {c: built[c] for c in ("int32", "mf8", "u16")}
         del built
         torch.cuda.empty_cache()
 
@@ -4452,29 +4777,92 @@ def main(argv=None) -> int:
         "long_read_runs": lr_runs, "long_reads": lr["reads"], "long_bases": lr["bases"],
         "card_vs_cpu_files": lr["card_vs_cpu"],
     })
+    # max: launches on phase 12's exact-count mesh batches (its routed max
+    # reducer), every count set to 0 before each; the exact builds and the
+    # oracle run max_kernel as the conservative update's second launch,
+    # counted in its own row (cell_insert[conservative_raise])
+    max_runs = {what: st["launches"].get("max", 0) for what, st in mesh["meshes"].items() if "exact counts" in what}
+    assert all(max_runs.values()), max_runs
+    mi, mr = maxc["int32"]["synthetic"], maxc["int32"]["real"]
     kernels.append({
         "name": "cell_insert[max]",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": MAX_REPLACES,
-        "launches": max_launches,
-        "run": f"phase 11: the decision oracle on the card ({oracle['launches']['max']} launches) and the exact-count "
-               f"stage-1 builds at -mem 1 (-cnt int32 and mf8, flat layout) of the first {EXACT_PAIRS} pairs; times "
-               f"on a synthetic 2^20-index batch and on the int32 build's first batch",
-        "max_abs_err": max(maxc[c]["max_abs_err"] for c in ("real", "synthetic")),
-        "ms": maxc["synthetic"]["ms"],
-        "plain_ms": maxc["synthetic"]["plain_ms"],
-        "bound_ms": maxc["synthetic"]["bound_ms"],
+        "launches": sum(max_runs.values()),
+        "run": f"phase 12: the exact-count int32 batch on meshes of {' and '.join(map(str, MESH_SHARDS))} shards "
+               f"(the mesh's max reducer); times on a synthetic 2^20-index batch and on the exact -cnt int32 "
+               f"build's first batch (its composed update's indices and values), int32 cells; u16 and mf8 beside; "
+               f"its kernel also runs on phase 11's path as cell_insert[conservative_raise]",
+        "max_abs_err": max(maxc[c][b]["max_abs_err"] for c in maxc for b in ("real", "synthetic")),
+        "ms": mi["ms"],
+        "plain_ms": mi["plain_ms"],
+        "bound_ms": mi["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": maxc["synthetic"]["library_ms"],
-        "real_batch_indices": maxc["real"]["indices"],
-        "real_ms": maxc["real"]["ms"],
-        "real_plain_ms": maxc["real"]["plain_ms"],
-        "real_bound_ms": maxc["real"]["bound_ms"],
-        "real_library_ms": maxc["real"]["library_ms"],
-        "real_raised_cells": maxc["real"]["raised_cells"],
+        "library_ms": mi["library_ms"],
+        "read_bound_ms": mi["read_bound_ms"],
+        "variant_ms": mi["variant_ms"],
+        "real_batch_indices": mr["indices"],
+        "real_ms": mr["ms"],
+        "real_plain_ms": mr["plain_ms"],
+        "real_bound_ms": mr["bound_ms"],
+        "real_read_bound_ms": mr["read_bound_ms"],
+        "real_library_ms": mr["library_ms"],
+        "real_variant_ms": mr["variant_ms"],
+        "real_raised_cells": mr["raised_cells"],
+        "mesh_launches": max_runs,
+        **{c: maxc[c] for c in ("u16", "mf8")},
+    })
+    cr = consc
+    ci_ = cr["int32"]["real"]
+    cons_err = max(cr[c][b]["max_abs_err"] for c in cr for b in ("real", "collision"))
+    kernels.append({
+        "name": "cell_insert[conservative]",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": CONSERVATIVE_REPLACES,
+        "launches": cons_launches["conservative"],
+        "run": f"phase 11: the decision oracle on the card ({oracle['launches']['conservative']} launches), the "
+               f"exact-count stage-1 builds at -mem 1 (-cnt int32 and mf8, flat layout) of the first {EXACT_PAIRS} "
+               f"pairs and the -cnt u16 build's first batch; the conservative update's first launch (a key's value "
+               f"and the lanes below it); times on each build's first batch (int32 here), the launch alone against "
+               f"the plain gathers and encode; update_* the whole update (both launches) against its plain version "
+               f"and the composition of plain-torch gathers and the max kernel",
+        "max_abs_err": cons_err,
+        "ms": ci_["values_ms"],
+        "plain_ms": ci_["values_plain_ms"],
+        "bound_ms": ci_["values_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "update_ms": ci_["ms"],
+        "update_plain_ms": ci_["plain_ms"],
+        "update_bound_ms": ci_["bound_ms"],
+        "composition_ms": ci_["composition_ms"],
+        "variant_ms": ci_["variant_ms"],
+        "keys": ci_["keys"],
+        "raised_cells": ci_["raised_cells"],
+        "collision": cr["int32"]["collision"],
+        **{c: cr[c] for c in ("u16", "mf8")},
         "exact_builds": exact_runs,
         "oracle": oracle,
+    })
+    kernels.append({
+        "name": "cell_insert[conservative_raise]",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": MAX_REPLACES,
+        "launches": cons_launches["conservative_raise"],
+        "run": f"phase 11, as cell_insert[conservative]: the update's second launch, max_kernel over the lanes the "
+               f"first launch sends it ({ci_['raise_lanes']} of {ci_['keys'] * ci_['hashes']} on the int32 build's "
+               f"first batch), alone from the pre-batch words, against the plain max and scatter_reduce_ on those "
+               f"lanes; u16 and mf8 in cell_insert[conservative]",
+        "max_abs_err": cons_err,
+        "ms": ci_["raise_ms"],
+        "plain_ms": ci_["raise_plain_ms"],
+        "bound_ms": ci_["raise_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": ci_["raise_library_ms"],
+        "raise_lanes": ci_["raise_lanes"],
     })
     # phase 12: launches on the -sharded on -stage 3 run (every count set to 0
     # before it) and on the 8-shard mesh build of the pairs' head

@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops import minifloat
-from ..ops.cell_insert import cell_insert
+from ..ops.cell_insert import cell_insert, conservative_update
 from ..ops.nthash import shr
 
 
@@ -284,27 +284,16 @@ def counting_increment(
     sketch of ``2^scratch_log2 + 1`` cells (the ``add`` insert of the
     batch); ``dec_first`` takes 1 off it (the first insert of a key new to
     the graph goes to the dbgbf only).  All h cells are then raised to
-    max(cell, min_cell + max(m, 0)) by the ``max`` insert of the encoded
-    values; mf8 rounds stochastically keyed by hash 0's low 32 bits and
-    ``salt``."""
+    max(cell, min_cell + max(m, 0)) in the cells' encoding
+    (``ops.cell_insert.conservative_update``: two kernels on the card, the
+    gathers, min, encode and ``max`` insert on the CPU); mf8 rounds
+    stochastically keyed by hash 0's low 32 bits and ``salt``."""
     assert not cfg.blocked, "the conservative path keeps the reference layout"
     valid = _bcast_valid(valid, hashes)
-    idx = bloom_indices(hashes, cfg.size_log2, valid)
     sidx = bloom_indices(hashes, cfg.scratch_log2, valid)
     scratch = torch.zeros((1 << cfg.scratch_log2) + 1, dtype=torch.int32, device=counts.device)
     cell_insert(scratch, sidx.reshape(-1), "add")
-    mult = torch.amin(scratch[sidx], dim=-1)
-    if dec_first is not None:
-        mult = mult - dec_first.to(torch.int32)
-    # decoding is monotonic in the cell code: min-then-decode (the JAX
-    # package's order) equals decode-then-min, which reads u16 unsigned
-    cur_min = torch.amin(decode_counts(counts[idx], cfg.dtype), dim=-1)
-    new_val = cur_min + torch.clamp(mult, min=0).to(cur_min.dtype)
-    if valid is not None:
-        new_val = torch.where(valid[..., 0], new_val, torch.zeros_like(new_val))
-    u01 = minifloat.mix_u01(hashes[..., 0], salt) if cfg.dtype == "mf8" else None
-    upd = encode_counts(new_val, cfg.dtype, u01)[..., None].expand(idx.shape)
-    return cell_insert(counts, idx.reshape(-1), "max", values=upd.reshape(-1))
+    return conservative_update(counts, scratch, hashes, cfg.size_log2, cfg.scratch_log2, valid, dec_first, salt)
 
 
 def counting_increment_cm(

@@ -21,6 +21,9 @@
 //            and uint8), the scatter-max of the conservative update
 //            (filters.py::counting_increment, XLA's .at[].max in the JAX
 //            package; no Pallas kernel)
+//   conservative  the conservative update of a batch of keys after its
+//            scratch sketch, in two launches (below): the same table as the
+//            gathers, min, encode and max of filters.py::counting_increment
 //
 // What bounds them: random accesses to HBM.  Stage 1 at -mem 1 inserts
 // about 1M indices per filter per 4096-read batch (4096 reads x 126 k-mers
@@ -107,23 +110,60 @@
 // byte read (and, where the code changes, one write) per distinct cell, as
 // for add_u16.
 //
-// max, a simple first version: one thread per index, grid-stride.  A max
-// commutes, so the table comes out the same in any order.  Each thread
-// reads its cell from L2 first and writes only where its value is larger:
-// on the exact-count build most keys recur across batches with a value
-// that their cells already hold, and such a cell costs one read.  int32
-// cells then take one atomicMax; uint16 cells a 16-bit atomicCAS loop (as
-// add_u16, so the trash cell's word never reaches past the tensor); uint8
-// cells an atomicCAS loop on their aligned 32-bit word, which for the last
-// cells of a table reaches up to 3 bytes past it: the wrapper takes only
-// tables that start their storage, whose block the caching allocator
+// max, one pass, a pair a thread.  A max commutes and is idempotent, so
+// partial maxima may be applied in any order and any split, and the table
+// comes out the same.  Pairs are keyed by their 32-bit word: an int32 cell
+// is a word, two uint16 or four uint8 cells share one.  The lanes of a
+// warp that hold one word merge by __match_any_sync, each cell position of
+// the word by __reduce_max_sync under the peers' mask (a lane alone with
+// its word skips the reductions, which under distinct masks run one mask
+// at a time), and the lowest peer reads its word from L2 and writes only
+// where a cell is below: int32 one atomicMax (a RED, its result unused),
+// uint16 and uint8 one CAS of the lane-wise maxima (__vmaxu2, __vmaxu4) of
+// the whole word, retried only when another thread wrote the word first.
+// So the four byte cells of a word in a warp cost one read and at most one
+// CAS, and the 10^5-fold cell of a synthetic batch (a tenth of every warp)
+// one atomic a warp.  On the exact-count build most keys recur across
+// batches with a value their cells already hold: such a word costs one
+// read and no atomic.  What bounds it is the card's rate of dependent
+// random reads, then of random read-modify-writes where cells rise.
+// Totals of a block's tile in a shared table first, as add_u16 and add_mf8
+// keep them, were timed in turns on an H100 80GB HBM3 at 700 W
+// (tools/exact_smoke.py, PERF.md): 512-thread tiles cost 6-18% on the
+// exact builds' first batches, where a tile merges nearly nothing, and
+// gained at most 14% on the synthetic batch; 1024 x 4 tiles cost 24-52%;
+// 4 pairs a thread, 4-7% and 61-125%.  The word CAS of the last cells of a
+// uint16 or uint8 table reaches up to 3 bytes past it: the wrapper takes
+// only tables that start their storage, whose block the caching allocator
 // rounds to 512 bytes, and a CAS writes the other bytes of the word back
-// unchanged.  Fusing the conservative update's gather, min, encode and max
-// into one pass is later work.
+// unchanged.
+//
+// conservative update, the exact counts' increment (filters.py::
+// counting_increment after the add of the batch into the int32 scratch
+// sketch; XLA's gathers, min, encode and .at[].max in the JAX package).
+// Every occurrence of a key must see the pre-batch cells, so reading and
+// raising are two launches, never one pass (a key whose cells another key
+// of the batch raised first would count twice), each an entry of its own:
+//   1 conservative_values (conservative_values_kernel), a thread a key:
+//     the min of its h scratch cells less dec_first, clamped at 0 (mult);
+//     the min of its h cells, decoded (cur); new = cur + mult, or 0 where
+//     the key is invalid, encoded as the cells are (mf8: rounded
+//     stochastically with mix_u01(hash 0's low 32 bits, salt), in the
+//     float32 arithmetic of minifloat.encode_stochastic); it writes the
+//     value and a mask of the lanes whose cell is below it into an 8-byte
+//     word a key.  For h = 2, the exact builds' and the oracle's, a key's
+//     reads are issued at once and its cells kept in registers.
+//   2 conservative_raise, max_kernel over the n x h lanes, each
+//     recomputing its cell from its hash, a lane outside the mask dropped
+//     before it reads its hash: a lane whose pre-batch cell already holds
+//     the value cannot raise it, and on the exact build most lanes are
+//     such (a key new to the graph and seen once in the batch has mult 0).
+// No index or value array of n x h is written: the hashes are read twice,
+// the cells once, and again (from L2) only where a lane rises.
 //
 // Keys are uint32, as the JAX package's indices are; 0xFFFFFFFF marks an
-// empty slot, so the wrapper refuses add_u16 and add_mf8 tables of 2^32
-// cells or more.
+// empty slot, so the wrapper refuses add_u16, add_mf8, max and conservative
+// tables of 2^32 cells or more.
 //
 // Each entry point launches on the caller's stream, does not synchronise,
 // allocates nothing and returns cudaGetLastError() as an int.
@@ -406,49 +446,277 @@ __global__ void mf8_apply_kernel(uint8_t* __restrict__ table, unsigned long long
   }
 }
 
-// max: read the cell (L2), raise it only where the value is larger
-__global__ void max_i32_kernel(int* __restrict__ table, unsigned long long numel, const long long* __restrict__ idx,
-                               const int* __restrict__ vals, long long n) {
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < n; t += (long long)gridDim.x * blockDim.x) {
-    const unsigned long long i = (unsigned long long)idx[t];  // negative: huge, dropped
-    if (i >= numel) continue;
-    const int v = vals[t];
-    if (__ldcg(table + i) < v) atomicMax(table + i, v);
-  }
+// ---- max and the conservative update ----
+
+// A cell type's words for max: cells a 32-bit word holds and their bits.
+// int32 cells are words of their own, raised by atomicMax; uint16 and uint8
+// cells are raised a word at a time, the cells of a word that a warp holds
+// by one CAS of the lane-wise maxima.
+template <typename T>
+struct MaxWord;
+template <>
+struct MaxWord<int> {
+  static constexpr int kLanes = 1, kBits = 32, kShift = 0;
+};
+template <>
+struct MaxWord<unsigned short> {
+  static constexpr int kLanes = 2, kBits = 16, kShift = 1;
+};
+template <>
+struct MaxWord<uint8_t> {
+  static constexpr int kLanes = 4, kBits = 8, kShift = 2;
+};
+
+// the lane-wise maximum of two words (signed for int32 cells, unsigned for
+// the packed uint16 and uint8 cells)
+template <typename T>
+__device__ __forceinline__ uint32_t word_max(uint32_t a, uint32_t b) {
+  if constexpr (MaxWord<T>::kLanes == 1) return (uint32_t)max((int)a, (int)b);
+  else if constexpr (MaxWord<T>::kLanes == 2) return __vmaxu2(a, b);
+  else return __vmaxu4(a, b);
 }
 
-__global__ void max_u16_kernel(unsigned short* __restrict__ table, unsigned long long numel,
-                               const long long* __restrict__ idx, const unsigned short* __restrict__ vals,
-                               long long n) {
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < n; t += (long long)gridDim.x * blockDim.x) {
-    const unsigned long long i = (unsigned long long)idx[t];
-    if (i >= numel) continue;
-    const unsigned short v = vals[t];
-    unsigned short old = __ldcg(table + i);
-    while (old < v) {
-      const unsigned short seen = atomicCAS(table + i, old, v);
+// The (cell, value) pairs of plain max: idx[t], vals[t]
+template <typename T>
+struct PairSource {
+  const long long* __restrict__ idx;
+  const T* __restrict__ vals;
+  __device__ __forceinline__ bool get(long long t, unsigned long long numel, unsigned long long& cell,
+                                      uint32_t& v) const {
+    cell = (unsigned long long)idx[t];  // negative: huge, dropped
+    v = (uint32_t)vals[t];
+    if constexpr (MaxWord<T>::kLanes > 1) v &= (1u << MaxWord<T>::kBits) - 1;
+    return cell < numel;
+  }
+};
+
+// A key's cell of hash j: (hash >>> 1) & (2^log2 - 1), or the trash cell
+// 2^log2 where the lane is invalid (filters.bloom_indices)
+__device__ __forceinline__ unsigned long long bloom_cell(long long hash, bool valid, int log2) {
+  const unsigned long long size = 1ull << log2;
+  return valid ? ((unsigned long long)hash >> 1) & (size - 1) : size;
+}
+
+// the validity of lane j of key k: valid holds valid_lanes (1 or h) a key,
+// or is null (every lane valid)
+__device__ __forceinline__ bool lane_valid(const uint8_t* __restrict__ valid, int valid_lanes, long long k, int j) {
+  return valid == nullptr || valid[k * valid_lanes + (valid_lanes > 1 ? j : 0)] != 0;
+}
+
+// The (cell, value) pairs of the conservative update's raise: lane t is
+// hash j = t % h of key k = t / h; words[k] holds the key's encoded value
+// (low 32 bits) and the lanes whose pre-batch cell is below it (high 32);
+// the other lanes raise nothing and are dropped
+template <typename T>
+struct ConservativeSource {
+  const long long* __restrict__ hashes;
+  const uint8_t* __restrict__ valid;
+  const unsigned long long* __restrict__ words;
+  int valid_lanes, h, size_log2;
+  __device__ __forceinline__ bool get(long long t, unsigned long long numel, unsigned long long& cell,
+                                      uint32_t& v) const {
+    const uint32_t k = (uint32_t)t / (uint32_t)h;  // the wrapper keeps n * h under 2^32
+    const int j = (int)((uint32_t)t - k * (uint32_t)h);
+    const unsigned long long w = words[k];
+    if (!((w >> (32 + j)) & 1)) return false;
+    cell = bloom_cell(hashes[t], lane_valid(valid, valid_lanes, k, j), size_log2);
+    v = (uint32_t)w;
+    return cell < numel;
+  }
+};
+
+// raise word w of the table to the lane-wise max with want: one read, then
+// atomicMax (int32) or a CAS of the whole word, only where a cell is below
+template <typename T>
+__device__ __forceinline__ void raise_word(uint32_t* w, uint32_t want) {
+  uint32_t old = __ldcg(w);
+  if constexpr (MaxWord<T>::kLanes == 1) {
+    if ((int)old < (int)want) atomicMax((int*)w, (int)want);
+  } else {
+    uint32_t raised = word_max<T>(old, want);
+    while (raised != old) {  // retried only where another thread wrote the word first
+      const uint32_t seen = atomicCAS(w, old, raised);
       if (seen == old) break;
       old = seen;
+      raised = word_max<T>(old, want);
     }
   }
 }
 
-__global__ void max_u8_kernel(uint8_t* __restrict__ table, unsigned long long numel,
-                              const long long* __restrict__ idx, const uint8_t* __restrict__ vals, long long n) {
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < n; t += (long long)gridDim.x * blockDim.x) {
-    const unsigned long long i = (unsigned long long)idx[t];
-    if (i >= numel) continue;
-    const uint32_t v = vals[t];
-    const uintptr_t addr = (uintptr_t)(table + i);
-    unsigned int* word = (unsigned int*)(addr & ~(uintptr_t)3);
-    const int shift = (int)(addr & 3) * 8;
-    unsigned int old = __ldcg(word);
-    while (((old >> shift) & 0xFFu) < v) {
-      const unsigned int seen = atomicCAS(word, old, (old & ~(0xFFu << shift)) | (v << shift));
-      if (seen == old) break;
-      old = seen;
+// max, a pair a thread: the lanes of a warp holding one word merge by
+// __match_any_sync and __reduce_max_sync (per cell of the word), and the
+// lowest of them raises the word.  base is uniform over the block, so every
+// lane runs every step and the full mask is exact.
+template <typename T, typename Source>
+__global__ void max_kernel(T* __restrict__ table, unsigned long long numel, Source src, long long n) {
+  using W = MaxWord<T>;
+  const int lane = threadIdx.x & 31;
+  for (long long base = (long long)blockIdx.x * blockDim.x; base < n; base += (long long)gridDim.x * blockDim.x) {
+    const long long t = base + threadIdx.x;
+    unsigned long long cell = 0;
+    uint32_t val = 0;
+    const bool in = t < n && src.get(t, numel, cell, val);
+    const uint32_t key = in ? (uint32_t)(cell >> W::kShift) : kEmpty;
+    const int pos = (int)(cell & (W::kLanes - 1));
+    const unsigned int peers = __match_any_sync(0xFFFFFFFFu, key);
+    // a lane alone with its word skips the reductions: under distinct
+    // masks they run one mask at a time, and on real reads nearly every
+    // word of a warp is alone
+    uint32_t want = val << (pos * W::kBits);
+    if (peers != 1u << lane) {
+      if constexpr (W::kLanes == 1) {
+        want = (uint32_t)__reduce_max_sync(peers, (int)val);
+      } else {
+        want = 0;
+#pragma unroll
+        for (int b = 0; b < W::kLanes; ++b) want |= __reduce_max_sync(peers, pos == b ? val : 0u) << (b * W::kBits);
+      }
     }
+    if (key != kEmpty && lane == __ffs((int)peers) - 1) raise_word<T>((uint32_t*)table + key, want);
   }
+}
+
+// rnabloom_tpu/ops/minifloat.py::decode, one code (float32, exact)
+__device__ __forceinline__ float mf8_decode(int b) {
+  return b <= 7 ? (float)b : (float)((b & 7) | 8) * __int_as_float(((b >> 3) - 1 + 127) << 23);
+}
+
+// rnabloom_tpu/ops/minifloat.py::encode_stochastic of one float32 count
+__device__ __forceinline__ int mf8_encode_stochastic(float count, float u01) {
+  const float c = fmaxf(count, 0.0f);
+  // encode_floor
+  int c0;
+  if (c < 8.0f) {
+    c0 = (int)floorf(c);
+  } else {
+    int e = floor_log2f(c) - 2;
+    e = e > 1 ? e : 1;
+    int mant = (int)floorf(__fmul_rn(c, __int_as_float((1 - e + 127) << 23)));
+    mant = mant < 8 ? 8 : (mant > 15 ? 15 : mant);
+    const int big = (e << 3) | (mant & 7);
+    c0 = big < 127 ? big : 127;
+  }
+  const int c1 = c0 + 1 < 127 ? c0 + 1 : 127;
+  const float v0 = mf8_decode(c0), v1 = mf8_decode(c1);
+  const float frac = v1 > v0 ? __fdiv_rn(__fsub_rn(c, v0), fmaxf(__fsub_rn(v1, v0), 1e-9f)) : 0.0f;
+  return u01 < frac ? c1 : c0;
+}
+
+// a key's value from the min of its cells (cur, in the cell's order) and
+// its multiplicity: new = cur + mult (0 where the key is invalid), encoded
+// as the cells are; the bits of a T
+template <typename T>
+__device__ __forceinline__ uint32_t key_value(long long cur, int mult, bool ok, long long hash0, uint32_t salt) {
+  if constexpr (MaxWord<T>::kLanes == 1) {  // int32: cur + mult, wrapping
+    return ok ? (uint32_t)cur + (uint32_t)mult : 0u;
+  } else if constexpr (MaxWord<T>::kLanes == 2) {  // u16: clamped to [0, 65535]
+    const int v = ok ? (int)cur + mult : 0;
+    return (uint32_t)(v < 0 ? 0 : (v > 65535 ? 65535 : v));
+  } else {  // mf8: the float32 sum, rounded stochastically
+    const float v = ok ? __fadd_rn(mf8_decode((int)cur), __int2float_rn(mult)) : 0.0f;
+    return (uint32_t)mf8_encode_stochastic(v, mix_u01((uint32_t)hash0, salt));
+  }
+}
+
+// a value's order against a cell's
+template <typename T>
+__device__ __forceinline__ long long value_order(uint32_t value) {
+  return MaxWord<T>::kLanes == 1 ? (long long)(int)value : (long long)value;
+}
+
+// The conservative update's first launch, a thread a key (every read of
+// the pre-batch cells): mult = max(min of the key's scratch cells -
+// dec_first, 0); cur = min of its cells, decoded; new = cur + mult, or 0
+// where lane 0 is invalid; encoded (mf8: stochastically, keyed by hash 0's
+// low 32 bits and salt).  words[k] = the key's lanes whose cell is below
+// the encoded value (bit 32 + j) | the value's bits.  H == 2: h == 2, both
+// reads of a key issued at once and its cells kept in registers; H == 0:
+// any h, the cells read again for the mask.
+template <typename T, int H>
+__global__ void conservative_values_kernel(const T* __restrict__ table, int size_log2, const int* __restrict__ scratch,
+                                           int scratch_log2, const long long* __restrict__ hashes, long long n,
+                                           int h, const uint8_t* __restrict__ valid, int valid_lanes,
+                                           const uint8_t* __restrict__ dec_first, uint32_t salt,
+                                           unsigned long long* __restrict__ words) {
+  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < n; k += (long long)gridDim.x * blockDim.x) {
+    const long long* hk = hashes + k * h;
+    int mult = 0x7FFFFFFF;
+    long long cur = 0x7FFFFFFFFFFFFFFFll;
+    uint32_t below = 0, value;
+    if constexpr (H > 0) {
+      long long hash[H];
+      bool ok[H];
+      int sc[H];
+      T cell[H];
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        hash[j] = hk[j];
+        ok[j] = lane_valid(valid, valid_lanes, k, j);
+      }
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        sc[j] = scratch[bloom_cell(hash[j], ok[j], scratch_log2)];
+        cell[j] = table[bloom_cell(hash[j], ok[j], size_log2)];
+      }
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        mult = min(mult, sc[j]);
+        cur = min(cur, (long long)cell[j]);
+      }
+      if (dec_first != nullptr) mult -= dec_first[k];
+      value = key_value<T>(cur, max(mult, 0), ok[0], hash[0], salt);
+#pragma unroll
+      for (int j = 0; j < H; ++j) below |= ((long long)cell[j] < value_order<T>(value) ? 1u : 0u) << j;
+    } else {
+      for (int j = 0; j < h; ++j) {
+        const bool ok = lane_valid(valid, valid_lanes, k, j);
+        const long long hash = hk[j];
+        mult = min(mult, scratch[bloom_cell(hash, ok, scratch_log2)]);
+        cur = min(cur, (long long)table[bloom_cell(hash, ok, size_log2)]);
+      }
+      if (dec_first != nullptr) mult -= dec_first[k];
+      value = key_value<T>(cur, max(mult, 0), lane_valid(valid, valid_lanes, k, 0), hk[0], salt);
+      for (int j = 0; j < h; ++j) {
+        const unsigned long long c = bloom_cell(hk[j], lane_valid(valid, valid_lanes, k, j), size_log2);
+        if ((long long)table[c] < value_order<T>(value)) below |= 1u << j;
+      }
+    }
+    words[k] = ((unsigned long long)below << 32) | value;
+  }
+}
+
+template <typename T, typename Source>
+int launch_max(T* table, long long numel, Source src, long long n, cudaStream_t s) {
+  if (n > 0) max_kernel<T, Source><<<blocks_for(n), kThreads, 0, s>>>(table, (unsigned long long)numel, src, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int cell_max(void* table, long long numel, const void* idx, const void* vals, long long n, void* stream) {
+  return launch_max<T>((T*)table, numel, PairSource<T>{(const long long*)idx, (const T*)vals}, n,
+                            (cudaStream_t)stream);
+}
+
+template <typename T>
+int conservative_values(const void* table, int size_log2, const void* scratch, int scratch_log2, const void* hashes,
+                        long long n, int h, const void* valid, int valid_lanes, const void* dec_first,
+                        unsigned int salt, void* words, void* stream) {
+  if (n > 0) {
+    auto kernel = h == 2 ? conservative_values_kernel<T, 2> : conservative_values_kernel<T, 0>;
+    kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        (const T*)table, size_log2, (const int*)scratch, scratch_log2, (const long long*)hashes, n, h,
+        (const uint8_t*)valid, valid_lanes, (const uint8_t*)dec_first, (uint32_t)salt,
+        (unsigned long long*)words);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int conservative_raise(void* table, long long numel, int size_log2, const void* hashes, long long n, int h,
+                       const void* valid, int valid_lanes, const void* words, void* stream) {
+  ConservativeSource<T> src{(const long long*)hashes, (const uint8_t*)valid, (const unsigned long long*)words,
+                            valid_lanes, h, size_log2};
+  return launch_max<T>((T*)table, numel, src, n * h, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -507,29 +775,43 @@ int cell_add_mf8_batch(void* table, void* batch, long long slots, long long nume
 }
 
 // max: table[idx[t]] = max(table[idx[t]], vals[t]); vals has the table's
-// element type
+// element type; uint16 and uint8 tables are raised a 32-bit word at a time,
+// so the storage must be 4-byte aligned and reach to the last cell's word
 int cell_max_i32(void* table, long long numel, const void* idx, const void* vals, long long n, void* stream) {
-  if (n > 0) {
-    max_i32_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        (int*)table, (unsigned long long)numel, (const long long*)idx, (const int*)vals, n);
-  }
-  return (int)cudaGetLastError();
+  return cell_max<int>(table, numel, idx, vals, n, stream);
 }
 
 int cell_max_u16(void* table, long long numel, const void* idx, const void* vals, long long n, void* stream) {
-  if (n > 0) {
-    max_u16_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        (unsigned short*)table, (unsigned long long)numel, (const long long*)idx, (const unsigned short*)vals, n);
-  }
-  return (int)cudaGetLastError();
+  return cell_max<unsigned short>(table, numel, idx, vals, n, stream);
 }
 
 int cell_max_u8(void* table, long long numel, const void* idx, const void* vals, long long n, void* stream) {
-  if (n > 0) {
-    max_u8_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-        (uint8_t*)table, (unsigned long long)numel, (const long long*)idx, (const uint8_t*)vals, n);
-  }
-  return (int)cudaGetLastError();
+  return cell_max<uint8_t>(table, numel, idx, vals, n, stream);
 }
+
+// The conservative update of n keys of h hashes (int64, n x h) on a table
+// of 2^size_log2 + 1 cells, after the add of the batch into scratch
+// (2^scratch_log2 + 1 int32 cells), in two launches: every read of the
+// pre-batch cells (conservative_values) ends before a cell is raised
+// (conservative_raise, on the same stream).  valid (bool, valid_lanes = 1
+// or h a key) and dec_first (bool, one a key) may be null; words: n uint64,
+// written by the first, read by the second.
+#define CONSERVATIVE_ENTRIES(suffix, T)                                                                            \
+  int cell_conservative_values_##suffix(const void* table, int size_log2, const void* scratch, int scratch_log2,  \
+                                        const void* hashes, long long n, int h, const void* valid,               \
+                                        int valid_lanes, const void* dec_first, unsigned int salt, void* words,  \
+                                        void* stream) {                                                          \
+    return conservative_values<T>(table, size_log2, scratch, scratch_log2, hashes, n, h, valid, valid_lanes,     \
+                                  dec_first, salt, words, stream);                                               \
+  }                                                                                                              \
+  int cell_conservative_raise_##suffix(void* table, long long numel, int size_log2, const void* hashes,          \
+                                       long long n, int h, const void* valid, int valid_lanes, const void* words, \
+                                       void* stream) {                                                           \
+    return conservative_raise<T>(table, numel, size_log2, hashes, n, h, valid, valid_lanes, words, stream);      \
+  }
+
+CONSERVATIVE_ENTRIES(i32, int)
+CONSERVATIVE_ENTRIES(u16, unsigned short)
+CONSERVATIVE_ENTRIES(u8, uint8_t)
 
 }  // extern "C"

@@ -153,6 +153,12 @@ _SIGNATURES = {
         "cell_max_i32": [_P, _I64, _P, _P, _I64, _P],
         "cell_max_u16": [_P, _I64, _P, _P, _I64, _P],
         "cell_max_u8": [_P, _I64, _P, _P, _I64, _P],
+        # table size_log2 scratch scratch_log2 hashes n h valid valid_lanes dec_first salt words stream
+        **{f"cell_conservative_values_{t}": [_P, _INT, _P, _INT, _P, _I64, _INT, _P, _INT, _P, _U32, _P, _P]
+           for t in ("i32", "u16", "u8")},
+        # table numel size_log2 hashes n h valid valid_lanes words stream
+        **{f"cell_conservative_raise_{t}": [_P, _I64, _INT, _P, _I64, _INT, _P, _INT, _P, _P]
+           for t in ("i32", "u16", "u8")},
     }),
     WALK_LIB: (WALK_SRC, _WALK_ENTRIES),
     WALK_PN_LIB: (WALK_SRC, _WALK_ENTRIES),

@@ -19,6 +19,7 @@ from rnabloom_tpu.graph import dbg as jdbg
 from rnabloom_tpu_torch.assembly import correct as tcorrect
 from rnabloom_tpu_torch.bloom import filters as tf
 from rnabloom_tpu_torch.graph import dbg as tdbg
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

@@ -30,6 +30,7 @@ from rnabloom_tpu_torch.graph import dbg as tdbg, engine, traverse as ttr
 from rnabloom_tpu_torch.ops import cell_insert as ci, nthash
 from rnabloom_tpu_torch.utils import checkpoint as tck
 from stage3_common import WALK_DATA, WALK_K, naive_walk_rows, pair_walk_rows
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

@@ -8,10 +8,10 @@ through ``assemble_pe`` with two batches and the pure-Python reader), and
 every file under the output directory byte-identical (the fragment store,
 the checkpoint, the read statistics, the transcripts), ``report.json``
 equal but for ``elapsed_s``.  The extension must change the fragments:
-the same run without ``-extend`` stores other ones.
+the same run without ``-extend`` stores other ones.  (The ``-stage 3``
+case is ``tests/test_torch_extend_stage3.py``, a file of its own: with
+``--dist loadfile`` a file runs in one test process.)
 """
-
-import os
 
 import pytest
 import torch
@@ -21,8 +21,9 @@ from rnabloom_tpu.io import native
 from rnabloom_tpu_torch import cli
 from rnabloom_tpu_torch.assembly import pipeline as tpipe
 from rnabloom_tpu_torch.io import native as tnative
-from stage3_common import COMMON, _files, assert_same_outputs, make_inputs
+from stage3_common import _files
 from test_torch_stage2 import MEM, reads  # noqa: F401  (the module fixture)
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 
@@ -58,19 +59,3 @@ def test_stage2_extend_byte_identical(reads, tmp_path, monkeypatch, counter, bat
         assert got[f] == want[f], f"{f} differs"
     tpipe.assemble_pe(left, right, plain, tpipe.PipelineParams(**kw), save_graph=True, device="cpu")
     assert _fragments(plain) != _fragments(tout)
-
-
-def test_stage3_norr_extend_byte_identical(tmp_path):
-    left, right = make_inputs(tmp_path)["plain"]
-    jout, tout = str(tmp_path / "jax"), str(tmp_path / "torch")
-    jrep = jpipe.assemble_pe(
-        left, right, jout,
-        jpipe.PipelineParams(stop_stage=3, no_reduce=True, extend_fragments=True, sharded="off", **COMMON),
-    )
-    trep = tpipe.assemble_pe(
-        left, right, tout, tpipe.PipelineParams(stop_stage=3, no_reduce=True, extend_fragments=True, **COMMON),
-        device="cpu",
-    )
-    assert_same_outputs(tout, jout)
-    assert trep.num_transcripts == jrep.num_transcripts > 0
-    assert not os.path.exists(os.path.join(tout, "rnabloom.transcripts.nr.fa"))

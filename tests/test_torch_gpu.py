@@ -1338,16 +1338,20 @@ def _max_batch(case, dtype, rng):
         idx[: n // 2] = idx[n // 2 : 2 * (n // 2)]
     elif case == "ragged_end":  # the last cells, whose 32-bit word reaches past a uint8 table
         idx[:3000] = numel - 1 - np.arange(3000) % 4
+    elif case == "one_word":  # the cells of one 32-bit word (four uint8, two uint16), spread over tiles
+        idx[::3] = 800 + rng.integers(0, 4, len(idx[::3]))
     return torch.from_numpy(table), torch.from_numpy(idx.astype(np.int64)), torch.from_numpy(vals.astype(ndt))
 
 
-@pytest.mark.parametrize("case", ["mixed", "fresh", "already_larger", "high_u16", "ragged_end", "empty", "one_index"])
+@pytest.mark.parametrize("case", ["mixed", "fresh", "already_larger", "high_u16", "ragged_end", "one_word", "empty",
+                                  "one_index"])
 @pytest.mark.parametrize("dtype", sorted(MAX_DTYPES))
 def test_max_kernel_matches_plain(cuda, dtype, case):
     """Duplicates, a 10^5-value cell, the trash cell, dropped indices,
     unsigned u16 values >= 32,768 against smaller ones on the same cells,
-    cells already larger, the last cells of a table; tables byte-identical
-    to the plain version's, one launch a call."""
+    cells already larger, the last cells of a table, the cells of one
+    word in every tile; tables byte-identical to the plain version's, one
+    launch a call."""
     table, idx, vals = _max_batch(case, dtype, np.random.default_rng(len(case)))
     kern, plain = table.to(cuda), table.clone()
     before = ci.launch_counts()["max"]
@@ -1358,11 +1362,58 @@ def test_max_kernel_matches_plain(cuda, dtype, case):
     assert torch.equal(kern.cpu(), plain)
 
 
+# case -> (cells log2, scratch log2, hashes a key, valid: None, a key's or a lane's)
+CONSERVATIVE_CASES = {"spread": (20, 14, 2, "key"), "collide": (10, 10, 3, "key"), "no_masks": (16, 12, 2, None),
+                      "lane_valid": (16, 12, 4, "lane"), "empty": (12, 10, 2, "key")}
+
+
+@pytest.mark.parametrize("case", sorted(CONSERVATIVE_CASES))
+@pytest.mark.parametrize("dtype", sorted(MAX_DTYPES))
+def test_conservative_kernel_matches_plain(cuda, dtype, case):
+    """The conservative update on prefilled tables (a 2^10-cell one where
+    keys collide heavily), over salted batches with repeated keys,
+    dec_first and invalid keys or lanes: the table equals the plain
+    version's on the CPU after every batch, each of its two launches once
+    a call.  h = 2 takes the first launch's specialised path, h = 3 and 4
+    its loop over any h."""
+    from rnabloom_tpu_torch.bloom import filters
+
+    tdt, ndt, hi = MAX_DTYPES[dtype]
+    size_log2, scratch_log2, h, valid_kind = CONSERVATIVE_CASES[case]
+    rng = np.random.default_rng(size_log2 + h)
+    table = torch.from_numpy(rng.integers(0, hi, (1 << size_log2) + 1).astype(np.int64).astype(ndt))
+    kern, plain = table.to(cuda), table.clone()
+    n = 0 if case == "empty" else 300_000
+    for salt in (0, 977, 2**31 + 7):
+        vals = rng.integers(-(2**63), 2**63 - 1, size=(n, h), dtype=np.int64)
+        if n:
+            vals[: n // 5] = vals[0]  # one key 60,000 times
+            vals[n // 5 : n // 2] = vals[n // 5 : n // 5 + 1000][rng.integers(0, 1000, n // 2 - n // 5)]
+            rng.shuffle(vals)
+        hashes = torch.from_numpy(vals)
+        valid = None if valid_kind is None else torch.from_numpy(
+            rng.random((n, h) if valid_kind == "lane" else n) < 0.9)
+        dec = None if valid_kind is None else torch.from_numpy(rng.random(n) < 0.3)
+        # the batch's scratch sketch, as counting_increment makes it
+        scratch = torch.zeros((1 << scratch_log2) + 1, dtype=torch.int32)
+        sidx = filters.bloom_indices(hashes, scratch_log2, filters._bcast_valid(valid, hashes))
+        ci.cell_insert_plain(scratch, sidx.reshape(-1), "add")
+        before = ci.launch_counts()
+        ci.conservative_update(kern, scratch.to(cuda), hashes.to(cuda), size_log2, scratch_log2,
+                               None if valid is None else valid.to(cuda), None if dec is None else dec.to(cuda), salt)
+        ci.conservative_update_plain(plain, scratch, hashes, size_log2, scratch_log2, valid, dec, salt)
+        torch.cuda.synchronize()
+        after = ci.launch_counts()
+        assert all(after[op] == before[op] + 1 for op in ci.CONSERVATIVE_OPS)
+        assert torch.equal(kern.cpu(), plain), salt
+
+
 @pytest.mark.parametrize("dtype", ["int32", "u16", "mf8"])
 def test_exact_build_card_equals_cpu(cuda, dtype):
     """build_step of an exact-count graph with the kernels (set for the
-    dbgbf, add for the multiplicity scratch, max for the counters) equals
-    the plain CPU build in every table, over salted batches."""
+    dbgbf, add for the multiplicity scratch, the conservative update for
+    the counters) equals the plain CPU build in every table, over salted
+    batches."""
     from rnabloom_tpu_torch.graph import engine
 
     cfg = dbg.GraphConfig(k=25, stranded=False, dbgbf=BloomConfig(16, 2),
@@ -1379,7 +1430,7 @@ def test_exact_build_card_equals_cpu(cuda, dtype):
         engine.build_step(card, cfg, codes, add_read_pairs=True, salt=salt)
         engine.build_step(host, cfg, codes, add_read_pairs=True, salt=salt)
     after = ci.launch_counts()
-    assert after["max"] == before["max"] + 4 and after["add"] == before["add"] + 4
+    assert all(after[op] == before[op] + 4 for op in ("add", *ci.CONSERVATIVE_OPS))
     for name in ("dbgbf", "cbf", "rpkbf"):
         assert torch.equal(getattr(card, name).cpu(), getattr(host, name)), name
 
@@ -1512,7 +1563,7 @@ def test_oracle_on_the_card_equals_the_golden(cuda):
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "oracle_divergence.json")) as f:
         assert json.loads(json.dumps(got)) == json.load(f)
     n1, w1 = ci.launch_counts(), walk.launch_counts()
-    assert all(n1[op] > n0[op] for op in ("set", "add", "max")) and w1["walk_greedy"] > w0["walk_greedy"]
+    assert all(n1[op] > n0[op] for op in ("set", "add", "conservative")) and w1["walk_greedy"] > w0["walk_greedy"]
 
 
 @pytest.mark.parametrize("salt", [0, 977])

@@ -18,6 +18,7 @@ from rnabloom_tpu.ops import histmerge
 from rnabloom_tpu.ops.u64 import U64
 from rnabloom_tpu_torch.bloom import filters as tf
 from rnabloom_tpu_torch.ops import cell_insert as ci, minifloat
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

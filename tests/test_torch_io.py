@@ -17,6 +17,7 @@ from rnabloom_tpu.utils import align as jalign, polya as jpolya, seq as jseq
 from rnabloom_tpu_torch.assembly import artifacts as tart, fragstore as tfragstore
 from rnabloom_tpu_torch.io import fastx as tfastx, native as tnative, nbits as tnbits
 from rnabloom_tpu_torch.utils import align as talign, polya as tpolya, seq as tseq
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 
 def _reads(seed, n):

@@ -20,6 +20,7 @@ from rnabloom_tpu_torch import cli
 from rnabloom_tpu_torch.io import fastx
 from rnabloom_tpu_torch.utils import kselect as tks, pesim, seq as sequtils
 from stage3_common import MEM, _files
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

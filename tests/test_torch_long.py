@@ -22,6 +22,7 @@ from rnabloom_tpu import cli as jcli
 from rnabloom_tpu_torch import cli
 from rnabloom_tpu_torch.utils import lrsim
 from stage3_common import _files
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

@@ -18,6 +18,7 @@ from rnabloom_tpu.utils import lrsim as jsim, polya as jpolya, seq as jseq
 from rnabloom_tpu_torch.assembly import artifacts as tart, longreads as tlr, stage1 as ts1
 from rnabloom_tpu_torch.graph import engine
 from rnabloom_tpu_torch.utils import lrsim as tsim, polya as tpolya
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

@@ -25,6 +25,7 @@ from rnabloom_tpu.utils import seq as jseq
 from rnabloom_tpu_torch.assembly import longreads as tlr, stage1 as ts1
 from rnabloom_tpu_torch.ops import lr_keys, nthash, strobemer as tstrobe
 from rnabloom_tpu_torch.utils import lrsim
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

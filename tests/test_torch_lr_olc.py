@@ -34,6 +34,7 @@ from rnabloom_tpu_torch.olc import realign as tre
 from rnabloom_tpu_torch.ops import consensus_vote as cv
 from rnabloom_tpu_torch.utils import polya
 from lr_common import VOTE_CASES, vote_case
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

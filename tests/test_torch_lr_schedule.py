@@ -5,6 +5,7 @@ through ``tests/test_torch_lr_keys.py``'s helpers, against the JAX package.
 
 The model follows the kernels step for step, with their tile sizes read
 from the source: the 32-way warp search of the offsets; for the k-mer
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 keys the staged codes (min(code, 4), the read starts marked), each
 thread's run of rolled forward and reverse hashes (seed 0 for codes 4 and
 255) and its validity as the least position that may start a valid k-mer;

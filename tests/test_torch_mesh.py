@@ -34,6 +34,7 @@ from rnabloom_tpu_torch.graph import dbg as tdbg, engine as teng, traverse as tt
 from rnabloom_tpu_torch.ops import cell_insert as ci
 from rnabloom_tpu_torch.parallel import sharded as tsh
 from stage3_common import naive_walk_rows, pair_walk_rows, sim_walk_data
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

@@ -32,6 +32,7 @@ from rnabloom_tpu_torch.ops import nthash
 from rnabloom_tpu_torch.parallel import sharded as tsh
 from test_torch_mesh import (K, N, WALK_FIELDS, WALK_MODES, WALKS_GOLDEN, _digests, _mesh, _pairs, _tree,
                              _walk_case, _walk_configs, _walk_fields, _walk_rows)
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

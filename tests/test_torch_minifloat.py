@@ -9,6 +9,7 @@ import torch
 
 from rnabloom_tpu.ops import minifloat as jmf
 from rnabloom_tpu_torch.ops import minifloat as tmf
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

@@ -10,10 +10,10 @@ but ``report.json``, which must be equal but for ``elapsed_s``; the
 spool of emitted transcripts is gone in both.  Then a ``-stage 3`` rerun
 into a ``-stage 2 -savebf`` directory, which resumes at stage 2b in both
 packages and runs the same nr pass, and the JAX run's transcripts through
-both packages' ``layout_unitigs``.
+both packages' ``layout_unitigs``.  The u16 run and the resume are
+``tests/test_torch_nr_u16.py``, a file of its own: with ``--dist
+loadfile`` a file runs in one test process.
 """
-
-import shutil
 
 import numpy as np
 import pytest
@@ -24,9 +24,9 @@ from rnabloom_tpu.io import fastx as jfastx
 from rnabloom_tpu.olc import layout as jlayout, overlap as jov
 from rnabloom_tpu.utils import seq as jseq
 from rnabloom_tpu_torch import cli
-from rnabloom_tpu_torch.assembly import pipeline as tpipe
 from rnabloom_tpu_torch.olc import layout as tlayout, overlap as tov
 from stage3_common import COMMON, MEM, assert_same_outputs, make_inputs
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 
@@ -49,23 +49,9 @@ def _nr_records(files):
     return files["rnabloom.transcripts.nr.fa"].decode().splitlines()
 
 
-@pytest.mark.parametrize("counter", ["mf8", "u16"])
-def test_nr_outputs_byte_identical(inputs, jax_mf8, tmp_path, counter):
-    left, right = inputs["plain"]
-    tout = str(tmp_path / "torch")
-    if counter == "mf8":  # through the CLI, -stage 3 being its default
-        jout, jrep = jax_mf8
-        trep = cli.run(["-left", left, "-right", right, "-revcomp-right", "-o", tout,
-                        "-mem", str(MEM / (1 << 30)), "-bound", "200", "-batch", "1024", "-sample", "300",
-                        "--device", "cpu"])
-    else:
-        jout = str(tmp_path / "jax")
-        jrep = jpipe.assemble_pe(
-            left, right, jout, jpipe.PipelineParams(stop_stage=3, sharded="off", counter=counter, **COMMON),
-        )
-        trep = tpipe.assemble_pe(
-            left, right, tout, tpipe.PipelineParams(stop_stage=3, counter=counter, **COMMON), device="cpu",
-        )
+def check_nr_outputs(tout, jout, trep, jrep):
+    """Every file byte-identical, ``report.json`` but ``elapsed_s``; the nr
+    pass ran and reduced something."""
     files = assert_same_outputs(tout, jout)
     assert trep.num_transcripts == jrep.num_transcripts > 0
     assert trep.num_nr == jrep.num_nr > 0
@@ -77,20 +63,16 @@ def test_nr_outputs_byte_identical(inputs, jax_mf8, tmp_path, counter):
     assert not any(name.endswith(".2bit") for name in files)
 
 
-def test_nr_resume_from_stamps(inputs, tmp_path):
-    """A -stage 3 rerun into a -stage 2 -savebf directory resumes at stage
-    2b in both packages: the same files, transcripts.nr.fa included, and
-    no report.json."""
+@pytest.mark.parametrize("counter", ["mf8"])  # u16: tests/test_torch_nr_u16.py
+def test_nr_outputs_byte_identical(inputs, jax_mf8, tmp_path, counter):
+    """mf8 through the CLI, ``-stage 3`` being its default."""
     left, right = inputs["plain"]
-    jout, tout = str(tmp_path / "jax"), str(tmp_path / "torch")
-    jpipe.assemble_pe(left, right, jout, jpipe.PipelineParams(stop_stage=2, sharded="off", **COMMON), save_graph=True)
-    shutil.copytree(jout, tout)
-    trep = tpipe.assemble_pe(left, right, tout, tpipe.PipelineParams(stop_stage=3, **COMMON), device="cpu")
-    jrep = jpipe.assemble_pe(left, right, jout, jpipe.PipelineParams(stop_stage=3, sharded="off", **COMMON))
-    assert trep.num_pairs == jrep.num_pairs == 0  # stages 1-2 did not run again
-    assert trep.num_nr == jrep.num_nr > 0
-    files = assert_same_outputs(tout, jout, report=False)
-    assert _nr_records(files)
+    tout = str(tmp_path / "torch")
+    jout, jrep = jax_mf8
+    trep = cli.run(["-left", left, "-right", right, "-revcomp-right", "-o", tout,
+                    "-mem", str(MEM / (1 << 30)), "-bound", "200", "-batch", "1024", "-sample", "300",
+                    "--device", "cpu"])
+    check_nr_outputs(tout, jout, trep, jrep)
 
 
 @pytest.mark.parametrize("min_overlap", [100, 300])

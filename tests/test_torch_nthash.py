@@ -12,6 +12,7 @@ import torch
 from rnabloom_tpu.ops import nthash as jnh
 from rnabloom_tpu.ops import nthash_ref
 from rnabloom_tpu_torch.ops import nthash as tnh
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

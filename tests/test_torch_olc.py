@@ -19,6 +19,7 @@ from rnabloom_tpu.ops import nthash as jnthash
 from rnabloom_tpu_torch.io import seqstore as tseqstore
 from rnabloom_tpu_torch.olc import graph as tgraph, layout as tlayout, overlap as tov
 from rnabloom_tpu_torch.ops import nthash as tnthash
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

@@ -19,6 +19,7 @@ import torch
 from rnabloom_tpu.graph import dbg as jdbg
 from rnabloom_tpu.oracle import divergence as jdiv, refsim as jref
 from rnabloom_tpu_torch.oracle import divergence as tdiv, refsim as tref
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

@@ -21,6 +21,7 @@ from rnabloom_tpu_torch import cli
 from rnabloom_tpu_torch.assembly import pipeline as tpipe
 from rnabloom_tpu_torch.utils import pesim
 from stage3_common import COMMON, MEM, _files, write_se_reads
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

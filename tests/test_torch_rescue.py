@@ -17,6 +17,7 @@ from rnabloom_tpu.assembly import pipeline as jpipe
 from rnabloom_tpu_torch import cli
 from rnabloom_tpu_torch.assembly import pipeline as tpipe
 from stage3_common import MEM, _files, write_gap_pairs
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

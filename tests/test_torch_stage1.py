@@ -19,6 +19,7 @@ import torch
 from rnabloom_tpu.assembly import pipeline as jpipe
 from rnabloom_tpu_torch import cli
 from rnabloom_tpu_torch.utils import pesim
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

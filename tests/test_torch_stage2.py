@@ -27,6 +27,7 @@ from rnabloom_tpu.io import native
 from rnabloom_tpu_torch import cli
 from rnabloom_tpu_torch.io import native as tnative
 from rnabloom_tpu_torch.utils import pesim
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

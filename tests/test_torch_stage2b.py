@@ -33,6 +33,7 @@ from rnabloom_tpu_torch import cli
 from rnabloom_tpu_torch.assembly import fragstore as tfragstore, pipeline as tpipe
 from rnabloom_tpu_torch.graph import dbg as tdbg, engine as tengine
 from rnabloom_tpu_torch.utils import checkpoint as tckpt, pesim
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

@@ -20,6 +20,7 @@ from rnabloom_tpu.assembly import pipeline as jpipe
 from rnabloom_tpu_torch import cli
 from rnabloom_tpu_torch.assembly import pipeline as tpipe
 from stage3_common import COMMON, MEM, assert_same_outputs, make_inputs
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

@@ -7,7 +7,8 @@ reference transcripts added to the fragment graph.  Every output file
 byte-identical, ``report.json`` equal but for ``elapsed_s``.  Then a rerun
 into a ``-stage 2 -savebf`` directory, which resumes at stage 2b from the
 stamps in both packages, and a ``-stage 2`` rerun, which the port does not
-resume.
+resume.  The ``-ref`` case is ``tests/test_torch_stage3_ref.py``, a file
+of its own: with ``--dist loadfile`` a file runs in one test process.
 """
 
 import os
@@ -19,6 +20,7 @@ import torch
 from rnabloom_tpu.assembly import pipeline as jpipe
 from rnabloom_tpu_torch.assembly import pipeline as tpipe
 from stage3_common import COMMON, assert_same_outputs, make_inputs
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 
@@ -34,8 +36,7 @@ def inputs(tmp_path_factory):
     return make_inputs(tmp_path_factory.mktemp("pe3o"))
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_stage3_options_byte_identical(inputs, tmp_path, case):
+def check_case(inputs, tmp_path, case):
     reads, kw, refs = CASES[case]
     left, right = inputs[reads]
     ref_paths = [inputs[r] for r in refs]
@@ -57,6 +58,11 @@ def test_stage3_options_byte_identical(inputs, tmp_path, case):
         assert trep.num_short > 0 and fa.startswith(">tx_rnabloom.0 l=") and "pas=" in fa
         assert any("a" in s for s in seqs) and any("U" in s for s in seqs) and not any("T" in s for s in seqs)
         assert files["rnabloom.transcripts.short.fa"].decode().startswith(">tx_rnabloom.s0\n")
+
+
+@pytest.mark.parametrize("case", ["polya_short_u_prefix"])  # ref: tests/test_torch_stage3_ref.py
+def test_stage3_options_byte_identical(inputs, tmp_path, case):
+    check_case(inputs, tmp_path, case)
 
 
 def test_stage3_resumes_from_stamps(inputs, tmp_path):

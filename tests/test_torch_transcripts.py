@@ -35,6 +35,7 @@ from rnabloom_tpu_torch.assembly import transcripts as ttx
 from rnabloom_tpu_torch.bloom import filters as tf
 from rnabloom_tpu_torch.graph import dbg as tdbg
 from rnabloom_tpu_torch.utils import seq as tseq
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 

@@ -29,6 +29,7 @@ from rnabloom_tpu_torch.bloom import filters as tf
 from rnabloom_tpu_torch.graph import dbg as tdbg, traverse as ttr
 from rnabloom_tpu_torch.ops import minifloat, nthash
 from stage3_common import NAIVE_CASES, WALK_DATA, naive_lane_args, naive_walk_rows, pair_walk_rows
+import jax_compile_cache  # noqa: F401  (one JAX compilation cache for the run)
 
 torch.set_num_threads(2)
 
