@@ -289,6 +289,25 @@ and exits nonzero):
    and ``-stage 2 -extend`` on the first 2000 pairs routed against
    replicated, byte-identical, each run with every launch count set to 0
    before it (the sharded kernels launched, the single-device walks not).
+13. Multi-host in the local-merge layout (``parallel/multihost.py``), the
+   main path of the latest slice: groups of two processes of the port's CLI
+   (``-coordinator 127.0.0.1:PORT -nprocs 2 -procid P``, gloo), both on
+   the card (one a card where several are visible), each process's
+   launch counts starting at 0 with the process and printed by it at its
+   end with its seconds by stage, the merge's seconds and bytes and its
+   peak device memory.  (a) ``-stage 1 -savebf -cnt int32`` at ``-mem 1``
+   on both mates of the first MH_S1_PAIRS pairs (plain FASTQ: each process
+   reads its byte range): the saved cbf and rpkbf equal a one-process
+   build's outside the trash cells, and are the merge (by the reducers on
+   the card) of the two processes' local builds, whose raw int32 tables
+   equal a one-process build's outside the trash cells.  (b) ``-stage 3``
+   (mf8, the nr pass) on the first STAGE3_PAIRS pairs and (c) ``-long`` on
+   phase 10's first LR_CHECK reads, at ``-mem`` MH_CHECK_MEM, each by a
+   group on the card and a group on the CPU at once: every file
+   byte-identical, report.json but elapsed_s.  (d) ``-stage 3`` at ``-mem 1`` on MESH_STAGE3_PAIRS pairs by
+   a group on the card: the group's launches (the insert and walk kernels
+   must have run) and the canonical transcripts that differ from phase
+   12's one-device run of the same pairs.
 
 The line before the last is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -324,8 +343,9 @@ from rnabloom_tpu_torch.bloom import filters
 from rnabloom_tpu_torch.graph import dbg, engine, traverse
 from rnabloom_tpu_torch.io import fastx, native
 from rnabloom_tpu_torch.olc import consensus as olc_consensus
-from rnabloom_tpu_torch.ops import _build, cell_insert as ci, consensus_vote, launch_timer, lr_keys, nthash, strobemer, walk
-from rnabloom_tpu_torch.parallel import sharded
+from rnabloom_tpu_torch.ops import (_build, cell_insert as ci, consensus_vote, launch_timer, lr_keys, minifloat, nthash,
+                                    strobemer, walk)
+from rnabloom_tpu_torch.parallel import multihost, sharded
 from rnabloom_tpu_torch.utils import checkpoint, kselect, lrsim, pesim, seq as sequtils
 
 KERNEL_SOURCE = "rnabloom_tpu_torch/csrc/cell_insert.cu"
@@ -3174,7 +3194,8 @@ def long_read_path(tmp: str, card: str, dev, transcripts: int = LR_TRANSCRIPTS, 
     r = {"reads": len(reads), "bases": n_bases, "transcripts_simulated": transcripts, "coverage": coverage,
          "runs": runs, "keys": lr_keys_vs_plain(corrected, card, dev, variants, full["sm_clocks_mhz"]),
          "full_size": full, "vote": vote_vs_plain(captured, card, dev, variants),
-         "vote_full_size": vote_full_size(captured, card, dev, variants), "card_vs_cpu": long_card_vs_cpu(head, tmp)}
+         "vote_full_size": vote_full_size(captured, card, dev, variants), "card_vs_cpu": long_card_vs_cpu(head, tmp),
+         "head": head}
     return r
 
 
@@ -3787,7 +3808,10 @@ def exact_walks(built: dict, seeds: np.ndarray, naive_start: tuple, truth, card:
 
 MESH_PAIRS = 100_000  # phase 12: both mates of these pairs (49 batches of 4096 reads) into each mesh build
 MESH_SHARDS = (2, 8)  # phase 12's meshes on one card
-MESH_STAGE3_PAIRS = 20_000  # phase 12's -stage 3 run on the 8-shard mesh and on one device
+# phase 12's -stage 3 runs on the 8-shard mesh and on one device, and phase 13 (d)'s: 20,000 until phase 13
+# came (its smoke took 846.2 s on one H100 80GB HBM3 at 700 W, over the 791.2 s of the one before; phase 12's
+# four 20,000-pair runs 70.3 s, phase 13 (d) 32.8 s)
+MESH_STAGE3_PAIRS = 5_000
 MESH_FILES = ("rnabloom.graph.cbf.npy", "rnabloom.graph.rpkbf.npy")  # checkpoints: the mesh zeroes the trash cells
 
 
@@ -4230,6 +4254,7 @@ def mesh_pipeline(left: str, right: str, small: tuple, tmp: str, card: str, dev)
                      "launches": {op: n for op, n in launch_counters().items() if n},
                      "routed_calls": sharded.ROUTING["calls"], "replicas": len(replicas)}
         check_transcripts(out, rep, K)
+    runs["single_transcripts"] = canonical_transcripts(os.path.join(tmp, "mesh_single", "rnabloom.transcripts.fa"))
     launches = runs["mesh"]["launches"]
     assert all(launches.get(op, 0) > 0 for op in ("add_mf8", "set", "walk_greedy", "walk_pair")), launches
     assert runs["mesh"]["routed_calls"] > 0 and runs["single"]["routed_calls"] == 0
@@ -4241,7 +4266,7 @@ def mesh_pipeline(left: str, right: str, small: tuple, tmp: str, card: str, dev)
         assert got.get("walk_greedy", 0) == 0 and got.get("walk_pair", 0) == 0, got
         runs[tag]["files"] = len(same_mesh_run(os.path.join(tmp, f"mesh_{tag}"), os.path.join(tmp, "mesh_mesh"), tag))
     assert runs["routed"]["replicas"] == 0 and runs["routed"]["routed_calls"] > 0
-    for tag in runs:
+    for tag in ("mesh", "single", "routed", "grouped"):
         shutil.rmtree(os.path.join(tmp, f"mesh_{tag}"))
     m, s1 = runs["mesh"], runs["single"]
     print(f"-stage 3 -savebf on {MESH_STAGE3_PAIRS} pairs, -sharded on over 8 shards on the card against one device: "
@@ -4311,6 +4336,198 @@ def mesh_pipeline(left: str, right: str, small: tuple, tmp: str, card: str, dev)
     runs["card_vs_cpu_files"] = len(files)
     return runs
 
+
+
+# ---- phase 13: multi-host in the local-merge layout, two processes on the card ----
+
+MH_PROCS = 2  # processes of each phase-13 group, on one card (one a card where several are visible)
+MH_S1_PAIRS = 20_000  # phase 13 (a): both mates of these pairs into the -cnt int32 build
+MH_TIMEOUT_S = 600  # a group still running after this is killed, and the phase fails
+MH_CHECK_MEM = "0.125"  # -mem of (b) and (c): card against CPU, where the CPU's merge and inserts set the pace
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mh_start(argv: list, device: str) -> list:
+    """A group of MH_PROCS processes of the port's CLI (gloo over
+    127.0.0.1) on ``device``; the group's own timeout ends a process whose
+    peer is gone."""
+    env = dict(os.environ, PYTHONPATH=ROOT, RNABLOOM_MH_TIMEOUT=str(MH_TIMEOUT_S))
+    if device == "cpu":
+        env["OMP_NUM_THREADS"] = "2"
+    port = free_port()
+    return [subprocess.Popen([sys.executable, "-m", "rnabloom_tpu_torch.cli", *argv, "--device", device,
+                              "-coordinator", f"127.0.0.1:{port}", "-nprocs", str(MH_PROCS), "-procid", str(pid)],
+                             cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for pid in range(MH_PROCS)]
+
+
+def mh_finish(procs: list, what: str) -> list:
+    """Each process's numbers (``multihost.rank_line``, its last stderr
+    line) with its stdout; kills the group past MH_TIMEOUT_S; raises
+    unless every process exited 0."""
+    deadline = time.time() + MH_TIMEOUT_S
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=max(1.0, deadline - time.time())))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for pid, (proc, (_, err)) in enumerate(zip(procs, logs)):
+        if proc.returncode != 0:
+            raise AssertionError(f"{what}: process {pid} exited {proc.returncode}:\n{err[-3000:]}")
+    ranks = []
+    for out, err in logs:
+        rank = json.loads([ln for ln in err.splitlines() if ln.startswith('{"mh_rank"')][-1])
+        rank["stdout"] = out.strip()
+        ranks.append(rank)
+    return ranks
+
+
+def mh_rank_text(ranks: list) -> str:
+    return "; ".join(
+        f"process {r['mh_rank']} on {r['device']}: stage 1 {r['stage1_s']:.2f} s (merge {r['merge_s']:.2f} s, "
+        f"{r['merge_bytes']} B received), stage 2 {r['stage2_s']:.2f} s, stage 3 {r['stage3_s']:.2f} s, peak device "
+        f"memory {r['peak_device_bytes']} B, launches {r['launches']}" for r in ranks)
+
+
+def canonical_transcripts(path: str) -> set:
+    return {min(s.upper(), sequtils.revcomp(s.upper())) for _, s in fastx.read_fasta(path)}
+
+
+def mh_card_vs_cpu(tag: str, argv: list, tmp: str) -> dict:
+    """``argv`` through a group on the card and a group on the CPU: every
+    file byte-identical (report.json but elapsed_s)."""
+    outs = {dev: os.path.join(tmp, f"mh_{tag}_{dev}") for dev in ("cuda", "cpu")}
+    t0 = time.time()
+    groups = {dev: mh_start(argv + ["-o", out], dev) for dev, out in outs.items()}
+    ranks = {dev: mh_finish(procs, f"phase 13 {tag} on {dev}") for dev, procs in groups.items()}
+    wall = time.time() - t0
+    report_json = os.path.join(outs["cuda"], "rnabloom.report.json")
+    if os.path.exists(report_json):
+        docs = []
+        for out in outs.values():
+            with open(os.path.join(out, "rnabloom.report.json")) as f:
+                doc = json.load(f)
+            doc.pop("elapsed_s")
+            docs.append(doc)
+            os.remove(os.path.join(out, "rnabloom.report.json"))
+        if docs[0] != docs[1]:
+            raise AssertionError(f"phase 13 {tag}: report.json differs between card and CPU: {docs}")
+    files = same_tree(outs["cuda"], outs["cpu"])
+    n_tx = len(canonical_transcripts(os.path.join(outs["cuda"], "rnabloom.transcripts.fa")))
+    assert n_tx > 0, f"phase 13 {tag}: no transcript"
+    for out in outs.values():
+        shutil.rmtree(out)
+    return {"files": len(files), "transcripts": n_tx, "wall_s": wall, "ranks": ranks}
+
+
+def multihost_phase(heads: dict, long_head: str, single_transcripts: set, single_run: dict, tmp: str, card: str,
+                    dev) -> dict:
+    """Phase 13: (a) -stage 1 -savebf -cnt int32 across a group of two
+    processes against one process; (b) -stage 3 on STAGE3_PAIRS pairs and
+    (c) -long on phase 10's LR_CHECK reads, each by a group on the card and
+    one on the CPU, byte-identical; (d) -stage 3 at -mem 1 on
+    MESH_STAGE3_PAIRS pairs by a group on the card, against phase 12's
+    one-device run of the same pairs."""
+    out = {}
+    # (a) the merged int32 filters against one process's
+    left, right = heads[MH_S1_PAIRS]
+    mh_out, one_out = os.path.join(tmp, "mh_s1"), os.path.join(tmp, "mh_s1_one")
+    t0 = time.time()
+    ranks = mh_finish(mh_start(["-left", left, "-right", right, "-revcomp-right", "-stage", "1", "-savebf", "-cnt",
+                                "int32", "-o", mh_out], "cuda"), "phase 13 (a)")
+    wall = time.time() - t0
+    run_cli(left, right, one_out, "cuda", "int32", 1)
+    prefix, one_prefix = os.path.join(mh_out, "rnabloom.graph"), os.path.join(one_out, "rnabloom.graph")
+    _, cfg = checkpoint.load_graph(prefix, device="cpu")
+    with open(prefix + ".graph.json") as f, open(one_prefix + ".graph.json") as g:
+        assert f.read() == g.read(), "phase 13 (a): the group's graph.json differs from one process's"
+    # the raw int32 tables: the two processes' local builds on the card,
+    # merged by the reducers, against a one-process build of every read
+    lengths = stage1.sample_read_lengths([left, right], 1000)
+    s1p = stage1.Stage1Params(k=K, max_seq_len=int(max(lengths.max(initial=150), 2 * K)))
+    parts = [multihost.build_local([left, right], cfg, s1p, pid=p, n=MH_PROCS, device=dev, revcomp_flags=[False, True],
+                                   add_read_pairs=True)[0] for p in range(MH_PROCS)]
+    merged = {name: multihost.reduce_tables([getattr(st, name).cpu() for st in parts],
+                                            "sum" if name == "cbf" else "max", dev) for name in ("cbf", "rpkbf")}
+    del parts
+    one = dbg.make_graph(cfg, with_rpkbf=True, device=dev)
+    one, _ = stage1.build_graph([left, right], cfg, one, s1p, revcomp_flags=[False, True], add_read_pairs=True)
+    for name, size in (("cbf", cfg.cbf.size), ("rpkbf", cfg.pkbf.size)):
+        if not torch.equal(merged[name][:size], getattr(one, name)[:size]):
+            raise AssertionError(f"phase 13 (a): the merged {name} differs from one process's outside the trash")
+        saved = np.load(f"{prefix}.{name}.npy")
+        want = (minifloat.encode(merged[name]) if name == "cbf" else merged[name]).cpu().numpy()
+        if not np.array_equal(saved, want):
+            raise AssertionError(f"phase 13 (a): the group's saved {name} is not its merged table")
+        if not np.array_equal(saved[:size], np.load(f"{one_prefix}.{name}.npy")[:size]):
+            raise AssertionError(f"phase 13 (a): the saved {name} differs from one process's outside the trash")
+    del merged, one
+    shutil.rmtree(mh_out)
+    shutil.rmtree(one_out)
+    torch.cuda.empty_cache()
+    assert all(r["launches"].get("add", 0) > 0 and r["launches"].get("set", 0) > 0 for r in ranks), ranks
+    assert ranks[0]["stdout"] and not ranks[1]["stdout"]
+    out["stage1"] = {"wall_s": wall, "ranks": ranks}
+    print(f"(a) -stage 1 -savebf -cnt int32 -mem 1 on both mates of {MH_S1_PAIRS} pairs, {MH_PROCS} processes on "
+          f"the card: the merged cbf (2^{cfg.cbf.size_log2} int32 cells) and rpkbf equal one process's build outside "
+          f"the trash cells (raw, and as saved), the saved checkpoint is the merged tables; wall {wall:.1f} s; "
+          f"{mh_rank_text(ranks)} [{card}]", flush=True)
+
+    # (b) and (c): card against CPU, four groups at once
+    stage3 = ["-left", heads[STAGE3_PAIRS][0], "-right", heads[STAGE3_PAIRS][1], "-revcomp-right", "-stage", "3",
+              "-mem", MH_CHECK_MEM]
+    with ThreadPoolExecutor(2) as pool:
+        pe = pool.submit(mh_card_vs_cpu, "stage3", stage3, tmp)
+        lr = pool.submit(mh_card_vs_cpu, "long", ["-long", long_head, "-mem", MH_CHECK_MEM], tmp)
+        out["stage3_card_vs_cpu"], out["long_card_vs_cpu"] = pe.result(), lr.result()
+    for tag, what in (("stage3_card_vs_cpu", f"(b) -stage 3 (mf8, the nr pass) -mem {MH_CHECK_MEM} on {STAGE3_PAIRS} "
+                                             "pairs"),
+                      ("long_card_vs_cpu", f"(c) -long -mem {MH_CHECK_MEM} on phase 10's first {LR_CHECK} reads")):
+        x = out[tag]
+        print(f"{what}, a group of {MH_PROCS} on the card and one on the CPU: every file byte-identical "
+              f"({x['files']} files, report.json but elapsed_s); {x['transcripts']} transcripts; both groups "
+              f"{x['wall_s']:.1f} s wall; card {mh_rank_text(x['ranks']['cuda'])} [{card}]", flush=True)
+    x = out["stage3_card_vs_cpu"]["ranks"]["cuda"]
+    assert x[0]["launches"].get("walk_pair", 0) > 0 and x[1]["launches"].get("walk_greedy", 0) > 0, x
+
+    # (d) the main path's width on phase 12's pairs
+    left, right = heads[MESH_STAGE3_PAIRS]
+    mh_out = os.path.join(tmp, "mh_stage3")
+    t0 = time.time()
+    ranks = mh_finish(mh_start(["-left", left, "-right", right, "-revcomp-right", "-o", mh_out], "cuda"),
+                      "phase 13 (d)")
+    wall = time.time() - t0
+    launches = {}
+    for r in ranks:
+        for op, c in r["launches"].items():
+            launches[op] = launches.get(op, 0) + c
+    assert all(launches.get(op, 0) > 0 for op in ("add_mf8", "set", "walk_greedy", "walk_pair")), launches
+    got = canonical_transcripts(os.path.join(mh_out, "rnabloom.transcripts.fa"))
+    differ = len(got ^ single_transcripts)
+    line = json.loads(ranks[0]["stdout"].splitlines()[-1])
+    shutil.rmtree(mh_out)
+    out["stage3"] = {"wall_s": wall, "ranks": ranks, "launches": launches, "transcripts": len(got),
+                     "one_device_transcripts": len(single_transcripts), "canonical_differ": differ,
+                     "pairs": line["pairs"], "fragments": line["fragments"]}
+    print(f"(d) -stage 3 -mem 1 (mf8, the nr pass) on {MESH_STAGE3_PAIRS} pairs, {MH_PROCS} processes on the "
+          f"card: wall {wall:.1f} s; {len(got)} transcripts, {differ} canonical transcripts differ from phase 12's "
+          f"one-device run ({len(single_transcripts)}; wall {single_run['wall_s']:.1f} s: stage 1 "
+          f"{single_run['stage1_s']:.2f}, stage 2 {single_run['stage2_s']:.2f}, 2b and 3 "
+          f"{single_run['stage3_s']:.2f} s, peak device memory {single_run['peak_bytes']} B); launches of the group "
+          f"{launches}; {mh_rank_text(ranks)} [{card}]", flush=True)
+    return out
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4394,7 +4611,7 @@ def main(argv=None) -> int:
         print(f"simulated {PAIRS:,} pairs (2000 transcripts, seed 0) in {sim_s:.1f} s while the kernels built",
               flush=True)
         heads = {}
-        for n in (STAGE2_PAIRS, STAGE1_PAIRS, MESH_STAGE3_PAIRS, STAGE3_PAIRS, EXTEND_BATCHES * BATCH2):
+        for n in (STAGE2_PAIRS, STAGE1_PAIRS, MESH_STAGE3_PAIRS, STAGE3_PAIRS, EXTEND_BATCHES * BATCH2, MH_S1_PAIRS):
             heads[n] = (os.path.join(tmp, f"head{n}_1.fq"), os.path.join(tmp, f"head{n}_2.fq"))
             head_fastq(left, heads[n][0], n)
             head_fastq(right, heads[n][1], n)
@@ -4543,6 +4760,13 @@ def main(argv=None) -> int:
               f"RNB_MESH_WALK=routed and grouped, -stage 2 -extend routed")
         mesh = mesh_builds(left, right, card, dev)
         mesh_runs = mesh_pipeline(*heads[MESH_STAGE3_PAIRS], heads[STAGE3_PAIRS], tmp, card, dev)
+        single_transcripts = mesh_runs.pop("single_transcripts")
+
+        phase(f"13 multi-host in the local-merge layout, groups of {MH_PROCS} CLI processes on the card (gloo over "
+              f"127.0.0.1): -stage 1 -cnt int32 on {MH_S1_PAIRS} pairs against one process; -stage 3 on "
+              f"{STAGE3_PAIRS} pairs and -long on {LR_CHECK} reads, card against CPU; -stage 3 at -mem 1 on "
+              f"{MESH_STAGE3_PAIRS} pairs against phase 12's one-device run")
+        mh = multihost_phase(heads, lr["head"], single_transcripts, mesh_runs["single"], tmp, card, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4912,6 +5136,21 @@ def main(argv=None) -> int:
             "two_shards": {key: w2[key] for key in ("ms", "single_ms", "plain_ms", "bound_ms", "max_abs_err")},
             **{key: w8[key] for key in ("plain_lanes", "hops", "max_hops", "statuses", "spec_hops", "turns_ms")},
         })
+    # phase 13: launches summed over the processes of the -stage 3 group at
+    # -mem 1 (each process's counts start at 0 with the process)
+    for row in kernels:
+        op = row["name"][len("cell_insert["):-1] if row["name"].startswith("cell_insert[") else row["name"]
+        if op in ("add_mf8", "set", "add", "walk_greedy", "walk_pair"):
+            row["phase13_launches"] = {"multihost_stage3": mh["stage3"]["launches"].get(op, 0),
+                                       "multihost_stage1_int32": sum(r["launches"].get(op, 0)
+                                                                     for r in mh["stage1"]["ranks"])}
+    kernels[0]["phase13"] = {
+        "procs": MH_PROCS,
+        "stage3": {key: mh["stage3"][key] for key in ("wall_s", "ranks", "launches", "transcripts",
+                                                       "one_device_transcripts", "canonical_differ")},
+        "stage1_int32": mh["stage1"],
+        "card_vs_cpu_files": {tag: mh[tag]["files"] for tag in ("stage3_card_vs_cpu", "long_card_vs_cpu")},
+    }
     cell_keys = ("ms", "yardstick_ms", "plain_ms", "lanes", "hops", "statuses",
                  "yardstick_hops", "yardstick_statuses", "ns_per_hop", "yardstick_ns_per_hop", "max_abs_err")
     for row in kernels:

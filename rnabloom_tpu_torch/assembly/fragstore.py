@@ -1,7 +1,6 @@
 """Streaming stratified fragment store (stage 2 -> stage 3 handoff).
 
-The port's copy of ``rnabloom_tpu/assembly/fragstore.py`` (without
-``merge_stores``), the equivalent of FragmentWriterWorker's stratified
+The port's copy of ``rnabloom_tpu/assembly/fragstore.py``, the equivalent of FragmentWriterWorker's stratified
 `.nbits` files (RNABloom.java:4214-4301, FragmentPaths :4303-4434): stage 2
 appends each fragment to the file of its (coverage magnitude, length class,
 polyA) stratum as it is assembled, and stages 2b and 3 iterate the files in
@@ -16,13 +15,15 @@ Strata match the reference exactly (RNABloom.java:150-158): singletons
 (minCov == 1) go to their own "01" files, read after every magnitude file
 of their class; the rest to the file of their coverage magnitude E0..E5.
 The files and the meta JSON are byte-identical to the JAX package's for the
-same fragments.
+same fragments.  ``merge_stores`` concatenates the stores of the processes
+of a multi-host stage 2 into one.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -173,3 +174,27 @@ class FragmentStore:
             path = os.path.join(self.dir, f"fragments.{key}.nbits")
             for codes in nbits.read_nbits_codes(path):
                 yield len(codes)
+
+
+def merge_stores(dest_outdir: str, src_outdirs: List[str]) -> Optional[FragmentStore]:
+    """Concatenate the fragment stores under ``src_outdirs`` (each process
+    of a multi-host stage 2 writes its slice's fragments to its own) into
+    one under ``dest_outdir``, in the order given.  ``.nbits`` records are
+    self-delimiting, so each stratum's files concatenate byte-wise and its
+    minimum coverages in the same order.  None when no source has a store."""
+    srcs = [s for s in (FragmentStore.open(d) for d in src_outdirs) if s is not None]
+    if not srcs:
+        return None
+    dest = FragmentStore(dest_outdir, long_threshold=srcs[0].long_threshold, polya_priority=srcs[0].polya_priority)
+    shutil.rmtree(dest.dir, ignore_errors=True)  # appends must start clean
+    os.makedirs(dest.dir, exist_ok=True)
+    for src in srcs:
+        for key, covs in src._covs.items():
+            with open(os.path.join(src.dir, f"fragments.{key}.nbits"), "rb") as fi, \
+                    open(os.path.join(dest.dir, f"fragments.{key}.nbits"), "ab") as fo:
+                shutil.copyfileobj(fi, fo, 1 << 20)
+            dest._covs.setdefault(key, []).extend(covs)
+        dest.count += src.count
+        dest.max_len = max(dest.max_len, src.max_len)
+    dest.close()
+    return FragmentStore.open(dest_outdir)

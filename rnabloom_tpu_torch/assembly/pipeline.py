@@ -34,6 +34,10 @@ reads (``-sef``/``-ser``), and ``assemble_pool`` over a pooled READSLIST
 merged set.  ``assemble_long`` (``-long``) builds the graph over long
 reads, corrects them, optionally subsamples them (``-lrsub``) and lays
 them out with the internal uniqueOLC, then reduces redundancy.
+``assemble_pe_multihost`` and ``assemble_long_multihost`` run the PE and
+long-read paths across the processes of a group
+(``parallel/multihost.py``): stage 1 by local builds and one merge, stage
+2 over record-modulo slices, the last stage on process 0.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,10 +56,11 @@ from ..graph import dbg, engine
 from ..io import fastx, native, paf as pafmod
 from ..io.seqstore import SeqStore
 from ..olc import layout as olc_layout, overlap as olc_overlap
+from ..parallel import multihost
 from ..utils import checkpoint as ckpt, polya, seq as sequtils
 from ..utils.timer import Timer, span, span_totals
 from . import artifacts, correct, fragments as fragmod, longreads as lrmod, stage1, transcripts as txmod
-from .fragstore import FragmentStore
+from .fragstore import FragmentStore, merge_stores
 
 
 @dataclass
@@ -281,14 +286,15 @@ def _iter_pair_batches_native(
     revcomp_left: bool,
     revcomp_right: bool,
     L: int,
+    stride=None,
 ):
     """Native-reader stage-2 feeder: the C++ parser masks low-quality
     bases to 4 and the segment selection is vectorized — no per-read
     Python on the critical path (the stage the JVM throws its threads at,
     RNABloom.java:4465-4663)."""
     B = params.batch_size
-    gl = native.read_masked_batches(left_path, B, L, params.min_qual)
-    gr = native.read_masked_batches(right_path, B, L, params.min_qual)
+    gl = native.read_masked_batches(left_path, B, L, params.min_qual, stride=stride)
+    gr = native.read_masked_batches(right_path, B, L, params.min_qual, stride=stride)
     for (lb0, ll0, lq), (rb0, rl0, rq) in zip(gl, gr):
         n = min(lb0.shape[0], rb0.shape[0])
         lb0, ll0, rb0, rl0 = lb0[:n], ll0[:n].copy(), rb0[:n], rl0[:n].copy()
@@ -353,6 +359,7 @@ def _iter_pair_batches(
     revcomp_left: bool,
     revcomp_right: bool,
     L: int,
+    stride=None,
 ):
     """Yield (left_codes, left_len, right_codes, right_len, multi) batches.
 
@@ -363,11 +370,13 @@ def _iter_pair_batches(
     one segment contributes that segment, and a multi-segment read's
     longest segment goes in the buffer while ``multi`` records
     (side, row) -> all segments for connect(segments) re-joining.
+    ``stride`` (process_id, num_processes) keeps pairs p, p+n, ... (a
+    multi-host process's slice).
     """
     if native.available():
         yield from _prefetch(
             _iter_pair_batches_native(
-                left_path, right_path, params, k, revcomp_left, revcomp_right, L,
+                left_path, right_path, params, k, revcomp_left, revcomp_right, L, stride=stride,
             )
         )
         return
@@ -378,7 +387,9 @@ def _iter_pair_batches(
     rlen = np.zeros(B, np.int32)
     multi: dict = {}
     n = 0
-    for (ln, ls, lq), (rn, rs, rq) in fastx.read_paired(left_path, right_path):
+    for rec_i, ((ln, ls, lq), (rn, rs, rq)) in enumerate(fastx.read_paired(left_path, right_path)):
+        if stride is not None and rec_i % stride[1] != stride[0]:
+            continue
         if params.min_avg_qual > 0 and not (
             _avg_qual_ok(lq, params.min_avg_qual) and _avg_qual_ok(rq, params.min_avg_qual)
         ):
@@ -554,11 +565,15 @@ def _stage2_pair_loop(
     store: FragmentStore,
     report: "PipelineReport",
     frag_lengths: List[int],
+    stride=None,
     rescue_spill: Optional[list] = None,
 ) -> int:
-    """The stage-2 fragment loop over the pair stream.  With a
-    ``rescue_spill`` list (``-rescue``), unconnected pairs whose mates both
-    hold a k-mer are kept there, up to ``_RESCUE_SPILL_CAP``.
+    """The stage-2 fragment loop over the pair stream, or over the
+    record-modulo slice ``stride`` (process_id, num_processes) of it in a
+    multi-host stage 2 (the fragment-length sample then learns from the
+    slice).  With a ``rescue_spill`` list (``-rescue``), unconnected pairs
+    whose mates both hold a k-mer are kept there, up to
+    ``_RESCUE_SPILL_CAP``.
 
     Returns the learned fragment pair distance (-1 when the sample never
     filled: the caller derives it from all lengths)."""
@@ -567,7 +582,7 @@ def _stage2_pair_loop(
     d_frag = -1
     _d0 = engine.dispatch_counts()
     for lb, ll, rb, rl, multi in _iter_pair_batches(
-        left_path, right_path, params, k, revcomp_left, revcomp_right, read_L,
+        left_path, right_path, params, k, revcomp_left, revcomp_right, read_L, stride=stride,
     ):
         report.num_pairs += int((ll > 0).sum())
         _connect_multi_segments(state, cfg, lb, ll, rb, rl, multi, fparams)
@@ -816,6 +831,41 @@ def _finish_pe_stage3(
     ckpt.touch_stamp(outdir, ckpt.STAMP_TRANSCRIPTS_NR_DONE)
 
 
+def _read_config(lengths: np.ndarray, params: PipelineParams, nk_hint: int = 0):
+    """(cfg, stage-1 params, read_L, d_read, max_tip) of a short-read run
+    from its sampled read lengths: they set the read-pair distance, the
+    tip length (unless -tiplength) and the read batch width; the filters
+    are sized from -nk, else ``nk_hint``."""
+    k = params.k
+    d_read, max_tip = stage1.read_length_params(lengths, k, params.min_num_kmer_pairs)
+    if params.max_tip_length >= 0:
+        max_tip = params.max_tip_length
+    read_L = int(max(lengths.max(initial=150), k + d_read + 1))
+    cfg = stage1.default_graph_config(
+        k, params.stranded, params.total_mem_bytes, params.num_hash, d_read,
+        expected_num_kmers=params.expected_num_kmers or nk_hint,
+        **params.graph_config_overrides(),
+    )
+    s1p = stage1.Stage1Params(k=k, stranded=params.stranded, min_qual=params.min_qual, max_seq_len=max(read_L, 2 * k))
+    return cfg, s1p, read_L, d_read, max_tip
+
+
+def _write_report(outdir: str, params: PipelineParams, report: PipelineReport) -> None:
+    """{outdir}/{name}.report.json, the JAX package's fields."""
+    with open(os.path.join(outdir, f"{params.name}.report.json"), "w") as f:
+        json.dump(
+            {
+                "num_pairs": report.num_pairs,
+                "num_fragments": report.num_fragments,
+                "num_transcripts": report.num_transcripts,
+                "num_short": report.num_short,
+                "fragment_pair_distance": report.fragment_pair_distance,
+                "elapsed_s": report.elapsed_s,
+            },
+            f,
+        )
+
+
 def _stage1_graph(paths: Sequence[str], flags: Sequence[bool], params: PipelineParams, device, mesh=None,
                   lengths: Optional[np.ndarray] = None, nk_hint: int = 0, show_plan: bool = False):
     """(graph, stage-1 stats, cfg, read_L, d_read, max_tip): the stage-1
@@ -828,15 +878,7 @@ def _stage1_graph(paths: Sequence[str], flags: Sequence[bool], params: PipelineP
     k = params.k
     if lengths is None:
         lengths = stage1.sample_read_lengths(paths, params.sample_size)
-    d_read, max_tip = stage1.read_length_params(lengths, k, params.min_num_kmer_pairs)
-    if params.max_tip_length >= 0:
-        max_tip = params.max_tip_length
-    read_L = int(max(lengths.max(initial=150), k + d_read + 1))
-    cfg = stage1.default_graph_config(
-        k, params.stranded, params.total_mem_bytes, params.num_hash, d_read,
-        expected_num_kmers=params.expected_num_kmers or nk_hint,
-        **params.graph_config_overrides(),
-    )
+    cfg, s1p, read_L, d_read, max_tip = _read_config(lengths, params, nk_hint)
     if show_plan:
         cbf_mb = (cfg.cbf.size * cfg.cbf.cell_bytes) >> 20
         pk_mb = cfg.pkbf.size >> 20 if cfg.pkbf else 0
@@ -846,7 +888,6 @@ def _stage1_graph(paths: Sequence[str], flags: Sequence[bool], params: PipelineP
             f"k={k} d_read={d_read} hash={cfg.cbf.num_hash} device={device}",
             flush=True,
         )
-    s1p = stage1.Stage1Params(k=k, stranded=params.stranded, min_qual=params.min_qual, max_seq_len=max(read_L, 2 * k))
     state, s1_stats, cfg = stage1.build_graph_autosized(
         list(paths), cfg, s1p, max_fpr=params.max_fpr, device=device, mesh=mesh, revcomp_flags=list(flags),
         add_read_pairs=True,
@@ -974,7 +1015,7 @@ def assemble_pe(
     rescue_spill: Optional[list] = [] if params.rescue_unconnected else None
     d_frag = _stage2_pair_loop(
         state, cfg, left_path, right_path, params, revcomp_left,
-        revcomp_right, read_L, fparams, store, report, frag_lengths, rescue_spill,
+        revcomp_right, read_L, fparams, store, report, frag_lengths, rescue_spill=rescue_spill,
     )
     report.num_fragments = store.count
     if store.count == 0:
@@ -1017,20 +1058,107 @@ def assemble_pe(
     report.stage3_s = time.time() - t_s3
     timer.done("transcripts assembled", f"{report.num_transcripts} transcripts, {report.num_nr} nr")
     report.elapsed_s = time.time() - t0
-    with open(os.path.join(outdir, f"{params.name}.report.json"), "w") as f:
-        json.dump(
-            {
-                "num_pairs": report.num_pairs,
-                "num_fragments": report.num_fragments,
-                "num_transcripts": report.num_transcripts,
-                "num_short": report.num_short,
-                "fragment_pair_distance": report.fragment_pair_distance,
-                "elapsed_s": report.elapsed_s,
-            },
-            f,
-        )
+    _write_report(outdir, params, report)
     return report
 
+
+
+def _mh_pe_stage2(state, cfg: dbg.GraphConfig, left_path: str, right_path: str, outdir: str, params: PipelineParams,
+                  revcomp_left: bool, revcomp_right: bool, read_L: int, report: PipelineReport, pid: int,
+                  n: int) -> None:
+    """Multi-host stage 2 of process ``pid`` of ``n``: the fragment loop
+    over its record-modulo pair slice against the merged graph, into its
+    own store under {outdir}/mh_p{pid}."""
+    fparams = fragmod.FragmentParams(
+        min_overlap=params.min_overlap, bound=params.bound,
+        lookahead=params.lookahead, extend_fragments=params.extend_fragments,
+        ec_params=params.correct_params(),
+    )
+    store = _new_fragment_store(os.path.join(outdir, f"mh_p{pid}"), params)
+    _stage2_pair_loop(state, cfg, left_path, right_path, params, revcomp_left, revcomp_right, read_L, fparams,
+                      store, report, [], stride=(pid, n))
+    store.close()
+
+
+def _mh_pe_stage3(state, cfg: dbg.GraphConfig, outdir: str, params: PipelineParams, report: PipelineReport,
+                  n: int) -> bool:
+    """Process 0's part after the stage-2 barrier: the ``n`` stores merged
+    into {outdir}/fragments, then (``stop_stage`` 3) stage 2b and stage 3
+    with the fragment pair distance from the pooled lengths.  False when
+    no fragment was assembled."""
+    merged = merge_stores(outdir, [os.path.join(outdir, f"mh_p{i}") for i in range(n)])
+    if merged is None or merged.count == 0:
+        return False
+    report.num_fragments = merged.count
+    ckpt.touch_stamp(outdir, ckpt.STAMP_FRAGMENTS_DONE)
+    if params.stop_stage <= 2:
+        return True
+    q1, _, _ = sequtils.quartiles(np.fromiter(merged.iter_lengths(), np.int64))
+    d_frag = max(1, int(q1) - cfg.k - params.min_num_kmer_pairs)
+    report.fragment_pair_distance = d_frag
+    cfg = dbg.GraphConfig(
+        k=cfg.k, stranded=cfg.stranded, dbgbf=cfg.dbgbf, cbf=cfg.cbf,
+        pkbf=cfg.pkbf, read_pair_distance=cfg.read_pair_distance,
+        fragment_pair_distance=d_frag, exact_counts=cfg.exact_counts,
+    )
+    _finish_pe_stage3(state, cfg, merged, outdir, params, report)
+    return True
+
+
+def assemble_pe_multihost(
+    left_path: str,
+    right_path: str,
+    outdir: str,
+    params: PipelineParams,
+    revcomp_left: bool = False,
+    revcomp_right: bool = True,
+    device="cuda",
+) -> PipelineReport:
+    """Multi-host paired-end assembly, one call a process of an initialized
+    group (``parallel.multihost.initialize``; CLI ``-coordinator -nprocs
+    -procid`` with ``-left``/``-right``), on this process's ``device``.
+
+    The JAX package's layout (its ``assemble_pe_multihost``): stage 1
+    builds with the local merge (every process ends holding the merged
+    filters); stage 2 runs in each process over its record-modulo pair
+    slice into its own store (its fragment-length sample learns from its
+    slice); after a barrier, process 0 merges the stores, derives the
+    stage-3 pair distance from the pooled lengths, runs stages 2b and 3
+    and writes report.json.  The other processes return after the
+    barrier; ``params.sharded`` is not read."""
+    device = engine.require_device(device)
+    t0 = time.time()
+    report = PipelineReport()
+    pid, n = multihost.process_index(), multihost.process_count()
+    os.makedirs(outdir, exist_ok=True)
+    lengths = stage1.sample_read_lengths([left_path, right_path], params.sample_size)
+    cfg, s1p, read_L, _, _ = _read_config(lengths, params)
+    state, report.stage1 = multihost.build_graph_local_merge(
+        [left_path, right_path], cfg, s1p, device=device, revcomp_flags=[revcomp_left, revcomp_right],
+        add_read_pairs=True,
+    )
+    if pid == 0:
+        ckpt.touch_stamp(outdir, ckpt.STAMP_DBG_DONE)
+    if params.stop_stage <= 1:
+        report.elapsed_s = time.time() - t0
+        return report
+
+    t_s2 = time.time()
+    _mh_pe_stage2(state, cfg, left_path, right_path, outdir, params, revcomp_left, revcomp_right, read_L, report,
+                  pid, n)
+    engine.synchronize(state)
+    report.stage2_s = time.time() - t_s2
+    multihost.barrier()  # every store closed before process 0 merges them
+    if pid == 0:
+        t_s3 = time.time()
+        if _mh_pe_stage3(state, cfg, outdir, params, report, n) and params.stop_stage >= 3:
+            engine.synchronize(state)
+            report.stage3_s = time.time() - t_s3
+            report.elapsed_s = time.time() - t0
+            _write_report(outdir, params, report)
+            return report
+    report.elapsed_s = time.time() - t0
+    return report
 
 def assemble_se(
     se_paths: Sequence[str],
@@ -1472,3 +1600,136 @@ def assemble_long(
                            if v != _s0.get(key, 0.0)}
     report.elapsed_s = time.time() - t0
     return report
+
+
+def _mh_long_correct(state, cfg: dbg.GraphConfig, long_paths: Sequence[str], outdir: str, params: PipelineParams,
+                     report: PipelineReport, pid: int, n: int, lr_min_cov: float = 2.0) -> None:
+    """Multi-host long-read stage 2 of process ``pid`` of ``n``: the
+    windowed correction of its record-modulo read slice, in chunks of 4096
+    reads, into the part FASTAs {outdir}/.mh_lr_p{pid}.{long,short,repeats}.fa
+    (local names, poly-A in the comment; process 0 renumbers)."""
+    k = params.k
+    lrp = lrmod.LongReadParams(min_kmer_cov=lr_min_cov, min_seq_len=min(200, params.min_transcript_length))
+    part = os.path.join(outdir, f".mh_lr_p{pid}")
+    chunk: List[np.ndarray] = []
+    n_long = 0
+    with fastx.FastaWriter(part + ".long.fa") as w, fastx.FastaWriter(part + ".short.fa") as wsh, \
+            fastx.FastaWriter(part + ".repeats.fa") as wrep:
+
+        def flush_chunk():
+            nonlocal n_long
+            res = lrmod.correct_long_reads(state, cfg, chunk, lrp)
+            for c, fl in zip(res.long, res.polya):
+                w.write(f"p{pid}.{n_long}", sequtils.decode(c), f"l={len(c)}{' polya' if fl else ''}")
+                n_long += 1
+            for c, fl in zip(res.short, res.short_polya):
+                wsh.write(f"p{pid}.s", sequtils.decode(c), f"l={len(c)}{' polya' if fl else ''}")
+            for c in res.repeats:
+                wrep.write(f"p{pid}.r", sequtils.decode(c), f"l={len(c)}")
+            chunk.clear()
+
+        for path in long_paths:
+            for _, s, _ in multihost.partition_records(fastx.read_seqs(path), pid, n):
+                codes = sequtils.encode(s)
+                if params.revcomp_long:
+                    codes = sequtils.revcomp_codes(codes)
+                if len(codes) >= k:
+                    chunk.append(codes)
+                    report.num_pairs += 1
+                if len(chunk) >= 4096:
+                    flush_chunk()
+        if chunk:
+            flush_chunk()
+
+
+def _mh_long_merge_parts(outdir: str, params: PipelineParams, n: int) -> None:
+    """Process 0's part after the correction barrier: the ``n`` processes'
+    part FASTAs renumbered in process order into the corrected-read files
+    that ``assemble_long`` resumes from (names ``lr.<i>``, ``lr.s<i>``,
+    ``lr.r<i>``, .polya.txt, .long.lengths.txt), the parts removed, and the
+    DBG and LONGREADS.CORRECTED stamps."""
+    prefix = os.path.join(outdir, f"{params.name}.longreads.corrected")
+    lengths: List[int] = []
+    n_long = n_short = n_rep = 0
+    with fastx.FastaWriter(prefix + ".long.fa") as w, fastx.FastaWriter(prefix + ".short.fa") as wsh, \
+            fastx.FastaWriter(prefix + ".repeats.fa") as wrep, open(prefix + ".polya.txt", "w") as wpa:
+        for p_i in range(n):
+            pfx = os.path.join(outdir, f".mh_lr_p{p_i}")
+            for header, seq in fastx.read_fasta(pfx + ".long.fa", full_header=True):
+                tag = " polya" if "polya" in header else ""
+                name = f"lr.{n_long}"
+                w.write(name, seq, f"l={len(seq)}{tag}")
+                if tag:
+                    wpa.write(name + "\n")
+                lengths.append(len(seq))
+                n_long += 1
+            for header, seq in fastx.read_fasta(pfx + ".short.fa", full_header=True):
+                name = f"lr.s{n_short}"
+                wsh.write(name, seq, f"l={len(seq)}")
+                if "polya" in header:
+                    wpa.write(name + "\n")
+                n_short += 1
+            for _, seq in fastx.read_fasta(pfx + ".repeats.fa"):
+                wrep.write(f"lr.r{n_rep}", seq, f"l={len(seq)}")
+                n_rep += 1
+            for suffix in (".long.fa", ".short.fa", ".repeats.fa"):
+                os.remove(pfx + suffix)
+    with open(prefix + ".long.lengths.txt", "w") as f:
+        f.write("\n".join(str(x) for x in lengths))
+    ckpt.touch_stamp(outdir, ckpt.STAMP_DBG_DONE)
+    ckpt.touch_stamp(outdir, ckpt.STAMP_LONGREADS_CORRECTED)
+
+
+def assemble_long_multihost(
+    long_paths: Sequence[str],
+    outdir: str,
+    params: PipelineParams,
+    subsample_spec: str = "",
+    device="cuda",
+) -> PipelineReport:
+    """Multi-host long-read assembly, one call a process of an initialized
+    group (CLI ``-coordinator -nprocs -procid`` with ``-long``), on this
+    process's ``device``.
+
+    The JAX package's layout (its ``assemble_long_multihost``): stage 1
+    builds with the local merge; the windowed correction runs in each
+    process over its record-modulo read slice into part FASTAs; after a
+    barrier, process 0 renumbers the parts into the corrected-read files
+    and runs the OLC stage through ``assemble_long``'s resume path (the
+    LONGREADS.CORRECTED stamp).  The other processes return after the
+    barrier; ``params.sharded`` is not read."""
+    device = engine.require_device(device)
+    t0 = time.time()
+    report = PipelineReport()
+    pid, n = multihost.process_index(), multihost.process_count()
+    os.makedirs(outdir, exist_ok=True)
+    cfg = stage1.default_graph_config(
+        params.k, params.stranded, params.total_mem_bytes, params.num_hash, -1,
+        with_pkbf=True, expected_num_kmers=params.expected_num_kmers,
+        **params.graph_config_overrides(),
+    )
+    s1p = stage1.Stage1Params(k=params.k, stranded=params.stranded, min_qual=params.min_qual, max_seq_len=512)
+    state, report.stage1 = multihost.build_graph_local_merge(list(long_paths), cfg, s1p, device=device)
+    if params.stop_stage <= 1:
+        if pid == 0:
+            ckpt.touch_stamp(outdir, ckpt.STAMP_DBG_DONE)
+        report.elapsed_s = time.time() - t0
+        return report
+
+    t_s2 = time.time()
+    _mh_long_correct(state, cfg, long_paths, outdir, params, report, pid, n)
+    engine.synchronize(state)
+    report.stage2_s = time.time() - t_s2
+    multihost.barrier()  # every part written
+    if pid != 0:
+        report.elapsed_s = time.time() - t0
+        return report
+    del state
+    _mh_long_merge_parts(outdir, params, n)
+    rep = assemble_long(long_paths, outdir, replace(params, sharded="off"), subsample_spec=subsample_spec,
+                        device=device)
+    rep.stage1 = report.stage1
+    rep.stage2_s = report.stage2_s
+    rep.num_pairs = report.num_pairs
+    rep.elapsed_s = time.time() - t0
+    return rep

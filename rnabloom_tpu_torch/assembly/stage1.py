@@ -51,6 +51,10 @@ class Stage1Stats:
     fprs: dict = field(default_factory=dict)
     # distinct-k-mer estimate from the counting filter's fill
     distinct_kmers_est: int = 0
+    # multi-host (parallel/multihost.py): the merge collective's seconds
+    # and the bytes this process received from its peers
+    merge_s: float = 0.0
+    merge_bytes: int = 0
 
 
 def sample_read_lengths(paths: Sequence[str], sample_size: int) -> np.ndarray:

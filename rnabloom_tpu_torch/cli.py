@@ -13,36 +13,58 @@ list or range and picks the k with the most non-singleton k-mers in a
 read sample; ``-hist`` and ``-ntcard`` size the filters when ``-nk`` is 0;
 an input given as ``@FILE`` expands to the paths listed in FILE.
 ``-sharded`` (auto, on, off) shards the filters over the visible cards
-when there are several; the multi-host flags are accepted and refused,
-naming their ROADMAP item.
-``--device`` picks the torch device (default ``cuda``); asking for CUDA
-where there is none raises.
+when there are several.  ``-coordinator HOST:PORT -nprocs N -procid P``
+runs one process of a multi-host group (``parallel/multihost.py``) in the
+local-merge layout (``-mhlayout auto`` or ``local``): with ``-long``, or
+``-left``/``-right``, at ``-stage`` 2 or 3 every stage runs across the
+group, otherwise stage 1 does and process 0 saves the graph; ``-sharded``
+is not read there, and ``-mhlayout sharded`` is refused, naming its
+ROADMAP item.  ``-nprocs`` without ``-coordinator`` runs one host, as in
+the JAX CLI.
+``--device`` picks the torch device (default ``cuda``; in a group of
+several processes, process P takes card P modulo the visible cards);
+asking for CUDA where there is none raises.
 
     python -m rnabloom_tpu_torch.cli -left r1.fq -right r2.fq -revcomp-right -o out/
     python -m rnabloom_tpu_torch.cli -sef se.fq -o out/
     python -m rnabloom_tpu_torch.cli -pool samples.txt -mergepool -o out/
     python -m rnabloom_tpu_torch.cli -long ont.fa -o out/
+    python -m rnabloom_tpu_torch.cli -left r1.fq -right r2.fq -o out/ -coordinator host0:9876 -nprocs 2 -procid 0
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+from typing import NamedTuple, Optional
 
 from . import __version__
 
-# the JAX CLI's multi-host flags (ROADMAP queue-1 item 14c): (names, dest,
-# values that run, kwargs).  The first of the values is the default; any
-# other value is refused before any work is done.
+# the sharded multi-host layout is what is left of ROADMAP queue-1 item 14c
 MULTI_HOST_ITEM = "ROADMAP queue-1 item 14c"
-_REFUSED = (
-    (("-coordinator", "--coordinator"), "coordinator", ("",), dict(help="multi-host coordinator HOST:PORT")),
-    (("-nprocs", "--nprocs"), "nprocs", (1,), dict(type=int, help="multi-host: number of processes")),
-    (("-procid", "--procid"), "procid", (0,), dict(type=int, help="multi-host: this process's id")),
-    (("-mhlayout", "--mh-layout"), "mh_layout", ("auto",),
-     dict(choices=("auto", "local", "sharded"), help="multi-host graph layout")),
+# the JAX CLI's multi-host flags: (names, dest, kwargs)
+MULTI_HOST = (
+    (("-coordinator", "--coordinator"), "coordinator",
+     dict(default="", help="multi-host: coordinator address HOST:PORT (process 0 listens there)")),
+    (("-nprocs", "--nprocs"), "nprocs", dict(type=int, default=1, help="multi-host: total number of processes")),
+    (("-procid", "--procid"), "procid", dict(type=int, default=0, help="multi-host: this process's id [0]")),
+    (("-mhlayout", "--mh-layout"), "mh_layout",
+     dict(choices=("auto", "local", "sharded"), default="auto",
+          help="multi-host graph layout: local (= auto) = per-process builds + one merge collective; "
+               "sharded is not ported")),
 )
+
+
+class MultiHostRun(NamedTuple):
+    """What one process of a multi-host run returns: the JSON line the JAX
+    CLI prints (process 0 only, else None), this process's numbers
+    (``multihost.rank_line``) and its report."""
+
+    line: Optional[dict]
+    rank: dict
+    report: object
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -177,9 +199,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-sharded", "--sharded", choices=("auto", "on", "off"), default="auto",
                    help="multi-device scale-out: shard the filters by hash range over every visible card "
                         "(auto = when more than one is visible)")
-    refused = p.add_argument_group("refused", "multi-host options of the JAX CLI, not ported yet")
-    for names, dest, runs, kw in _REFUSED:
-        refused.add_argument(*names, dest=dest, default=runs[0], **kw)
+    group = p.add_argument_group("multi-host", "one process of a group (parallel/multihost.py)")
+    for names, dest, kw in MULTI_HOST:
+        group.add_argument(*names, dest=dest, **kw)
     return p
 
 
@@ -205,12 +227,15 @@ def _expand_at(paths):
 
 def run(argv=None):
     """Parse ``argv`` and run the entry point it asks for: a
-    PipelineReport, {sample: PipelineReport} for ``-pool``, or None (after
-    an error message) when no reads were given."""
+    PipelineReport, {sample: PipelineReport} for ``-pool``, a MultiHostRun
+    for a process of a multi-host group, or None (after an error message)
+    when no reads were given.  A ``-coordinator`` starts the process group
+    after the argument checks, before any work, and every exit leaves it."""
     args = build_parser().parse_args(argv)
-    for names, dest, runs, _ in _REFUSED:
-        if getattr(args, dest) not in runs:
-            raise NotImplementedError(f"{names[0]} is not ported yet: {MULTI_HOST_ITEM}")
+    if args.mh_layout == "sharded" and args.nprocs > 1:
+        raise NotImplementedError(f"-mhlayout is not ported yet: {MULTI_HOST_ITEM}")
+    if args.coordinator and not 0 <= args.procid < args.nprocs:
+        raise ValueError(f"-procid {args.procid} is not a process of -nprocs {args.nprocs}")
     for attr in ("left", "right", "sef", "ser", "long_reads"):
         setattr(args, attr, _expand_at(getattr(args, attr)))
     if not (args.pool or args.long_reads or (args.left and args.right) or args.sef or args.ser):
@@ -218,12 +243,34 @@ def run(argv=None):
         return None
     from .assembly import pipeline
     from .graph import engine
-    from .utils import kselect
+    from .parallel import multihost
 
     device = engine.require_device(args.device)
-    # -sharded is checked before any work (the k selection reads reads);
-    # each entry point makes its mesh again
-    pipeline._mesh_for(pipeline.PipelineParams(sharded=args.sharded), device)
+    group = bool(args.coordinator) and args.nprocs > 1
+    if group and device.type == "cuda" and device.index is None:
+        import torch
+
+        device = torch.device("cuda", args.procid % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    if group:
+        print(f"multi-host process {args.procid} of {args.nprocs}: device {device}", file=sys.stderr, flush=True)
+    else:
+        # -sharded is checked before any work (the k selection reads
+        # reads); each entry point makes its mesh again.  A group does not
+        # read it.
+        pipeline._mesh_for(pipeline.PipelineParams(sharded=args.sharded), device)
+    if args.coordinator:
+        multihost.initialize(args.coordinator, args.nprocs, args.procid)
+    try:
+        return _run(args, device, group)
+    finally:
+        multihost.shutdown()
+
+
+def _run(args, device, group: bool):
+    from .assembly import pipeline
+    from .utils import kselect
+
     # probe reads of -k LIST and -ntcard: the long reads, else the pairs,
     # else the unpaired reads
     probe = (list(args.long_reads or []) or [p for p in (args.left, args.right) if p]
@@ -313,6 +360,8 @@ def run(argv=None):
         if args.mergepool:
             pipeline.merge_pool(args.outdir, sorted(reports), params, device=device)
         return reports
+    if group:
+        return _run_multihost(args, params, device)
     if args.long_reads:
         return pipeline.assemble_long(
             args.long_reads, args.outdir, params, subsample_spec=args.lrsub, force=args.force, device=device,
@@ -329,10 +378,60 @@ def run(argv=None):
     return pipeline.assemble_se(paths, args.outdir, params, revcomp_flags=flags, device=device)
 
 
+def _run_multihost(args, params, device) -> MultiHostRun:
+    """The JAX CLI's multi-host dispatch: -long or PE reads at -stage 2 or
+    3 run every stage across the group; anything else builds the stage-1
+    graph with the local merge, which process 0 saves (-savebf implied)."""
+    from .assembly import pipeline, stage1
+    from .parallel import multihost
+    from .utils import checkpoint as ckpt
+
+    pid = multihost.process_index()
+    if args.long_reads and args.stage >= 2:
+        report = pipeline.assemble_long_multihost(args.long_reads, args.outdir, params, subsample_spec=args.lrsub,
+                                                  device=device)
+        line = {"reads_local": report.num_pairs, "corrected": report.num_fragments,
+                "transcripts": report.num_transcripts, "elapsed_s": round(report.elapsed_s, 2)}
+        return MultiHostRun(line if pid == 0 else None, multihost.rank_line(report, device), report)
+    if args.left and args.right and args.stage >= 2:
+        report = pipeline.assemble_pe_multihost(args.left, args.right, args.outdir, params,
+                                                revcomp_left=args.revcomp_left, revcomp_right=args.revcomp_right,
+                                                device=device)
+        line = {"pairs": report.num_pairs, "fragments": report.num_fragments,
+                "transcripts": report.num_transcripts, "elapsed_s": round(report.elapsed_s, 2)}
+        return MultiHostRun(line if pid == 0 else None, multihost.rank_line(report, device), report)
+    if args.stage != 1:
+        print("note: multi-host with this input/layout runs stage 1 across the group; run stages 2-3 single-host "
+              "from the saved graph (-savebf implied)", file=sys.stderr)
+    paths = list(args.long_reads or []) or [p for p in (args.left, args.right) if p]
+    lengths = stage1.sample_read_lengths(paths, params.sample_size)
+    d_read, _ = stage1.read_length_params(lengths, params.k, params.min_num_kmer_pairs)
+    cfg = stage1.default_graph_config(params.k, params.stranded, params.total_mem_bytes, params.num_hash, d_read,
+                                      expected_num_kmers=params.expected_num_kmers, counter=params.counter)
+    s1p = stage1.Stage1Params(k=params.k, stranded=params.stranded, min_qual=params.min_qual,
+                              max_seq_len=int(max(lengths.max(initial=150), 2 * params.k)))
+    flags = [args.revcomp_left, args.revcomp_right][: len(paths)]
+    state, stats = multihost.build_graph_local_merge(paths, cfg, s1p, device=device, revcomp_flags=flags,
+                                                     add_read_pairs=True)
+    report = pipeline.PipelineReport(stage1=stats)
+    line = None
+    if pid == 0:
+        os.makedirs(args.outdir, exist_ok=True)
+        ckpt.save_graph(os.path.join(args.outdir, f"{args.name}.graph"), state, cfg)
+        ckpt.touch_stamp(args.outdir, ckpt.STAMP_DBG_DONE)
+        line = {"stage": 1, "reads_local": stats.num_reads, "fprs": stats.fprs}
+    return MultiHostRun(line, multihost.rank_line(report, device), report)
+
+
 def main(argv=None) -> int:
     result = run(argv)
     if result is None:
         return 2
+    if isinstance(result, MultiHostRun):
+        print(json.dumps(result.rank), file=sys.stderr)
+        if result.line is not None:
+            print(json.dumps(result.line))
+        return 0
     if isinstance(result, dict):
         print(json.dumps({
             name: {"pairs": r.num_pairs, "fragments": r.num_fragments, "transcripts": r.num_transcripts}

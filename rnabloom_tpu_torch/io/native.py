@@ -1,7 +1,8 @@
 """ctypes bindings for the native FASTQ/FASTA batch reader.
 
 The port's copy of ``rnabloom_tpu/io/native.py`` for the two readers its
-stages call.  ``ops/_build.py::build_reader`` compiles the port's
+stages call, with the multi-process partitioning of the input
+(``byte_range`` and ``stride``, ``parallel/multihost.py``).  ``ops/_build.py::build_reader`` compiles the port's
 ``native/fastxio.cpp`` into ``build/native/`` for the host it runs on, at
 first use; without a C++ toolchain (or zlib) ``available()`` is False and
 the callers take the pure-Python reader, as the JAX package does.
@@ -47,6 +48,9 @@ def _load() -> Optional[ctypes.CDLL]:
                 np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
                 np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS"),
             ]
+            dll.fx_set_range.restype = ctypes.c_int
+            dll.fx_set_range.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_long]
+            dll.fx_set_stride.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
             _lib = dll
         except Exception:
             _build_failed = True
@@ -63,11 +67,18 @@ def read_code_batches(
     max_len: int,
     min_qual: int,
     min_len: int,
+    byte_range: Optional[Tuple[int, int]] = None,
+    stride: Optional[Tuple[int, int]] = None,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray, int]]:
     """Yield (codes (B, L) uint8, lengths (B,), reads_parsed_so_far).
 
     Native parse + Phred/ACGT segmentation + 2-bit encode; long segments
     arrive pre-chunked with (min_len - 1)-base overlaps.
+
+    Multi-process partitioning (``parallel/multihost.py``): ``byte_range``
+    (start, end) restricts a PLAIN file to one record-aligned byte slice
+    (raises ValueError on a compressed stream: use ``stride``); ``stride``
+    (process_id, num_processes) keeps every n-th record.
     """
     lib = _load()
     if lib is None:
@@ -75,6 +86,11 @@ def read_code_batches(
     h = lib.fx_open(path.encode())
     if not h:
         raise FileNotFoundError(path)
+    if byte_range is not None and lib.fx_set_range(h, byte_range[0], byte_range[1]) != 0:
+        lib.fx_close(h)
+        raise ValueError(f"{path}: cannot byte-partition a compressed stream")
+    if stride is not None:
+        lib.fx_set_stride(h, stride[0], stride[1])
     try:
         while True:
             codes = np.empty((batch_size, max_len), np.uint8)
@@ -98,16 +114,23 @@ def read_masked_batches(
     batch_size: int,
     max_len: int,
     min_qual: int,
+    stride: Optional[Tuple[int, int]] = None,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Yield (codes (B, L) uint8, lengths (B,), avg_qual (B,) float32) —
     ONE row per read, low-quality/ambiguous bases masked to 4 (quality
-    segments are the runs of codes < 4).  The paired stage-2 feeder."""
+    segments are the runs of codes < 4).  The paired stage-2 feeder.
+
+    ``stride`` (process_id, num_processes) keeps every n-th record: the
+    same stride on both files of a pair keeps mates together (multi-host
+    stage 2)."""
     lib = _load()
     if lib is None:
         raise RuntimeError("native fastxio unavailable")
     h = lib.fx_open(path.encode())
     if not h:
         raise FileNotFoundError(path)
+    if stride is not None:
+        lib.fx_set_stride(h, stride[0], stride[1])
     try:
         while True:
             codes = np.empty((batch_size, max_len), np.uint8)

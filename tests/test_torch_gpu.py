@@ -1820,3 +1820,22 @@ def test_sharded_walks_across_cards_match_plain_and_one_card(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="no peer access"):
         walk.walk_mesh("naive", st, mg.state, mesh, cfg, wcfg, min_cov, bound)
     assert walk.launch_counts() == n0
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("kind", ["max", "sum", "sum_u16", "sum_mf8"])
+def test_multihost_reducers_on_the_card_equal_the_cpu(cuda, kind, n):
+    """The merge's reducers (``parallel.multihost.reduce_tables``) on the
+    card: every cell equal to the same reduction on the CPU, over more
+    cells than one slice of the reduction (``_CHUNK``)."""
+    from rnabloom_tpu_torch.parallel import multihost
+
+    rng = np.random.default_rng(n)
+    size = multihost._CHUNK + 4097
+    op = {"max": "set", "sum": "add", "sum_u16": "add_u16", "sum_mf8": "add_mf8"}[kind]
+    parts = [_table(op, size, rng) for _ in range(n)]
+    if kind == "sum":
+        parts = [p * 3_000_000 for p in parts]  # sums past 2^31 wrap
+    want = multihost.reduce_tables(parts, kind, "cpu")
+    got = multihost.reduce_tables(parts, kind, cuda)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)

@@ -490,8 +490,11 @@ def test_cpu_and_single_card_make_no_mesh():
 
 
 @pytest.mark.parametrize("argv,error,match", [
-    (["-coordinator", "localhost:9999"], NotImplementedError, "-coordinator is not ported yet: ROADMAP queue-1 item 14c$"),
-    (["-nprocs", "2"], NotImplementedError, "-nprocs is not ported yet: ROADMAP queue-1 item 14c$"),
+    # the sharded multi-host layout is refused before the group would start
+    (["-coordinator", "127.0.0.1:9", "-nprocs", "2", "-mhlayout", "sharded"], NotImplementedError,
+     "-mhlayout is not ported yet: ROADMAP queue-1 item 14c$"),
+    (["-nprocs", "2", "-mhlayout", "sharded"], NotImplementedError,
+     "-mhlayout is not ported yet: ROADMAP queue-1 item 14c$"),
     (["-sharded", "on"], RuntimeError, "-sharded on requires >1 CUDA device"),
     (["-sharded", "on", "-k", "25,27"], RuntimeError, "-sharded on requires >1 CUDA device"),
 ], ids=["coordinator", "nprocs", "sharded_on_one_device", "sharded_on_before_k_selection"])

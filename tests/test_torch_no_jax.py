@@ -1,7 +1,9 @@
 """The port runs without JAX and without the JAX package, on the card
-unless asked for the CPU, maps the long-read flags as the JAX CLI does, and
-refuses what it does not do: the multi-host flags, naming their ROADMAP
-item, and ``-sharded on`` where fewer than two cards are visible."""
+unless asked for the CPU, maps the long-read flags as the JAX CLI does, runs
+one host where the JAX CLI does (``-nprocs`` without ``-coordinator``), and
+refuses what it does not do: the sharded multi-host layout (``-mhlayout
+sharded`` with ``-nprocs`` above 1), naming its ROADMAP item, and
+``-sharded on`` where fewer than two cards are visible."""
 
 import dataclasses
 import os
@@ -24,6 +26,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "rnabloom_tpu_torch")
 
 _SCRIPT = r"""
+import os
 import sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
 sys.modules["rnabloom_tpu"] = None  # and so does any import of the JAX package
@@ -53,6 +56,9 @@ with open(out + "/lr.fa", "w") as f:
         f.write(f">r{i}\n{r}\n")
 assert cli.main(["-long", out + "/lr.fa", "-lrsub", "5,11,0,50", "-o", out + "/long", "-mem", "0.00390625",
                  "--device", "cpu"]) == 0
+# the multi-host module, without a group
+from rnabloom_tpu_torch.parallel import multihost
+assert multihost.byte_ranges(left, 2)[1][1] == os.path.getsize(left) and multihost.process_count() == 1
 loaded = sorted(m for m, v in sys.modules.items()
                 if v is not None and m.split(".")[0] in ("jax", "rnabloom_tpu"))
 assert not loaded, loaded
@@ -109,6 +115,7 @@ def test_no_jax_import_in_package_source():
     assert os.path.join(PKG, "io", "seqstore.py") in paths
     assert os.path.join(PKG, "utils", "kselect.py") in paths
     assert {os.path.join(PKG, "oracle", name) for name in ("divergence.py", "refsim.py")} <= set(paths)
+    assert os.path.join(PKG, "parallel", "multihost.py") in paths
     for path in paths:
         with open(path) as fh:
             assert not _IMPORT_OF_JAX.search(fh.read()), path
@@ -121,26 +128,29 @@ def test_cuda_device_without_a_card_raises(tmp_path):
         cli.run(["-left", "x", "-right", "y", "-o", str(tmp_path), "-stage", "1", "--device", "cuda"])
 
 
-# one value of each refused flag that is not among the values that run, and
-# -sharded on, which needs more than one card
+# each multi-host flag in a refused case, -mhlayout sharded with more than one
+# process, and -sharded on, which needs more than one card
 _REFUSED_ARGS = {
-    "-sharded": ["-sharded", "on"], "-coordinator": ["-coordinator", "localhost:9999"], "-nprocs": ["-nprocs", "2"],
-    "-procid": ["-procid", "1"], "-mhlayout": ["-mhlayout", "local"],
+    "-sharded": ["-sharded", "on"],
+    "-coordinator": ["-coordinator", "127.0.0.1:9", "-nprocs", "2", "-mhlayout", "sharded"],
+    "-nprocs": ["-nprocs", "3", "-mhlayout", "sharded"],
+    "-procid": ["-procid", "1", "-nprocs", "2", "-mhlayout", "sharded"],
+    "-mhlayout": ["-mhlayout", "sharded", "-nprocs", "2"],
 }
 
 
 def test_every_refused_flag_has_a_case():
-    assert sorted(_REFUSED_ARGS) == sorted(["-sharded"] + [names[0] for names, *_ in cli._REFUSED])
+    assert sorted(_REFUSED_ARGS) == sorted(["-sharded"] + [names[0] for names, *_ in cli.MULTI_HOST])
 
 
 @pytest.mark.parametrize("flag", sorted(_REFUSED_ARGS))
 def test_long_read_and_multi_host_flags_are_refused_before_any_work(tmp_path, flag):
-    """The JAX CLI's multi-host flags (item 14c) are accepted and refused,
-    naming the item, before any file is read or written, with short reads
-    and with -long; so is -sharded on without two cards, with the JAX
-    package's error."""
+    """The sharded multi-host layout (what is left of item 14c) is refused
+    with each multi-host flag, naming the item, before any file is read or
+    written and before a group starts, with short reads and with -long; so
+    is -sharded on without two cards, with the JAX package's error."""
     error, match = ((RuntimeError, "-sharded on requires >1 CUDA device$") if flag == "-sharded"
-                    else (NotImplementedError, f"{flag} is not ported yet: ROADMAP queue-1 item 14c$"))
+                    else (NotImplementedError, "-mhlayout is not ported yet: ROADMAP queue-1 item 14c$"))
     for reads in (["-left", "missing_1.fq", "-right", "missing_2.fq"], ["-long", "missing.fa"]):
         out = tmp_path / "asm"
         with pytest.raises(error, match=match):
@@ -246,11 +256,30 @@ def test_oracle_imports_no_jax_and_needs_a_card():
 
 def test_values_that_run_are_not_refused(tmp_path):
     """-sharded off and auto (one device) run the single-device engine; the
-    rest at their defaults run too (the missing reads then fail to open)."""
-    with pytest.raises(FileNotFoundError):
-        cli.run(["-left", str(tmp_path / "missing_1.fq"), "-right", str(tmp_path / "missing_2.fq"), "-o",
-                 str(tmp_path / "asm"), "-sharded", "off", "-nprocs", "1", "-procid", "0", "-mhlayout", "auto",
-                 "--device", "cpu"])
+    multi-host flags at their defaults, -mhlayout local, -nprocs 2 without
+    a coordinator and -mhlayout sharded of one process run one host (the
+    missing reads then fail to open)."""
+    for flags in (["-sharded", "off", "-nprocs", "1", "-procid", "0", "-mhlayout", "auto"],
+                  ["-nprocs", "2", "-procid", "1", "-mhlayout", "local"], ["-mhlayout", "sharded"]):
+        with pytest.raises(FileNotFoundError):
+            cli.run(["-left", str(tmp_path / "missing_1.fq"), "-right", str(tmp_path / "missing_2.fq"), "-o",
+                     str(tmp_path / "asm"), "--device", "cpu"] + flags)
+
+
+def test_nprocs_without_a_coordinator_runs_one_host_as_the_jax_cli(tmp_path, monkeypatch):
+    """-nprocs 2 -procid 1 -mhlayout local without -coordinator: both CLIs
+    start no group and call their one-host assemble_long with the same
+    paths and arguments."""
+    from rnabloom_tpu import cli as jcli
+    from rnabloom_tpu.assembly import pipeline as jpipeline
+
+    monkeypatch.setattr(jcli, "_enable_compilation_cache", lambda: None)
+    tcalls, jcalls = _long_call(pipeline, monkeypatch), _long_call(jpipeline, monkeypatch)
+    argv = ["-long", "a.fa", "-o", str(tmp_path / "asm"), "-nprocs", "2", "-procid", "1", "-mhlayout", "local"]
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    assert jcli.main(argv + ["-sharded", "off"]) == 0
+    assert [c[:2] + (c[3],) for c in tcalls] == [c[:2] + (c[3],) for c in jcalls] == [
+        (["a.fa"], str(tmp_path / "asm"), {"subsample_spec": "", "force": False})]
 
 
 def test_no_reads_exits_2_before_any_work(tmp_path, capsys):
